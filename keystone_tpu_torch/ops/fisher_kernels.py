@@ -1,0 +1,199 @@
+"""Fisher-vector kernels (counterpart of ``keystone_tpu/ops/fisher_pallas.py``).
+
+Two kernels, hand-written in CUDA C++ for Hopper (``csrc/fisher.cu``):
+
+* ``fisher_encode`` — the FV encode of (n, T, d) descriptors against a
+  diagonal GMM; replaces ``fisher_encode_pallas``.
+* ``fused_forward`` — [SIFT normalize →] PCA project → FV encode in one
+  pass over the raw descriptors; replaces ``fused_forward_pallas``.
+
+Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
+its plain version, ``fisher_encode_ref`` / ``fused_forward_ref``, only
+for a tensor on the CPU.  ``LAUNCHES`` counts the kernel launches.
+Descriptors may be f32 or bf16 (the reference's ``mxu='bf16'`` stream);
+the kernels compute in f32 either way.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from keystone_tpu_torch.models.gmm import _LOG2PI, _log_gaussians
+from keystone_tpu_torch.ops.sift import _sift_normalize
+
+#: kernel launches by wrapper name; reset with ``reset_launches``
+LAUNCHES = {"fisher_encode": 0, "fused_forward": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def fisher_encode_ref(xs, mask, w, mu, var):
+    """xs: (n, T, d); mask: (n, T); w: (K,); mu, var: (K, d) → (n, 2·K·d).
+
+    The same math as ``keystone_tpu/ops/fisher.py § _fisher_encode``:
+    posteriors by the gemm expansion and logsumexp, masked sufficient
+    statistics, Φ¹ then Φ², each (K, d) row-major."""
+    xs = xs.to(torch.float32)
+    n, t, d = xs.shape
+    lg = _log_gaussians(xs.reshape(n * t, d), mu, var, torch.log(w))
+    lr = lg - torch.logsumexp(lg, dim=1, keepdim=True)
+    gamma = torch.exp(lr).reshape(n, t, -1) * mask[..., None]
+    counts = torch.clamp(torch.sum(mask, dim=1), min=1.0)
+    s0 = gamma.sum(dim=1)
+    s1 = torch.einsum("ntk,ntd->nkd", gamma, xs)
+    s2 = torch.einsum("ntk,ntd->nkd", gamma, xs * xs)
+    sigma = torch.sqrt(var)
+    phi1 = (s1 - s0[..., None] * mu) / sigma
+    phi2 = (s2 - 2.0 * mu * s1 + s0[..., None] * (mu * mu)) / var - s0[..., None]
+    tnorm = counts[:, None, None]
+    phi1 = phi1 / (tnorm * torch.sqrt(w)[None, :, None])
+    phi2 = phi2 / (tnorm * torch.sqrt(2.0 * w)[None, :, None])
+    k = mu.shape[0]
+    return torch.cat([phi1.reshape(n, k * d), phi2.reshape(n, k * d)], dim=1)
+
+
+def fused_forward_ref(desc, mask, components, mean, w, mu, var, normalize: bool = True):
+    """The per-stage chain the fused kernel replaces:
+    ``_sift_normalize`` (if ``normalize``) → PCA → ``fisher_encode_ref``."""
+    z = desc.to(torch.float32)
+    if normalize:
+        z = _sift_normalize(z)
+    if mean is not None:
+        z = z - mean
+    z = torch.matmul(z, components)
+    return fisher_encode_ref(z, mask, w, mu, var)
+
+
+# ---------------------------------------------------------------- kernels
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """csrc/fisher.cu, built on first use, with its C signatures declared."""
+    from keystone_tpu_torch.kernels.build import load
+
+    lib = load("fisher")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ks_fisher_encode.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.ks_fisher_encode.restype = i
+    lib.ks_fused_forward.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.ks_fused_forward.restype = i
+    lib.ks_error_string.argtypes = [i]
+    lib.ks_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape, dtypes, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+_F32 = (torch.float32,)
+_DESC = (torch.float32, torch.bfloat16)
+
+
+def _posterior_weights(w, mu, var):
+    """(2d, K) weights and (K,) constants with
+    log w_k + log N(x; μ_k, σ²_k) = cst_k + Σ_j [x_j, x_j²] · wt[(2j, 2j+1), k]."""
+    k, d = mu.shape
+    inv = 1.0 / var
+    muinv = mu * inv
+    wt = torch.empty((2 * d, k), dtype=torch.float32, device=mu.device)
+    wt[0::2] = muinv.T
+    wt[1::2] = -0.5 * inv.T
+    cst = (
+        torch.log(w)
+        - 0.5 * (torch.sum(torch.log(var), dim=1) + d * _LOG2PI)
+        - 0.5 * torch.sum(mu * muinv, dim=1)
+    )
+    return wt, cst.contiguous()
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = _lib().ks_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed ({rc}): {msg}")
+
+
+def _check_gmm(w, mu, var, device):
+    k, d = mu.shape
+    _check("w", w, (k,), _F32, device)
+    _check("mu", mu, (k, d), _F32, device)
+    _check("var", var, (k, d), _F32, device)
+    return k, d
+
+
+def fisher_encode(xs, mask, w, mu, var):
+    """xs: (n, T, d) f32 or bf16; mask: (n, T) f32; w: (K,); mu, var:
+    (K, d) → (n, 2·K·d) f32.  CUDA tensors launch the kernel; CPU tensors
+    take ``fisher_encode_ref``."""
+    if xs.device.type == "cpu":
+        return fisher_encode_ref(xs, mask, w, mu, var)
+    if xs.device.type != "cuda":
+        raise ValueError(f"fisher_encode runs on cuda or cpu, not {xs.device}")
+    dev = xs.device
+    k, d = _check_gmm(w, mu, var, dev)
+    n, t = xs.shape[0], xs.shape[1]
+    _check("xs", xs, (n, t, d), _DESC, dev)
+    _check("mask", mask, (n, t), _F32, dev)
+    out = torch.empty((n, 2 * k * d), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    wt, cst = _posterior_weights(w, mu, var)
+    rc = _lib().ks_fisher_encode(
+        xs.data_ptr(), int(xs.dtype == torch.bfloat16), mask.data_ptr(),
+        wt.data_ptr(), cst.data_ptr(), mu.data_ptr(), var.data_ptr(), w.data_ptr(),
+        out.data_ptr(), n, t, d, k, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "fisher_encode")
+    LAUNCHES["fisher_encode"] += 1
+    return out
+
+
+def fused_forward(desc, mask, components, mean, w, mu, var, normalize: bool = True):
+    """desc: (n, T, d_in) f32 or bf16 — raw SIFT output with
+    ``normalize=True``, already normalized descriptors with False;
+    mask: (n, T) f32; components: (d_in, d); mean: (d_in,) or None;
+    GMM (w (K,), mu/var (K, d)) → (n, 2·K·d) f32.  CUDA tensors launch
+    the kernel; CPU tensors take ``fused_forward_ref``."""
+    if desc.device.type == "cpu":
+        return fused_forward_ref(desc, mask, components, mean, w, mu, var, normalize)
+    if desc.device.type != "cuda":
+        raise ValueError(f"fused_forward runs on cuda or cpu, not {desc.device}")
+    dev = desc.device
+    k, d = _check_gmm(w, mu, var, dev)
+    n, t, d_in = desc.shape
+    _check("desc", desc, (n, t, d_in), _DESC, dev)
+    _check("mask", mask, (n, t), _F32, dev)
+    _check("components", components, (d_in, d), _F32, dev)
+    if mean is not None:
+        _check("mean", mean, (d_in,), _F32, dev)
+    out = torch.empty((n, 2 * k * d), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    wt, cst = _posterior_weights(w, mu, var)
+    rc = _lib().ks_fused_forward(
+        desc.data_ptr(), int(desc.dtype == torch.bfloat16), mask.data_ptr(),
+        components.data_ptr(), None if mean is None else mean.data_ptr(), int(bool(normalize)),
+        wt.data_ptr(), cst.data_ptr(), mu.data_ptr(), var.data_ptr(), w.data_ptr(),
+        out.data_ptr(), n, t, d_in, d, k, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(rc, "fused_forward")
+    LAUNCHES["fused_forward"] += 1
+    return out
+

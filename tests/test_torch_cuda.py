@@ -1,0 +1,107 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU and skips where torch sees none.  The
+file imports neither JAX nor the JAX package, so it also runs on a
+machine without them:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from keystone_tpu_torch.ops import fisher_kernels as fk
+
+pytestmark = pytest.mark.cuda
+
+# the JAX package's tolerances for its Pallas kernels, plus a relative
+# term: the kernel sums in another order than cuBLAS, ~1e-6 relative f32
+# rounding on the larger FV entries (chip_smoke.py states the same)
+ATOL_FV, ATOL_FUSED, RTOL = 2e-5, 3e-5, 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _gmm(rng, k, d, dev):
+    w = rng.random(k).astype(np.float32) + 0.1
+    w /= w.sum()
+    mu = rng.normal(size=(k, d)).astype(np.float32)
+    var = (0.5 + rng.random((k, d))).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (w, mu, var)]
+
+
+def _mask(rng, n, t, dev):
+    m = (rng.random((n, t)) > 0.15).astype(np.float32)
+    m[0] = 0.0  # an image with no valid descriptor
+    return torch.from_numpy(m).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [784, 301, 45])  # 301, 45: ragged against the 32-row tile
+def test_fisher_encode_matches_plain(dev, dtype, t):
+    rng = np.random.default_rng(t)
+    xs = torch.from_numpy(rng.normal(size=(6, t, 64)).astype(np.float32)).to(dev).to(dtype)
+    mask = _mask(rng, 6, t, dev)
+    w, mu, var = _gmm(rng, 256, 64, dev)
+    fk.reset_launches()
+    got = fk.fisher_encode(xs, mask, w, mu, var)
+    assert fk.LAUNCHES["fisher_encode"] == 1
+    torch.testing.assert_close(got, fk.fisher_encode_ref(xs, mask, w, mu, var), atol=ATOL_FV, rtol=RTOL)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("with_mean", [True, False])
+@pytest.mark.parametrize("d_in,t", [(128, 784), (96, 324), (128, 45)])
+def test_fused_forward_matches_plain(dev, normalize, with_mean, d_in, t):
+    rng = np.random.default_rng(d_in + t)
+    raw = np.abs(rng.normal(size=(5, t, d_in))).astype(np.float32)
+    if not normalize:  # the feed is normalized already
+        raw /= np.linalg.norm(raw, axis=-1, keepdims=True)
+    desc = torch.from_numpy(raw).to(dev)
+    mask = _mask(rng, 5, t, dev)
+    comp = torch.from_numpy(np.linalg.qr(rng.normal(size=(d_in, 64)))[0].astype(np.float32)).to(dev)
+    mean = torch.from_numpy((0.05 * rng.random(d_in)).astype(np.float32)).to(dev) if with_mean else None
+    w, mu, var = _gmm(rng, 256, 64, dev)
+    args = (desc, mask, comp, mean, w, 0.3 * mu, var, normalize)
+    fk.reset_launches()
+    got = fk.fused_forward(*args)
+    assert fk.LAUNCHES["fused_forward"] == 1
+    torch.testing.assert_close(got, fk.fused_forward_ref(*args), atol=ATOL_FUSED, rtol=RTOL)
+
+
+def test_small_gmm_shapes(dev):
+    """K and d other than the main path's (multiples of 8), and T shorter
+    than one tile."""
+    rng = np.random.default_rng(1)
+    xs = torch.from_numpy(rng.normal(size=(3, 20, 16)).astype(np.float32)).to(dev)
+    mask = _mask(rng, 3, 20, dev)
+    w, mu, var = _gmm(rng, 8, 16, dev)
+    torch.testing.assert_close(
+        fk.fisher_encode(xs, mask, w, mu, var), fk.fisher_encode_ref(xs, mask, w, mu, var),
+        atol=ATOL_FV, rtol=RTOL,
+    )
+
+
+def test_wrappers_raise_instead_of_falling_back(dev):
+    rng = np.random.default_rng(2)
+    fk.reset_launches()
+    xs = torch.from_numpy(rng.normal(size=(2, 40, 12)).astype(np.float32)).to(dev)
+    mask = torch.ones((2, 40), device=dev)
+    w, mu, var = _gmm(rng, 8, 12, dev)  # d=12: not a multiple of 8
+    with pytest.raises(RuntimeError, match="shape not supported"):
+        fk.fisher_encode(xs, mask, w, mu, var)
+    w, mu, var = _gmm(rng, 8, 16, dev)
+    xs = torch.from_numpy(rng.normal(size=(2, 40, 32)).astype(np.float32)).to(dev)
+    with pytest.raises(ValueError, match="on cpu"):
+        fk.fisher_encode(xs[..., :16].contiguous(), mask.cpu(), w, mu, var)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.fisher_encode(xs[..., :16], mask, w, mu, var)
+    with pytest.raises(TypeError, match="dtype"):
+        fk.fisher_encode(xs[..., :16].contiguous().half(), mask, w, mu, var)
+    assert fk.LAUNCHES == {"fisher_encode": 0, "fused_forward": 0}
