@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # the whole check, one card
-    python3 chip_smoke.py --profile  # also a profiler breakdown of one scorer batch
+    python3 chip_smoke.py --profile  # also a profiler breakdown of each main path
 
 Phases, each of which must pass (any failure exits non-zero before the
 result line):
@@ -18,8 +18,22 @@ result line):
    before and read just after, then checked against the same pipeline
    built on the plain versions (scores within tolerance, top-5 ids equal
    on ≥ 99% of images) and timed as images/s;
-5. one JSON line of kernel numbers (ms, plain ms, bound, launches), then
-   the last line {"ok": true, "device": {...}}.
+5. gram kernels (B3 Gaussian, B4 polynomial/linear) against their plain
+   versions on the card: the main paths' shapes in f32 and a bf16 stream,
+   d = 3072 and ragged shapes, within the stated tolerances;
+6. main path, Kernel TIMIT scoring at full width (d = 440, 2048
+   landmarks, γ = 0.015, 147 classes, batches of 8192 frames; seeded
+   parameters, the whitening fitted on the card): one gram launch a batch,
+   scores against the plain-version pipeline, argmax agreement ≥ 99.9%,
+   frames/s;
+7. main path, kernel ridge regression at bench.py's kernel-leg geometry
+   (n = 8192, d = 256, k = 8, block 512, 2 epochs, γ = 0.002, λ = 1e-4):
+   the in-core and cached Gaussian fits, the cached polynomial and linear
+   fits, predict and BlockKernelMatrix.matvec, each with its launch
+   counts, against the same fits on the plain versions; fit seconds and
+   the sweep's TFLOP/s;
+8. one JSON line of kernel numbers (ms, plain ms, bound, launches) for
+   all four kernels, then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX; exits non-zero without a result when torch sees
 no CUDA device.
@@ -63,10 +77,37 @@ TOL_SCORES = 1e-4
 TOP5_AGREEMENT = 0.99
 
 # H100 SXM (NVIDIA data sheet, dense, at 700 W): f32 outside the tensor
-# cores and HBM3 bandwidth
+# cores and HBM3 bandwidth; the card these runs get reports itself as
+# "NVIDIA H100 80GB HBM3", the SXM part
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 DEVICE = "cuda"
+
+# ---- kernel tier
+FRAMES = 8192  # Kernel TIMIT batch: the reference Config's stream_batch_size
+NUM_TIMIT_CLASSES = 147
+KRR_N, KRR_D, KRR_K, KRR_BLOCK, KRR_EPOCHS = 8192, 256, 8, 512, 2  # bench.py kernel leg
+KRR_GAMMA, KRR_LAM, KRR_TEST = 0.002, 1e-4, 512
+CIFAR_GAMMA = 2e-4  # the reference kernel_cifar Config's γ at d = 3072
+# gram tolerances, the JAX package's (tests/test_gram_pallas.py): Gaussian
+# f32 1e-5 absolute, polynomial 1e-5 absolute + 1e-5 relative, the bf16
+# operand stream 0.06 against the f32 plain version.  0.06 tests nothing
+# where every entry is below it (the serving shape's are ≲ 6e-3): there
+# the bf16 stream is held at 1e-5 against the plain version on the same
+# bf16-rounded operands, and 0.06 against f32 only at the KRR column
+# block, whose entries are ~0.36 (γ·‖x − z‖² ≈ 1) and 1 on its diagonal
+TOL_GRAM = 1e-5
+TOL_POLY, RTOL_POLY = 1e-5, 1e-5
+TOL_GRAM_BF16 = 0.06
+# Kernel TIMIT scores: K(x, L) entries ≲ 6e-3 (γ·‖x − l‖² ≥ 5 between
+# scaled frames), a well-conditioned whitening and 0.01·normal weights put
+# |score| ≲ 1e-3; the kernel's gram agrees with the plain one to ~1e-9
+TOL_KT_SCORES = 1e-6
+ARGMAX_AGREEMENT = 0.999
+# KRR dual coefficients: the JAX package's 2e-5 (tests/test_gram_pallas.py)
+# plus the f32 relative term used above for sums taken in another order
+TOL_ALPHA, RTOL_ALPHA = 2e-5, 1e-5
+PRED_R2 = 0.9999
 
 
 @contextlib.contextmanager
@@ -110,6 +151,34 @@ def fv_cost(n, t, d, k, d_in=0, desc_bytes=4):
     return nbytes, flops
 
 
+def gram_cost(n, m, d, operand_bytes=4, degree=None):
+    """(bytes, flops) of one gram block: each operand read once, the (n, m)
+    f32 block written once; the 2·n·m·d cross product plus, for the
+    Gaussian, the row norms (2·(n+m)·d) and a 5-operation epilogue
+    (two subtractions, the clamp, the scale, the exp), for the polynomial
+    the affine step and degree − 1 multiplications."""
+    nbytes = (n + m) * d * operand_bytes + n * m * 4
+    flops = 2 * n * m * d
+    if degree is None:
+        flops += 2 * (n + m) * d + 5 * n * m
+    else:
+        flops += n * m * (2 + max(degree - 1, 0))
+    return nbytes, flops
+
+
+def kernel_flops(n_rows, d, k, bs, epochs):
+    """The blockwise KRR sweep's FLOPs, bench.py::kernel_flops: per epoch
+    and block the (n × bs) column gemm, the F update, the block target
+    and the bs³/3 Cholesky."""
+    nb = -(-n_rows // bs)
+    per_epoch = nb * (2 * n_rows * bs * d + 2 * n_rows * bs * k + 2 * bs * bs * k + bs**3 / 3)
+    return float(epochs * per_epoch)
+
+
+def bound_by(nbytes, flops):
+    return "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES else "bytes"
+
+
 def bound_ms(nbytes, flops):
     return 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS)
 
@@ -129,9 +198,300 @@ def compare(name, got, ref, atol, rtol=RTOL_F32):
     return err
 
 
+def reset_all(*modules) -> None:
+    for m in modules:
+        m.reset_launches()
+
+
+def gram_checks(gk, dev, rng, serving, krr_x):
+    """B3 and B4 against their plain versions on the card; returns the
+    largest f32 error of each kernel and the bf16 stream's (against the
+    plain version on the same bf16 operands, and against f32)."""
+    xs, lmk, gamma = serving
+    xb = krr_x[:KRR_BLOCK]
+    errs = {"gram_block": 0.0, "poly_block": 0.0, "gram_block_bf16": 0.0, "gram_block_bf16_vs_f32": 0.0}
+
+    def t(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def gauss(label, x, z, g, key="gram_block", atol=TOL_GRAM, want=None):
+        got = gk.gram_block_kernel(x, z, g)
+        want = gk.gram_block_ref(x, z, g) if want is None else want
+        errs[key] = max(errs[key], compare(label, got, want, atol, 0.0))
+
+    def poly(label, x, z, a, c, deg):
+        got = gk.poly_block_kernel(x, z, a, c, deg)
+        errs["poly_block"] = max(errs["poly_block"], compare(
+            label, got, gk.poly_block_ref(x, z, a, c, deg), TOL_POLY, RTOL_POLY))
+
+    with phase("gram kernels vs plain versions"):
+        serving_shape = (xs.shape[0], lmk.shape[0], xs.shape[1])
+        column_shape = (krr_x.shape[0], xb.shape[0], krr_x.shape[1])
+        gauss(f"B3 f32 serving {serving_shape}", xs, lmk, gamma)
+        gauss(f"B3 bf16 stream vs plain on the same bf16 operands, serving {serving_shape}",
+              xs.bfloat16(), lmk.bfloat16(), gamma, "gram_block_bf16")
+        gauss(f"B3 f32 KRR column block {column_shape}", krr_x, xb, KRR_GAMMA)
+        gauss(f"B3 bf16 stream vs plain f32, KRR column block {column_shape}", krr_x.bfloat16(),
+              xb.bfloat16(), KRR_GAMMA, "gram_block_bf16_vs_f32", TOL_GRAM_BF16,
+              gk.gram_block_ref(krr_x, xb, KRR_GAMMA))
+        cx = t((2048, 3072))
+        gauss("B3 f32 d=3072 (1024, 1024, 3072)", cx[:1024], cx[1024:], CIFAR_GAMMA)
+        rx, rz = t((1000, 37)), t((777, 37))
+        gauss("B3 f32 ragged (1000, 777, 37)", rx, rz, 0.1)
+        poly(f"B4 degree 2, α=1/{KRR_D}, c=1 {column_shape}", krr_x, xb, 1.0 / KRR_D, 1.0, 2)
+        poly(f"B4 linear (1, 0, 1) {column_shape}", krr_x, xb, 1.0, 0.0, 1)
+        poly(f"B4 degree 3, α=0.05, c=-0.5 {column_shape}", krr_x, xb, 0.05, -0.5, 3)
+        poly("B4 ragged degree 2, α=0.3, c=0.5 (1000, 777, 37)", rx, rz, 0.3, 0.5, 2)
+        torch.cuda.synchronize()
+    return errs
+
+
+def kernel_timit_setup(dev):
+    """Full-width seeded Kernel TIMIT scorer and its plain twin, and the
+    timed frames (9 batches of 8192)."""
+    from keystone_tpu_torch.convert import kernel_timit_params_from_numpy
+    from keystone_tpu_torch.loaders import timit
+    from keystone_tpu_torch.ops import gram_kernels as gk
+    from keystone_tpu_torch.pipelines import kernel_timit as KT
+
+    cfg = KT.Config()
+    gk.reset_launches()
+    raw = KT.random_params(cfg, device=dev)
+    check(gk.LAUNCHES["gram_block"] == 1, f"whitening fit launched {gk.LAUNCHES}")
+    params = kernel_timit_params_from_numpy(raw, dev)
+    scorer = KT.build_scorer_from_params(params, cfg, dev)
+    plain = KT.build_scorer_from_params(params, cfg, dev, use_kernel=False)
+    frames, _ = timit.synthetic((BATCHES + 1) * FRAMES, cfg.num_classes, seed=3)
+    batches = list(torch.from_numpy(frames).to(dev).split(FRAMES))
+    xs = scorer.stages[0](batches[0])  # the scaled frames the gram kernel is given
+    lmk = params["nystrom.landmarks"]
+    check(tuple(xs.shape) == (FRAMES, timit.DIM) and tuple(lmk.shape) == (cfg.num_landmarks, timit.DIM),
+          f"B3 serving input {tuple(xs.shape)} against {tuple(lmk.shape)}")
+    return scorer, plain, batches, (xs, lmk, cfg.gamma)
+
+
+def kernel_timit_path(card, scorer, plain, batches, kt_mod, gk, fk):
+    with phase("main path: kernel TIMIT scoring"):
+        scorer(batches[0])  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_all(gk, fk)
+        t0 = time.perf_counter()
+        outs = [scorer(b) for b in batches[1:]]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(gk.LAUNCHES)
+        fps = BATCHES * FRAMES / dt
+        print(f"  launches {launches}; {fps:.1f} frames/s over {BATCHES} batches of {FRAMES} ({card})",
+              flush=True)
+        check(launches == {"gram_block": BATCHES, "poly_block": 0},
+              f"gram launches {launches}, expected one a batch")
+        check(not any(fk.LAUNCHES.values()), f"FV kernels launched {fk.LAUNCHES}")
+        worst, agree = 0.0, 0
+        for b, out in zip(batches[1:], outs):
+            sk, sp = kt_mod.scores_of(scorer)(b), kt_mod.scores_of(plain)(b)
+            check(tuple(sk.shape) == (FRAMES, NUM_TIMIT_CLASSES), f"scores shape {tuple(sk.shape)}")
+            check(bool(torch.isfinite(sk).all()), "non-finite scores")
+            check(tuple(out.shape) == (FRAMES,), f"predictions shape {tuple(out.shape)}")
+            worst = max(worst, max_err(sk, sp))
+            agree += int((out == torch.argmax(sp, dim=1)).sum())
+        frac = agree / (BATCHES * FRAMES)
+        print(f"  scores vs plain-version pipeline: max_abs_err={worst:.3e} tol={TOL_KT_SCORES:.0e}; "
+              f"argmax agreement {frac:.5f}", flush=True)
+        check(worst <= TOL_KT_SCORES, f"scores differ by {worst:.3e}")
+        check(frac >= ARGMAX_AGREEMENT, f"argmax agreement {frac:.5f}")
+    return {"frames_per_s": fps, "launches": launches["gram_block"], "seconds": dt}
+
+
+def krr_data(dev):
+    """Seeded train rows, labels and test rows, made as bench.py makes them."""
+    n, d, k = KRR_N, KRR_D, KRR_K
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    w = rng.normal(size=(d, k)).astype(np.float32)
+    y = np.tanh(x @ w / np.sqrt(d)).astype(np.float32)
+    xt = rng.normal(size=(KRR_TEST, d)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (x, y, xt))
+
+
+def krr_path(dev, card, gk, fk, data):
+    """The bench.py kernel-leg geometry: four fits, predict and matvec,
+    each against the same computation on the plain versions."""
+    from keystone_tpu_torch.models import kernel_ridge as KR
+    from keystone_tpu_torch.models.kernel_matrix import BlockKernelMatrix
+
+    n, d, k, bs, ep = KRR_N, KRR_D, KRR_K, KRR_BLOCK, KRR_EPOCHS
+    nb = n // bs
+    xd, yd, xtd = data
+    gens = {
+        "gaussian": KR.GaussianKernelGenerator(KRR_GAMMA),
+        "polynomial": KR.PolynomialKernelGenerator(2, 1.0 / d, 1.0),
+        "linear": KR.LinearKernelGenerator(),
+    }
+    flops = kernel_flops(n, d, k, bs, ep)
+    fits, models = {}, {}
+    for label, gen, cached, kname, want in (
+        ("in-core gaussian", "gaussian", False, "gram_block", ep * nb),
+        ("cached gaussian", "gaussian", True, "gram_block", nb),
+        ("cached polynomial", "polynomial", True, "poly_block", nb),
+        ("cached linear", "linear", True, "poly_block", nb),
+    ):
+        with phase(f"main path: KRR fit, {label}"):
+            kw = dict(lam=KRR_LAM, block_size=bs, num_epochs=ep, cache_kernel_blocks=cached)
+            est = KR.KernelRidgeRegressionEstimator(gens[gen], **kw)
+            est.fit_arrays(xd, yd, device=dev)  # warm-up, not counted
+            torch.cuda.synchronize()
+            reset_all(gk, fk)
+            t0 = time.perf_counter()
+            model = est.fit_arrays(xd, yd, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(gk.LAUNCHES)
+            print(f"  launches {launches}; fit {dt:.4f} s, sweep {flops / dt / 1e12:.3f} TFLOP/s ({card})",
+                  flush=True)
+            other = "poly_block" if kname == "gram_block" else "gram_block"
+            check(launches[kname] == want and launches[other] == 0,
+                  f"{label}: launches {launches}, expected {want} {kname}")
+            ref = KR.KernelRidgeRegressionEstimator(gens[gen], use_kernel=False, **kw).fit_arrays(
+                xd, yd, device=dev)
+            check(bool(torch.isfinite(model.alpha).all()), f"{label}: non-finite α")
+            err = compare(f"α, {label}, vs the plain fit", model.alpha, ref.alpha, TOL_ALPHA, RTOL_ALPHA)
+            fits[label] = {"seconds": dt, "tflops": flops / dt / 1e12, "launches": launches[kname],
+                           "alpha_max_abs_err": err}
+            models[label] = (model, ref)
+    with phase("main path: KRR in-core vs cached"):
+        compare("α in-core vs cached, both on the kernel", models["in-core gaussian"][0].alpha,
+                models["cached gaussian"][0].alpha, TOL_ALPHA, RTOL_ALPHA)
+    with phase("main path: KRR predict"):
+        model, ref = models["in-core gaussian"]
+        model(xtd)  # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_all(gk, fk)
+        t0 = time.perf_counter()
+        p = model(xtd)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(gk.LAUNCHES)
+        check(launches == {"gram_block": nb, "poly_block": 0}, f"predict launches {launches}")
+        pp = ref(xtd)
+        check(tuple(p.shape) == (KRR_TEST, k) and bool(torch.isfinite(p).all()), "predictions")
+        r2 = 1.0 - float(((p - pp) ** 2).sum() / ((pp - pp.mean(dim=0)) ** 2).sum())
+        print(f"  launches {launches}; {dt * 1e3:.3f} ms for {KRR_TEST} rows; r² vs the plain "
+              f"model {r2:.8f}; max_abs_err {max_err(p, pp):.3e} ({card})", flush=True)
+        check(r2 >= PRED_R2, f"prediction r² {r2}")
+        fits["predict"] = {"seconds": dt, "launches": launches["gram_block"], "r2": r2}
+    with phase("main path: BlockKernelMatrix.matvec"):
+        v = models["in-core gaussian"][0].alpha
+        for gen, kname in (("gaussian", "gram_block"), ("polynomial", "poly_block"), ("linear", "poly_block")):
+            km = BlockKernelMatrix(gens[gen], xd, bs, cache_blocks=nb * nb)
+            reset_all(gk, fk)
+            got = km.matvec(v)
+            torch.cuda.synchronize()
+            launches = dict(gk.LAUNCHES)
+            check(launches[kname] == nb and sum(launches.values()) == nb, f"matvec launches {launches}")
+            want = BlockKernelMatrix(gens[gen], xd, bs, cache_blocks=nb * nb, use_kernel=False).matvec(v)
+            # sums of 8192 kernel-weighted α in another order: relative to the largest entry
+            scale = want.abs().max().item()
+            compare(f"matvec, {gen}", got, want, 1e-5 * scale, RTOL_POLY)
+            fits[f"matvec {gen}"] = {"launches": launches[kname]}
+    return fits
+
+
+def gram_lines(gk, serving, krr_x, errs, results):
+    """The kernels-line entries of B3 and B4: times at the main paths'
+    shapes, the plain versions', one torch.matmul of the same operands
+    (the gemm the fused kernel should approach), bounds and launches."""
+    xs, lmk, gamma = serving
+    xb = krr_x[:KRR_BLOCK]
+    krr = results["krr"]
+    gram_launches = {"kernel TIMIT": results["kernel_timit"]["launches"],
+                     **{k: v["launches"] for k, v in krr.items()
+                        if k in ("in-core gaussian", "cached gaussian", "predict", "matvec gaussian")}}
+    poly_launches = {k: v["launches"] for k, v in krr.items()
+                     if k in ("cached polynomial", "cached linear", "matvec polynomial", "matvec linear")}
+    n, d = xs.shape
+    m = lmk.shape[0]
+    serving_cost = gram_cost(n, m, d)
+    column_cost = gram_cost(KRR_N, KRR_BLOCK, KRR_D)
+    poly_cost = gram_cost(KRR_N, KRR_BLOCK, KRR_D, degree=2)
+    linear_cost = gram_cost(KRR_N, KRR_BLOCK, KRR_D, degree=1)
+    gemm_column = cuda_ms(lambda: torch.matmul(krr_x, xb.T))
+    gram = {
+        "name": "gram_block", "route": "cuda", "source": "keystone_tpu_torch/csrc/gram.cu",
+        "replaces": "keystone_tpu/ops/gram_pallas.py:89",
+        "launches": sum(gram_launches.values()), "launches_by_path": gram_launches,
+        "max_abs_err": errs["gram_block"], "max_abs_err_bf16": errs["gram_block_bf16"],
+        "max_abs_err_bf16_vs_f32": errs["gram_block_bf16_vs_f32"],
+        "ms": cuda_ms(lambda: gk.gram_block_kernel(xs, lmk, gamma)),
+        "plain_ms": cuda_ms(lambda: gk.gram_block_ref(xs, lmk, gamma), reps=5),
+        "bound_ms": bound_ms(*serving_cost), "bound_by": bound_by(*serving_cost),
+        # no single PyTorch call computes a Gaussian gram
+        "library_ms": None, "gemm_ms": cuda_ms(lambda: torch.matmul(xs, lmk.T)),
+        "shape": f"({n}, {m}, {d}) f32, one Kernel TIMIT batch",
+        "ms_bf16": cuda_ms(lambda: gk.gram_block_kernel(xs.bfloat16(), lmk.bfloat16(), gamma)),
+        "ms_krr_column": cuda_ms(lambda: gk.gram_block_kernel(krr_x, xb, KRR_GAMMA)),
+        "plain_ms_krr_column": cuda_ms(lambda: gk.gram_block_ref(krr_x, xb, KRR_GAMMA), reps=5),
+        "gemm_ms_krr_column": gemm_column, "bound_ms_krr_column": bound_ms(*column_cost),
+    }
+    poly = {
+        "name": "poly_block", "route": "cuda", "source": "keystone_tpu_torch/csrc/gram.cu",
+        "replaces": "keystone_tpu/ops/gram_pallas.py:207",
+        "launches": sum(poly_launches.values()), "launches_by_path": poly_launches,
+        "max_abs_err": errs["poly_block"],
+        "ms": cuda_ms(lambda: gk.poly_block_kernel(krr_x, xb, 1.0 / KRR_D, 1.0, 2)),
+        "plain_ms": cuda_ms(lambda: gk.poly_block_ref(krr_x, xb, 1.0 / KRR_D, 1.0, 2), reps=5),
+        "bound_ms": bound_ms(*poly_cost), "bound_by": bound_by(*poly_cost),
+        # the linear case (1, 0, 1) is one PyTorch call: x @ zᵀ (TF32 off)
+        "library_ms": gemm_column, "gemm_ms": gemm_column,
+        "shape": f"({KRR_N}, {KRR_BLOCK}, {KRR_D}) f32 degree 2, one KRR column block",
+        "ms_linear": cuda_ms(lambda: gk.poly_block_kernel(krr_x, xb, 1.0, 0.0, 1)),
+        "plain_ms_linear": cuda_ms(lambda: gk.poly_block_ref(krr_x, xb, 1.0, 0.0, 1), reps=5),
+        "bound_ms_linear": bound_ms(*linear_cost),
+    }
+    return [gram, poly]
+
+
+def profile_once(fn) -> None:
+    """Device time by operator over one call of ``fn`` (after a warm-up
+    call), and two idle shares.  One window: the device's busy time
+    against the host-clock time of that same call, traced on the device
+    only; it includes the profiler's own host overhead, so it reads high.
+    Two calls: that busy time against the host-clock time of an
+    unprofiled call; it assumes both calls kept the device equally busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy_ms(prof):
+        # the kernels' own time (an operator's self device time repeats its kernels')
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_ms(prof)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12))
+    print(f"  device busy {busy:.3f} ms of {wall * 1e3:.3f} ms host-clock time in the same call, "
+          f"traced on the device only (one-window idle share {max(0.0, 1.0 - busy / (wall * 1e3)):.3f}); "
+          f"the call unprofiled {bare * 1e3:.3f} ms (two-call idle share "
+          f"{max(0.0, 1.0 - busy / (bare * 1e3)):.3f}); device busy in the operator-traced call "
+          f"{busy_ms(prof):.3f} ms", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true", help="profile one scorer batch")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one batch or fit of each main path (after the checks)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -141,7 +501,9 @@ def main(argv=None) -> int:
     from keystone_tpu_torch.convert import params_from_numpy
     from keystone_tpu_torch.kernels import build
     from keystone_tpu_torch.ops import fisher_kernels as fk
+    from keystone_tpu_torch.ops import gram_kernels as gk
     from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as P
+    from keystone_tpu_torch.pipelines import kernel_timit as KT
     from keystone_tpu_torch.utils import precision
     from keystone_tpu_torch.workflow.pipeline import Pipeline
 
@@ -280,6 +642,14 @@ def main(argv=None) -> int:
             check(worst <= TOL_SCORES, f"scores differ by {worst:.3e}")
             check(frac >= TOP5_AGREEMENT, f"top-5 agreement {frac:.4f}")
 
+    # ---- the kernel tier: the gram kernels, then its two main paths
+    with phase("kernel TIMIT parameters (whitening fitted on the card)"):
+        kt_scorer, kt_plain, frame_batches, serving = kernel_timit_setup(dev)
+    data = krr_data(dev)
+    gram_errs = gram_checks(gk, dev, rng, serving, data[0])
+    results["kernel_timit"] = kernel_timit_path(card, kt_scorer, kt_plain, frame_batches, KT, gk, fk)
+    results["krr"] = krr_path(dev, card, gk, fk, data)
+
     with phase("kernel timing"):
         def kernel_line(name, replaces, kernel, plain, calls, shape):
             """Times summed over the kernel's calls in one forward of a
@@ -294,8 +664,9 @@ def main(argv=None) -> int:
                 "max_abs_err": errs[name], "ms": sum(ms), "plain_ms": sum(plain_ms),
                 "bound_ms": sum(bound_ms(*c) for c in costs),
                 "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES else "bytes",
-                # no single PyTorch call computes a Fisher-vector encode
-                "library_ms": None,
+                # no single PyTorch call computes a Fisher-vector encode,
+                # and no one gemm is its floor
+                "library_ms": None, "gemm_ms": None,
                 "shape": shape, "ms_each_call": ms, "plain_ms_each_call": plain_ms,
             }
 
@@ -313,18 +684,29 @@ def main(argv=None) -> int:
         for ln in lines:
             print(f"  {ln['name']}: {ln['ms']:.4f} ms (plain {ln['plain_ms']:.4f} ms, bound "
                   f"{ln['bound_ms']:.4f} ms by {ln['bound_by']}) per batch of {BATCH}, {card}")
+        lines += gram_lines(gk, serving, data[0], gram_errs, results)
+        for ln in lines[2:]:
+            print(f"  {ln['name']}: {ln['ms']:.4f} ms (plain {ln['plain_ms']:.4f} ms, gemm "
+                  f"{ln['gemm_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms by {ln['bound_by']}) "
+                  f"at {ln['shape']}, {card}")
 
     if args.profile:
-        with phase("profile one scorer batch"):
-            from torch.profiler import ProfilerActivity, profile
+        from keystone_tpu_torch.models import kernel_ridge as KR
 
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                scorer(images[:BATCH])
-                torch.cuda.synchronize()
-            print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+        krr_est = KR.KernelRidgeRegressionEstimator(
+            KR.GaussianKernelGenerator(KRR_GAMMA), lam=KRR_LAM, block_size=KRR_BLOCK, num_epochs=KRR_EPOCHS)
+        for label, fn in (
+            ("one scorer batch", lambda: scorer(images[:BATCH])),
+            ("one kernel TIMIT batch", lambda: kt_scorer(frame_batches[1])),
+            ("one in-core KRR fit", lambda: krr_est.fit_arrays(data[0], data[1], device=dev)),
+        ):
+            with phase(f"profile {label}"):
+                profile_once(fn)
 
     print(json.dumps({
-        "images_per_s": {k: v["images_per_s"] for k, v in results.items()},
+        "images_per_s": {k: results[k]["images_per_s"] for k in ("fused_forward", "fisher_encode")},
+        "frames_per_s": results["kernel_timit"]["frames_per_s"],
+        "krr": results["krr"],
         "card": card,
     }))
     print(json.dumps({"kernels": lines}))

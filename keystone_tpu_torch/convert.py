@@ -18,7 +18,32 @@ key                    shape            reference object
 ====================== ================ =========================================
 
 ``<b>`` is a branch, ``sift`` or ``lcs``; a scorer needs both, the
-unfused single-branch forward only ``sift``.  The keys suit ``np.savez``.
+unfused single-branch forward only ``sift``.
+
+``kernel_timit_params_from_numpy`` does the same for a fitted
+KernelTimitPipeline scorer:
+
+====================== ================ =========================================
+key                    shape            reference object
+====================== ================ =========================================
+``scaler.mean``        (D,)             StandardScalerModel.mean
+``scaler.std``         (D,)             StandardScalerModel.std (optional)
+``nystrom.landmarks``  (m, D)           NystromFeatureMap.landmarks
+``nystrom.whiten``     (m, m)           NystromFeatureMap.whiten
+``blm.*``              as above         BlockLinearMapper, over the m features
+====================== ================ =========================================
+
+and ``krr_params_from_numpy`` for a fitted kernel ridge regression model:
+
+====================== ================ =========================================
+key                    shape            reference object
+====================== ================ =========================================
+``krr.train_x``        (n_rows, D)      KernelBlockLinearMapper.train_x (padded)
+``krr.alpha``          (n_rows, k)      KernelBlockLinearMapper.alpha
+====================== ================ =========================================
+
+Scalars (γ, the block size, the train row count) are passed to the
+builders as arguments.  The keys suit ``np.savez``.
 """
 
 from __future__ import annotations
@@ -32,54 +57,100 @@ from keystone_tpu_torch.utils.device import resolve_device
 
 BRANCHES = ("sift", "lcs")
 _BRANCH_KEYS = ("pca.components", "pca.mean", "gmm.weights", "gmm.means", "gmm.variances")
-_OPTIONAL = {"pca.mean", "blm.intercept", "blm.feature_mean"}
+_OPTIONAL = {"pca.mean"}
+_BLM_KEYS = {"blm.weights", "blm.intercept", "blm.feature_mean"}
 
 
 def _shape_error(key, got, want):
     return ValueError(f"{key} has shape {tuple(got)}, expected {want}")
 
 
-def params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
-    """Validate the keyed arrays above and return them as f32 tensors on
-    ``device`` (the card unless the caller asks for the CPU)."""
-    dev = resolve_device(device)
-    known = {f"{b}.{k}" for b in BRANCHES for k in _BRANCH_KEYS}
-    known |= {"blm.weights", "blm.intercept", "blm.feature_mean"}
-    unknown = sorted(set(d) - known)
+def _arrays(d: Mapping[str, np.ndarray], known) -> Dict[str, np.ndarray]:
+    """The given arrays as f32 numpy, refusing keys outside ``known``."""
+    unknown = sorted(set(d) - set(known))
     if unknown:
         raise ValueError(f"unknown parameter keys {unknown}")
-    arrs = {k: np.array(v, np.float32) for k, v in d.items() if v is not None}
+    return {k: np.array(v, np.float32) for k, v in d.items() if v is not None}
 
+
+def _require(arrs, keys):
+    for k in keys:
+        if k not in arrs:
+            raise ValueError(f"missing parameter {k}")
+
+
+def _check_shapes(arrs, want):
+    for k, shape in want.items():
+        if k in arrs and arrs[k].shape != shape:
+            raise _shape_error(k, arrs[k].shape, shape)
+
+
+def _check_blm(arrs, width: int) -> None:
+    """blm.weights (nb, bs, k) covering ``width`` features, and its optional
+    intercept (k,) and feature mean (width,)."""
+    _require(arrs, ["blm.weights"])
+    wts = arrs["blm.weights"]
+    if wts.ndim != 3 or wts.shape[0] * wts.shape[1] < width:
+        raise _shape_error("blm.weights", wts.shape, f"(nb, bs, k) with nb·bs ≥ {width}")
+    _check_shapes(arrs, {"blm.intercept": (wts.shape[2],), "blm.feature_mean": (width,)})
+
+
+def _to(arrs, device) -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrs.items()}
+
+
+def params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
+    """Validate the keyed arrays of an ImageNetSiftLcsFV scorer and return
+    them as f32 tensors on ``device`` (the card unless the caller asks for
+    the CPU)."""
+    resolve_device(device)
+    arrs = _arrays(d, {f"{b}.{k}" for b in BRANCHES for k in _BRANCH_KEYS} | _BLM_KEYS)
     width = 0
     for b in BRANCHES:
         if not any(k.startswith(b + ".") for k in arrs):
             continue
-        for k in _BRANCH_KEYS:
-            if f"{b}.{k}" not in arrs and k not in _OPTIONAL:
-                raise ValueError(f"missing parameter {b}.{k}")
+        _require(arrs, [f"{b}.{k}" for k in _BRANCH_KEYS if k not in _OPTIONAL])
         comp = arrs[f"{b}.pca.components"]
         if comp.ndim != 2:
             raise _shape_error(f"{b}.pca.components", comp.shape, "(d_in, d)")
         d_in, dd = comp.shape
         kk = arrs[f"{b}.gmm.weights"].shape[0]
-        want = {
-            "pca.mean": (d_in,),
-            "gmm.weights": (kk,),
-            "gmm.means": (kk, dd),
-            "gmm.variances": (kk, dd),
-        }
-        for k, shape in want.items():
-            a = arrs.get(f"{b}.{k}")
-            if a is not None and a.shape != shape:
-                raise _shape_error(f"{b}.{k}", a.shape, shape)
+        _check_shapes(arrs, {
+            f"{b}.pca.mean": (d_in,),
+            f"{b}.gmm.weights": (kk,),
+            f"{b}.gmm.means": (kk, dd),
+            f"{b}.gmm.variances": (kk, dd),
+        })
         width += 2 * kk * dd
+    _check_blm(arrs, width)
+    return _to(arrs, device)
 
-    if "blm.weights" not in arrs:
-        raise ValueError("missing parameter blm.weights")
-    wts = arrs["blm.weights"]
-    if wts.ndim != 3 or wts.shape[0] * wts.shape[1] < width:
-        raise _shape_error("blm.weights", wts.shape, f"(nb, bs, k) with nb·bs ≥ {width}")
-    for k, shape in (("blm.intercept", (wts.shape[2],)), ("blm.feature_mean", (width,))):
-        if k in arrs and arrs[k].shape != shape:
-            raise _shape_error(k, arrs[k].shape, shape)
-    return {k: torch.from_numpy(v).to(dev) for k, v in arrs.items()}
+
+def kernel_timit_params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
+    """Validate the keyed arrays of a KernelTimitPipeline scorer (scaler,
+    Nyström map, BLM) and return them as f32 tensors on ``device``."""
+    resolve_device(device)
+    arrs = _arrays(d, {"scaler.mean", "scaler.std", "nystrom.landmarks", "nystrom.whiten"} | _BLM_KEYS)
+    _require(arrs, ["scaler.mean", "nystrom.landmarks", "nystrom.whiten"])
+    lmk = arrs["nystrom.landmarks"]
+    if lmk.ndim != 2:
+        raise _shape_error("nystrom.landmarks", lmk.shape, "(m, D)")
+    m, dim = lmk.shape
+    _check_shapes(arrs, {"scaler.mean": (dim,), "scaler.std": (dim,), "nystrom.whiten": (m, m)})
+    _check_blm(arrs, m)
+    return _to(arrs, device)
+
+
+def krr_params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
+    """Validate a fitted kernel ridge regression model's train rows and
+    dual coefficients and return them as f32 tensors on ``device``."""
+    resolve_device(device)
+    arrs = _arrays(d, {"krr.train_x", "krr.alpha"})
+    _require(arrs, ["krr.train_x", "krr.alpha"])
+    tx, alpha = arrs["krr.train_x"], arrs["krr.alpha"]
+    if tx.ndim != 2:
+        raise _shape_error("krr.train_x", tx.shape, "(n_rows, D)")
+    if alpha.ndim != 2 or alpha.shape[0] != tx.shape[0]:
+        raise _shape_error("krr.alpha", alpha.shape, f"({tx.shape[0]}, k)")
+    return _to(arrs, device)

@@ -4,8 +4,8 @@ Counterpart of ``keystone_tpu/utils/precision.py``, cut to what the
 scoring forward needs.  On the card the default is true f32 everywhere:
 the reference's ``auto → bf16`` resolution is a TPU measurement and does
 not apply.  ``bf16`` is the reference's ``mxu='bf16'`` stream: the
-Fisher-vector kernels read descriptors as bf16 (half the bytes) and
-compute in f32.
+Fisher-vector and gram kernels read their operands as bf16 (half the
+bytes) and compute in f32.
 """
 
 from __future__ import annotations
@@ -53,3 +53,16 @@ def fdtype(mode: str | None = None) -> torch.dtype:
     if m not in _MODES:
         raise ValueError(f"matmul mode must be one of {_MODES}, got {m!r}")
     return torch.bfloat16 if m == "bf16" else torch.float32
+
+
+def apply_mode(mode: str | None = None) -> str:
+    """The apply path's mode: always ``'f32'`` in the port.  The
+    reference's ``bf16_apply`` policy (bf16 apply-side contractions) is
+    gated to the TPU there and has no counterpart here: apply-side
+    contractions stay true f32 on the card."""
+    return "f32"
+
+
+def apply_dot(a, b, mode: str | None = None):
+    """Apply-side matmul: a plain f32 ``torch.matmul`` (see ``apply_mode``)."""
+    return torch.matmul(a, b)

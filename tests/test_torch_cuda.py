@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from keystone_tpu_torch.ops import fisher_kernels as fk
+from keystone_tpu_torch.ops import gram_kernels as gk
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +106,64 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(TypeError, match="dtype"):
         fk.fisher_encode(xs[..., :16].contiguous().half(), mask, w, mu, var)
     assert fk.LAUNCHES == {"fisher_encode": 0, "fused_forward": 0}
+
+
+# gram kernels: the JAX package's tolerances (tests/test_gram_pallas.py):
+# Gaussian 1e-5 absolute, polynomial 1e-5 absolute + 1e-5 relative, the
+# bf16 operand stream 0.06 against the f32 plain version
+ATOL_GRAM, RTOL_POLY, ATOL_BF16 = 1e-5, 1e-5, 0.06
+
+
+def _xz(rng, n, m, d, dev, scale=1.0):
+    x = (scale * rng.normal(size=(n, d))).astype(np.float32)
+    z = (scale * rng.normal(size=(m, d))).astype(np.float32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(z).to(dev)
+
+
+@pytest.mark.parametrize("n,m,d", [(512, 512, 256), (1000, 777, 37), (5, 3, 1), (130, 129, 440)])
+def test_gram_block_matches_plain(dev, n, m, d):
+    rng = np.random.default_rng(n + m + d)
+    x, z = _xz(rng, n, m, d, dev)
+    gamma = 1.0 / d
+    gk.reset_launches()
+    got = gk.gram_block_kernel(x, z, gamma)
+    assert gk.LAUNCHES["gram_block"] == 1
+    torch.testing.assert_close(got, gk.gram_block_ref(x, z, gamma), atol=ATOL_GRAM, rtol=0)
+
+
+def test_gram_block_bf16_stream(dev):
+    rng = np.random.default_rng(7)
+    x, z = _xz(rng, 300, 200, 64, dev)
+    got = gk.gram_block_kernel(x.bfloat16(), z.bfloat16(), 1 / 64)
+    torch.testing.assert_close(got, gk.gram_block_ref(x.bfloat16(), z.bfloat16(), 1 / 64), atol=ATOL_GRAM, rtol=0)
+    torch.testing.assert_close(got, gk.gram_block_ref(x, z, 1 / 64), atol=ATOL_BF16, rtol=0)
+
+
+@pytest.mark.parametrize("alpha,c,degree", [(1 / 256, 1.0, 2), (1.0, 0.0, 1), (0.05, -0.5, 3), (0.3, 2.0, 0)])
+@pytest.mark.parametrize("n,m,d", [(512, 512, 256), (1000, 777, 37)])
+def test_poly_block_matches_plain(dev, alpha, c, degree, n, m, d):
+    rng = np.random.default_rng(n + degree)
+    x, z = _xz(rng, n, m, d, dev)
+    gk.reset_launches()
+    got = gk.poly_block_kernel(x, z, alpha, c, degree)
+    assert gk.LAUNCHES["poly_block"] == 1
+    torch.testing.assert_close(got, gk.poly_block_ref(x, z, alpha, c, degree), atol=ATOL_GRAM, rtol=RTOL_POLY)
+
+
+def test_gram_wrappers_raise_instead_of_falling_back(dev):
+    rng = np.random.default_rng(3)
+    x, z = _xz(rng, 40, 30, 16, dev)
+    gk.reset_launches()
+    with pytest.raises(TypeError, match="share a dtype"):
+        gk.gram_block_kernel(x, z.bfloat16(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gram_block_kernel(x[:, :8], z[:, :8].contiguous(), 0.1)
+    with pytest.raises(ValueError, match="d="):
+        gk.poly_block_kernel(x, z[:, :8].contiguous(), 1.0, 0.0, 1)
+    with pytest.raises(ValueError, match="on cpu"):
+        gk.gram_block_kernel(x, z.cpu(), 0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        gk.gram_block_kernel(x.half(), z.half(), 0.1)
+    with pytest.raises(ValueError, match="degree"):
+        gk.poly_block_kernel(x, z, 1.0, 0.0, -2)
+    assert gk.LAUNCHES == {"gram_block": 0, "poly_block": 0}

@@ -13,9 +13,17 @@ import pytest
 import torch
 
 import keystone_tpu_torch
-from keystone_tpu_torch.convert import params_from_numpy
-from keystone_tpu_torch.ops import fisher_kernels
+from keystone_tpu_torch.convert import (
+    kernel_timit_params_from_numpy,
+    krr_params_from_numpy,
+    params_from_numpy,
+)
+from keystone_tpu_torch.models import kernel_ridge as kr
+from keystone_tpu_torch.models.nystrom import NystromFeatures
+from keystone_tpu_torch.ops import fisher_kernels, gram_kernels
+from keystone_tpu_torch.ops.stats import StandardScaler
 from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as port
+from keystone_tpu_torch.pipelines import kernel_timit
 from keystone_tpu_torch.utils.device import resolve_device
 
 PKG = Path(keystone_tpu_torch.__file__).parent
@@ -29,7 +37,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "keystone_tpu_torch.ops.fisher_kernels" in mods
+    for m in ("ops.fisher_kernels", "ops.gram_kernels", "models.kernel_ridge", "models.kernel_matrix",
+              "models.nystrom", "pipelines.kernel_timit", "workflow.profiling", "loaders.timit"):
+        assert f"keystone_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -95,3 +105,59 @@ def test_params_from_numpy_rejects_bad_input():
     del bad["sift.gmm.variances"]
     with pytest.raises(ValueError, match="missing"):
         params_from_numpy(bad, device="cpu")
+
+
+def _small_kernel_timit():
+    cfg = kernel_timit.Config(num_landmarks=16)
+    return cfg, kernel_timit.random_params(cfg, block_size=8, scaler_frames=64, device="cpu")
+
+
+def test_kernel_tier_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card: the CPU-only refusal is not observable")
+    cfg, raw = _small_kernel_timit()
+    x = np.random.default_rng(0).normal(size=(8, 3)).astype(np.float32)
+    y = np.ones((8, 1), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_timit.random_params(cfg, block_size=8, scaler_frames=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_timit_params_from_numpy(raw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel_timit.build_scorer_from_params(kernel_timit_params_from_numpy(raw, device="cpu"), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        krr_params_from_numpy({"krr.train_x": x, "krr.alpha": y})
+    for fit in (
+        lambda: kr.KernelRidgeRegressionEstimator(kr.GaussianKernelGenerator(0.1), block_size=4).fit_arrays(x, y),
+        lambda: NystromFeatures(kr.GaussianKernelGenerator(0.1), num_landmarks=4).fit_arrays(x),
+        lambda: StandardScaler().fit_arrays(x),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fit()
+
+
+def test_kernel_tier_cpu_paths_launch_no_kernel():
+    gram_kernels.reset_launches()
+    cfg, raw = _small_kernel_timit()
+    scorer = kernel_timit.build_scorer_from_params(kernel_timit_params_from_numpy(raw, device="cpu"), cfg,
+                                                   device="cpu")
+    frames = np.random.default_rng(1).normal(size=(5, 440)).astype(np.float32)
+    assert scorer(torch.from_numpy(frames)).shape == (5,)
+    x = np.random.default_rng(2).normal(size=(24, 3)).astype(np.float32)
+    for gen in (kr.GaussianKernelGenerator(0.1), kr.PolynomialKernelGenerator(2, 0.5, 1.0)):
+        est = kr.KernelRidgeRegressionEstimator(gen, block_size=8, cache_kernel_blocks=True)
+        est.fit_arrays(x, x[:, :1], device="cpu")
+    assert gram_kernels.LAUNCHES == {"gram_block": 0, "poly_block": 0}
+
+
+def test_kernel_tier_converters_reject_bad_input():
+    _, raw = _small_kernel_timit()
+    with pytest.raises(ValueError, match="unknown"):
+        kernel_timit_params_from_numpy({**raw, "nystrom.bogus": np.zeros(3)}, device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        kernel_timit_params_from_numpy({**raw, "nystrom.whiten": np.zeros((16, 15))}, device="cpu")
+    bad = dict(raw)
+    del bad["nystrom.landmarks"]
+    with pytest.raises(ValueError, match="missing"):
+        kernel_timit_params_from_numpy(bad, device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        krr_params_from_numpy({"krr.train_x": np.zeros((8, 3)), "krr.alpha": np.zeros((7, 1))}, device="cpu")
