@@ -20,7 +20,10 @@ result line):
    on ≥ 99% of images) and timed as images/s;
 5. gram kernels (B3 Gaussian, B4 polynomial/linear) against their plain
    versions on the card: the main paths' shapes in f32 and a bf16 stream,
-   d = 3072 and ragged shapes, within the stated tolerances;
+   d = 3072 and ragged shapes, within the stated tolerances; then the
+   f32-grade check: at the serving shape and the KRR column block each
+   kernel's largest error against a float64 gram of the same operands
+   within 2x the plain f32 chain's, which one-pass TF32 must fail;
 6. main path, Kernel TIMIT scoring at full width (d = 440, 2048
    landmarks, γ = 0.015, 147 classes, batches of 8192 frames; seeded
    parameters, the whitening fitted on the card): one gram launch a batch,
@@ -30,8 +33,9 @@ result line):
    (n = 8192, d = 256, k = 8, block 512, 2 epochs, γ = 0.002, λ = 1e-4):
    the in-core and cached Gaussian fits, the cached polynomial and linear
    fits, predict and BlockKernelMatrix.matvec, each with its launch
-   counts, against the same fits on the plain versions; fit seconds and
-   the sweep's TFLOP/s;
+   counts, against the same fits on the plain versions (the polynomial
+   and linear fits' α, where it leaves the plain fit's tolerance, against
+   a float64 fit); fit seconds and the sweep's TFLOP/s;
 8. one JSON line of kernel numbers (ms, plain ms, bound, launches) for
    all four kernels, then the last line {"ok": true, "device": {...}}.
 
@@ -81,6 +85,10 @@ TOP5_AGREEMENT = 0.99
 # "NVIDIA H100 80GB HBM3", the SXM part
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# the tensor cores, dense: TF32 and bf16 (the gram kernels' 3xTF32 f32
+# products take three TF32 products a multiply-add, bf16 operands one)
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 DEVICE = "cuda"
 
 # ---- kernel tier
@@ -99,13 +107,33 @@ CIFAR_GAMMA = 2e-4  # the reference kernel_cifar Config's γ at d = 3072
 TOL_GRAM = 1e-5
 TOL_POLY, RTOL_POLY = 1e-5, 1e-5
 TOL_GRAM_BF16 = 0.06
+# The polynomial kernel's cross term at d = 256 is a sum of 256 products
+# of size ~1 that rounds at ~1e-5 in f32: the kernel (3xTF32, tensor-core
+# order) and the plain chain (cuBLAS's f32 SGEMM) round it in different
+# orders and can differ by 2e-5 where |ref| ~ 0, so the f32 chain is no
+# reference at 1e-5 absolute.  B4 is held at the same tolerance against
+# the plain chain evaluated in float64 on the same operands.  Where the
+# plain f32 chain itself leaves that tolerance against float64 (the
+# linear kernel at the KRR column block: |x.z| to ~330 from partial sums
+# of that size), it is below f32's rounding, and the case is held
+# f32-grade instead, as below.
+# f32-grade: a kernel's largest error against a float64 gram of the same
+# operands may be at most F64_RATIO times the plain f32 chain's (cuBLAS,
+# TF32 off); one-pass TF32 must exceed it, or the check could not tell.
+F64_RATIO = 2.0
 # Kernel TIMIT scores: K(x, L) entries ≲ 6e-3 (γ·‖x − l‖² ≥ 5 between
 # scaled frames), a well-conditioned whitening and 0.01·normal weights put
 # |score| ≲ 1e-3; the kernel's gram agrees with the plain one to ~1e-9
 TOL_KT_SCORES = 1e-6
 ARGMAX_AGREEMENT = 0.999
 # KRR dual coefficients: the JAX package's 2e-5 (tests/test_gram_pallas.py)
-# plus the f32 relative term used above for sums taken in another order
+# plus the f32 relative term used above for sums taken in another order.
+# The polynomial and linear fits solve K_bb + λn·I with λn = 0.82 and
+# K_bb of rank ≤ 256 (linear, d = 256) or nearly so: the solve amplifies
+# the f32 rounding of K, so two f32 fits whose grams round differently
+# may leave this tolerance with neither wrong.  Where one does, each f32
+# fit's α is held against a float64 fit of the same data: the kernel
+# fit's largest error at most F64_RATIO times the plain fit's.
 TOL_ALPHA, RTOL_ALPHA = 2e-5, 1e-5
 PRED_R2 = 0.9999
 
@@ -183,19 +211,64 @@ def bound_ms(nbytes, flops):
     return 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS)
 
 
+def bound_ms_tc(n, m, d, bf16=False):
+    """The least time of one gram block on the tensor cores: its bytes
+    (``gram_cost``) over the memory rate, or its 2·n·m·d product flops
+    as three TF32 passes (f32 operands) or one bf16 pass."""
+    nbytes, _ = gram_cost(n, m, d, 2 if bf16 else 4)
+    flops = 2 * n * m * d
+    ops = flops / PEAK_BF16_FLOPS if bf16 else 3 * flops / PEAK_TF32_FLOPS
+    return 1e3 * max(nbytes / PEAK_BYTES, ops)
+
+
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def compare(name, got, ref, atol, rtol=RTOL_F32):
-    diff = (got.float() - ref.float()).abs()
+def within(name, got, ref, atol, rtol=RTOL_F32):
+    """(largest error, worst ratio to atol + rtol·|ref|), printed; a float64
+    ref keeps its precision."""
+    dt = torch.float64 if ref.dtype == torch.float64 else torch.float32
+    diff = (got.to(dt) - ref).abs()
     err = diff.max().item()
-    ratio = (diff / (atol + rtol * ref.float().abs())).max().item()
+    ratio = (diff / (atol + rtol * ref.abs())).max().item()
     print(f"  {name}: max_abs_err={err:.3e} (|ref| max {ref.abs().max().item():.3e}); "
           f"tol {atol:.0e} + {rtol:.0e}·|ref|, worst ratio {ratio:.3f}", flush=True)
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    return err, ratio
+
+
+def compare(name, got, ref, atol, rtol=RTOL_F32):
+    err, ratio = within(name, got, ref, atol, rtol)
     check(ratio <= 1.0, f"{name}: error above tolerance (worst ratio {ratio:.3f})")
     return err
+
+
+def gram_f64(x, z, gamma):
+    """The Gaussian plain chain in float64 on the same operands."""
+    x, z = x.double(), z.double()
+    sq = (x * x).sum(1, keepdim=True) - 2.0 * x @ z.T + (z * z).sum(1)
+    return torch.exp(-gamma * sq.clamp(min=0.0))
+
+
+def poly_f64(x, z, alpha, c, degree):
+    """The polynomial plain chain in float64 on the same operands."""
+    return (alpha * (x.double() @ z.double().T) + c) ** int(degree)
+
+
+@contextlib.contextmanager
+def tf32_matmul():
+    """One-pass TF32 for f32 torch.matmul (the negative control), restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def max_err64(a, ref64) -> float:
+    return (a.double() - ref64).abs().max().item()
 
 
 def reset_all(*modules) -> None:
@@ -204,12 +277,14 @@ def reset_all(*modules) -> None:
 
 
 def gram_checks(gk, dev, rng, serving, krr_x):
-    """B3 and B4 against their plain versions on the card; returns the
-    largest f32 error of each kernel and the bf16 stream's (against the
-    plain version on the same bf16 operands, and against f32)."""
+    """B3 and B4 against their plain versions on the card, then the
+    f32-grade check against float64; returns the largest error of each
+    kernel and of the bf16 stream (against the plain version on the same
+    bf16 operands, and against f32), and the float64 errors by case."""
     xs, lmk, gamma = serving
     xb = krr_x[:KRR_BLOCK]
-    errs = {"gram_block": 0.0, "poly_block": 0.0, "gram_block_bf16": 0.0, "gram_block_bf16_vs_f32": 0.0}
+    errs = {"gram_block": 0.0, "poly_block": 0.0, "gram_block_bf16": 0.0, "gram_block_bf16_vs_f32": 0.0,
+            "poly_block_bf16": 0.0}
 
     def t(shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
@@ -219,10 +294,18 @@ def gram_checks(gk, dev, rng, serving, krr_x):
         want = gk.gram_block_ref(x, z, g) if want is None else want
         errs[key] = max(errs[key], compare(label, got, want, atol, 0.0))
 
-    def poly(label, x, z, a, c, deg):
+    def poly(label, x, z, a, c, deg, key="poly_block"):
         got = gk.poly_block_kernel(x, z, a, c, deg)
-        errs["poly_block"] = max(errs["poly_block"], compare(
-            label, got, gk.poly_block_ref(x, z, a, c, deg), TOL_POLY, RTOL_POLY))
+        want = poly_f64(x, z, a, c, deg)
+        err, ratio = within(f"{label} vs the plain chain in float64", got, want, TOL_POLY, RTOL_POLY)
+        if ratio > 1.0:  # see TOL_POLY: only where f32 itself cannot meet the tolerance
+            e_plain, r_plain = within("  the plain f32 chain", gk.poly_block_ref(x, z, a, c, deg), want,
+                                      TOL_POLY, RTOL_POLY)
+            print(f"  below f32's rounding here: held f32-grade instead, error {err / e_plain:.3f} "
+                  f"of the plain f32 chain's (at most {F64_RATIO})", flush=True)
+            check(x.dtype == torch.float32 and r_plain > 1.0 and err <= F64_RATIO * e_plain,
+                  f"{label}: error above tolerance (worst ratio {ratio:.3f})")
+        errs[key] = max(errs[key], err)
 
     with phase("gram kernels vs plain versions"):
         serving_shape = (xs.shape[0], lmk.shape[0], xs.shape[1])
@@ -242,8 +325,38 @@ def gram_checks(gk, dev, rng, serving, krr_x):
         poly(f"B4 linear (1, 0, 1) {column_shape}", krr_x, xb, 1.0, 0.0, 1)
         poly(f"B4 degree 3, α=0.05, c=-0.5 {column_shape}", krr_x, xb, 0.05, -0.5, 3)
         poly("B4 ragged degree 2, α=0.3, c=0.5 (1000, 777, 37)", rx, rz, 0.3, 0.5, 2)
+        poly(f"B4 bf16 stream degree 2 on the same bf16 operands {column_shape}", krr_x.bfloat16(),
+             xb.bfloat16(), 1.0 / KRR_D, 1.0, 2, "poly_block_bf16")
         torch.cuda.synchronize()
-    return errs
+
+    f64 = {"gram_block": {}, "poly_block": {}}
+    with phase("gram kernels: f32-grade against float64"):
+        for key, where, kern, plain, exact in (
+            ("gram_block", "serving", lambda: gk.gram_block_kernel(xs, lmk, gamma),
+             lambda: gk.gram_block_ref(xs, lmk, gamma), lambda: gram_f64(xs, lmk, gamma)),
+            ("gram_block", "krr_column", lambda: gk.gram_block_kernel(krr_x, xb, KRR_GAMMA),
+             lambda: gk.gram_block_ref(krr_x, xb, KRR_GAMMA), lambda: gram_f64(krr_x, xb, KRR_GAMMA)),
+            ("poly_block", "degree 2 krr_column", lambda: gk.poly_block_kernel(krr_x, xb, 1.0 / KRR_D, 1.0, 2),
+             lambda: gk.poly_block_ref(krr_x, xb, 1.0 / KRR_D, 1.0, 2),
+             lambda: poly_f64(krr_x, xb, 1.0 / KRR_D, 1.0, 2)),
+            ("poly_block", "linear krr_column", lambda: gk.poly_block_kernel(krr_x, xb, 1.0, 0.0, 1),
+             lambda: gk.poly_block_ref(krr_x, xb, 1.0, 0.0, 1), lambda: poly_f64(krr_x, xb, 1.0, 0.0, 1)),
+            ("poly_block", "linear serving", lambda: gk.poly_block_kernel(xs, lmk, 1.0, 0.0, 1),
+             lambda: gk.poly_block_ref(xs, lmk, 1.0, 0.0, 1), lambda: poly_f64(xs, lmk, 1.0, 0.0, 1)),
+        ):
+            ref = exact()
+            e_kernel, e_plain = max_err64(kern(), ref), max_err64(plain(), ref)
+            with tf32_matmul():
+                e_tf32 = max_err64(plain(), ref)
+            print(f"  {key} {where}: largest error against float64: kernel {e_kernel:.3e}, plain f32 chain "
+                  f"{e_plain:.3e} (ratio {e_kernel / e_plain:.3f}, at most {F64_RATIO}); one-pass TF32 "
+                  f"{e_tf32:.3e} (ratio {e_tf32 / e_plain:.1f}, must exceed {F64_RATIO})", flush=True)
+            check(e_kernel <= F64_RATIO * e_plain, f"{key} {where}: not f32-grade against float64")
+            check(e_tf32 > F64_RATIO * e_plain, f"{key} {where}: the check cannot tell TF32 from f32")
+            f64[key][where] = {"kernel": e_kernel, "plain_f32": e_plain, "tf32": e_tf32}
+            del ref
+        torch.cuda.synchronize()
+    return errs, f64
 
 
 def kernel_timit_setup(dev):
@@ -313,6 +426,24 @@ def krr_data(dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (x, y, xt))
 
 
+def krr_alpha_f64(kern64, x, y):
+    """α of the blockwise sweep (the cached fits' Gauss–Seidel over column
+    blocks, straightforwardly, no padding at n = 8192) in float64, with the
+    float64 kernel ``kern64``."""
+    x, y = x.double(), y.double()
+    n, bs = x.shape[0], KRR_BLOCK
+    cols = [kern64(x, x[lo:lo + bs]) for lo in range(0, n, bs)]
+    reg = KRR_LAM * n * torch.eye(bs, dtype=torch.float64, device=x.device)
+    alpha, f = torch.zeros_like(y), torch.zeros_like(y)
+    for _ in range(KRR_EPOCHS):
+        for b, lo in enumerate(range(0, n, bs)):
+            kbb, ab = cols[b][lo:lo + bs], alpha[lo:lo + bs]
+            new = torch.linalg.solve(kbb + reg, y[lo:lo + bs] - f[lo:lo + bs] + kbb @ ab)
+            f += cols[b] @ (new - ab)
+            alpha[lo:lo + bs] = new
+    return alpha
+
+
 def krr_path(dev, card, gk, fk, data):
     """The bench.py kernel-leg geometry: four fits, predict and matvec,
     each against the same computation on the plain versions."""
@@ -327,6 +458,8 @@ def krr_path(dev, card, gk, fk, data):
         "polynomial": KR.PolynomialKernelGenerator(2, 1.0 / d, 1.0),
         "linear": KR.LinearKernelGenerator(),
     }
+    kern64 = {"polynomial": lambda a, b: poly_f64(a, b, 1.0 / d, 1.0, 2),
+              "linear": lambda a, b: poly_f64(a, b, 1.0, 0.0, 1)}
     flops = kernel_flops(n, d, k, bs, ep)
     fits, models = {}, {}
     for label, gen, cached, kname, want in (
@@ -354,9 +487,22 @@ def krr_path(dev, card, gk, fk, data):
             ref = KR.KernelRidgeRegressionEstimator(gens[gen], use_kernel=False, **kw).fit_arrays(
                 xd, yd, device=dev)
             check(bool(torch.isfinite(model.alpha).all()), f"{label}: non-finite α")
-            err = compare(f"α, {label}, vs the plain fit", model.alpha, ref.alpha, TOL_ALPHA, RTOL_ALPHA)
-            fits[label] = {"seconds": dt, "tflops": flops / dt / 1e12, "launches": launches[kname],
-                           "alpha_max_abs_err": err}
+            fits[label] = {"seconds": dt, "tflops": flops / dt / 1e12, "launches": launches[kname]}
+            if gen == "gaussian":
+                err = compare(f"α, {label}, vs the plain fit", model.alpha, ref.alpha, TOL_ALPHA, RTOL_ALPHA)
+            else:  # see TOL_ALPHA
+                err, ratio = within(f"α, {label}, vs the plain fit", model.alpha, ref.alpha, TOL_ALPHA,
+                                    RTOL_ALPHA)
+                a64 = krr_alpha_f64(kern64[gen], xd, yd)
+                e_kernel, e_plain = max_err64(model.alpha, a64), max_err64(ref.alpha, a64)
+                held = ratio > 1.0
+                print(f"  α against a float64 fit: kernel fit {e_kernel:.3e}, plain f32 fit {e_plain:.3e} "
+                      f"(ratio {e_kernel / e_plain:.3f}, at most {F64_RATIO}"
+                      f"{', held: the plain-fit tolerance is left' if held else ', not needed'})", flush=True)
+                if held:
+                    check(e_kernel <= F64_RATIO * e_plain, f"{label}: α further from float64 than the plain fit's")
+                fits[label]["alpha_f64"] = {"kernel": e_kernel, "plain_f32": e_plain, "held": held}
+            fits[label]["alpha_max_abs_err"] = err
             models[label] = (model, ref)
     with phase("main path: KRR in-core vs cached"):
         compare("α in-core vs cached, both on the kernel", models["in-core gaussian"][0].alpha,
@@ -396,7 +542,7 @@ def krr_path(dev, card, gk, fk, data):
     return fits
 
 
-def gram_lines(gk, serving, krr_x, errs, results):
+def gram_lines(gk, serving, krr_x, errs, f64, results):
     """The kernels-line entries of B3 and B4: times at the main paths'
     shapes, the plain versions', one torch.matmul of the same operands
     (the gemm the fused kernel should approach), bounds and launches."""
@@ -415,37 +561,48 @@ def gram_lines(gk, serving, krr_x, errs, results):
     poly_cost = gram_cost(KRR_N, KRR_BLOCK, KRR_D, degree=2)
     linear_cost = gram_cost(KRR_N, KRR_BLOCK, KRR_D, degree=1)
     gemm_column = cuda_ms(lambda: torch.matmul(krr_x, xb.T))
+    xs16, lmk16, krr16, xb16 = (t.bfloat16() for t in (xs, lmk, krr_x, xb))
     gram = {
         "name": "gram_block", "route": "cuda", "source": "keystone_tpu_torch/csrc/gram.cu",
         "replaces": "keystone_tpu/ops/gram_pallas.py:89",
         "launches": sum(gram_launches.values()), "launches_by_path": gram_launches,
         "max_abs_err": errs["gram_block"], "max_abs_err_bf16": errs["gram_block_bf16"],
-        "max_abs_err_bf16_vs_f32": errs["gram_block_bf16_vs_f32"],
+        "max_abs_err_bf16_vs_f32": errs["gram_block_bf16_vs_f32"], "f64_check": f64["gram_block"],
         "ms": cuda_ms(lambda: gk.gram_block_kernel(xs, lmk, gamma)),
         "plain_ms": cuda_ms(lambda: gk.gram_block_ref(xs, lmk, gamma), reps=5),
         "bound_ms": bound_ms(*serving_cost), "bound_by": bound_by(*serving_cost),
+        "bound_ms_tc": bound_ms_tc(n, m, d), "bound_ms_tc_bf16": bound_ms_tc(n, m, d, bf16=True),
         # no single PyTorch call computes a Gaussian gram
         "library_ms": None, "gemm_ms": cuda_ms(lambda: torch.matmul(xs, lmk.T)),
         "shape": f"({n}, {m}, {d}) f32, one Kernel TIMIT batch",
-        "ms_bf16": cuda_ms(lambda: gk.gram_block_kernel(xs.bfloat16(), lmk.bfloat16(), gamma)),
+        # the bf16 operands cast before timing: the kernel alone
+        "ms_bf16": cuda_ms(lambda: gk.gram_block_kernel(xs16, lmk16, gamma)),
+        "ms_bf16_krr_column": cuda_ms(lambda: gk.gram_block_kernel(krr16, xb16, KRR_GAMMA)),
         "ms_krr_column": cuda_ms(lambda: gk.gram_block_kernel(krr_x, xb, KRR_GAMMA)),
         "plain_ms_krr_column": cuda_ms(lambda: gk.gram_block_ref(krr_x, xb, KRR_GAMMA), reps=5),
         "gemm_ms_krr_column": gemm_column, "bound_ms_krr_column": bound_ms(*column_cost),
+        "bound_ms_tc_krr_column": bound_ms_tc(KRR_N, KRR_BLOCK, KRR_D),
+        "bound_ms_tc_bf16_krr_column": bound_ms_tc(KRR_N, KRR_BLOCK, KRR_D, bf16=True),
     }
     poly = {
         "name": "poly_block", "route": "cuda", "source": "keystone_tpu_torch/csrc/gram.cu",
         "replaces": "keystone_tpu/ops/gram_pallas.py:207",
         "launches": sum(poly_launches.values()), "launches_by_path": poly_launches,
-        "max_abs_err": errs["poly_block"],
+        "max_abs_err": errs["poly_block"], "max_abs_err_bf16": errs["poly_block_bf16"],
+        "f64_check": f64["poly_block"],
         "ms": cuda_ms(lambda: gk.poly_block_kernel(krr_x, xb, 1.0 / KRR_D, 1.0, 2)),
         "plain_ms": cuda_ms(lambda: gk.poly_block_ref(krr_x, xb, 1.0 / KRR_D, 1.0, 2), reps=5),
         "bound_ms": bound_ms(*poly_cost), "bound_by": bound_by(*poly_cost),
+        "bound_ms_tc": bound_ms_tc(KRR_N, KRR_BLOCK, KRR_D),
+        "ms_bf16": cuda_ms(lambda: gk.poly_block_kernel(krr16, xb16, 1.0 / KRR_D, 1.0, 2)),
+        "bound_ms_tc_bf16": bound_ms_tc(KRR_N, KRR_BLOCK, KRR_D, bf16=True),
         # the linear case (1, 0, 1) is one PyTorch call: x @ zᵀ (TF32 off)
         "library_ms": gemm_column, "gemm_ms": gemm_column,
         "shape": f"({KRR_N}, {KRR_BLOCK}, {KRR_D}) f32 degree 2, one KRR column block",
         "ms_linear": cuda_ms(lambda: gk.poly_block_kernel(krr_x, xb, 1.0, 0.0, 1)),
         "plain_ms_linear": cuda_ms(lambda: gk.poly_block_ref(krr_x, xb, 1.0, 0.0, 1), reps=5),
         "bound_ms_linear": bound_ms(*linear_cost),
+        "bound_ms_tc_linear": bound_ms_tc(KRR_N, KRR_BLOCK, KRR_D),
     }
     return [gram, poly]
 
@@ -646,7 +803,7 @@ def main(argv=None) -> int:
     with phase("kernel TIMIT parameters (whitening fitted on the card)"):
         kt_scorer, kt_plain, frame_batches, serving = kernel_timit_setup(dev)
     data = krr_data(dev)
-    gram_errs = gram_checks(gk, dev, rng, serving, data[0])
+    gram_errs, gram_f64s = gram_checks(gk, dev, rng, serving, data[0])
     results["kernel_timit"] = kernel_timit_path(card, kt_scorer, kt_plain, frame_batches, KT, gk, fk)
     results["krr"] = krr_path(dev, card, gk, fk, data)
 
@@ -684,11 +841,11 @@ def main(argv=None) -> int:
         for ln in lines:
             print(f"  {ln['name']}: {ln['ms']:.4f} ms (plain {ln['plain_ms']:.4f} ms, bound "
                   f"{ln['bound_ms']:.4f} ms by {ln['bound_by']}) per batch of {BATCH}, {card}")
-        lines += gram_lines(gk, serving, data[0], gram_errs, results)
+        lines += gram_lines(gk, serving, data[0], gram_errs, gram_f64s, results)
         for ln in lines[2:]:
             print(f"  {ln['name']}: {ln['ms']:.4f} ms (plain {ln['plain_ms']:.4f} ms, gemm "
-                  f"{ln['gemm_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms by {ln['bound_by']}) "
-                  f"at {ln['shape']}, {card}")
+                  f"{ln['gemm_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms by {ln['bound_by']}, on the "
+                  f"tensor cores {ln['bound_ms_tc']:.4f} ms) at {ln['shape']}, {card}")
 
     if args.profile:
         from keystone_tpu_torch.models import kernel_ridge as KR

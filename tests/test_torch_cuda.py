@@ -114,16 +114,35 @@ def test_wrappers_raise_instead_of_falling_back(dev):
 ATOL_GRAM, RTOL_POLY, ATOL_BF16 = 1e-5, 1e-5, 0.06
 
 
-def _xz(rng, n, m, d, dev, scale=1.0):
+def _at_offset(t, offset):
+    """``t`` as a contiguous tensor whose data starts ``offset`` elements
+    into a fresh buffer: offset 1 of f32 or bf16 is not 16-byte aligned."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _xz(rng, n, m, d, dev, scale=1.0, offset=0):
     x = (scale * rng.normal(size=(n, d))).astype(np.float32)
     z = (scale * rng.normal(size=(m, d))).astype(np.float32)
-    return torch.from_numpy(x).to(dev), torch.from_numpy(z).to(dev)
+    return _at_offset(torch.from_numpy(x).to(dev), offset), torch.from_numpy(z).to(dev)
 
 
-@pytest.mark.parametrize("n,m,d", [(512, 512, 256), (1000, 777, 37), (5, 3, 1), (130, 129, 440)])
-def test_gram_block_matches_plain(dev, n, m, d):
+# d = 1, 13, 37: not a multiple of 4 (one-element copies); 440, 3072: the
+# main paths' widths, 14 and 96 chunks of the ring; offset 1: x's base is
+# not 16-byte aligned, so even d = 256 takes one-element copies; n and m
+# off the 128-row tile
+GRAM_SHAPES = [(512, 512, 256, 0), (1000, 777, 37, 0), (5, 3, 1, 0), (130, 129, 440, 0),
+               (300, 200, 13, 0), (257, 131, 256, 1), (640, 384, 3072, 0), (129, 300, 37, 1)]
+
+
+@pytest.mark.parametrize("n,m,d,offset", GRAM_SHAPES)
+def test_gram_block_matches_plain(dev, n, m, d, offset):
     rng = np.random.default_rng(n + m + d)
-    x, z = _xz(rng, n, m, d, dev)
+    x, z = _xz(rng, n, m, d, dev, offset=offset)
     gamma = 1.0 / d
     gk.reset_launches()
     got = gk.gram_block_kernel(x, z, gamma)
@@ -131,23 +150,93 @@ def test_gram_block_matches_plain(dev, n, m, d):
     torch.testing.assert_close(got, gk.gram_block_ref(x, z, gamma), atol=ATOL_GRAM, rtol=0)
 
 
-def test_gram_block_bf16_stream(dev):
-    rng = np.random.default_rng(7)
-    x, z = _xz(rng, 300, 200, 64, dev)
-    got = gk.gram_block_kernel(x.bfloat16(), z.bfloat16(), 1 / 64)
-    torch.testing.assert_close(got, gk.gram_block_ref(x.bfloat16(), z.bfloat16(), 1 / 64), atol=ATOL_GRAM, rtol=0)
-    torch.testing.assert_close(got, gk.gram_block_ref(x, z, 1 / 64), atol=ATOL_BF16, rtol=0)
-
-
-@pytest.mark.parametrize("alpha,c,degree", [(1 / 256, 1.0, 2), (1.0, 0.0, 1), (0.05, -0.5, 3), (0.3, 2.0, 0)])
-@pytest.mark.parametrize("n,m,d", [(512, 512, 256), (1000, 777, 37)])
-def test_poly_block_matches_plain(dev, alpha, c, degree, n, m, d):
-    rng = np.random.default_rng(n + degree)
+# the bf16 stream through the bf16 mma pass, both epilogues: held at 1e-5
+# (+ 1e-5 relative for the polynomial) against the plain version on the
+# same bf16 operands, whose products are exact in f32, and at 0.06 against
+# f32.  d = 440 takes 16-byte copies, d = 37 and offset 1 one-element loads
+@pytest.mark.parametrize("epilogue", ["gaussian", "polynomial"])
+@pytest.mark.parametrize("n,m,d,offset", [(300, 200, 64, 0), (257, 131, 440, 0), (1000, 777, 37, 0),
+                                          (130, 129, 256, 1)])
+def test_gram_block_bf16_stream(dev, epilogue, n, m, d, offset):
+    rng = np.random.default_rng(7 + d)
     x, z = _xz(rng, n, m, d, dev)
+    xb, zb = _at_offset(x.bfloat16(), offset), z.bfloat16()
+    if epilogue == "gaussian":
+        def kern(a, b):
+            return gk.gram_block_kernel(a, b, 1 / d)
+
+        def plain(a, b):
+            return gk.gram_block_ref(a, b, 1 / d)
+        rtol = 0.0
+    else:
+        def kern(a, b):
+            return gk.poly_block_kernel(a, b, 1 / d, 1.0, 2)
+
+        def plain(a, b):
+            return gk.poly_block_ref(a, b, 1 / d, 1.0, 2)
+        rtol = RTOL_POLY
+    got = kern(xb, zb)
+    torch.testing.assert_close(got, plain(xb, zb), atol=ATOL_GRAM, rtol=rtol)
+    torch.testing.assert_close(got, plain(x, z), atol=ATOL_BF16, rtol=0)
+
+
+def _poly64(x, z, alpha, c, degree):
+    """The plain polynomial chain in float64 on the same operands."""
+    return (alpha * (x.double() @ z.double().T) + c) ** degree
+
+
+# held against the plain chain in float64: at d = 256 the linear kernel's
+# sums of 256 unit products round at ~1e-5 in f32, so the kernel and
+# cuBLAS's f32 chain, summing in different orders, can differ by 2e-5
+# near 0 (chip_smoke.py's TOL_POLY says the same)
+@pytest.mark.parametrize("alpha,c,degree", [(1 / 256, 1.0, 2), (1.0, 0.0, 1), (0.05, -0.5, 3), (0.3, 2.0, 0)])
+@pytest.mark.parametrize("n,m,d,offset", [(512, 512, 256, 0), (1000, 777, 37, 0), (300, 200, 13, 0),
+                                          (257, 131, 256, 1)])
+def test_poly_block_matches_plain(dev, alpha, c, degree, n, m, d, offset):
+    rng = np.random.default_rng(n + degree)
+    x, z = _xz(rng, n, m, d, dev, offset=offset)
     gk.reset_launches()
     got = gk.poly_block_kernel(x, z, alpha, c, degree)
     assert gk.LAUNCHES["poly_block"] == 1
-    torch.testing.assert_close(got, gk.poly_block_ref(x, z, alpha, c, degree), atol=ATOL_GRAM, rtol=RTOL_POLY)
+    torch.testing.assert_close(got.double(), _poly64(x, z, alpha, c, degree), atol=ATOL_GRAM, rtol=RTOL_POLY)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "linear"])
+def test_gram_kernels_are_f32_grade(dev, kind):
+    """3xTF32 against a float64 gram of the same operands: within 2x the
+    plain f32 chain's (cuBLAS, TF32 off) largest error, where one-pass TF32
+    is not.  z holds x's first rows, so the diagonal's long same-signed
+    sums (‖x‖², K = 1 at a cancelling distance) are in the block."""
+    rng = np.random.default_rng(11)
+    x, _ = _xz(rng, 2048, 1, 256, dev)
+    z = x[:256]
+    if kind == "gaussian":
+        def kern():
+            return gk.gram_block_kernel(x, z, 0.002)
+
+        def plain(a, b):
+            return gk.gram_block_ref(a, b, 0.002)
+        x64, z64 = x.double(), z.double()
+        sq = (x64 * x64).sum(1, keepdim=True) - 2 * x64 @ z64.T + (z64 * z64).sum(1)
+        exact = torch.exp(-0.002 * sq.clamp(min=0))
+    else:
+        def kern():
+            return gk.poly_block_kernel(x, z, 1.0, 0.0, 1)
+
+        def plain(a, b):
+            return gk.poly_block_ref(a, b, 1.0, 0.0, 1)
+        exact = x.double() @ z.double().T
+    err = (kern().double() - exact).abs().max().item()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        err_f32 = (plain(x, z).double() - exact).abs().max().item()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        err_tf32 = (plain(x, z).double() - exact).abs().max().item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert err <= 2 * err_f32, (err, err_f32)
+    assert err_tf32 > 2 * err_f32, (err_tf32, err_f32)
 
 
 def test_gram_wrappers_raise_instead_of_falling_back(dev):
