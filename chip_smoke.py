@@ -10,7 +10,11 @@ result line):
 2. build: every CUDA source of the port compiled by nvcc for sm_90a;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (f32 and a bf16 descriptor stream), plus a
-   ragged T with masked rows, within the stated tolerances;
+   ragged T with masked rows, within the stated tolerances; then the
+   f32-grade check of the FV kernels (3xTF32 on the tensor cores): at B2's
+   shape and both of B1's main-path calls, each kernel's largest error
+   against a float64 FV chain of the same operands within 2x the plain
+   f32 chain's, which one-pass TF32 must fail;
 4. main paths at full width (batch 128, 128×128 RGB, SIFT step 4 → T=784,
    LCS step 6 → T=324, PCA 64, K=256, 1000 classes; seeded random
    weights made as bench.py makes them): the fused two-branch scorer and
@@ -36,8 +40,9 @@ result line):
    counts, against the same fits on the plain versions (the polynomial
    and linear fits' α, where it leaves the plain fit's tolerance, against
    a float64 fit); fit seconds and the sweep's TFLOP/s;
-8. one JSON line of kernel numbers (ms, plain ms, bound, launches) for
-   all four kernels, then the last line {"ok": true, "device": {...}}.
+8. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+   cores and on the tensor cores, launches, float64 errors) for all four
+   kernels, then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX; exits non-zero without a result when torch sees
 no CUDA device.
@@ -211,6 +216,13 @@ def bound_ms(nbytes, flops):
     return 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS)
 
 
+def fv_bound_ms_tc(n, t, d, k, d_in=0):
+    """The least time of one FV kernel call on the tensor cores: its bytes
+    (``fv_cost``) over the memory rate, or its flops as three TF32 passes."""
+    nbytes, flops = fv_cost(n, t, d, k, d_in=d_in)
+    return 1e3 * max(nbytes / PEAK_BYTES, 3 * flops / PEAK_TF32_FLOPS)
+
+
 def bound_ms_tc(n, m, d, bf16=False):
     """The least time of one gram block on the tensor cores: its bytes
     (``gram_cost``) over the memory rate, or its 2·n·m·d product flops
@@ -254,6 +266,36 @@ def gram_f64(x, z, gamma):
 def poly_f64(x, z, alpha, c, degree):
     """The polynomial plain chain in float64 on the same operands."""
     return (alpha * (x.double() @ z.double().T) + c) ** int(degree)
+
+
+def fv_f64(xs, mask, w, mu, var):
+    """The FV plain chain (``fisher_encode_ref``'s math) in float64 on the
+    same operands; ``fisher_encode_ref`` itself computes in f32."""
+    from keystone_tpu_torch.models.gmm import _log_gaussians
+
+    xs, mask, w, mu, var = (a.double() for a in (xs, mask, w, mu, var))
+    n, t, d = xs.shape
+    lg = _log_gaussians(xs.reshape(n * t, d), mu, var, torch.log(w))
+    gamma = torch.softmax(lg, dim=1).reshape(n, t, -1) * mask[..., None]
+    tnorm = torch.clamp(mask.sum(dim=1), min=1.0)[:, None, None]
+    s0 = gamma.sum(dim=1)[..., None]
+    s1 = torch.einsum("ntk,ntd->nkd", gamma, xs)
+    s2 = torch.einsum("ntk,ntd->nkd", gamma, xs * xs)
+    phi1 = (s1 - s0 * mu) / torch.sqrt(var) / (tnorm * torch.sqrt(w)[None, :, None])
+    phi2 = ((s2 - 2.0 * mu * s1 + s0 * mu * mu) / var - s0) / (tnorm * torch.sqrt(2.0 * w)[None, :, None])
+    return torch.cat([phi1.reshape(n, -1), phi2.reshape(n, -1)], dim=1)
+
+
+def fused_f64(desc, mask, components, mean, w, mu, var, normalize=True):
+    """``fused_forward_ref``'s chain in float64 on the same operands."""
+    from keystone_tpu_torch.ops.sift import _sift_normalize
+
+    z = desc.double()
+    if normalize:
+        z = _sift_normalize(z)
+    if mean is not None:
+        z = z - mean.double()
+    return fv_f64(z @ components.double(), mask, w, mu, var)
 
 
 @contextlib.contextmanager
@@ -758,6 +800,30 @@ def main(argv=None) -> int:
         compare("B1 ragged T=301, masked rows", fk.fused_forward(*a), fk.fused_forward_ref(*a), TOL_FUSED)
         torch.cuda.synchronize()
 
+    fv64 = {"fisher_encode": {}, "fused_forward": {}}
+    with phase("FV kernels: f32-grade against float64"):
+        for key, where, kern, plain, inputs, exact in (
+            ("fisher_encode", "(128, 784, 64) K=256", fk.fisher_encode, fk.fisher_encode_ref, (fx, fmask, *gmm_b2),
+             fv_f64),
+            ("fused_forward", "SIFT (128, 784, 128->64) K=256", fk.fused_forward, fk.fused_forward_ref,
+             fused_args(fused_sift, sift_raw, sift_mask, fused_sift.mean), fused_f64),
+            ("fused_forward", "LCS (128, 324, 96->64) K=256", fk.fused_forward, fk.fused_forward_ref,
+             fused_args(fused_lcs, lcs_desc, lcs_mask, fused_lcs.mean), fused_f64),
+        ):
+            ref = exact(*inputs)
+            e_kernel, e_plain = max_err64(kern(*inputs), ref), max_err64(plain(*inputs), ref)
+            with tf32_matmul():
+                e_tf32 = max_err64(plain(*inputs), ref)
+            print(f"  {key} {where}: largest error against float64 (|ref| max {ref.abs().max().item():.3e}): "
+                  f"kernel {e_kernel:.3e}, plain f32 chain {e_plain:.3e} (ratio {e_kernel / e_plain:.3f}, at "
+                  f"most {F64_RATIO}); one-pass TF32 {e_tf32:.3e} (ratio {e_tf32 / e_plain:.1f}, must exceed "
+                  f"{F64_RATIO})", flush=True)
+            check(e_kernel <= F64_RATIO * e_plain, f"{key} {where}: not f32-grade against float64")
+            check(e_tf32 > F64_RATIO * e_plain, f"{key} {where}: the check cannot tell TF32 from f32")
+            fv64[key][where] = {"kernel": e_kernel, "plain_f32": e_plain, "tf32": e_tf32}
+            del ref
+        torch.cuda.synchronize()
+
     # ---- the main paths; each one's counts are zeroed just before and read just after
     results = {}
     for label, path, plain, kernel, inputs in (
@@ -821,6 +887,9 @@ def main(argv=None) -> int:
                 "max_abs_err": errs[name], "ms": sum(ms), "plain_ms": sum(plain_ms),
                 "bound_ms": sum(bound_ms(*c) for c in costs),
                 "bound_by": "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES else "bytes",
+                # 3xTF32 on the tensor cores: the bound the kernel is held to
+                "bound_ms_tc": sum(fv_bound_ms_tc(n, t, PCA_DIMS, GMM_K, d_in=d_in) for _, (n, t, d_in) in calls),
+                "f64_check": fv64[name],
                 # no single PyTorch call computes a Fisher-vector encode,
                 # and no one gemm is its floor
                 "library_ms": None, "gemm_ms": None,
@@ -840,7 +909,8 @@ def main(argv=None) -> int:
         ]
         for ln in lines:
             print(f"  {ln['name']}: {ln['ms']:.4f} ms (plain {ln['plain_ms']:.4f} ms, bound "
-                  f"{ln['bound_ms']:.4f} ms by {ln['bound_by']}) per batch of {BATCH}, {card}")
+                  f"{ln['bound_ms']:.4f} ms by {ln['bound_by']}, on the tensor cores {ln['bound_ms_tc']:.4f} ms) "
+                  f"per batch of {BATCH}, {card}")
         lines += gram_lines(gk, serving, data[0], gram_errs, gram_f64s, results)
         for ln in lines[2:]:
             print(f"  {ln['name']}: {ln['ms']:.4f} ms (plain {ln['plain_ms']:.4f} ms, gemm "

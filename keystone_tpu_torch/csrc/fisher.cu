@@ -18,44 +18,107 @@
 // What bounds it on an H100: per image four contractions of T*d*K (two
 // posterior gemms, the g^T x and g^T x^2 statistics), 8*T*d*K flops,
 // against T*d descriptor reads and 2*K*d output writes -- a few hundred
-// flops per byte in f32, far above the card's f32 ridge (67 TFLOP/s of
-// non-tensor f32 over 3.35 TB/s = 20 flop/byte).  So it is bound by f32
-// FMA throughput, not by memory.
+// flops per byte.  On the CUDA cores (67 TFLOP/s of f32 over 3.35 TB/s, a
+// ridge of 20 flop/byte) that is FMA-bound, and so is 3xTF32 on the tensor
+// cores (495/3 = 165 TFLOP/s of f32-grade work, a ridge of ~49).
+//
+// Precision.  The reference computes in f32.  The two contractions run on
+// the tensor cores as 3xTF32 mma.sync m16n8k8: each f32 operand v splits
+// into big = tf32(v) and small = tf32(v - big), both rounded to nearest,
+// and a.b ~ a_s.b_b + a_b.b_s + a_b.b_b, the small terms first; only
+// a_s.b_s (~2^-22 relative) is dropped.  The tensor core adds into its
+// accumulator with truncation, which biases a long same-signed sum (s2 is
+// one over all T) toward zero; so every k-step's three products go into a
+// fresh fragment that is added to the running sums on the CUDA cores,
+// rounded to nearest, after a half-ulp correction of the truncation (see
+// mma3_add).  bf16 descriptors are widened to f32 and take the
+// same path.  The log posterior's per-component constant (~|log N|, a
+// hundred at d = 64) comes in two f32 parts, its rounded value and what
+// the rounding dropped (the wrapper computes it in float64); the low part
+// starts each descriptor's sum.  Rounded once into one f32, the constant
+// would be off by up to half its ulp on every descriptor alike, a shift of
+// that component's posterior mass that the sums over T carry: that, not
+// the products, set the largest FV error against float64 on the card.
 //
 // What the design does about it: one block per image walks that image's
 // T descriptors tile by tile.  The TPU's sequential grid axis becomes a
 // loop inside the block, so no order between blocks is assumed.  The
-// (K, 2d) statistics accumulators stay in registers for the whole walk
-// (8 components x 8 dims x {x, x^2} per thread); the posterior weights
-// (2d, K) stay in shared memory; g never leaves shared memory.  Device
-// memory sees one read of the descriptors and one write of the FV.  Both
-// gemms are register-tiled outer products (8x16 and 4x8 per thread) in
-// f32 FMA: no tensor cores, the port's forward is true f32.  Ragged T is
+// posterior weights (2d, K) stay resident and unsplit in shared memory;
+// each warp splits its slice of them in registers at fragment load, once
+// a tile.  g never leaves shared memory.  The (2d, K) statistics stay in
+// registers for the whole walk as 32 m16n8 fragments a warp (128 floats a
+// thread), a 4 x 8 block of the fragment grid where d and K allow (the
+// main path's do), so that each split fragment feeds 4 or 8 products.
+// The hot loops have no branch, so that the fragments' product chains
+// overlap.  Device memory sees one read of the descriptors and one write
+// of the FV.  Shared rows are padded so that the fragment loads are free
+// of bank conflicts (the statistics' x loads are 2-way).  Ragged T is
 // handled in the kernel: the tail tile is zero-filled and its mask is 0,
-// so no padded copy of the descriptors is made.  At batch 128 the grid
-// is 128 blocks on 132 SMs, one block (8 warps) per SM: the occupancy is
-// low and latency is hidden only by the register tiling; a faster
-// version would split T across blocks or use several images per block.
+// and m16 rows past a tile of 8 or 24 repeat its last row and are not
+// stored, so no padded copy of the descriptors is made.  At batch 128 the
+// grid is 128 blocks on 132 SMs, one block (8 warps) per SM: the occupancy
+// is low and mma.sync does not reach wgmma's rate; splitting T across
+// blocks and wgmma are the next levers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kAccK = 8;   // components per thread in the statistics
-constexpr int kAccD = 8;   // descriptor dims per thread (x and x^2 each)
-constexpr int kPostT = 4;  // posterior micro tile: descriptors
-constexpr int kPostK = 8;  // posterior micro tile: components
+constexpr int kSlots = 32;   // statistics fragments a warp: (d/8)(K/8) <= kWarps * kSlots
+constexpr int kPostN = 4;    // posterior n8 tiles a warp holds at once
 constexpr int kMaxTile = 32;
+constexpr int kBatch = 4;    // 16-byte loads a thread has in flight when staging
 constexpr size_t kSmemLimit = 232448;  // 227 KB: the most one block may use
 constexpr int kErrShape = -1;          // shape the kernel does not take
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// 4 consecutive descriptor values as f32 (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);  // the low half is the earlier value
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// n float4s, dst[to(i)] = src[from(i)]: each thread issues kBatch loads
+// before it stores any, so a copy pays device memory's latency about
+// once, not once a float4
+template <typename From, typename To>
+__device__ __forceinline__ void copy4(const float4* __restrict__ src, float4* dst, int n, From from, To to) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * kThreads) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + u * kThreads < n) v[u] = src[from(i0 + u * kThreads)];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + u * kThreads < n) dst[to(i0 + u * kThreads)] = v[u];
+  }
+}
+
+// a tile of an image's (T, w) descriptors from row t0 on, w a multiple of
+// 4, in chunks of 4 values: put(e, v) stores the chunk at element e of
+// the (tile, w) tile; chunks past `rows` are zero.  Batched as copy4.
+template <typename TIn, typename Put>
+__device__ __forceinline__ void stage_tile(const TIn* __restrict__ src, int w, int tile, int rows, Put put) {
+  const int n = tile * w / 4, live = rows * w / 4;
+  for (int c0 = threadIdx.x; c0 < n; c0 += kBatch * kThreads) {
+    float4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int c = c0 + u * kThreads;
+      v[u] = c < live ? load4(src + 4 * (size_t)c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (c0 + u * kThreads < n) put(4 * (c0 + u * kThreads), v[u]);
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -71,25 +134,40 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
-// row stride of the g buffer; the fused kernel's raw (tile, d_in) tile
-// lives in the same buffer before the posterior overwrites it
-__host__ __device__ inline int gstride_of(int K, int d_in) { return round4(K > d_in ? K : d_in); }
+// the least stride >= v that is r modulo 32 floats (32 banks): rows r
+// banks apart put the m16n8k8 fragment loads on distinct banks
+__host__ __device__ inline int pad_stride(int v, int r) { return v + ((r - v) % 32 + 32) % 32; }
+
+// row strides: the (2d, K) weights and the (tile, K) posteriors are read
+// as B fragments (lanes 4 apart one row apart: 8 banks a row), the
+// (tile, 2d) descriptors as the posterior's A fragment (lanes 1 apart one
+// row apart: 4 banks a row).  The fused kernel's raw (tile, d_in) tile
+// lives in the g buffer before the posterior overwrites it.
+__host__ __device__ inline int wstride_of(int K) { return pad_stride(K, 8); }
+__host__ __device__ inline int gstride_of(int K, int d_in) { return pad_stride(K > d_in ? K : d_in, 8); }
+__host__ __device__ inline int xstride_of(int d) { return pad_stride(2 * d, 4); }
+
+// column of x_j (sq = 0) or x_j^2 (sq = 1) in a descriptor row, and row
+// of their weights: blocks of 16, [x_8b .. x_8b+7, x_8b^2 .. x_8b+7^2], so
+// that one m16 fragment of the statistics holds s1 and s2 of 8 dims
+__host__ __device__ inline int xcol(int j, int sq) { return 16 * (j / 8) + 8 * sq + j % 8; }
 
 // shared memory in floats; d_in == 0 for the plain encode.  Every part
 // is a multiple of 4 floats, so each starts 16-byte aligned.
 __host__ __device__ inline size_t smem_floats(int tile, int d, int K, int d_in) {
-  size_t f = (size_t)2 * d * K + 2 * (size_t)round4(K) + (size_t)tile * 2 * d +
+  size_t f = (size_t)2 * d * wstride_of(K) + 3 * (size_t)round4(K) + (size_t)tile * xstride_of(d) +
              (size_t)tile * gstride_of(K, d_in) + round4(tile) + round4(kWarps);
   if (d_in > 0) f += (size_t)d_in * d + round4(d_in);
   return f;
 }
 
 struct Smem {
-  float* wt;    // (2d, K) posterior weights; rows interleaved (x_j, x_j^2)
-  float* cst;   // (K,) per-component constant of the log posterior
+  float* wt;    // (2d, ws) posterior weights, rows in xcol order
+  float* cst;   // (K,) per-component constant of the log posterior, in f32
+  float* clo;   // (K,) what rounding it to f32 dropped
   float* s0;    // (K,) sum_t g
-  float* xx;    // (tile, 2d) descriptor tile; columns interleaved (x_j, x_j^2)
-  float* g;     // (tile, gstride) log posterior, then g
+  float* xx;    // (tile, xs) descriptor tile, x and x^2 in xcol order
+  float* g;     // (tile, gs) log posterior, then g
   float* msk;   // (tile,)
   float* red;   // (kWarps,) block reduction
   float* comp;  // (d_in, d) fused kernel only
@@ -98,10 +176,11 @@ struct Smem {
 
 __device__ inline Smem carve(float* p, int tile, int d, int K, int d_in) {
   Smem s;
-  s.wt = p;   p += 2 * d * K;
+  s.wt = p;   p += 2 * d * wstride_of(K);
   s.cst = p;  p += round4(K);
+  s.clo = p;  p += round4(K);
   s.s0 = p;   p += round4(K);
-  s.xx = p;   p += tile * 2 * d;
+  s.xx = p;   p += tile * xstride_of(d);
   s.g = p;    p += tile * gstride_of(K, d_in);
   s.msk = p;  p += round4(tile);
   s.red = p;  p += round4(kWarps);
@@ -110,65 +189,224 @@ __device__ inline Smem carve(float* p, int tile, int d, int K, int d_in) {
   return s;
 }
 
-// posterior weights and constants into shared memory, s0 zeroed
+// posterior weights (global rows interleaved (x_j, x_j^2), see the
+// wrapper) into shared memory in xcol order, constants (2, K), s0 zeroed
 __device__ inline void fv_prologue(const Smem& s, const float* __restrict__ wt,
                                    const float* __restrict__ cst, int d, int K) {
-  const float4* src = reinterpret_cast<const float4*>(wt);
-  float4* dst = reinterpret_cast<float4*>(s.wt);
-  for (int i = threadIdx.x; i < (2 * d * K) / 4; i += kThreads) dst[i] = src[i];
+  const int ws4 = wstride_of(K) / 4, q = K / 4;
+  copy4(reinterpret_cast<const float4*>(wt), reinterpret_cast<float4*>(s.wt), 2 * d * q,
+        [=](int i) {  // shared row r = xcol(j, sq) from global row 2j + sq
+          const int r = i / q, j = 8 * (r / 16) + r % 8, sq = (r % 16) / 8;
+          return (2 * j + sq) * q + i - r * q;
+        },
+        [=](int i) { return (i / q) * ws4 + i % q; });
   for (int k = threadIdx.x; k < K; k += kThreads) {
     s.cst[k] = cst[k];
+    s.clo[k] = cst[K + k];
     s.s0[k] = 0.f;
   }
 }
 
-// One descriptor tile, shared by both kernels: log posterior gemm ->
-// masked softmax -> s0 and the (s1, s2) register accumulators.  s.xx and
-// s.msk hold the tile on entry (rows past the data zero, mask 0).
-__device__ __forceinline__ void fv_tile_body(const Smem& s, int tile, int d, int K, int gstride,
-                                             float (&acc)[kAccK][2 * kAccD], int kb, int jb,
-                                             bool owner) {
-  const int tid = threadIdx.x;
-  const int d2 = 2 * d;
+// v = big + small + O(2^-22 |v|), both parts rounded to nearest (ties
+// away, as cvt.rna.tf32.f32), in integer steps: adding half of the 13
+// dropped bits before clearing them rounds the magnitude.  small keeps its
+// low bits: the tensor core ignores them, and the added half rounds it.
+// (Operands here are finite: descriptors, weights and posteriors.)
+__device__ __forceinline__ void split_tf32(float f, uint32_t& big, uint32_t& small) {
+  const uint32_t v = __float_as_uint(f);
+  big = (v + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(f - __uint_as_float(big)) + 0x1000u;
+}
 
-  // log posterior: g = cst + xx . wt, (tile x 2d) x (2d x K)
-  const int kgroups = K / kPostK;
-  const int micro = (tile / kPostT) * kgroups;
-  for (int m = tid; m < micro; m += kThreads) {
-    const int t0 = (m / kgroups) * kPostT;
-    const int k0 = (m % kgroups) * kPostK;
-    float p[kPostT][kPostK];
+// d += A . B, one m16n8k8 tf32 product (fragments as the PTX ISA lays them
+// out: lane 4g + t holds A rows g, g + 8 at columns t, t + 4; B rows t,
+// t + 4 at column g; D rows g, g + 8 at columns 2t, 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += A . B in 3xTF32: the three products into a fresh fragment, small
+// terms first, then added on the CUDA cores (rounded, not truncated).  The
+// tensor core truncates the fragment toward zero, so it comes out about
+// half an ulp of itself too small, a bias that a sum over many k-steps,
+// such as s2, would keep.  t + half an ulp of t is a tie, rounded to
+// even: up by an ulp or not, half the time each, so the added fragment
+// carries no bias to speak of.
+__device__ __forceinline__ void mma3_add(float (&acc)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                                         const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, as, bb);
+  mma_tf32(t, ab, bs);
+  mma_tf32(t, ab, bb);
 #pragma unroll
-    for (int i = 0; i < kPostT; ++i)
+  for (int i = 0; i < 4; ++i)  // 2^e of t, with t's sign, times 2^-24: half an ulp of t
+    acc[i] += fmaf(__uint_as_float(__float_as_uint(t[i]) & 0xff800000u), 0x1p-24f, t[i]);
+}
+
+// The statistics fragment (m, n) of the warp's slot sl, of the (mt, nt) =
+// (d/8, K/8) grid; ok is false for a slot past the grid, which repeats
+// fragment (0, 0) and is never stored.  kRect (d/8 a multiple of 4, K/8
+// of 8): each warp a 4 x 8 block of the grid, so that a k-step splits 4 A
+// and 8 B fragments for 32 products.  Otherwise slot sl is fragment
+// kSlots * warp + sl in row-major order, any (d, K) with mt * nt <= 256.
+template <bool kRect>
+__device__ __forceinline__ void slot_frag(int warp, int sl, int mt, int nt, int& m, int& n, bool& ok) {
+  if (kRect) {
+    const int wn = nt / 8;
+    ok = warp / wn < mt / 4;
+    m = ok ? 4 * (warp / wn) + sl / 8 : 0;
+    n = ok ? 8 * (warp % wn) + sl % 8 : 0;
+  } else {
+    const int f = kSlots * warp + sl;
+    ok = f < mt * nt;
+    m = ok ? f / nt : 0;
+    n = ok ? f % nt : 0;
+  }
+}
+
+// x (rows gq) and x^2 (rows gq + 8) of dims 8m.. of a k-step: the A
+// fragment of the statistics, split; xr points at row tq, column gq
+__device__ __forceinline__ void load_xt(const float* xr, int xs, int m, uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  const float* p = xr + 16 * m;
+  split_tf32(p[0], ab[0], as[0]);
+  split_tf32(p[8], ab[1], as[1]);
+  split_tf32(p[4 * xs], ab[2], as[2]);
+  split_tf32(p[4 * xs + 8], ab[3], as[3]);
+}
+
+// g of components 8n.. of a k-step: the B fragment, split; gr points at
+// row tq, column gq
+__device__ __forceinline__ void load_g(const float* gr, int gs, int n, uint32_t (&bb)[2], uint32_t (&bs)[2]) {
+  split_tf32(gr[8 * n], bb[0], bs[0]);
+  split_tf32(gr[4 * gs + 8 * n], bb[1], bs[1]);
+}
+
+// One k-step (8 descriptor rows) of the statistics, (s1, s2)^T += xx^T . g,
+// for the warp's slots (slot_frag).  No branch in the loop: the slots'
+// product chains overlap.
+template <bool kRect>
+__device__ __forceinline__ void fv_stats_kstep(const float* xr, const float* gr, int xs, int gs, int mt,
+                                               int nt, int warp, float (&acc)[kSlots][4]) {
+  if (kRect) {
+    int m0, n0;
+    bool ok;
+    slot_frag<true>(warp, 0, mt, nt, m0, n0, ok);
+    uint32_t ab[4][4], as[4][4];
 #pragma unroll
-      for (int j = 0; j < kPostK; ++j) p[i][j] = 0.f;
-    for (int c = 0; c < d2; ++c) {
-      const float4 w0 = *reinterpret_cast<const float4*>(s.wt + c * K + k0);
-      const float4 w1 = *reinterpret_cast<const float4*>(s.wt + c * K + k0 + 4);
-      const float wv[kPostK] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    for (int i = 0; i < 4; ++i) load_xt(xr, xs, m0 + i, ab[i], as[i]);
 #pragma unroll
-      for (int i = 0; i < kPostT; ++i) {
-        const float xv = s.xx[(t0 + i) * d2 + c];
+    for (int j = 0; j < 8; ++j) {
+      uint32_t bb[2], bs[2];
+      load_g(gr, gs, n0 + j, bb, bs);
 #pragma unroll
-        for (int j = 0; j < kPostK; ++j) p[i][j] = fmaf(xv, wv[j], p[i][j]);
+      for (int i = 0; i < 4; ++i) mma3_add(acc[8 * i + j], ab[i], as[i], bb, bs);
+    }
+  } else {
+#pragma unroll
+    for (int sl = 0; sl < kSlots; ++sl) {
+      int m, n;
+      bool ok;
+      slot_frag<false>(warp, sl, mt, nt, m, n, ok);
+      uint32_t ab[4], as[4], bb[2], bs[2];
+      load_xt(xr, xs, m, ab, as);
+      load_g(gr, gs, n, bb, bs);
+      mma3_add(acc[sl], ab, as, bb, bs);
+    }
+  }
+}
+
+// One descriptor tile, shared by both kernels: log posterior gemm ->
+// masked softmax -> s0 and the statistics in registers.  s.xx and s.msk
+// hold the tile on entry (rows past the data zero, mask 0).  acc[sl] is
+// the warp's slot sl (slot_frag) of the (d/8) x (K/8) grid of m16n8 tiles
+// of (s1, s2)^T: fragment (m, n) covers dims 8m..8m+7 (rows 0-7 s1, rows
+// 8-15 s2) and components 8n..8n+7.
+template <bool kRect>
+__device__ __forceinline__ void fv_tile_body(const Smem& s, int tile, int d, int K, int gs,
+                                             float (&acc)[kSlots][4]) {
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // the fragments' group and thread in group
+  const int d2 = 2 * d, xs = xstride_of(d), ws = wstride_of(K);
+  const int nt = K / 8;
+
+  // log posterior: g = cst + (clo + xx . wt), (tile x 2d) x (2d x K); each
+  // warp a run of n8 tiles, kPostN at a time, both m16 row tiles of the
+  // tile.  clo starts the sum, so that it survives the last rounding.
+  // The hot loop has no branch, so that the fragments' product chains
+  // overlap: rows past the tile repeat its last row and n8 tiles past the
+  // warp's run its last tile, and neither is stored.
+  const int per = (nt + kWarps - 1) / kWarps;
+  const int nend = min(per * (warp + 1), nt);
+  for (int n0 = per * warp; n0 < nend; n0 += kPostN) {
+    int nb[kPostN];
+    float run[2][kPostN][4];
+#pragma unroll
+    for (int nn = 0; nn < kPostN; ++nn) {
+      nb[nn] = 8 * min(n0 + nn, nend - 1) + gq;
+      const int k = 8 * min(n0 + nn, nend - 1) + 2 * tq;
+      const float lo0 = s.clo[k], lo1 = s.clo[k + 1];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        run[mt][nn][0] = run[mt][nn][2] = lo0;
+        run[mt][nn][1] = run[mt][nn][3] = lo1;
+      }
+    }
+    const float* xrow[2][2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) xrow[mt][h] = s.xx + min(16 * mt + 8 * h + gq, tile - 1) * xs + tq;
+    for (int c = 0; c < d2; c += 8) {
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        split_tf32(xrow[mt][0][c], ab[mt][0], as[mt][0]);
+        split_tf32(xrow[mt][1][c], ab[mt][1], as[mt][1]);
+        split_tf32(xrow[mt][0][c + 4], ab[mt][2], as[mt][2]);
+        split_tf32(xrow[mt][1][c + 4], ab[mt][3], as[mt][3]);
+      }
+      const float* q = s.wt + (c + tq) * ws;
+#pragma unroll
+      for (int nn = 0; nn < kPostN; ++nn) {
+        uint32_t bb[2], bs[2];
+        split_tf32(q[nb[nn]], bb[0], bs[0]);
+        split_tf32(q[4 * ws + nb[nn]], bb[1], bs[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma3_add(run[mt][nn], ab[mt], as[mt], bb, bs);
       }
     }
 #pragma unroll
-    for (int i = 0; i < kPostT; ++i)
+    for (int nn = 0; nn < kPostN; ++nn) {
+      if (n0 + nn >= nend) break;
+      const int k = 8 * (n0 + nn) + 2 * tq;
+      const float c0 = s.cst[k], c1 = s.cst[k + 1];
 #pragma unroll
-      for (int j = 0; j < kPostK; ++j)
-        s.g[(t0 + i) * gstride + k0 + j] = s.cst[k0 + j] + p[i][j];
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = 16 * mt + gq;
+        if (16 * mt < tile)
+          *reinterpret_cast<float2*>(s.g + r * gs + k) =
+              make_float2(c0 + run[mt][nn][0], c1 + run[mt][nn][1]);
+        if (16 * mt + 16 <= tile)
+          *reinterpret_cast<float2*>(s.g + (r + 8) * gs + k) =
+              make_float2(c0 + run[mt][nn][2], c1 + run[mt][nn][3]);
+      }
+    }
   }
   __syncthreads();
 
   // g = softmax over K (row max, exp, sum) times the mask; one warp a row
-  const int warp = tid / 32, lane = tid % 32;
   for (int t = warp; t < tile; t += kWarps) {
-    float* row = s.g + t * gstride;
+    float* row = s.g + t * gs;
     float mx = -INFINITY;
+#pragma unroll 8
     for (int k = lane; k < K; k += 32) mx = fmaxf(mx, row[k]);
     mx = warp_max(mx);
     float sum = 0.f;
+#pragma unroll 8
     for (int k = lane; k < K; k += 32) {
       const float e = expf(row[k] - mx);
       row[k] = e;
@@ -176,39 +414,25 @@ __device__ __forceinline__ void fv_tile_body(const Smem& s, int tile, int d, int
     }
     sum = warp_sum(sum);
     const float scale = s.msk[t] / sum;
+#pragma unroll 8
     for (int k = lane; k < K; k += 32) row[k] *= scale;
   }
   __syncthreads();
 
   for (int k = tid; k < K; k += kThreads) {
     float a = 0.f;
-    for (int t = 0; t < tile; ++t) a += s.g[t * gstride + k];
+#pragma unroll 8
+    for (int t = 0; t < tile; ++t) a += s.g[t * gs + k];
     s.s0[k] += a;
   }
 
-  // statistics: acc[kk][2jj] += g[t][k] x[t][j], acc[kk][2jj+1] += g[t][k] x[t][j]^2
-  if (owner) {
-    const float* gp = s.g + kb * kAccK;
-    const float* xp = s.xx + jb * 2 * kAccD;
-    for (int t = 0; t < tile; ++t) {
-      const float4 g0 = *reinterpret_cast<const float4*>(gp + t * gstride);
-      const float4 g1 = *reinterpret_cast<const float4*>(gp + t * gstride + 4);
-      const float gv[kAccK] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      float xv[2 * kAccD];
-#pragma unroll
-      for (int q = 0; q < 2 * kAccD / 4; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(xp + t * d2 + 4 * q);
-        xv[4 * q] = v.x;
-        xv[4 * q + 1] = v.y;
-        xv[4 * q + 2] = v.z;
-        xv[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int kk = 0; kk < kAccK; ++kk)
-#pragma unroll
-        for (int c = 0; c < 2 * kAccD; ++c) acc[kk][c] = fmaf(gv[kk], xv[c], acc[kk][c]);
-    }
-  }
+  // statistics: (s1, s2)^T += xx^T . g over the tile's rows, k-steps of 8
+  int m, n;
+  bool busy;  // whether the warp holds any fragment
+  slot_frag<kRect>(warp, 0, d / 8, nt, m, n, busy);
+  if (busy)
+    for (int t0 = 0; t0 < tile; t0 += 8)
+      fv_stats_kstep<kRect>(s.xx + (t0 + tq) * xs + gq, s.g + (t0 + tq) * gs + gq, xs, gs, d / 8, nt, warp, acc);
   __syncthreads();  // the next tile overwrites s.xx and s.g
 }
 
@@ -225,40 +449,38 @@ __device__ inline float block_mask_count(const Smem& s, const float* __restrict_
   return tot;
 }
 
-// phi1, phi2 from the accumulators; out_img is (2, K, d) row-major
-__device__ inline void fv_finalize(const Smem& s, const float (&acc)[kAccK][2 * kAccD], float cnt,
+// phi1, phi2 from the statistics fragments; out_img is (2, K, d) row-major
+template <bool kRect>
+__device__ inline void fv_finalize(const Smem& s, const float (&acc)[kSlots][4], float cnt,
                                    const float* __restrict__ mu, const float* __restrict__ var,
                                    const float* __restrict__ w, float* __restrict__ out_img, int d,
-                                   int K, int kb, int jb, bool owner) {
-  if (!owner) return;
+                                   int K) {
+  const int lane = threadIdx.x % 32;
   const float tn = fmaxf(cnt, 1.f);
 #pragma unroll
-  for (int kk = 0; kk < kAccK; ++kk) {
-    const int k = kb * kAccK + kk;
-    const float s0 = s.s0[k];
-    const float a1 = tn * sqrtf(w[k]);
-    const float a2 = tn * sqrtf(2.f * w[k]);
-    float p1[kAccD], p2[kAccD];
+  for (int sl = 0; sl < kSlots; ++sl) {
+    int m, n;
+    bool ok;
+    slot_frag<kRect>(threadIdx.x / 32, sl, d / 8, K / 8, m, n, ok);
+    if (!ok) continue;
+    const int j = 8 * m + lane / 4;
 #pragma unroll
-    for (int jj = 0; jj < kAccD; ++jj) {
-      const int j = jb * kAccD + jj;
+    for (int q = 0; q < 2; ++q) {
+      const int k = 8 * n + 2 * (lane % 4) + q;
+      const float s0 = s.s0[k];
       const float m = mu[k * d + j];
       const float v = var[k * d + j];
-      const float s1 = acc[kk][2 * jj];
-      const float s2 = acc[kk][2 * jj + 1];
-      p1[jj] = ((s1 - s0 * m) / sqrtf(v)) / a1;
-      p2[jj] = ((s2 - 2.f * m * s1 + s0 * (m * m)) / v - s0) / a2;
+      const float s1 = acc[sl][q];
+      const float s2 = acc[sl][2 + q];
+      out_img[k * d + j] = ((s1 - s0 * m) / sqrtf(v)) / (tn * sqrtf(w[k]));
+      out_img[K * d + k * d + j] = ((s2 - 2.f * m * s1 + s0 * (m * m)) / v - s0) / (tn * sqrtf(2.f * w[k]));
     }
-    float4* o1 = reinterpret_cast<float4*>(out_img + k * d + jb * kAccD);
-    float4* o2 = reinterpret_cast<float4*>(out_img + K * d + k * d + jb * kAccD);
-    o1[0] = make_float4(p1[0], p1[1], p1[2], p1[3]);
-    o1[1] = make_float4(p1[4], p1[5], p1[6], p1[7]);
-    o2[0] = make_float4(p2[0], p2[1], p2[2], p2[3]);
-    o2[1] = make_float4(p2[4], p2[5], p2[6], p2[7]);
   }
 }
 
-template <typename TIn>
+// kRect: d a multiple of 32 and K of 64 (see slot_frag); a template
+// parameter, so that each statistics loop gets its own registers
+template <typename TIn, bool kRect>
 __global__ void __launch_bounds__(kThreads, 1)
     fv_encode_kernel(const TIn* __restrict__ x, const float* __restrict__ mask,
                      const float* __restrict__ wt, const float* __restrict__ cst,
@@ -267,36 +489,34 @@ __global__ void __launch_bounds__(kThreads, 1)
                      int tile) {
   extern __shared__ float4 smem4[];
   const Smem s = carve(reinterpret_cast<float*>(smem4), tile, d, K, 0);
-  const int gstride = gstride_of(K, 0);
+  const int gs = gstride_of(K, 0), xs = xstride_of(d);
   const int tid = threadIdx.x;
-  const int kb = tid / (d / kAccD), jb = tid % (d / kAccD);
-  const bool owner = kb < K / kAccK;
-  float acc[kAccK][2 * kAccD];
+  float acc[kSlots][4];
 #pragma unroll
-  for (int kk = 0; kk < kAccK; ++kk)
+  for (int sl = 0; sl < kSlots; ++sl)
 #pragma unroll
-    for (int c = 0; c < 2 * kAccD; ++c) acc[kk][c] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[sl][i] = 0.f;
 
   fv_prologue(s, wt, cst, d, K);
   const TIn* ximg = x + (size_t)blockIdx.x * T * d;
   const float* mimg = mask + (size_t)blockIdx.x * T;
   for (int t0 = 0; t0 < T; t0 += tile) {
     const int rows = min(tile, T - t0);
-    for (int i = tid; i < tile * d; i += kThreads) {
-      const int r = i / d, j = i - r * d;
-      const float v = r < rows ? to_f32(ximg[(size_t)t0 * d + i]) : 0.f;
-      s.xx[r * 2 * d + 2 * j] = v;
-      s.xx[r * 2 * d + 2 * j + 1] = v * v;
-    }
-    for (int r = tid; r < tile; r += kThreads) s.msk[r] = r < rows ? mimg[t0 + r] : 0.f;
+    const float mk = tid < rows ? mimg[t0 + tid] : 0.f;
+    stage_tile(ximg + (size_t)t0 * d, d, tile, rows, [&](int e, float4 v) {
+      float* row = s.xx + (e / d) * xs;  // 4 dims of one xcol block: x, then x^2
+      *reinterpret_cast<float4*>(row + xcol(e % d, 0)) = v;
+      *reinterpret_cast<float4*>(row + xcol(e % d, 1)) = make_float4(v.x * v.x, v.y * v.y, v.z * v.z, v.w * v.w);
+    });
+    if (tid < tile) s.msk[tid] = mk;
     __syncthreads();
-    fv_tile_body(s, tile, d, K, gstride, acc, kb, jb, owner);
+    fv_tile_body<kRect>(s, tile, d, K, gs, acc);
   }
   const float cnt = block_mask_count(s, mimg, T);
-  fv_finalize(s, acc, cnt, mu, var, w, out + (size_t)blockIdx.x * 2 * K * d, d, K, kb, jb, owner);
+  fv_finalize<kRect>(s, acc, cnt, mu, var, w, out + (size_t)blockIdx.x * 2 * K * d, d, K);
 }
 
-template <typename TIn>
+template <typename TIn, bool kRect>
 __global__ void __launch_bounds__(kThreads, 1)
     fv_fused_kernel(const TIn* __restrict__ x, const float* __restrict__ mask,
                     const float* __restrict__ comp, const float* __restrict__ mean,
@@ -306,34 +526,28 @@ __global__ void __launch_bounds__(kThreads, 1)
                     int K, int tile) {
   extern __shared__ float4 smem4[];
   const Smem s = carve(reinterpret_cast<float*>(smem4), tile, d, K, d_in);
-  const int gstride = gstride_of(K, d_in);
+  const int gs = gstride_of(K, d_in), xs = xstride_of(d);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int kb = tid / (d / kAccD), jb = tid % (d / kAccD);
-  const bool owner = kb < K / kAccK;
-  float acc[kAccK][2 * kAccD];
+  float acc[kSlots][4];
 #pragma unroll
-  for (int kk = 0; kk < kAccK; ++kk)
+  for (int sl = 0; sl < kSlots; ++sl)
 #pragma unroll
-    for (int c = 0; c < 2 * kAccD; ++c) acc[kk][c] = 0.f;
+    for (int i = 0; i < 4; ++i) acc[sl][i] = 0.f;
 
   fv_prologue(s, wt, cst, d, K);
-  {
-    const float4* src = reinterpret_cast<const float4*>(comp);
-    float4* dst = reinterpret_cast<float4*>(s.comp);
-    for (int i = tid; i < (d_in * d) / 4; i += kThreads) dst[i] = src[i];
-    for (int i = tid; i < d_in; i += kThreads) s.mean[i] = mean ? mean[i] : 0.f;
-  }
+  copy4(reinterpret_cast<const float4*>(comp), reinterpret_cast<float4*>(s.comp), d_in * d / 4,
+        [](int i) { return i; }, [](int i) { return i; });
+  for (int i = tid; i < d_in; i += kThreads) s.mean[i] = mean ? mean[i] : 0.f;
   float* raw = s.g;  // (tile, d_in), consumed before the posterior writes s.g
   const TIn* ximg = x + (size_t)blockIdx.x * T * d_in;
   const float* mimg = mask + (size_t)blockIdx.x * T;
   for (int t0 = 0; t0 < T; t0 += tile) {
     const int rows = min(tile, T - t0);
-    for (int i = tid; i < tile * d_in; i += kThreads) {
-      const int r = i / d_in;
-      raw[i] = r < rows ? to_f32(ximg[(size_t)t0 * d_in + i]) : 0.f;
-    }
-    for (int r = tid; r < tile; r += kThreads) s.msk[r] = r < rows ? mimg[t0 + r] : 0.f;
+    const float mk = tid < rows ? mimg[t0 + tid] : 0.f;
+    stage_tile(ximg + (size_t)t0 * d_in, d_in, tile, rows,
+               [&](int e, float4 v) { *reinterpret_cast<float4*>(raw + e) = v; });
+    if (tid < tile) s.msk[tid] = mk;
     __syncthreads();
 
     // SIFT normalize (optional) and centering, one warp a row.  A zero
@@ -358,44 +572,48 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
 
-    // PCA projection z = raw . comp, 2 rows x 4 dims per thread
+    // PCA projection z = raw . comp, 2 rows x 4 dims per thread (f32 FMA);
+    // the 4 dims share an xcol block, so z and z^2 go out as float4s
     const int jq = d / 4;
     for (int m = tid; m < (tile / 2) * jq; m += kThreads) {
       const int r0 = (m / jq) * 2, j0 = (m % jq) * 4;
       float z[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      for (int i = 0; i < d_in; ++i) {
-        const float4 cv = *reinterpret_cast<const float4*>(s.comp + i * d + j0);
-        const float a0 = raw[r0 * d_in + i], a1 = raw[(r0 + 1) * d_in + i];
-        z[0][0] = fmaf(a0, cv.x, z[0][0]);
-        z[0][1] = fmaf(a0, cv.y, z[0][1]);
-        z[0][2] = fmaf(a0, cv.z, z[0][2]);
-        z[0][3] = fmaf(a0, cv.w, z[0][3]);
-        z[1][0] = fmaf(a1, cv.x, z[1][0]);
-        z[1][1] = fmaf(a1, cv.y, z[1][1]);
-        z[1][2] = fmaf(a1, cv.z, z[1][2]);
-        z[1][3] = fmaf(a1, cv.w, z[1][3]);
+      for (int i = 0; i < d_in; i += 4) {  // d_in is a multiple of 4
+        const float4 r4[2] = {*reinterpret_cast<const float4*>(raw + r0 * d_in + i),
+                              *reinterpret_cast<const float4*>(raw + (r0 + 1) * d_in + i)};
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const float4 cv = *reinterpret_cast<const float4*>(s.comp + (i + ii) * d + j0);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float a = ii == 0 ? r4[r].x : ii == 1 ? r4[r].y : ii == 2 ? r4[r].z : r4[r].w;
+            z[r][0] = fmaf(a, cv.x, z[r][0]);
+            z[r][1] = fmaf(a, cv.y, z[r][1]);
+            z[r][2] = fmaf(a, cv.z, z[r][2]);
+            z[r][3] = fmaf(a, cv.w, z[r][3]);
+          }
+        }
       }
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float v = z[r][q];
-          s.xx[(r0 + r) * 2 * d + 2 * (j0 + q)] = v;
-          s.xx[(r0 + r) * 2 * d + 2 * (j0 + q) + 1] = v * v;
-        }
+      for (int r = 0; r < 2; ++r) {
+        float* row = s.xx + (r0 + r) * xs;
+        *reinterpret_cast<float4*>(row + xcol(j0, 0)) = make_float4(z[r][0], z[r][1], z[r][2], z[r][3]);
+        *reinterpret_cast<float4*>(row + xcol(j0, 1)) =
+            make_float4(z[r][0] * z[r][0], z[r][1] * z[r][1], z[r][2] * z[r][2], z[r][3] * z[r][3]);
+      }
     }
     __syncthreads();
-    fv_tile_body(s, tile, d, K, gstride, acc, kb, jb, owner);
+    fv_tile_body<kRect>(s, tile, d, K, gs, acc);
   }
   const float cnt = block_mask_count(s, mimg, T);
-  fv_finalize(s, acc, cnt, mu, var, w, out + (size_t)blockIdx.x * 2 * K * d, d, K, kb, jb, owner);
+  fv_finalize<kRect>(s, acc, cnt, mu, var, w, out + (size_t)blockIdx.x * 2 * K * d, d, K);
 }
 
 // the largest tile (a multiple of 8, at most kMaxTile) whose shared
 // memory fits; 0 when the shape is not one the kernels take
 int pick_tile(int d, int K, int d_in) {
-  if (d <= 0 || K <= 0 || d % kAccD || K % kAccK) return 0;
-  if ((K / kAccK) * (d / kAccD) > kThreads) return 0;  // one accumulator tile a thread
+  if (d <= 0 || K <= 0 || d % 8 || K % 8) return 0;
+  if ((K / 8) * (d / 8) > kWarps * kSlots) return 0;  // the statistics fragments
   if (d_in < 0 || d_in % 4) return 0;
   for (int tile = kMaxTile; tile >= 8; tile -= 8)
     if (smem_floats(tile, d, K, d_in) * sizeof(float) <= kSmemLimit) return tile;
@@ -410,10 +628,10 @@ int launch_encode(const void* x, const float* mask, const float* wt, const float
   if (tile == 0) return kErrShape;
   if (n == 0) return 0;
   const size_t bytes = smem_floats(tile, d, K, 0) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(fv_encode_kernel<TIn>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const auto kernel = d % 32 == 0 && K % 64 == 0 ? fv_encode_kernel<TIn, true> : fv_encode_kernel<TIn, false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  fv_encode_kernel<TIn><<<n, kThreads, bytes, stream>>>(
+  kernel<<<n, kThreads, bytes, stream>>>(
       static_cast<const TIn*>(x), mask, wt, cst, mu, var, w, out, T, d, K, tile);
   return (int)cudaGetLastError();
 }
@@ -427,12 +645,11 @@ int launch_fused(const void* x, const float* mask, const float* comp, const floa
   if (tile == 0) return kErrShape;
   if (n == 0) return 0;
   const size_t bytes = smem_floats(tile, d, K, d_in) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(fv_fused_kernel<TIn>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const auto kernel = d % 32 == 0 && K % 64 == 0 ? fv_fused_kernel<TIn, true> : fv_fused_kernel<TIn, false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  fv_fused_kernel<TIn><<<n, kThreads, bytes, stream>>>(static_cast<const TIn*>(x), mask, comp,
-                                                      mean, normalize, wt, cst, mu, var, w, out,
-                                                      T, d_in, d, K, tile);
+  kernel<<<n, kThreads, bytes, stream>>>(static_cast<const TIn*>(x), mask, comp, mean, normalize, wt,
+                                         cst, mu, var, w, out, T, d_in, d, K, tile);
   return (int)cudaGetLastError();
 }
 
@@ -441,10 +658,11 @@ int launch_fused(const void* x, const float* mask, const float* comp, const floa
 extern "C" {
 
 // x: (n, T, d) f32 or bf16 (x_bf16 = 1); mask: (n, T) f32;
-// wt: (2d, K) posterior weights, cst: (K,); mu, var: (K, d); w: (K,);
+// wt: (2d, K) posterior weights; cst: (2, K), the per-component constant
+// in f32 and what its rounding dropped; mu, var: (K, d); w: (K,);
 // out: (n, 2*K*d) f32.  Returns 0, a cudaError_t, or -1 for a shape
 // the kernel does not take: d and K multiples of 8 with K*d <= 16384
-// (one register accumulator tile a thread), d_in a multiple of 4, and
+// (the statistics fragments held in registers), d_in a multiple of 4, and
 // shared memory within 227 KB.
 int ks_fisher_encode(const void* x, int x_bf16, const float* mask, const float* wt,
                      const float* cst, const float* mu, const float* var, const float* w,

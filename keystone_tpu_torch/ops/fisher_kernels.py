@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import OrderedDict
 
 import torch
 
@@ -108,8 +109,15 @@ _DESC = (torch.float32, torch.bfloat16)
 
 
 def _posterior_weights(w, mu, var):
-    """(2d, K) weights and (K,) constants with
-    log w_k + log N(x; μ_k, σ²_k) = cst_k + Σ_j [x_j, x_j²] · wt[(2j, 2j+1), k]."""
+    """(2d, K) f32 weights and (2, K) f32 constants with
+    log w_k + log N(x; μ_k, σ²_k) = cst[0, k] + cst[1, k] + Σ_j [x_j, x_j²] · wt[(2j, 2j+1), k].
+
+    Computed in float64 and rounded once.  cst[1] holds what rounding
+    cst[0] to f32 drops: the constant is ~|log N| (a hundred at d = 64),
+    and an error of half its ulp, the same on every descriptor, would shift
+    each component's posterior mass by as much, which the sums over T then
+    carry.  The kernel adds cst[1] to the descriptor's sum before cst[0]."""
+    w, mu, var = (t.to(torch.float64) for t in (w, mu, var))
     k, d = mu.shape
     inv = 1.0 / var
     muinv = mu * inv
@@ -121,7 +129,36 @@ def _posterior_weights(w, mu, var):
         - 0.5 * (torch.sum(torch.log(var), dim=1) + d * _LOG2PI)
         - 0.5 * torch.sum(mu * muinv, dim=1)
     )
-    return wt, cst.contiguous()
+    hi = cst.to(torch.float32)
+    return wt, torch.stack([hi, (cst - hi.to(torch.float64)).to(torch.float32)])
+
+
+#: _posterior_weights by the GMM tensors it was computed from (kept alive
+#: here, so that their identity and version name their values), newest last
+_WEIGHTS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_WEIGHTS_KEPT = 8
+
+
+def _weights_for(w, mu, var):
+    """``_posterior_weights(w, mu, var)``, computed once while those tensors
+    live unchanged.  A model's GMM is fixed, and computing the weights is a
+    dozen small launches a call, enough host time to pace a kernel call of
+    a few hundred microseconds."""
+    key = tuple((id(t), t._version) for t in (w, mu, var))
+    hit = _WEIGHTS.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], (w, mu, var))):
+        _WEIGHTS.move_to_end(key)
+        return hit[1]
+    _WEIGHTS[key] = ((w, mu, var), _posterior_weights(w, mu, var))
+    if len(_WEIGHTS) > _WEIGHTS_KEPT:
+        _WEIGHTS.popitem(last=False)
+    return _WEIGHTS[key][1]
+
+
+def _aligned(t):
+    """``t``, or a copy where its data does not start 16-byte aligned: the
+    kernels read descriptor rows and the projection 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -154,7 +191,8 @@ def fisher_encode(xs, mask, w, mu, var):
     out = torch.empty((n, 2 * k * d), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    wt, cst = _posterior_weights(w, mu, var)
+    wt, cst = _weights_for(w, mu, var)
+    xs = _aligned(xs)
     rc = _lib().ks_fisher_encode(
         xs.data_ptr(), int(xs.dtype == torch.bfloat16), mask.data_ptr(),
         wt.data_ptr(), cst.data_ptr(), mu.data_ptr(), var.data_ptr(), w.data_ptr(),
@@ -186,7 +224,8 @@ def fused_forward(desc, mask, components, mean, w, mu, var, normalize: bool = Tr
     out = torch.empty((n, 2 * k * d), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    wt, cst = _posterior_weights(w, mu, var)
+    wt, cst = _weights_for(w, mu, var)
+    desc, components = _aligned(desc), _aligned(components)
     rc = _lib().ks_fused_forward(
         desc.data_ptr(), int(desc.dtype == torch.bfloat16), mask.data_ptr(),
         components.data_ptr(), None if mean is None else mean.data_ptr(), int(bool(normalize)),

@@ -43,8 +43,18 @@ def _mask(rng, n, t, dev):
     return torch.from_numpy(m).to(dev)
 
 
+# T off the 32-row tile and off the m16 / k8 tiling of the tensor-core
+# products (1, 7, 15, 17, 33: a tail of 1, 7, 15, 17 and 1 rows)
+RAGGED_T = [1, 7, 15, 17, 33, 45, 301]
+
+
+# Held against the plain chain evaluated in float64: at small T the FV
+# entries grow (1/T), and the kernel (3xTF32, its constant in two parts)
+# and the plain f32 chain round them differently by up to ~3e-5 there,
+# while the kernel stays within the tolerance of the float64 chain
+# (chip_smoke.py's float64 phase measures both chains' errors)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [784, 301, 45])  # 301, 45: ragged against the 32-row tile
+@pytest.mark.parametrize("t", [784, *RAGGED_T])
 def test_fisher_encode_matches_plain(dev, dtype, t):
     rng = np.random.default_rng(t)
     xs = torch.from_numpy(rng.normal(size=(6, t, 64)).astype(np.float32)).to(dev).to(dtype)
@@ -53,27 +63,45 @@ def test_fisher_encode_matches_plain(dev, dtype, t):
     fk.reset_launches()
     got = fk.fisher_encode(xs, mask, w, mu, var)
     assert fk.LAUNCHES["fisher_encode"] == 1
-    torch.testing.assert_close(got, fk.fisher_encode_ref(xs, mask, w, mu, var), atol=ATOL_FV, rtol=RTOL)
+    torch.testing.assert_close(got.double(), _fv64(xs, mask, w, mu, var), atol=ATOL_FV, rtol=RTOL)
 
 
 @pytest.mark.parametrize("normalize", [True, False])
 @pytest.mark.parametrize("with_mean", [True, False])
-@pytest.mark.parametrize("d_in,t", [(128, 784), (96, 324), (128, 45)])
+@pytest.mark.parametrize("d_in,t", [(128, 784), (96, 324), (128, 45), (128, 301), (96, 1), (128, 7),
+                                     (96, 15), (128, 17), (96, 33)])
 def test_fused_forward_matches_plain(dev, normalize, with_mean, d_in, t):
     rng = np.random.default_rng(d_in + t)
-    raw = np.abs(rng.normal(size=(5, t, d_in))).astype(np.float32)
-    if not normalize:  # the feed is normalized already
-        raw /= np.linalg.norm(raw, axis=-1, keepdims=True)
-    desc = torch.from_numpy(raw).to(dev)
-    mask = _mask(rng, 5, t, dev)
-    comp = torch.from_numpy(np.linalg.qr(rng.normal(size=(d_in, 64)))[0].astype(np.float32)).to(dev)
-    mean = torch.from_numpy((0.05 * rng.random(d_in)).astype(np.float32)).to(dev) if with_mean else None
-    w, mu, var = _gmm(rng, 256, 64, dev)
-    args = (desc, mask, comp, mean, w, 0.3 * mu, var, normalize)
+    args = _fused_args(rng, 5, t, d_in, 64, 256, dev, normalize, with_mean)
     fk.reset_launches()
     got = fk.fused_forward(*args)
     assert fk.LAUNCHES["fused_forward"] == 1
     torch.testing.assert_close(got, fk.fused_forward_ref(*args), atol=ATOL_FUSED, rtol=RTOL)
+
+
+def _fused_args(rng, n, t, d_in, d, k, dev, normalize=True, with_mean=True):
+    """Raw descriptors (normalized already where ``normalize`` is False),
+    an orthonormal projection, a small mean and a GMM: fused_forward's
+    arguments."""
+    raw = np.abs(rng.normal(size=(n, t, d_in))).astype(np.float32)
+    if not normalize:  # the feed is normalized already
+        raw /= np.linalg.norm(raw, axis=-1, keepdims=True)
+    desc = torch.from_numpy(raw).to(dev)
+    mask = _mask(rng, n, t, dev)
+    comp = torch.from_numpy(np.linalg.qr(rng.normal(size=(d_in, d)))[0].astype(np.float32)).to(dev)
+    mean = torch.from_numpy((0.05 * rng.random(d_in)).astype(np.float32)).to(dev) if with_mean else None
+    w, mu, var = _gmm(rng, k, d, dev)
+    return desc, mask, comp, mean, w, 0.3 * mu, var, normalize
+
+
+@pytest.mark.parametrize("t", [324, 17])
+def test_fused_forward_bf16_stream(dev, t):
+    """bf16 raw descriptors: within the f32 tolerance of the plain chain on
+    the same bf16 values (both widen them to f32)."""
+    rng = np.random.default_rng(5 + t)
+    desc, *rest = _fused_args(rng, 5, t, 128, 64, 256, dev)
+    args = (desc.bfloat16(), *rest)
+    torch.testing.assert_close(fk.fused_forward(*args), fk.fused_forward_ref(*args), atol=ATOL_FUSED, rtol=RTOL)
 
 
 def test_small_gmm_shapes(dev):
@@ -87,6 +115,91 @@ def test_small_gmm_shapes(dev):
         fk.fisher_encode(xs, mask, w, mu, var), fk.fisher_encode_ref(xs, mask, w, mu, var),
         atol=ATOL_FV, rtol=RTOL,
     )
+
+
+# K and d other than the main path's: fewer n8 or m16 tiles than warps
+# (K = 8, 24), d = 128 (a tile of 16 rows in the fused kernel, d_in = d),
+# and the edge of the register budget, (d/8)(K/8) = 255 or 256 statistics
+# fragments (K = 2048, d = 8: a tile of 8 rows; K = 680, d = 24: fused, 24)
+@pytest.mark.parametrize("k,d", [(8, 16), (24, 8), (128, 128), (2048, 8), (680, 24)])
+@pytest.mark.parametrize("t", [17, 301])
+def test_other_gmm_shapes(dev, k, d, t):
+    rng = np.random.default_rng(k + d + t)
+    xs = torch.from_numpy(rng.normal(size=(3, t, d)).astype(np.float32)).to(dev)
+    mask = _mask(rng, 3, t, dev)
+    w, mu, var = _gmm(rng, k, d, dev)
+    got = fk.fisher_encode(xs, mask, w, mu, var)
+    torch.testing.assert_close(got.double(), _fv64(xs, mask, w, mu, var), atol=ATOL_FV, rtol=RTOL)
+    args = _fused_args(rng, 3, t, d, d, k, dev)
+    torch.testing.assert_close(fk.fused_forward(*args).double(), _fused64(*args), atol=ATOL_FUSED, rtol=RTOL)
+
+
+def _fv64(xs, mask, w, mu, var):
+    """fisher_encode_ref's chain in float64 on the same operands."""
+    from keystone_tpu_torch.models.gmm import _log_gaussians
+
+    xs, mask, w, mu, var = (a.double() for a in (xs, mask, w, mu, var))
+    n, t, d = xs.shape
+    lg = _log_gaussians(xs.reshape(n * t, d), mu, var, torch.log(w))
+    gamma = torch.softmax(lg, dim=1).reshape(n, t, -1) * mask[..., None]
+    tn = torch.clamp(mask.sum(dim=1), min=1.0)[:, None, None]
+    s0 = gamma.sum(dim=1)[..., None]
+    s1 = torch.einsum("ntk,ntd->nkd", gamma, xs)
+    s2 = torch.einsum("ntk,ntd->nkd", gamma, xs * xs)
+    phi1 = (s1 - s0 * mu) / torch.sqrt(var) / (tn * torch.sqrt(w)[None, :, None])
+    phi2 = ((s2 - 2 * mu * s1 + s0 * mu * mu) / var - s0) / (tn * torch.sqrt(2 * w)[None, :, None])
+    return torch.cat([phi1.reshape(n, -1), phi2.reshape(n, -1)], dim=1)
+
+
+def _fused64(desc, mask, comp, mean, w, mu, var, normalize):
+    """fused_forward_ref's chain in float64 on the same operands."""
+    z = desc.double()
+    if normalize:
+        z = fk._sift_normalize(z)
+    if mean is not None:
+        z = z - mean.double()
+    return _fv64(z @ comp.double(), mask, w, mu, var)
+
+
+@pytest.mark.parametrize("kind", ["encode", "fused"])
+def test_fv_kernels_are_f32_grade(dev, kind):
+    """3xTF32 on the tensor cores against a float64 FV chain of the same
+    operands: within 2x the plain f32 chain's (TF32 off) largest error,
+    where one-pass TF32 is not."""
+    rng = np.random.default_rng(13)
+    if kind == "encode":
+        xs = torch.from_numpy(rng.normal(size=(16, 784, 64)).astype(np.float32)).to(dev)
+        mask = _mask(rng, 16, 784, dev)
+        args = (xs, mask, *_gmm(rng, 256, 64, dev))
+        kern, plain, exact = fk.fisher_encode, fk.fisher_encode_ref, _fv64(*args)
+    else:
+        args = _fused_args(rng, 16, 784, 128, 64, 256, dev)
+        kern, plain, exact = fk.fused_forward, fk.fused_forward_ref, _fused64(*args)
+    err = (kern(*args).double() - exact).abs().max().item()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        err_f32 = (plain(*args).double() - exact).abs().max().item()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        err_tf32 = (plain(*args).double() - exact).abs().max().item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert err <= 2 * err_f32, (err, err_f32)
+    assert err_tf32 > 2 * err_f32, (err_tf32, err_f32)
+
+
+def test_fv_misaligned_inputs(dev):
+    """Descriptors and a projection whose data do not start 16-byte aligned
+    (the kernels read rows 16 bytes at a time; the wrappers copy them)."""
+    rng = np.random.default_rng(9)
+    xs = _at_offset(torch.from_numpy(rng.normal(size=(3, 33, 64)).astype(np.float32)).to(dev), 1)
+    mask = _mask(rng, 3, 33, dev)
+    w, mu, var = _gmm(rng, 256, 64, dev)
+    torch.testing.assert_close(fk.fisher_encode(xs, mask, w, mu, var), fk.fisher_encode_ref(xs, mask, w, mu, var),
+                               atol=ATOL_FV, rtol=RTOL)
+    desc, mask, comp, mean, *rest = _fused_args(rng, 3, 33, 96, 64, 256, dev)
+    args = (_at_offset(desc.bfloat16(), 1), mask, _at_offset(comp, 1), mean, *rest)
+    torch.testing.assert_close(fk.fused_forward(*args), fk.fused_forward_ref(*args), atol=ATOL_FUSED, rtol=RTOL)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
