@@ -14,7 +14,9 @@ result line):
    f32-grade check of the FV kernels (3xTF32 on the tensor cores): at B2's
    shape and both of B1's main-path calls, each kernel's largest error
    against a float64 FV chain of the same operands within 2x the plain
-   f32 chain's, which one-pass TF32 must fail;
+   f32 chain's, which one-pass TF32 must fail; then the FV kernels'
+   general path, at GMM shapes the tiled kernels refuse (B2 at K = 512,
+   B1 at d = 60), held and timed the same way;
 4. main paths at full width (batch 128, 128×128 RGB, SIFT step 4 → T=784,
    LCS step 6 → T=324, PCA 64, K=256, 1000 classes; seeded random
    weights made as bench.py makes them): the fused two-branch scorer and
@@ -40,7 +42,17 @@ result line):
    counts, against the same fits on the plain versions (the polynomial
    and linear fits' α, where it leaves the plain fit's tolerance, against
    a float64 fit); fit seconds and the sweep's TFLOP/s;
-8. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+8. main path, the ImageNetSiftLcsFV fit at bench.py's fit leg (2048
+   synthetic 128×128 images, 64 classes, K = 64, PCA 64, blocks of 4096,
+   2 epochs): fit_params with its launch counts (B1 featurizes the
+   training set) and seconds by stage, held-out top-1/top-5 error on 512
+   test images, then the same fit on the plain versions (vocabulary
+   equal, held-out scores within tolerance, top-1 agreement), the card's
+   PCA, EM and weighted BCD against float64 on the same inputs (EM and
+   BCD with one-pass TF32 products must leave those limits), and B1
+   against its plain version at the fit's shape (K = 64; f32-grade where
+   f32 itself leaves the tolerance, which one-pass TF32 must fail);
+9. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches, float64 errors) for all four
    kernels, then the last line {"ok": true, "device": {...}}.
 
@@ -141,6 +153,39 @@ ARGMAX_AGREEMENT = 0.999
 # fit's largest error at most F64_RATIO times the plain fit's.
 TOL_ALPHA, RTOL_ALPHA = 2e-5, 1e-5
 PRED_R2 = 0.9999
+
+# ---- the fit: bench.py's fit leg (bench.py:89-95, measure_fit at :462-495):
+# 2048 synthetic 128×128 images (seed 1), 64 classes, K = 64, PCA 64, the
+# reference Config's defaults otherwise (SIFT/LCS step 6, 64 samples an
+# image, 10 EM iterations, λ = 1e-4, mixture weight 0.25), blocks of 4096
+# (16 384 features: 4 blocks), 2 epochs; 512 held-out images (seed 2)
+FIT_N, FIT_TEST_N, FIT_CLASSES, FIT_GMM_K, FIT_BLOCK, FIT_EPOCHS = 2048, 512, 64, 64, 4096, 2
+FIT_BATCH = 128
+FIT_SIFT_T, FIT_LCS_T = 361, 324  # descriptors an image at step 6 on 128 px
+# the kernel fit against the plain fit.  The PCA and GMM fits run no
+# kernel: equal up to 1e-6.  B1 rounds the training features otherwise
+# than the plain chain (~1e-5 at FV entries of tens); the power
+# normalization's √ turns such an error at an entry near 0 into ~3e-3,
+# and the solve carries it into the weights, so held-out scores (|s| ≲ 2)
+# are held at 1e-3 + 1e-3·|ref|, and their top-1 class agree on ≥ 99.9%
+TOL_VOCAB = 1e-6
+TOL_FIT_SCORES, RTOL_FIT_SCORES = 1e-3, 1e-3
+FIT_TOP1_AGREEMENT = 0.999
+# held-out top-1 error well under chance (1 − 1/64 = 0.984)
+FIT_TOP1_ERROR_MAX = 0.5
+# the card's f32 fits against the same computations in float64 on the
+# same inputs.  PCA: the projector C·Cᵀ against a float64 SVD of the
+# sample (a CPU rehearsal at n = 256 read 3e-6).  EM from the same start:
+# the reference's own EM tolerances, f32 against its double-accumulating
+# native EM (tests/test_native.py:235-237; the rehearsal read 1.6e-5 in
+# μ).  Weighted BCD: the weights within 1e-3 of their largest entry, the
+# held-out predictions (|p| ≲ 2) within 3e-5 (the rehearsal: 6e-5, 3e-6).
+# EM and BCD also run with one-pass TF32 products, which must leave these
+# limits: on the card an f32 solve's predictions read 6.5e-6 from float64
+# and a TF32 solve's 8.9e-5, past an earlier 1e-4 limit on neither side
+TOL_PROJECTOR = 1e-4
+TOL_EM_W, TOL_EM_MU, TOL_EM_VAR = 2e-5, 2e-4, 2e-4
+RTOL_BCD_W, TOL_BCD_PRED = 1e-3, 3e-5
 
 
 @contextlib.contextmanager
@@ -311,6 +356,12 @@ def tf32_matmul():
 
 def max_err64(a, ref64) -> float:
     return (a.double() - ref64).abs().max().item()
+
+
+def fv_launches(encode=0, fused=0) -> dict:
+    """The FV kernels' launch counts of a path that takes the tiled kernels only."""
+    return {"fisher_encode": encode, "fused_forward": fused, "fisher_encode_general": 0,
+            "fused_forward_general": 0}
 
 
 def reset_all(*modules) -> None:
@@ -584,6 +635,170 @@ def krr_path(dev, card, gk, fk, data):
     return fits
 
 
+def fit_setup(dev, P):
+    """The fit leg's Config, training images and labels (the images on the
+    card, as set-up) and the held-out set."""
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+
+    cfg = P.Config(num_classes=FIT_CLASSES, synthetic_n=FIT_N, image_size=IMAGE_HW, gmm_k=FIT_GMM_K,
+                   pca_dims=PCA_DIMS, num_epochs=FIT_EPOCHS, solver_block_size=FIT_BLOCK)
+    size = (IMAGE_HW, IMAGE_HW)
+    tx, ty = ImageNetLoader.synthetic(FIT_N, FIT_CLASSES, size, seed=1)
+    vx, vy = ImageNetLoader.synthetic(FIT_TEST_N, FIT_CLASSES, size, seed=2)
+    return cfg, torch.from_numpy(tx).to(dev), ty, torch.from_numpy(vx).to(dev), vy
+
+
+def held_out_scores(P, scorer, vx):
+    return torch.cat([P.scores_of(scorer)(b) for b in vx.split(FIT_BATCH)])
+
+
+def fit_path(dev, card, P, fk, setup):
+    """The fit with the kernels (launch counts zeroed just before, read
+    after the held-out scoring), then on the plain versions."""
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+
+    cfg, tx, ty, vx, vy = setup
+    nb_train, nb_test = -(-FIT_N // FIT_BATCH), -(-FIT_TEST_N // FIT_BATCH)
+    out = {}
+    with phase("main path: ImageNetSiftLcsFV fit"):
+        P.fit_params(cfg, tx, ty, dev, batch_size=FIT_BATCH)  # warm-up, not counted
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        stages = {}
+        t0 = time.perf_counter()
+        params = P.fit_params(cfg, tx, ty, dev, batch_size=FIT_BATCH, stage_seconds=stages)
+        fit_s = time.perf_counter() - t0
+        fit_launches = dict(fk.LAUNCHES)
+        scorer = P.build_scorer_from_params(params, cfg, dev)
+        top = P.predict_top_k(scorer, vx, dev, FIT_BATCH)
+        torch.cuda.synchronize()
+        launches = dict(fk.LAUNCHES)
+        m = MulticlassClassifierEvaluator(FIT_CLASSES).evaluate(top[:, 0], vy)
+        top5_err = float(1.0 - (top == vy[:, None]).any(axis=1).mean())
+        print(f"  launches: fit {fit_launches}, fit and held-out scoring {launches}", flush=True)
+        print("  fit " + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items())
+              + f"; total {fit_s:.4f} s, {FIT_N / fit_s:.1f} images/s ({card})", flush=True)
+        print(f"  held-out ({FIT_TEST_N} images): top-1 error {m.total_error:.4f}, top-5 error {top5_err:.4f} "
+              f"(at most {FIT_TOP1_ERROR_MAX} top-1; chance {1 - 1 / FIT_CLASSES:.4f})", flush=True)
+        check(fit_launches == fv_launches(fused=2 * nb_train),
+              f"fit launches {fit_launches}, expected B1 twice a training batch")
+        check(launches == fv_launches(fused=2 * (nb_train + nb_test)),
+              f"launches {launches}, expected B1 twice a batch")
+        check(tuple(top.shape) == (FIT_TEST_N, 5), f"top-5 shape {tuple(top.shape)}")
+        check(m.total_error <= FIT_TOP1_ERROR_MAX, f"held-out top-1 error {m.total_error:.4f}")
+        out.update({"seconds": fit_s, "stage_seconds": stages, "images_per_s": FIT_N / fit_s,
+                    "launches": launches["fused_forward"], "top1_error": m.total_error,
+                    "top5_error": top5_err})
+    with phase("fit: the kernel fit against the plain fit"):
+        params_p = P.fit_params(cfg, tx, ty, dev, use_kernel=False, batch_size=FIT_BATCH)
+        vocab = [k for k in params if not k.startswith("blm.")]
+        worst = max(max_err(params[k], params_p[k]) for k in vocab)
+        print(f"  PCA and GMM arrays: largest difference {worst:.3e} (at most {TOL_VOCAB:.0e}); BLM weights "
+              f"{max_err(params['blm.weights'], params_p['blm.weights']):.3e}, intercept "
+              f"{max_err(params['blm.intercept'], params_p['blm.intercept']):.3e}", flush=True)
+        check(worst <= TOL_VOCAB, f"the vocabulary differs by {worst:.3e} between the two fits")
+        scorer_p = P.build_scorer_from_params(params_p, cfg, dev, use_kernel=False)
+        sk, sp = held_out_scores(P, scorer, vx), held_out_scores(P, scorer_p, vx)
+        check(bool(torch.isfinite(sk).all()) and tuple(sk.shape) == (FIT_TEST_N, FIT_CLASSES), "held-out scores")
+        out["scores_max_abs_err"] = compare("held-out scores, kernel fit vs plain fit", sk, sp, TOL_FIT_SCORES,
+                                            RTOL_FIT_SCORES)
+        top_p = P.predict_top_k(scorer_p, vx, dev, FIT_BATCH)
+        agree = float((top[:, 0] == top_p[:, 0]).mean())
+        print(f"  top-1 agreement {agree:.5f} (at least {FIT_TOP1_AGREEMENT})", flush=True)
+        check(agree >= FIT_TOP1_AGREEMENT, f"top-1 agreement {agree:.5f}")
+        out["top1_agreement"] = agree
+    out["f64"] = fit_f64_checks(dev, card, P, cfg, tx, vx, ty, params)
+    return out, params
+
+
+def fit_f64_checks(dev, card, P, cfg, tx, vx, ty, params):
+    """The card's PCA, EM and weighted BCD of the fit, recomputed from
+    their inputs (each equal to the fit's own), against the port's same
+    functions in float64.  EM and BCD are also run with one-pass TF32
+    matrix products, which their limits must catch."""
+    from keystone_tpu_torch.models import gmm as G
+    from keystone_tpu_torch.models import kmeans as KM
+    from keystone_tpu_torch.models import pca as PC
+    from keystone_tpu_torch.models.block_weighted_ls import _weighted_bcd_fit, class_weights
+    from keystone_tpu_torch.ops.util import ClassLabelIndicators
+
+    out = {"svd_ms": {}}
+    with phase("fit: PCA and EM against float64"):
+        rows = P.sample_descriptors(cfg, tx, dev, FIT_BATCH)
+        for b, (pca_rows, gmm_rows) in rows.items():
+            pca = PC.PCAEstimator(PCA_DIMS).fit_arrays(pca_rows, device=dev)
+            check(max_err(pca.components, params[f"{b}.pca.components"]) <= TOL_VOCAB,
+                  f"{b}: the PCA of the sample is not the fit's")
+            xc = pca_rows - pca_rows.mean(dim=0)
+            v64 = torch.linalg.svd(xc.double(), full_matrices=False).Vh[:PCA_DIMS].T
+            p64 = v64 @ v64.T
+            out["svd_ms"][b] = cuda_ms(
+                lambda: torch.linalg.svd(xc, full_matrices=False, driver=PC.svd_driver(xc)), reps=3)
+            c = pca.components.double()
+            err = (c @ c.T - p64).abs().max().item()
+            print(f"  {b} PCA {tuple(pca_rows.shape)}: projector against a float64 SVD {err:.3e} (at most "
+                  f"{TOL_PROJECTOR:.0e}); SVD (driver {PC.svd_driver(xc)}) {out['svd_ms'][b]:.3f} ms ({card})",
+                  flush=True)
+            check(err <= TOL_PROJECTOR, f"{b}: PCA projector {err:.3e} from float64")
+            out[f"{b}_projector_err"] = err
+            z = pca(gmm_rows)
+            g = G.GaussianMixtureModelEstimator(cfg.gmm_k, max_iterations=cfg.gmm_iters,
+                                                seed=cfg.seed + P.BRANCH_SEED_OFFSET[b])
+            m0 = KM._kmeans_fit(z, torch.ones(z.shape[0], device=dev), g.k, g.kmeans_iters,
+                                KM.generator(g.seed, dev))
+            fit32 = G._gmm_fit(z, z.shape[0], None, g.k, g.max_iterations, g.min_variance, g.seed,
+                               g.kmeans_iters, init_means=m0)
+            fit64 = G._gmm_fit(z.double(), z.shape[0], None, g.k, g.max_iterations, g.min_variance, g.seed,
+                               g.kmeans_iters, init_means=m0.double())
+            for name, a, key in zip(("weights", "means", "variances"), fit32, ("w", "mu", "var")):
+                check(max_err(a, params[f"{b}.gmm.{name}"]) <= TOL_VOCAB, f"{b}: the EM input is not the fit's")
+            with tf32_matmul():
+                fit_tf32 = G._gmm_fit(z, z.shape[0], None, g.k, g.max_iterations, g.min_variance, g.seed,
+                                      g.kmeans_iters, init_means=m0)
+            caught = []
+            for name, a, a_t, ref, tol in zip(("w", "mu", "var"), fit32, fit_tf32, fit64,
+                                               (TOL_EM_W, TOL_EM_MU, TOL_EM_VAR)):
+                e, e_t = max_err64(a, ref), max_err64(a_t, ref)
+                print(f"  {b} EM {name}: {e:.3e} from float64 (at most {tol:.0e}; |ref| max "
+                      f"{ref.abs().max().item():.3e}); one-pass TF32 {e_t:.3e}", flush=True)
+                check(e <= tol, f"{b}: EM {name} {e:.3e} from float64")
+                caught.append(e_t > tol)
+                out[f"{b}_em_{name}_err"], out[f"{b}_em_{name}_err_tf32"] = e, e_t
+            check(any(caught), f"{b}: the EM limits cannot tell TF32 from f32")
+        torch.cuda.synchronize()
+    with phase("fit: weighted BCD against float64"):
+        feats = P.featurize(params, cfg, tx, dev, batch_size=FIT_BATCH)
+        test_feats = P.featurize(params, cfg, vx, dev, batch_size=FIT_BATCH)
+        y = ClassLabelIndicators(FIT_CLASSES)(torch.from_numpy(ty).to(dev))
+        alpha = class_weights(y, FIT_N, cfg.mixture_weight)
+        kw = dict(n=FIT_N, lam=cfg.lam, num_iter=cfg.num_epochs, block_size=cfg.solver_block_size,
+                  fit_intercept=True)
+        w32, xm32, ym32 = _weighted_bcd_fit(feats, y, alpha, **kw)
+        check(max_err(w32, params["blm.weights"]) <= TOL_VOCAB, "the solve's input is not the fit's")
+        w64, xm64, ym64 = _weighted_bcd_fit(feats.double(), y.double(), alpha.double(), **kw)
+        e_w = max_err64(w32, w64)
+        scale = w64.abs().max().item()
+
+        def predict(w, xm, ym):
+            return (test_feats.to(w.dtype) - xm) @ w.reshape(-1, FIT_CLASSES) + ym
+
+        p64 = predict(w64, xm64, ym64)
+        e_p = max_err64(predict(w32, xm32, ym32), p64)
+        print(f"  weights {e_w:.3e} from float64 (at most {RTOL_BCD_W:.0e}·{scale:.3e}); held-out predictions "
+              f"{e_p:.3e} (at most {TOL_BCD_PRED:.0e}; |ref| max {p64.abs().max().item():.3e})", flush=True)
+        with tf32_matmul():
+            wt_, xmt, ymt = _weighted_bcd_fit(feats, y, alpha, **kw)
+        e_wt, e_pt = max_err64(wt_, w64), max_err64(predict(wt_, xmt, ymt), p64)
+        print(f"  one-pass TF32: weights {e_wt:.3e}, held-out predictions {e_pt:.3e}", flush=True)
+        check(e_w <= RTOL_BCD_W * scale, f"BCD weights {e_w:.3e} from float64")
+        check(e_p <= TOL_BCD_PRED, f"BCD held-out predictions {e_p:.3e} from float64")
+        check(e_wt > RTOL_BCD_W * scale or e_pt > TOL_BCD_PRED, "the BCD limits cannot tell TF32 from f32")
+        out.update({"bcd_weights_err": e_w, "bcd_weights_max": scale, "bcd_predictions_err": e_p,
+                    "bcd_weights_err_tf32": e_wt, "bcd_predictions_err_tf32": e_pt})
+        torch.cuda.synchronize()
+    return out
+
+
 def gram_lines(gk, serving, krr_x, errs, f64, results):
     """The kernels-line entries of B3 and B4: times at the main paths'
     shapes, the plain versions', one torch.matmul of the same operands
@@ -824,6 +1039,51 @@ def main(argv=None) -> int:
             del ref
         torch.cuda.synchronize()
 
+    # The general path: GMM shapes the tiled kernels refuse, which the
+    # reference's Pallas kernels take.  B2 at K = 512 (K·d over the tiled
+    # kernel's statistics fragments) on the bench forward's descriptors,
+    # B1 at d = 60 (off the 8-tiling) on the scorer's SIFT descriptors;
+    # held as the tiled kernels are, against the plain chain and f32-grade
+    # against float64.  Not on a main path: its launches here are checks.
+    general = {}
+    with phase("FV kernels: the general path (shapes the tiled kernels refuse)"):
+        gp = params_from_numpy(P.random_params(("sift",), pca_dims=PCA_DIMS, gmm_k=512, num_classes=8, seed=2), dev)
+        gq = params_from_numpy(P.random_params(("sift",), pca_dims=60, gmm_k=GMM_K, num_classes=8, seed=3), dev)
+        gmm512 = (gp["sift.gmm.weights"], gp["sift.gmm.means"], gp["sift.gmm.variances"])
+        gmm60 = (gq["sift.gmm.weights"], gq["sift.gmm.means"], gq["sift.gmm.variances"])
+        for key, where, kern, plain, inputs, exact, tol, (d, k, d_in) in (
+            ("fisher_encode", f"({BATCH}, 784, 64) K=512", fk.fisher_encode, fk.fisher_encode_ref,
+             (fx, fmask, *gmm512), fv_f64, TOL_FV, (64, 512, 0)),
+            ("fused_forward", f"SIFT ({BATCH}, 784, 128->60) K={GMM_K}", fk.fused_forward, fk.fused_forward_ref,
+             (sift_raw, sift_mask, gq["sift.pca.components"], gq["sift.pca.mean"], *gmm60, True), fused_f64,
+             TOL_FUSED, (60, GMM_K, 128)),
+        ):
+            check(not fk.tiled(d, k, d_in), f"{key} {where}: the tiled kernel takes it")
+            cost = fv_cost(BATCH, 784, d, k, d_in=d_in)
+            fk.reset_launches()
+            got = kern(*inputs)
+            check(fk.LAUNCHES[f"{key}_general"] == 1 and fk.LAUNCHES[key] == 0,
+                  f"{key} {where}: launches {fk.LAUNCHES}")
+            e = compare(f"{key} general path {where}", got, plain(*inputs), tol)
+            ref = exact(*inputs)
+            e_kernel, e_plain = max_err64(got, ref), max_err64(plain(*inputs), ref)
+            with tf32_matmul():
+                e_tf32 = max_err64(plain(*inputs), ref)
+            print(f"  largest error against float64 (|ref| max {ref.abs().max().item():.3e}): kernel {e_kernel:.3e}, "
+                  f"plain f32 chain {e_plain:.3e} (ratio {e_kernel / e_plain:.3f}, at most {F64_RATIO}); one-pass "
+                  f"TF32 {e_tf32:.3e} (ratio {e_tf32 / e_plain:.1f}, must exceed {F64_RATIO})", flush=True)
+            check(e_kernel <= F64_RATIO * e_plain, f"{key} general path {where}: not f32-grade against float64")
+            check(e_tf32 > F64_RATIO * e_plain, f"{key} general path {where}: the check cannot tell TF32 from f32")
+            del ref
+            ms, plain_ms = cuda_ms(lambda: kern(*inputs)), cuda_ms(lambda: plain(*inputs), reps=5)
+            general[key] = {"shape": where, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms(*cost),
+                            "bound_by": bound_by(*cost), "max_abs_err": e,
+                            "f64_check": {"kernel": e_kernel, "plain_f32": e_plain, "tf32": e_tf32}}
+            print(f"  {key} general path {where}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                  f"{general[key]['bound_ms']:.4f} ms by {general[key]['bound_by']}), {card}", flush=True)
+        fk.reset_launches()
+        torch.cuda.synchronize()
+
     # ---- the main paths; each one's counts are zeroed just before and read just after
     results = {}
     for label, path, plain, kernel, inputs in (
@@ -843,8 +1103,8 @@ def main(argv=None) -> int:
             print(f"  launches {launches}; {ips:.1f} images/s over {BATCHES} batches of {BATCH} "
                   f"({card})", flush=True)
             check(launches[kernel] > 0, f"{kernel} never launched on the main path")
-            want = 2 * BATCHES if kernel == "fused_forward" else BATCHES
-            check(launches[kernel] == want, f"{kernel} launched {launches[kernel]} times, expected {want}")
+            want = fv_launches(fused=2 * BATCHES) if kernel == "fused_forward" else fv_launches(encode=BATCHES)
+            check(launches == want, f"launches {launches}, expected {want}")
             results[kernel] = {"launches": launches[kernel], "images_per_s": ips}
 
             agree, worst = 0, 0.0
@@ -872,6 +1132,8 @@ def main(argv=None) -> int:
     gram_errs, gram_f64s = gram_checks(gk, dev, rng, serving, data[0])
     results["kernel_timit"] = kernel_timit_path(card, kt_scorer, kt_plain, frame_batches, KT, gk, fk)
     results["krr"] = krr_path(dev, card, gk, fk, data)
+    fit_data = fit_setup(dev, P)
+    results["fit"], fitted = fit_path(dev, card, P, fk, fit_data)
 
     with phase("kernel timing"):
         def kernel_line(name, replaces, kernel, plain, calls, shape):
@@ -907,10 +1169,64 @@ def main(argv=None) -> int:
                          (fused_args(fused_lcs, lcs_desc, lcs_mask, fused_lcs.mean), (BATCH, 324, 96))],
                         "SIFT (128, 784, 128->64) + LCS (128, 324, 96->64) K=256, per batch"),
         ]
+        # B1 at the fit's shape: one training batch of its featurizer, K = 64
+        cfg_fit, tx = fit_data[0], fit_data[1]
+        fit_feat = P.build_featurizer(fitted, cfg_fit, dev)
+        xf_fit = fit_feat.stages[0](tx[:FIT_BATCH])
+        fit_sift, fit_lcs = fit_feat.stages[1].branches
+        fit_calls = [
+            (fused_args(fit_sift.stages[2], *Pipeline(list(fit_sift.stages)[:2])(xf_fit), fit_sift.stages[2].mean),
+             (FIT_BATCH, FIT_SIFT_T, 128)),
+            (fused_args(fit_lcs.stages[1], *fit_lcs.stages[0](xf_fit), fit_lcs.stages[1].mean),
+             (FIT_BATCH, FIT_LCS_T, 96)),
+        ]
+        # B1 against its plain version at the fit's shape, on the fitted
+        # GMM: PCA leaves small variances, so the log posterior and Φ²
+        # cancel terms of μ²/σ² ≫ 1, and two f32 chains summing in other
+        # orders differ beyond the scorer's tolerance.  Held against the
+        # plain chain in float64 as the scorer's calls are, f32-grade
+        # where f32 itself misses that tolerance (as B4's linear case)
+        for ln in lines:
+            ln["general_path"] = general[ln["name"]]
+        b1 = lines[1]
+        b1["f64_check_fit"], b1["max_abs_err_fit"] = {}, 0.0
+        for a, (n, t, d_in) in fit_calls:
+            check(tuple(a[0].shape) == (n, t, d_in), f"B1 fit input {tuple(a[0].shape)}")
+            label = f"B1 at the fit's shape ({n}, {t}, {d_in}->{PCA_DIMS}), K={FIT_GMM_K}"
+            got, plain = fk.fused_forward(*a), fk.fused_forward_ref(*a)
+            ref = fused_f64(*a)
+            b1["max_abs_err_fit"] = max(b1["max_abs_err_fit"], max_err(got, plain))
+            err, ratio = within(f"{label} vs the plain chain in float64", got, ref, TOL_FUSED)
+            e_plain = max_err64(plain, ref)
+            with tf32_matmul():
+                e_tf32 = max_err64(fk.fused_forward_ref(*a), ref)
+            print(f"  largest error against float64: kernel {err:.3e}, plain f32 chain {e_plain:.3e} (ratio "
+                  f"{err / e_plain:.3f}, at most {F64_RATIO}{' where the tolerance is left' if ratio > 1 else ''}); "
+                  f"one-pass TF32 {e_tf32:.3e} (ratio {e_tf32 / e_plain:.1f}, must exceed {F64_RATIO}); "
+                  f"kernel against the plain f32 chain {max_err(got, plain):.3e}", flush=True)
+            if ratio > 1.0:
+                check(err <= F64_RATIO * e_plain, f"{label}: not f32-grade against float64")
+            check(e_tf32 > F64_RATIO * e_plain, f"{label}: the check cannot tell TF32 from f32")
+            b1["f64_check_fit"][f"({n}, {t}, {d_in}->{PCA_DIMS}) K={FIT_GMM_K}"] = {
+                "kernel": err, "plain_f32": e_plain, "tf32": e_tf32}
+        b1["launches"] += results["fit"]["launches"]
+        b1["launches_by_path"] = {"scorer": results["fused_forward"]["launches"], "fit": results["fit"]["launches"]}
+        b1["ms_fit_each_call"] = [cuda_ms(lambda a=a: fk.fused_forward(*a)) for a, _ in fit_calls]
+        b1["plain_ms_fit_each_call"] = [cuda_ms(lambda a=a: fk.fused_forward_ref(*a), reps=5) for a, _ in fit_calls]
+        b1["ms_fit"], b1["plain_ms_fit"] = sum(b1["ms_fit_each_call"]), sum(b1["plain_ms_fit_each_call"])
+        fit_costs = [fv_cost(n, t, PCA_DIMS, FIT_GMM_K, d_in=d_in) for _, (n, t, d_in) in fit_calls]
+        b1["bound_ms_fit"] = sum(bound_ms(*c) for c in fit_costs)
+        b1["bound_ms_tc_fit"] = sum(
+            1e3 * max(c[0] / PEAK_BYTES, 3 * c[1] / PEAK_TF32_FLOPS) for c in fit_costs)
+        b1["shape_fit"] = (f"SIFT ({FIT_BATCH}, {FIT_SIFT_T}, 128->64) + LCS ({FIT_BATCH}, {FIT_LCS_T}, 96->64) "
+                           f"K={FIT_GMM_K}, per training batch of the fit")
         for ln in lines:
             print(f"  {ln['name']}: {ln['ms']:.4f} ms (plain {ln['plain_ms']:.4f} ms, bound "
                   f"{ln['bound_ms']:.4f} ms by {ln['bound_by']}, on the tensor cores {ln['bound_ms_tc']:.4f} ms) "
                   f"per batch of {BATCH}, {card}")
+        print(f"  fused_forward at the fit's shape: {b1['ms_fit']:.4f} ms (plain {b1['plain_ms_fit']:.4f} ms, bound "
+              f"{b1['bound_ms_fit']:.4f} ms, on the tensor cores {b1['bound_ms_tc_fit']:.4f} ms) per training "
+              f"batch of {FIT_BATCH}, {card}")
         lines += gram_lines(gk, serving, data[0], gram_errs, gram_f64s, results)
         for ln in lines[2:]:
             print(f"  {ln['name']}: {ln['ms']:.4f} ms (plain {ln['plain_ms']:.4f} ms, gemm "
@@ -926,6 +1242,8 @@ def main(argv=None) -> int:
             ("one scorer batch", lambda: scorer(images[:BATCH])),
             ("one kernel TIMIT batch", lambda: kt_scorer(frame_batches[1])),
             ("one in-core KRR fit", lambda: krr_est.fit_arrays(data[0], data[1], device=dev)),
+            ("one ImageNetSiftLcsFV fit",
+             lambda: P.fit_params(fit_data[0], fit_data[1], fit_data[2], dev, batch_size=FIT_BATCH)),
         ):
             with phase(f"profile {label}"):
                 profile_once(fn)
@@ -934,6 +1252,7 @@ def main(argv=None) -> int:
         "images_per_s": {k: results[k]["images_per_s"] for k in ("fused_forward", "fisher_encode")},
         "frames_per_s": results["kernel_timit"]["frames_per_s"],
         "krr": results["krr"],
+        "fit": results["fit"],
         "card": card,
     }))
     print(json.dumps({"kernels": lines}))

@@ -40,7 +40,16 @@
 // that component's posterior mass that the sums over T carry: that, not
 // the products, set the largest FV error against float64 on the card.
 //
-// What the design does about it: one block per image walks that image's
+// Two paths.  The tiled kernels below take the shapes of pick_tile: d and
+// K multiples of 8 with (d/8)(K/8) fragments within the registers (K*d <=
+// 16384), d_in a multiple of 4, and a tile of at least 8 rows within
+// shared memory; the scorer's and the fit's shapes are all such.  Every
+// other shape takes the general path at the end of this file: plain
+// kernels on the CUDA cores through a device workspace, with float64 sums,
+// so that the port encodes every GMM the reference encodes.  The entry
+// points pick the path from the shape before any launch.
+//
+// What the tiled design does about it: one block per image walks that image's
 // T descriptors tile by tile.  The TPU's sequential grid axis becomes a
 // loop inside the block, so no order between blocks is assumed.  The
 // posterior weights (2d, K) stay resident and unsplit in shared memory;
@@ -75,7 +84,9 @@ constexpr int kPostN = 4;    // posterior n8 tiles a warp holds at once
 constexpr int kMaxTile = 32;
 constexpr int kBatch = 4;    // 16-byte loads a thread has in flight when staging
 constexpr size_t kSmemLimit = 232448;  // 227 KB: the most one block may use
-constexpr int kErrShape = -1;          // shape the kernel does not take
+constexpr int kErrShape = -1;          // shape no kernel takes (d, K or d_in not positive)
+constexpr int kErrWorkspace = -2;      // the general path was given no workspace
+constexpr size_t kWsChunk = size_t(1) << 24;  // workspace floats a chunk of images may take
 
 // 4 consecutive descriptor values as f32 (16 bytes of f32, 8 of bf16)
 __device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
@@ -620,13 +631,186 @@ int pick_tile(int d, int K, int d_in) {
   return 0;
 }
 
+// ---------------------------------------------------------------- general path
+//
+// Any d, K >= 1 (and d_in >= 1 for the fused entry), a chunk of images at
+// a time through the workspace: g (rows, K), and for the fused entry the
+// projected descriptors z (rows, d) after it.  Four launches a chunk:
+//   fvg_project (fused only)  [SIFT normalize,] centre, project -> z
+//   fvg_logpost               g = cst + (clo + [x, x^2] . wt)
+//   fvg_softmax               g = softmax_k(g) * mask
+//   fvg_stats                 s0, s1, s2 of one (k, j) over T, then phi1, phi2
+// Sums run in float64 on f32 operands (a product of two f32 values is
+// exact there), so their rounding stays far below f32's: closer to the
+// float64 chain than the plain f32 chain comes.  The work is
+// the tiled kernels' (plus the posteriors' round trip through device
+// memory) on the CUDA cores, at float64's half rate.
+
+__device__ __forceinline__ float ld(float v) { return v; }
+__device__ __forceinline__ float ld(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// one warp a descriptor row: z = ([normalized] x - mean) . comp; the
+// normalize as the tiled kernel's (L2, min 0.2, L2, norms clamped to 1e-8)
+template <typename TIn>
+__global__ void __launch_bounds__(kThreads)
+    fvg_project(const TIn* __restrict__ x, const float* __restrict__ comp, const float* __restrict__ mean,
+                int normalize, float* __restrict__ z, int rows, int d_in, int d) {
+  const size_t r = ((size_t)blockIdx.x * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= (size_t)rows) return;  // the whole warp
+  const TIn* row = x + r * d_in;
+  float n1 = 1.f, n2 = 1.f;
+  if (normalize) {
+    float ss = 0.f;
+    for (int i = lane; i < d_in; i += 32) ss += ld(row[i]) * ld(row[i]);
+    n1 = fmaxf(sqrtf(warp_sum(ss)), 1e-8f);
+    ss = 0.f;
+    for (int i = lane; i < d_in; i += 32) {
+      const float v = fminf(ld(row[i]) / n1, 0.2f);
+      ss += v * v;
+    }
+    n2 = fmaxf(sqrtf(warp_sum(ss)), 1e-8f);
+  }
+  for (int j = lane; j < d; j += 32) {
+    double a = 0.0;
+    for (int i = 0; i < d_in; ++i) {
+      float v = ld(row[i]);
+      if (normalize) v = fminf(v / n1, 0.2f) / n2;
+      if (mean) v -= mean[i];
+      a += (double)v * comp[(size_t)i * d + j];
+    }
+    z[r * d + j] = (float)a;
+  }
+}
+
+// one thread a (row, component): the log posterior, wt's rows
+// interleaved (x_j, x_j^2) as the wrapper lays them out
+template <typename TX>
+__global__ void __launch_bounds__(kThreads)
+    fvg_logpost(const TX* __restrict__ x, const float* __restrict__ wt, const float* __restrict__ cst,
+                float* __restrict__ g, int rows, int d, int K) {
+  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= (size_t)rows * K) return;
+  const size_t r = i / K;
+  const int k = (int)(i % K);
+  const TX* xr = x + r * d;
+  double a = cst[K + k];
+  for (int j = 0; j < d; ++j) {
+    const double v = ld(xr[j]);
+    a += v * wt[(size_t)(2 * j) * K + k] + (v * v) * wt[(size_t)(2 * j + 1) * K + k];
+  }
+  g[i] = (float)((double)cst[k] + a);
+}
+
+// one warp a row: g = softmax over K, times the row's mask
+__global__ void __launch_bounds__(kThreads)
+    fvg_softmax(float* __restrict__ g, const float* __restrict__ mask, int rows, int K) {
+  const size_t r = ((size_t)blockIdx.x * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= (size_t)rows) return;  // the whole warp
+  float* row = g + r * K;
+  float mx = -INFINITY;
+  for (int k = lane; k < K; k += 32) mx = fmaxf(mx, row[k]);
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float e = expf(row[k] - mx);
+    row[k] = e;
+    sum += e;
+  }
+  const float scale = mask[r] / warp_sum(sum);
+  for (int k = lane; k < K; k += 32) row[k] *= scale;
+}
+
+// one thread a (k, j) of image blockIdx.y: the statistics over T, then
+// phi1 and phi2 (out rows (2, K, d) as the tiled kernels write them)
+template <typename TX>
+__global__ void __launch_bounds__(kThreads)
+    fvg_stats(const TX* __restrict__ x, const float* __restrict__ g, const float* __restrict__ mask,
+              const float* __restrict__ mu, const float* __restrict__ var, const float* __restrict__ w,
+              float* __restrict__ out, int T, int d, int K) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= K * d) return;
+  const int k = i / d, j = i % d;
+  const TX* xi = x + (size_t)blockIdx.y * T * d;
+  const float* gi = g + (size_t)blockIdx.y * T * K;
+  const float* mi = mask + (size_t)blockIdx.y * T;
+  double s0 = 0.0, s1 = 0.0, s2 = 0.0, cnt = 0.0;
+  for (int t = 0; t < T; ++t) {
+    const double gk = gi[(size_t)t * K + k], v = ld(xi[(size_t)t * d + j]);
+    s0 += gk;
+    s1 += gk * v;
+    s2 += gk * v * v;
+    cnt += mi[t];
+  }
+  const double tn = fmax(cnt, 1.0), m = mu[i], v = var[i], wk = w[k];
+  float* o = out + (size_t)blockIdx.y * 2 * K * d;
+  o[i] = (float)(((s1 - s0 * m) / sqrt(v)) / (tn * sqrt(wk)));
+  o[K * d + i] = (float)(((s2 - 2.0 * m * s1 + s0 * (m * m)) / v - s0) / (tn * sqrt(2.0 * wk)));
+}
+
+// images a chunk of the general path holds: its workspace within
+// kWsChunk floats, at least one image, at most a grid's y extent
+int general_chunk(int n, int T, int d, int K, bool fused) {
+  const size_t per = (size_t)T * (K + (fused ? d : 0));
+  const size_t c = per == 0 ? (size_t)n : kWsChunk / per;
+  return (int)(c < 1 ? 1 : c > 65535 ? 65535 : c > (size_t)n ? (size_t)n : c);
+}
+
+size_t general_workspace(int n, int T, int d, int K, bool fused) {
+  return (size_t)general_chunk(n, T, d, K, fused) * T * (K + (fused ? d : 0));
+}
+
+unsigned blocks_for(size_t threads) { return (unsigned)((threads + kThreads - 1) / kThreads); }
+
+// x: (n, T, d) for the encode, (n, T, d_in) for the fused entry (comp
+// non-null); ws: general_workspace floats
+template <typename TIn>
+int launch_general(const TIn* x, const float* mask, const float* comp, const float* mean, int normalize,
+                   const float* wt, const float* cst, const float* mu, const float* var, const float* w,
+                   float* out, int n, int T, int d_in, int d, int K, float* ws, cudaStream_t stream) {
+  const bool fused = comp != nullptr;
+  const int c = general_chunk(n, T, d, K, fused);
+  if (general_workspace(n, T, d, K, fused) > 0 && ws == nullptr) return kErrWorkspace;
+  float* g = ws;
+  float* z = fused ? ws + (size_t)c * T * K : nullptr;
+  for (int i0 = 0; i0 < n; i0 += c) {
+    const int nc = n - i0 < c ? n - i0 : c, rows = nc * T;
+    const float* m = mask + (size_t)i0 * T;
+    float* o = out + (size_t)i0 * 2 * K * d;
+    const dim3 grid(blocks_for((size_t)K * d), nc);
+    if (fused) {
+      if (rows > 0) {
+        fvg_project<TIn><<<blocks_for((size_t)rows * 32), kThreads, 0, stream>>>(
+            x + (size_t)i0 * T * d_in, comp, mean, normalize, z, rows, d_in, d);
+        fvg_logpost<float><<<blocks_for((size_t)rows * K), kThreads, 0, stream>>>(z, wt, cst, g, rows, d, K);
+        fvg_softmax<<<blocks_for((size_t)rows * 32), kThreads, 0, stream>>>(g, m, rows, K);
+      }
+      fvg_stats<float><<<grid, kThreads, 0, stream>>>(z, g, m, mu, var, w, o, T, d, K);
+    } else {
+      const TIn* xc = x + (size_t)i0 * T * d;
+      if (rows > 0) {
+        fvg_logpost<TIn><<<blocks_for((size_t)rows * K), kThreads, 0, stream>>>(xc, wt, cst, g, rows, d, K);
+        fvg_softmax<<<blocks_for((size_t)rows * 32), kThreads, 0, stream>>>(g, m, rows, K);
+      }
+      fvg_stats<TIn><<<grid, kThreads, 0, stream>>>(xc, g, m, mu, var, w, o, T, d, K);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 template <typename TIn>
 int launch_encode(const void* x, const float* mask, const float* wt, const float* cst,
                   const float* mu, const float* var, const float* w, float* out, int n, int T,
-                  int d, int K, cudaStream_t stream) {
-  const int tile = pick_tile(d, K, 0);
-  if (tile == 0) return kErrShape;
+                  int d, int K, float* ws, cudaStream_t stream) {
+  if (d <= 0 || K <= 0 || T < 0 || n < 0) return kErrShape;
   if (n == 0) return 0;
+  const int tile = pick_tile(d, K, 0);
+  if (tile == 0)
+    return launch_general(static_cast<const TIn*>(x), mask, nullptr, nullptr, 0, wt, cst, mu, var, w, out,
+                          n, T, 0, d, K, ws, stream);
   const size_t bytes = smem_floats(tile, d, K, 0) * sizeof(float);
   const auto kernel = d % 32 == 0 && K % 64 == 0 ? fv_encode_kernel<TIn, true> : fv_encode_kernel<TIn, false>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -640,10 +824,13 @@ template <typename TIn>
 int launch_fused(const void* x, const float* mask, const float* comp, const float* mean,
                  int normalize, const float* wt, const float* cst, const float* mu,
                  const float* var, const float* w, float* out, int n, int T, int d_in, int d,
-                 int K, cudaStream_t stream) {
-  const int tile = d_in > 0 ? pick_tile(d, K, d_in) : 0;
-  if (tile == 0) return kErrShape;
+                 int K, float* ws, cudaStream_t stream) {
+  if (d <= 0 || K <= 0 || d_in <= 0 || T < 0 || n < 0) return kErrShape;
   if (n == 0) return 0;
+  const int tile = pick_tile(d, K, d_in);
+  if (tile == 0)
+    return launch_general(static_cast<const TIn*>(x), mask, comp, mean, normalize, wt, cst, mu, var, w, out,
+                          n, T, d_in, d, K, ws, stream);
   const size_t bytes = smem_floats(tile, d, K, d_in) * sizeof(float);
   const auto kernel = d % 32 == 0 && K % 64 == 0 ? fv_fused_kernel<TIn, true> : fv_fused_kernel<TIn, false>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -660,33 +847,44 @@ extern "C" {
 // x: (n, T, d) f32 or bf16 (x_bf16 = 1); mask: (n, T) f32;
 // wt: (2d, K) posterior weights; cst: (2, K), the per-component constant
 // in f32 and what its rounding dropped; mu, var: (K, d); w: (K,);
-// out: (n, 2*K*d) f32.  Returns 0, a cudaError_t, or -1 for a shape
-// the kernel does not take: d and K multiples of 8 with K*d <= 16384
-// (the statistics fragments held in registers), d_in a multiple of 4, and
-// shared memory within 227 KB.
+// out: (n, 2*K*d) f32; ws: ks_fisher_workspace floats of device memory
+// (null where that is 0).  Returns 0, a cudaError_t, -1 for d or K not
+// positive, or -2 for a missing workspace.
 int ks_fisher_encode(const void* x, int x_bf16, const float* mask, const float* wt,
                      const float* cst, const float* mu, const float* var, const float* w,
-                     float* out, int n, int T, int d, int K, void* stream) {
+                     float* out, int n, int T, int d, int K, float* ws, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_encode<__nv_bfloat16>(x, mask, wt, cst, mu, var, w, out, n, T, d, K, st)
-                : launch_encode<float>(x, mask, wt, cst, mu, var, w, out, n, T, d, K, st);
+  return x_bf16 ? launch_encode<__nv_bfloat16>(x, mask, wt, cst, mu, var, w, out, n, T, d, K, ws, st)
+                : launch_encode<float>(x, mask, wt, cst, mu, var, w, out, n, T, d, K, ws, st);
 }
 
 // x: (n, T, d_in) f32 or bf16; comp: (d_in, d); mean: (d_in,) or null;
-// the rest as ks_fisher_encode.
+// the rest as ks_fisher_encode (-1 also for d_in not positive).
 int ks_fused_forward(const void* x, int x_bf16, const float* mask, const float* comp,
                      const float* mean, int normalize, const float* wt, const float* cst,
                      const float* mu, const float* var, const float* w, float* out, int n, int T,
-                     int d_in, int d, int K, void* stream) {
+                     int d_in, int d, int K, float* ws, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return x_bf16 ? launch_fused<__nv_bfloat16>(x, mask, comp, mean, normalize, wt, cst, mu, var, w,
-                                              out, n, T, d_in, d, K, st)
+                                              out, n, T, d_in, d, K, ws, st)
                 : launch_fused<float>(x, mask, comp, mean, normalize, wt, cst, mu, var, w, out, n,
-                                      T, d_in, d, K, st);
+                                      T, d_in, d, K, ws, st);
 }
+
+// floats of workspace the call takes (the encode for d_in = 0, the fused
+// entry otherwise): 0 where the tiled kernels take the shape, the general
+// path's chunk otherwise
+size_t ks_fisher_workspace(int n, int T, int d, int K, int d_in) {
+  if (n <= 0 || T <= 0 || d <= 0 || K <= 0 || d_in < 0 || pick_tile(d, K, d_in) > 0) return 0;
+  return general_workspace(n, T, d, K, d_in > 0);
+}
+
+// 1 when the tiled kernels take the shape, 0 when it takes the general path
+int ks_fisher_tiled(int d, int K, int d_in) { return pick_tile(d, K, d_in) > 0; }
 
 const char* ks_error_string(int code) {
   if (code == kErrShape) return "shape not supported by the Fisher-vector kernels";
+  if (code == kErrWorkspace) return "the general Fisher-vector path needs its workspace";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

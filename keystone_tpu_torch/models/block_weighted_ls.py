@@ -1,0 +1,91 @@
+"""Class-weighted block coordinate descent least squares (counterpart of
+``keystone_tpu/models/block_weighted_ls.py``; in-core only).
+
+Each example gets a weight blending a balanced per-class term with a
+uniform one (BlockWeightedLeastSquares.scala):
+
+    α_i = mixture_weight · n/(K·n_c(i)) + (1 − mixture_weight)
+
+and the fit solves the weighted ridge normal equations blockwise,
+Gauss–Seidel over feature blocks, with weighted mean-centring giving
+the intercept.  The sweep computes in the dtype it is given.  The
+out-of-core fits need the row-block store (ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from keystone_tpu_torch.models.block_ls import BlockLinearMapper, blockify, finish_block_model
+from keystone_tpu_torch.models.common import needs_row_block_store, solve_spd
+from keystone_tpu_torch.utils.device import resolve_device
+
+
+def class_weights(y: torch.Tensor, n, mixture_weight: float) -> torch.Tensor:
+    """Per-example weights from a ±1 one-hot label matrix (n_rows, K):
+    row i's class is its argmax; rows past n (padding) weigh 0."""
+    n_rows, k = y.shape
+    cls = torch.argmax(y, dim=1)
+    onehot = torch.nn.functional.one_hot(cls, k).to(y.dtype)
+    counts = torch.sum(onehot * (y.max(dim=1, keepdim=True).values > 0), dim=0)
+    counts = torch.clamp(counts, min=1.0)
+    balanced = n / (k * counts[cls])
+    alpha = mixture_weight * balanced + (1.0 - mixture_weight)
+    return alpha * (torch.arange(n_rows, device=y.device) < n).to(y.dtype)
+
+
+class BlockWeightedLeastSquaresEstimator:
+    def __init__(self, block_size: int = 4096, num_iter: int = 1, lam: float = 0.0,
+                 mixture_weight: float = 0.5, fit_intercept: bool = True):
+        self.block_size = int(block_size)
+        self.num_iter = int(num_iter)
+        self.lam = float(lam)
+        self.mixture_weight = float(mixture_weight)
+        self.fit_intercept = fit_intercept
+
+    def fit_stream_dataset(self, *args, **kwargs):
+        raise needs_row_block_store("fit_stream_dataset")
+
+    def fit_store(self, *args, **kwargs):
+        raise needs_row_block_store("fit_store")
+
+    def fit_arrays(self, x, y, device="cuda") -> BlockLinearMapper:
+        """x: (n, d) features, y: (n, K) ±1 indicators, numpy or tensors,
+        fitted in f32 on ``device``."""
+        dev = resolve_device(device)
+        x = torch.as_tensor(x, dtype=torch.float32).to(dev)
+        return self._fit(x, torch.as_tensor(y, dtype=torch.float32).to(dev), x.shape[0])
+
+    def _fit(self, x, y, n) -> BlockLinearMapper:
+        alpha = class_weights(y, n, self.mixture_weight)
+        weights, xm, ym = _weighted_bcd_fit(x, y, alpha, n, self.lam, self.num_iter,
+                                            self.block_size, self.fit_intercept)
+        return finish_block_model(weights, xm, ym, x.shape[1], self.block_size, self.fit_intercept)
+
+
+def _weighted_bcd_fit(x, y, alpha, n, lam, num_iter: int, block_size: int, fit_intercept: bool):
+    """Weights (nb, bs, K) and the weighted means (x̄, ȳ) the intercept
+    needs.  Each block solves with its √α-scaled rows, AᵀA = XᵀDX."""
+    wsum = torch.sum(alpha)
+    if fit_intercept:
+        xm = (alpha @ x) / wsum
+        ym = (alpha @ y) / wsum
+        row_ok = (alpha > 0).to(x.dtype)[:, None]
+        xc, yc = (x - xm) * row_ok, (y - ym) * row_ok
+    else:
+        xm = torch.zeros((x.shape[1],), dtype=x.dtype, device=x.device)
+        ym = torch.zeros((y.shape[1],), dtype=y.dtype, device=y.device)
+        xc, yc = x, y
+    xb = blockify(xc, block_size)  # (nb, n_rows, bs)
+    nb, _, bs = xb.shape
+    sa = torch.sqrt(alpha)[:, None]
+    w = torch.zeros((nb, bs, yc.shape[1]), dtype=yc.dtype, device=yc.device)
+    p = torch.zeros_like(yc)
+    for _ in range(num_iter):
+        for b in range(nb):
+            a = xb[b] * sa
+            target = (yc - p) * sa + a @ w[b]
+            wb_new = solve_spd(a.T @ a, a.T @ target, reg=lam * n)
+            p += xb[b] @ (wb_new - w[b])
+            w[b] = wb_new
+    return w, xm, ym

@@ -1,5 +1,5 @@
 """Shared solver numerics (counterpart of ``keystone_tpu/models/common.py``
-§ solve_spd)."""
+§ solve_spd), and the refusal of fits that need the row-block store."""
 
 from __future__ import annotations
 
@@ -15,3 +15,10 @@ def solve_spd(A: torch.Tensor, B: torch.Tensor, reg: float = 0.0) -> torch.Tenso
     A = A + reg * torch.eye(d, dtype=A.dtype, device=A.device)
     L, _ = torch.linalg.cholesky_ex(A, check_errors=False)
     return torch.cholesky_solve(B, L)
+
+
+def needs_row_block_store(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} needs the out-of-core row-block store (workflow/blockstore.py), "
+        "which the port does not have yet (ROADMAP A5)"
+    )

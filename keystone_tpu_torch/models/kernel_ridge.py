@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from keystone_tpu_torch.models.common import solve_spd
+from keystone_tpu_torch.models.common import needs_row_block_store, solve_spd
 from keystone_tpu_torch.ops.gram_kernels import gram_block, gram_block_ref, poly_block_ref
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.transformer import Transformer
@@ -62,13 +62,6 @@ class PolynomialKernelGenerator:
 
     def __call__(self, x, z):
         return poly_block_ref(x, z, self.alpha, self.c, self.degree)
-
-
-def _needs_row_block_store(what: str):
-    return NotImplementedError(
-        f"{what} needs the out-of-core row-block store (workflow/blockstore.py), "
-        "which the port does not have yet (ROADMAP A5)"
-    )
 
 
 class KernelBlockLinearMapper(Transformer):
@@ -120,10 +113,10 @@ class KernelRidgeRegressionEstimator:
         self.use_kernel = use_kernel
 
     def fit_stream_dataset(self, *args, **kwargs):
-        raise _needs_row_block_store("fit_stream_dataset")
+        raise needs_row_block_store("fit_stream_dataset")
 
     def fit_store(self, *args, **kwargs):
-        raise _needs_row_block_store("fit_store")
+        raise needs_row_block_store("fit_store")
 
     def fit_arrays(self, x, y, device="cuda") -> KernelBlockLinearMapper:
         """x: (n, d), y: (n, k), numpy or tensors, fitted on ``device``
@@ -245,7 +238,7 @@ def _krr_objective(y, f, n):
 
 
 def _oc_krr_fit(*args, **kwargs):
-    raise _needs_row_block_store("the out-of-core KRR sweep")
+    raise needs_row_block_store("the out-of-core KRR sweep")
 
 
 class OutOfCoreKernelBlockLinearMapper(Transformer):
@@ -253,4 +246,4 @@ class OutOfCoreKernelBlockLinearMapper(Transformer):
     not ported (ROADMAP A5)."""
 
     def __init__(self, *args, **kwargs):
-        raise _needs_row_block_store("OutOfCoreKernelBlockLinearMapper")
+        raise needs_row_block_store("OutOfCoreKernelBlockLinearMapper")

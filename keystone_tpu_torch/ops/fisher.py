@@ -10,10 +10,13 @@ FV of a descriptor set {x_t} against a diagonal GMM (w, μ, σ²)
 concatenated to a 2·K·D vector per image.  Power and L2 normalization
 are the separate SignedHellingerMapper / NormalizeRows stages.
 
-The reference picks its Pallas kernel only when T·K ≥ 32768, a crossover
-measured on a TPU; that threshold is dropped here.  On a CUDA tensor
-both transformers launch their kernel (``use_kernel=None``, the
-default); ``use_kernel=False`` runs the plain per-stage chain.
+The reference picks its Pallas kernel by a T·K crossover measured on a
+TPU, and otherwise the XLA chain; the crossover is dropped here.  With
+``use_kernel=None`` (the default) both transformers launch their kernel
+for a CUDA tensor, whatever the GMM's shape (``fisher_kernels`` takes
+every shape), and run the plain per-stage chain on the CPU.
+``use_kernel=True`` asks for the kernel (on a CPU tensor the wrapper
+takes its plain version); ``use_kernel=False`` runs the plain chain.
 """
 
 from __future__ import annotations
@@ -22,14 +25,14 @@ from typing import Optional
 
 import torch
 
-from keystone_tpu_torch.models.gmm import GaussianMixtureModel
+from keystone_tpu_torch.models.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from keystone_tpu_torch.models.pca import PCATransformer
 from keystone_tpu_torch.ops import fisher_kernels
 from keystone_tpu_torch.ops.fisher_kernels import fisher_encode_ref as _fisher_encode
 from keystone_tpu_torch.utils import precision
 from keystone_tpu_torch.workflow.transformer import Transformer
 
-__all__ = ["FisherVector", "FusedPcaFisherVector", "_fisher_encode"]
+__all__ = ["FisherVector", "FusedPcaFisherVector", "GMMFisherVectorEstimator", "_fisher_encode"]
 
 
 def _batch(xs, mask):
@@ -110,3 +113,20 @@ class FusedPcaFisherVector(Transformer):
                 g.weights, g.means, g.variances, normalize=self.sift_normalize,
             )
         return out[0] if squeeze else out
+
+
+class GMMFisherVectorEstimator:
+    """Fits the GMM vocabulary on (sampled) descriptors and returns the
+    FisherVector transformer (GMMFisherVectorEstimator.scala)."""
+
+    def __init__(self, k: int, max_iterations: int = 25, seed: int = 0):
+        self.k = int(k)
+        self.max_iterations = int(max_iterations)
+        self.seed = int(seed)
+
+    def fit_arrays(self, x, mask=None, device="cuda") -> FisherVector:
+        """x: (n, d) descriptors, or ragged (n, T, d) sets with a mask."""
+        gmm = GaussianMixtureModelEstimator(
+            self.k, max_iterations=self.max_iterations, seed=self.seed
+        ).fit_arrays(x, mask, device=device)
+        return FisherVector(gmm)

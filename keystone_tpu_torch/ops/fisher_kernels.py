@@ -7,11 +7,15 @@ Two kernels, hand-written in CUDA C++ for Hopper (``csrc/fisher.cu``):
 * ``fused_forward`` — [SIFT normalize →] PCA project → FV encode in one
   pass over the raw descriptors; replaces ``fused_forward_pallas``.
 
-Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
+Each takes every GMM shape, as the Pallas kernels do: the tiled
+tensor-core kernel where its tile fits (``tiled``; the scorer's and the
+fit's shapes), and otherwise the general path, plain CUDA-core kernels
+through a device workspace.  ``csrc/fisher.cu`` picks the path from the
+shape.  Each wrapper launches for a CUDA tensor (or raises) and takes
 its plain version, ``fisher_encode_ref`` / ``fused_forward_ref``, only
-for a tensor on the CPU.  ``LAUNCHES`` counts the kernel launches.
-Descriptors may be f32 or bf16 (the reference's ``mxu='bf16'`` stream);
-the kernels compute in f32 either way.
+for a tensor on the CPU.  ``LAUNCHES`` counts the launches by wrapper
+and path.  Descriptors may be f32 or bf16 (the reference's
+``mxu='bf16'`` stream); the kernels compute in f32 either way.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import torch
 from keystone_tpu_torch.models.gmm import _LOG2PI, _log_gaussians
 from keystone_tpu_torch.ops.sift import _sift_normalize
 
-#: kernel launches by wrapper name; reset with ``reset_launches``
-LAUNCHES = {"fisher_encode": 0, "fused_forward": 0}
+#: kernel launches by wrapper name, the general path's under
+#: ``<name>_general``; reset with ``reset_launches``
+LAUNCHES = {"fisher_encode": 0, "fused_forward": 0, "fisher_encode_general": 0, "fused_forward_general": 0}
 
 
 def reset_launches() -> None:
@@ -84,13 +89,33 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("fisher")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ks_fisher_encode.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.ks_fisher_encode.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, p, p]
     lib.ks_fisher_encode.restype = i
-    lib.ks_fused_forward.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.ks_fused_forward.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, p, p]
     lib.ks_fused_forward.restype = i
+    lib.ks_fisher_workspace.argtypes = [i, i, i, i, i]
+    lib.ks_fisher_workspace.restype = ctypes.c_size_t
+    lib.ks_fisher_tiled.argtypes = [i, i, i]
+    lib.ks_fisher_tiled.restype = i
     lib.ks_error_string.argtypes = [i]
     lib.ks_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def tiled(d: int, k: int, d_in: int = 0) -> bool:
+    """Whether the tiled kernel takes a GMM of K components in d dims
+    (the encode for ``d_in = 0``, the fused kernel over d_in-wide
+    descriptors otherwise); other shapes take the general path.  Asks
+    ``csrc/fisher.cu``, so it builds the library on first use."""
+    return bool(_lib().ks_fisher_tiled(int(d), int(k), int(d_in)))
+
+
+def _workspace(n, t, d, k, d_in, dev):
+    """The general path's device workspace for a call; None where it
+    needs none (no descriptor)."""
+    floats = _lib().ks_fisher_workspace(n, t, d, k, d_in)
+    return None if floats == 0 else torch.empty(floats, dtype=torch.float32, device=dev)
 
 
 def _check(name: str, t: torch.Tensor, shape, dtypes, device) -> None:
@@ -177,8 +202,9 @@ def _check_gmm(w, mu, var, device):
 
 def fisher_encode(xs, mask, w, mu, var):
     """xs: (n, T, d) f32 or bf16; mask: (n, T) f32; w: (K,); mu, var:
-    (K, d) → (n, 2·K·d) f32.  CUDA tensors launch the kernel; CPU tensors
-    take ``fisher_encode_ref``."""
+    (K, d) → (n, 2·K·d) f32, any K, d ≥ 1.  CUDA tensors launch the
+    kernel (the tiled one or the general path); CPU tensors take
+    ``fisher_encode_ref``."""
     if xs.device.type == "cpu":
         return fisher_encode_ref(xs, mask, w, mu, var)
     if xs.device.type != "cuda":
@@ -193,13 +219,16 @@ def fisher_encode(xs, mask, w, mu, var):
         return out
     wt, cst = _weights_for(w, mu, var)
     xs = _aligned(xs)
+    general = not tiled(d, k)
+    ws = _workspace(n, t, d, k, 0, dev) if general else None
     rc = _lib().ks_fisher_encode(
         xs.data_ptr(), int(xs.dtype == torch.bfloat16), mask.data_ptr(),
         wt.data_ptr(), cst.data_ptr(), mu.data_ptr(), var.data_ptr(), w.data_ptr(),
-        out.data_ptr(), n, t, d, k, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), n, t, d, k, None if ws is None else ws.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "fisher_encode")
-    LAUNCHES["fisher_encode"] += 1
+    LAUNCHES["fisher_encode_general" if general else "fisher_encode"] += 1
     return out
 
 
@@ -207,8 +236,9 @@ def fused_forward(desc, mask, components, mean, w, mu, var, normalize: bool = Tr
     """desc: (n, T, d_in) f32 or bf16 — raw SIFT output with
     ``normalize=True``, already normalized descriptors with False;
     mask: (n, T) f32; components: (d_in, d); mean: (d_in,) or None;
-    GMM (w (K,), mu/var (K, d)) → (n, 2·K·d) f32.  CUDA tensors launch
-    the kernel; CPU tensors take ``fused_forward_ref``."""
+    GMM (w (K,), mu/var (K, d)) → (n, 2·K·d) f32, any K, d, d_in ≥ 1.
+    CUDA tensors launch the kernel (the tiled one or the general path);
+    CPU tensors take ``fused_forward_ref``."""
     if desc.device.type == "cpu":
         return fused_forward_ref(desc, mask, components, mean, w, mu, var, normalize)
     if desc.device.type != "cuda":
@@ -226,13 +256,16 @@ def fused_forward(desc, mask, components, mean, w, mu, var, normalize: bool = Tr
         return out
     wt, cst = _weights_for(w, mu, var)
     desc, components = _aligned(desc), _aligned(components)
+    general = not tiled(d, k, d_in)
+    ws = _workspace(n, t, d, k, d_in, dev) if general else None
     rc = _lib().ks_fused_forward(
         desc.data_ptr(), int(desc.dtype == torch.bfloat16), mask.data_ptr(),
         components.data_ptr(), None if mean is None else mean.data_ptr(), int(bool(normalize)),
         wt.data_ptr(), cst.data_ptr(), mu.data_ptr(), var.data_ptr(), w.data_ptr(),
-        out.data_ptr(), n, t, d_in, d, k, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), n, t, d_in, d, k, None if ws is None else ws.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "fused_forward")
-    LAUNCHES["fused_forward"] += 1
+    LAUNCHES["fused_forward_general" if general else "fused_forward"] += 1
     return out
 

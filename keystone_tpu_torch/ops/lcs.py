@@ -57,6 +57,10 @@ def _gather_index(extent: int, step: int, sub: int, device: torch.device):
 
 def _lcs(xs: torch.Tensor, step: int, sub: int) -> torch.Tensor:
     n, h, w, c = xs.shape
+    yy, ky = _gather_index(h, step, sub, xs.device)
+    xx, kx = _gather_index(w, step, sub, xs.device)
+    if ky == 0 or kx == 0:  # no keypoint fits, as in an image smaller than a subpatch
+        return torch.zeros((n, 0, _GRID * _GRID * 2 * c), device=xs.device)
     area = float(sub * sub)
     x = xs.permute(0, 3, 1, 2)  # NCHW for the pooling
     # VALID stride-1 box sums: index (y, x) = sum of the sub×sub box
@@ -67,9 +71,6 @@ def _lcs(xs: torch.Tensor, step: int, sub: int) -> torch.Tensor:
     var = torch.clamp(s2 / area - mean * mean, min=0.0)
     std = torch.sqrt(var)
     feat = torch.cat([mean, std], dim=1).permute(0, 2, 3, 1)  # (n, h', w', 2C)
-
-    yy, ky = _gather_index(h, step, sub, xs.device)
-    xx, kx = _gather_index(w, step, sub, xs.device)
     g = feat[:, yy][:, :, xx]  # (n, Ky*4, Kx*4, 2C)
     g = g.reshape(n, ky, _GRID, kx, _GRID, 2 * c)
     return g.permute(0, 1, 3, 2, 4, 5).reshape(n, ky * kx, _GRID * _GRID * 2 * c)

@@ -1,11 +1,12 @@
-"""Row normalizers and column standardization (counterpart of
+"""Row normalizers, column standardization and samplers (counterpart of
 ``keystone_tpu/ops/stats.py`` § SignedHellingerMapper, NormalizeRows,
-StandardScaler, StandardScalerModel)."""
+StandardScaler, StandardScalerModel, Sampler, ColumnSampler)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from keystone_tpu_torch.utils.device import resolve_device
@@ -68,3 +69,56 @@ class StandardScaler:
         if not self.normalize_std:
             return StandardScalerModel(mean, None)
         return StandardScalerModel(mean, torch.clamp(std, min=self.eps))
+
+
+class Sampler:
+    """Row subsampling with a fixed seed (Sampler.scala): ``size`` rows
+    without replacement, drawn by ``np.random.default_rng(seed)`` as the
+    reference draws them, so both keep the same rows."""
+
+    def __init__(self, size: int, seed: int = 0):
+        self.size = int(size)
+        self.seed = int(seed)
+
+    def apply_arrays(self, x):
+        """The kept rows of ``x`` (n, ...), a numpy array or a tensor, in order."""
+        n = x.shape[0]
+        idx = np.sort(np.random.default_rng(self.seed).choice(n, size=min(self.size, n), replace=False))
+        return x[idx] if isinstance(x, np.ndarray) else x[torch.from_numpy(idx).to(x.device)]
+
+
+class ColumnSampler:
+    """``num_samples`` descriptors an item, drawn uniformly with
+    replacement from the item's valid descriptors (ColumnSampler.scala:
+    columns of each image's descriptor matrix, sampled before the PCA and
+    GMM fits).  Input: (n, T, d) sets and an (n, T) mask; output: the
+    flat (n·num_samples, d) rows, item by item.
+
+    The draws are (n, num_samples) uniforms from a CPU ``torch.Generator``
+    seeded with ``seed``, so every device samples the same rows; item i
+    takes row i of them, whatever the batches ``sample`` is given (the
+    reference folds the global item index into its key for the same
+    end).  An item with no valid descriptor yields copies of its last
+    (padding) row, where the reference's draw is undefined."""
+
+    def __init__(self, num_samples: int, seed: int = 0):
+        self.num_samples = int(num_samples)
+        self.seed = int(seed)
+
+    def draws(self, n: int) -> torch.Tensor:
+        """(n, num_samples) float64 uniforms in [0, 1): items 0..n−1's draws."""
+        g = torch.Generator().manual_seed(self.seed)
+        return torch.rand((n, self.num_samples), generator=g, dtype=torch.float64)
+
+    def sample(self, xs, mask, u) -> torch.Tensor:
+        """The rows that draws ``u`` (m, num_samples) pick from sets xs
+        (m, T, d) under ``mask`` (m, T) or None: (m·num_samples, d)."""
+        m, t, d = xs.shape
+        valid = torch.ones((m, t), dtype=torch.bool, device=xs.device) if mask is None else mask > 0
+        cum = torch.cumsum(valid.to(torch.int64), dim=1)  # valid descriptors up to each position
+        j = (u.to(xs.device) * cum[:, -1:]).to(torch.int64)  # the j-th valid one, 0-based
+        idx = torch.clamp(torch.searchsorted(cum, j + 1), max=t - 1)
+        return torch.gather(xs, 1, idx[..., None].expand(m, self.num_samples, d)).reshape(-1, d)
+
+    def apply_arrays(self, xs, mask=None) -> torch.Tensor:
+        return self.sample(xs, mask, self.draws(xs.shape[0]))

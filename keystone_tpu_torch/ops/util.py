@@ -10,7 +10,9 @@ from keystone_tpu_torch.workflow.transformer import Transformer
 
 
 class TopKClassifier(Transformer):
-    """Top-k class indices, best first."""
+    """Top-k class indices, best first; among equal scores the lower
+    index first, as the reference's top-k orders them (``torch.topk``
+    gives ties no order)."""
 
     def __init__(self, k: int):
         super().__init__()
@@ -18,7 +20,7 @@ class TopKClassifier(Transformer):
 
     def apply_batch(self, xs, mask=None):
         k = min(self.k, xs.shape[-1])
-        return torch.topk(xs, k, dim=-1, largest=True, sorted=True).indices
+        return torch.sort(xs, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
 class MaxClassifier(Transformer):
@@ -29,12 +31,15 @@ class MaxClassifier(Transformer):
 
 
 class ClassLabelIndicators(Transformer):
-    """int labels → ±1 indicator rows, the least-squares targets."""
+    """int labels → ±1 indicator rows, the least-squares targets.  A label
+    outside [0, num_classes) gives an all −1 row, as in the reference,
+    whose one-hot of such a label has no 1."""
 
     def __init__(self, num_classes: int):
         super().__init__()
         self.num_classes = int(num_classes)
 
     def apply_batch(self, xs, mask=None):
-        onehot = torch.nn.functional.one_hot(xs.to(torch.int64), self.num_classes)
+        classes = torch.arange(self.num_classes, device=xs.device)
+        onehot = xs.to(torch.int64)[..., None] == classes
         return onehot.to(torch.float32) * 2.0 - 1.0

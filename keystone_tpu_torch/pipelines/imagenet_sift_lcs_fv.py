@@ -1,6 +1,6 @@
-"""ImageNetSiftLcsFV scoring forward (counterpart of
+"""ImageNetSiftLcsFV: the fit and the scoring forward (counterpart of
 ``keystone_tpu/pipelines/imagenet_sift_lcs_fv.py`` and of
-``bench.py::build_forward``; the fit stays in the JAX package).
+``bench.py::build_forward``).
 
 Two branches over the input images:
 
@@ -13,26 +13,41 @@ builds the fitted scorer as the reference runs it after its optimizer's
 SIFT branch's normalize moves into that kernel.  ``build_forward`` is the
 unfused single-branch program ``bench.py`` measures, with the plain FV
 kernel.
+
+``fit_params`` fits the scorer's arrays from images and labels, doing in
+order what the reference's ``_fv_branch`` and ``build_scorer`` do, with
+arrays in place of its workflow graph: per branch a ColumnSampler of the
+descriptors → PCA, a ColumnSampler of the projected descriptors → GMM
+(k-means++, then EM); the training set's Fisher vectors through the
+scorer's own featurizer (``build_featurizer``, B1 on the card); then
+ClassLabelIndicators → the class-weighted block least-squares solve.
+``run_synthetic`` is the reference's ``run`` on synthetic images.  Saved
+models, streamed fits and the augmented evaluation wait for the
+workflow core and the row-block store (ROADMAP A3, A5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
 from keystone_tpu_torch.models.block_ls import BlockLinearMapper
-from keystone_tpu_torch.models.gmm import GaussianMixtureModel
-from keystone_tpu_torch.models.pca import PCATransformer
+from keystone_tpu_torch.models.block_weighted_ls import BlockWeightedLeastSquaresEstimator
+from keystone_tpu_torch.models.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
+from keystone_tpu_torch.models.pca import PCAEstimator, PCATransformer
 from keystone_tpu_torch.ops.fisher import FisherVector, FusedPcaFisherVector
 from keystone_tpu_torch.ops.images import GrayScaler, PixelScaler
 from keystone_tpu_torch.ops.lcs import LCSExtractor
-from keystone_tpu_torch.ops.sift import SIFTExtractor
-from keystone_tpu_torch.ops.stats import NormalizeRows, SignedHellingerMapper
-from keystone_tpu_torch.ops.util import TopKClassifier
-from keystone_tpu_torch.utils import precision
+from keystone_tpu_torch.ops.sift import SIFTExtractor, _sift_normalize
+from keystone_tpu_torch.ops.stats import ColumnSampler, NormalizeRows, SignedHellingerMapper
+from keystone_tpu_torch.ops.util import ClassLabelIndicators, TopKClassifier
+from keystone_tpu_torch.utils import precision, timing
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.pipeline import Pipeline
 
@@ -40,17 +55,37 @@ from keystone_tpu_torch.workflow.pipeline import Pipeline
 SIFT_DIM = 128
 LCS_DIM = 96
 
+#: each branch's sampler and k-means++ seed, from ``Config.seed``
+BRANCH_SEED_OFFSET = {"sift": 0, "lcs": 100}
+
 
 @dataclasses.dataclass
 class Config:
-    """The reference Config's fields that shape the scoring forward
-    (the widths come from the fitted arrays)."""
+    """The reference Config's fields, with its defaults.  A fitted
+    scorer's widths come from its arrays; the fit reads the rest.
+    ``augmented_eval``, ``model_path`` and ``stream`` are not ported:
+    ``run_synthetic`` refuses them."""
 
+    num_classes: int = 16
     sift_step: int = 6
     sift_bin_size: int = 4
     lcs_step: int = 6
     lcs_subpatch: int = 6
+    pca_dims: int = 64
+    gmm_k: int = 16
+    gmm_iters: int = 10
+    descriptor_samples_per_image: int = 64
+    lam: float = 1e-4
+    mixture_weight: float = 0.25
+    solver_block_size: int = 4096
+    num_epochs: int = 2
     top_k: int = 5
+    seed: int = 0
+    synthetic_n: int = 64
+    image_size: int = 64
+    augmented_eval: bool = False
+    model_path: Optional[str] = None
+    stream: bool = False
 
 
 def _gmm(p, b) -> GaussianMixtureModel:
@@ -74,6 +109,46 @@ def _fv_tail(base: Pipeline, p, b, sift_normalize: bool, use_kernel: Optional[bo
     return base.and_then(fused).and_then(SignedHellingerMapper()).and_then(NormalizeRows())
 
 
+def _bases(config: Config) -> Dict[str, Pipeline]:
+    """Each branch's descriptor extractor over [0, 1] images.  SIFT emits
+    raw descriptors: the fused kernel normalizes them (and the fit's
+    sampler normalizes its rows), so they are normalized once."""
+    return {
+        "sift": Pipeline.of(GrayScaler()).and_then(
+            SIFTExtractor(config.sift_step, (config.sift_bin_size,), normalize=False)
+        ),
+        "lcs": Pipeline.of(LCSExtractor(config.lcs_step, config.lcs_subpatch)),
+    }
+
+
+def _featurizer_stages(params, config: Config, use_kernel: Optional[bool]):
+    for b in ("sift", "lcs"):
+        if f"{b}.pca.components" not in params:
+            raise ValueError(f"the featurizer needs the {b} branch's parameters")
+    bases = _bases(config)
+    branches = Pipeline.gather([
+        _fv_tail(bases["sift"], params, "sift", True, use_kernel),
+        _fv_tail(bases["lcs"], params, "lcs", False, use_kernel),
+    ])
+    # both reference branches start with the same PixelScaler (merged by
+    # its optimizer's CSE): here it runs once, before the branches
+    return [PixelScaler(only_if_integer=True), branches]
+
+
+def build_featurizer(
+    params: Dict[str, torch.Tensor],
+    config: Config = Config(),
+    device="cuda",
+    use_kernel: Optional[bool] = None,
+) -> Pipeline:
+    """Images → the (n, 2·2·K·d) Fisher-vector features the linear
+    scorer reads: the scorer without its BLM and TopK, and the fit's
+    featurizer of the training set.  ``params`` needs both branches."""
+    dev = resolve_device(device)
+    precision.disable_tf32()
+    return Pipeline(_featurizer_stages(params, config, use_kernel)).to(dev).eval()
+
+
 def build_scorer_from_params(
     params: Dict[str, torch.Tensor],
     config: Config = Config(),
@@ -82,31 +157,14 @@ def build_scorer_from_params(
 ) -> Pipeline:
     """The fitted two-branch scorer, ending in TopK(config.top_k) class ids.
 
-    ``params`` as ``convert.params_from_numpy`` returns them, with both
-    branches.  ``use_kernel=False`` runs the plain per-stage chain in
-    place of the fused kernels (the comparison on the card)."""
+    ``params`` as ``convert.params_from_numpy`` or ``fit_params`` return
+    them, with both branches.  ``use_kernel=False`` runs the plain
+    per-stage chain in place of the fused kernels (the comparison on the
+    card)."""
     dev = resolve_device(device)
     precision.disable_tf32()
-    for b in ("sift", "lcs"):
-        if f"{b}.pca.components" not in params:
-            raise ValueError(f"the scorer needs the {b} branch's parameters")
-    # SIFT emits raw descriptors: the fused kernel normalizes them
-    sift_base = Pipeline.of(GrayScaler()).and_then(
-        SIFTExtractor(config.sift_step, (config.sift_bin_size,), normalize=False)
-    )
-    lcs_base = Pipeline.of(LCSExtractor(config.lcs_step, config.lcs_subpatch))
-    branches = Pipeline.gather([
-        _fv_tail(sift_base, params, "sift", True, use_kernel),
-        _fv_tail(lcs_base, params, "lcs", False, use_kernel),
-    ])
-    # both reference branches start with the same PixelScaler (merged by
-    # its optimizer's CSE): here it runs once, before the branches
-    scorer = (
-        Pipeline.of(PixelScaler(only_if_integer=True))
-        .and_then(branches)
-        .and_then(_blm(params))
-        .and_then(TopKClassifier(config.top_k))
-    )
+    stages = _featurizer_stages(params, config, use_kernel)
+    scorer = Pipeline([*stages, _blm(params), TopKClassifier(config.top_k)])
     return scorer.to(dev).eval()
 
 
@@ -164,3 +222,143 @@ def random_params(
     nb = -(-fv_dim // block_size)
     out["blm.weights"] = 0.01 * rng.normal(size=(nb, block_size, num_classes))
     return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------- the fit
+
+
+def _branch_seeds(config: Config) -> Dict[str, int]:
+    return {b: config.seed + off for b, off in BRANCH_SEED_OFFSET.items()}
+
+
+def _batches(images, size: int):
+    for lo in range(0, images.shape[0], size):
+        yield lo, images[lo:lo + size]
+
+
+def sample_descriptors(config: Config, images, device="cuda", batch_size: int = 128):
+    """Per branch, the descriptor rows the PCA fit (sampler seed s) and
+    the GMM fit (seed s + 1) take: ``{branch: (pca_rows, gmm_rows)}``,
+    each (n·descriptor_samples_per_image, d_in), SIFT rows normalized.
+    A descriptor's projection is its own, so the GMM's sample of the
+    projected descriptors is the projection of these rows.  Images go to
+    the device ``batch_size`` at a time, and only the sampled rows stay."""
+    dev = resolve_device(device)
+    images = torch.as_tensor(images)
+    n = images.shape[0]
+    k = config.descriptor_samples_per_image
+    samplers = {b: (ColumnSampler(k, seed=s), ColumnSampler(k, seed=s + 1))
+                for b, s in _branch_seeds(config).items()}
+    draws = {b: [sm.draws(n).to(dev) for sm in pair] for b, pair in samplers.items()}
+    bases = {b: base.to(dev) for b, base in _bases(config).items()}
+    scaler = PixelScaler(only_if_integer=True)
+    parts = {b: ([], []) for b in bases}
+    for lo, batch in _batches(images, batch_size):
+        xf = scaler(batch.to(dev))
+        for b, base in bases.items():
+            desc, mask = base(xf)
+            for i, sampler in enumerate(samplers[b]):
+                parts[b][i].append(sampler.sample(desc, mask, draws[b][i][lo:lo + batch.shape[0]]))
+    rows = {b: tuple(torch.cat(p) for p in pair) for b, pair in parts.items()}
+    rows["sift"] = tuple(_sift_normalize(r) for r in rows["sift"])
+    return rows
+
+
+def featurize(params, config: Config, images, device="cuda", use_kernel: Optional[bool] = None,
+              batch_size: int = 128) -> torch.Tensor:
+    """(n, D) features of ``images`` by ``build_featurizer``, ``batch_size``
+    images a call (a call launches B1 once a branch on the card)."""
+    dev = resolve_device(device)
+    feat = build_featurizer(params, config, dev, use_kernel)
+    images = torch.as_tensor(images)
+    return torch.cat([feat(batch.to(dev)) for _, batch in _batches(images, batch_size)])
+
+
+def fit_params(
+    config: Config,
+    images,
+    labels,
+    device="cuda",
+    use_kernel: Optional[bool] = None,
+    batch_size: int = 128,
+    stage_seconds: Optional[Dict[str, float]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Fit the scorer's arrays from ``images`` (n, H, W, 3), uint8 or
+    [0, 1] floats, and int ``labels`` (n,): the ``params`` dict, under
+    ``convert.params_from_numpy``'s keys, that ``build_scorer_from_params``
+    scores with.  Computes in f32 on ``device`` (TF32 off); the draws come
+    from generators seeded by ``config.seed``, so a fit repeats on one
+    device.  ``use_kernel`` is the featurizer's (``False``: the plain
+    chain).  ``stage_seconds``, when given, receives each stage's seconds,
+    each ended by a device synchronize: sample, pca, kmeans, em (both
+    branches' GMM fits), featurize, solve."""
+    dev = resolve_device(device)
+    precision.disable_tf32()
+
+    def stage(name):
+        return timing.stage(stage_seconds, name, dev)
+
+    with stage("sample"):
+        rows = sample_descriptors(config, images, dev, batch_size)
+    with stage("pca"):
+        pcas = {b: PCAEstimator(config.pca_dims, center=True).fit_arrays(pca_rows, device=dev)
+                for b, (pca_rows, _) in rows.items()}
+    params = {}
+    for b, s in _branch_seeds(config).items():
+        gmm = GaussianMixtureModelEstimator(config.gmm_k, max_iterations=config.gmm_iters, seed=s).fit_arrays(
+            pcas[b](rows[b][1]), device=dev, stage_seconds=stage_seconds)
+        params.update({f"{b}.pca.components": pcas[b].components, f"{b}.pca.mean": pcas[b].mean,
+                       f"{b}.gmm.weights": gmm.weights, f"{b}.gmm.means": gmm.means,
+                       f"{b}.gmm.variances": gmm.variances})
+    with stage("featurize"):
+        feats = featurize(params, config, images, dev, use_kernel, batch_size)
+    with stage("solve"):
+        y = ClassLabelIndicators(config.num_classes)(torch.as_tensor(labels).to(dev))
+        blm = BlockWeightedLeastSquaresEstimator(
+            block_size=config.solver_block_size, num_iter=config.num_epochs, lam=config.lam,
+            mixture_weight=config.mixture_weight,
+        ).fit_arrays(feats, y, device=dev)
+    params["blm.weights"] = blm.weights
+    params["blm.intercept"] = blm.intercept
+    return params
+
+
+_NOT_PORTED = {
+    "augmented_eval": "the 10-view evaluation needs CenterCornerPatcher and the workflow core (ROADMAP A3)",
+    "model_path": "saving and loading a fitted pipeline needs the workflow core (ROADMAP A3)",
+    "stream": "the streamed fit needs the out-of-core row-block store (ROADMAP A5)",
+}
+
+
+def predict_top_k(scorer: Pipeline, images, device="cuda", batch_size: int = 128) -> np.ndarray:
+    """(n, top_k) class ids of ``images`` by ``scorer``, batch by batch."""
+    dev = resolve_device(device)
+    images = torch.as_tensor(images)
+    return torch.cat([scorer(batch.to(dev)) for _, batch in _batches(images, batch_size)]).cpu().numpy()
+
+
+def run_synthetic(config: Config, device="cuda", use_kernel: Optional[bool] = None,
+                  batch_size: int = 128) -> dict:
+    """The reference's ``run`` on synthetic images: fit on
+    ``config.synthetic_n`` training images (seed 1), then the top-1 and
+    top-k error on max(8, n // 4) test images (seed 2)."""
+    for field, why in _NOT_PORTED.items():
+        if getattr(config, field):
+            raise NotImplementedError(f"Config.{field}: {why}")
+    dev = resolve_device(device)
+    size = (config.image_size, config.image_size)
+    train_x, train_y = ImageNetLoader.synthetic(config.synthetic_n, config.num_classes, size, seed=1)
+    test_x, test_y = ImageNetLoader.synthetic(max(8, config.synthetic_n // 4), config.num_classes, size,
+                                              seed=2)
+    t0 = time.perf_counter()
+    params = fit_params(config, train_x, train_y, dev, use_kernel, batch_size)
+    fit_time = time.perf_counter() - t0
+    topk = predict_top_k(build_scorer_from_params(params, config, dev, use_kernel), test_x, dev, batch_size)
+    m = MulticlassClassifierEvaluator(config.num_classes).evaluate(topk[:, 0], test_y)
+    return {
+        "pipeline": "ImageNetSiftLcsFV",
+        "fit_seconds": fit_time,
+        "top1_error": m.total_error,
+        "top5_error": float(1.0 - (topk == test_y[:, None]).any(axis=1).mean()),
+        "accuracy": m.accuracy,
+    }

@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from keystone_tpu_torch.models.gmm import GaussianMixtureModel
+from keystone_tpu_torch.models.pca import PCATransformer
 from keystone_tpu_torch.ops import fisher_kernels as fk
 from keystone_tpu_torch.ops import gram_kernels as gk
+from keystone_tpu_torch.ops.fisher import FisherVector, FusedPcaFisherVector
 
 pytestmark = pytest.mark.cuda
 
@@ -161,17 +164,41 @@ def _fused64(desc, mask, comp, mean, w, mu, var, normalize):
     return _fv64(z @ comp.double(), mask, w, mu, var)
 
 
-@pytest.mark.parametrize("kind", ["encode", "fused"])
+def _fitted_like(rng, n, t, k, d, dev):
+    """A GMM whose variances fall as a PCA's do (1e-1 to 1e-4 over the
+    dims), as a fitted vocabulary's, and descriptors at three times its
+    spread around its means, as real ones sit further from a fitted
+    vocabulary than its own draws: FV entries reach ~10 and the log
+    posterior and Φ² cancel large terms (the plain f32 chain is ~1e-4
+    from float64, as on the fit's own GMM)."""
+    w = rng.random(k).astype(np.float32) + 0.1
+    w /= w.sum()
+    sd = np.sqrt(np.logspace(-1, -4, d))
+    var = (sd[None, :] ** 2 * (0.5 + rng.random((k, d)))).astype(np.float32)
+    mu = (0.3 * rng.normal(size=(k, d)) * sd).astype(np.float32)
+    comp = rng.integers(0, k, (n, t))
+    xs = (mu[comp] + 3.0 * np.sqrt(var[comp]) * rng.normal(size=(n, t, d))).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (xs, w, mu, var)]
+
+
+@pytest.mark.parametrize("kind", ["encode", "fused", "encode_fitted_gmm", "encode_general", "fused_general"])
 def test_fv_kernels_are_f32_grade(dev, kind):
     """3xTF32 on the tensor cores against a float64 FV chain of the same
     operands: within 2x the plain f32 chain's (TF32 off) largest error,
     where one-pass TF32 is not."""
     rng = np.random.default_rng(13)
-    if kind == "encode":
+    if kind == "encode_fitted_gmm":
+        xs, w, mu, var = _fitted_like(rng, 16, 361, 64, 64, dev)
+        args = (xs, _mask(rng, 16, 361, dev), w, mu, var)
+        kern, plain, exact = fk.fisher_encode, fk.fisher_encode_ref, _fv64(*args)
+    elif kind in ("encode", "encode_general"):  # K = 512: the general path
         xs = torch.from_numpy(rng.normal(size=(16, 784, 64)).astype(np.float32)).to(dev)
         mask = _mask(rng, 16, 784, dev)
-        args = (xs, mask, *_gmm(rng, 256, 64, dev))
+        args = (xs, mask, *_gmm(rng, 512 if kind == "encode_general" else 256, 64, dev))
         kern, plain, exact = fk.fisher_encode, fk.fisher_encode_ref, _fv64(*args)
+    elif kind == "fused_general":  # d_in = 130: the general path
+        args = _fused_args(rng, 16, 784, 130, 64, 256, dev)
+        kern, plain, exact = fk.fused_forward, fk.fused_forward_ref, _fused64(*args)
     else:
         args = _fused_args(rng, 16, 784, 128, 64, 256, dev)
         kern, plain, exact = fk.fused_forward, fk.fused_forward_ref, _fused64(*args)
@@ -207,7 +234,7 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     fk.reset_launches()
     xs = torch.from_numpy(rng.normal(size=(2, 40, 12)).astype(np.float32)).to(dev)
     mask = torch.ones((2, 40), device=dev)
-    w, mu, var = _gmm(rng, 8, 12, dev)  # d=12: not a multiple of 8
+    w, mu, var = _gmm(rng, 0, 12, dev)  # K = 0: a GMM no kernel takes
     with pytest.raises(RuntimeError, match="shape not supported"):
         fk.fisher_encode(xs, mask, w, mu, var)
     w, mu, var = _gmm(rng, 8, 16, dev)
@@ -218,7 +245,71 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         fk.fisher_encode(xs[..., :16], mask, w, mu, var)
     with pytest.raises(TypeError, match="dtype"):
         fk.fisher_encode(xs[..., :16].contiguous().half(), mask, w, mu, var)
-    assert fk.LAUNCHES == {"fisher_encode": 0, "fused_forward": 0}
+    assert not any(fk.LAUNCHES.values()), fk.LAUNCHES
+
+
+def test_tiled_kernel_takes_the_main_paths_shapes(dev):
+    """The scorer's (K = 256) and the fit's (K = 64) shapes take the tiled
+    kernels; K·d over the statistics fragments and d off the 8-tiling take
+    the general path."""
+    for d_in in (0, 128, 96):
+        for k in (256, 64):
+            assert fk.tiled(64, k, d_in), (k, d_in)
+    for d, k, d_in in ((64, 512, 0), (60, 64, 0), (64, 60, 0), (64, 64, 130), (64, 256, 512)):
+        assert not fk.tiled(d, k, d_in), (d, k, d_in)
+
+
+# GMM shapes the tiled kernels refuse (see test_tiled_kernel_takes_the_main_paths_shapes)
+GENERAL_SHAPES = [(512, 64, 128), (64, 60, 128), (60, 64, 96), (64, 64, 130), (256, 64, 512)]
+
+
+@pytest.mark.parametrize("k,d,d_in", GENERAL_SHAPES)
+@pytest.mark.parametrize("t", [301, 7])
+def test_transformers_launch_the_general_path_where_the_tile_does_not_fit(dev, k, d, d_in, t):
+    """A GMM shape the reference's Pallas kernels encode and the tiled
+    kernels refuse: with use_kernel=None the transformers launch the
+    general path on the card (the encode too where (K, d) alone is
+    refused), held against the plain chain in float64 at the kernels'
+    tolerances, and against the plain f32 chain at T = 301 (at T = 7 the
+    two f32 chains differ by up to ~8e-5 at K = 512)."""
+    rng = np.random.default_rng(k + d + d_in + t)
+    xs = torch.from_numpy(rng.normal(size=(4, t, d)).astype(np.float32)).to(dev)
+    mask = _mask(rng, 4, t, dev)
+    gmm = GaussianMixtureModel(*_gmm(rng, k, d, dev))
+    gm = (gmm.weights, gmm.means, gmm.variances)
+    fk.reset_launches()
+    got = FisherVector(gmm).apply_batch(xs, mask)
+    enc = "fisher_encode" if fk.tiled(d, k) else "fisher_encode_general"
+    assert fk.LAUNCHES == {**dict.fromkeys(fk.LAUNCHES, 0), enc: 1}
+    torch.testing.assert_close(got.double(), _fv64(xs, mask, *gm), atol=ATOL_FV, rtol=RTOL)
+    if t > 7:
+        torch.testing.assert_close(got, FisherVector(gmm, use_kernel=False).apply_batch(xs, mask), atol=ATOL_FV,
+                                   rtol=RTOL)
+    xb = xs.bfloat16()  # the bf16 stream on the same path
+    torch.testing.assert_close(fk.fisher_encode(xb, mask, *gm).double(), _fv64(xb, mask, *gm), atol=ATOL_FV,
+                               rtol=RTOL)
+    desc, mask, comp, mean, *_ = _fused_args(rng, 4, t, d_in, d, k, dev)
+    fused = FusedPcaFisherVector(PCATransformer(comp, mean), gmm, sift_normalize=True)
+    plain = FusedPcaFisherVector(PCATransformer(comp, mean), gmm, sift_normalize=True, use_kernel=False)
+    fk.reset_launches()
+    got = fused.apply_batch(desc, mask)
+    assert fk.LAUNCHES == {**dict.fromkeys(fk.LAUNCHES, 0), "fused_forward_general": 1}
+    torch.testing.assert_close(got.double(), _fused64(desc, mask, comp, mean, *gm, True), atol=ATOL_FUSED, rtol=RTOL)
+    if t > 7:
+        torch.testing.assert_close(got, plain.apply_batch(desc, mask), atol=ATOL_FUSED, rtol=RTOL)
+
+
+def test_transformers_launch_the_kernel_where_it_takes_the_shape(dev):
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.normal(size=(4, 96, 64)).astype(np.float32)).to(dev)
+    mask = _mask(rng, 4, 96, dev)
+    gmm = GaussianMixtureModel(*_gmm(rng, 64, 64, dev))  # the fit's K = 64
+    fk.reset_launches()
+    got = FisherVector(gmm).apply_batch(xs, mask)
+    assert fk.LAUNCHES == {"fisher_encode": 1, "fused_forward": 0, "fisher_encode_general": 0,
+                           "fused_forward_general": 0}
+    torch.testing.assert_close(got, FisherVector(gmm, use_kernel=False).apply_batch(xs, mask), atol=ATOL_FV,
+                               rtol=RTOL)
 
 
 # gram kernels: the JAX package's tolerances (tests/test_gram_pallas.py):

@@ -15,6 +15,7 @@ from keystone_tpu.ops.fisher import _fisher_encode as j_fisher_encode
 from keystone_tpu.ops.fisher_pallas import fisher_encode_pallas, fused_forward_pallas
 from keystone_tpu_torch.models.gmm import GaussianMixtureModel
 from keystone_tpu_torch.models.pca import PCATransformer
+from keystone_tpu_torch.ops import fisher as port_fisher
 from keystone_tpu_torch.ops import fisher_kernels as fk
 from keystone_tpu_torch.ops.fisher import FisherVector, FusedPcaFisherVector
 from keystone_tpu_torch.utils import precision
@@ -91,7 +92,7 @@ def test_wrappers_take_plain_version_on_cpu():
         fk.fused_forward(raw, mask, comp, mean, w, mu, var, True).numpy(),
         fk.fused_forward_ref(raw, mask, comp, mean, w, mu, var, True).numpy(),
     )
-    assert fk.LAUNCHES == {"fisher_encode": 0, "fused_forward": 0}
+    assert not any(fk.LAUNCHES.values()), fk.LAUNCHES
 
 
 def test_fisher_vector_transformer_matches_jax():
@@ -131,3 +132,55 @@ def test_bf16_stream_matches_pallas_bf16():
     f32 = port.apply_batch(*_t(xs, mask)).numpy()
     np.testing.assert_allclose(got, f32, atol=5e-2)
     assert np.abs(got - f32).max() > 0
+
+
+# GMM shapes (d, K, d_in; d_in = 0 for the encode) that the Pallas kernels
+# take: those of the port's tiled kernel (the scorer's K = 256, the fit's
+# K = 64, K·d = 16384 at d = 8) and those it leaves to its general path
+# (K·d over its statistics fragments, d or K off the 8-tiling, d_in off the
+# 4-tiling, no tile within shared memory)
+GMM_SHAPES = [
+    (64, 256, 0), (64, 256, 128), (64, 256, 96), (64, 64, 128), (8, 2048, 0),
+    (64, 512, 0), (64, 512, 128), (60, 64, 0), (64, 60, 0), (64, 64, 130),
+    (64, 256, 256), (32, 512, 256), (64, 256, 512),
+]
+
+
+@pytest.mark.parametrize("d,k,d_in", GMM_SHAPES)
+def test_transformers_take_every_gmm_shape(d, k, d_in):
+    """use_kernel=True at any GMM shape: on a CPU tensor the wrapper's
+    plain version, against the Pallas kernel in interpret mode (on the
+    card the same shapes launch the kernel, test_torch_cuda.py)."""
+    if d_in == 0:
+        xs, mask, w, mu, var = _encode_setup(n=2, t=24, d=d, k=k, seed=d + k)
+        got = FisherVector(GaussianMixtureModel(*_t(w, mu, var)), use_kernel=True).apply_batch(*_t(xs, mask))
+        want = fisher_encode_pallas(*_j(xs, mask, w, mu, var), interpret=True)
+        atol = ATOL_FV
+    else:
+        raw, mask, comp, mean, w, mu, var = _fused_setup(n=2, t=24, d_in=d_in, d=d, k=k, seed=d + k)
+        got = FusedPcaFisherVector(PCATransformer(*_t(comp, mean)), GaussianMixtureModel(*_t(w, mu, var)),
+                                   sift_normalize=True, use_kernel=True).apply_batch(*_t(raw, mask))
+        want = fused_forward_pallas(*_j(raw, mask, comp, mean, w, mu, var), interpret=True, normalize=True)
+        atol = ATOL_FUSED
+    assert tuple(got.shape) == (2, 2 * k * d)
+    # plus test_torch_cuda.py's relative term: at d = 64 and T = 24 FV
+    # entries reach ~5, where two f32 chains summing in other orders differ
+    # by ~1e-6 relative
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol, rtol=1e-5)
+
+
+class _OnTheCard:
+    """Stands in for a CUDA tensor in the dispatch decision."""
+
+    is_cuda = True
+
+
+@pytest.mark.parametrize("flag,on_card,launch", [
+    (None, True, True), (None, False, False), (True, False, True), (True, True, True), (False, True, False),
+])
+def test_transformers_hand_the_kernel_every_cuda_tensor(flag, on_card, launch):
+    """use_kernel=None gives the kernel wrapper every CUDA tensor, whatever
+    the GMM's shape, and the CPU tensors to the plain chain; True always
+    asks the wrapper (its plain version on the CPU); False never does."""
+    xs = _OnTheCard() if on_card else torch.zeros(1)
+    assert port_fisher._use_kernel(flag, xs) is launch

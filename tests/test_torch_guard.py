@@ -19,7 +19,12 @@ from keystone_tpu_torch.convert import (
     params_from_numpy,
 )
 from keystone_tpu_torch.models import kernel_ridge as kr
+from keystone_tpu_torch.models.block_ls import BlockLeastSquaresEstimator
+from keystone_tpu_torch.models.block_weighted_ls import BlockWeightedLeastSquaresEstimator
+from keystone_tpu_torch.models.gmm import GaussianMixtureModelEstimator
+from keystone_tpu_torch.models.kmeans import KMeansPlusPlusEstimator
 from keystone_tpu_torch.models.nystrom import NystromFeatures
+from keystone_tpu_torch.models.pca import PCAEstimator
 from keystone_tpu_torch.ops import fisher_kernels, gram_kernels
 from keystone_tpu_torch.ops.stats import StandardScaler
 from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as port
@@ -38,7 +43,9 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("ops.fisher_kernels", "ops.gram_kernels", "models.kernel_ridge", "models.kernel_matrix",
-              "models.nystrom", "pipelines.kernel_timit", "workflow.profiling", "loaders.timit"):
+              "models.nystrom", "pipelines.kernel_timit", "workflow.profiling", "loaders.timit",
+              "models.pca", "models.kmeans", "models.gmm", "models.block_ls", "models.block_weighted_ls",
+              "ops.stats", "evaluation.evaluators", "loaders.imagenet", "pipelines.imagenet_sift_lcs_fv"):
         assert f"keystone_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -92,7 +99,7 @@ def test_cpu_path_launches_no_kernel():
     imgs = np.random.default_rng(0).integers(0, 256, (2, 48, 48, 3), dtype=np.uint8)
     top = scorer(torch.from_numpy(imgs))
     assert top.shape == (2, 5)
-    assert fisher_kernels.LAUNCHES == {"fisher_encode": 0, "fused_forward": 0}
+    assert not any(fisher_kernels.LAUNCHES.values()), fisher_kernels.LAUNCHES
 
 
 def test_params_from_numpy_rejects_bad_input():
@@ -161,3 +168,43 @@ def test_kernel_tier_converters_reject_bad_input():
         kernel_timit_params_from_numpy(bad, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         krr_params_from_numpy({"krr.train_x": np.zeros((8, 3)), "krr.alpha": np.zeros((7, 1))}, device="cpu")
+
+
+TINY_FIT = port.Config(num_classes=3, gmm_k=4, gmm_iters=2, pca_dims=8, descriptor_samples_per_image=8,
+                       solver_block_size=64, synthetic_n=12, image_size=40, sift_step=8, lcs_step=8)
+
+
+def test_fit_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card: the CPU-only refusal is not observable")
+    x = np.random.default_rng(0).normal(size=(16, 4)).astype(np.float32)
+    y = -np.ones((16, 2), np.float32)
+    y[:, 0] = 1.0
+    imgs = np.zeros((2, 40, 40, 3), np.uint8)
+    for fit in (
+        lambda: PCAEstimator(2).fit_arrays(x),
+        lambda: KMeansPlusPlusEstimator(2).fit_arrays(x),
+        lambda: GaussianMixtureModelEstimator(2).fit_arrays(x),
+        lambda: BlockLeastSquaresEstimator(block_size=2).fit_arrays(x, y),
+        lambda: BlockWeightedLeastSquaresEstimator(block_size=2).fit_arrays(x, y),
+        lambda: port.fit_params(TINY_FIT, imgs, np.zeros(2, np.int32)),
+        lambda: port.run_synthetic(TINY_FIT),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fit()
+
+
+def test_fit_on_the_cpu_launches_no_kernel():
+    fisher_kernels.reset_launches()
+    result = port.run_synthetic(TINY_FIT, device="cpu")
+    assert 0.0 <= result["top1_error"] <= 1.0
+    assert not any(fisher_kernels.LAUNCHES.values()), fisher_kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("field", ["augmented_eval", "model_path", "stream"])
+def test_run_synthetic_refuses_what_is_not_ported(field):
+    import dataclasses
+
+    cfg = dataclasses.replace(TINY_FIT, **{field: "model.pt" if field == "model_path" else True})
+    with pytest.raises(NotImplementedError, match="ROADMAP A[35]"):
+        port.run_synthetic(cfg, device="cpu")

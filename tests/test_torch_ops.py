@@ -13,9 +13,11 @@ from keystone_tpu.ops import filters as jfilters
 from keystone_tpu.ops import sift as jsift
 from keystone_tpu.ops.images import GrayScaler as JGray
 from keystone_tpu.ops.images import PixelScaler as JPixel
+from keystone_tpu.ops.lcs import LCSExtractor as JLcs
 from keystone_tpu.ops.lcs import _lcs as j_lcs
 from keystone_tpu.ops.stats import NormalizeRows as JNorm
 from keystone_tpu.ops.stats import SignedHellingerMapper as JHell
+from keystone_tpu.ops.util import ClassLabelIndicators as JLabels
 from keystone_tpu.ops.util import TopKClassifier as JTopK
 from keystone_tpu_torch.models.block_ls import _block_predict
 from keystone_tpu_torch.models.gmm import GaussianMixtureModel
@@ -24,7 +26,7 @@ from keystone_tpu_torch.ops import filters, sift
 from keystone_tpu_torch.ops.images import GrayScaler, PixelScaler
 from keystone_tpu_torch.ops.lcs import LCSExtractor, _lcs
 from keystone_tpu_torch.ops.stats import NormalizeRows, SignedHellingerMapper
-from keystone_tpu_torch.ops.util import TopKClassifier
+from keystone_tpu_torch.ops.util import ClassLabelIndicators, TopKClassifier
 
 RNG = np.random.default_rng(0)
 IMGS = RNG.random((3, 40, 36)).astype(np.float32)  # grayscale, non-square
@@ -85,6 +87,14 @@ def test_lcs_matches():
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
     d, m = LCSExtractor(8, 6).apply_batch(torch.from_numpy(x))
     assert d.shape[-1] == 96 and m.shape == d.shape[:2]
+
+
+def test_lcs_of_an_image_smaller_than_a_subpatch_matches():
+    """No keypoint fits: (n, 0, 2·C·16) descriptors, as in the reference."""
+    x = RGB[:2, :5, :5].astype(np.float32) / 255.0
+    d, m = LCSExtractor(6, 6).apply_batch(torch.from_numpy(x))
+    want, want_mask = JLcs(6, 6).apply_batch(jnp.asarray(x))
+    assert d.shape == want.shape == (2, 0, 96) and m.shape == want_mask.shape == (2, 0)
 
 
 def test_image_scalers_match():
@@ -152,3 +162,19 @@ def test_top_k_matches():
         np.testing.assert_array_equal(
             _np(TopKClassifier(k).apply_batch(torch.from_numpy(x))), _np(JTopK(k).apply_batch(jnp.asarray(x)))
         )
+
+
+def test_top_k_breaks_ties_as_the_reference():
+    """Integer scores tie often: the lower index first among equals."""
+    x = np.random.default_rng(5).integers(0, 3, (2000, 12)).astype(np.float32)
+    x[0] = 0.0  # all equal
+    got = _np(TopKClassifier(5).apply_batch(torch.from_numpy(x)))
+    np.testing.assert_array_equal(got, _np(JTopK(5).apply_batch(jnp.asarray(x))))
+    np.testing.assert_array_equal(got[0], [0, 1, 2, 3, 4])
+
+
+def test_class_label_indicators_match_outside_the_classes():
+    labels = np.array([0, 3, -1, 4, 7, 2], np.int32)  # -1, 4, 7: no class of 4
+    got = _np(ClassLabelIndicators(4).apply_batch(torch.from_numpy(labels)))
+    np.testing.assert_array_equal(got, _np(JLabels(4).apply_batch(jnp.asarray(labels))))
+    np.testing.assert_array_equal(got[[2, 3, 4]], -np.ones((3, 4)))

@@ -72,7 +72,7 @@ def test_fused_scorer_matches_jax_rewritten_chain():
     scores = port.scores_of(scorer)(x).numpy()
     np.testing.assert_allclose(scores, want_scores, atol=ATOL_SCORES)
     np.testing.assert_array_equal(scorer(x).numpy(), want_top)
-    assert fisher_kernels.LAUNCHES == {"fisher_encode": 0, "fused_forward": 0}
+    assert not any(fisher_kernels.LAUNCHES.values()), fisher_kernels.LAUNCHES
 
 
 def test_unfused_forward_matches_jax_bench_chain():
