@@ -52,7 +52,18 @@ result line):
    BCD with one-pass TF32 products must leave those limits), and B1
    against its plain version at the fit's shape (K = 64; f32-grade where
    f32 itself leaves the tolerance, which one-pass TF32 must fail);
-9. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+9. main path, ImageNetSiftLcsFV.run through the workflow graph at the
+   same fit leg, after a small warm-up run: the graph fit (CSE-merged
+   featurization, in-graph PCA/GMM fits, the weighted BCD) with B2
+   launched on the training set and SIFT and LCS each applied once to
+   it, then scoring with B1 through the optimizer's FV fusion rule (two
+   fused nodes in the optimized scoring graph), the held-out top-1 error
+   under the gate; the graph-fitted scorer's held-out scores against
+   fit_params' scorer (same config and seeds) within tolerance with
+   top-1 agreement; a model_path save/load round trip with identical
+   top-k; B2 at the graph fit's shape against its plain version
+   (f32-grade against float64 where f32 itself leaves the tolerance);
+10. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches, float64 errors) for all four
    kernels, then the last line {"ok": true, "device": {...}}.
 
@@ -64,10 +75,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -186,6 +201,20 @@ FIT_TOP1_ERROR_MAX = 0.5
 TOL_PROJECTOR = 1e-4
 TOL_EM_W, TOL_EM_MU, TOL_EM_VAR = 2e-5, 2e-4, 2e-4
 RTOL_BCD_W, TOL_BCD_PRED = 1e-3, 3e-5
+
+# ---- the graph: ImageNetSiftLcsFV.run at the same fit leg, after a warm-up
+# run on GRAPH_WARMUP_N training images.  Against fit_params' scorer (same
+# config, seeds and draws): the vocabulary is fitted on the same sampled
+# rows, but the graph featurizes the training set with B2 on normalized,
+# projected SIFT where fit_params runs B1 on raw SIFT, two kernels that
+# round the FV otherwise (on a fitted GMM the FV kernels and the plain f32
+# chain differ by up to ~7e-3 at entries ~10); the power normalization and
+# the solve carry that into the weights as between the kernel fit and the
+# plain fit above, so the held-out scores are held at that fit's
+# 1e-3 + 1e-3·|ref|, and their top-1 classes agree on ≥ 99%
+GRAPH_WARMUP_N = 256
+TOL_GRAPH_SCORES, RTOL_GRAPH_SCORES = 1e-3, 1e-3
+GRAPH_TOP1_AGREEMENT = 0.99
 
 
 @contextlib.contextmanager
@@ -643,8 +672,8 @@ def fit_setup(dev, P):
     cfg = P.Config(num_classes=FIT_CLASSES, synthetic_n=FIT_N, image_size=IMAGE_HW, gmm_k=FIT_GMM_K,
                    pca_dims=PCA_DIMS, num_epochs=FIT_EPOCHS, solver_block_size=FIT_BLOCK)
     size = (IMAGE_HW, IMAGE_HW)
-    tx, ty = ImageNetLoader.synthetic(FIT_N, FIT_CLASSES, size, seed=1)
-    vx, vy = ImageNetLoader.synthetic(FIT_TEST_N, FIT_CLASSES, size, seed=2)
+    tx, ty = ImageNetLoader.synthetic_arrays(FIT_N, FIT_CLASSES, size, seed=1)
+    vx, vy = ImageNetLoader.synthetic_arrays(FIT_TEST_N, FIT_CLASSES, size, seed=2)
     return cfg, torch.from_numpy(tx).to(dev), ty, torch.from_numpy(vx).to(dev), vy
 
 
@@ -799,6 +828,195 @@ def fit_f64_checks(dev, card, P, cfg, tx, vx, ty, params):
     return out
 
 
+@contextlib.contextmanager
+def fit_probe(fk):
+    """Instruments ImageNetSiftLcsFV.run for the graph phase: the seconds
+    of ``Pipeline.fit`` (ended by a synchronize) and the FV launches at its
+    end, and the rows each descriptor extractor was applied to inside the
+    fit and after it.  The classes' methods are restored on exit."""
+    from keystone_tpu_torch.ops.lcs import LCSExtractor
+    from keystone_tpu_torch.ops.sift import SIFTExtractor
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    probe = {"in_fit": False, "rows": {"fit": {}, "scoring": {}}}
+    saved = [(Pipeline, "fit", Pipeline.fit), (SIFTExtractor, "apply_batch", SIFTExtractor.apply_batch),
+             (LCSExtractor, "apply_batch", LCSExtractor.apply_batch)]
+
+    def fit(self):
+        probe["in_fit"] = True
+        t0 = time.perf_counter()
+        fitted = saved[0][2](self)
+        torch.cuda.synchronize()
+        probe["fit_seconds"] = time.perf_counter() - t0
+        probe["fit_launches"] = dict(fk.LAUNCHES)
+        probe["in_fit"] = False
+        return fitted
+
+    def counted(name, orig):
+        def apply_batch(self, xs, mask=None):
+            rows = probe["rows"]["fit" if probe["in_fit"] else "scoring"]
+            rows[name] = rows.get(name, 0) + xs.shape[0]
+            return orig(self, xs, mask)
+        return apply_batch
+
+    Pipeline.fit = fit
+    for cls, name, orig in saved[1:]:
+        setattr(cls, name, counted(cls.__name__, orig))
+    try:
+        yield probe
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+
+
+def fitted_vocabulary(fitted):
+    """{branch: (PCATransformer, FisherVector)} of a graph-fitted pipeline
+    (branch by the descriptor width the PCA takes)."""
+    from keystone_tpu_torch.models.pca import PCATransformer
+    from keystone_tpu_torch.ops.fisher import FisherVector
+
+    g, out = fitted.graph, {}
+    for n, op in g.operators.items():
+        fv = getattr(op, "transformer", None)
+        if isinstance(fv, FisherVector):
+            pca = g.operators[g.dependencies[n][0]].transformer
+            check(isinstance(pca, PCATransformer), f"the FV node's input is {pca.label}")
+            out["sift" if pca.components.shape[0] == 128 else "lcs"] = (pca, fv)
+    check(sorted(out) == ["lcs", "sift"], f"fitted branches {sorted(out)}")
+    return out
+
+
+def graph_path(dev, card, P, fk, setup, params):
+    """ImageNetSiftLcsFV.run through the workflow graph at the fit leg: the
+    timed run (launch counts zeroed just before, read after its scoring),
+    the graph-fitted scorer against fit_params' (``params``), a model_path
+    round trip, and B2 at the graph fit's shape."""
+    from keystone_tpu_torch.ops.fisher import FusedPcaFisherVector
+    from keystone_tpu_torch.ops.images import GrayScaler, PixelScaler
+    from keystone_tpu_torch.ops.lcs import LCSExtractor
+    from keystone_tpu_torch.ops.sift import SIFTExtractor
+    from keystone_tpu_torch.workflow import transformer as WT
+    from keystone_tpu_torch.workflow.dataset import Dataset
+    from keystone_tpu_torch.workflow.pipeline import PipelineEnv
+
+    cfg, tx, ty, vx, vy = setup
+    G = P.ImageNetSiftLcsFV
+    # the graph applies its transformers to a dataset in row chunks
+    chunk = WT.APPLY_CHUNK_ROWS
+    nb_train, nb_test = -(-FIT_N // chunk), -(-FIT_TEST_N // chunk)
+    out = {}
+    with phase("main path: ImageNetSiftLcsFV.run through the workflow graph"):
+        G.run(dataclasses.replace(cfg, synthetic_n=GRAPH_WARMUP_N), dev)  # warm-up, not counted
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        detail = {}
+        with fit_probe(fk) as probe:
+            res = G.run(cfg, dev, out=detail)
+            torch.cuda.synchronize()
+        launches = dict(fk.LAUNCHES)
+        fit_l = probe["fit_launches"]
+        score_l = {k: launches[k] - fit_l[k] for k in launches}
+        rows = probe["rows"]
+        print(f"  launches: fit {fit_l}, scoring {score_l}; extractor rows {rows}", flush=True)
+        print(f"  Pipeline.fit {probe['fit_seconds']:.4f} s, {FIT_N / probe['fit_seconds']:.1f} images/s; run's "
+              f"fit_seconds (the training images' making included, as the reference's) {res['fit_seconds']:.4f} s "
+              f"({card})", flush=True)
+        print(f"  held-out ({FIT_TEST_N} images): top-1 error {res['top1_error']:.4f}, top-5 error "
+              f"{res['top5_error']:.4f} (at most {FIT_TOP1_ERROR_MAX} top-1; chance {1 - 1 / FIT_CLASSES:.4f})",
+              flush=True)
+        check(fit_l == fv_launches(encode=2 * nb_train), f"fit launches {fit_l}, expected B2 twice a chunk")
+        check(score_l == fv_launches(fused=2 * nb_test), f"scoring launches {score_l}, expected B1 twice a chunk")
+        once = {"SIFTExtractor": FIT_N, "LCSExtractor": FIT_N}
+        check(rows["fit"] == once, f"the fit's extractor rows {rows['fit']}, expected each once over the set")
+        check(rows["scoring"] == {k: FIT_TEST_N for k in once}, f"scoring's extractor rows {rows['scoring']}")
+        check(not res["model_loaded"], "the timed run loaded a model")
+        check(res["top1_error"] <= FIT_TOP1_ERROR_MAX, f"held-out top-1 error {res['top1_error']:.4f}")
+        pred = detail["predictions"]
+        check(pred.shape == (FIT_TEST_N, 5), f"top-5 shape {pred.shape}")
+        g = PipelineEnv.get_optimizer().execute(detail["fitted"](Dataset(vx)).graph)
+        fused = [op.transformer for op in g.operators.values()
+                 if isinstance(getattr(op, "transformer", None), FusedPcaFisherVector)]
+        print(f"  optimized scoring graph: {[f.label for f in fused]}", flush=True)
+        check(sorted(f.sift_normalize for f in fused) == [False, True],
+              "the scoring graph lacks its two fused FV nodes (SIFT with its normalize, LCS)")
+        top_p = P.predict_top_k(P.build_scorer_from_params(params, cfg, dev), vx, dev, FIT_BATCH)
+        agree = float((pred[:, 0] == top_p[:, 0]).mean())
+        print(f"  top-1 agreement with fit_params' scorer {agree:.5f} (at least {GRAPH_TOP1_AGREEMENT})", flush=True)
+        check(agree >= GRAPH_TOP1_AGREEMENT, f"top-1 agreement {agree:.5f}")
+        out.update({"fit_seconds": probe["fit_seconds"], "run_fit_seconds": res["fit_seconds"],
+                    "images_per_s": FIT_N / probe["fit_seconds"], "top1_error": res["top1_error"],
+                    "top5_error": res["top5_error"], "launches_fit": fit_l, "launches_scoring": score_l,
+                    "extractor_rows": rows, "top1_agreement": agree})
+    with phase("graph: the graph-fitted scorer against fit_params' scorer"):
+        labels = Dataset(torch.from_numpy(ty).to(dev))
+        scorer_g = G.build_scorer(cfg, Dataset(tx), labels).fit()
+        sg = scorer_g(Dataset(vx)).get().array
+        sp = held_out_scores(P, P.build_scorer_from_params(params, cfg, dev), vx)
+        check(tuple(sg.shape) == (FIT_TEST_N, FIT_CLASSES), f"scores shape {tuple(sg.shape)}")
+        out["scores_max_abs_err"] = compare("held-out scores, graph fit vs fit_params", sg, sp, TOL_GRAPH_SCORES,
+                                            RTOL_GRAPH_SCORES)
+        vocab = {}
+        for b, (pca, fv) in fitted_vocabulary(scorer_g).items():
+            c, cp = pca.components, params[f"{b}.pca.components"]
+            vocab[b] = {"projector": max_err(c @ c.T, cp @ cp.T),
+                        "gmm": max(max_err(getattr(fv.gmm, a), params[f"{b}.gmm.{a}"])
+                                   for a in ("weights", "means", "variances"))}
+        print(f"  vocabulary against fit_params' (largest differences): {vocab}", flush=True)
+        out["vocabulary_vs_fit_params"] = vocab
+    with phase("graph: model_path save and load"):
+        tmp = Path(tempfile.mkdtemp(prefix="graph_model_", dir=Path(__file__).resolve().parent))
+        try:
+            path = str(tmp / "imagenet_sift_lcs_fv.pt")
+            saved, loaded = {}, {}
+            r1 = G.run(dataclasses.replace(cfg, model_path=path), dev, out=saved)
+            r2 = G.run(dataclasses.replace(cfg, model_path=path), dev, out=loaded)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        same = bool(np.array_equal(saved["predictions"], loaded["predictions"]))
+        print(f"  fitted and saved: loaded={r1['model_loaded']}, top-1 error {r1['top1_error']:.4f}; loaded: "
+              f"loaded={r2['model_loaded']}, top-1 error {r2['top1_error']:.4f}, {r2['fit_seconds']:.4f} s; "
+              f"top-5 ids identical: {same}", flush=True)
+        check(not r1["model_loaded"] and r2["model_loaded"], "the round trip did not save, then load")
+        check(same, "the loaded model's top-5 ids differ from the saved one's")
+        out["round_trip"] = {"identical_top_k": same, "load_seconds": r2["fit_seconds"]}
+    # B2 at the graph fit's shape, on the fitted GMM: one chunk of the
+    # training set, normalized SIFT and LCS projected by the fitted PCA.
+    # As B1's fit-shape check: against the plain chain in float64,
+    # f32-grade where f32 itself misses the tolerance
+    b2 = {"f64_check": {}, "max_abs_err": 0.0, "calls": []}
+    with phase("graph: B2 at the graph fit's shape against its plain version"):
+        xf = PixelScaler(only_if_integer=True)(tx[:chunk])
+        extract = {"sift": lambda: SIFTExtractor(cfg.sift_step, (cfg.sift_bin_size,))(GrayScaler()(xf)),
+                   "lcs": lambda: LCSExtractor(cfg.lcs_step, cfg.lcs_subpatch)(xf)}
+        for b, (pca, fv) in fitted_vocabulary(detail["fitted"]).items():
+            z, zm = pca(*extract[b]())
+            gm = fv.gmm
+            a = (z, zm, gm.weights, gm.means, gm.variances)
+            n, t, d = z.shape
+            label = f"B2 at the graph fit's shape, {b} ({n}, {t}, {d}), K={FIT_GMM_K}"
+            got, plain = fk.fisher_encode(*a), fk.fisher_encode_ref(*a)
+            ref = fv_f64(*a)
+            b2["max_abs_err"] = max(b2["max_abs_err"], max_err(got, plain))
+            err, ratio = within(f"{label} vs the plain chain in float64", got, ref, TOL_FV)
+            e_plain = max_err64(plain, ref)
+            with tf32_matmul():
+                e_tf32 = max_err64(fk.fisher_encode_ref(*a), ref)
+            print(f"  largest error against float64: kernel {err:.3e}, plain f32 chain {e_plain:.3e} (ratio "
+                  f"{err / e_plain:.3f}, at most {F64_RATIO}{' where the tolerance is left' if ratio > 1 else ''}); "
+                  f"one-pass TF32 {e_tf32:.3e} (ratio {e_tf32 / e_plain:.1f}, must exceed {F64_RATIO}); "
+                  f"kernel against the plain f32 chain {max_err(got, plain):.3e}", flush=True)
+            if ratio > 1.0:
+                check(err <= F64_RATIO * e_plain, f"{label}: not f32-grade against float64")
+            check(e_tf32 > F64_RATIO * e_plain, f"{label}: the check cannot tell TF32 from f32")
+            b2["f64_check"][f"{b} ({n}, {t}, {d}) K={FIT_GMM_K}"] = {"kernel": err, "plain_f32": e_plain,
+                                                                     "tf32": e_tf32}
+            b2["calls"].append((a, (n, t)))
+            del ref
+        torch.cuda.synchronize()
+    out["b2_fit_shape"] = b2
+    return out
+
+
 def gram_lines(gk, serving, krr_x, errs, f64, results):
     """The kernels-line entries of B3 and B4: times at the main paths'
     shapes, the plain versions', one torch.matmul of the same operands
@@ -919,7 +1137,7 @@ def main(argv=None) -> int:
     from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as P
     from keystone_tpu_torch.pipelines import kernel_timit as KT
     from keystone_tpu_torch.utils import precision
-    from keystone_tpu_torch.workflow.pipeline import Pipeline
+    from keystone_tpu_torch.workflow.optimizer import FusedTransformer
 
     dev = torch.device(DEVICE)
     precision.disable_tf32()
@@ -969,10 +1187,10 @@ def main(argv=None) -> int:
     x0 = batches[0]
     xf = scorer.stages[0].apply_batch(x0)  # PixelScaler
     sift_branch, lcs_branch = scorer.stages[1].branches
-    sift_raw, sift_mask = Pipeline(list(sift_branch.stages)[:2]).apply_batch(xf)
+    sift_raw, sift_mask = FusedTransformer(list(sift_branch.stages)[:2]).apply_batch(xf)
     lcs_desc, lcs_mask = lcs_branch.stages[0].apply_batch(xf)
     fused_sift, fused_lcs = sift_branch.stages[2], lcs_branch.stages[1]
-    fx, fmask = Pipeline(list(forward.stages)[:3]).apply_batch(xf)
+    fx, fmask = FusedTransformer(list(forward.stages)[:3]).apply_batch(xf)
     g = forward.stages[3].gmm
     gmm_b2 = (g.weights, g.means, g.variances)
 
@@ -1134,6 +1352,7 @@ def main(argv=None) -> int:
     results["krr"] = krr_path(dev, card, gk, fk, data)
     fit_data = fit_setup(dev, P)
     results["fit"], fitted = fit_path(dev, card, P, fk, fit_data)
+    results["graph"] = graph_path(dev, card, P, fk, fit_data, fitted)
 
     with phase("kernel timing"):
         def kernel_line(name, replaces, kernel, plain, calls, shape):
@@ -1175,7 +1394,8 @@ def main(argv=None) -> int:
         xf_fit = fit_feat.stages[0](tx[:FIT_BATCH])
         fit_sift, fit_lcs = fit_feat.stages[1].branches
         fit_calls = [
-            (fused_args(fit_sift.stages[2], *Pipeline(list(fit_sift.stages)[:2])(xf_fit), fit_sift.stages[2].mean),
+            (fused_args(fit_sift.stages[2], *FusedTransformer(list(fit_sift.stages)[:2])(xf_fit),
+                        fit_sift.stages[2].mean),
              (FIT_BATCH, FIT_SIFT_T, 128)),
             (fused_args(fit_lcs.stages[1], *fit_lcs.stages[0](xf_fit), fit_lcs.stages[1].mean),
              (FIT_BATCH, FIT_LCS_T, 96)),
@@ -1209,8 +1429,26 @@ def main(argv=None) -> int:
             check(e_tf32 > F64_RATIO * e_plain, f"{label}: the check cannot tell TF32 from f32")
             b1["f64_check_fit"][f"({n}, {t}, {d_in}->{PCA_DIMS}) K={FIT_GMM_K}"] = {
                 "kernel": err, "plain_f32": e_plain, "tf32": e_tf32}
-        b1["launches"] += results["fit"]["launches"]
-        b1["launches_by_path"] = {"scorer": results["fused_forward"]["launches"], "fit": results["fit"]["launches"]}
+        graph = results["graph"]
+        b1["launches"] += results["fit"]["launches"] + graph["launches_scoring"]["fused_forward"]
+        b1["launches_by_path"] = {"scorer": results["fused_forward"]["launches"], "fit": results["fit"]["launches"],
+                                  "graph_scoring": graph["launches_scoring"]["fused_forward"]}
+        # B2 at the graph fit's shape: one chunk of the training set a branch
+        b2, b2g = lines[0], graph.pop("b2_fit_shape")
+        b2["launches"] += graph["launches_fit"]["fisher_encode"]
+        b2["launches_by_path"] = {"bench_forward": results["fisher_encode"]["launches"],
+                                  "graph_fit": graph["launches_fit"]["fisher_encode"]}
+        b2["f64_check_graph_fit"], b2["max_abs_err_graph_fit"] = b2g["f64_check"], b2g["max_abs_err"]
+        b2["ms_graph_fit_each_call"] = [cuda_ms(lambda a=a: fk.fisher_encode(*a)) for a, _ in b2g["calls"]]
+        b2["plain_ms_graph_fit_each_call"] = [cuda_ms(lambda a=a: fk.fisher_encode_ref(*a), reps=5)
+                                             for a, _ in b2g["calls"]]
+        b2["ms_graph_fit"] = sum(b2["ms_graph_fit_each_call"])
+        b2["plain_ms_graph_fit"] = sum(b2["plain_ms_graph_fit_each_call"])
+        g_costs = [fv_cost(n, t, PCA_DIMS, FIT_GMM_K) for _, (n, t) in b2g["calls"]]
+        b2["bound_ms_graph_fit"] = sum(bound_ms(*c) for c in g_costs)
+        b2["bound_ms_tc_graph_fit"] = sum(fv_bound_ms_tc(n, t, PCA_DIMS, FIT_GMM_K) for _, (n, t) in b2g["calls"])
+        b2["shape_graph_fit"] = (f"SIFT ({FIT_BATCH}, {FIT_SIFT_T}, 64) + LCS ({FIT_BATCH}, {FIT_LCS_T}, 64) "
+                                 f"K={FIT_GMM_K}, per training chunk of the graph fit")
         b1["ms_fit_each_call"] = [cuda_ms(lambda a=a: fk.fused_forward(*a)) for a, _ in fit_calls]
         b1["plain_ms_fit_each_call"] = [cuda_ms(lambda a=a: fk.fused_forward_ref(*a), reps=5) for a, _ in fit_calls]
         b1["ms_fit"], b1["plain_ms_fit"] = sum(b1["ms_fit_each_call"]), sum(b1["plain_ms_fit_each_call"])
@@ -1224,6 +1462,9 @@ def main(argv=None) -> int:
             print(f"  {ln['name']}: {ln['ms']:.4f} ms (plain {ln['plain_ms']:.4f} ms, bound "
                   f"{ln['bound_ms']:.4f} ms by {ln['bound_by']}, on the tensor cores {ln['bound_ms_tc']:.4f} ms) "
                   f"per batch of {BATCH}, {card}")
+        print(f"  fisher_encode at the graph fit's shape: {b2['ms_graph_fit']:.4f} ms (plain "
+              f"{b2['plain_ms_graph_fit']:.4f} ms, bound {b2['bound_ms_graph_fit']:.4f} ms, on the tensor cores "
+              f"{b2['bound_ms_tc_graph_fit']:.4f} ms) per training chunk of {FIT_BATCH}, {card}")
         print(f"  fused_forward at the fit's shape: {b1['ms_fit']:.4f} ms (plain {b1['plain_ms_fit']:.4f} ms, bound "
               f"{b1['bound_ms_fit']:.4f} ms, on the tensor cores {b1['bound_ms_tc_fit']:.4f} ms) per training "
               f"batch of {FIT_BATCH}, {card}")
@@ -1235,6 +1476,7 @@ def main(argv=None) -> int:
 
     if args.profile:
         from keystone_tpu_torch.models import kernel_ridge as KR
+        from keystone_tpu_torch.workflow.dataset import Dataset
 
         krr_est = KR.KernelRidgeRegressionEstimator(
             KR.GaussianKernelGenerator(KRR_GAMMA), lam=KRR_LAM, block_size=KRR_BLOCK, num_epochs=KRR_EPOCHS)
@@ -1244,6 +1486,8 @@ def main(argv=None) -> int:
             ("one in-core KRR fit", lambda: krr_est.fit_arrays(data[0], data[1], device=dev)),
             ("one ImageNetSiftLcsFV fit",
              lambda: P.fit_params(fit_data[0], fit_data[1], fit_data[2], dev, batch_size=FIT_BATCH)),
+            ("one ImageNetSiftLcsFV graph fit (Pipeline.fit)", lambda: P.ImageNetSiftLcsFV.build(
+                fit_data[0], Dataset(fit_data[1]), Dataset(torch.from_numpy(fit_data[2]).to(dev))).fit()),
         ):
             with phase(f"profile {label}"):
                 profile_once(fn)
@@ -1253,6 +1497,7 @@ def main(argv=None) -> int:
         "frames_per_s": results["kernel_timit"]["frames_per_s"],
         "krr": results["krr"],
         "fit": results["fit"],
+        "graph": results["graph"],
         "card": card,
     }))
     print(json.dumps({"kernels": lines}))

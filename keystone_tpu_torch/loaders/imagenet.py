@@ -1,6 +1,7 @@
 """ImageNet-style images (counterpart of ``keystone_tpu/loaders/imagenet.py``;
-the synthetic generator only).  Tar archives and the native decoder wait
-for the workflow core (ROADMAP A3)."""
+the synthetic generator only).  Loading tar archives of JPEGs waits for
+a decoder (ROADMAP A13): the reference decodes with PIL or its native
+library, neither of which the port has."""
 
 from __future__ import annotations
 
@@ -8,10 +9,26 @@ from typing import Tuple
 
 import numpy as np
 
+from keystone_tpu_torch.loaders.labeled import LabeledData
+from keystone_tpu_torch.utils.device import resolve_device
+
 
 class ImageNetLoader:
     @staticmethod
     def synthetic(
+        n: int = 64,
+        num_classes: int = 16,
+        size: Tuple[int, int] = (64, 64),
+        seed: int = 0,
+        device="cuda",
+    ) -> LabeledData:
+        """``synthetic_arrays`` as a LabeledData: (n, H, W, 3) uint8 images
+        and (n,) int32 labels, Datasets on ``device``."""
+        pixels, labels = ImageNetLoader.synthetic_arrays(n, num_classes, size, seed)
+        return LabeledData.of(pixels, labels, resolve_device(device))
+
+    @staticmethod
+    def synthetic_arrays(
         n: int = 64,
         num_classes: int = 16,
         size: Tuple[int, int] = (64, 64),

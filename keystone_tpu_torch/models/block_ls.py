@@ -23,7 +23,9 @@ import torch.nn.functional as F
 
 from keystone_tpu_torch.models.common import needs_row_block_store, solve_spd
 from keystone_tpu_torch.utils.device import resolve_device
-from keystone_tpu_torch.workflow.transformer import Transformer
+from keystone_tpu_torch.workflow.dataset import Dataset
+from keystone_tpu_torch.workflow.estimator import LabelEstimator
+from keystone_tpu_torch.workflow.transformer import Transformer, tensor_identity
 
 
 def blockify(x: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -53,6 +55,9 @@ class BlockLinearMapper(Transformer):
         self.register_buffer("weights", weights)
         self.register_buffer("intercept", intercept)
         self.register_buffer("feature_mean", feature_mean)
+
+    def params(self):
+        return (self.block_size, tensor_identity(self.weights, self.intercept, self.feature_mean))
 
     @property
     def flat_weights(self) -> torch.Tensor:
@@ -86,7 +91,7 @@ def _block_predict(xs, weights, intercept, feature_mean):
     return out + _offset(weights, feature_mean, intercept)
 
 
-class BlockLeastSquaresEstimator:
+class BlockLeastSquaresEstimator(LabelEstimator):
     """Gauss–Seidel block coordinate descent ridge
     (BlockLeastSquares.scala § BlockLeastSquaresEstimator)."""
 
@@ -96,6 +101,15 @@ class BlockLeastSquaresEstimator:
         self.num_iter = int(num_iter)
         self.lam = float(lam)
         self.fit_intercept = fit_intercept
+
+    def params(self):
+        return (self.block_size, self.num_iter, self.lam, self.fit_intercept)
+
+    def fit_dataset(self, data: Dataset, labels: Optional[Dataset] = None) -> BlockLinearMapper:
+        """Features (n, d) and targets (n, k), fitted in f32 on the data's device."""
+        if labels is None:
+            raise ValueError("BlockLeastSquaresEstimator requires labels")
+        return self._fit(data.array.to(torch.float32), labels.array.to(torch.float32), data.n)
 
     def fit_stream_dataset(self, *args, **kwargs):
         raise needs_row_block_store("fit_stream_dataset")

@@ -14,11 +14,15 @@ out-of-core fits need the row-block store (ROADMAP A5).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from keystone_tpu_torch.models.block_ls import BlockLinearMapper, blockify, finish_block_model
 from keystone_tpu_torch.models.common import needs_row_block_store, solve_spd
 from keystone_tpu_torch.utils.device import resolve_device
+from keystone_tpu_torch.workflow.dataset import Dataset
+from keystone_tpu_torch.workflow.estimator import LabelEstimator
 
 
 def class_weights(y: torch.Tensor, n, mixture_weight: float) -> torch.Tensor:
@@ -34,7 +38,7 @@ def class_weights(y: torch.Tensor, n, mixture_weight: float) -> torch.Tensor:
     return alpha * (torch.arange(n_rows, device=y.device) < n).to(y.dtype)
 
 
-class BlockWeightedLeastSquaresEstimator:
+class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     def __init__(self, block_size: int = 4096, num_iter: int = 1, lam: float = 0.0,
                  mixture_weight: float = 0.5, fit_intercept: bool = True):
         self.block_size = int(block_size)
@@ -42,6 +46,15 @@ class BlockWeightedLeastSquaresEstimator:
         self.lam = float(lam)
         self.mixture_weight = float(mixture_weight)
         self.fit_intercept = fit_intercept
+
+    def params(self):
+        return (self.block_size, self.num_iter, self.lam, self.mixture_weight, self.fit_intercept)
+
+    def fit_dataset(self, data: Dataset, labels: Optional[Dataset] = None) -> BlockLinearMapper:
+        """Features (n, d) and ±1 indicators (n, K), fitted in f32 on the data's device."""
+        if labels is None:
+            raise ValueError("BlockWeightedLeastSquaresEstimator requires labels")
+        return self._fit(data.array.to(torch.float32), labels.array.to(torch.float32), data.n)
 
     def fit_stream_dataset(self, *args, **kwargs):
         raise needs_row_block_store("fit_stream_dataset")

@@ -21,7 +21,9 @@ import torch
 from keystone_tpu_torch.models.kmeans import _kmeans_fit, generator
 from keystone_tpu_torch.utils import timing
 from keystone_tpu_torch.utils.device import resolve_device
-from keystone_tpu_torch.workflow.transformer import Transformer
+from keystone_tpu_torch.workflow.dataset import Dataset
+from keystone_tpu_torch.workflow.estimator import Estimator
+from keystone_tpu_torch.workflow.transformer import Transformer, tensor_identity
 
 _LOG2PI = 1.8378770664093453
 
@@ -49,6 +51,9 @@ class GaussianMixtureModel(Transformer):
         self.register_buffer("means", means)  # (K, d)
         self.register_buffer("variances", variances)  # (K, d)
 
+    def params(self):
+        return tensor_identity(self.weights, self.means, self.variances)
+
     @property
     def k(self) -> int:
         return self.means.shape[0]
@@ -62,7 +67,7 @@ class GaussianMixtureModel(Transformer):
         return (r, mask) if mask is not None else r
 
 
-class GaussianMixtureModelEstimator:
+class GaussianMixtureModelEstimator(Estimator):
     def __init__(
         self,
         k: int,
@@ -76,6 +81,21 @@ class GaussianMixtureModelEstimator:
         self.min_variance = float(min_variance)
         self.seed = int(seed)
         self.kmeans_iters = int(kmeans_iters)
+
+    def params(self):
+        return (self.k, self.max_iterations, self.min_variance, self.seed, self.kmeans_iters)
+
+    def fit_dataset(self, data: Dataset) -> GaussianMixtureModel:
+        """Rows (n, d), or ragged (n, T, d) sets with a mask, fitted in
+        f32 on the data's device."""
+        x = data.array.to(torch.float32)
+        if data.mask is not None:
+            fit = _gmm_fit(x, None, data.mask.to(torch.float32), self.k, self.max_iterations,
+                           self.min_variance, self.seed, self.kmeans_iters)
+        else:
+            fit = _gmm_fit(x, data.n, None, self.k, self.max_iterations, self.min_variance, self.seed,
+                           self.kmeans_iters)
+        return GaussianMixtureModel(*fit)
 
     def fit_arrays(self, x, mask=None, device="cuda", stage_seconds=None) -> GaussianMixtureModel:
         """x: (n, d) rows, or ragged (n, T, d) sets with an (n, T) ``mask``

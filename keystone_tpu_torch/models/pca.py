@@ -16,7 +16,9 @@ from typing import Optional
 import torch
 
 from keystone_tpu_torch.utils.device import resolve_device
-from keystone_tpu_torch.workflow.transformer import Transformer
+from keystone_tpu_torch.workflow.dataset import Dataset
+from keystone_tpu_torch.workflow.estimator import Estimator
+from keystone_tpu_torch.workflow.transformer import Transformer, tensor_identity
 
 def svd_driver(x) -> Optional[str]:
     """cuSOLVER's SVD for the fit of x (``torch.linalg.svd``'s ``driver``,
@@ -43,6 +45,9 @@ class PCATransformer(Transformer):
         self.register_buffer("components", components)  # (d_in, d)
         self.register_buffer("mean", mean)  # (d_in,) or None
 
+    def params(self):
+        return tensor_identity(self.components, self.mean)
+
     def apply_batch(self, xs, mask=None):
         if self.mean is not None:
             xs = xs - self.mean
@@ -50,12 +55,25 @@ class PCATransformer(Transformer):
         return (out, mask) if mask is not None else out
 
 
-class PCAEstimator:
+class PCAEstimator(Estimator):
     """SVD-based PCA of the given rows (PCA.scala § PCAEstimator)."""
 
     def __init__(self, dims: int, center: bool = True):
         self.dims = int(dims)
         self.center = center
+
+    def params(self):
+        return (self.dims, self.center)
+
+    def fit_dataset(self, data: Dataset) -> PCATransformer:
+        """Rows (n, d), or ragged (n, T, d) sets with a mask (the masked
+        branch), fitted in f32 on the data's device."""
+        x = data.array.to(torch.float32)
+        if data.mask is not None:
+            comp, mean = _pca_masked(x, data.mask.to(torch.float32), self.dims, self.center)
+        else:
+            comp, mean = _pca_fit(x, data.n, self.dims, self.center)
+        return PCATransformer(comp, mean if self.center else None)
 
     def fit_arrays(self, x, mask=None, device="cuda") -> PCATransformer:
         """x: (n, d) rows, or ragged (n, T, d) sets with an (n, T) ``mask``

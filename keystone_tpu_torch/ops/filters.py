@@ -1,11 +1,12 @@
-"""Separable Gaussian blur as banded matrix products (counterpart of
-``keystone_tpu/ops/filters.py``, matmul form only).
+"""Separable Gaussian blur (counterpart of ``keystone_tpu/ops/filters.py``).
 
 The 1-D SAME-zero-padded convolution along an axis is a linear map, so
 each pass is one dense product with an (extent, extent) banded operator,
-which cuBLAS runs in true f32.  The reference switches to a depthwise
-convolution above ``_MATMUL_BLUR_MAX_EXTENT``; the port has no such form
-yet and raises there rather than emulate it.
+which cuBLAS runs in true f32.  Above ``_MATMUL_BLUR_MAX_EXTENT`` the
+dense operator's O(extent³) per axis stops paying, and the blur is two
+depthwise convolutions (``conv2d`` with ``groups=c``) with the same taps,
+as the reference's conv path, run in true f32 on the card whatever
+cuDNN's global TF32 flag says.
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from keystone_tpu_torch.utils import precision
 
 
 def gaussian_kernel1d(sigma: float, truncate: float = 3.0) -> np.ndarray:
@@ -58,13 +62,19 @@ def separable_apply(bh: torch.Tensor, bw: torch.Tensor, x: torch.Tensor):
 
 
 def separable_gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
-    """Separable Gaussian blur of (n, h, w, c) maps, SAME zero padding."""
+    """Separable Gaussian blur of (n, h, w, c) maps, SAME zero padding:
+    banded products up to ``_MATMUL_BLUR_MAX_EXTENT``, depthwise
+    convolutions above it."""
     h, w = x.shape[1], x.shape[2]
-    if max(h, w) > _MATMUL_BLUR_MAX_EXTENT:
-        raise NotImplementedError(
-            f"blur of {h}x{w} maps: above {_MATMUL_BLUR_MAX_EXTENT} px the "
-            "reference uses a depthwise convolution, which is not ported yet"
-        )
-    bh = _blur_operator(h, float(sigma), x.device)
-    bw = _blur_operator(w, float(sigma), x.device)
-    return separable_apply(bh, bw, x)
+    if max(h, w) <= _MATMUL_BLUR_MAX_EXTENT:
+        bh = _blur_operator(h, float(sigma), x.device)
+        bw = _blur_operator(w, float(sigma), x.device)
+        return separable_apply(bh, bw, x)
+    c = x.shape[-1]
+    k1 = torch.from_numpy(gaussian_kernel1d(sigma)).to(device=x.device, dtype=x.dtype)
+    r = (k1.numel() - 1) // 2
+    out = x.permute(0, 3, 1, 2)  # NCHW, one group a channel
+    with precision.f32_convolutions():  # cuDNN's default TF32 keeps ~3 digits
+        out = F.conv2d(out, k1.view(1, 1, -1, 1).repeat(c, 1, 1, 1), padding=(r, 0), groups=c)
+        out = F.conv2d(out, k1.view(1, 1, 1, -1).repeat(c, 1, 1, 1), padding=(0, r), groups=c)
+    return out.permute(0, 2, 3, 1)

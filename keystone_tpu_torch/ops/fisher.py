@@ -30,7 +30,9 @@ from keystone_tpu_torch.models.pca import PCATransformer
 from keystone_tpu_torch.ops import fisher_kernels
 from keystone_tpu_torch.ops.fisher_kernels import fisher_encode_ref as _fisher_encode
 from keystone_tpu_torch.utils import precision
-from keystone_tpu_torch.workflow.transformer import Transformer
+from keystone_tpu_torch.workflow.dataset import Dataset
+from keystone_tpu_torch.workflow.estimator import Estimator
+from keystone_tpu_torch.workflow.transformer import Transformer, tensor_identity
 
 __all__ = ["FisherVector", "FusedPcaFisherVector", "GMMFisherVectorEstimator", "_fisher_encode"]
 
@@ -56,10 +58,16 @@ class FisherVector(Transformer):
     """Input: ragged ((n, T, d), mask) descriptor sets.
     Output: dense (n, 2·K·D) Fisher vectors."""
 
+    fusable = False
+
     def __init__(self, gmm: GaussianMixtureModel, use_kernel: Optional[bool] = None):
         super().__init__()
         self.gmm = gmm
         self.use_kernel = use_kernel
+
+    def params(self):
+        g = self.gmm
+        return (tensor_identity(g.weights, g.means, g.variances), self.use_kernel)
 
     def apply_batch(self, xs, mask=None):
         xs, mask, squeeze = _batch(xs, mask)
@@ -78,7 +86,10 @@ class FusedPcaFisherVector(Transformer):
     kernel launch — the node the reference optimizer's
     ``PallasFvFusionRule`` builds from a ``PCATransformer → FisherVector``
     pair.  ``sift_normalize=True`` absorbs SIFT's L2→clamp→re-L2 tail,
-    so it takes RAW windowed SIFT descriptors."""
+    so it takes RAW windowed SIFT descriptors.  Not fusable: like
+    FisherVector it reduces ragged (descriptors, mask) sets."""
+
+    fusable = False
 
     def __init__(
         self,
@@ -99,6 +110,11 @@ class FusedPcaFisherVector(Transformer):
         tail = "SiftNorm > PCA > FV" if self.sift_normalize else "PCA > FV"
         return f"FusedFV[{tail}]"
 
+    def params(self):
+        g = self.gmm
+        ids = tensor_identity(self.components, self.mean, g.weights, g.means, g.variances)
+        return (ids, self.sift_normalize, self.use_kernel)
+
     def apply_batch(self, xs, mask=None):
         xs, mask, squeeze = _batch(xs, mask)
         g = self.gmm
@@ -115,7 +131,7 @@ class FusedPcaFisherVector(Transformer):
         return out[0] if squeeze else out
 
 
-class GMMFisherVectorEstimator:
+class GMMFisherVectorEstimator(Estimator):
     """Fits the GMM vocabulary on (sampled) descriptors and returns the
     FisherVector transformer (GMMFisherVectorEstimator.scala)."""
 
@@ -124,9 +140,16 @@ class GMMFisherVectorEstimator:
         self.max_iterations = int(max_iterations)
         self.seed = int(seed)
 
+    def params(self):
+        return (self.k, self.max_iterations, self.seed)
+
+    def _gmm(self) -> GaussianMixtureModelEstimator:
+        return GaussianMixtureModelEstimator(self.k, max_iterations=self.max_iterations, seed=self.seed)
+
+    def fit_dataset(self, data: Dataset) -> FisherVector:
+        """Rows (n, d), or ragged (n, T, d) sets with a mask, on their device."""
+        return FisherVector(self._gmm().fit_dataset(data))
+
     def fit_arrays(self, x, mask=None, device="cuda") -> FisherVector:
         """x: (n, d) descriptors, or ragged (n, T, d) sets with a mask."""
-        gmm = GaussianMixtureModelEstimator(
-            self.k, max_iterations=self.max_iterations, seed=self.seed
-        ).fit_arrays(x, mask, device=device)
-        return FisherVector(gmm)
+        return FisherVector(self._gmm().fit_arrays(x, mask, device=device))

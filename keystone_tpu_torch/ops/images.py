@@ -1,5 +1,6 @@
-"""Image scalers (counterpart of ``keystone_tpu/ops/images.py``
-§ PixelScaler, GrayScaler).  Images are NHWC, as in the reference."""
+"""Image ops (counterpart of ``keystone_tpu/ops/images.py``
+§ PixelScaler, GrayScaler, CenterCornerPatcher).  Images are NHWC, as in
+the reference."""
 
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ class PixelScaler(Transformer):
         self.scale = float(scale)
         self.only_if_integer = bool(only_if_integer)
 
+    def params(self):
+        return (self.scale, self.only_if_integer)
+
     def apply_batch(self, xs, mask=None):
         if self.only_if_integer and xs.is_floating_point():
             return xs.to(torch.float32)
@@ -29,7 +33,36 @@ class PixelScaler(Transformer):
 class GrayScaler(Transformer):
     """NHWC → NHW luminance via the channel mean (nodes/images/GrayScaler.scala)."""
 
+    def params(self):
+        return ()
+
     def apply_batch(self, xs, mask=None):
         if xs.ndim == 3 or xs.shape[-1] == 1:
             return xs.reshape(xs.shape[:3])
         return xs.mean(dim=-1)
+
+
+class CenterCornerPatcher(Transformer):
+    """Center + 4 corner crops, optionally horizontally flipped
+    (nodes/images/CenterCornerPatcher.scala) — the 10-view test-time
+    augmentation for ImageNet.  Output: (n, num_views, ph, pw, C)."""
+
+    def __init__(self, patch_h: int, patch_w: int, horizontal_flips: bool = False):
+        super().__init__()
+        self.patch_h = int(patch_h)
+        self.patch_w = int(patch_w)
+        self.horizontal_flips = bool(horizontal_flips)
+
+    def params(self):
+        return (self.patch_h, self.patch_w, self.horizontal_flips)
+
+    def apply_batch(self, xs, mask=None):
+        if xs.ndim == 3:
+            xs = xs[..., None]
+        _, h, w, _ = xs.shape
+        ph, pw = self.patch_h, self.patch_w
+        starts = [(0, 0), (0, w - pw), (h - ph, 0), (h - ph, w - pw), ((h - ph) // 2, (w - pw) // 2)]
+        views = [xs[:, y:y + ph, x:x + pw, :] for (y, x) in starts]
+        if self.horizontal_flips:
+            views += [torch.flip(v, dims=(2,)) for v in views]
+        return torch.stack(views, dim=1)

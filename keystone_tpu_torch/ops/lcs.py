@@ -24,10 +24,15 @@ _GRID = 4
 class LCSExtractor(Transformer):
     """Input: (n, H, W, C) images.  Output: ((n, K, 2·C·16), mask)."""
 
+    fusable = False
+
     def __init__(self, step: int = 4, subpatch_size: int = 6):
         super().__init__()
         self.step = int(step)
         self.subpatch_size = int(subpatch_size)
+
+    def params(self):
+        return (self.step, self.subpatch_size)
 
     def apply_batch(self, xs, mask=None):
         xs = xs.to(torch.float32)

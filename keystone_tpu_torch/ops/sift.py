@@ -32,6 +32,8 @@ class SIFTExtractor(Transformer):
     descriptors for a consumer that normalizes them itself (the fused
     PCA/Fisher-vector kernel)."""
 
+    fusable = False
+
     def __init__(
         self,
         step: int = 4,
@@ -46,6 +48,9 @@ class SIFTExtractor(Transformer):
         #: σ = √((bin/magnif)² − 0.25) before the gradients; 0 disables
         self.smoothing_magnif = float(smoothing_magnif)
         self.normalize = bool(normalize)
+
+    def params(self):
+        return (self.step, self.bin_sizes, self.smoothing_magnif, self.normalize)
 
     def _sigma(self, bin_size: int) -> float:
         if self.smoothing_magnif <= 0:

@@ -1,6 +1,8 @@
 """Row normalizers, column standardization and samplers (counterpart of
 ``keystone_tpu/ops/stats.py`` § SignedHellingerMapper, NormalizeRows,
-StandardScaler, StandardScalerModel, Sampler, ColumnSampler)."""
+StandardScaler, StandardScalerModel, Sampler, ColumnSampler).  The
+samplers are transformers over a ``Dataset``: they read the whole set to
+draw from it, so they take no part in stage fusion."""
 
 from __future__ import annotations
 
@@ -10,11 +12,15 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch.utils.device import resolve_device
-from keystone_tpu_torch.workflow.transformer import Transformer
+from keystone_tpu_torch.workflow.dataset import Dataset
+from keystone_tpu_torch.workflow.transformer import Transformer, iter_row_chunks, tensor_identity
 
 
 class SignedHellingerMapper(Transformer):
     """sign(x)·√|x| — the power normalization after FV encoding."""
+
+    def params(self):
+        return ()
 
     def apply_batch(self, xs, mask=None):
         out = torch.sign(xs) * torch.sqrt(torch.abs(xs))
@@ -27,6 +33,9 @@ class NormalizeRows(Transformer):
     def __init__(self, eps: float = 1e-12):
         super().__init__()
         self.eps = float(eps)
+
+    def params(self):
+        return (self.eps,)
 
     def apply_batch(self, xs, mask=None):
         norm = torch.sqrt(torch.sum(xs * xs, dim=-1, keepdim=True))
@@ -41,6 +50,9 @@ class StandardScalerModel(Transformer):
         super().__init__()
         self.register_buffer("mean", mean)
         self.register_buffer("std", std)
+
+    def params(self):
+        return tensor_identity(self.mean, self.std)
 
     def apply_batch(self, xs, mask=None):
         out = xs - self.mean
@@ -71,39 +83,60 @@ class StandardScaler:
         return StandardScalerModel(mean, torch.clamp(std, min=self.eps))
 
 
-class Sampler:
+class Sampler(Transformer):
     """Row subsampling with a fixed seed (Sampler.scala): ``size`` rows
     without replacement, drawn by ``np.random.default_rng(seed)`` as the
     reference draws them, so both keep the same rows."""
 
+    fusable = False
+
     def __init__(self, size: int, seed: int = 0):
+        super().__init__()
         self.size = int(size)
         self.seed = int(seed)
 
+    def params(self):
+        return (self.size, self.seed)
+
+    def _kept(self, n: int) -> np.ndarray:
+        return np.sort(np.random.default_rng(self.seed).choice(n, size=min(self.size, n), replace=False))
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        idx = torch.from_numpy(self._kept(ds.n)).to(ds.device)
+        return Dataset(ds.array[idx], mask=None if ds.mask is None else ds.mask[idx])
+
     def apply_arrays(self, x):
         """The kept rows of ``x`` (n, ...), a numpy array or a tensor, in order."""
-        n = x.shape[0]
-        idx = np.sort(np.random.default_rng(self.seed).choice(n, size=min(self.size, n), replace=False))
+        idx = self._kept(x.shape[0])
         return x[idx] if isinstance(x, np.ndarray) else x[torch.from_numpy(idx).to(x.device)]
 
+    def apply_batch(self, xs, mask=None):
+        return self.apply_arrays(xs)
 
-class ColumnSampler:
+
+class ColumnSampler(Transformer):
     """``num_samples`` descriptors an item, drawn uniformly with
     replacement from the item's valid descriptors (ColumnSampler.scala:
     columns of each image's descriptor matrix, sampled before the PCA and
-    GMM fits).  Input: (n, T, d) sets and an (n, T) mask; output: the
-    flat (n·num_samples, d) rows, item by item.
+    GMM fits).  Input: a Dataset of (n, T, d) sets and an (n, T) mask;
+    output: the flat (n·num_samples, d) rows, item by item.
 
     The draws are (n, num_samples) uniforms from a CPU ``torch.Generator``
     seeded with ``seed``, so every device samples the same rows; item i
-    takes row i of them, whatever the batches ``sample`` is given (the
+    takes row i of them, whatever the chunks a dataset is sampled in (the
     reference folds the global item index into its key for the same
     end).  An item with no valid descriptor yields copies of its last
     (padding) row, where the reference's draw is undefined."""
 
+    fusable = False
+
     def __init__(self, num_samples: int, seed: int = 0):
+        super().__init__()
         self.num_samples = int(num_samples)
         self.seed = int(seed)
+
+    def params(self):
+        return (self.num_samples, self.seed)
 
     def draws(self, n: int) -> torch.Tensor:
         """(n, num_samples) float64 uniforms in [0, 1): items 0..n−1's draws."""
@@ -120,5 +153,18 @@ class ColumnSampler:
         idx = torch.clamp(torch.searchsorted(cum, j + 1), max=t - 1)
         return torch.gather(xs, 1, idx[..., None].expand(m, self.num_samples, d)).reshape(-1, d)
 
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        """The flat sample of every item, drawn chunk by chunk (the
+        transformers' row chunks) with each item's own draws."""
+        xs = ds.array
+        if xs.ndim != 3:
+            raise ValueError("ColumnSampler expects (n, max_k, d) descriptor sets")
+        u = self.draws(ds.n).to(xs.device)
+        parts = [self.sample(a, m, u[i:i + a.shape[0]]) for a, m, i in iter_row_chunks(xs, ds.mask)]
+        return Dataset(parts[0] if len(parts) == 1 else torch.cat(parts))
+
     def apply_arrays(self, xs, mask=None) -> torch.Tensor:
         return self.sample(xs, mask, self.draws(xs.shape[0]))
+
+    def apply_batch(self, xs, mask=None):
+        return self.apply_arrays(xs, mask)

@@ -1,6 +1,7 @@
 """Prediction heads and label indicators (counterpart of
 ``keystone_tpu/ops/util.py`` § TopKClassifier, MaxClassifier,
-ClassLabelIndicators)."""
+ClassLabelIndicators).  Applied to a label ``Dataset``,
+ClassLabelIndicators gives the ±1 target Dataset a LabelEstimator fits."""
 
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ class TopKClassifier(Transformer):
         super().__init__()
         self.k = int(k)
 
+    def params(self):
+        return (self.k,)
+
     def apply_batch(self, xs, mask=None):
         k = min(self.k, xs.shape[-1])
         return torch.sort(xs, dim=-1, descending=True, stable=True).indices[..., :k]
@@ -25,6 +29,9 @@ class TopKClassifier(Transformer):
 
 class MaxClassifier(Transformer):
     """argmax class index."""
+
+    def params(self):
+        return ()
 
     def apply_batch(self, xs, mask=None):
         return torch.argmax(xs, dim=-1)
@@ -38,6 +45,9 @@ class ClassLabelIndicators(Transformer):
     def __init__(self, num_classes: int):
         super().__init__()
         self.num_classes = int(num_classes)
+
+    def params(self):
+        return (self.num_classes,)
 
     def apply_batch(self, xs, mask=None):
         classes = torch.arange(self.num_classes, device=xs.device)

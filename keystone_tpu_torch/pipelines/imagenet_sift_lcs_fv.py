@@ -1,33 +1,46 @@
-"""ImageNetSiftLcsFV: the fit and the scoring forward (counterpart of
+"""ImageNetSiftLcsFV — the north-star workload (counterpart of
 ``keystone_tpu/pipelines/imagenet_sift_lcs_fv.py`` and of
-``bench.py::build_forward``).
+``bench.py::build_forward``; reference
+pipelines/images/imagenet/ImageNetSiftLcsFV.scala).
 
 Two branches over the input images:
 
-  SIFT: GrayScaler → dense SIFT → PCA → FisherVector → SignedHellinger → NormalizeRows
-  LCS:  LCSExtractor → the same PCA/FV tail
+  SIFT: GrayScaler → dense SIFT → [PCA fit on sampled descriptors] →
+        [GMM fit on sampled projected descriptors] → FisherVector →
+        SignedHellinger → NormalizeRows
+  LCS:  LCSExtractor → the same PCA/GMM/FV tail
 
-gathered → BlockLinearMapper → TopKClassifier.  ``build_scorer_from_params``
-builds the fitted scorer as the reference runs it after its optimizer's
-``PallasFvFusionRule``: each PCA → FV pair is one fused kernel, and the
-SIFT branch's normalize moves into that kernel.  ``build_forward`` is the
-unfused single-branch program ``bench.py`` measures, with the plain FV
-kernel.
+gathered → BlockWeightedLeastSquares → TopKClassifier; top-k error by
+MulticlassClassifierEvaluator, or over ten views an image by
+AugmentedExamplesEvaluator.
 
-``fit_params`` fits the scorer's arrays from images and labels, doing in
-order what the reference's ``_fv_branch`` and ``build_scorer`` do, with
-arrays in place of its workflow graph: per branch a ColumnSampler of the
-descriptors → PCA, a ColumnSampler of the projected descriptors → GMM
-(k-means++, then EM); the training set's Fisher vectors through the
-scorer's own featurizer (``build_featurizer``, B1 on the card); then
-ClassLabelIndicators → the class-weighted block least-squares solve.
-``run_synthetic`` is the reference's ``run`` on synthetic images.  Saved
-models, streamed fits and the augmented evaluation wait for the
-workflow core and the row-block store (ROADMAP A3, A5).
+``ImageNetSiftLcsFV`` builds it as the reference does, as a workflow
+graph: the PCA and GMM vocabulary fits happen inside the graph on
+ColumnSampler-reduced descriptor sets rooted at the training Dataset, CSE
+merges the shared SIFT/LCS prefixes so the training set is featurized
+once, ``Pipeline.fit`` substitutes the fitted transformers, and the
+scoring pass's optimizer rewrites each PCA → FV pair into the fused
+kernel's node (``FvFusionRule``).  On the card the fit's featurization of
+the training set launches B2 (each branch's FisherVector) and scoring B1.
+
+Beside it, the same model from arrays, without the graph:
+``build_scorer_from_params`` builds the fitted scorer as the reference
+runs it after its optimizer's fusion rule (each PCA → FV pair one fused
+kernel, the SIFT normalize in it); ``build_forward`` is the unfused
+single-branch program ``bench.py`` measures, with the plain FV kernel;
+``fit_params`` fits the scorer's arrays, doing in order what the graph
+does (per branch a ColumnSampler of the descriptors → PCA, a
+ColumnSampler of the projected descriptors → GMM; the training set's
+Fisher vectors through the scorer's featurizer, B1 on the card; then
+ClassLabelIndicators → the class-weighted block least-squares solve),
+and ``run_synthetic`` scores with it.  These are eager chains
+(``FusedTransformer``, ``GatherTransformer``) with no graph to optimize
+a batch at a time.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import time
 from typing import Dict, Optional, Sequence
@@ -35,21 +48,24 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+from keystone_tpu_torch.evaluation import AugmentedExamplesEvaluator, MulticlassClassifierEvaluator
 from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
 from keystone_tpu_torch.models.block_ls import BlockLinearMapper
 from keystone_tpu_torch.models.block_weighted_ls import BlockWeightedLeastSquaresEstimator
 from keystone_tpu_torch.models.gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from keystone_tpu_torch.models.pca import PCAEstimator, PCATransformer
-from keystone_tpu_torch.ops.fisher import FisherVector, FusedPcaFisherVector
-from keystone_tpu_torch.ops.images import GrayScaler, PixelScaler
+from keystone_tpu_torch.ops.fisher import FisherVector, FusedPcaFisherVector, GMMFisherVectorEstimator
+from keystone_tpu_torch.ops.images import CenterCornerPatcher, GrayScaler, PixelScaler
 from keystone_tpu_torch.ops.lcs import LCSExtractor
 from keystone_tpu_torch.ops.sift import SIFTExtractor, _sift_normalize
 from keystone_tpu_torch.ops.stats import ColumnSampler, NormalizeRows, SignedHellingerMapper
 from keystone_tpu_torch.ops.util import ClassLabelIndicators, TopKClassifier
 from keystone_tpu_torch.utils import precision, timing
 from keystone_tpu_torch.utils.device import resolve_device
-from keystone_tpu_torch.workflow.pipeline import Pipeline
+from keystone_tpu_torch.workflow.dataset import Dataset
+from keystone_tpu_torch.workflow.optimizer import FusedTransformer
+from keystone_tpu_torch.workflow.pipeline import FittedPipeline, Pipeline, fit_relevant_config
+from keystone_tpu_torch.workflow.transformer import GatherTransformer
 
 #: descriptor widths: SIFT 4·4·8, LCS 2·C·16 for RGB images
 SIFT_DIM = 128
@@ -62,10 +78,12 @@ BRANCH_SEED_OFFSET = {"sift": 0, "lcs": 100}
 @dataclasses.dataclass
 class Config:
     """The reference Config's fields, with its defaults.  A fitted
-    scorer's widths come from its arrays; the fit reads the rest.
-    ``augmented_eval``, ``model_path`` and ``stream`` are not ported:
-    ``run_synthetic`` refuses them."""
+    scorer's widths come from its arrays; the fit reads the rest.  Not
+    ported: ``train_path``/``test_path`` (tar archives, ROADMAP A13) and
+    ``stream`` (the out-of-core fit, ROADMAP A5)."""
 
+    train_path: Optional[str] = None
+    test_path: Optional[str] = None
     num_classes: int = 16
     sift_step: int = 6
     sift_bin_size: int = 4
@@ -83,7 +101,12 @@ class Config:
     seed: int = 0
     synthetic_n: int = 64
     image_size: int = 64
+    # the reference's 10-view test-time augmentation (center + corners ×
+    # flips, AugmentedExamplesEvaluator); view_patch=0 → ⅞ of image_size
     augmented_eval: bool = False
+    view_patch: int = 0
+    # persist/reuse the fitted pipeline (the config is saved alongside
+    # and checked on load)
     model_path: Optional[str] = None
     stream: bool = False
 
@@ -103,21 +126,20 @@ def _blm(p) -> BlockLinearMapper:
     return BlockLinearMapper(w, w.shape[1], p.get("blm.intercept"), p.get("blm.feature_mean"))
 
 
-def _fv_tail(base: Pipeline, p, b, sift_normalize: bool, use_kernel: Optional[bool]) -> Pipeline:
-    """descriptor extractor pipeline → fused PCA/FV → normalization."""
+def _fv_tail(base: FusedTransformer, p, b, sift_normalize: bool, use_kernel: Optional[bool]) -> FusedTransformer:
+    """descriptor extractor chain → fused PCA/FV → normalization."""
     fused = FusedPcaFisherVector(_pca(p, b), _gmm(p, b), sift_normalize, use_kernel)
-    return base.and_then(fused).and_then(SignedHellingerMapper()).and_then(NormalizeRows())
+    return FusedTransformer([*base.stages, fused, SignedHellingerMapper(), NormalizeRows()])
 
 
-def _bases(config: Config) -> Dict[str, Pipeline]:
+def _bases(config: Config) -> Dict[str, FusedTransformer]:
     """Each branch's descriptor extractor over [0, 1] images.  SIFT emits
     raw descriptors: the fused kernel normalizes them (and the fit's
     sampler normalizes its rows), so they are normalized once."""
     return {
-        "sift": Pipeline.of(GrayScaler()).and_then(
-            SIFTExtractor(config.sift_step, (config.sift_bin_size,), normalize=False)
-        ),
-        "lcs": Pipeline.of(LCSExtractor(config.lcs_step, config.lcs_subpatch)),
+        "sift": FusedTransformer([
+            GrayScaler(), SIFTExtractor(config.sift_step, (config.sift_bin_size,), normalize=False)]),
+        "lcs": FusedTransformer([LCSExtractor(config.lcs_step, config.lcs_subpatch)]),
     }
 
 
@@ -126,7 +148,7 @@ def _featurizer_stages(params, config: Config, use_kernel: Optional[bool]):
         if f"{b}.pca.components" not in params:
             raise ValueError(f"the featurizer needs the {b} branch's parameters")
     bases = _bases(config)
-    branches = Pipeline.gather([
+    branches = GatherTransformer([
         _fv_tail(bases["sift"], params, "sift", True, use_kernel),
         _fv_tail(bases["lcs"], params, "lcs", False, use_kernel),
     ])
@@ -140,13 +162,13 @@ def build_featurizer(
     config: Config = Config(),
     device="cuda",
     use_kernel: Optional[bool] = None,
-) -> Pipeline:
+) -> FusedTransformer:
     """Images → the (n, 2·2·K·d) Fisher-vector features the linear
     scorer reads: the scorer without its BLM and TopK, and the fit's
     featurizer of the training set.  ``params`` needs both branches."""
     dev = resolve_device(device)
     precision.disable_tf32()
-    return Pipeline(_featurizer_stages(params, config, use_kernel)).to(dev).eval()
+    return FusedTransformer(_featurizer_stages(params, config, use_kernel)).to(dev).eval()
 
 
 def build_scorer_from_params(
@@ -154,7 +176,7 @@ def build_scorer_from_params(
     config: Config = Config(),
     device="cuda",
     use_kernel: Optional[bool] = None,
-) -> Pipeline:
+) -> FusedTransformer:
     """The fitted two-branch scorer, ending in TopK(config.top_k) class ids.
 
     ``params`` as ``convert.params_from_numpy`` or ``fit_params`` return
@@ -164,7 +186,7 @@ def build_scorer_from_params(
     dev = resolve_device(device)
     precision.disable_tf32()
     stages = _featurizer_stages(params, config, use_kernel)
-    scorer = Pipeline([*stages, _blm(params), TopKClassifier(config.top_k)])
+    scorer = FusedTransformer([*stages, _blm(params), TopKClassifier(config.top_k)])
     return scorer.to(dev).eval()
 
 
@@ -173,27 +195,27 @@ def build_forward(
     config: Config = Config(),
     device="cuda",
     use_kernel: Optional[bool] = None,
-) -> Pipeline:
+) -> FusedTransformer:
     """The unfused bench forward: GrayScaler → SIFT → PCA → FisherVector
     → SignedHellinger → NormalizeRows → BlockLinearMapper, raw scores.
     ``params`` needs the ``sift`` branch and a BLM of its FV width."""
     dev = resolve_device(device)
     precision.disable_tf32()
-    fwd = (
-        Pipeline.of(GrayScaler())
-        .and_then(SIFTExtractor(config.sift_step, (config.sift_bin_size,)))
-        .and_then(_pca(params, "sift"))
-        .and_then(FisherVector(_gmm(params, "sift"), use_kernel))
-        .and_then(SignedHellingerMapper())
-        .and_then(NormalizeRows())
-        .and_then(_blm(params))
-    )
+    fwd = FusedTransformer([
+        GrayScaler(),
+        SIFTExtractor(config.sift_step, (config.sift_bin_size,)),
+        _pca(params, "sift"),
+        FisherVector(_gmm(params, "sift"), use_kernel),
+        SignedHellingerMapper(),
+        NormalizeRows(),
+        _blm(params),
+    ])
     return fwd.to(dev).eval()
 
 
-def scores_of(scorer: Pipeline) -> Pipeline:
+def scores_of(scorer: FusedTransformer) -> FusedTransformer:
     """The scorer without its TopK head: raw class scores."""
-    return Pipeline(list(scorer.stages)[:-1])
+    return FusedTransformer(list(scorer.stages)[:-1])
 
 
 def random_params(
@@ -323,14 +345,17 @@ def fit_params(
     return params
 
 
+#: what ``run_synthetic`` refuses: the array fit has no graph to save or
+#: to score views with; ``ImageNetSiftLcsFV.run`` takes both
 _NOT_PORTED = {
-    "augmented_eval": "the 10-view evaluation needs CenterCornerPatcher and the workflow core (ROADMAP A3)",
-    "model_path": "saving and loading a fitted pipeline needs the workflow core (ROADMAP A3)",
+    "augmented_eval": "the 10-view evaluation runs through the workflow graph: ImageNetSiftLcsFV.run (ROADMAP A3)",
+    "model_path": "saving and loading a fitted pipeline runs through the workflow graph: ImageNetSiftLcsFV.run "
+                  "(ROADMAP A3)",
     "stream": "the streamed fit needs the out-of-core row-block store (ROADMAP A5)",
 }
 
 
-def predict_top_k(scorer: Pipeline, images, device="cuda", batch_size: int = 128) -> np.ndarray:
+def predict_top_k(scorer: FusedTransformer, images, device="cuda", batch_size: int = 128) -> np.ndarray:
     """(n, top_k) class ids of ``images`` by ``scorer``, batch by batch."""
     dev = resolve_device(device)
     images = torch.as_tensor(images)
@@ -347,9 +372,9 @@ def run_synthetic(config: Config, device="cuda", use_kernel: Optional[bool] = No
             raise NotImplementedError(f"Config.{field}: {why}")
     dev = resolve_device(device)
     size = (config.image_size, config.image_size)
-    train_x, train_y = ImageNetLoader.synthetic(config.synthetic_n, config.num_classes, size, seed=1)
-    test_x, test_y = ImageNetLoader.synthetic(max(8, config.synthetic_n // 4), config.num_classes, size,
-                                              seed=2)
+    train_x, train_y = ImageNetLoader.synthetic_arrays(config.synthetic_n, config.num_classes, size, seed=1)
+    test_x, test_y = ImageNetLoader.synthetic_arrays(max(8, config.synthetic_n // 4), config.num_classes, size,
+                                                     seed=2)
     t0 = time.perf_counter()
     params = fit_params(config, train_x, train_y, dev, use_kernel, batch_size)
     fit_time = time.perf_counter() - t0
@@ -362,3 +387,162 @@ def run_synthetic(config: Config, device="cuda", use_kernel: Optional[bool] = No
         "top5_error": float(1.0 - (topk == test_y[:, None]).any(axis=1).mean()),
         "accuracy": m.accuracy,
     }
+
+
+# ---------------------------------------------------------------- the graph
+
+
+def _fv_branch(base: Pipeline, config: Config, train_x: Dataset, seed: int) -> Pipeline:
+    """descriptor extractor pipeline → PCA → GMM/FV → normalization."""
+    sampled = ColumnSampler(config.descriptor_samples_per_image, seed=seed)(base(train_x))
+    pca_pipe = Pipeline.from_estimator(PCAEstimator(config.pca_dims, center=True), sampled)
+    with_pca = base.then_pipeline(pca_pipe)
+    gmm_sampled = ColumnSampler(config.descriptor_samples_per_image, seed=seed + 1)(with_pca(train_x))
+    fv_pipe = Pipeline.from_estimator(
+        GMMFisherVectorEstimator(config.gmm_k, max_iterations=config.gmm_iters, seed=seed), gmm_sampled
+    )
+    return with_pca.then_pipeline(fv_pipe).and_then(SignedHellingerMapper()).and_then(NormalizeRows())
+
+
+class ImageNetSiftLcsFV:
+    name = "ImageNetSiftLcsFV"
+    Config = Config
+
+    @staticmethod
+    def build_scorer(config: Config, train_x: Dataset, train_labels: Dataset) -> Pipeline:
+        """Pipeline ending at raw class scores (no prediction head) —
+        what augmented-view evaluation averages before argmax.  Images may
+        arrive as uint8; both branches start with an identical
+        PixelScaler, which CSE merges into one node."""
+        sift_base = (
+            Pipeline.of(PixelScaler(only_if_integer=True))
+            .and_then(GrayScaler())
+            .and_then(SIFTExtractor(step=config.sift_step, bin_sizes=(config.sift_bin_size,)))
+        )
+        lcs_base = Pipeline.of(PixelScaler(only_if_integer=True)).and_then(
+            LCSExtractor(step=config.lcs_step, subpatch_size=config.lcs_subpatch)
+        )
+        sift_branch = _fv_branch(sift_base, config, train_x, seed=config.seed + BRANCH_SEED_OFFSET["sift"])
+        lcs_branch = _fv_branch(lcs_base, config, train_x, seed=config.seed + BRANCH_SEED_OFFSET["lcs"])
+        featurizer = Pipeline.gather([sift_branch, lcs_branch])
+        labels_pm1 = ClassLabelIndicators(config.num_classes)(train_labels)
+        return featurizer.and_then(
+            BlockWeightedLeastSquaresEstimator(
+                block_size=config.solver_block_size,
+                num_iter=config.num_epochs,
+                lam=config.lam,
+                mixture_weight=config.mixture_weight,
+            ),
+            train_x,
+            labels_pm1,
+        )
+
+    @staticmethod
+    def build(config: Config, train_x: Dataset, train_labels: Dataset) -> Pipeline:
+        return ImageNetSiftLcsFV.build_scorer(config, train_x, train_labels).and_then(TopKClassifier(config.top_k))
+
+    @staticmethod
+    def run(config: Config, device="cuda", out: Optional[dict] = None) -> dict:
+        """Fit (or load, with ``config.model_path``) and evaluate on
+        synthetic images: ``config.synthetic_n`` training images (seed 1)
+        and max(8, n // 4) test images (seed 2), on ``device``, in f32 with
+        TF32 off.  ``out``, when given, receives the fitted pipeline
+        (``"fitted"``) and what it predicted on the test set
+        (``"predictions"``: top-k ids, or each view's scores with
+        ``augmented_eval``)."""
+        if config.stream:
+            raise NotImplementedError("Config.stream: the streamed fit needs the out-of-core row-block store "
+                                      "(ROADMAP A5)")
+        if config.train_path or config.test_path:
+            raise NotImplementedError("Config.train_path/test_path: loading ImageNet tar archives needs a JPEG "
+                                      "decoder, which is not ported (ROADMAP A13)")
+        dev = resolve_device(device)
+        precision.disable_tf32()
+        sz = (config.image_size, config.image_size)
+        test = ImageNetLoader.synthetic(max(8, config.synthetic_n // 4), config.num_classes, sz, seed=2, device=dev)
+
+        def _train():
+            # loaded ONLY when a fit is needed (saved-model runs skip it)
+            return ImageNetLoader.synthetic(config.synthetic_n, config.num_classes, sz, seed=1, device=dev)
+
+        labs = test.labels.numpy()
+        if config.augmented_eval:
+
+            def build_scorer():
+                train = _train()
+                return ImageNetSiftLcsFV.build_scorer(config, train.data, train.labels)
+
+            t0 = time.perf_counter()
+            fitted, loaded = FittedPipeline.fit_or_load(config.model_path, build_scorer,
+                                                        config=fit_relevant_config(config), map_location=dev)
+            fit_time = time.perf_counter() - t0
+            imgs = test.data.array
+            p = config.view_patch or (imgs.shape[1] * 7 // 8)
+            views = CenterCornerPatcher(p, p, horizontal_flips=True).apply_batch(imgs)
+            n, nv = views.shape[0], views.shape[1]
+            predictions = fitted(Dataset(views.reshape(n * nv, p, p, views.shape[-1]))).get().numpy()
+            ids = np.repeat(np.arange(n), nv)
+            evaluator = AugmentedExamplesEvaluator(config.num_classes)
+            m = evaluator.evaluate(predictions, ids, labs)
+            # top-k from the SAME per-image aggregation evaluate uses
+            agg, _ = evaluator.averaged_scores(predictions, ids)
+            topk_hit = (np.argsort(-agg, axis=1)[:, : config.top_k] == labs[:, None]).any(axis=1)
+        else:
+
+            def build():
+                train = _train()
+                return ImageNetSiftLcsFV.build(config, train.data, train.labels)
+
+            t0 = time.perf_counter()
+            fitted, loaded = FittedPipeline.fit_or_load(config.model_path, build,
+                                                        config=fit_relevant_config(config), map_location=dev)
+            fit_time = time.perf_counter() - t0
+            predictions = fitted(test.data).get().numpy()  # (n, top_k) class ids
+            topk_hit = (predictions == labs[:, None]).any(axis=1)
+            m = MulticlassClassifierEvaluator(config.num_classes).evaluate(predictions[:, 0], labs)
+        if out is not None:
+            out.update(fitted=fitted, predictions=predictions)
+        return {
+            "pipeline": ImageNetSiftLcsFV.name,
+            "fit_seconds": fit_time,
+            "model_loaded": loaded,
+            "top1_error": m.total_error,
+            "top5_error": float(1.0 - topk_hit.mean()),
+            "accuracy": m.accuracy,
+        }
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=ImageNetSiftLcsFV.name)
+    p.add_argument("--train-path")
+    p.add_argument("--test-path")
+    p.add_argument("--num-classes", type=int, default=16)
+    p.add_argument("--gmm-k", type=int, default=16)
+    p.add_argument("--pca-dims", type=int, default=64)
+    p.add_argument("--lam", type=float, default=1e-4)
+    p.add_argument("--synthetic-n", type=int, default=64)
+    p.add_argument("--image-size", type=int, default=64)
+    p.add_argument("--augmented-eval", action="store_true")
+    p.add_argument("--model-path")
+    p.add_argument("--stream", "--out-of-core", action="store_true", dest="stream",
+                   help="stream training images from tar shards (not ported: ROADMAP A5)")
+    p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    a = p.parse_args(argv)
+    cfg = Config(
+        train_path=a.train_path,
+        test_path=a.test_path,
+        num_classes=a.num_classes,
+        gmm_k=a.gmm_k,
+        pca_dims=a.pca_dims,
+        lam=a.lam,
+        synthetic_n=a.synthetic_n,
+        image_size=a.image_size,
+        augmented_eval=a.augmented_eval,
+        model_path=a.model_path,
+        stream=a.stream,
+    )
+    print(ImageNetSiftLcsFV.run(cfg, device=a.device))
+
+
+if __name__ == "__main__":
+    main()

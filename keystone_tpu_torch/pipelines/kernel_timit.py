@@ -21,7 +21,7 @@ from keystone_tpu_torch.ops.stats import StandardScaler, StandardScalerModel
 from keystone_tpu_torch.ops.util import MaxClassifier
 from keystone_tpu_torch.utils import precision
 from keystone_tpu_torch.utils.device import resolve_device
-from keystone_tpu_torch.workflow.pipeline import Pipeline
+from keystone_tpu_torch.workflow.optimizer import FusedTransformer
 
 
 @dataclasses.dataclass
@@ -52,7 +52,7 @@ def build_scorer_from_params(
     config: Config = Config(),
     device="cuda",
     use_kernel: Optional[bool] = None,
-) -> Pipeline:
+) -> FusedTransformer:
     """The fitted scorer, ending in MaxClassifier class ids.  ``params`` as
     ``convert.kernel_timit_params_from_numpy`` returns them.
     ``use_kernel=False`` computes the Nyström gram by the plain chain in
@@ -60,20 +60,19 @@ def build_scorer_from_params(
     dev = resolve_device(device)
     precision.disable_tf32()
     w = params["blm.weights"]
-    scorer = (
-        Pipeline.of(StandardScalerModel(params["scaler.mean"], params.get("scaler.std")))
-        .and_then(NystromFeatureMap(GaussianKernelGenerator(config.gamma), params["nystrom.landmarks"],
-                                    params["nystrom.whiten"], use_kernel))
-        .and_then(BlockLinearMapper(w, w.shape[1], params.get("blm.intercept"),
-                                    params.get("blm.feature_mean")))
-        .and_then(MaxClassifier())
-    )
+    scorer = FusedTransformer([
+        StandardScalerModel(params["scaler.mean"], params.get("scaler.std")),
+        NystromFeatureMap(GaussianKernelGenerator(config.gamma), params["nystrom.landmarks"],
+                          params["nystrom.whiten"], use_kernel),
+        BlockLinearMapper(w, w.shape[1], params.get("blm.intercept"), params.get("blm.feature_mean")),
+        MaxClassifier(),
+    ])
     return scorer.to(dev).eval()
 
 
-def scores_of(scorer: Pipeline) -> Pipeline:
+def scores_of(scorer: FusedTransformer) -> FusedTransformer:
     """The scorer without its MaxClassifier head: raw class scores."""
-    return Pipeline(list(scorer.stages)[:-1])
+    return FusedTransformer(list(scorer.stages)[:-1])
 
 
 def random_params(

@@ -49,7 +49,7 @@ def _fit_samples(dev):
     from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as P
 
     cfg = P.Config(num_classes=64, synthetic_n=2048, image_size=128, gmm_k=64, pca_dims=DIMS)
-    images, _ = ImageNetLoader.synthetic(2048, 64, (128, 128), seed=1)
+    images, _ = ImageNetLoader.synthetic_arrays(2048, 64, (128, 128), seed=1)
     rows = P.sample_descriptors(cfg, torch.from_numpy(images).to(dev), dev, 128)
     return {f"fit {b}": pca_rows for b, (pca_rows, _) in rows.items()}
 

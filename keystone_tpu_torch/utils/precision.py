@@ -26,6 +26,18 @@ def disable_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+@contextmanager
+def f32_convolutions():
+    """cuDNN convolutions in true f32 inside the block, whatever the
+    global flag says (its default is TF32)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def set_matmul(mode: str) -> None:
     global _MODE
     if mode not in _MODES:

@@ -1,0 +1,382 @@
+"""Whole-pipeline optimizer (counterpart of
+``keystone_tpu/workflow/optimizer.py``).
+
+Reference: workflow/Optimizer.scala — a Catalyst-style rule executor
+(batches with Once/FixedPoint strategies) over the pipeline Graph, with
+three rule families:
+
+  - EquivalentNodeMergeRule: CSE — merge structurally identical subgraphs
+    so e.g. two branches sharing SIFT compute it once.
+  - AutoCacheRule: decide which shared outputs to materialize.
+  - NodeOptimizationRule: per-node physical operator choice from sampled
+    data statistics.
+
+On top of those, StageFusionRule turns maximal linear chains of
+transformers into one sequential stage (``FusedTransformer``), and
+FvFusionRule rewrites each PCA → Fisher-vector pair into the fused
+Fisher-vector kernel's node where the data lives on a CUDA device.
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from keystone_tpu_torch.workflow import graph as G
+from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
+from keystone_tpu_torch.workflow.estimator import Estimator
+from keystone_tpu_torch.workflow.transformer import Cacher, Transformer
+
+logger = logging.getLogger(__name__)
+
+
+class Rule:
+    name: str = "rule"
+
+    def apply(self, graph: G.Graph) -> G.Graph:
+        raise NotImplementedError
+
+
+class Once:
+    def __init__(self):
+        self.max_iterations = 1
+
+
+class FixedPoint:
+    def __init__(self, max_iterations: int = 20):
+        self.max_iterations = max_iterations
+
+
+class RuleBatch:
+    def __init__(self, name: str, strategy, rules: Sequence[Rule]):
+        self.name = name
+        self.strategy = strategy
+        self.rules = list(rules)
+
+
+class Optimizer:
+    """Executes rule batches until their strategy is exhausted or the graph
+    stops changing (workflow/Optimizer.scala § RuleExecutor.execute)."""
+
+    def __init__(self, batches: Sequence[RuleBatch]):
+        self.batches = list(batches)
+
+    def execute(self, graph: G.Graph) -> G.Graph:
+        for batch in self.batches:
+            for _ in range(batch.strategy.max_iterations):
+                before = _graph_fingerprint(graph)
+                for rule in batch.rules:
+                    graph = rule.apply(graph)
+                if _graph_fingerprint(graph) == before:
+                    break
+        return graph
+
+
+def _graph_fingerprint(g: G.Graph):
+    return (
+        tuple(sorted((n.id, id(op)) for n, op in g.operators.items())),
+        tuple(sorted((n.id, tuple(d.id for d in ds)) for n, ds in g.dependencies.items())),
+    )
+
+
+# --------------------------------------------------------------------- CSE
+class EquivalentNodeMergeRule(Rule):
+    """Merge nodes whose operator + entire input prefix are structurally
+    equal (workflow/EquivalentNodeMergeRule.scala).  This is what makes
+    ``Pipeline.gather`` branches sharing a SIFT prefix compute it once."""
+
+    name = "EquivalentNodeMerge"
+
+    def apply(self, graph: G.Graph) -> G.Graph:
+        memo: dict = {}
+        groups: dict = {}
+        for n in graph.topological_nodes():
+            sig = graph.prefix_signature(n, memo)
+            if sig is not None and sig[0] != "unique":
+                groups.setdefault(sig, []).append(n)
+        for nodes in groups.values():
+            if len(nodes) < 2:
+                continue
+            keep = min(nodes)
+            for other in nodes:
+                if other == keep:
+                    continue
+                graph = graph.replace_dependency(other, keep)
+                graph = graph.remove_node(other)
+        return graph
+
+
+# ----------------------------------------------------------- materialization
+class AutoMaterializeRule(Rule):
+    """Insert Cacher nodes after outputs consumed by >1 dependent.
+
+    The reference's AutoCacheRule profiles nodes on sampled partitions and
+    greedily places ``.cache()`` calls under a cluster-memory budget
+    (workflow/AutoCacheRule.scala).  Here the executor already memoizes
+    per-node results, so "cache or recompute" is decided structurally:
+    shared outputs get an explicit materialization barrier, which also
+    pins them as stage boundaries for the fusion rule below.
+    """
+
+    name = "AutoMaterialize"
+
+    def apply(self, graph: G.Graph) -> G.Graph:
+        for n in list(graph.topological_nodes()):
+            op = graph.operators.get(n)
+            if not isinstance(op, G.TransformerOperator) or isinstance(op.transformer, Cacher):
+                continue
+            deps_on_n = [d for d in graph.dependents(n) if not isinstance(d, G.SinkId)]
+            already = any(
+                isinstance(graph.operators.get(d), G.TransformerOperator)
+                and isinstance(graph.operators[d].transformer, Cacher)
+                for d in deps_on_n
+                if isinstance(d, G.NodeId)
+            )
+            if len(deps_on_n) > 1 and not already:
+                graph, cache_node = graph.add_node(G.TransformerOperator(Cacher()), (n,))
+                for d in deps_on_n:
+                    if isinstance(d, G.NodeId):
+                        graph = graph.set_dependencies(
+                            d, tuple(cache_node if x == n else x for x in graph.dependencies[d])
+                        )
+        return graph
+
+
+class ProfiledMaterializeRule(Rule):
+    """The reference's default materialization pass: its HBM-budgeted
+    ProfilingAutoCacheRule, which prices stages from XLA's compiled cost
+    analysis, falling back to the structural AutoMaterializeRule when
+    profiling is unavailable.  The port has no such cost source yet
+    (ROADMAP A14), so it always takes that fallback."""
+
+    name = "ProfiledMaterialize"
+
+    def apply(self, graph: G.Graph) -> G.Graph:
+        return AutoMaterializeRule().apply(graph)
+
+
+# ------------------------------------------------------------- node choice
+class NodeChoiceRule(Rule):
+    """Physical operator selection (workflow/NodeOptimizationRule).
+
+    For estimators and transformers that override ``choose_physical``,
+    executes the node's input subgraph on a small sample (the analogue of
+    the reference's optimizer-time sampling Spark jobs) and lets the node
+    pick its best physical implementation.  Nodes that do not override it
+    cost nothing here.
+    """
+
+    name = "NodeChoice"
+    #: rows of each dataset literal the sampled run reads
+    sample_size = 256
+
+    def apply(self, graph: G.Graph) -> G.Graph:
+        from keystone_tpu_torch.workflow.executor import DatasetExpr, GraphExecutor
+
+        for n in list(graph.topological_nodes()):
+            op = graph.operators.get(n)
+            if isinstance(op, G.EstimatorOperator):
+                node, base, rewrap = op.estimator, Estimator, G.EstimatorOperator
+            elif isinstance(op, G.TransformerOperator):
+                node, base, rewrap = op.transformer, Transformer, G.TransformerOperator
+            else:
+                continue
+            if type(node).choose_physical is base.choose_physical:
+                continue
+            sample = None
+            try:
+                expr = GraphExecutor(_truncate_datasets(graph, self.sample_size)).execute(graph.dependencies[n][0])
+                if isinstance(expr, DatasetExpr):
+                    sample = expr.dataset
+            except Exception as e:  # sampling is best-effort, like upstream
+                logger.debug("node-choice sampling failed for %s: %s", node.label, e)
+            chosen = node.choose_physical(sample)
+            if chosen is not node:
+                logger.info("node choice: %s -> %s", node.label, chosen.label)
+                graph = graph.set_operator(n, rewrap(chosen))
+        return graph
+
+
+def _truncate_datasets(graph: G.Graph, k: int) -> G.Graph:
+    """The graph with its dataset literals cut to their first k rows."""
+    for n, op in list(graph.operators.items()):
+        if not isinstance(op, G.DatasetOperator):
+            continue
+        ds = as_dataset(op.dataset)
+        if ds.n <= k:
+            continue
+        if ds.is_host:
+            sliced = Dataset(ds.items[:k])
+        else:
+            sliced = Dataset(ds.array[:k], mask=None if ds.mask is None else ds.mask[:k])
+        graph = graph.set_operator(n, G.DatasetOperator(sliced))
+    return graph
+
+
+# ------------------------------------------------------------- stage fusion
+class FusedTransformer(Transformer):
+    """A linear chain of transformers applied as one stage, each stage's
+    batch path in turn, the ragged mask threaded through.  The reference
+    compiles such a chain into one jit program; here it is one node of
+    the graph, so a chain costs one executor step and one pass over its
+    dataset's row chunks.  It is also the port's eager chain: the scorer
+    built from arrays is one."""
+
+    def __init__(self, stages: Sequence[Transformer]):
+        super().__init__()
+        self.stages = nn.ModuleList(stages)
+
+    @property
+    def label(self):
+        return "Fused[" + " > ".join(s.label for s in self.stages) + "]"
+
+    @property
+    def fusable(self) -> bool:
+        return all(s.fusable for s in self.stages)
+
+    def params(self):
+        ps = tuple(s.params() for s in self.stages)
+        return None if any(p is None for p in ps) else ps
+
+    def apply_batch(self, xs, mask=None):
+        for s in self.stages:
+            out = s.apply_batch(xs, mask=mask)
+            xs, mask = out if isinstance(out, tuple) else (out, None)
+        return xs if mask is None else (xs, mask)
+
+
+class StageFusionRule(Rule):
+    """Fuse consecutive single-consumer device TransformerOperators."""
+
+    name = "StageFusion"
+
+    def apply(self, graph: G.Graph) -> G.Graph:
+        changed = True
+        while changed:
+            changed = False
+            for n in graph.topological_nodes():
+                op = graph.operators.get(n)
+                if not _fusable(op):
+                    continue
+                deps_on_n = graph.dependents(n)
+                if len(deps_on_n) != 1 or isinstance(deps_on_n[0], G.SinkId):
+                    continue
+                m = deps_on_n[0]
+                mop = graph.operators.get(m)
+                if not _fusable(mop) or graph.dependencies[m] != (n,):
+                    continue
+                graph = graph.set_operator(m, G.TransformerOperator(FusedTransformer(_stages(op) + _stages(mop))))
+                graph = graph.set_dependencies(m, graph.dependencies[n])
+                graph = graph.remove_node(n)
+                changed = True
+                break
+        return graph
+
+
+def _fusable(op) -> bool:
+    return (
+        isinstance(op, G.TransformerOperator)
+        and not op.transformer.is_host
+        and getattr(op.transformer, "fusable", True)
+        and not isinstance(op.transformer, Cacher)
+    )
+
+
+def _stages(op) -> list:
+    t = op.transformer
+    return list(t.stages) if isinstance(t, FusedTransformer) else [t]
+
+
+# ------------------------------------------------------------ FV fusion
+def data_on_cuda(graph: G.Graph) -> bool:
+    """Whether the data bound into ``graph`` lives on a CUDA device (an
+    unbound graph has none)."""
+    for op in graph.operators.values():
+        if isinstance(op, G.DatasetOperator):
+            ds = op.dataset
+            if isinstance(ds, Dataset):
+                if not ds.is_host and ds.array.is_cuda:
+                    return True
+            elif isinstance(ds, torch.Tensor) and ds.is_cuda:
+                return True
+        elif isinstance(op, G.DatumOperator) and isinstance(op.datum, torch.Tensor) and op.datum.is_cuda:
+            return True
+    return False
+
+
+class FvFusionRule(Rule):
+    """Rewrite each single-consumer ``PCATransformer → FisherVector`` pair
+    into one ``FusedPcaFisherVector`` node, the fused Fisher-vector kernel
+    (``csrc/fisher.cu::fv_fused_kernel``): the counterpart of the
+    reference's ``PallasFvFusionRule`` (keystone_tpu/workflow/optimizer.py).
+
+    Descriptors are read once instead of round-tripping between the
+    stages.  When the ``SIFTExtractor`` feeds that PCA alone, its
+    L2 → clamp → re-L2 normalize moves into the kernel too (the extractor
+    is swapped for a copy emitting raw descriptors); a SIFT output other
+    nodes also read (the fit's samplers) stays normalized.
+
+    Fires where the graph's data lives on a CUDA device (in place of the
+    reference's ``pallas_supported()``): a CPU graph keeps the plain
+    chain.  A FisherVector with ``use_kernel=False`` is left as it is, as
+    the reference honours ``use_pallas=False``."""
+
+    name = "FvFusion"
+
+    def apply(self, graph: G.Graph) -> G.Graph:
+        if not data_on_cuda(graph):
+            return graph
+        from keystone_tpu_torch.models.pca import PCATransformer
+        from keystone_tpu_torch.ops.fisher import FisherVector, FusedPcaFisherVector
+        from keystone_tpu_torch.ops.sift import SIFTExtractor
+
+        def transformer_of(node, cls):
+            op = graph.operators.get(node)
+            if isinstance(op, G.TransformerOperator) and isinstance(op.transformer, cls):
+                return op.transformer
+            return None
+
+        changed = True
+        while changed:
+            changed = False
+            for n in graph.topological_nodes():
+                pca = transformer_of(n, PCATransformer)
+                deps_on_n = graph.dependents(n)
+                if pca is None or len(deps_on_n) != 1 or isinstance(deps_on_n[0], G.SinkId):
+                    continue
+                m = deps_on_n[0]
+                fv = transformer_of(m, FisherVector)
+                if fv is None or graph.dependencies[m] != (n,) or fv.use_kernel is False:
+                    continue
+                feed = graph.dependencies[n]
+                sift = transformer_of(feed[0], SIFTExtractor) if len(feed) == 1 else None
+                sift_normalize = sift is not None and sift.normalize and tuple(graph.dependents(feed[0])) == (n,)
+                if sift_normalize:
+                    raw = copy.copy(sift)
+                    raw.normalize = False
+                    graph = graph.set_operator(feed[0], G.TransformerOperator(raw))
+                fused = FusedPcaFisherVector(pca, fv.gmm, sift_normalize=sift_normalize, use_kernel=fv.use_kernel)
+                graph = graph.set_operator(m, G.TransformerOperator(fused))
+                graph = graph.set_dependencies(m, feed)
+                graph = graph.remove_node(n)
+                changed = True
+                break
+        return graph
+
+
+# ------------------------------------------------------------------ default
+def default_optimizer() -> Optimizer:
+    return Optimizer(
+        [
+            RuleBatch("cse", FixedPoint(5), [EquivalentNodeMergeRule()]),
+            RuleBatch("node-choice", Once(), [NodeChoiceRule()]),
+            RuleBatch("materialize", Once(), [ProfiledMaterializeRule()]),
+            # FV fusion first: it targets the (non-fusable) PCA → FV pair
+            # specifically, before the generic chain fuser sweeps the rest
+            RuleBatch("fusion", Once(), [FvFusionRule(), StageFusionRule()]),
+        ]
+    )

@@ -1,72 +1,355 @@
-"""Apply-only pipelines (counterpart of ``keystone_tpu/workflow/pipeline.py``
-for a fitted scorer: no fit, no optimizer).
+"""Pipeline DSL: chain/gather composition, lazy results, fit, save/load
+(counterpart of ``keystone_tpu/workflow/pipeline.py`` § PipelineEnv,
+Pipeline, FittedPipeline, fit_relevant_config, PipelineDataset,
+PipelineDatum, _splice_input, _prune_unreachable).
 
-``Pipeline.of(a).and_then(b)`` chains stages; ``Pipeline.gather([p, q])``
-runs branches on the same input and concatenates their dense outputs
-along the last axis, as the reference scorer's ``gather`` does.
+Reference: workflow/Pipeline.scala § Pipeline[A,B], PipelineDataset,
+PipelineDatum — pipelines are DAGs with one open source and one sink;
+``andThen`` chains, ``Pipeline.gather`` merges branches, applying a
+pipeline to data yields a *lazy* result wrapper, and ``fit()`` resolves
+every estimator into its fitted transformer (the reference's
+PipelineModel), triggering optimization + execution.
+
+Typical usage:
+
+    featurizer = Pipeline.gather([PixelScaler() | GrayScaler() | SIFTExtractor(), ...])
+    predictor = (featurizer
+                 .and_then(BlockLeastSquaresEstimator(4096, 1, 1e-4), train_x, train_labels)
+                 .and_then(TopKClassifier(5)))
+    top5 = predictor.fit()(test_x).get().numpy()
+
+Not ported yet: ``freeze``/``FrozenApplier`` and the AOT artifacts
+(ROADMAP A11), the pre-fit out-of-core conversion (A5), the static
+validator (A10) and the run ledger (A9).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+import logging
+import os
+from typing import Optional, Sequence, Union
 
 import torch
-from torch import nn
 
-from keystone_tpu_torch.workflow.transformer import Transformer
-
-
-def _apply(stage: Transformer, xs, mask):
-    out = stage.apply_batch(xs, mask=mask)
-    if isinstance(out, tuple):
-        return out
-    return out, None
+from keystone_tpu_torch.workflow import graph as G
+from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
+from keystone_tpu_torch.workflow.estimator import Estimator, LabelEstimator
+from keystone_tpu_torch.workflow.executor import DatasetExpr, DatumExpr, GraphExecutor, TransformerExpr, synchronize
+from keystone_tpu_torch.workflow.transformer import Chainable, Transformer
 
 
-class Pipeline(Transformer):
-    def __init__(self, stages: Sequence[Transformer]):
-        super().__init__()
-        self.stages = nn.ModuleList(stages)
+class PipelineEnv:
+    """Process-global pipeline environment (workflow/PipelineEnv.scala):
+    the optimizer every fit and lazy result runs."""
+
+    optimizer = None  # lazily constructed default
+
+    @classmethod
+    def set_optimizer(cls, optimizer) -> None:
+        cls.optimizer = optimizer
+
+    @classmethod
+    def get_optimizer(cls):
+        if cls.optimizer is None:
+            from keystone_tpu_torch.workflow.optimizer import default_optimizer
+
+            cls.optimizer = default_optimizer()
+        return cls.optimizer
+
+
+class Pipeline(Chainable):
+    """A DAG with one open source and one sink."""
+
+    def __init__(self, graph: G.Graph, source: G.SourceId, sink: G.SinkId):
+        self.graph = graph
+        self.source = source
+        self.sink = sink
+
+    # ------------------------------------------------------- constructors
+    @staticmethod
+    def of(x) -> "Pipeline":
+        if isinstance(x, Pipeline):
+            return x
+        if isinstance(x, Transformer):
+            return Pipeline.from_transformer(x)
+        raise TypeError(f"cannot lift {x!r} into a Pipeline")
 
     @staticmethod
-    def of(stage: Transformer) -> "Pipeline":
-        return Pipeline([stage])
+    def from_transformer(t: Transformer) -> "Pipeline":
+        g = G.Graph()
+        g, src = g.add_source()
+        g, node = g.add_node(G.TransformerOperator(t), (src,))
+        g, sink = g.add_sink(node)
+        return Pipeline(g, src, sink)
 
     @staticmethod
-    def gather(branches: Sequence["Pipeline"]) -> "Gather":
-        return Gather(branches)
+    def from_estimator(est: Estimator, data, labels=None) -> "Pipeline":
+        """``est.withData(data[, labels])``: a pipeline whose transform is
+        the transformer obtained by fitting ``est`` on ``data``."""
+        g = G.Graph()
+        g, data_dep = _splice_input(g, data)
+        deps = [data_dep]
+        if labels is not None:
+            g, labels_dep = _splice_input(g, labels)
+            deps.append(labels_dep)
+        elif isinstance(est, LabelEstimator):
+            raise ValueError(f"{est.label} requires labels")
+        g, est_node = g.add_node(G.EstimatorOperator(est), tuple(deps))
+        g, src = g.add_source()
+        g, apply_node = g.add_node(G.DelegatingOperator(), (est_node, src))
+        g, sink = g.add_sink(apply_node)
+        return Pipeline(g, src, sink)
 
-    def and_then(self, nxt: Transformer) -> "Pipeline":
-        return Pipeline([*self.stages, nxt])
-
-    def apply_batch(self, xs, mask=None):
-        for stage in self.stages:
-            xs, mask = _apply(stage, xs, mask)
-        return xs if mask is None else (xs, mask)
-
-    @property
-    def label(self) -> str:
-        return " > ".join(s.label for s in self.stages)
-
-
-class Gather(Transformer):
-    """Branches over one input; dense outputs concatenated on the last axis."""
-
-    def __init__(self, branches: Sequence[Pipeline]):
-        super().__init__()
-        self.branches = nn.ModuleList(branches)
-
-    def apply_batch(self, xs, mask=None):
+    @staticmethod
+    def gather(branches: Sequence[Union["Pipeline", Transformer]]) -> "Pipeline":
+        """Merge N branches over a shared input; output = concatenated
+        features (workflow/Pipeline.scala § gather).  The CSE rule merges
+        any common branch prefixes so shared featurization runs once."""
+        branches = [Pipeline.of(b) for b in branches]
+        if not branches:
+            raise ValueError("gather of zero branches")
+        g = G.Graph()
+        g, src = g.add_source()
         outs = []
-        for b in self.branches:
-            out, out_mask = _apply(b, xs, mask)
-            if out_mask is not None:
-                raise ValueError(
-                    f"gather needs dense branch outputs; {b.label} kept a mask"
-                )
-            outs.append(out)
-        return torch.cat(outs, dim=-1)
+        for b in branches:
+            g, mapping = g.union(b.graph)
+            b_src = mapping[b.source]
+            g = g.replace_dependency(b_src, src)
+            g = g.remove_source(b_src)
+            outs.append(g.sink_dependencies[mapping[b.sink]])
+            g = g.remove_sink(mapping[b.sink])
+        g, gather_node = g.add_node(G.GatherOperator(), tuple(outs))
+        g, sink = g.add_sink(gather_node)
+        return Pipeline(g, src, sink)
 
-    @property
-    def label(self) -> str:
-        return "Gather[" + ", ".join(b.label for b in self.branches) + "]"
+    # ------------------------------------------------------- composition
+    def then_pipeline(self, other: "Pipeline") -> "Pipeline":
+        g, mapping = self.graph.union(other.graph)
+        g = g.connect(self.sink, mapping[other.source])
+        return Pipeline(g, self.source, mapping[other.sink])
+
+    def and_then(self, nxt, data=None, labels=None) -> "Pipeline":
+        """Chain a transformer/pipeline, or an estimator fit on this
+        pipeline's output over ``data`` (workflow/Pipeline.scala § andThen)."""
+        if isinstance(nxt, Estimator):
+            if data is None:
+                raise ValueError(f"and_then({nxt.label}) requires training data")
+            featurized = self(data)  # lazy: shares this pipeline's prefix
+            return self.then_pipeline(Pipeline.from_estimator(nxt, featurized, labels))
+        return self.then_pipeline(Pipeline.of(nxt))
+
+    # -------------------------------------------------------- application
+    def __call__(self, data):
+        if isinstance(data, PipelineDataset):
+            g, mapping = data.graph.union(self.graph)
+            out_dep = g.sink_dependencies[data.sink]
+            g = g.remove_sink(data.sink)
+            new_src = mapping[self.source]
+            g = g.replace_dependency(new_src, out_dep)
+            g = g.remove_source(new_src)
+            return PipelineDataset(g, mapping[self.sink])
+        if isinstance(data, Dataset) or _is_batchlike(data):
+            g, _ = self.graph.replace_source_with_node(self.source, G.DatasetOperator(as_dataset(data)))
+            return PipelineDataset(g, self.sink)
+        return self.apply_datum(data)
+
+    def apply_datum(self, x) -> "PipelineDatum":
+        """Apply to one datum (arrays are otherwise treated as batches)."""
+        g, _ = self.graph.replace_source_with_node(self.source, G.DatumOperator(x))
+        return PipelineDatum(g, self.sink)
+
+    # --------------------------------------------------------------- fit
+    def fit(self) -> "FittedPipeline":
+        """Optimize, execute every estimator fit, and return a pure
+        transformer pipeline (the reference's ``Pipeline.fit():
+        PipelineModel``).  One executor serves every estimator, so shared
+        prefixes run once; its memoized results are dropped with it when
+        the fit returns, and the fitted pipeline keeps none of them."""
+        g = PipelineEnv.get_optimizer().execute(self.graph)
+        ex = GraphExecutor(g)
+        fitted: dict = {}
+        for n in g.topological_nodes():
+            if isinstance(g.operators[n], G.EstimatorOperator):
+                expr = ex.execute(n)
+                assert isinstance(expr, TransformerExpr)
+                fitted[n] = expr.transformer
+        for n, t in fitted.items():
+            for dep in g.dependents(n):
+                if isinstance(dep, G.NodeId) and isinstance(g.operators[dep], G.DelegatingOperator):
+                    rest = tuple(d for d in g.dependencies[dep] if d != n)
+                    g = g.set_operator(dep, G.TransformerOperator(t))
+                    g = g.set_dependencies(dep, rest)
+            g = g.remove_node(n)
+        g = _prune_unreachable(g, self.sink, keep_sources=(self.source,))
+        # re-fuse: estimator substitution just turned DelegatingOperators
+        # (unfusable while the transformer was unknown) into transformers
+        from keystone_tpu_torch.workflow.optimizer import StageFusionRule
+
+        return FittedPipeline(StageFusionRule().apply(g), self.source, self.sink)
+
+    def __repr__(self):
+        return f"Pipeline({self.graph!r})"
+
+
+class FittedPipeline(Pipeline):
+    """An estimator-free pipeline; saved and loaded with ``torch.save`` /
+    ``torch.load`` (the analogue of the reference's serialized
+    PipelineModel).  Its fitted transformers' tensors travel with it, on
+    the device ``load``'s ``map_location`` names."""
+
+    def fit(self) -> "FittedPipeline":
+        return self
+
+    def block_until_ready(self) -> "FittedPipeline":
+        """Wait for the device work queued by the fit (a CUDA synchronize)."""
+        synchronize()
+        return self
+
+    def save(self, path: str, config=None) -> None:
+        """Write ``{"config": config, "pipeline": self}`` to ``path``, the
+        one format ``load`` and ``fit_or_load`` read."""
+        torch.save({"config": config, "pipeline": self}, path)
+
+    @staticmethod
+    def _load_raw(path: str, map_location=None):
+        """``path`` → (fitted, saved config or None)."""
+        obj = torch.load(path, map_location=map_location, weights_only=False)
+        if not (isinstance(obj, dict) and isinstance(obj.get("pipeline"), FittedPipeline)):
+            raise TypeError(f"{path} does not contain a saved FittedPipeline")
+        return obj["pipeline"], obj.get("config")
+
+    @staticmethod
+    def load(path: str, map_location=None) -> "FittedPipeline":
+        return FittedPipeline._load_raw(path, map_location)[0]
+
+    @staticmethod
+    def fit_or_load(path, build_fn, config=None, map_location=None):
+        """Load the fitted pipeline saved at ``path``, or build+fit+save.
+
+        ``build_fn`` is called ONLY when fitting is needed — training-data
+        loading belongs inside it, so scoring runs with a saved model skip
+        it entirely.  ``config`` (any ==-comparable value, e.g. the app's
+        Config as ``fit_relevant_config`` gives it) is persisted alongside
+        the pipeline; loading with a config that doesn't match what the
+        model was fitted with raises instead of silently reporting stale
+        results.
+
+        Returns ``(fitted, loaded)`` — ``loaded`` is True when the model
+        came from disk.
+        """
+        if path and os.path.exists(path):
+            obj, saved_cfg = FittedPipeline._load_raw(path, map_location)
+            if config is not None and saved_cfg is None:
+                logging.getLogger(__name__).warning(
+                    "saved model at %s has no persisted config (saved without one); cannot verify it "
+                    "matches the current config — re-fit (delete the file) to enable the staleness check",
+                    path,
+                )
+            if config is not None and saved_cfg is not None and saved_cfg != config:
+                raise ValueError(
+                    f"saved model at {path} was fitted with a different config ({saved_cfg!r}); refusing "
+                    "to score with mismatched parameters — delete the file or pass a matching config"
+                )
+            return obj, True
+        fitted = build_fn().fit().block_until_ready()
+        if path:
+            fitted.save(path, config)
+        return fitted, False
+
+
+def fit_relevant_config(config, exclude=()):
+    """App Config dataclass → dict of FIT-relevant fields for
+    ``fit_or_load``'s staleness check.
+
+    Eval-only knobs must not invalidate a saved model — fitting once and
+    scoring new test sets later is the feature's purpose — so fields that
+    only affect evaluation inputs are dropped: the model path itself,
+    test-set paths, view-patch size, and the execution strategy of
+    streaming.  ``exclude`` adds app-specific eval-only fields."""
+    d = dataclasses.asdict(config)
+    eval_only = {
+        "model_path",
+        "test_path",
+        "test_features_path",
+        "test_labels_path",
+        "view_patch",
+        "stream",
+    } | set(exclude)
+    for k in eval_only:
+        d.pop(k, None)
+    return d
+
+
+class PipelineDataset:
+    """Lazy result of applying a pipeline to a dataset
+    (workflow/Pipeline.scala § PipelineDataset).  ``get()`` triggers
+    optimize + execute; the result is cached."""
+
+    def __init__(self, graph: G.Graph, sink: G.SinkId):
+        self.graph = graph
+        self.sink = sink
+        self._result: Optional[Dataset] = None
+
+    def get(self) -> Dataset:
+        if self._result is None:
+            g = PipelineEnv.get_optimizer().execute(self.graph)
+            expr = GraphExecutor(g).execute(g.sink_dependencies.get(self.sink, self.sink))
+            if not isinstance(expr, DatasetExpr):
+                raise TypeError(f"sink produced {type(expr).__name__}, expected dataset")
+            self._result = expr.dataset
+        return self._result
+
+    def numpy(self):
+        return self.get().numpy()
+
+
+class PipelineDatum:
+    """Lazy single-datum result (workflow/Pipeline.scala § PipelineDatum)."""
+
+    def __init__(self, graph: G.Graph, sink: G.SinkId):
+        self.graph = graph
+        self.sink = sink
+        self._result = None
+        self._done = False
+
+    def get(self):
+        if not self._done:
+            g = PipelineEnv.get_optimizer().execute(self.graph)
+            expr = GraphExecutor(g).execute(g.sink_dependencies.get(self.sink, self.sink))
+            if not isinstance(expr, DatumExpr):
+                raise TypeError(f"sink produced {type(expr).__name__}, expected datum")
+            self._result = expr.value
+            self._done = True
+        return self._result
+
+
+# ----------------------------------------------------------------- helpers
+def _splice_input(g: G.Graph, data):
+    """Attach ``data`` (literal dataset or lazy PipelineDataset graph) to
+    ``g``; returns (graph, dependency id of the data's value)."""
+    if isinstance(data, PipelineDataset):
+        g2, mapping = g.union(data.graph)
+        dep = g2.sink_dependencies[mapping[data.sink]]
+        return g2.remove_sink(mapping[data.sink]), dep
+    return g.add_node(G.DatasetOperator(as_dataset(data)), ())
+
+
+def _prune_unreachable(g: G.Graph, sink: G.SinkId, keep_sources: Sequence[G.SourceId]) -> G.Graph:
+    keep = set(keep_sources)
+    keep.add(g.sink_dependencies[sink])
+    keep.update(g.ancestors(g.sink_dependencies[sink]))
+    for n in list(g.operators):
+        if n not in keep:
+            g = g.remove_node(n)
+    for s in list(g.sources):
+        if s not in keep:
+            g = g.remove_source(s)
+    for k in list(g.sink_dependencies):
+        if k != sink:
+            g = g.remove_sink(k)
+    return g
+
+
+def _is_batchlike(x) -> bool:
+    return isinstance(x, (list, tuple)) or (hasattr(x, "ndim") and x.ndim >= 1)

@@ -460,3 +460,73 @@ def test_gram_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="degree"):
         gk.poly_block_kernel(x, z, 1.0, 0.0, -2)
     assert gk.LAUNCHES == {"gram_block": 0, "poly_block": 0}
+
+
+# ---------------------------------------------------------------- the workflow graph on the card
+GRAPH_SMALL = dict(num_classes=4, gmm_k=8, gmm_iters=4, pca_dims=16, descriptor_samples_per_image=32,
+                   solver_block_size=512, synthetic_n=160, image_size=48, sift_step=8, lcs_step=8)
+
+
+def test_graph_run_launches_b2_in_the_fit_and_b1_in_scoring(dev):
+    """ImageNetSiftLcsFV.run on the card: the fit's featurization of the
+    training set through B2 (FisherVector), scoring through B1 (the FV
+    fusion rule's nodes), one launch a branch a chunk of rows."""
+    from keystone_tpu_torch.pipelines.imagenet_sift_lcs_fv import Config, ImageNetSiftLcsFV
+    from keystone_tpu_torch.workflow import transformer as wt
+
+    cfg = Config(**GRAPH_SMALL)
+    chunks = -(-cfg.synthetic_n // wt.APPLY_CHUNK_ROWS)
+    fk.reset_launches()
+    out = {}
+    result = ImageNetSiftLcsFV.run(cfg, device=dev, out=out)
+    assert fk.LAUNCHES == {"fisher_encode": 2 * chunks, "fused_forward": 2, "fisher_encode_general": 0,
+                           "fused_forward_general": 0}
+    assert result["accuracy"] > 0.5, result
+    assert out["predictions"].shape == (cfg.synthetic_n // 4, min(cfg.top_k, cfg.num_classes))
+
+
+def test_graph_fused_scoring_matches_the_unfused_graph(dev):
+    """The FV fusion rule's graph (B1) against the same fitted graph with
+    the rule off (PCA, then B2), on the card: top-5 ids equal, scores
+    within the kernels' f32 rounding carried through the solve."""
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+    from keystone_tpu_torch.pipelines.imagenet_sift_lcs_fv import Config, ImageNetSiftLcsFV
+    from keystone_tpu_torch.workflow import optimizer as opt
+    from keystone_tpu_torch.workflow.pipeline import PipelineEnv
+
+    cfg = Config(**GRAPH_SMALL)
+    train = ImageNetLoader.synthetic(cfg.synthetic_n, cfg.num_classes, (48, 48), seed=1, device=dev)
+    test = ImageNetLoader.synthetic(40, cfg.num_classes, (48, 48), seed=2, device=dev)
+    fitted = ImageNetSiftLcsFV.build_scorer(cfg, train.data, train.labels).fit()
+    fk.reset_launches()
+    fused = fitted(test.data).get().array
+    assert fk.LAUNCHES["fused_forward"] == 2 and fk.LAUNCHES["fisher_encode"] == 0
+    unfused_opt = opt.Optimizer([b for b in opt.default_optimizer().batches if b.name != "fusion"]
+                                + [opt.RuleBatch("fusion", opt.Once(), [opt.StageFusionRule()])])
+    prev = PipelineEnv.optimizer
+    PipelineEnv.set_optimizer(unfused_opt)
+    try:
+        unfused = fitted(test.data).get().array
+    finally:
+        PipelineEnv.set_optimizer(prev)
+    assert fk.LAUNCHES["fisher_encode"] == 2
+    torch.testing.assert_close(fused, unfused, atol=1e-3, rtol=1e-3)
+    assert torch.equal(torch.topk(fused, 1).indices, torch.topk(unfused, 1).indices)
+
+
+def test_blur_above_512_px_is_f32_on_the_card(dev):
+    """The >512 px blur (two depthwise cuDNN convolutions) in true f32
+    with cuDNN's TF32 flag on, as PyTorch sets it by default: against the
+    same blur in float64 on the CPU, at the CPU test's 1e-5."""
+    from keystone_tpu_torch.ops.filters import separable_gaussian_blur
+
+    x = torch.from_numpy(np.random.default_rng(6).random((2, 520, 530, 3)).astype(np.float32))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = separable_gaussian_blur(x.to(dev), 1.2)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    want = separable_gaussian_blur(x.double(), 1.2)
+    torch.testing.assert_close(got.cpu().double(), want, atol=1e-5, rtol=0)

@@ -434,7 +434,7 @@ def test_other_evaluators_match_reference():
 
 
 def test_synthetic_images_match_reference():
-    pixels, labels = ImageNetLoader.synthetic(6, 5, (20, 24), seed=3)
+    pixels, labels = ImageNetLoader.synthetic_arrays(6, 5, (20, 24), seed=3)
     ref = JLoader.synthetic(6, 5, (20, 24), seed=3)
     np.testing.assert_array_equal(pixels, ref.data.numpy())
     np.testing.assert_array_equal(labels, ref.labels.numpy())

@@ -39,7 +39,7 @@ from keystone_tpu_torch.models.gmm import GaussianMixtureModelEstimator, _gmm_fi
 from keystone_tpu_torch.models.pca import PCAEstimator
 from keystone_tpu_torch.ops.util import ClassLabelIndicators
 from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as port
-from keystone_tpu_torch.workflow.pipeline import Pipeline
+from keystone_tpu_torch.workflow.optimizer import FusedTransformer
 
 # tests/test_pipelines.py::test_imagenet_sift_lcs_fv_e2e's config
 FIELDS = dict(num_classes=4, gmm_k=4, gmm_iters=4, pca_dims=16, descriptor_samples_per_image=32,
@@ -71,8 +71,8 @@ TOP1_MARGIN = 0.25
 
 @pytest.fixture(scope="module")
 def data():
-    return ImageNetLoader.synthetic(CFG.synthetic_n, CFG.num_classes, SIZE, seed=1), \
-        ImageNetLoader.synthetic(max(8, CFG.synthetic_n // 4), CFG.num_classes, SIZE, seed=2)
+    return ImageNetLoader.synthetic_arrays(CFG.synthetic_n, CFG.num_classes, SIZE, seed=1), \
+        ImageNetLoader.synthetic_arrays(max(8, CFG.synthetic_n // 4), CFG.num_classes, SIZE, seed=2)
 
 
 def _j_descriptors(imgs):
@@ -130,7 +130,7 @@ def _fisher_vectors(params, imgs):
     pipelines without their last two stages (SignedHellinger, NormalizeRows)."""
     scaler, gather = port.build_featurizer(params, CFG, "cpu").stages
     x = scaler(torch.from_numpy(imgs))
-    return {b: Pipeline(list(branch.stages)[:-2])(x).numpy() for b, branch in zip(("sift", "lcs"), gather.branches)}
+    return {b: FusedTransformer(list(branch.stages)[:-2])(x).numpy() for b, branch in zip(("sift", "lcs"), gather.branches)}
 
 
 @pytest.fixture(scope="module")

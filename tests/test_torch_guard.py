@@ -45,7 +45,10 @@ def test_every_module_imports_without_jax():
     for m in ("ops.fisher_kernels", "ops.gram_kernels", "models.kernel_ridge", "models.kernel_matrix",
               "models.nystrom", "pipelines.kernel_timit", "workflow.profiling", "loaders.timit",
               "models.pca", "models.kmeans", "models.gmm", "models.block_ls", "models.block_weighted_ls",
-              "ops.stats", "evaluation.evaluators", "loaders.imagenet", "pipelines.imagenet_sift_lcs_fv"):
+              "ops.stats", "evaluation.evaluators", "loaders.imagenet", "pipelines.imagenet_sift_lcs_fv",
+              "workflow.graph", "workflow.dataset", "workflow.transformer", "workflow.estimator",
+              "workflow.executor", "workflow.optimizer", "workflow.pipeline", "loaders.labeled", "ops.images",
+              "ops.filters"):
         assert f"keystone_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -208,3 +211,39 @@ def test_run_synthetic_refuses_what_is_not_ported(field):
     cfg = dataclasses.replace(TINY_FIT, **{field: "model.pt" if field == "model_path" else True})
     with pytest.raises(NotImplementedError, match="ROADMAP A[35]"):
         port.run_synthetic(cfg, device="cpu")
+
+
+def test_graph_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card: the CPU-only refusal is not observable")
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+    from keystone_tpu_torch.loaders.labeled import LabeledData
+    from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+    from keystone_tpu_torch.workflow.transformer import Identity
+
+    x = np.ones((4, 3), np.float32)
+    for call in (
+        lambda: port.ImageNetSiftLcsFV.run(TINY_FIT),
+        lambda: ImageNetLoader.synthetic(2),
+        lambda: Dataset(x),
+        lambda: Dataset([x[0], x[1]]),
+        lambda: as_dataset(x),
+        lambda: LabeledData.of(x, np.zeros(4, np.int64)),
+        lambda: PCAEstimator(2).fit(x),
+        lambda: Pipeline.of(Identity())(x),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # a tensor stays where it is; a host payload stays on the host
+    assert Dataset(torch.from_numpy(x)).device.type == "cpu"
+    assert Dataset([torch.zeros(2), torch.ones(2)]).device.type == "cpu"
+    assert Dataset(["a", "b"]).is_host
+    assert Pipeline.of(Identity())(Dataset(x, device="cpu")).get().device.type == "cpu"
+
+
+def test_graph_run_on_the_cpu_launches_no_kernel():
+    fisher_kernels.reset_launches()
+    result = port.ImageNetSiftLcsFV.run(TINY_FIT, device="cpu")
+    assert 0.0 <= result["top1_error"] <= 1.0
+    assert not any(fisher_kernels.LAUNCHES.values()), fisher_kernels.LAUNCHES
