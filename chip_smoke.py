@@ -63,7 +63,27 @@ result line):
    top-1 agreement; a model_path save/load round trip with identical
    top-k; B2 at the graph fit's shape against its plain version
    (f32-grade against float64 where f32 itself leaves the tolerance);
-10. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+10. main path, ImageNetSiftLcsFV.run with ``stream=True`` (the
+   out-of-core fit) at the same fit leg: the training images a
+   StreamDataset of synthetic_stream's batches of 64, made on a producer
+   thread; the spill (rows, columns, blocks, bytes on disk), B2 launched
+   on each streamed batch in the fit and B1 in scoring (the general path
+   0), the SIFT and LCS sweeps over the training stream against the
+   prediction (three each), no stage materializing the stream;
+   against phase 9's in-memory graph fit (same config and seeds): the
+   vocabularies equal, the held-out scores within tolerance with top-1
+   agreement 1.0, `Pipeline.fit` seconds and peak device memory of both
+   fits, the streamed peak below the in-memory one; then
+   ``iter_device_blocks`` (pinned buffers, the side copy stream, events)
+   against ``read_block`` bit for bit at the fit's block shape, f32 and
+   bf16, under a slow consumer;
+11. the tar loader on the committed fixture (tests/data/imagenet_tars),
+   decoded on the card by nvJPEG: ``index``, ``load`` and ``stream``
+   agree (the undecodable member skipped by ``load``, a zero image with
+   its label in ``stream``), the pixels within the stated difference of
+   the reference's libjpeg decode committed beside the fixture, and
+   ``run`` from the tars with ``stream`` at accuracy above 0.9;
+12. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches, float64 errors) for all four
    kernels, then the last line {"ok": true, "device": {...}}.
 
@@ -77,6 +97,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import logging
 import shutil
 import subprocess
 import sys
@@ -215,6 +236,49 @@ RTOL_BCD_W, TOL_BCD_PRED = 1e-3, 3e-5
 GRAPH_WARMUP_N = 256
 TOL_GRAPH_SCORES, RTOL_GRAPH_SCORES = 1e-3, 1e-3
 GRAPH_TOP1_AGREEMENT = 0.99
+
+# ---- the streamed fit: ImageNetSiftLcsFV.run with stream=True at the same
+# fit leg, the training images in batches of STREAM_BATCH (the reference
+# Config's stream_batch_size).  Predicted before its first run (PERF.md):
+# each consumer of the training stream re-runs it, so each branch's
+# extractor sweeps it STREAM_SWEEPS times (its two samplers and the
+# solver's spill).  Against phase 9's fit (same images, draws and seeds):
+# the vocabularies are fitted on the same rows (below); the features are
+# the same up to the roundings of batches of 64 in place of chunks of 128
+# and of the solve's means taken a block at a time, which the solve
+# carries into the held-out scores (|s| ≲ 2): held at phase 9's 1e-3 +
+# 1e-3·|ref| for two fits whose features round apart (a CPU rehearsal at
+# 96 images and K = 4 read 6.4e-4 at |ref| 2.9), and their top-1 classes
+# agree on every image
+STREAM_BATCH = 64
+STREAM_SWEEPS = 3
+# the vocabularies: the same rows are sampled, but an extractor's products
+# over a batch of 64 and a chunk of 128 may round apart in the last bit
+# (the libraries pick their kernels by shape; on the CPU, SIFT of 16 and of
+# 96 images differed by 1.5e-8 on 0.01% of entries), which the PCA passes
+# on at that size and ten EM iterations amplify: the projector is held at
+# 1e-5, the PCA mean at TOL_VOCAB, the GMM at the reference's own EM
+# tolerances (TOL_EM_*); whether they came out bit for bit is printed
+TOL_STREAM_PROJECTOR = 1e-5
+TOL_STREAM_SCORES, RTOL_STREAM_SCORES = TOL_GRAPH_SCORES, RTOL_GRAPH_SCORES
+STREAM_TOP1_AGREEMENT = 1.0
+
+# ---- the tar loader: the committed fixture (tests/data/make_imagenet_tars.py),
+# decoded on the card by nvJPEG, against the reference's libjpeg pixels.
+# nvJPEG's IDCT and chroma upsampling are not libjpeg's: on this fixture
+# (32×32, 4:2:0, quality 95) its pixels were at most 10 levels from
+# libjpeg's (mean 1.28 on an H100; PERF.md); the resize adds nothing.
+# The limit leaves room above that for another nvJPEG build, and stays
+# below two thirds of what a wrong decode reads, measured on the same output:
+# channels swapped, chroma dropped (luma only), or shifted by one pixel
+# (the last read 27-38 levels an image from libjpeg's pixels on this
+# fixture, the others 99-171 over it)
+REPO = Path(__file__).resolve().parent
+TARS = REPO / "tests" / "data" / "imagenet_tars"
+TAR_PIXELS = REPO / "tests" / "data" / "imagenet_tars_decoded.npy"
+TAR_SIZE, TAR_MEMBERS, TAR_BAD = (32, 32), 13, 6
+NVJPEG_MAX_DIFF = 16
+TAR_ACCURACY_MIN = 0.9
 
 
 @contextlib.contextmanager
@@ -830,10 +894,11 @@ def fit_f64_checks(dev, card, P, cfg, tx, vx, ty, params):
 
 @contextlib.contextmanager
 def fit_probe(fk):
-    """Instruments ImageNetSiftLcsFV.run for the graph phase: the seconds
-    of ``Pipeline.fit`` (ended by a synchronize) and the FV launches at its
-    end, and the rows each descriptor extractor was applied to inside the
-    fit and after it.  The classes' methods are restored on exit."""
+    """Instruments ImageNetSiftLcsFV.run for the graph phases: the seconds
+    of ``Pipeline.fit`` (ended by a synchronize), its peak device memory
+    (the peak reset just before it) and the FV launches at its end, and
+    the rows each descriptor extractor was applied to inside the fit and
+    after it.  The classes' methods are restored on exit."""
     from keystone_tpu_torch.ops.lcs import LCSExtractor
     from keystone_tpu_torch.ops.sift import SIFTExtractor
     from keystone_tpu_torch.workflow.pipeline import Pipeline
@@ -844,10 +909,13 @@ def fit_probe(fk):
 
     def fit(self):
         probe["in_fit"] = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         fitted = saved[0][2](self)
         torch.cuda.synchronize()
         probe["fit_seconds"] = time.perf_counter() - t0
+        probe["peak_bytes"] = torch.cuda.max_memory_allocated()
         probe["fit_launches"] = dict(fk.LAUNCHES)
         probe["in_fit"] = False
         return fitted
@@ -919,8 +987,8 @@ def graph_path(dev, card, P, fk, setup, params):
         rows = probe["rows"]
         print(f"  launches: fit {fit_l}, scoring {score_l}; extractor rows {rows}", flush=True)
         print(f"  Pipeline.fit {probe['fit_seconds']:.4f} s, {FIT_N / probe['fit_seconds']:.1f} images/s; run's "
-              f"fit_seconds (the training images' making included, as the reference's) {res['fit_seconds']:.4f} s "
-              f"({card})", flush=True)
+              f"fit_seconds (the training images' making included, as the reference's) {res['fit_seconds']:.4f} s; "
+              f"peak device memory in the fit {probe['peak_bytes'] / 2**30:.4f} GiB ({card})", flush=True)
         print(f"  held-out ({FIT_TEST_N} images): top-1 error {res['top1_error']:.4f}, top-5 error "
               f"{res['top5_error']:.4f} (at most {FIT_TOP1_ERROR_MAX} top-1; chance {1 - 1 / FIT_CLASSES:.4f})",
               flush=True)
@@ -944,6 +1012,7 @@ def graph_path(dev, card, P, fk, setup, params):
         print(f"  top-1 agreement with fit_params' scorer {agree:.5f} (at least {GRAPH_TOP1_AGREEMENT})", flush=True)
         check(agree >= GRAPH_TOP1_AGREEMENT, f"top-1 agreement {agree:.5f}")
         out.update({"fit_seconds": probe["fit_seconds"], "run_fit_seconds": res["fit_seconds"],
+                    "peak_bytes": probe["peak_bytes"],
                     "images_per_s": FIT_N / probe["fit_seconds"], "top1_error": res["top1_error"],
                     "top5_error": res["top5_error"], "launches_fit": fit_l, "launches_scoring": score_l,
                     "extractor_rows": rows, "top1_agreement": agree})
@@ -979,21 +1048,31 @@ def graph_path(dev, card, P, fk, setup, params):
         check(not r1["model_loaded"] and r2["model_loaded"], "the round trip did not save, then load")
         check(same, "the loaded model's top-5 ids differ from the saved one's")
         out["round_trip"] = {"identical_top_k": same, "load_seconds": r2["fit_seconds"]}
-    # B2 at the graph fit's shape, on the fitted GMM: one chunk of the
-    # training set, normalized SIFT and LCS projected by the fitted PCA.
-    # As B1's fit-shape check: against the plain chain in float64,
-    # f32-grade where f32 itself misses the tolerance
+    out["b2_fit_shape"] = b2_fitted_check("graph: B2 at the graph fit's shape against its plain version",
+                                          "the graph fit's shape", fk, cfg, tx[:chunk], detail["fitted"])
+    return out, detail
+
+
+def b2_fitted_check(phase_name, where, fk, cfg, images, fitted):
+    """B2 on a fitted GMM at a fit's shape: ``images`` (one chunk or batch
+    of the training set), normalized SIFT and LCS projected by the fitted
+    PCA.  As B1's fit-shape check: against the plain chain in float64,
+    f32-grade where f32 itself misses the tolerance."""
+    from keystone_tpu_torch.ops.images import GrayScaler, PixelScaler
+    from keystone_tpu_torch.ops.lcs import LCSExtractor
+    from keystone_tpu_torch.ops.sift import SIFTExtractor
+
     b2 = {"f64_check": {}, "max_abs_err": 0.0, "calls": []}
-    with phase("graph: B2 at the graph fit's shape against its plain version"):
-        xf = PixelScaler(only_if_integer=True)(tx[:chunk])
+    with phase(phase_name):
+        xf = PixelScaler(only_if_integer=True)(images)
         extract = {"sift": lambda: SIFTExtractor(cfg.sift_step, (cfg.sift_bin_size,))(GrayScaler()(xf)),
                    "lcs": lambda: LCSExtractor(cfg.lcs_step, cfg.lcs_subpatch)(xf)}
-        for b, (pca, fv) in fitted_vocabulary(detail["fitted"]).items():
+        for b, (pca, fv) in fitted_vocabulary(fitted).items():
             z, zm = pca(*extract[b]())
             gm = fv.gmm
             a = (z, zm, gm.weights, gm.means, gm.variances)
             n, t, d = z.shape
-            label = f"B2 at the graph fit's shape, {b} ({n}, {t}, {d}), K={FIT_GMM_K}"
+            label = f"B2 at {where}, {b} ({n}, {t}, {d}), K={FIT_GMM_K}"
             got, plain = fk.fisher_encode(*a), fk.fisher_encode_ref(*a)
             ref = fv_f64(*a)
             b2["max_abs_err"] = max(b2["max_abs_err"], max_err(got, plain))
@@ -1013,7 +1092,230 @@ def graph_path(dev, card, P, fk, setup, params):
             b2["calls"].append((a, (n, t)))
             del ref
         torch.cuda.synchronize()
-    out["b2_fit_shape"] = b2
+    return b2
+
+
+def scores_pipeline(fitted):
+    """A fitted pipeline that ends in TopKClassifier, without it: the raw
+    class scores (the head may be fused into the last stage)."""
+    from keystone_tpu_torch.ops.util import TopKClassifier
+    from keystone_tpu_torch.workflow import graph as WG
+    from keystone_tpu_torch.workflow.optimizer import FusedTransformer
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+
+    g = fitted.graph
+    node = g.sink_dependencies[fitted.sink]
+    t = g.operators[node].transformer
+    if isinstance(t, TopKClassifier):
+        g = g.replace_dependency(node, g.dependencies[node][0]).remove_node(node)
+    else:
+        check(isinstance(t, FusedTransformer) and isinstance(t.stages[-1], TopKClassifier),
+              f"the fitted pipeline ends in {t.label}")
+        g = g.set_operator(node, WG.TransformerOperator(FusedTransformer(list(t.stages)[:-1])))
+    return FittedPipeline(g, fitted.source, fitted.sink)
+
+
+class MaterializeWatch(logging.Handler):
+    """Collects the warnings a StreamDataset logs when a stage materializes it."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        if "materializing StreamDataset" in record.getMessage():
+            self.messages.append(record.getMessage())
+
+
+def stream_path(dev, card, P, fk, setup, graph_out, graph_detail):
+    """ImageNetSiftLcsFV.run with stream=True at the fit leg (launch counts
+    zeroed just before, read after its scoring), against phase 9's
+    in-memory graph fit; then the device block feed against read_block."""
+    from keystone_tpu_torch.models.block_weighted_ls import BlockWeightedLeastSquaresEstimator as BWLS
+    from keystone_tpu_torch.workflow import transformer as WT
+    from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    cfg, tx, ty, vx, vy = setup
+    scfg = dataclasses.replace(cfg, stream=True, stream_batch_size=STREAM_BATCH)
+    nb_train, nb_test = -(-FIT_N // STREAM_BATCH), -(-FIT_TEST_N // WT.APPLY_CHUNK_ROWS)
+    feat_d = 2 * 2 * FIT_GMM_K * PCA_DIMS
+    out = {}
+    with phase("main path: ImageNetSiftLcsFV.run --stream (the out-of-core fit)"):
+        # the spill (the solver's sweep of the stream, its features written
+        # to disk) and the out-of-core solve (three reads of the store and
+        # the BCD) timed apart; the rest of the fit is the samplers' sweeps
+        # and the vocabulary fits
+        spills, solve_s = [], []
+        orig, orig_solve = FeatureBlockStore.from_batches.__func__, BWLS.fit_store
+
+        def spy(cls, directory, batches, n, block_size, dtype="float32"):
+            t0 = time.perf_counter()
+            store = orig(cls, directory, batches, n, block_size, dtype)
+            spills.append({"rows": store.n, "columns": store.d, "blocks": store.num_blocks,
+                           "bytes": store.nbytes(), "dtype": store.dtype, "seconds": time.perf_counter() - t0})
+            return store
+
+        def timed_solve(self, *a, **kw):
+            t0 = time.perf_counter()
+            fitted = orig_solve(self, *a, **kw)
+            torch.cuda.synchronize()
+            solve_s.append(time.perf_counter() - t0)
+            return fitted
+
+        watch = MaterializeWatch()
+        logging.getLogger("keystone_tpu_torch.workflow.dataset").addHandler(watch)
+        FeatureBlockStore.from_batches, BWLS.fit_store = classmethod(spy), timed_solve
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        detail = {}
+        try:
+            with fit_probe(fk) as probe:
+                res = P.ImageNetSiftLcsFV.run(scfg, dev, out=detail)
+                torch.cuda.synchronize()
+        finally:
+            FeatureBlockStore.from_batches, BWLS.fit_store = classmethod(orig), orig_solve
+            logging.getLogger("keystone_tpu_torch.workflow.dataset").removeHandler(watch)
+        launches = dict(fk.LAUNCHES)
+        fit_l = probe["fit_launches"]
+        score_l = {k: launches[k] - fit_l[k] for k in launches}
+        rows = probe["rows"]
+        peak, peak_mem = probe["peak_bytes"], graph_out["peak_bytes"]
+        print(f"  spill {spills}; out-of-core solve {solve_s} s; making the {FIT_N} training images once took "
+              f"{graph_out['run_fit_seconds'] - graph_out['fit_seconds']:.4f} s in phase 9's run ({card})", flush=True)
+        print(f"  launches: fit {fit_l}, scoring {score_l}; extractor rows {rows} (predicted {STREAM_SWEEPS} sweeps "
+              f"of {FIT_N} in the fit)", flush=True)
+        print(f"  Pipeline.fit {probe['fit_seconds']:.4f} s streamed, {graph_out['fit_seconds']:.4f} s in memory "
+              f"(phase 9); peak device memory in the fit {peak / 2**30:.4f} GiB streamed, {peak_mem / 2**30:.4f} GiB "
+              f"in memory ({card})", flush=True)
+        print(f"  held-out ({FIT_TEST_N} images): top-1 error {res['top1_error']:.4f}, top-5 error "
+              f"{res['top5_error']:.4f} (at most {FIT_TOP1_ERROR_MAX} top-1)", flush=True)
+        spill_s = [sp.pop("seconds") for sp in spills]
+        check(spills == [{"rows": FIT_N, "columns": feat_d, "blocks": -(-feat_d // FIT_BLOCK),
+                          "bytes": FIT_N * feat_d * 4, "dtype": "float32"}], f"spill {spills}")
+        check(len(solve_s) == 1, f"out-of-core solves {solve_s}")
+        check(fit_l == fv_launches(encode=2 * nb_train), f"fit launches {fit_l}, expected B2 twice a streamed batch")
+        check(score_l == fv_launches(fused=2 * nb_test), f"scoring launches {score_l}, expected B1 twice a chunk")
+        swept = {"SIFTExtractor": STREAM_SWEEPS * FIT_N, "LCSExtractor": STREAM_SWEEPS * FIT_N}
+        check(rows["fit"] == swept, f"the fit's extractor rows {rows['fit']}, predicted {swept}")
+        check(rows["scoring"] == {k: FIT_TEST_N for k in swept}, f"scoring's extractor rows {rows['scoring']}")
+        check(not watch.messages, f"a stage materialized the stream: {watch.messages}")
+        check(not res["model_loaded"], "the streamed run loaded a model")
+        check(res["top1_error"] <= FIT_TOP1_ERROR_MAX, f"held-out top-1 error {res['top1_error']:.4f}")
+        check(peak < peak_mem, f"streamed peak {peak} bytes is not below the in-memory fit's {peak_mem}")
+        out.update({"fit_seconds": probe["fit_seconds"], "run_fit_seconds": res["fit_seconds"],
+                    "in_memory_fit_seconds": graph_out["fit_seconds"], "peak_bytes": peak,
+                    "in_memory_peak_bytes": peak_mem, "spill": spills[0], "spill_seconds": spill_s[0],
+                    "solve_seconds": solve_s[0], "launches_fit": fit_l,
+                    "launches_scoring": score_l, "extractor_rows": rows, "top1_error": res["top1_error"],
+                    "top5_error": res["top5_error"]})
+    with phase("stream: the streamed fit against the in-memory graph fit"):
+        vs, vm = fitted_vocabulary(detail["fitted"]), fitted_vocabulary(graph_detail["fitted"])
+        vocab, bitwise = {}, True
+        for b in ("sift", "lcs"):
+            (ps, fs), (pm, fm) = vs[b], vm[b]
+            pairs = {"projector": (ps.components @ ps.components.T, pm.components @ pm.components.T),
+                     "pca_mean": (ps.mean, pm.mean)}
+            pairs.update({a: (getattr(fs.gmm, a), getattr(fm.gmm, a)) for a in ("weights", "means", "variances")})
+            vocab[b] = {k: max_err(a, c) for k, (a, c) in pairs.items()}
+            bitwise = bitwise and torch.equal(ps.components, pm.components) and all(
+                torch.equal(a, c) for k, (a, c) in pairs.items() if k != "projector")
+        print(f"  vocabularies, largest differences {vocab}; bit for bit: {bitwise}", flush=True)
+        for b, d in vocab.items():
+            for k, tol in (("projector", TOL_STREAM_PROJECTOR), ("pca_mean", TOL_VOCAB), ("weights", TOL_EM_W),
+                           ("means", TOL_EM_MU), ("variances", TOL_EM_VAR)):
+                check(d[k] <= tol, f"{b}: the streamed {k} is {d[k]:.3e} from the in-memory fit's (at most {tol})")
+        ss = scores_pipeline(detail["fitted"])(Dataset(vx)).get().array
+        sm = scores_pipeline(graph_detail["fitted"])(Dataset(vx)).get().array
+        check(tuple(ss.shape) == (FIT_TEST_N, FIT_CLASSES) and bool(torch.isfinite(ss).all()), "held-out scores")
+        out["scores_max_abs_err"] = compare("held-out scores, streamed fit vs in-memory fit", ss, sm,
+                                            TOL_STREAM_SCORES, RTOL_STREAM_SCORES)
+        agree = float((detail["predictions"][:, 0] == graph_detail["predictions"][:, 0]).mean())
+        print(f"  top-1 agreement {agree:.5f} (at least {STREAM_TOP1_AGREEMENT})", flush=True)
+        check(agree >= STREAM_TOP1_AGREEMENT, f"top-1 agreement {agree:.5f}")
+        out.update({"vocabulary_max_abs_err": vocab, "vocabulary_bitwise": bitwise, "top1_agreement": agree})
+    # the kernel at the streamed batch's shape (phase 9 holds it at the
+    # graph's chunk of 128): one batch of the training stream
+    b2s = b2_fitted_check("stream: B2 at the streamed batch's shape against its plain version",
+                          "the streamed batch's shape", fk, cfg, tx[:STREAM_BATCH], detail["fitted"])
+    out["b2_batch_shape"] = {"f64_check": b2s["f64_check"], "max_abs_err": b2s["max_abs_err"]}
+    with phase("stream: iter_device_blocks on the copy stream against read_block"):
+        rng = np.random.default_rng(5)
+        x = rng.normal(size=(FIT_N, feat_d)).astype(np.float32)
+        tmp = Path(tempfile.mkdtemp(prefix="blocks_", dir=REPO))
+        feed = {}
+        try:
+            for dtype in ("float32", "bfloat16"):
+                store = FeatureBlockStore.from_array(str(tmp / dtype), x, FIT_BLOCK, dtype=dtype)
+                refs = [store.read_block(b).to(dev).to(torch.float32) for b in range(store.num_blocks)]
+                order = list(range(store.num_blocks)) * 3
+                bad = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b, a in store.iter_device_blocks(order, dev):
+                    torch.cuda._sleep(5_000_000)  # a consumer slower than the copies
+                    bad.append((a != refs[b]).sum())
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                bad = [int(v) for v in bad]
+                print(f"  {dtype}: {len(order)} blocks of ({FIT_N}, {FIT_BLOCK}), mismatched entries {bad}; "
+                      f"{dt:.4f} s ({card})", flush=True)
+                check(not any(bad), f"{dtype}: iter_device_blocks differs from read_block: {bad}")
+                feed[dtype] = {"blocks": len(order), "mismatches": sum(bad), "seconds": dt}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        out["device_feed"] = feed
+    return out
+
+
+def tar_path(dev, card, P):
+    """The ImageNet tar loader on the committed fixture, decoded on the card."""
+    from keystone_tpu_torch.loaders import jpeg
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+
+    out = {}
+    with phase("tar loader: the committed fixture through nvJPEG"):
+        ref = torch.from_numpy(np.load(TAR_PIXELS)).to(dev)
+        entries = ImageNetLoader.index(str(TARS))
+        jpeg.reset_launches()
+        st = ImageNetLoader.stream(str(TARS), size=TAR_SIZE, batch_size=5, device=dev)
+        got = torch.cat([a for a, _ in st.data.device_batches()])
+        mem = ImageNetLoader.load(str(TARS), size=TAR_SIZE, device=dev)
+        keep = torch.tensor([i for i in range(TAR_MEMBERS) if i != TAR_BAD], device=dev)
+        diff = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+        print(f"  index {len(entries)} members; stream {st.data.n} ({tuple(got.shape)} on {got.device}), load "
+              f"{mem.data.n}; nvJPEG against libjpeg: largest difference {int(diff.max())} levels (at most "
+              f"{NVJPEG_MAX_DIFF}), mean {diff.float().mean().item():.4f}; decoder launches {jpeg.LAUNCHES}",
+              flush=True)
+        check(len(entries) == TAR_MEMBERS and st.data.n == TAR_MEMBERS, "the index's member count")
+        check(got.is_cuda and tuple(got.shape) == (TAR_MEMBERS, *TAR_SIZE, 3), f"stream pixels {tuple(got.shape)}")
+        check(not bool(got[TAR_BAD].any()), "the undecodable member is not a zero image in the stream")
+        check(st.labels.numpy().tolist() == [0] * 4 + [1] * 5 + [2] * 4, "the stream's labels")
+        check(mem.data.n == TAR_MEMBERS - 1 and mem.labels.numpy().tolist() == [0] * 4 + [1] * 4 + [2] * 4,
+              "load did not skip the undecodable member alone")
+        check(torch.equal(mem.data.array, got[keep]), "load and stream decode differently")
+        check(int(diff.max()) <= NVJPEG_MAX_DIFF, f"nvJPEG's pixels {int(diff.max())} levels from libjpeg's")
+        # what a wrong decode would read, from the same output: the limit
+        # must tell it from a sound one
+        good, ref_good = got[keep].to(torch.int32), ref[keep].to(torch.int32)
+        luma = torch.round(good.to(torch.float32) @ torch.tensor([0.299, 0.587, 0.114], device=dev))
+        wrong = {"channels_swapped": int((good.flip(-1) - ref_good).abs().max()),
+                 "chroma_dropped": int((luma[..., None].to(torch.int32) - ref_good).abs().max()),
+                 "shifted_one_pixel": int((good.roll(1, dims=2) - ref_good).abs().max())}
+        print(f"  a wrong decode would read {wrong} levels (the limit {NVJPEG_MAX_DIFF} must stay below two "
+              f"thirds of each)", flush=True)
+        check(1.5 * NVJPEG_MAX_DIFF < min(wrong.values()), f"the limit cannot tell a wrong decode: {wrong}")
+        check(jpeg.LAUNCHES["nvjpeg"] > 0 and jpeg.LAUNCHES["libjpeg"] == 0, f"decoders {jpeg.LAUNCHES}")
+        cfg = P.Config(num_classes=3, image_size=TAR_SIZE[0], gmm_k=4, pca_dims=16, num_epochs=2,
+                       descriptor_samples_per_image=16, solver_block_size=64, stream=True, stream_batch_size=5,
+                       train_path=str(TARS), test_path=str(TARS))
+        res = P.ImageNetSiftLcsFV.run(cfg, dev)
+        print(f"  run from the tars with stream: accuracy {res['accuracy']:.4f} (above {TAR_ACCURACY_MIN}), "
+              f"top-5 error {res['top5_error']:.4f}", flush=True)
+        check(res["accuracy"] > TAR_ACCURACY_MIN, f"accuracy {res['accuracy']:.4f} from the tars")
+        out.update({"members": len(entries), "loaded": mem.data.n, "nvjpeg_max_diff": int(diff.max()),
+                    "nvjpeg_mean_diff": diff.float().mean().item(),
+                    "nvjpeg_max_diff_limit": NVJPEG_MAX_DIFF, "wrong_decode_max_diff": wrong, "run_accuracy": res["accuracy"]})
     return out
 
 
@@ -1352,7 +1654,10 @@ def main(argv=None) -> int:
     results["krr"] = krr_path(dev, card, gk, fk, data)
     fit_data = fit_setup(dev, P)
     results["fit"], fitted = fit_path(dev, card, P, fk, fit_data)
-    results["graph"] = graph_path(dev, card, P, fk, fit_data, fitted)
+    results["graph"], graph_detail = graph_path(dev, card, P, fk, fit_data, fitted)
+    results["stream"] = stream_path(dev, card, P, fk, fit_data, results["graph"], graph_detail)
+    del graph_detail
+    results["tar"] = tar_path(dev, card, P)
 
     with phase("kernel timing"):
         def kernel_line(name, replaces, kernel, plain, calls, shape):
@@ -1430,15 +1735,21 @@ def main(argv=None) -> int:
             b1["f64_check_fit"][f"({n}, {t}, {d_in}->{PCA_DIMS}) K={FIT_GMM_K}"] = {
                 "kernel": err, "plain_f32": e_plain, "tf32": e_tf32}
         graph = results["graph"]
-        b1["launches"] += results["fit"]["launches"] + graph["launches_scoring"]["fused_forward"]
+        stream = results["stream"]
+        b1["launches"] += (results["fit"]["launches"] + graph["launches_scoring"]["fused_forward"]
+                           + stream["launches_scoring"]["fused_forward"])
         b1["launches_by_path"] = {"scorer": results["fused_forward"]["launches"], "fit": results["fit"]["launches"],
-                                  "graph_scoring": graph["launches_scoring"]["fused_forward"]}
+                                  "graph_scoring": graph["launches_scoring"]["fused_forward"],
+                                  "stream_scoring": stream["launches_scoring"]["fused_forward"]}
         # B2 at the graph fit's shape: one chunk of the training set a branch
         b2, b2g = lines[0], graph.pop("b2_fit_shape")
-        b2["launches"] += graph["launches_fit"]["fisher_encode"]
+        b2["launches"] += graph["launches_fit"]["fisher_encode"] + stream["launches_fit"]["fisher_encode"]
         b2["launches_by_path"] = {"bench_forward": results["fisher_encode"]["launches"],
-                                  "graph_fit": graph["launches_fit"]["fisher_encode"]}
+                                  "graph_fit": graph["launches_fit"]["fisher_encode"],
+                                  "stream_fit": stream["launches_fit"]["fisher_encode"]}
         b2["f64_check_graph_fit"], b2["max_abs_err_graph_fit"] = b2g["f64_check"], b2g["max_abs_err"]
+        b2["f64_check_stream_fit"] = stream["b2_batch_shape"]["f64_check"]
+        b2["max_abs_err_stream_fit"] = stream["b2_batch_shape"]["max_abs_err"]
         b2["ms_graph_fit_each_call"] = [cuda_ms(lambda a=a: fk.fisher_encode(*a)) for a, _ in b2g["calls"]]
         b2["plain_ms_graph_fit_each_call"] = [cuda_ms(lambda a=a: fk.fisher_encode_ref(*a), reps=5)
                                              for a, _ in b2g["calls"]]
@@ -1498,6 +1809,8 @@ def main(argv=None) -> int:
         "krr": results["krr"],
         "fit": results["fit"],
         "graph": results["graph"],
+        "stream": results["stream"],
+        "tar": results["tar"],
         "card": card,
     }))
     print(json.dumps({"kernels": lines}))

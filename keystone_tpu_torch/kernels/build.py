@@ -1,11 +1,13 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``, and each
+``csrc/<name>.cpp`` (host code) by ``g++``, into
 ``_build/lib<name>-<hash>.so`` with a plain C interface, and loaded with
-``ctypes``.  The hash covers the source and the flags, so an edited
-source rebuilds and an unchanged one is loaded from the build directory.
-Nothing builds at import: the first call that needs a library builds it.
-Only the repository's sources (and the CUDA toolkit's headers) are used.
+``ctypes``.  The hash covers the source and the command's flags, so an
+edited source rebuilds and an unchanged one is loaded from the build
+directory.  Nothing builds at import: the first call that needs a
+library builds it.  Only the repository's sources, the CUDA toolkit and
+the system's libjpeg are used.
 """
 
 from __future__ import annotations
@@ -26,6 +28,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: the reference's native build flags (native/Makefile), for host code
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++20", "-shared")
+#: libraries a source links against
+LINK = {"jpeg": ("-ljpeg", "-lpthread"), "nvjpeg": ("-lnvjpeg",)}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -40,26 +47,44 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _source(name: str) -> Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS if _source(name).suffix == ".cu" else CXX_FLAGS
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(), digest_size=8)
+    src = _source(name).read_bytes()
+    h = hashlib.blake2b(src + " ".join(_flags(name) + LINK.get(name, ())).encode(), digest_size=8)
     return BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
 
 
+def _compiler(name: str) -> str:
+    if _source(name).suffix == ".cu":
+        return nvcc_path()
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host sources build with it")
+    return gxx
+
+
 def build(names: Sequence[str]) -> Dict[str, Path]:
-    """Compile every named source that is not built yet, all ``nvcc``
+    """Compile every named source that is not built yet, all compiler
     processes started together; raise with the compiler's output if any
     fails.  Returns the library path of each name.  The compiler's
-    resource report (``-Xptxas -v``) goes to ``_build/<name>.log``."""
+    output (for ``nvcc``, the resource report of ``-Xptxas -v``) goes to
+    ``_build/<name>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
-    nvcc = nvcc_path()
     procs = {}
     for n, out in paths.items():
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [_compiler(n), *_flags(n), "-o", str(tmp), str(_source(n)), *LINK.get(n, ())]
         procs[n] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp)
@@ -68,7 +93,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
         log, _ = p.communicate()
         (BUILD_DIR / f"{n}.log").write_text(log)
         if p.returncode != 0:
-            failed.append(f"nvcc {n}.cu exited {p.returncode}:\n{log}")
+            failed.append(f"{Path(p.args[0]).name} {_source(n).name} exited {p.returncode}:\n{log}")
             continue
         os.replace(tmp, paths[n])
     if failed:
@@ -77,7 +102,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` or ``.cpp``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
         path = build([name])[name]

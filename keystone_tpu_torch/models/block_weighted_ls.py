@@ -8,8 +8,10 @@ uniform one (BlockWeightedLeastSquares.scala):
 
 and the fit solves the weighted ridge normal equations blockwise,
 Gauss–Seidel over feature blocks, with weighted mean-centring giving
-the intercept.  The sweep computes in the dtype it is given.  The
-out-of-core fits need the row-block store (ROADMAP A5).
+the intercept.  The sweep computes in the dtype it is given.  A
+StreamDataset reaching the estimator is fitted out of core: its features
+spill to a ``FeatureBlockStore`` and ``block_ls._oc_bcd_fit`` sweeps the
+blocks from disk with the same arithmetic.
 """
 
 from __future__ import annotations
@@ -18,10 +20,17 @@ from typing import Optional
 
 import torch
 
-from keystone_tpu_torch.models.block_ls import BlockLinearMapper, blockify, finish_block_model
-from keystone_tpu_torch.models.common import needs_row_block_store, solve_spd
+from keystone_tpu_torch.models.block_ls import (
+    BlockLinearMapper,
+    _check_store_rows,
+    _oc_bcd_fit,
+    blockify,
+    finish_block_model,
+    fit_streamed,
+)
+from keystone_tpu_torch.models.common import solve_spd
 from keystone_tpu_torch.utils.device import resolve_device
-from keystone_tpu_torch.workflow.dataset import Dataset
+from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset, as_dataset
 from keystone_tpu_torch.workflow.estimator import LabelEstimator
 
 
@@ -51,16 +60,29 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         return (self.block_size, self.num_iter, self.lam, self.mixture_weight, self.fit_intercept)
 
     def fit_dataset(self, data: Dataset, labels: Optional[Dataset] = None) -> BlockLinearMapper:
-        """Features (n, d) and ±1 indicators (n, K), fitted in f32 on the data's device."""
+        """Features (n, d) and ±1 indicators (n, K), fitted in f32 on the
+        data's device; a stream is fitted out of core."""
         if labels is None:
             raise ValueError("BlockWeightedLeastSquaresEstimator requires labels")
+        if isinstance(data, StreamDataset):
+            return self.fit_stream_dataset(data, labels)
         return self._fit(data.array.to(torch.float32), labels.array.to(torch.float32), data.n)
 
-    def fit_stream_dataset(self, *args, **kwargs):
-        raise needs_row_block_store("fit_stream_dataset")
+    def fit_stream_dataset(self, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None) -> BlockLinearMapper:
+        """Out-of-core weighted fit: spill the streamed features to a block
+        store once, then sweep its blocks from disk (``block_ls._oc_bcd_fit``).
+        The spill directory is deleted after a fit that succeeds."""
+        return fit_streamed(self, data, labels, spill_dir, checkpoint_dir)
 
-    def fit_store(self, *args, **kwargs):
-        raise needs_row_block_store("fit_store")
+    def fit_store(self, store, labels, checkpoint_dir=None) -> BlockLinearMapper:
+        """The weighted fit from a FeatureBlockStore on the labels' device."""
+        labels = as_dataset(labels)
+        _check_store_rows(store, labels)
+        y = labels.array.to(torch.float32)
+        alpha = class_weights(y, labels.n, self.mixture_weight)
+        weights, xm, ym = _oc_bcd_fit(store, y, alpha, float(labels.n), self.lam, self.num_iter,
+                                      self.fit_intercept, checkpoint_dir=checkpoint_dir)
+        return finish_block_model(weights, xm, ym, store.d, self.block_size, self.fit_intercept)
 
     def fit_arrays(self, x, y, device="cuda") -> BlockLinearMapper:
         """x: (n, d) features, y: (n, K) ±1 indicators, numpy or tensors,

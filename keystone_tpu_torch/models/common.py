@@ -1,5 +1,6 @@
 """Shared solver numerics (counterpart of ``keystone_tpu/models/common.py``
-§ solve_spd), and the refusal of fits that need the row-block store."""
+§ solve_spd), and the refusal of the kernel tier's out-of-core paths,
+which need the row-block store."""
 
 from __future__ import annotations
 
@@ -18,7 +19,10 @@ def solve_spd(A: torch.Tensor, B: torch.Tensor, reg: float = 0.0) -> torch.Tenso
 
 
 def needs_row_block_store(what: str) -> NotImplementedError:
+    """The refusal of a kernel-tier path that streams training rows from
+    disk: the port's block store holds feature columns (the BCD solvers'
+    out-of-core fits), and its row-blocked ``RowBlockStore`` is not ported."""
     return NotImplementedError(
-        f"{what} needs the out-of-core row-block store (workflow/blockstore.py), "
-        "which the port does not have yet (ROADMAP A5)"
+        f"{what} needs the kernel tier's out-of-core row-block store (workflow/blockstore.py § RowBlockStore), "
+        "which the port does not have yet (ROADMAP A6)"
     )

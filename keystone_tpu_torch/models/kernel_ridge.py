@@ -12,7 +12,7 @@ of the generator chain.  The sweeps are Python loops over epochs × blocks;
 α and F are updated in place (the port owns them; this saves one (n, k)
 copy a block).  The out-of-core sweep (``_oc_*``, ``fit_stream_dataset``,
 ``fit_store``, ``OutOfCoreKernelBlockLinearMapper``) needs the row-block
-store and is not ported (ROADMAP A5).
+store and is not ported (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -243,7 +243,7 @@ def _oc_krr_fit(*args, **kwargs):
 
 class OutOfCoreKernelBlockLinearMapper(Transformer):
     """Prediction with the train rows streamed from a row-block store:
-    not ported (ROADMAP A5)."""
+    not ported (ROADMAP A6)."""
 
     def __init__(self, *args, **kwargs):
         raise needs_row_block_store("OutOfCoreKernelBlockLinearMapper")

@@ -7,8 +7,8 @@ m landmark rows L sampled from the training set map
 so that φ(x)·φ(z)ᵀ ≈ K(x, z).  Both grams, K_LL at fit time and K(x, L)
 at apply time, go through the gram kernel on the card; the reference
 left the first to XLA's fusion of the generator chain.  Landmarks are
-drawn from an in-memory array only: sampling from a stream waits for the
-streaming datasets (ROADMAP A5).
+drawn from an in-memory array only: sampling from a stream
+(``_sample_stream``) waits for the rest of the kernel tier (ROADMAP A6).
 """
 
 from __future__ import annotations

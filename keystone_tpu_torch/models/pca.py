@@ -90,7 +90,16 @@ class PCAEstimator(Estimator):
 
 
 def _svd_vh(xc):
-    return torch.linalg.svd(xc, full_matrices=False, driver=svd_driver(xc)).Vh
+    driver = svd_driver(xc)
+    try:
+        return torch.linalg.svd(xc, full_matrices=False, driver=driver).Vh
+    except torch.linalg.LinAlgError:
+        if driver != "gesvda":
+            raise
+        # gesvda reports no convergence on a rank-deficient sample (the
+        # descriptors of flat-coloured images: repeated zero singular
+        # values); the QR-based gesvd takes it
+        return torch.linalg.svd(xc, full_matrices=False, driver="gesvd").Vh
 
 
 def _pca_fit(x, n, dims: int, center: bool):

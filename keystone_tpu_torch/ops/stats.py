@@ -2,7 +2,9 @@
 ``keystone_tpu/ops/stats.py`` § SignedHellingerMapper, NormalizeRows,
 StandardScaler, StandardScalerModel, Sampler, ColumnSampler).  The
 samplers are transformers over a ``Dataset``: they read the whole set to
-draw from it, so they take no part in stage fusion."""
+draw from it, so they take no part in stage fusion.  Over a
+``StreamDataset`` they sweep it once, keep only the drawn rows, and draw
+the rows the same seed draws over the set in memory."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch.utils.device import resolve_device
-from keystone_tpu_torch.workflow.dataset import Dataset
+from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset
 from keystone_tpu_torch.workflow.transformer import Transformer, iter_row_chunks, tensor_identity
 
 
@@ -102,8 +104,27 @@ class Sampler(Transformer):
         return np.sort(np.random.default_rng(self.seed).choice(n, size=min(self.size, n), replace=False))
 
     def apply_dataset(self, ds: Dataset) -> Dataset:
+        if isinstance(ds, StreamDataset):
+            return self._apply_stream(ds)
         idx = torch.from_numpy(self._kept(ds.n)).to(ds.device)
         return Dataset(ds.array[idx], mask=None if ds.mask is None else ds.mask[idx])
+
+    def _apply_stream(self, ds: StreamDataset) -> Dataset:
+        """The kept rows of a stream, gathered batch by batch by their
+        global index."""
+        kept = self._kept(ds.n)
+        rows, masks, lo = [], [], 0
+        for arr, mask in ds.device_batches():
+            hi = lo + arr.shape[0]
+            sel = kept[(kept >= lo) & (kept < hi)] - lo
+            if sel.size:
+                idx = torch.from_numpy(sel).to(arr.device)
+                rows.append(arr[idx])
+                if mask is not None:
+                    masks.append(mask[idx])
+            lo = hi
+        _check_stream_rows(lo, ds.n)
+        return Dataset(torch.cat(rows), mask=torch.cat(masks) if masks else None)
 
     def apply_arrays(self, x):
         """The kept rows of ``x`` (n, ...), a numpy array or a tensor, in order."""
@@ -155,7 +176,10 @@ class ColumnSampler(Transformer):
 
     def apply_dataset(self, ds: Dataset) -> Dataset:
         """The flat sample of every item, drawn chunk by chunk (the
-        transformers' row chunks) with each item's own draws."""
+        transformers' row chunks, or a stream's batches) with each item's
+        own draws: the same rows, however the set is cut."""
+        if isinstance(ds, StreamDataset):
+            return self._apply_stream(ds)
         xs = ds.array
         if xs.ndim != 3:
             raise ValueError("ColumnSampler expects (n, max_k, d) descriptor sets")
@@ -163,8 +187,26 @@ class ColumnSampler(Transformer):
         parts = [self.sample(a, m, u[i:i + a.shape[0]]) for a, m, i in iter_row_chunks(xs, ds.mask)]
         return Dataset(parts[0] if len(parts) == 1 else torch.cat(parts))
 
+    def _apply_stream(self, ds: StreamDataset) -> Dataset:
+        """One sweep of a descriptor stream, each batch sampled with its
+        items' rows of the draws; only the samples stay."""
+        u = self.draws(ds.n)
+        parts, lo = [], 0
+        for xs, mask in ds.device_batches():
+            if xs.ndim != 3:
+                raise ValueError("ColumnSampler expects (n, max_k, d) descriptor sets")
+            parts.append(self.sample(xs, mask, u[lo:lo + xs.shape[0]]))
+            lo += xs.shape[0]
+        _check_stream_rows(lo, ds.n)
+        return Dataset(torch.cat(parts))
+
     def apply_arrays(self, xs, mask=None) -> torch.Tensor:
         return self.sample(xs, mask, self.draws(xs.shape[0]))
 
     def apply_batch(self, xs, mask=None):
         return self.apply_arrays(xs, mask)
+
+
+def _check_stream_rows(got: int, n: int) -> None:
+    if got != n:
+        raise ValueError(f"stream produced {got} items, expected {n}")

@@ -78,9 +78,7 @@ BRANCH_SEED_OFFSET = {"sift": 0, "lcs": 100}
 @dataclasses.dataclass
 class Config:
     """The reference Config's fields, with its defaults.  A fitted
-    scorer's widths come from its arrays; the fit reads the rest.  Not
-    ported: ``train_path``/``test_path`` (tar archives, ROADMAP A13) and
-    ``stream`` (the out-of-core fit, ROADMAP A5)."""
+    scorer's widths come from its arrays; the fit reads the rest."""
 
     train_path: Optional[str] = None
     test_path: Optional[str] = None
@@ -108,7 +106,11 @@ class Config:
     # persist/reuse the fitted pipeline (the config is saved alongside
     # and checked on load)
     model_path: Optional[str] = None
+    # out-of-core: the training images as a StreamDataset (tar shards, or
+    # the synthetic set, re-made on a producer thread each sweep), so that
+    # the features spill to a FeatureBlockStore instead of device memory
     stream: bool = False
+    stream_batch_size: int = 64
 
 
 def _gmm(p, b) -> GaussianMixtureModel:
@@ -351,7 +353,7 @@ _NOT_PORTED = {
     "augmented_eval": "the 10-view evaluation runs through the workflow graph: ImageNetSiftLcsFV.run (ROADMAP A3)",
     "model_path": "saving and loading a fitted pipeline runs through the workflow graph: ImageNetSiftLcsFV.run "
                   "(ROADMAP A3)",
-    "stream": "the streamed fit needs the out-of-core row-block store (ROADMAP A5)",
+    "stream": "the streamed fit runs through the workflow graph: ImageNetSiftLcsFV.run (ROADMAP A3)",
 }
 
 
@@ -443,26 +445,38 @@ class ImageNetSiftLcsFV:
 
     @staticmethod
     def run(config: Config, device="cuda", out: Optional[dict] = None) -> dict:
-        """Fit (or load, with ``config.model_path``) and evaluate on
-        synthetic images: ``config.synthetic_n`` training images (seed 1)
-        and max(8, n // 4) test images (seed 2), on ``device``, in f32 with
-        TF32 off.  ``out``, when given, receives the fitted pipeline
+        """Fit (or load, with ``config.model_path``) and evaluate, on
+        ``device`` in f32 with TF32 off.  With ``train_path`` the images
+        come from tar archives at ``image_size`` (the test set from
+        ``test_path``, else the training tars); otherwise synthetic:
+        ``config.synthetic_n`` training images (seed 1) and max(8, n // 4)
+        test images (seed 2).  With ``stream`` the training images are a
+        StreamDataset of ``stream_batch_size`` batches and the fit runs
+        out of core.  ``out``, when given, receives the fitted pipeline
         (``"fitted"``) and what it predicted on the test set
         (``"predictions"``: top-k ids, or each view's scores with
         ``augmented_eval``)."""
-        if config.stream:
-            raise NotImplementedError("Config.stream: the streamed fit needs the out-of-core row-block store "
-                                      "(ROADMAP A5)")
-        if config.train_path or config.test_path:
-            raise NotImplementedError("Config.train_path/test_path: loading ImageNet tar archives needs a JPEG "
-                                      "decoder, which is not ported (ROADMAP A13)")
         dev = resolve_device(device)
         precision.disable_tf32()
         sz = (config.image_size, config.image_size)
-        test = ImageNetLoader.synthetic(max(8, config.synthetic_n // 4), config.num_classes, sz, seed=2, device=dev)
+        if config.train_path:
+            # image_size sets the resize of real images too, so that the
+            # training and test sets agree on it
+            test = ImageNetLoader.load(config.test_path or config.train_path, size=sz, device=dev)
+        else:
+            test = ImageNetLoader.synthetic(max(8, config.synthetic_n // 4), config.num_classes, sz, seed=2,
+                                            device=dev)
 
         def _train():
             # loaded ONLY when a fit is needed (saved-model runs skip it)
+            if config.stream:
+                if config.train_path:
+                    return ImageNetLoader.stream(config.train_path, size=sz, batch_size=config.stream_batch_size,
+                                                 device=dev)
+                return ImageNetLoader.synthetic_stream(config.synthetic_n, config.num_classes, sz, seed=1,
+                                                       batch_size=config.stream_batch_size, device=dev)
+            if config.train_path:
+                return ImageNetLoader.load(config.train_path, size=sz, device=dev)
             return ImageNetLoader.synthetic(config.synthetic_n, config.num_classes, sz, seed=1, device=dev)
 
         labs = test.labels.numpy()
@@ -525,7 +539,9 @@ def main(argv=None):
     p.add_argument("--augmented-eval", action="store_true")
     p.add_argument("--model-path")
     p.add_argument("--stream", "--out-of-core", action="store_true", dest="stream",
-                   help="stream training images from tar shards (not ported: ROADMAP A5)")
+                   help="stream training images from tar shards; features spill to a disk block store instead "
+                        "of device memory")
+    p.add_argument("--stream-batch-size", type=int, default=64)
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     a = p.parse_args(argv)
     cfg = Config(
@@ -540,6 +556,7 @@ def main(argv=None):
         augmented_eval=a.augmented_eval,
         model_path=a.model_path,
         stream=a.stream,
+        stream_batch_size=a.stream_batch_size,
     )
     print(ImageNetSiftLcsFV.run(cfg, device=a.device))
 

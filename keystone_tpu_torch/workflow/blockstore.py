@@ -1,0 +1,308 @@
+"""Disk-backed feature-block store for the out-of-core block solvers
+(counterpart of ``keystone_tpu/workflow/blockstore.py`` § _BlockStreamBase,
+FeatureBlockStore).
+
+The reference fits wide Fisher-vector models by caching feature blocks
+and re-reading them per (epoch, block) of block coordinate descent
+(nodes/learning/BlockLeastSquares.scala).  Here the features are written
+once, one ``.npy`` file per column block, and re-read per sweep, so the
+card holds one (n × block_size) block at a time beside the (n × k)
+residual: the feature matrix may exceed device memory by any factor.
+
+Layout of a store directory::
+
+    meta.json         {"n": ..., "d": ..., "block_size": ..., "nb": ..., "dtype": ...}
+    block_0000.npy    float32 (n, block_size), or uint16 bf16 bit patterns
+    block_0000.npy.b2 the block's BLAKE2b sidecar, once sealed
+
+The last block is zero-padded on columns to ``block_size``, so every
+block has one shape.  ``dtype="bfloat16"`` halves the bytes on disk and
+on the host-to-device wire; a block is widened to f32 on the card,
+after its copy.
+
+``iter_device_blocks`` is the card's feed: pinned host buffers and a side
+copy stream carry the copies, an event per block makes the compute
+stream wait for its copy, and ``_WINDOW`` bounds the blocks in flight.
+The row-blocked ``RowBlockStore`` is the kernel tier's and waits for
+ROADMAP A6; the reference's fault points and metrics for A9.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+from collections import deque
+from typing import Iterable, Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from keystone_tpu_torch.loaders.stream import prefetched
+from keystone_tpu_torch.utils import durable
+from keystone_tpu_torch.utils.device import resolve_device
+
+_META = "meta.json"
+_DTYPES = ("float32", "bfloat16")
+#: blocks read ahead of the consumer (one read while one computes)
+_PREFETCH = 2
+#: device blocks whose copies are queued ahead of the consumer
+_WINDOW = 2
+
+
+class _BlockStreamBase:
+    """Disk → host → device streaming shared by block stores; subclasses
+    provide ``read_block``."""
+
+    def read_block(self, b: int) -> torch.Tensor:  # pragma: no cover
+        raise NotImplementedError(type(self).__name__)
+
+    def iter_blocks(self, order: Sequence[int]) -> Iterator[Tuple[int, torch.Tensor]]:
+        """Yield ``(b, host block)`` for each index in ``order``, read
+        ahead on ``prefetched``'s thread (``_PREFETCH`` blocks deep) so
+        that disk reads overlap the consumer's device work.  The thread
+        only reads; a read error re-raises in the consumer, tagged with
+        its block."""
+
+        def reads():
+            for b in order:
+                try:
+                    blk = self.read_block(b)
+                except Exception as e:
+                    if e.args and isinstance(e.args[0], str):
+                        e.args = (f"block {b}: {e.args[0]}",) + e.args[1:]
+                    raise
+                yield b, blk
+
+        return prefetched(reads, prefetch=_PREFETCH)()
+
+    def iter_device_blocks(self, order: Sequence[int], device="cuda") -> Iterator[Tuple[int, torch.Tensor]]:
+        """Yield ``(b, f32 block on device)`` for each index in ``order``,
+        the copies of the next ``_WINDOW`` blocks already queued while the
+        consumer computes on the current one.
+
+        On a CUDA device: a block is read on ``iter_blocks``'s thread,
+        copied into one of ``_WINDOW + 1`` pinned host buffers, and sent
+        on a side stream; an event recorded after its copy makes the
+        consumer's (current) stream wait for it, and a bf16 block is
+        widened there, after the copy.  A pinned buffer is refilled only
+        after the consumer's work on the block it last carried has
+        completed (an event recorded on the consumer's stream when the
+        generator resumes): that event also implies the buffer's copy
+        is done, and it bounds the consumer's lead over the copies to
+        ``_WINDOW`` blocks, so yielded blocks cannot pile up on the card.
+        A device block allocated on the side stream is marked used on
+        the consumer's stream (``record_stream``), so the caching
+        allocator does not hand its memory out while work on it is
+        queued.  On the CPU, the host blocks widened to f32."""
+        dev = resolve_device(device)
+        it = self.iter_blocks(order)
+        if dev.type != "cuda":
+            try:
+                for b, blk in it:
+                    yield b, blk.to(torch.float32)
+            finally:
+                it.close()
+            return
+        window = _WINDOW
+        slots = window + 1
+        compute = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        pinned: list = [None] * slots
+        done: list = [None] * slots  # consumer-done event of each slot's last block
+        staged: deque = deque()  # (j, b, device block, copy event), copies queued, not yet handed over
+
+        def stage(j, b, blk):
+            s = j % slots
+            if done[s] is not None:
+                done[s].synchronize()
+            if pinned[s] is None or pinned[s].shape != blk.shape or pinned[s].dtype != blk.dtype:
+                pinned[s] = torch.empty(blk.shape, dtype=blk.dtype, pin_memory=True)
+            pinned[s].copy_(blk)
+            with torch.cuda.stream(side):
+                d = torch.empty(blk.shape, dtype=blk.dtype, device=dev)
+                d.copy_(pinned[s], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(side)
+            d.record_stream(compute)
+            staged.append((j, b, d, ev))
+
+        try:
+            j = 0
+            for b, blk in it:
+                stage(j, b, blk)
+                j += 1
+                if len(staged) <= window:
+                    continue
+                yield from self._hand_over(staged, compute, done, slots)
+            while staged:
+                yield from self._hand_over(staged, compute, done, slots)
+        finally:
+            it.close()
+            staged.clear()
+
+    @staticmethod
+    def _hand_over(staged, compute, done, slots):
+        """Yield the oldest staged block on the consumer's stream, then
+        record the consumer's progress for the slot it came through."""
+        j, b, d, ev = staged.popleft()
+        compute.wait_event(ev)
+        a = d if d.dtype == torch.float32 else d.to(torch.float32)
+        del d
+        yield b, a
+        del a
+        ev_done = torch.cuda.Event()
+        ev_done.record(compute)
+        done[j % slots] = ev_done
+
+
+class FeatureBlockStore(_BlockStreamBase):
+    """A blockified (n, d) feature matrix on disk.  Create it with
+    ``create`` + ``append_rows`` + ``finalize`` (streaming writes), or
+    ``from_array`` / ``from_batches``."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        with open(os.path.join(directory, _META)) as f:
+            meta = json.load(f)
+        self.n = int(meta["n"])
+        self.d = int(meta["d"])
+        self.block_size = int(meta["block_size"])
+        self.num_blocks = int(meta["nb"])
+        self.dtype = str(meta.get("dtype", "float32"))
+        self._cursor: Optional[int] = None
+        self._hashers: Optional[list] = None
+
+    @property
+    def _disk_dtype(self):
+        return np.uint16 if self.dtype == "bfloat16" else np.float32
+
+    # ------------------------------------------------------------ create
+    @classmethod
+    def create(cls, directory: str, n: int, d: int, block_size: int, dtype: str = "float32"):
+        """An empty store of (n, d) in blocks of ``block_size`` columns;
+        fill it with ``append_rows``, then ``finalize``."""
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype!r}")
+        os.makedirs(directory, exist_ok=True)
+        nb = -(-d // block_size)
+        meta = {"n": int(n), "d": int(d), "block_size": int(block_size), "nb": nb, "dtype": dtype}
+        with open(os.path.join(directory, _META), "w") as f:
+            json.dump(meta, f)
+        disk_dtype = np.uint16 if dtype == "bfloat16" else np.float32
+        for b in range(nb):
+            mm = np.lib.format.open_memmap(cls._block_path(directory, b), mode="w+", dtype=disk_dtype,
+                                           shape=(n, block_size))
+            del mm  # a flushed, zero-filled file
+        store = cls(directory)
+        store._cursor = 0
+        # digests of the bytes as written, held against the files at
+        # seal time, so that the write path's own damage is caught
+        store._hashers = [hashlib.blake2b(digest_size=16) for _ in range(nb)]
+        return store
+
+    @staticmethod
+    def _block_path(directory: str, b: int) -> str:
+        return os.path.join(directory, f"block_{b:04d}.npy")
+
+    def append_rows(self, x) -> None:
+        """Write the next ``x.shape[0]`` rows of the (n, d) matrix; ``x``
+        is a numpy array or a tensor (a device tensor is copied to the
+        host first).  bf16 stores round to nearest even."""
+        x = torch.as_tensor(x).detach().to("cpu", torch.float32)
+        if x.ndim != 2 or x.shape[1] != self.d:
+            raise ValueError(f"expected (m, {self.d}) rows, got {tuple(x.shape)}")
+        start = self._cursor or 0
+        stop = start + x.shape[0]
+        if stop > self.n:
+            raise ValueError(f"store holds {self.n} rows; write would reach {stop}")
+        bs = self.block_size
+        for b in range(self.num_blocks):
+            chunk = x[:, b * bs:(b + 1) * bs]
+            if chunk.shape[1] < bs:  # the last, ragged block: zero columns
+                chunk = torch.nn.functional.pad(chunk, (0, bs - chunk.shape[1]))
+            if self.dtype == "bfloat16":
+                raw = chunk.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+            else:
+                raw = chunk.contiguous().numpy()
+            mm = np.lib.format.open_memmap(self._block_path(self.directory, b), mode="r+")
+            mm[start:stop] = raw
+            del mm
+            if self._hashers is not None:
+                self._hashers[b].update(np.ascontiguousarray(raw).tobytes())
+        self._cursor = stop
+
+    def finalize(self) -> None:
+        """Seal a fully written store: hold each block file against the
+        digest of the bytes ``append_rows`` wrote (a torn write raises
+        ``CorruptStateError`` here), then write its checksum sidecar, which
+        every later ``read_block`` verifies."""
+        complete = self._cursor == self.n
+        for b in range(self.num_blocks):
+            path = self._block_path(self.directory, b)
+            if self._hashers is not None and complete:
+                raw = np.load(path, mmap_mode="r")
+                h = hashlib.blake2b(digest_size=16)
+                step = max(1, (4 << 20) // max(1, raw.shape[1] * raw.itemsize))
+                for s in range(0, raw.shape[0], step):  # O(chunk) memory
+                    h.update(np.ascontiguousarray(raw[s:s + step]).tobytes())
+                del raw
+                if h.hexdigest() != self._hashers[b].hexdigest():
+                    raise durable.CorruptStateError(
+                        f"write verification failed for block {path}: the file does not hold the bytes written")
+            durable.write_checksum(path)
+
+    @classmethod
+    def from_array(cls, directory: str, x, block_size: int, dtype: str = "float32"):
+        x = torch.as_tensor(x)
+        store = cls.create(directory, x.shape[0], x.shape[1], block_size, dtype=dtype)
+        store.append_rows(x)
+        store.finalize()
+        return store
+
+    @classmethod
+    def from_batches(cls, directory: str, batches: Iterable, n: int, block_size: int, dtype: str = "float32"):
+        """A store of the (m_i, d) batches, numpy or tensors, in order
+        (Σ m_i must be n)."""
+        store = None
+        for batch in batches:
+            if store is None:
+                store = cls.create(directory, n, batch.shape[1], block_size, dtype=dtype)
+            store.append_rows(batch)
+        if store is None:
+            raise ValueError("empty batch stream")
+        if store._cursor != n:
+            raise ValueError(f"batch stream produced {store._cursor} rows, expected {n}")
+        store.finalize()
+        return store
+
+    # -------------------------------------------------------------- read
+    def read_block(self, b: int) -> torch.Tensor:
+        """Block ``b`` as an (n, block_size) CPU tensor of the store's
+        dtype (bf16 stays bf16: it is widened on the device).  A transient
+        read error is retried; a truncated or damaged file raises
+        ``CorruptStateError``, a sealed store's checksum is verified."""
+        path = self._block_path(self.directory, b)
+        expected = self.n * self.block_size * np.dtype(self._disk_dtype).itemsize
+
+        def read():
+            if os.path.getsize(path) < expected:
+                raise durable.CorruptStateError(
+                    f"truncated block {path}: {os.path.getsize(path)} bytes < {expected} of payload for shape "
+                    f"({self.n}, {self.block_size})")
+            durable.verify_checksum(path)
+            try:
+                raw = np.array(np.load(path, mmap_mode="r"))
+            except ValueError as e:  # header inconsistent with the size
+                raise durable.CorruptStateError(f"corrupt block {path}: {e}")
+            if raw.shape != (self.n, self.block_size):
+                raise durable.CorruptStateError(
+                    f"block {path} has shape {raw.shape}, expected ({self.n}, {self.block_size})")
+            return raw
+
+        t = torch.from_numpy(durable.with_retries(read, description=f"block read {path}"))
+        return t.view(torch.bfloat16) if self.dtype == "bfloat16" else t
+
+    def nbytes(self) -> int:
+        """Bytes of the blocks' payload on disk."""
+        return self.n * self.num_blocks * self.block_size * np.dtype(self._disk_dtype).itemsize

@@ -13,13 +13,14 @@ Three payload kinds flow through pipelines:
   - host lists: arbitrary Python objects, which stay on the host until a
     featurizer produces tensors.
 
-``StreamDataset`` (the out-of-core path) waits for the row-block store
-(ROADMAP A5).
+``StreamDataset`` is the out-of-core path: a re-iterable stream of host
+batches, each copied to the device as the pipeline sweeps it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+import logging
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -127,6 +128,177 @@ class Dataset:
         return f"Dataset(shape={tuple(self.array.shape)}, n={self.n}, device={self.device})"
 
 
+class StreamDataset(Dataset):
+    """A lazily evaluated, re-iterable stream of host batches: the
+    out-of-core path through the pipeline graph (counterpart of the
+    reference's ``StreamDataset``).
+
+    The reference streams data through RDD partition iterators, so no
+    executor holds the whole set; here transformers map over the stream
+    batch by batch on the device, and the block solvers spill the
+    features to a ``FeatureBlockStore`` and fit out of core, so neither
+    the images nor the feature matrix need fit in device memory.
+
+    ``source``: a callable returning a fresh iterator of host batches, or
+    a re-iterable (a list).  A batch is an (m_i, ...) array or an
+    ``(array, mask)`` pair for ragged payloads; ``n`` is the total rows.
+    ``prefetch`` > 0 makes the batches (decode, synthesis) on a producer
+    thread that stays ``prefetch`` batches ahead; it makes host arrays
+    only.  ``device``: where the batches go (None: the card).  Each host
+    batch crosses to it on the consumer's thread, through pinned memory
+    with ``non_blocking`` copies on a CUDA device; ``stage``, when given,
+    replaces that copy (a loader that decodes on the card).
+
+    Each sweep re-runs the source and every map over it: a consumer
+    without a streaming path that reads ``array`` materializes the
+    whole stream, with a warning.  Host-payload streams (the text
+    pipelines' documents) wait for ROADMAP A7."""
+
+    def __init__(
+        self,
+        source,
+        n: int,
+        name: Optional[str] = None,
+        prefetch: int = 0,
+        host: bool = False,
+        device=None,
+        stage: Optional[Callable] = None,
+    ):
+        if host:
+            raise NotImplementedError("host-payload streams (the text pipelines) are not ported (ROADMAP A7)")
+        if not callable(source) and iter(source) is source:
+            # a one-shot iterator would be shared, and interleaved, by
+            # the consumers that fan out of one stream (a Gather's branches)
+            raise ValueError(
+                "StreamDataset source must be re-iterable: pass a callable returning a fresh iterator "
+                "(or a list of batches), not a one-shot generator/iterator")
+        if prefetch > 0:
+            from keystone_tpu_torch.loaders.stream import prefetched
+
+            source = prefetched(source, prefetch=prefetch)
+        dev = resolve_device() if device is None else torch.device(device)
+        put = stage if stage is not None else (lambda a: _to_device(a, dev))
+
+        def gen():
+            for batch in source() if callable(source) else iter(source):
+                arr, mask = batch if isinstance(batch, tuple) else (batch, None)
+                yield put(arr), None if mask is None else _to_device(mask, dev)
+
+        self._init(gen, n, dev, name)
+
+    def _init(self, gen, n, device, name=None):
+        self.name = name
+        self.n = int(n)
+        self._host = None
+        self._array = None
+        self.mask = None
+        self._device = device
+        self._gen = gen
+
+    @classmethod
+    def _wrap(cls, gen, n: int, device, name: Optional[str] = None) -> "StreamDataset":
+        d = cls.__new__(cls)
+        d._init(gen, n, device, name)
+        return d
+
+    @property
+    def is_host(self) -> bool:
+        return False
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    # --------------------------------------------------------- streaming
+    def device_batches(self):
+        """Iterate ``(tensor, mask or None)`` batches on the device."""
+        return self._gen()
+
+    def peek_shape(self) -> tuple:
+        """The per-item shape, from the first batch (one batch's work on
+        the first call, cached)."""
+        if not hasattr(self, "_peek_shape"):
+            for arr, _ in self._gen():
+                self._peek_shape = tuple(arr.shape[1:])
+                break
+            else:
+                raise ValueError("empty stream")
+        return self._peek_shape
+
+    @property
+    def item_shape(self) -> tuple:
+        return self.peek_shape()
+
+    def batches(self):
+        """Iterate the batches as host numpy arrays."""
+        for arr, _ in self._gen():
+            yield arr.cpu().numpy()
+
+    def map_batches(self, fn) -> "StreamDataset":
+        """Lazily compose ``fn(batch, mask)`` (returning a tensor or a
+        ``(tensor, mask)`` pair) over the stream."""
+        parent = self._gen
+
+        def gen():
+            for arr, mask in parent():
+                out = fn(arr, mask)
+                yield out if isinstance(out, tuple) else (out, None)
+
+        return StreamDataset._wrap(gen, self.n, self._device)
+
+    @staticmethod
+    def zip_concat(streams: Sequence["StreamDataset"]) -> "StreamDataset":
+        """The Gather of streams: zip their batches and concatenate them
+        on the last axis.  The streams must share their batches' rows (in
+        a pipeline they are branches mapped over one source)."""
+        ns = {s.n for s in streams}
+        if len(ns) != 1:
+            raise ValueError(f"gathered streams disagree on n: {sorted(ns)}")
+        gens = [s._gen for s in streams]
+
+        def gen():
+            for parts in zip(*(g() for g in gens), strict=True):
+                yield torch.cat([a for a, _ in parts], dim=-1), None
+
+        return StreamDataset._wrap(gen, streams[0].n, streams[0].device)
+
+    # -------------------------------------------------- Dataset protocol
+    @property
+    def array(self) -> torch.Tensor:
+        """The whole stream as one tensor on the device: the escape hatch
+        of a consumer without a streaming path, which defeats out-of-core."""
+        if self._array is None:
+            logging.getLogger(__name__).warning(
+                "materializing StreamDataset (n=%d) into device memory; this consumer has no out-of-core path",
+                self.n)
+            parts, masks = [], []
+            for arr, mask in self._gen():
+                parts.append(arr)
+                if mask is not None:
+                    masks.append(mask)
+            self._array = torch.cat(parts)
+            if masks:
+                self.mask = torch.cat(masks)
+        return self._array
+
+    def cache(self) -> "StreamDataset":
+        """A Cacher must not collapse the stream into memory: a no-op."""
+        return self
+
+    def __repr__(self):
+        return f"StreamDataset(n={self.n}, device={self._device})"
+
+
+def _to_device(arr, device: torch.device) -> torch.Tensor:
+    """A host batch on ``device``: through pinned memory and a
+    ``non_blocking`` copy on a CUDA device.  The caching host allocator
+    keeps a pinned buffer from reuse until its copy is done."""
+    t = torch.as_tensor(arr)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _all_arrays(seq) -> bool:
     return (
         len(seq) > 0
@@ -136,6 +308,8 @@ def _all_arrays(seq) -> bool:
 
 
 def as_dataset(x, device=None) -> Dataset:
+    """``x`` as a Dataset: a Dataset, or a StreamDataset, as it is (a
+    stream stays a lazy recipe); other data into a Dataset on ``device``."""
     if isinstance(x, Dataset):
         return x
     return Dataset(x, device=device)

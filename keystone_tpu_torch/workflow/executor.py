@@ -8,7 +8,9 @@ nodes execute once and their fitted transformers are reused by all
 dependents.
 
 Results here are:
-  - DatasetExpr: a Dataset of tensors on one device (or a host list)
+  - DatasetExpr: a Dataset of tensors on one device (or a host list), or
+    a StreamDataset, which stays a lazy recipe: memoizing one keeps the
+    recipe, and each consumer re-sweeps its source
   - DatumExpr: a single value
   - TransformerExpr: a fitted Transformer (output of estimator nodes)
 
@@ -28,7 +30,7 @@ from typing import Any, Dict
 import torch
 
 from keystone_tpu_torch.workflow import graph as G
-from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
+from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset, as_dataset
 from keystone_tpu_torch.workflow.estimator import Estimator, LabelEstimator
 from keystone_tpu_torch.workflow.transformer import Transformer
 
@@ -114,6 +116,11 @@ def _apply_transformer(t: Transformer, deps):
 
 def _gather(deps):
     if all(isinstance(d, DatasetExpr) for d in deps):
+        if any(isinstance(d.dataset, StreamDataset) for d in deps):
+            if not all(isinstance(d.dataset, StreamDataset) for d in deps):
+                raise TypeError("Gather mixes streaming and materialized branches; "
+                                "the branches of one source are either all streams or none")
+            return DatasetExpr(StreamDataset.zip_concat([d.dataset for d in deps]))
         base = deps[0].dataset
         return DatasetExpr(base.with_array(torch.cat([d.dataset.array for d in deps], dim=-1)))
     if all(isinstance(d, DatumExpr) for d in deps):

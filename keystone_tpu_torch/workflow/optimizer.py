@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from keystone_tpu_torch.workflow import graph as G
-from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
+from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset, as_dataset
 from keystone_tpu_torch.workflow.estimator import Estimator
 from keystone_tpu_torch.workflow.transformer import Cacher, Transformer
 
@@ -202,11 +202,17 @@ class NodeChoiceRule(Rule):
 
 
 def _truncate_datasets(graph: G.Graph, k: int) -> G.Graph:
-    """The graph with its dataset literals cut to their first k rows."""
+    """The graph with its dataset literals cut to their first k rows.  A
+    stream gives the rows of its first batches: materializing it to cut
+    it would defeat out-of-core (the reference's AutoCacheRule samples
+    partitions the same way)."""
     for n, op in list(graph.operators.items()):
         if not isinstance(op, G.DatasetOperator):
             continue
         ds = as_dataset(op.dataset)
+        if isinstance(ds, StreamDataset):
+            graph = graph.set_operator(n, G.DatasetOperator(_stream_head(ds, k)))
+            continue
         if ds.n <= k:
             continue
         if ds.is_host:
@@ -215,6 +221,22 @@ def _truncate_datasets(graph: G.Graph, k: int) -> G.Graph:
             sliced = Dataset(ds.array[:k], mask=None if ds.mask is None else ds.mask[:k])
         graph = graph.set_operator(n, G.DatasetOperator(sliced))
     return graph
+
+
+def _stream_head(ds: StreamDataset, k: int) -> Dataset:
+    """The first k rows of a stream, masks kept (or sampled nodes would
+    take padded descriptor rows for data)."""
+    parts, masks, got = [], [], 0
+    for arr, mask in ds.device_batches():
+        parts.append(arr)
+        if mask is not None:
+            masks.append(mask)
+        got += arr.shape[0]
+        if got >= k:
+            break
+    if not parts:
+        raise ValueError("empty stream")
+    return Dataset(torch.cat(parts)[:k], mask=torch.cat(masks)[:k] if masks else None)
 
 
 # ------------------------------------------------------------- stage fusion
@@ -299,7 +321,9 @@ def data_on_cuda(graph: G.Graph) -> bool:
         if isinstance(op, G.DatasetOperator):
             ds = op.dataset
             if isinstance(ds, Dataset):
-                if not ds.is_host and ds.array.is_cuda:
+                # the device, not the array: a stream's array would
+                # materialize it
+                if not ds.is_host and ds.device.type == "cuda":
                     return True
             elif isinstance(ds, torch.Tensor) and ds.is_cuda:
                 return True

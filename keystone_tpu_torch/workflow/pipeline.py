@@ -275,6 +275,7 @@ def fit_relevant_config(config, exclude=()):
         "test_labels_path",
         "view_patch",
         "stream",
+        "stream_batch_size",
     } | set(exclude)
     for k in eval_only:
         d.pop(k, None)

@@ -13,7 +13,8 @@ maps a batch ``xs`` (and, for ragged descriptor sets, an (n, T) mask) to a
 batch; a stage that keeps the mask returns ``(out, mask)``, one that
 reduces the sets to dense rows returns ``out``.  Called on a tensor, a
 transformer applies its batch path (``forward``); on a ``Dataset`` it
-applies ``apply_dataset``, in row chunks; on a pipeline or a lazy result
+applies ``apply_dataset``, in row chunks (on a ``StreamDataset``, batch
+by batch, lazily); on a pipeline or a lazy result
 it chains lazily, as the reference's ``__call__`` does.
 
 The reference's jit caches (``_JIT_APPLY_CACHE``, ``traced_attrs``,
@@ -29,7 +30,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from keystone_tpu_torch.workflow.dataset import Dataset
+from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset
 
 #: rows a chunk of ``Transformer.apply_dataset``.  The reference chunks at
 #: 2048 rows to pin its compiled programs' shapes; here a chunk bounds a
@@ -109,7 +110,13 @@ class Transformer(nn.Module, Chainable):
     def apply_dataset(self, ds: Dataset) -> Dataset:
         """The batch path over a dataset, ``APPLY_CHUNK_ROWS`` rows at a
         time (the counterpart of ``_apply_dataset_chunked``): a transformer
-        is a per-item map, so chunk boundaries change no row."""
+        is a per-item map, so chunk boundaries change no row.  Over a
+        stream it is a lazy map, batch by batch as the stream is swept."""
+        if isinstance(ds, StreamDataset):
+            if self.is_host:
+                raise TypeError(f"{self.label} is a host transformer; streams carry device batches. "
+                                "Featurize to arrays before streaming.")
+            return ds.map_batches(self.apply_batch)
         if ds.is_host or self.is_host:
             out = [self.apply_one(x) for x in ds.items]
             if _stackable(out):

@@ -392,14 +392,6 @@ def test_block_weighted_mixture_zero_equals_unweighted():
     np.testing.assert_allclose(a.flat_weights.numpy(), b.flat_weights.numpy(), atol=2e-3)
 
 
-@pytest.mark.parametrize("est", [block_ls.BlockLeastSquaresEstimator(),
-                                 block_weighted_ls.BlockWeightedLeastSquaresEstimator()])
-def test_out_of_core_fits_are_not_ported(est):
-    for name in ("fit_stream_dataset", "fit_store"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            getattr(est, name)(None, None)
-
-
 # ---------------------------------------------------------------- evaluators, images
 
 

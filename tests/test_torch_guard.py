@@ -48,7 +48,8 @@ def test_every_module_imports_without_jax():
               "ops.stats", "evaluation.evaluators", "loaders.imagenet", "pipelines.imagenet_sift_lcs_fv",
               "workflow.graph", "workflow.dataset", "workflow.transformer", "workflow.estimator",
               "workflow.executor", "workflow.optimizer", "workflow.pipeline", "loaders.labeled", "ops.images",
-              "ops.filters"):
+              "ops.filters", "workflow.blockstore", "loaders.stream", "loaders.jpeg", "utils.durable",
+              "utils.hashing"):
         assert f"keystone_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -213,16 +214,21 @@ def test_run_synthetic_refuses_what_is_not_ported(field):
         port.run_synthetic(cfg, device="cpu")
 
 
-def test_graph_entry_points_default_to_the_card():
+def test_graph_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this box has a card: the CPU-only refusal is not observable")
-    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+    from keystone_tpu_torch.loaders import jpeg
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader, _decode_entry_batch
     from keystone_tpu_torch.loaders.labeled import LabeledData
     from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
     from keystone_tpu_torch.workflow.pipeline import Pipeline
+    from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
     from keystone_tpu_torch.workflow.transformer import Identity
 
     x = np.ones((4, 3), np.float32)
+    store = FeatureBlockStore.from_array(str(tmp_path / "store"), x, block_size=2)
+    tars = str(Path(__file__).parent / "data" / "imagenet_tars")
+    entries = ImageNetLoader.index(tars)[:2]
     for call in (
         lambda: port.ImageNetSiftLcsFV.run(TINY_FIT),
         lambda: ImageNetLoader.synthetic(2),
@@ -232,6 +238,13 @@ def test_graph_entry_points_default_to_the_card():
         lambda: LabeledData.of(x, np.zeros(4, np.int64)),
         lambda: PCAEstimator(2).fit(x),
         lambda: Pipeline.of(Identity())(x),
+        # the streamed path's feeds: the block store's and the decoders
+        lambda: next(store.iter_device_blocks([0])),
+        lambda: jpeg.decode(*jpeg.pack([b"x"]), (8, 8)),
+        lambda: _decode_entry_batch(entries, (8, 8)),
+        lambda: ImageNetLoader.stream(tars, size=(8, 8)),
+        lambda: ImageNetLoader.load(tars, size=(8, 8)),
+        lambda: ImageNetLoader.synthetic_stream(4, 2, (16, 16)),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -258,11 +258,11 @@ def test_jax_fitted_kernel_timit_carried_across():
 def test_out_of_core_and_disk_tier_name_their_roadmap_items(monkeypatch):
     est = kr.KernelRidgeRegressionEstimator(kr.GaussianKernelGenerator(0.1), block_size=32,
                                             cache_kernel_blocks=True)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A6"):
         est.fit_stream_dataset(None, None)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A6"):
         est.fit_store(None, None)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A6"):
         kr.OutOfCoreKernelBlockLinearMapper(None, "/nonexistent", None, 0)
     with pytest.raises(NotImplementedError, match="A9"):
         BlockKernelMatrix(kr.GaussianKernelGenerator(0.1), torch.zeros((4, 2)), spill_dir="spill")

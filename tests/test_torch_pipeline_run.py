@@ -115,14 +115,6 @@ def test_model_path_round_trip(tmp_path):
         ImageNetSiftLcsFV.run(dataclasses.replace(cfg, lam=1e-3), device="cpu")
 
 
-@pytest.mark.parametrize("field, value, item", [("stream", True, "ROADMAP A5"),
-                                                ("train_path", "train.tar", "ROADMAP A13"),
-                                                ("test_path", "test.tar", "ROADMAP A13")])
-def test_run_refuses_what_waits(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ImageNetSiftLcsFV.run(dataclasses.replace(CFG, **{field: value}), device="cpu")
-
-
 def test_main_runs_on_the_cpu(capsys):
     port.main(["--device", "cpu", "--num-classes", "3", "--gmm-k", "4", "--pca-dims", "8",
                "--synthetic-n", "12", "--image-size", "40"])
