@@ -83,9 +83,32 @@ result line):
    its label in ``stream``), the pixels within the stated difference of
    the reference's libjpeg decode committed beside the fixture, and
    ``run`` from the tars with ``stream`` at accuracy above 0.9;
-12. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+12. main path, KernelTimitPipeline.run through the graph at its Config's
+   full width (d = 440, 2048 landmarks, γ = 0.015, 147 classes, blocks of
+   1024, 3 epochs) on 262 144 synthetic frames (seed 1; 65 536 held out,
+   seed 2): in memory, then with ``stream`` from an .npy written here in
+   batches of 8192; each with its B3 launches by shape, ``Pipeline.fit``
+   seconds (the spill and the out-of-core solve apart), frames/s and peak
+   device memory; the two runs' landmarks equal bit for bit, held-out
+   scores within tolerance, classes agreeing; the whitening against
+   float64;
+13. main path, KernelCifarPipeline.run the same way on CIFAR-10's split
+   sizes (50 000 + 10 000 synthetic images written as CIFAR-10 binary
+   records; ``load`` and ``stream`` against the records' bytes), then B3
+   at its d = 3072 shapes against its plain version and float64;
+14. main path, the out-of-core KRR fit at the KRR geometry above:
+   ``fit_store`` on a RowBlockStore against the in-core fit (α, α against
+   float64, prediction r², 2·16² B3 launches, spill and sweep seconds,
+   peak device memory), the streamed fit through a Pipeline with a
+   save/load round trip, a checkpointed fit resumed bit for bit;
+15. main path, the BlockKernelMatrix disk tier at that geometry (B3 and
+   B4, one column on the card): two sweeps, the second rereading every
+   column from disk without a launch; the cached KRR fit taking the tier
+   under a budget below K, its α bit for bit as the in-memory cached fit;
+16. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches, float64 errors) for all four
-   kernels, then the last line {"ok": true, "device": {...}}.
+   kernels, B3's and B4's times at the new paths' shapes among them, then
+   the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX; exits non-zero without a result when torch sees
 no CUDA device.
@@ -98,6 +121,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import os
 import shutil
 import subprocess
 import sys
@@ -158,6 +182,13 @@ CIFAR_GAMMA = 2e-4  # the reference kernel_cifar Config's γ at d = 3072
 # bf16-rounded operands, and 0.06 against f32 only at the KRR column
 # block, whose entries are ~0.36 (γ·‖x − z‖² ≈ 1) and 1 on its diagonal
 TOL_GRAM = 1e-5
+# On a fitted pipeline's own operands (scaled TIMIT frames, ‖x‖² to ~545)
+# K_LL's diagonal is exp(−γ·(‖x‖² − 2x·x + ‖x‖²)), a cancellation that the
+# plain f32 chain rounds up to 1.4e-5 below 1 (an H100, 700 W), itself
+# outside TOL_GRAM against float64: there it is no reference at 1e-5.
+# Where the kernel leaves TOL_GRAM against the plain f32 chain and that
+# chain itself leaves it against float64, the kernel is held at the same
+# TOL_GRAM against the plain chain evaluated in float64, as B4 is below.
 TOL_POLY, RTOL_POLY = 1e-5, 1e-5
 TOL_GRAM_BF16 = 0.06
 # The polynomial kernel's cross term at d = 256 is a sum of 256 products
@@ -279,6 +310,28 @@ TAR_PIXELS = REPO / "tests" / "data" / "imagenet_tars_decoded.npy"
 TAR_SIZE, TAR_MEMBERS, TAR_BAD = (32, 32), 13, 6
 NVJPEG_MAX_DIFF = 16
 TAR_ACCURACY_MIN = 0.9
+
+# ---- the kernel pipelines, fitted through the graph at their Configs' full
+# width: KernelTimitPipeline on a quarter of TIMIT's training frames
+# (262 144; the test set, as the reference's run makes it, a quarter of
+# that), KernelCifarPipeline on CIFAR-10's split sizes.  Each runs in
+# memory, then streamed (TIMIT from an .npy in batches of its Config's
+# 8192, CIFAR from a record file in batches of 1024); the two runs draw
+# the same landmarks bit for bit (the scaler's float64 moments round to
+# the same f32 over a stream), and their held-out scores differ only as
+# the in-core and out-of-core BCD round their sums; held at the graph
+# phases' 1e-3 + 1e-3·|ref|, predicted classes agreeing on ≥ 99.9%.
+# The whitening is held f32-grade against float64 (kernel fit's error at
+# most F64_RATIO times the plain f32 chain's) or within TOL_WHITEN.
+KT_N, KT_TEST_N, KT_BATCH = 262_144, 65_536, 8192
+CIFAR_N, CIFAR_TEST_N = 50_000, 10_000
+TOL_PIPE_SCORES, RTOL_PIPE_SCORES, PIPE_AGREEMENT = 1e-3, 1e-3, 0.999
+PIPE_ACCURACY_MIN = 0.5  # the reference's own gate on both pipelines (tests/test_pipelines.py)
+TOL_WHITEN = 1e-5
+# ---- the out-of-core kernel tier at the KRR geometry above: α of the
+# out-of-core sweep against the in-core sweep, the reference's 1e-5
+# (tests/test_kernel_oc.py:107), and its prediction r²
+TOL_OC_ALPHA, OC_R2 = 1e-5, 0.999
 
 
 @contextlib.contextmanager
@@ -550,6 +603,7 @@ def kernel_timit_setup(dev):
     timed frames (9 batches of 8192)."""
     from keystone_tpu_torch.convert import kernel_timit_params_from_numpy
     from keystone_tpu_torch.loaders import timit
+    from keystone_tpu_torch.loaders.timit import TimitFeaturesDataLoader
     from keystone_tpu_torch.ops import gram_kernels as gk
     from keystone_tpu_torch.pipelines import kernel_timit as KT
 
@@ -560,7 +614,7 @@ def kernel_timit_setup(dev):
     params = kernel_timit_params_from_numpy(raw, dev)
     scorer = KT.build_scorer_from_params(params, cfg, dev)
     plain = KT.build_scorer_from_params(params, cfg, dev, use_kernel=False)
-    frames, _ = timit.synthetic((BATCHES + 1) * FRAMES, cfg.num_classes, seed=3)
+    frames, _ = TimitFeaturesDataLoader.synthetic_arrays((BATCHES + 1) * FRAMES, cfg.num_classes, seed=3)
     batches = list(torch.from_numpy(frames).to(dev).split(FRAMES))
     xs = scorer.stages[0](batches[0])  # the scaled frames the gram kernel is given
     lmk = params["nystrom.landmarks"]
@@ -1319,6 +1373,492 @@ def tar_path(dev, card, P):
     return out
 
 
+# ---------------------------------------------------------------- the kernel pipelines
+
+
+def fitted_stages(fitted) -> list:
+    """A fitted pipeline's transformers in topological order, fused chains
+    expanded into their stages."""
+    g = fitted.graph
+    ts = [getattr(g.operators.get(n), "transformer", None) for n in g.topological_nodes()]
+    return [s for t in ts if t is not None for s in getattr(t, "stages", [t])]
+
+
+def scores_head(fitted):
+    """The fitted pipeline's stages before its MaxClassifier, as one
+    transformer: the raw class scores."""
+    from keystone_tpu_torch.ops.util import MaxClassifier
+    from keystone_tpu_torch.workflow.optimizer import FusedTransformer
+
+    stages = fitted_stages(fitted)
+    check(isinstance(stages[-1], MaxClassifier), f"the fitted pipeline ends in {stages[-1].label}")
+    return FusedTransformer(stages[:-1])
+
+
+def nystrom_of(fitted):
+    from keystone_tpu_torch.models.nystrom import NystromFeatureMap
+
+    maps = [s for s in fitted_stages(fitted) if isinstance(s, NystromFeatureMap)]
+    check(len(maps) == 1, f"{len(maps)} Nyström maps in the fitted pipeline")
+    return maps[0]
+
+
+def counted_run(label, gk, fk, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after, the peak device memory above what was allocated before it,
+    and its host-clock seconds; returns (result, gram launches by shape,
+    peak bytes, seconds)."""
+    torch.cuda.synchronize()
+    reset_all(gk, fk)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    shapes = {f"{k[0]} ({k[1]}, {k[2]}, {k[3]})": v for k, v in sorted(gk.LAUNCH_SHAPES.items())}
+    check(not any(fk.LAUNCHES.values()), f"{label}: FV kernels launched {fk.LAUNCHES}")
+    check(gk.LAUNCHES["gram_block"] > 0, f"{label}: B3 never launched")
+    return res, dict(gk.LAUNCHES), shapes, peak, dt
+
+
+@contextlib.contextmanager
+def fit_timer():
+    """Times ``Pipeline.fit`` (ended by a synchronize) and, inside it, the
+    block solver's spill to a FeatureBlockStore and its out-of-core solve;
+    the methods are restored on exit."""
+    from keystone_tpu_torch.models.block_ls import BlockLeastSquaresEstimator as BLS
+    from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    t = {"fit": 0.0, "spill": 0.0, "solve": 0.0}
+    fit, spill, solve = Pipeline.fit, FeatureBlockStore.from_batches.__func__, BLS.fit_store
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            t[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    Pipeline.fit, BLS.fit_store = timed("fit", fit), timed("solve", solve)
+    FeatureBlockStore.from_batches = classmethod(timed("spill", spill))
+    try:
+        yield t
+    finally:
+        Pipeline.fit, BLS.fit_store, FeatureBlockStore.from_batches = fit, solve, classmethod(spill)
+
+
+def chunk_launches(rows, chunk, m, d):
+    """Gram launches of ``rows`` rows applied ``chunk`` rows at a time
+    against m landmarks of width d, by the key ``counted_run`` prints."""
+    out = {}
+    for lo in range(0, rows, chunk):
+        key = f"gram_block ({min(chunk, rows - lo)}, {m}, {d})"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def merged(*dicts) -> dict:
+    out = {}
+    for dd in dicts:
+        for k, v in dd.items():
+            out[k] = out.get(k, 0) + v
+    return dict(sorted(out.items()))
+
+
+def whiten_check(label, nys, reg, gamma):
+    """A fitted whitening (K_LL + reg·m·I)^{−1/2} against float64 on the
+    same landmarks: the kernel fit's error at most F64_RATIO times the
+    plain f32 chain's (or below TOL_WHITEN), each printed."""
+    from keystone_tpu_torch.models.nystrom import _nystrom_whiten
+
+    lmk = nys.landmarks
+    m = lmk.shape[0]
+    k64 = gram_f64(lmk, lmk, gamma)
+    k64 = 0.5 * (k64 + k64.T) + reg * m * torch.eye(m, dtype=torch.float64, device=lmk.device)
+    ev, vec = torch.linalg.eigh(k64)
+    w64 = (vec * torch.rsqrt(ev.clamp(min=1e-12))[None, :]) @ vec.T
+    plain = _nystrom_whiten(lmk, gamma, reg, use_kernel=False)
+    e_kernel, e_plain = max_err64(nys.whiten, w64), max_err64(plain, w64)
+    print(f"  {label}: whitening ({m}, {m}) against float64 (|ref| max {w64.abs().max().item():.3e}, K_LL's "
+          f"eigenvalues {ev.min().item():.3e}..{ev.max().item():.3e}): kernel fit {e_kernel:.3e}, plain f32 "
+          f"chain {e_plain:.3e} (at most {F64_RATIO}x it, or {TOL_WHITEN:.0e})", flush=True)
+    check(e_kernel <= max(F64_RATIO * e_plain, TOL_WHITEN), f"{label}: the whitening is not f32-grade")
+    return {"kernel": e_kernel, "plain_f32": e_plain}
+
+
+def b3_operand_checks(gk, gamma, cases):
+    """B3 on a path's own operands against its plain version (TOL_GRAM) and
+    against float64 (at most F64_RATIO times the plain f32 chain's error),
+    each printed with the entry where the two f32 chains differ most;
+    ``cases``: (label, x, z).  Returns the errors by label and shape."""
+    out = {}
+    for label, x, z in cases:
+        where = f"{label} {(x.shape[0], z.shape[0], x.shape[1])}"
+        got, plain = gk.gram_block_kernel(x, z, gamma), gk.gram_block_ref(x, z, gamma)
+        ref = gram_f64(x, z, gamma)
+        err, ratio = within(f"B3 {where} vs its plain version", got, plain, TOL_GRAM, 0.0)
+        i, j = divmod(int((got - plain).abs().argmax()), got.shape[1])
+        e_kernel, e_plain = max_err64(got, ref), max_err64(plain, ref)
+        print(f"  B3 {where} against float64: kernel {e_kernel:.3e}, plain f32 chain {e_plain:.3e} (ratio "
+              f"{e_kernel / e_plain:.3f}, at most {F64_RATIO}); the chains differ most at ({i}, {j}): kernel "
+              f"{got[i, j].item():.9f}, plain {plain[i, j].item():.9f}, float64 {ref[i, j].item():.9f}", flush=True)
+        entry = {"max_abs_err": err, "f64_check": {"kernel": e_kernel, "plain_f32": e_plain}}
+        if ratio > 1.0:  # see the note under TOL_GRAM
+            err64, _ = within(f"B3 {where} vs the plain chain in float64", got, ref, TOL_GRAM, 0.0)
+            check(err64 <= TOL_GRAM and e_plain > TOL_GRAM,
+                  f"B3 {where} vs its plain version: error above tolerance (worst ratio {ratio:.3f})")
+            entry["max_abs_err_vs_f64"] = err64
+        check(e_kernel <= F64_RATIO * e_plain, f"B3 {where}: not f32-grade against float64")
+        out[where] = entry
+    return out
+
+
+def pipeline_pair(label, card, gk, fk, run, cfg, stream_cfg, n, expected, expected_stream, test_x, tol, rtol):
+    """One kernel pipeline's run in memory, then with ``stream``: each with
+    its launch counts (held to ``expected``), fit seconds, frames a second
+    and peak device memory; then the two held together: the landmarks bit
+    for bit, the held-out scores within ``tol`` + ``rtol``·|ref| and their
+    classes, the accuracy."""
+    out = {}
+    fitted = {}
+    for mode, c, want in (("in memory", cfg, expected), ("stream", stream_cfg, expected_stream)):
+        with phase(f"main path: {label}.run, {mode}"):
+            detail = {}
+            with fit_timer() as ft:
+                res, launches, shapes, peak, dt = counted_run(label, gk, fk, lambda: run(c, out=detail))
+            print(f"  Pipeline.fit {ft['fit']:.3f} s ({n / ft['fit']:.1f} training items/s; of it the solver's spill "
+                  f"{ft['spill']:.3f} s, its out-of-core solve {ft['solve']:.3f} s); run's fit_seconds (loading or "
+                  f"making the training set included, as the reference's) {res['fit_seconds']:.3f} s, the whole run "
+                  f"{dt:.3f} s; held-out accuracy {res['accuracy']:.4f}; peak device memory {peak / 2**30:.3f} GiB "
+                  f"above the run's start ({card})", flush=True)
+            print(f"  B3 launches by shape {shapes}", flush=True)
+            check(launches["poly_block"] == 0, f"{mode}: B4 launched {launches}")
+            check(shapes == want, f"{mode}: launches by shape {shapes}, expected {want}")
+            check(not res["model_loaded"], f"{mode}: loaded a model")
+            check(res["accuracy"] >= PIPE_ACCURACY_MIN, f"{mode}: held-out accuracy {res['accuracy']:.4f}")
+            fitted[mode] = detail["fitted"]
+            out[mode] = {"fit_seconds": ft["fit"], "spill_seconds": ft["spill"], "oc_solve_seconds": ft["solve"],
+                         "run_fit_seconds": res["fit_seconds"], "run_seconds": dt, "items_per_s": n / ft["fit"],
+                         "accuracy": res["accuracy"], "peak_bytes": peak, "launches": launches["gram_block"],
+                         "launches_by_shape": shapes, "predictions": detail["predictions"]}
+    with phase(f"{label}: the streamed fit against the in-memory fit"):
+        a, b = nystrom_of(fitted["in memory"]), nystrom_of(fitted["stream"])
+        same_l = bool(torch.equal(a.landmarks, b.landmarks))
+        same_w = bool(torch.equal(a.whiten, b.whiten))
+        print(f"  landmarks bit for bit: {same_l}; whitening bit for bit: {same_w}", flush=True)
+        check(same_l, "the streamed fit drew other landmarks")
+        sa = torch.cat([scores_head(fitted["in memory"])(t) for t in test_x.split(KT_BATCH)])
+        sb = torch.cat([scores_head(fitted["stream"])(t) for t in test_x.split(KT_BATCH)])
+        err = compare("held-out scores, stream vs in memory", sb, sa, tol, rtol)
+        pa, pb = out["in memory"].pop("predictions"), out["stream"].pop("predictions")
+        agree = float((pa == pb).mean())
+        print(f"  predicted classes agree on {agree:.6f} of {len(pa)}; accuracy {out['in memory']['accuracy']:.4f} "
+              f"in memory, {out['stream']['accuracy']:.4f} streamed", flush=True)
+        check(agree >= PIPE_AGREEMENT, f"predicted classes agree on {agree:.6f}")
+        check(bool(torch.isfinite(sa).all()), "non-finite scores")
+        out["agreement"] = {"landmarks_equal": same_l, "whitening_equal": same_w, "scores_max_abs_err": err,
+                            "classes": agree}
+    return out, fitted["in memory"]
+
+
+def kernel_timit_pipeline_path(dev, card, gk, fk, tmp):
+    """KernelTimitPipeline.run at its Config's full width on KT_N synthetic
+    frames, in memory and then streamed from an .npy written here."""
+    from keystone_tpu_torch.loaders.timit import DIM, TimitFeaturesDataLoader
+    from keystone_tpu_torch.ops.stats import StandardScalerModel
+    from keystone_tpu_torch.pipelines import kernel_timit as KT
+    from keystone_tpu_torch.workflow import transformer as WT
+
+    cfg = KT.Config(synthetic_n=KT_N)
+    m, chunk = cfg.num_landmarks, WT.APPLY_CHUNK_ROWS
+    with phase("kernel TIMIT pipeline: set-up (a warm-up run, the frames written as .npy)"):
+        KT.KernelTimitPipeline.run(dataclasses.replace(cfg, synthetic_n=4 * m), dev)  # warm-up, not counted
+        t0 = time.perf_counter()
+        paths = {}
+        for key, n, seed in (("features", KT_N, 1), ("test_features", KT_TEST_N, 2)):
+            x, labels = TimitFeaturesDataLoader.synthetic_arrays(n, cfg.num_classes, seed)
+            paths[f"{key}_path"] = str(tmp / f"{key}.npy")
+            paths[f"{key.replace('features', 'labels')}_path"] = str(tmp / f"{key}_labels.npy")
+            np.save(paths[f"{key}_path"], x)
+            np.save(paths[f"{key.replace('features', 'labels')}_path"], labels)
+        test_x = torch.from_numpy(x).to(dev)
+        print(f"  {KT_N} + {KT_TEST_N} frames of {DIM} written in {time.perf_counter() - t0:.2f} s", flush=True)
+    kll = {f"gram_block ({m}, {m}, {DIM})": 1}
+    test_l = chunk_launches(KT_TEST_N, chunk, m, DIM)
+    expected = merged(kll, chunk_launches(KT_N, chunk, m, DIM), test_l)
+    expected_stream = merged(kll, chunk_launches(KT_N, cfg.stream_batch_size, m, DIM), test_l)
+    stream_cfg = dataclasses.replace(cfg, stream=True, **paths)
+
+    def run(c, out):
+        return KT.KernelTimitPipeline.run(c, dev, out=out)
+
+    out, fitted = pipeline_pair("KernelTimitPipeline", card, gk, fk, run, cfg, stream_cfg, KT_N, expected,
+                                expected_stream, test_x, TOL_PIPE_SCORES, RTOL_PIPE_SCORES)
+    with phase("kernel TIMIT pipeline: B3 at d = 440 against its plain version and float64; the whitening"):
+        nys = nystrom_of(fitted)
+        scaler = [s for s in fitted_stages(fitted) if isinstance(s, StandardScalerModel)][0]
+        xs, lmk = scaler(test_x[:chunk]).contiguous(), nys.landmarks
+        out["b3_operands"] = b3_operand_checks(gk, cfg.gamma, (("K_nm chunk", xs, lmk), ("K_LL", lmk, lmk)))
+        out["whitening_f64"] = whiten_check("KernelTimitPipeline", nys, cfg.nystrom_reg, cfg.gamma)
+    return out
+
+
+def kernel_cifar_pipeline_path(dev, card, gk, fk, tmp):
+    """KernelCifarPipeline.run at its Config's full width on CIFAR-10's split
+    sizes, written as CIFAR-10 binary files: load and stream on them, the
+    run in memory and streamed, and B3 at the pipeline's d = 3072 shapes."""
+    from keystone_tpu_torch.loaders import cifar
+    from keystone_tpu_torch.ops.stats import StandardScalerModel
+    from keystone_tpu_torch.pipelines import kernel_cifar as KC
+    from keystone_tpu_torch.workflow import transformer as WT
+
+    cfg = KC.Config(synthetic_n=CIFAR_N)
+    m, chunk, d = cfg.num_landmarks, WT.APPLY_CHUNK_ROWS, cifar.H * cifar.W * cifar.C
+    out = {}
+    with phase("kernel CIFAR pipeline: the record files, load and stream"):
+        KC.KernelCifarPipeline.run(dataclasses.replace(cfg, synthetic_n=4 * m), dev)  # warm-up, not counted
+        t0 = time.perf_counter()
+        paths = {}
+        for key, n, seed in (("train_path", CIFAR_N, 1), ("test_path", CIFAR_TEST_N, 2)):
+            paths[key] = str(tmp / f"{key}.bin")
+            cifar.write_records(paths[key], *cifar.CifarLoader.synthetic_arrays(n, seed))
+        made = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = cifar.CifarLoader.load(paths["train_path"], device=dev)
+        t_load = time.perf_counter() - t0
+        streamed = cifar.CifarLoader.stream(paths["train_path"], batch_size=cfg.stream_batch_size, device=dev)
+        t0 = time.perf_counter()
+        bad, rows = 0, 0
+        for a, _ in streamed.data.device_batches():
+            bad += int((a != loaded.data.array[rows:rows + a.shape[0]]).sum())
+            rows += a.shape[0]
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - t0
+        raw = np.fromfile(paths["train_path"], np.uint8).reshape(-1, cifar.RECORD)
+        px = torch.from_numpy(raw[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).astype(np.float32)).to(dev)
+        exact = bool(torch.equal(loaded.data.array * 255.0, px.round()))  # 255·(b/255) rounds back to b
+        same_labels = bool(np.array_equal(loaded.labels.numpy(), raw[:, 0])) and \
+            bool(np.array_equal(streamed.labels.numpy(), raw[:, 0]))
+        print(f"  {CIFAR_N} + {CIFAR_TEST_N} records written in {made:.2f} s ({os.path.getsize(paths['train_path'])} "
+              f"bytes of training records); load {t_load:.2f} s, one stream sweep {t_stream:.2f} s; stream vs load: "
+              f"{rows} rows, {bad} entries differ; pixels are the records' bytes/255: {exact}; labels: {same_labels}",
+              flush=True)
+        check(rows == CIFAR_N and bad == 0 and exact and same_labels, "load and stream disagree with the records")
+        del loaded, streamed, px
+        test_x = cifar.CifarLoader.load(paths["test_path"], device=dev).data.array.reshape(CIFAR_TEST_N, -1)
+    kll = {f"gram_block ({m}, {m}, {d})": 1}
+    test_l = chunk_launches(CIFAR_TEST_N, chunk, m, d)
+    expected = merged(kll, chunk_launches(CIFAR_N, chunk, m, d), test_l)
+    expected_stream = merged(kll, chunk_launches(CIFAR_N, cfg.stream_batch_size, m, d), test_l)
+    cfg = dataclasses.replace(cfg, **paths)
+
+    def run(c, out):
+        return KC.KernelCifarPipeline.run(c, dev, out=out)
+
+    # the scores head takes vectorized images: the test set as (n, 3072)
+    pair, fitted = pipeline_pair("KernelCifarPipeline", card, gk, fk, run, cfg,
+                                 dataclasses.replace(cfg, stream=True), CIFAR_N, expected, expected_stream,
+                                 test_x.reshape(CIFAR_TEST_N, 32, 32, 3), TOL_PIPE_SCORES, RTOL_PIPE_SCORES)
+    out.update(pair)
+    nys = nystrom_of(fitted)
+    with phase("kernel CIFAR pipeline: B3 at d = 3072 against its plain version and float64"):
+        scaler = [s for s in fitted_stages(fitted) if isinstance(s, StandardScalerModel)][0]
+        xs, lmk = scaler(test_x[:chunk]).contiguous(), nys.landmarks
+        out["b3_operands"] = b3_operand_checks(gk, cfg.gamma, (("K_nm chunk", xs, lmk), ("K_LL", lmk, lmk)))
+        out["whitening_f64"] = whiten_check("KernelCifarPipeline", nys, cfg.nystrom_reg, cfg.gamma)
+    return out
+
+
+# ---------------------------------------------------------------- the out-of-core kernel tier
+
+
+def oc_krr_path(dev, card, gk, fk, data, tmp):
+    """The out-of-core KRR fit at bench.py's kernel-leg geometry against the
+    in-core fit: fit_store on a RowBlockStore, the streamed fit through a
+    Pipeline with a save/load round trip, and a checkpoint resume."""
+    from keystone_tpu_torch.loaders.stream import batched
+    from keystone_tpu_torch.models import kernel_ridge as KR
+    from keystone_tpu_torch.workflow.blockstore import RowBlockStore
+    from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline, Pipeline
+
+    n, d, k, bs, ep = KRR_N, KRR_D, KRR_K, KRR_BLOCK, KRR_EPOCHS
+    nb = n // bs
+    xd, yd, xtd = data
+    est = KR.KernelRidgeRegressionEstimator(KR.GaussianKernelGenerator(KRR_GAMMA), lam=KRR_LAM, block_size=bs,
+                                            num_epochs=ep)
+    out = {}
+    with phase("main path: out-of-core KRR, fit_store against the in-core fit"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        in_core = est.fit_arrays(xd, yd, device=dev)
+        torch.cuda.synchronize()
+        t_in = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store = RowBlockStore.from_array(str(tmp / "rows"), xd, bs)
+        t_spill = time.perf_counter() - t0
+        labels = Dataset(yd)
+        est.fit_store(store, labels)  # warm-up, not counted
+        oc, launches, shapes, peak, dt = counted_run("out-of-core KRR", gk, fk, lambda: est.fit_store(store, labels))
+        resident = 2 * bs * d * 4 + 3 * nb * bs * k * 4  # bench.py's resident figure
+        print(f"  spill {t_spill:.3f} s ({store.nbytes()} bytes, {nb} row blocks of ({bs}, {d})); sweep {dt:.4f} s "
+              f"against the in-core fit's {t_in:.4f} s; peak device memory {peak / 2**20:.3f} MiB above the "
+              f"sweep's start (bench.py's resident figure 2·bs·d·4 + 3·nb·bs·k·4 = {resident / 2**20:.3f} MiB) "
+              f"({card})", flush=True)
+        print(f"  launches {launches}, by shape {shapes}", flush=True)
+        check(launches == {"gram_block": ep * nb * nb, "poly_block": 0},
+              f"launches {launches}, expected {ep * nb * nb} B3 (epochs · nb²)")
+        err = compare("α, out-of-core vs in-core, both on the kernel", oc.alpha, in_core.alpha, TOL_OC_ALPHA, 0.0)
+        a64 = krr_alpha_f64(lambda a, b: gram_f64(a, b, KRR_GAMMA), xd, yd)
+        e_oc, e_in = max_err64(oc.alpha, a64), max_err64(in_core.alpha, a64)
+        print(f"  α against the float64 fit: out-of-core {e_oc:.3e}, in-core {e_in:.3e} (at most {F64_RATIO}x it)",
+              flush=True)
+        check(e_oc <= F64_RATIO * e_in, "the out-of-core α is further from float64 than the in-core fit's")
+        reset_all(gk, fk)
+        p_oc = oc(xtd)
+        torch.cuda.synchronize()
+        predict_launches = gk.LAUNCHES["gram_block"]
+        p_in = in_core(xtd)
+        r2 = 1.0 - float(((p_oc - p_in) ** 2).sum() / ((p_in - p_in.mean(dim=0)) ** 2).sum())
+        print(f"  predictions on {KRR_TEST} rows: r² vs the in-core model {r2:.8f} (at least {OC_R2}); "
+              f"B3 launches {predict_launches}", flush=True)
+        check(r2 >= OC_R2 and predict_launches == nb, f"r² {r2}, predict launches {predict_launches}")
+        tiles = [store.read_block(b).to(dev) for b in (0, 1)]
+        out["b3_operands"] = b3_operand_checks(gk, KRR_GAMMA, (("sweep tile K_00", tiles[0], tiles[0]),
+                                                               ("sweep tile K_01", tiles[0], tiles[1])))
+        out.update({"spill_seconds": t_spill, "sweep_seconds": dt, "in_core_seconds": t_in,
+                    "store_bytes": store.nbytes(), "peak_bytes": peak, "resident_bytes_bench": resident,
+                    "launches": launches["gram_block"], "predict_launches": predict_launches,
+                    "alpha_max_abs_err": err, "alpha_f64": {"out_of_core": e_oc, "in_core": e_in}, "r2": r2,
+                    "tile": (bs, bs, d)})
+    with phase("out-of-core KRR: fit_dataset on a StreamDataset through a Pipeline, save and load"):
+        sd = StreamDataset(batched(xd.cpu().numpy(), 1000), n=n, device=dev)
+        fitted = Pipeline.from_estimator(est, sd, labels).fit()
+        reads = []
+        read = RowBlockStore.read_block
+        RowBlockStore.read_block = lambda self, b: reads.append(b) or read(self, b)
+        try:
+            got, launches, _, _, t_score = counted_run("out-of-core KRR scoring through the graph", gk, fk,
+                                                       lambda: fitted(Dataset(xtd)).get().array)
+        finally:
+            RowBlockStore.read_block = read
+        mapper = [s for s in fitted_stages(fitted) if isinstance(s, KR.OutOfCoreKernelBlockLinearMapper)]
+        check(len(mapper) == 1 and os.path.isdir(mapper[0].store_directory), "the fitted model's store")
+        path = str(tmp / "oc_krr.pt")
+        fitted.save(path)
+        again = FittedPipeline.load(path, map_location=dev)(Dataset(xtd)).get().array
+        same = bool(torch.equal(again, got))
+        r2s = 1.0 - float(((got - p_in) ** 2).sum() / ((p_in - p_in.mean(dim=0)) ** 2).sum())
+        print(f"  the streamed fit's predictions: r² vs the in-core model {r2s:.8f}; after save and load identical: "
+              f"{same}; the model's store {mapper[0].store_directory}", flush=True)
+        print(f"  scoring {KRR_TEST} rows through the fitted pipeline: {t_score:.4f} s, {len(reads)} block reads, "
+              f"B3 launches {launches['gram_block']} ({card})", flush=True)
+        check(same and r2s >= OC_R2, "the streamed fit's model")
+        check(len(reads) == nb and launches["gram_block"] == nb,
+              f"graph scoring read {len(reads)} blocks and launched {launches}: one sweep of {nb} expected")
+        shutil.rmtree(mapper[0].store_directory, ignore_errors=True)
+        out["stream_pipeline"] = {"r2": r2s, "save_load_identical": same, "score_seconds": t_score,
+                                  "score_block_reads": len(reads), "score_launches": launches["gram_block"]}
+    with phase("out-of-core KRR: a checkpointed fit resumed"):
+        ck = str(tmp / "ck")
+        KR.KernelRidgeRegressionEstimator(KR.GaussianKernelGenerator(KRR_GAMMA), lam=KRR_LAM, block_size=bs,
+                                          num_epochs=1).fit_store(store, labels, checkpoint_dir=ck)
+        resumed = est.fit_store(store, labels, checkpoint_dir=ck).alpha
+        same = bool(torch.equal(resumed, oc.alpha))
+        print(f"  1 epoch checkpointed, resumed to {ep}: α bit for bit as the uninterrupted fit: {same}", flush=True)
+        check(same, "the resumed fit's α differs from the uninterrupted fit's")
+        out["checkpoint_resume_identical"] = same
+    return out
+
+
+def disk_tier_path(dev, card, gk, fk, data, tmp):
+    """BlockKernelMatrix with its disk tier (one column on the card) at the
+    KRR geometry, Gaussian (B3) and degree-2 polynomial (B4): two sweeps
+    against the in-memory matrix; then the cached KRR fit taking the tier
+    under a budget below K, against the in-memory cached fit."""
+    from keystone_tpu_torch.models import kernel_ridge as KR
+    from keystone_tpu_torch.models.kernel_matrix import BlockKernelMatrix
+    from keystone_tpu_torch.workflow import profiling
+
+    n, bs = KRR_N, KRR_BLOCK
+    nb = n // bs
+    xd, yd, _ = data
+    gens = {"gaussian": (KR.GaussianKernelGenerator(KRR_GAMMA), "gram_block"),
+            "polynomial": (KR.PolynomialKernelGenerator(2, 1.0 / KRR_D, 1.0), "poly_block")}
+    out = {}
+    for label, (gen, kname) in gens.items():
+        with phase(f"main path: BlockKernelMatrix disk tier, {label}"):
+            mem = BlockKernelMatrix(gen, xd, bs, cache_blocks=nb * nb)
+            want = [mem.column_block(j) for j in range(nb)]
+            km = BlockKernelMatrix(gen, xd, bs, cache_blocks=0, spill_dir=str(tmp / f"spill_{label}"), hbm_cols=1)
+            epochs = []
+            for e in range(2):
+                torch.cuda.synchronize()
+                reset_all(gk, fk)
+                t0 = time.perf_counter()
+                bad = sum(int((km.column_block(j) != want[j]).sum()) for j in range(nb))
+                torch.cuda.synchronize()
+                epochs.append({"seconds": time.perf_counter() - t0, "launches": dict(gk.LAUNCHES), "mismatches": bad,
+                               "spill_reads": km.spill_reads, "spill_writes": km.spill_writes})
+            print(f"  {nb} columns of ({n}, {bs}) twice, one on the card: {epochs} ({card})", flush=True)
+            check(epochs[0]["launches"][kname] == nb and epochs[1]["launches"] == {"gram_block": 0, "poly_block": 0},
+                  f"launches {[ep['launches'] for ep in epochs]}: epoch 1 computes each column, epoch 2 none")
+            check(km.spill_reads == nb and km.spill_writes == nb and not any(ep["mismatches"] for ep in epochs),
+                  "the disk tier's columns differ from the in-memory matrix's, or were not reread")
+            out[label] = {"epochs": epochs, "launches": nb, "kernel": kname}
+            del mem, want
+    with phase("main path: the cached KRR fit over the budget, through the disk tier"):
+        kw = dict(lam=KRR_LAM, block_size=bs, num_epochs=KRR_EPOCHS, cache_kernel_blocks=True)
+        est = KR.KernelRidgeRegressionEstimator(gens["gaussian"][0], **kw)
+        in_memory = est.fit_arrays(xd, yd, device=dev).alpha
+        real = profiling.device_hbm_budget
+        # a budget one byte short of K: the fit takes the tier, nb − 1 columns on the card
+        profiling.device_hbm_budget = lambda fraction, device=None: n * n * 4 - 1
+        try:
+            cache = tmp / "kcache"
+            tiered, launches, shapes, peak, dt = counted_run(
+                "cached KRR fit over the budget", gk, fk,
+                lambda: KR.KernelRidgeRegressionEstimator(gens["gaussian"][0], kernel_cache_dir=str(cache),
+                                                          **kw).fit_arrays(xd, yd, device=dev).alpha)
+        finally:
+            profiling.device_hbm_budget = real
+        spilled = sorted(p.name for p in cache.glob("kcol_*.npy"))
+        same = bool(torch.equal(tiered, in_memory))
+        print(f"  launches {launches}; {len(spilled)} columns spilled; {dt:.4f} s; peak device memory "
+              f"{peak / 2**20:.1f} MiB above the fit's start; α bit for bit as the in-memory cached fit: {same} "
+              f"({card})", flush=True)
+        check(launches == {"gram_block": nb, "poly_block": 0} and len(spilled) == nb,
+              f"launches {launches}, {len(spilled)} spilled columns")
+        check(same, "the tiered fit's α differs from the in-memory cached fit's")
+        out["cached_fit"] = {"launches": launches["gram_block"], "seconds": dt, "peak_bytes": peak,
+                             "alpha_identical": same}
+    return out
+
+
+def gram_shape_times(gk, cases):
+    """B3's and B4's times at the new paths' shapes on seeded operands
+    (the times do not depend on the values), with their plain versions'
+    and bounds; ``cases``: (label, kernel name, (n, m, d), scalars)."""
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    out = {}
+    for label, kname, (n, m, d), scal in cases:
+        x = torch.randn((n, d), generator=g, device=DEVICE) / d ** 0.5
+        z = torch.randn((m, d), generator=g, device=DEVICE) / d ** 0.5
+        if kname == "gram_block":
+            kern, plain, cost = gk.gram_block_kernel, gk.gram_block_ref, gram_cost(n, m, d)
+        else:
+            kern, plain, cost = gk.poly_block_kernel, gk.poly_block_ref, gram_cost(n, m, d, degree=scal[-1])
+        out[label] = {"shape": (n, m, d), "ms": cuda_ms(lambda: kern(x, z, *scal)),
+                      "plain_ms": cuda_ms(lambda: plain(x, z, *scal), reps=5), "bound_ms": bound_ms(*cost),
+                      "bound_by": bound_by(*cost), "bound_ms_tc": bound_ms_tc(n, m, d)}
+    return out
+
+
 def gram_lines(gk, serving, krr_x, errs, f64, results):
     """The kernels-line entries of B3 and B4: times at the main paths'
     shapes, the plain versions', one torch.matmul of the same operands
@@ -1331,6 +1871,29 @@ def gram_lines(gk, serving, krr_x, errs, f64, results):
                         if k in ("in-core gaussian", "cached gaussian", "predict", "matvec gaussian")}}
     poly_launches = {k: v["launches"] for k, v in krr.items()
                      if k in ("cached polynomial", "cached linear", "matvec polynomial", "matvec linear")}
+    kt, kc = results["kernel_timit_pipeline"], results["kernel_cifar_pipeline"]
+    oc, disk = results["oc_krr"], results["disk_tier"]
+    gram_launches.update({
+        "KernelTimitPipeline in memory": kt["in memory"]["launches"],
+        "KernelTimitPipeline stream": kt["stream"]["launches"],
+        "KernelCifarPipeline in memory": kc["in memory"]["launches"],
+        "KernelCifarPipeline stream": kc["stream"]["launches"],
+        "out-of-core KRR sweep": oc["launches"], "out-of-core KRR predict": oc["predict_launches"],
+        "disk tier gaussian": disk["gaussian"]["launches"], "cached fit over the budget": disk["cached_fit"]["launches"],
+    })
+    poly_launches["disk tier polynomial"] = disk["polynomial"]["launches"]
+    paths = (("KernelTimitPipeline", kt["b3_operands"]), ("KernelCifarPipeline", kc["b3_operands"]),
+             ("out-of-core KRR", oc["b3_operands"]))
+    timit_d, cifar_d, m_l = 440, 3072, 2048
+    new_shapes = gram_shape_times(gk, [
+        ("KernelTimitPipeline K_LL", "gram_block", (m_l, m_l, timit_d), (0.015,)),
+        ("KernelTimitPipeline K_nm chunk", "gram_block", (128, m_l, timit_d), (0.015,)),
+        ("KernelCifarPipeline K_LL", "gram_block", (m_l, m_l, cifar_d), (CIFAR_GAMMA,)),
+        ("KernelCifarPipeline K_nm chunk", "gram_block", (128, m_l, cifar_d), (CIFAR_GAMMA,)),
+        ("KernelCifarPipeline K_nm stream batch", "gram_block", (1024, m_l, cifar_d), (CIFAR_GAMMA,)),
+        ("out-of-core KRR tile", "gram_block", (KRR_BLOCK, KRR_BLOCK, KRR_D), (KRR_GAMMA,)),
+        ("disk tier polynomial column", "poly_block", (KRR_N, KRR_BLOCK, KRR_D), (1.0 / KRR_D, 1.0, 2)),
+    ])
     n, d = xs.shape
     m = lmk.shape[0]
     serving_cost = gram_cost(n, m, d)
@@ -1360,6 +1923,9 @@ def gram_lines(gk, serving, krr_x, errs, f64, results):
         "gemm_ms_krr_column": gemm_column, "bound_ms_krr_column": bound_ms(*column_cost),
         "bound_ms_tc_krr_column": bound_ms_tc(KRR_N, KRR_BLOCK, KRR_D),
         "bound_ms_tc_bf16_krr_column": bound_ms_tc(KRR_N, KRR_BLOCK, KRR_D, bf16=True),
+        "shapes": {k: v for k, v in new_shapes.items() if not k.startswith("disk tier")},
+        "max_abs_err_by_path": {f"{name} {k}": v["max_abs_err"] for name, r in paths for k, v in r.items()},
+        "f64_check_by_path": {f"{name} {k}": v["f64_check"] for name, r in paths for k, v in r.items()},
     }
     poly = {
         "name": "poly_block", "route": "cuda", "source": "keystone_tpu_torch/csrc/gram.cu",
@@ -1380,6 +1946,7 @@ def gram_lines(gk, serving, krr_x, errs, f64, results):
         "plain_ms_linear": cuda_ms(lambda: gk.poly_block_ref(krr_x, xb, 1.0, 0.0, 1), reps=5),
         "bound_ms_linear": bound_ms(*linear_cost),
         "bound_ms_tc_linear": bound_ms_tc(KRR_N, KRR_BLOCK, KRR_D),
+        "shapes": {k: v for k, v in new_shapes.items() if k.startswith("disk tier")},
     }
     return [gram, poly]
 
@@ -1658,6 +2225,16 @@ def main(argv=None) -> int:
     results["stream"] = stream_path(dev, card, P, fk, fit_data, results["graph"], graph_detail)
     del graph_detail
     results["tar"] = tar_path(dev, card, P)
+    tier_tmp = Path(tempfile.mkdtemp(prefix="kernel_tier_", dir=REPO))
+    try:
+        for sub in ("timit", "cifar", "oc", "disk"):
+            (tier_tmp / sub).mkdir()
+        results["kernel_timit_pipeline"] = kernel_timit_pipeline_path(dev, card, gk, fk, tier_tmp / "timit")
+        results["kernel_cifar_pipeline"] = kernel_cifar_pipeline_path(dev, card, gk, fk, tier_tmp / "cifar")
+        results["oc_krr"] = oc_krr_path(dev, card, gk, fk, data, tier_tmp / "oc")
+        results["disk_tier"] = disk_tier_path(dev, card, gk, fk, data, tier_tmp / "disk")
+    finally:
+        shutil.rmtree(tier_tmp, ignore_errors=True)
 
     with phase("kernel timing"):
         def kernel_line(name, replaces, kernel, plain, calls, shape):
@@ -1784,13 +2361,23 @@ def main(argv=None) -> int:
             print(f"  {ln['name']}: {ln['ms']:.4f} ms (plain {ln['plain_ms']:.4f} ms, gemm "
                   f"{ln['gemm_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms by {ln['bound_by']}, on the "
                   f"tensor cores {ln['bound_ms_tc']:.4f} ms) at {ln['shape']}, {card}")
+            for label, t in ln["shapes"].items():
+                print(f"  {ln['name']} at {label} {t['shape']}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
+                      f"bound {t['bound_ms']:.4f} ms by {t['bound_by']}, on the tensor cores "
+                      f"{t['bound_ms_tc']:.4f} ms), {card}")
 
     if args.profile:
+        from keystone_tpu_torch.loaders.timit import TimitFeaturesDataLoader
         from keystone_tpu_torch.models import kernel_ridge as KR
+        from keystone_tpu_torch.workflow.blockstore import RowBlockStore
         from keystone_tpu_torch.workflow.dataset import Dataset
 
         krr_est = KR.KernelRidgeRegressionEstimator(
             KR.GaussianKernelGenerator(KRR_GAMMA), lam=KRR_LAM, block_size=KRR_BLOCK, num_epochs=KRR_EPOCHS)
+        prof_tmp = Path(tempfile.mkdtemp(prefix="profile_", dir=REPO))
+        rows = RowBlockStore.from_array(str(prof_tmp / "rows"), data[0], KRR_BLOCK)
+        kt_cfg = KT.Config(synthetic_n=KT_N)
+        kt_train = TimitFeaturesDataLoader.synthetic(KT_N, kt_cfg.num_classes, seed=1, device=dev)
         for label, fn in (
             ("one scorer batch", lambda: scorer(images[:BATCH])),
             ("one kernel TIMIT batch", lambda: kt_scorer(frame_batches[1])),
@@ -1799,9 +2386,13 @@ def main(argv=None) -> int:
              lambda: P.fit_params(fit_data[0], fit_data[1], fit_data[2], dev, batch_size=FIT_BATCH)),
             ("one ImageNetSiftLcsFV graph fit (Pipeline.fit)", lambda: P.ImageNetSiftLcsFV.build(
                 fit_data[0], Dataset(fit_data[1]), Dataset(torch.from_numpy(fit_data[2]).to(dev))).fit()),
+            ("one KernelTimitPipeline graph fit in memory (Pipeline.fit)",
+             lambda: KT.KernelTimitPipeline.build(kt_cfg, kt_train.data, kt_train.labels).fit()),
+            ("one out-of-core KRR sweep (fit_store)", lambda: krr_est.fit_store(rows, Dataset(data[1]))),
         ):
             with phase(f"profile {label}"):
                 profile_once(fn)
+        shutil.rmtree(prof_tmp, ignore_errors=True)
 
     print(json.dumps({
         "images_per_s": {k: results[k]["images_per_s"] for k in ("fused_forward", "fisher_encode")},
@@ -1811,6 +2402,10 @@ def main(argv=None) -> int:
         "graph": results["graph"],
         "stream": results["stream"],
         "tar": results["tar"],
+        "kernel_timit_pipeline": results["kernel_timit_pipeline"],
+        "kernel_cifar_pipeline": results["kernel_cifar_pipeline"],
+        "oc_krr": results["oc_krr"],
+        "disk_tier": results["disk_tier"],
         "card": card,
     }))
     print(json.dumps({"kernels": lines}))

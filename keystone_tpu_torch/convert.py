@@ -21,7 +21,9 @@ key                    shape            reference object
 unfused single-branch forward only ``sift``.
 
 ``kernel_timit_params_from_numpy`` does the same for a fitted
-KernelTimitPipeline scorer:
+KernelTimitPipeline scorer, and ``kernel_cifar_params_from_numpy`` for a
+KernelCifarPipeline scorer, whose arrays have the same layout over the
+3072 vectorized pixels:
 
 ====================== ================ =========================================
 key                    shape            reference object
@@ -44,6 +46,10 @@ key                    shape            reference object
 
 Scalars (γ, the block size, the train row count) are passed to the
 builders as arguments.  The keys suit ``np.savez``.
+
+``oc_krr_mapper_from_numpy`` carries an out-of-core kernel model across:
+its α (``_oc_krr_fit``'s (nb·bs, k) output) and the directory of the
+``RowBlockStore`` it was fitted on, which the port reads as it is.
 """
 
 from __future__ import annotations
@@ -127,19 +133,32 @@ def params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Dict[str, t
     return _to(arrs, device)
 
 
-def kernel_timit_params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
-    """Validate the keyed arrays of a KernelTimitPipeline scorer (scaler,
-    Nyström map, BLM) and return them as f32 tensors on ``device``."""
+def _nystrom_scorer_params(d: Mapping[str, np.ndarray], device, dim=None) -> Dict[str, torch.Tensor]:
+    """The keyed arrays of a Nyström scorer (scaler, Nyström map, BLM),
+    validated, as f32 tensors on ``device``; ``dim`` the input width
+    when the pipeline fixes it."""
     resolve_device(device)
     arrs = _arrays(d, {"scaler.mean", "scaler.std", "nystrom.landmarks", "nystrom.whiten"} | _BLM_KEYS)
     _require(arrs, ["scaler.mean", "nystrom.landmarks", "nystrom.whiten"])
     lmk = arrs["nystrom.landmarks"]
-    if lmk.ndim != 2:
-        raise _shape_error("nystrom.landmarks", lmk.shape, "(m, D)")
-    m, dim = lmk.shape
-    _check_shapes(arrs, {"scaler.mean": (dim,), "scaler.std": (dim,), "nystrom.whiten": (m, m)})
+    if lmk.ndim != 2 or (dim is not None and lmk.shape[1] != dim):
+        raise _shape_error("nystrom.landmarks", lmk.shape, f"(m, {dim or 'D'})")
+    m, width = lmk.shape
+    _check_shapes(arrs, {"scaler.mean": (width,), "scaler.std": (width,), "nystrom.whiten": (m, m)})
     _check_blm(arrs, m)
     return _to(arrs, device)
+
+
+def kernel_timit_params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
+    """Validate the keyed arrays of a KernelTimitPipeline scorer (scaler,
+    Nyström map, BLM) and return them as f32 tensors on ``device``."""
+    return _nystrom_scorer_params(d, device)
+
+
+def kernel_cifar_params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
+    """The same for a KernelCifarPipeline scorer, over 32·32·3 = 3072
+    vectorized pixels."""
+    return _nystrom_scorer_params(d, device, dim=3072)
 
 
 def krr_params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
@@ -154,3 +173,20 @@ def krr_params_from_numpy(d: Mapping[str, np.ndarray], device="cuda") -> Dict[st
     if alpha.ndim != 2 or alpha.shape[0] != tx.shape[0]:
         raise _shape_error("krr.alpha", alpha.shape, f"({tx.shape[0]}, k)")
     return _to(arrs, device)
+
+
+def oc_krr_mapper_from_numpy(alpha: np.ndarray, store_directory: str, gamma: float, device="cuda"):
+    """An ``OutOfCoreKernelBlockLinearMapper`` from a fitted out-of-core
+    model's α, (nb·bs, k), and the ``RowBlockStore`` directory it was
+    fitted on (the reference's layout), α as f32 on ``device``."""
+    from keystone_tpu_torch.models.kernel_ridge import GaussianKernelGenerator, OutOfCoreKernelBlockLinearMapper
+    from keystone_tpu_torch.workflow.blockstore import RowBlockStore
+
+    dev = resolve_device(device)
+    store = RowBlockStore(store_directory)
+    a = np.array(alpha, np.float32)
+    rows = store.num_blocks * store.block_size
+    if a.ndim != 2 or a.shape[0] != rows:
+        raise _shape_error("alpha", a.shape, f"({rows}, k)")
+    return OutOfCoreKernelBlockLinearMapper(GaussianKernelGenerator(float(gamma)), store_directory,
+                                            torch.from_numpy(a).to(dev), store.n)

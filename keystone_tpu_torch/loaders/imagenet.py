@@ -30,6 +30,7 @@ import torch
 
 from keystone_tpu_torch.loaders import jpeg
 from keystone_tpu_torch.loaders.labeled import LabeledData
+from keystone_tpu_torch.loaders.stream import PREFETCH
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset
 
@@ -37,9 +38,6 @@ logger = logging.getLogger(__name__)
 
 #: one index entry: (tar path, member data offset, member size, label)
 Entry = Tuple[str, int, int, int]
-
-#: batches a stream's producer thread makes ahead of the consumer
-_PREFETCH = 2
 
 
 def _list_tars(path: str) -> List[str]:
@@ -108,7 +106,7 @@ class ImageNetLoader:
 
         Each stage that sweeps the data re-reads and re-decodes the tar
         shards: the disk is the backing tier, and the host holds
-        ``_PREFETCH + 1`` batches.  The labels stay in memory (4 bytes an
+        ``PREFETCH + 1`` batches.  The labels stay in memory (4 bytes an
         image)."""
         dev = resolve_device(device)
         entries = ImageNetLoader.index(path)
@@ -131,7 +129,7 @@ class ImageNetLoader:
             stage = None
         name = f"imagenet-stream:{os.path.abspath(path)}:{size[0]}x{size[1]}:b{batch_size}"
         return LabeledData(
-            StreamDataset(batches, n, name=name, prefetch=_PREFETCH, device=dev, stage=stage),
+            StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev, stage=stage),
             Dataset(labels, name=name + "-labels", device=dev),
         )
 
@@ -190,7 +188,7 @@ class ImageNetLoader:
 
         name = f"imagenet-synth-stream-n{n}-c{num_classes}-{size[0]}x{size[1]}-s{seed}-b{batch_size}"
         return LabeledData(
-            StreamDataset(batches, n, name=name, prefetch=_PREFETCH, device=dev),
+            StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev),
             Dataset(labels, name=name + "-labels", device=dev),
         )
 

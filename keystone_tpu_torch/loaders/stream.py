@@ -1,12 +1,15 @@
 """Host-side building blocks of a streamed dataset (counterpart of
-``keystone_tpu/loaders/stream.py`` § batched, prefetched, stream_labeled).
+``keystone_tpu/loaders/stream.py`` § batched, prefetched, stream_labeled,
+require_stream_test_path, resolve_train_source, add_stream_args).
 
 - ``batched``: a re-iterable batch source over an in-memory array;
 - ``prefetched``: a re-iterable source whose host work (decode,
   synthesis) runs on a producer thread, ``prefetch`` batches ahead of
   the consumer.  The thread makes host arrays only: every device copy
   stays on the consumer's thread;
-- ``stream_labeled``: an in-memory LabeledData's features as a stream.
+- ``stream_labeled``: an in-memory LabeledData's features as a stream;
+- ``require_stream_test_path``, ``resolve_train_source`` and
+  ``add_stream_args``: the ``--stream`` plumbing the apps share.
 
 ``resilient`` (per-batch retries, deadlines, a bad-batch quota), the
 fault points and the metrics counters wait for ROADMAP A9.
@@ -19,6 +22,9 @@ import threading
 from typing import Callable, Iterator
 
 import numpy as np
+
+#: batches a file loader's producer thread makes ahead of the consumer
+PREFETCH = 2
 
 
 def batched(array: np.ndarray, batch_size: int) -> Callable[[], Iterator[np.ndarray]]:
@@ -100,3 +106,33 @@ def stream_labeled(labeled, batch_size: int):
     data = labeled.data
     return LabeledData(StreamDataset(batched(data.numpy(), batch_size), n=data.n, device=data.device),
                        labeled.labels)
+
+
+def require_stream_test_path(config) -> None:
+    """An app run with ``stream`` and a training path must be given a
+    test path: evaluating on the training source would load the whole
+    of what streaming exists to keep out of memory."""
+    if config.stream and config.train_path and not config.test_path:
+        raise ValueError("--stream needs --test-path: evaluating on the training source would eagerly load the "
+                         "data streaming exists to avoid")
+
+
+def resolve_train_source(config, load, stream, synthetic):
+    """The training set of a ``--stream`` app, one of four: the files
+    streamed, the files loaded, the synthetic set as a stream (the demo
+    path), or the synthetic set.  ``load``/``stream`` take the path (and
+    ``stream`` a ``batch_size``), ``synthetic`` nothing."""
+    if config.stream and config.train_path:
+        return stream(config.train_path, batch_size=config.stream_batch_size)
+    if config.train_path:
+        return load(config.train_path)
+    if config.stream:
+        return stream_labeled(synthetic(), config.stream_batch_size)
+    return synthetic()
+
+
+def add_stream_args(parser, default_batch_size: int, noun: str) -> None:
+    """The ``--stream`` / ``--stream-batch-size`` arguments the apps share."""
+    parser.add_argument("--stream", "--out-of-core", action="store_true", dest="stream",
+                        help=f"re-read {noun} from disk every sweep; fits run out of core")
+    parser.add_argument("--stream-batch-size", type=int, default=default_batch_size)

@@ -1,6 +1,5 @@
 """Shared solver numerics (counterpart of ``keystone_tpu/models/common.py``
-§ solve_spd), and the refusal of the kernel tier's out-of-core paths,
-which need the row-block store."""
+§ solve_spd)."""
 
 from __future__ import annotations
 
@@ -17,12 +16,3 @@ def solve_spd(A: torch.Tensor, B: torch.Tensor, reg: float = 0.0) -> torch.Tenso
     L, _ = torch.linalg.cholesky_ex(A, check_errors=False)
     return torch.cholesky_solve(B, L)
 
-
-def needs_row_block_store(what: str) -> NotImplementedError:
-    """The refusal of a kernel-tier path that streams training rows from
-    disk: the port's block store holds feature columns (the BCD solvers'
-    out-of-core fits), and its row-blocked ``RowBlockStore`` is not ported."""
-    return NotImplementedError(
-        f"{what} needs the kernel tier's out-of-core row-block store (workflow/blockstore.py § RowBlockStore), "
-        "which the port does not have yet (ROADMAP A6)"
-    )

@@ -6,9 +6,9 @@ m landmark rows L sampled from the training set map
 
 so that φ(x)·φ(z)ᵀ ≈ K(x, z).  Both grams, K_LL at fit time and K(x, L)
 at apply time, go through the gram kernel on the card; the reference
-left the first to XLA's fusion of the generator chain.  Landmarks are
-drawn from an in-memory array only: sampling from a stream
-(``_sample_stream``) waits for the rest of the kernel tier (ROADMAP A6).
+left the first to XLA's fusion of the generator chain.  Fitted from a
+``StreamDataset``, the landmarks are collected in one pass over its
+batches (``_sample_stream``), the same rows the in-memory draw picks.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from keystone_tpu_torch.models.kernel_ridge import GaussianKernelGenerator
 from keystone_tpu_torch.ops.gram_kernels import gram_block
 from keystone_tpu_torch.utils import precision
 from keystone_tpu_torch.utils.device import resolve_device
+from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset
+from keystone_tpu_torch.workflow.estimator import Estimator
 from keystone_tpu_torch.workflow.transformer import Transformer
 
 
@@ -54,11 +56,13 @@ class NystromFeatureMap(Transformer):
         return precision.apply_dot(knm, self.whiten, mode=mode)
 
 
-class NystromFeatures:
+class NystromFeatures(Estimator):
     """Landmark sampling and the whitening solve; the fitted transformer
     is a ``NystromFeatureMap``.  ``num_landmarks`` rows are drawn
     uniformly without replacement by ``np.random.default_rng(seed)``,
-    exactly as the reference draws them, so both pick the same rows."""
+    exactly as the reference draws them, so both pick the same rows;
+    from a stream, the draw is made against its known row count and the
+    rows collected in one pass, so the stream never materializes."""
 
     def __init__(self, kernel_gen: GaussianKernelGenerator, num_landmarks: int = 1024,
                  reg: float = 1e-6, seed: int = 0, use_kernel: Optional[bool] = None):
@@ -68,13 +72,46 @@ class NystromFeatures:
         self.seed = int(seed)
         self.use_kernel = use_kernel
 
+    def params(self):
+        return (self.kernel_gen.gamma, self.num_landmarks, self.reg, self.seed)
+
+    def _draw(self, n: int) -> np.ndarray:
+        m = min(self.num_landmarks, n)
+        return np.sort(np.random.default_rng(self.seed).choice(n, size=m, replace=False))
+
+    def fit_dataset(self, data: Dataset) -> NystromFeatureMap:
+        """The fit on the data's device; a stream is sampled in one pass."""
+        if data.is_host:
+            raise TypeError("host-payload data reached NystromFeatures; featurize to arrays before the fit")
+        if isinstance(data, StreamDataset):
+            return self._fit_landmarks(self._sample_stream(data))
+        x = data.array[:data.n]
+        return self._fit_landmarks(x[torch.from_numpy(self._draw(data.n)).to(x.device)])
+
     def fit_arrays(self, x, device="cuda") -> NystromFeatureMap:
         """x: (n, d), numpy or a tensor; fitted on ``device``."""
         x = torch.as_tensor(x, dtype=torch.float32).to(resolve_device(device))
-        n = x.shape[0]
-        m = min(self.num_landmarks, n)
-        idx = np.sort(np.random.default_rng(self.seed).choice(n, size=m, replace=False))
-        return self._fit_landmarks(x[torch.from_numpy(idx).to(x.device)])
+        return self._fit_landmarks(x[torch.from_numpy(self._draw(x.shape[0])).to(x.device)])
+
+    def _sample_stream(self, data: StreamDataset) -> torch.Tensor:
+        """The rows the in-memory draw picks, gathered batch by batch on
+        the stream's device; the sweep stops after the last of them.
+        Raises when the stream delivers too few rows."""
+        idx = self._draw(data.n)
+        m = idx.shape[0]
+        rows, lo, take = [], 0, 0
+        for arr, _ in data.device_batches():
+            hi = lo + arr.shape[0]
+            stop = int(np.searchsorted(idx, hi))
+            if stop > take:
+                rows.append(arr[torch.from_numpy(idx[take:stop] - lo).to(arr.device)])
+                take = stop
+            lo = hi
+            if take >= m:
+                break
+        if take < m:
+            raise ValueError(f"stream delivered {lo} rows; cannot sample {m} landmarks from a declared n={data.n}")
+        return torch.cat(rows)
 
     def _fit_landmarks(self, lmk: torch.Tensor) -> NystromFeatureMap:
         lmk = lmk.to(torch.float32).contiguous()

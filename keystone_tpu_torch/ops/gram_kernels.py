@@ -10,7 +10,8 @@ shared tile body with two epilogues:
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain version, ``gram_block_ref`` / ``poly_block_ref``, only for a
-tensor on the CPU.  ``LAUNCHES`` counts the kernel launches.  Operands
+tensor on the CPU.  ``LAUNCHES`` counts the kernel launches and
+``LAUNCH_SHAPES`` the same launches by (name, n, m, d).  Operands
 may be f32 or bf16 (the reference's ``mxu='bf16'`` stream); the kernels
 compute in f32 either way.
 
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import torch
 
@@ -35,11 +37,14 @@ from keystone_tpu_torch.utils import precision
 
 #: kernel launches by wrapper name; reset with ``reset_launches``
 LAUNCHES = {"gram_block": 0, "poly_block": 0}
+#: the same launches by (wrapper name, n, m, d)
+LAUNCH_SHAPES: Counter = Counter()
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
 
 
 # ---------------------------------------------------------------- plain versions
@@ -116,6 +121,7 @@ def _launch(name, fn, x, z, *scalars):
         msg = _lib().ks_gram_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed ({rc}): {msg}")
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, n, m, d)] += 1
     return out
 
 

@@ -1,5 +1,5 @@
 """Image ops (counterpart of ``keystone_tpu/ops/images.py``
-§ PixelScaler, GrayScaler, CenterCornerPatcher).  Images are NHWC, as in
+§ PixelScaler, GrayScaler, ImageVectorizer, CenterCornerPatcher).  Images are NHWC, as in
 the reference."""
 
 from __future__ import annotations
@@ -40,6 +40,16 @@ class GrayScaler(Transformer):
         if xs.ndim == 3 or xs.shape[-1] == 1:
             return xs.reshape(xs.shape[:3])
         return xs.mean(dim=-1)
+
+
+class ImageVectorizer(Transformer):
+    """Image → flat vector (nodes/images/ImageVectorizer.scala)."""
+
+    def params(self):
+        return ()
+
+    def apply_batch(self, xs, mask=None):
+        return xs.reshape(xs.shape[0], -1)
 
 
 class CenterCornerPatcher(Transformer):

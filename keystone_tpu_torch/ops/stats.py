@@ -1,6 +1,7 @@
 """Row normalizers, column standardization and samplers (counterpart of
 ``keystone_tpu/ops/stats.py`` § SignedHellingerMapper, NormalizeRows,
-StandardScaler, StandardScalerModel, Sampler, ColumnSampler).  The
+StandardScaler, StandardScalerModel, Sampler, ColumnSampler; the
+scaler's Kahan step is ``keystone_tpu/models/common.py`` § kahan_add).  The
 samplers are transformers over a ``Dataset``: they read the whole set to
 draw from it, so they take no part in stage fusion.  Over a
 ``StreamDataset`` they sweep it once, keep only the drawn rows, and draw
@@ -15,6 +16,7 @@ import torch
 
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset
+from keystone_tpu_torch.workflow.estimator import Estimator
 from keystone_tpu_torch.workflow.transformer import Transformer, iter_row_chunks, tensor_identity
 
 
@@ -63,26 +65,94 @@ class StandardScalerModel(Transformer):
         return out
 
 
-class StandardScaler:
+class StandardScaler(Estimator):
     """Column mean and unbiased std (n − 1 denominator), the std clamped
-    below at ``eps``."""
+    below at ``eps`` (nodes/stats/StandardScaler.scala).  A
+    ``StreamDataset`` is fitted by ``fit_stream``, out of core.
+
+    The moments are summed in float64 and rounded to f32 once, where the
+    reference sums in f32: then a fit over one tensor and a fit over a
+    stream of batches, whose sums are taken in other orders, give the
+    same f32 mean and std, so that a streamed pipeline scales its rows,
+    and draws its landmarks, exactly as the in-memory one."""
 
     def __init__(self, normalize_std: bool = True, eps: float = 1e-8):
         self.normalize_std = normalize_std
         self.eps = float(eps)
 
+    def params(self):
+        return (self.normalize_std, self.eps)
+
+    def fit_dataset(self, data: Dataset) -> StandardScalerModel:
+        """The fit on the data's device."""
+        if isinstance(data, StreamDataset):
+            return self.fit_stream(lambda: (a for a, _ in data.device_batches()))
+        return self._fit(data.array[:data.n])
+
     def fit_arrays(self, x, device="cuda") -> StandardScalerModel:
         """x: (n, d), numpy or a tensor; fitted on ``device``."""
-        x = torch.as_tensor(x, dtype=torch.float32).to(resolve_device(device))
+        return self._fit(torch.as_tensor(x, dtype=torch.float32).to(resolve_device(device)))
+
+    def _fit(self, x) -> StandardScalerModel:
+        x = x.to(torch.float64)
         n = x.shape[0]
         mean = torch.sum(x, dim=0) / n
         # explicit centering before the square, as the reference: the
-        # Σx² − n·mean² shortcut cancels in f32
+        # Σx² − n·mean² shortcut cancels
         xc = x - mean
-        std = torch.sqrt(torch.sum(xc * xc, dim=0) / max(n - 1.0, 1.0))
+        return self._model(mean, torch.sum(xc * xc, dim=0), n)
+
+    def _model(self, mean, sq, n) -> StandardScalerModel:
+        """The model from the float64 mean and centred square sums."""
         if not self.normalize_std:
-            return StandardScalerModel(mean, None)
-        return StandardScalerModel(mean, torch.clamp(std, min=self.eps))
+            return StandardScalerModel(mean.to(torch.float32), None)
+        std = torch.sqrt(sq / max(n - 1.0, 1.0)).to(torch.float32)
+        return StandardScalerModel(mean.to(torch.float32), torch.clamp(std, min=self.eps))
+
+    def fit_stream(self, batches) -> StandardScalerModel:
+        """Moments over a stream of (n_i, d) batches, numpy or tensors (a
+        callable returning a fresh iterator, or a re-iterable), on the
+        first batch's device (numpy batches: the card).  Two passes, as
+        the reference: the means, then Σ(x − mean)² of explicitly centred
+        batches, both sums Kahan-compensated across batches."""
+        get = batches if callable(batches) else lambda: iter(batches)
+        dev = None
+
+        def staged():
+            nonlocal dev
+            for b in get():
+                if dev is None:
+                    dev = b.device if isinstance(b, torch.Tensor) else resolve_device()
+                yield torch.as_tensor(b).to(dev, torch.float64)
+
+        s1 = c1 = None
+        n = 0
+        for x in staged():
+            n += x.shape[0]
+            s1, c1 = _kahan_add(s1, c1, torch.sum(x, dim=0))
+        if n == 0:
+            raise ValueError("empty batch stream")
+        mean = s1 / n
+        s2 = c2 = None
+        n2 = 0
+        for x in staged():
+            n2 += x.shape[0]
+            xc = x - mean
+            s2, c2 = _kahan_add(s2, c2, torch.sum(xc * xc, dim=0))
+        if n2 != n:
+            raise ValueError(f"batch stream is not re-iterable: first pass saw {n} rows, second pass {n2}. Pass a "
+                             "callable returning a fresh iterator (or a re-iterable like a list).")
+        return self._model(mean, s2, n)
+
+
+def _kahan_add(s, c, inc):
+    """One compensated-summation step: (sum, compensation) after adding
+    ``inc``; the first step starts them from ``inc`` and zero."""
+    if s is None:
+        return inc, torch.zeros_like(inc)
+    y = inc - c
+    t = s + y
+    return t, (t - s) - y
 
 
 class Sampler(Transformer):

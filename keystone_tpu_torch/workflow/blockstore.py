@@ -1,6 +1,6 @@
-"""Disk-backed feature-block store for the out-of-core block solvers
-(counterpart of ``keystone_tpu/workflow/blockstore.py`` § _BlockStreamBase,
-FeatureBlockStore).
+"""Disk-backed block stores for the out-of-core solvers (counterpart of
+``keystone_tpu/workflow/blockstore.py`` § _BlockStreamBase,
+FeatureBlockStore, RowBlockStore).
 
 The reference fits wide Fisher-vector models by caching feature blocks
 and re-reading them per (epoch, block) of block coordinate descent
@@ -23,8 +23,11 @@ after its copy.
 ``iter_device_blocks`` is the card's feed: pinned host buffers and a side
 copy stream carry the copies, an event per block makes the compute
 stream wait for its copy, and ``_WINDOW`` bounds the blocks in flight.
-The row-blocked ``RowBlockStore`` is the kernel tier's and waits for
-ROADMAP A6; the reference's fault points and metrics for A9.
+``RowBlockStore`` is the kernel tier's: the same matrix split by example
+rows, one ``(block_size, d)`` file a row block, which the out-of-core
+kernel sweep streams through the same feed.  Both layouts are the
+reference's own, so a store written by either package reads in the
+other.  The reference's fault points and metrics wait for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -221,10 +224,7 @@ class FeatureBlockStore(_BlockStreamBase):
             chunk = x[:, b * bs:(b + 1) * bs]
             if chunk.shape[1] < bs:  # the last, ragged block: zero columns
                 chunk = torch.nn.functional.pad(chunk, (0, bs - chunk.shape[1]))
-            if self.dtype == "bfloat16":
-                raw = chunk.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
-            else:
-                raw = chunk.contiguous().numpy()
+            raw = _to_disk(chunk, self.dtype)
             mm = np.lib.format.open_memmap(self._block_path(self.directory, b), mode="r+")
             mm[start:stop] = raw
             del mm
@@ -241,15 +241,7 @@ class FeatureBlockStore(_BlockStreamBase):
         for b in range(self.num_blocks):
             path = self._block_path(self.directory, b)
             if self._hashers is not None and complete:
-                raw = np.load(path, mmap_mode="r")
-                h = hashlib.blake2b(digest_size=16)
-                step = max(1, (4 << 20) // max(1, raw.shape[1] * raw.itemsize))
-                for s in range(0, raw.shape[0], step):  # O(chunk) memory
-                    h.update(np.ascontiguousarray(raw[s:s + step]).tobytes())
-                del raw
-                if h.hexdigest() != self._hashers[b].hexdigest():
-                    raise durable.CorruptStateError(
-                        f"write verification failed for block {path}: the file does not hold the bytes written")
+                _verify_written(path, self._hashers[b], self.n)
             durable.write_checksum(path)
 
     @classmethod
@@ -282,27 +274,175 @@ class FeatureBlockStore(_BlockStreamBase):
         dtype (bf16 stays bf16: it is widened on the device).  A transient
         read error is retried; a truncated or damaged file raises
         ``CorruptStateError``, a sealed store's checksum is verified."""
-        path = self._block_path(self.directory, b)
-        expected = self.n * self.block_size * np.dtype(self._disk_dtype).itemsize
-
-        def read():
-            if os.path.getsize(path) < expected:
-                raise durable.CorruptStateError(
-                    f"truncated block {path}: {os.path.getsize(path)} bytes < {expected} of payload for shape "
-                    f"({self.n}, {self.block_size})")
-            durable.verify_checksum(path)
-            try:
-                raw = np.array(np.load(path, mmap_mode="r"))
-            except ValueError as e:  # header inconsistent with the size
-                raise durable.CorruptStateError(f"corrupt block {path}: {e}")
-            if raw.shape != (self.n, self.block_size):
-                raise durable.CorruptStateError(
-                    f"block {path} has shape {raw.shape}, expected ({self.n}, {self.block_size})")
-            return raw
-
-        t = torch.from_numpy(durable.with_retries(read, description=f"block read {path}"))
-        return t.view(torch.bfloat16) if self.dtype == "bfloat16" else t
+        return _read_block_file(self._block_path(self.directory, b), (self.n, self.block_size), self.dtype)
 
     def nbytes(self) -> int:
         """Bytes of the blocks' payload on disk."""
         return self.n * self.num_blocks * self.block_size * np.dtype(self._disk_dtype).itemsize
+
+
+def _to_disk(x: torch.Tensor, dtype: str) -> np.ndarray:
+    """f32 rows as the store's disk dtype: bf16 rounds to nearest even and
+    is kept as its uint16 bit patterns (npy has no bfloat16)."""
+    if dtype == "bfloat16":
+        return x.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    return x.contiguous().numpy()
+
+
+def _verify_written(path: str, hasher, rows: int) -> None:
+    """Hold the first ``rows`` rows of a block file against the digest of
+    the bytes written to them, in chunks of ~4 MiB (O(chunk) memory)."""
+    raw = np.load(path, mmap_mode="r")
+    h = hashlib.blake2b(digest_size=16)
+    step = max(1, (4 << 20) // max(1, raw.shape[1] * raw.itemsize))
+    for s in range(0, rows, step):
+        h.update(np.ascontiguousarray(raw[s:min(s + step, rows)]).tobytes())
+    del raw
+    if h.hexdigest() != hasher.hexdigest():
+        raise durable.CorruptStateError(
+            f"write verification failed for block {path}: the file does not hold the bytes written")
+
+
+def _read_block_file(path: str, shape: Tuple[int, int], dtype: str) -> torch.Tensor:
+    """One block file as a CPU tensor of ``dtype``: truncation and the
+    sealed checksum checked, a transient read error retried."""
+    expected = shape[0] * shape[1] * (2 if dtype == "bfloat16" else 4)
+
+    def read():
+        if os.path.getsize(path) < expected:
+            raise durable.CorruptStateError(
+                f"truncated block {path}: {os.path.getsize(path)} bytes < {expected} of payload for shape {shape}")
+        durable.verify_checksum(path)
+        try:
+            raw = np.array(np.load(path, mmap_mode="r"))
+        except ValueError as e:  # header inconsistent with the size
+            raise durable.CorruptStateError(f"corrupt block {path}: {e}")
+        if raw.shape != shape:
+            raise durable.CorruptStateError(f"block {path} has shape {raw.shape}, expected {shape}")
+        return raw
+
+    t = torch.from_numpy(durable.with_retries(read, description=f"block read {path}"))
+    return t.view(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+_ROW_META = "row_meta.json"
+
+
+class RowBlockStore(_BlockStreamBase):
+    """A row-blocked (n, d) matrix on disk: the kernel tier's out-of-core
+    feed.  Block ``b`` is ``X[b·bs : (b+1)·bs]``, one ``(block_size, d)``
+    file, the last block zero-padded on rows, so that every block the
+    kernel sweep streams has one shape.  Create it with ``create`` +
+    ``append_rows`` + ``finalize``, or ``from_array`` / ``from_batches``.
+
+    Layout (the reference's)::
+
+        row_meta.json        {"n": ..., "d": ..., "block_size": ..., "nb": ..., "dtype": ...}
+        rblock_0000.npy      (block_size, d) rows [0, bs)
+        rblock_0000.npy.b2   its BLAKE2b sidecar, once sealed
+    """
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        with open(os.path.join(directory, _ROW_META)) as f:
+            meta = json.load(f)
+        self.n = int(meta["n"])
+        self.d = int(meta["d"])
+        self.block_size = int(meta["block_size"])
+        self.num_blocks = int(meta["nb"])
+        self.dtype = str(meta.get("dtype", "float32"))
+        self._cursor: Optional[int] = None
+        self._hashers: Optional[list] = None
+
+    @classmethod
+    def create(cls, directory: str, n: int, d: int, block_size: int, dtype: str = "float32"):
+        """An empty store of (n, d) in blocks of ``block_size`` rows; fill
+        it with ``append_rows``, then ``finalize``."""
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype!r}")
+        os.makedirs(directory, exist_ok=True)
+        nb = -(-n // block_size)
+        meta = {"n": int(n), "d": int(d), "block_size": int(block_size), "nb": nb, "dtype": dtype}
+        with open(os.path.join(directory, _ROW_META), "w") as f:
+            json.dump(meta, f)
+        disk_dtype = np.uint16 if dtype == "bfloat16" else np.float32
+        for b in range(nb):
+            mm = np.lib.format.open_memmap(cls._block_path(directory, b), mode="w+", dtype=disk_dtype,
+                                           shape=(block_size, d))
+            del mm  # a flushed, zero-filled file
+        store = cls(directory)
+        store._cursor = 0
+        store._hashers = [hashlib.blake2b(digest_size=16) for _ in range(nb)]
+        return store
+
+    @staticmethod
+    def _block_path(directory: str, b: int) -> str:
+        return os.path.join(directory, f"rblock_{b:04d}.npy")
+
+    def append_rows(self, x) -> None:
+        """Write the next ``x.shape[0]`` rows, numpy or a tensor (a device
+        tensor is copied to the host first).  Sequential: a batch touches
+        only the block files its rows fall in."""
+        x = torch.as_tensor(x).detach().to("cpu", torch.float32)
+        if x.ndim != 2 or x.shape[1] != self.d:
+            raise ValueError(f"expected (m, {self.d}) rows, got {tuple(x.shape)}")
+        start = self._cursor or 0
+        stop = start + x.shape[0]
+        if stop > self.n:
+            raise ValueError(f"store holds {self.n} rows; write would reach {stop}")
+        bs = self.block_size
+        for b in range(start // bs, -(-stop // bs)):
+            lo, hi = max(start, b * bs), min(stop, (b + 1) * bs)
+            raw = _to_disk(x[lo - start:hi - start], self.dtype)
+            mm = np.lib.format.open_memmap(self._block_path(self.directory, b), mode="r+")
+            mm[lo - b * bs:hi - b * bs] = raw
+            del mm
+            if self._hashers is not None:
+                self._hashers[b].update(np.ascontiguousarray(raw).tobytes())
+        self._cursor = stop
+
+    def finalize(self) -> None:
+        """Seal a fully written store: each block's written rows held
+        against the digest of the bytes ``append_rows`` wrote (the final
+        block's padding rows were zero-filled and never written), then the
+        sidecar over the whole file, which every ``read_block`` verifies."""
+        complete = self._cursor == self.n
+        bs = self.block_size
+        for b in range(self.num_blocks):
+            path = self._block_path(self.directory, b)
+            if self._hashers is not None and complete:
+                _verify_written(path, self._hashers[b], min(bs, self.n - b * bs))
+            durable.write_checksum(path)
+
+    @classmethod
+    def from_array(cls, directory: str, x, block_size: int, dtype: str = "float32"):
+        x = torch.as_tensor(x)
+        store = cls.create(directory, x.shape[0], x.shape[1], block_size, dtype=dtype)
+        store.append_rows(x)
+        store.finalize()
+        return store
+
+    @classmethod
+    def from_batches(cls, directory: str, batches: Iterable, n: int, block_size: int, dtype: str = "float32"):
+        """A store of the (m_i, d) batches, numpy or tensors, in order
+        (Σ m_i must be n)."""
+        store = None
+        for batch in batches:
+            if store is None:
+                store = cls.create(directory, n, batch.shape[1], block_size, dtype=dtype)
+            store.append_rows(batch)
+        if store is None:
+            raise ValueError("empty batch stream")
+        if store._cursor != n:
+            raise ValueError(f"batch stream produced {store._cursor} rows, expected {n}")
+        store.finalize()
+        return store
+
+    def read_block(self, b: int) -> torch.Tensor:
+        """Row block ``b`` as a (block_size, d) CPU tensor of the store's
+        dtype, read as ``FeatureBlockStore.read_block`` reads."""
+        return _read_block_file(self._block_path(self.directory, b), (self.block_size, self.d), self.dtype)
+
+    def nbytes(self) -> int:
+        """Bytes of the blocks' payload on disk."""
+        return self.num_blocks * self.block_size * self.d * (2 if self.dtype == "bfloat16" else 4)

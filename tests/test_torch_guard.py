@@ -49,7 +49,7 @@ def test_every_module_imports_without_jax():
               "workflow.graph", "workflow.dataset", "workflow.transformer", "workflow.estimator",
               "workflow.executor", "workflow.optimizer", "workflow.pipeline", "loaders.labeled", "ops.images",
               "ops.filters", "workflow.blockstore", "loaders.stream", "loaders.jpeg", "utils.durable",
-              "utils.hashing"):
+              "utils.hashing", "loaders.cifar", "pipelines.kernel_cifar"):
         assert f"keystone_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -222,11 +222,23 @@ def test_graph_entry_points_default_to_the_card(tmp_path):
     from keystone_tpu_torch.loaders.labeled import LabeledData
     from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
     from keystone_tpu_torch.workflow.pipeline import Pipeline
-    from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
+    from keystone_tpu_torch.convert import kernel_cifar_params_from_numpy, oc_krr_mapper_from_numpy
+    from keystone_tpu_torch.loaders import cifar
+    from keystone_tpu_torch.loaders.cifar import CifarLoader
+    from keystone_tpu_torch.loaders.timit import TimitFeaturesDataLoader
+    from keystone_tpu_torch.pipelines import kernel_cifar
+    from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore, RowBlockStore
     from keystone_tpu_torch.workflow.transformer import Identity
 
     x = np.ones((4, 3), np.float32)
     store = FeatureBlockStore.from_array(str(tmp_path / "store"), x, block_size=2)
+    rows = RowBlockStore.from_array(str(tmp_path / "rows"), x, block_size=2)
+    np.save(tmp_path / "f.npy", np.ones((4, 440), np.float32))
+    np.save(tmp_path / "l.npy", np.zeros(4, np.int32))
+    cifar.write_records(str(tmp_path / "c.bin"), np.zeros((2, 32, 32, 3), np.float32), np.zeros(2, np.int32))
+    feats, labs, rec = str(tmp_path / "f.npy"), str(tmp_path / "l.npy"), str(tmp_path / "c.bin")
+    gen = kr.GaussianKernelGenerator(0.1)
+    _, kt_raw = _small_kernel_timit()
     tars = str(Path(__file__).parent / "data" / "imagenet_tars")
     entries = ImageNetLoader.index(tars)[:2]
     for call in (
@@ -245,6 +257,21 @@ def test_graph_entry_points_default_to_the_card(tmp_path):
         lambda: ImageNetLoader.stream(tars, size=(8, 8)),
         lambda: ImageNetLoader.load(tars, size=(8, 8)),
         lambda: ImageNetLoader.synthetic_stream(4, 2, (16, 16)),
+        # the kernel tier: both pipelines' runs, their loaders, the row store's
+        # feed, the out-of-core fit and its model, and the converters
+        lambda: kernel_timit.KernelTimitPipeline.run(kernel_timit.Config(num_landmarks=8, synthetic_n=64)),
+        lambda: kernel_cifar.KernelCifarPipeline.run(kernel_cifar.Config(num_landmarks=8, synthetic_n=32)),
+        lambda: TimitFeaturesDataLoader.load(feats, labs),
+        lambda: TimitFeaturesDataLoader.stream(feats, labs),
+        lambda: TimitFeaturesDataLoader.synthetic(8),
+        lambda: CifarLoader.load(rec),
+        lambda: CifarLoader.stream(rec),
+        lambda: CifarLoader.synthetic(8),
+        lambda: next(rows.iter_device_blocks([0])),
+        lambda: kr.KernelRidgeRegressionEstimator(gen, block_size=2).fit_store(rows, np.ones((4, 1), np.float32)),
+        lambda: kr.OutOfCoreKernelBlockLinearMapper(gen, rows.directory, np.zeros((4, 1), np.float32), 4),
+        lambda: oc_krr_mapper_from_numpy(np.zeros((4, 1), np.float32), rows.directory, 0.1),
+        lambda: kernel_cifar_params_from_numpy(kt_raw),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -260,3 +287,17 @@ def test_graph_run_on_the_cpu_launches_no_kernel():
     result = port.ImageNetSiftLcsFV.run(TINY_FIT, device="cpu")
     assert 0.0 <= result["top1_error"] <= 1.0
     assert not any(fisher_kernels.LAUNCHES.values()), fisher_kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_kernel_pipeline_runs_on_the_cpu_launch_no_kernel(stream):
+    from keystone_tpu_torch.pipelines import kernel_cifar
+
+    gram_kernels.reset_launches()
+    kernel_timit.KernelTimitPipeline.run(kernel_timit.Config(num_landmarks=16, solver_block_size=16, num_epochs=1,
+                                                             synthetic_n=128, stream=stream, stream_batch_size=50),
+                                         device="cpu")
+    kernel_cifar.KernelCifarPipeline.run(kernel_cifar.Config(num_landmarks=16, solver_block_size=16, num_epochs=1,
+                                                             synthetic_n=64, stream=stream, stream_batch_size=20),
+                                         device="cpu")
+    assert gram_kernels.LAUNCHES == {"gram_block": 0, "poly_block": 0} and not gram_kernels.LAUNCH_SHAPES

@@ -255,24 +255,6 @@ def test_jax_fitted_kernel_timit_carried_across():
     np.testing.assert_array_equal(scorer(x).numpy(), want)
 
 
-def test_out_of_core_and_disk_tier_name_their_roadmap_items(monkeypatch):
-    est = kr.KernelRidgeRegressionEstimator(kr.GaussianKernelGenerator(0.1), block_size=32,
-                                            cache_kernel_blocks=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        est.fit_stream_dataset(None, None)
-    with pytest.raises(NotImplementedError, match="A6"):
-        est.fit_store(None, None)
-    with pytest.raises(NotImplementedError, match="A6"):
-        kr.OutOfCoreKernelBlockLinearMapper(None, "/nonexistent", None, 0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        BlockKernelMatrix(kr.GaussianKernelGenerator(0.1), torch.zeros((4, 2)), spill_dir="spill")
-    x, y, _ = _problem()
-    # a budget one byte short of K (96 × 96 f32)
-    monkeypatch.setattr(profiling, "device_hbm_budget", lambda fraction, device: 96 * 96 * 4 - 1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        est.fit_arrays(x, y, device="cpu")
-
-
 def test_device_hbm_budget_cpu_fallback():
     assert profiling.device_hbm_budget() == 8 << 30
     assert profiling.device_hbm_budget(0.25, "cpu") == 4 << 30
