@@ -105,10 +105,42 @@ result line):
    B4, one column on the card): two sweeps, the second rereading every
    column from disk without a launch; the cached KRR fit taking the tier
    under a budget below K, its α bit for bit as the in-memory cached fit;
-16. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+16. main path, MnistRandomFFT.run through the graph at its Config (4 FFT
+   branches, λ 1e-2) on MNIST's 60 000 + 10 000 rows (synthetic, written
+   as the MNIST CSV here), in memory and streamed from the CSV in batches
+   of 4096: no kernel launched, fit seconds and peak device memory, the
+   two fits' weights and held-out scores together, the scores against
+   the float64 normal equations on the same features (one-pass TF32
+   control);
+17. main path, LinearPixels.run the same way on phase 13's CIFAR-10
+   record files (50 000 + 10 000), streamed in batches of 1024;
+18. main path, RandomPatchCifar.run at its Config (256 filters of 6×6×3,
+   10 patches an image, pool 13/13, α 0.25, blocks of 1024, 2
+   iterations, ZCA ε 0.1) on the same files: the Convolver's two forms
+   against each other and a float64 conv, timed at 32×32×3 and
+   128×128×3, and the whitened filter patches against a float64 eigh;
+19. main path, TimitPipeline.run at its Config (4096 cosine features in
+   blocks of 1024, γ 0.05, λ 1e-3, mixture weight 0.5, blocks of 1024,
+   3 epochs, 147 classes) on phase 12's .npy frames (262 144 + 65 536),
+   in memory and streamed in batches of 8192: scores and classes
+   together, the cosine features' phase against float64;
+20. main path, VOCSIFTFisher.run at its Config (SIFT step 6, bin 4, PCA
+   64, K = 16, 10 EM iterations, 64 descriptors an image, λ 1e-4,
+   mixture 0.25, blocks of 4096, 2 epochs, 64 px) on VOC 2007's 5011
+   trainval images (synthetic; run's own test set, then VOC's 4952 test
+   images scored by the fitted pipeline): in memory with B2 launched in
+   the fit and B1 in scoring through FvFusionRule (one fused node; the
+   general path 0), the same run on the plain FV chains, streamed in
+   batches of 32; the vocabularies, scores and mean AP of the three
+   against each other; B1 and B2 at VOC's shape against their plain
+   versions and float64; then the committed VOC fixture
+   (tests/data/voc) through nvJPEG against the reference's libjpeg
+   pixels, and run from its directories, in memory and streamed;
+21. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches, float64 errors) for all four
-   kernels, B3's and B4's times at the new paths' shapes among them, then
-   the last line {"ok": true, "device": {...}}.
+   kernels, B3's and B4's times at the new paths' shapes and B1's and
+   B2's at VOC's among them, then the last line {"ok": true, "device":
+   {...}}.
 
 Imports nothing of JAX; exits non-zero without a result when torch sees
 no CUDA device.
@@ -119,6 +151,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import logging
 import os
@@ -328,6 +361,61 @@ CIFAR_N, CIFAR_TEST_N = 50_000, 10_000
 TOL_PIPE_SCORES, RTOL_PIPE_SCORES, PIPE_AGREEMENT = 1e-3, 1e-3, 0.999
 PIPE_ACCURACY_MIN = 0.5  # the reference's own gate on both pipelines (tests/test_pipelines.py)
 TOL_WHITEN = 1e-5
+# ---- the dense apps, each fitted through the graph by its ``run`` at its
+# Config's widths: MnistRandomFFT on MNIST's split sizes (synthetic rows
+# written as the MNIST CSV), LinearPixels and RandomPatchCifar on
+# CIFAR-10's (the kernel CIFAR phase's record files), TimitPipeline on the
+# kernel TIMIT phase's frames, VOCSIFTFisher on VOC 2007's 5011 trainval
+# images (synthetic, 64 px; run's own test set is max(8, n // 3) images,
+# then VOC's 4952 test images are scored by the fitted pipeline).
+# Accuracy gates: the reference's own (tests/test_pipelines.py): 0.8
+# MNIST and LinearPixels, 0.6 RandomPatchCifar, 0.5 TIMIT, mean AP 0.2
+# VOC.  Streamed fits against in-memory ones: the linear apps' weights
+# within the app's TOL_LINEAR_W of the largest weight (Gramians summed
+# over stream batches and over 4096-row views, each with Kahan steps,
+# through a solve regularized by λn), scores as the kernel pipelines'
+# above; each fit's weights against the float64 normal equations on the
+# same features within that limit too, and the same fit with one-pass
+# TF32 products must leave it.  Each limit lies between the app's sound
+# readings and its TF32 one, on an H100 (700 W): MNIST 6.3e-5 and 6.2e-5
+# from float64, 4.3e-5 apart, TF32 2.28e-4; LinearPixels 1.6e-4 and
+# 6.4e-5, 1.8e-4 apart, TF32 6.67e-4 (over 50 000+ rows an f32
+# Gramian's error is mostly its accumulation's, which one-pass TF32
+# inputs, 2⁻¹¹ a row averaging out, raise only 3.6x and 4.1x).  Without a
+# kernel on the path, a path is held against float64 instead: its f32
+# error within the stated tolerance and at most 1/TF32_MARGIN of the
+# same computation's with one-pass TF32 products.
+MNIST_N, MNIST_TEST_N = 60_000, 10_000
+VOC_N, VOC_TEST_N = 5011, 4952
+DENSE_CHUNK = 128
+DENSE_ACCURACY_MIN, PATCH_ACCURACY_MIN, VOC_MAP_MIN = 0.8, 0.6, 0.2
+TOL_LINEAR_W = {"MnistRandomFFT": 1.5e-4, "LinearPixels": 3.5e-4}
+TF32_MARGIN = 4.0
+# a conv of 108-term sums, relative to the largest |output|: f32 rounds at
+# ~1e-7 a term (7e-7 to 9e-7 on an H100), one-pass TF32 at ~5e-4
+TOL_CONV_REL = 1e-5
+# the whitened filter patches, relative to the largest: an f32
+# eigendecomposition of the 108×108 covariance is exact to ~108·2⁻²⁴·‖C‖
+# (‖C‖ ≈ 1.8), which (λ + ε)^(−1/2) at ε = 0.1 carries into the map ×12
+# at most, ~1e-4; on an H100 3.2e-5, one-pass TF32 7.9e-4
+TOL_ZCA_REL = 1e-4
+# cos of a phase of ~1 (γ = 0.05 over 440 scaled dims): f32 ~1e-6
+TOL_COSINE = 1e-5
+# the Convolver's forms timed at RandomPatchCifar's images and a larger one
+CONV_SIZES = (32, 64, 96, 128, 160)
+# the mean AP of two fits whose features round apart (kernel and plain,
+# streamed and in memory) over 4952 images
+VOC_MAP_AGREE = 5e-3
+VOC_DIRS = {"images_dir": str(REPO / "tests" / "data" / "voc" / "JPEGImages"),
+            "annotations_dir": str(REPO / "tests" / "data" / "voc" / "Annotations")}
+VOC_PIXELS = REPO / "tests" / "data" / "voc_decoded.npy"
+VOC_FIXTURE_SIZE, VOC_FIXTURE_N, VOC_FIXTURE_MAP_MIN = (48, 48), 31, 0.5
+# nvJPEG against libjpeg on the VOC fixture (40–72 px colour gratings, 4:2:0,
+# quality 90, resized to 48 px by the same bilinear code): on an H100
+# (700 W) up to 29 levels (mean 3.2) at the gratings' edges, where the
+# decoders' chroma upsampling differs; a wrong decode reads 132 or more
+# there (``wrong_decodes``)
+VOC_NVJPEG_MAX_DIFF = 40
 # ---- the out-of-core kernel tier at the KRR geometry above: α of the
 # out-of-core sweep against the in-core sweep, the reference's 1e-5
 # (tests/test_kernel_oc.py:107), and its prediction r²
@@ -1107,6 +1195,31 @@ def graph_path(dev, card, P, fk, setup, params):
     return out, detail
 
 
+def fv_shape_check(label, kern, plain, exact, args, tol):
+    """A FV kernel on a fitted GMM at a path's shape: against the plain
+    chain in float64 (a fitted GMM leaves small variances, so the log
+    posterior and Φ² cancel terms of μ²/σ² ≫ 1, and two f32 chains
+    summing in other orders differ beyond the scorer's tolerance),
+    f32-grade (error ≤ F64_RATIO × the plain f32 chain's) where f32
+    itself leaves the tolerance, which one-pass TF32 must fail.  Returns
+    (the largest difference from the plain f32 chain, the f64 record)."""
+    got, p = kern(*args), plain(*args)
+    ref = exact(*args)
+    e_plain_f32 = max_err(got, p)
+    err, ratio = within(f"{label} vs the plain chain in float64", got, ref, tol)
+    e_p = max_err64(p, ref)
+    with tf32_matmul():
+        e_t = max_err64(plain(*args), ref)
+    print(f"  largest error against float64: kernel {err:.3e}, plain f32 chain {e_p:.3e} (ratio {err / e_p:.3f}, at "
+          f"most {F64_RATIO}{' where the tolerance is left' if ratio > 1 else ''}); one-pass TF32 {e_t:.3e} (ratio "
+          f"{e_t / e_p:.1f}, must exceed {F64_RATIO}); kernel against the plain f32 chain {e_plain_f32:.3e}",
+          flush=True)
+    if ratio > 1.0:
+        check(err <= F64_RATIO * e_p, f"{label}: not f32-grade against float64")
+    check(e_t > F64_RATIO * e_p, f"{label}: the check cannot tell TF32 from f32")
+    return e_plain_f32, {"kernel": err, "plain_f32": e_p, "tf32": e_t}
+
+
 def b2_fitted_check(phase_name, where, fk, cfg, images, fitted):
     """B2 on a fitted GMM at a fit's shape: ``images`` (one chunk or batch
     of the training set), normalized SIFT and LCS projected by the fitted
@@ -1126,33 +1239,20 @@ def b2_fitted_check(phase_name, where, fk, cfg, images, fitted):
             gm = fv.gmm
             a = (z, zm, gm.weights, gm.means, gm.variances)
             n, t, d = z.shape
-            label = f"B2 at {where}, {b} ({n}, {t}, {d}), K={FIT_GMM_K}"
-            got, plain = fk.fisher_encode(*a), fk.fisher_encode_ref(*a)
-            ref = fv_f64(*a)
-            b2["max_abs_err"] = max(b2["max_abs_err"], max_err(got, plain))
-            err, ratio = within(f"{label} vs the plain chain in float64", got, ref, TOL_FV)
-            e_plain = max_err64(plain, ref)
-            with tf32_matmul():
-                e_tf32 = max_err64(fk.fisher_encode_ref(*a), ref)
-            print(f"  largest error against float64: kernel {err:.3e}, plain f32 chain {e_plain:.3e} (ratio "
-                  f"{err / e_plain:.3f}, at most {F64_RATIO}{' where the tolerance is left' if ratio > 1 else ''}); "
-                  f"one-pass TF32 {e_tf32:.3e} (ratio {e_tf32 / e_plain:.1f}, must exceed {F64_RATIO}); "
-                  f"kernel against the plain f32 chain {max_err(got, plain):.3e}", flush=True)
-            if ratio > 1.0:
-                check(err <= F64_RATIO * e_plain, f"{label}: not f32-grade against float64")
-            check(e_tf32 > F64_RATIO * e_plain, f"{label}: the check cannot tell TF32 from f32")
-            b2["f64_check"][f"{b} ({n}, {t}, {d}) K={FIT_GMM_K}"] = {"kernel": err, "plain_f32": e_plain,
-                                                                     "tf32": e_tf32}
+            e, f64 = fv_shape_check(f"B2 at {where}, {b} ({n}, {t}, {d}), K={FIT_GMM_K}", fk.fisher_encode,
+                                    fk.fisher_encode_ref, fv_f64, a, TOL_FV)
+            b2["max_abs_err"] = max(b2["max_abs_err"], e)
+            b2["f64_check"][f"{b} ({n}, {t}, {d}) K={FIT_GMM_K}"] = f64
             b2["calls"].append((a, (n, t)))
-            del ref
         torch.cuda.synchronize()
     return b2
 
 
-def scores_pipeline(fitted):
-    """A fitted pipeline that ends in TopKClassifier, without it: the raw
-    class scores (the head may be fused into the last stage)."""
-    from keystone_tpu_torch.ops.util import TopKClassifier
+def split_at(fitted, cls):
+    """(a fitted pipeline that computes the input of the ``cls`` stage of
+    the sink's node, that stage): with the prediction head, the raw class
+    scores; with the model, its features (the stage may be fused into a
+    chain there)."""
     from keystone_tpu_torch.workflow import graph as WG
     from keystone_tpu_torch.workflow.optimizer import FusedTransformer
     from keystone_tpu_torch.workflow.pipeline import FittedPipeline
@@ -1160,13 +1260,22 @@ def scores_pipeline(fitted):
     g = fitted.graph
     node = g.sink_dependencies[fitted.sink]
     t = g.operators[node].transformer
-    if isinstance(t, TopKClassifier):
+    stages = list(getattr(t, "stages", [t]))
+    at = [j for j, st in enumerate(stages) if isinstance(st, cls)]
+    check(len(at) == 1, f"the fitted pipeline's last node is {t.label}, with no one {cls.__name__}")
+    if at[0] == 0:
         g = g.replace_dependency(node, g.dependencies[node][0]).remove_node(node)
     else:
-        check(isinstance(t, FusedTransformer) and isinstance(t.stages[-1], TopKClassifier),
-              f"the fitted pipeline ends in {t.label}")
-        g = g.set_operator(node, WG.TransformerOperator(FusedTransformer(list(t.stages)[:-1])))
-    return FittedPipeline(g, fitted.source, fitted.sink)
+        g = g.set_operator(node, WG.TransformerOperator(FusedTransformer(stages[:at[0]])))
+    return FittedPipeline(g, fitted.source, fitted.sink), stages[at[0]]
+
+
+def scores_pipeline(fitted):
+    """A fitted pipeline that ends in TopKClassifier, without it: the raw
+    class scores."""
+    from keystone_tpu_torch.ops.util import TopKClassifier
+
+    return split_at(fitted, TopKClassifier)[0]
 
 
 class MaterializeWatch(logging.Handler):
@@ -1322,6 +1431,22 @@ def stream_path(dev, card, P, fk, setup, graph_out, graph_detail):
     return out
 
 
+def wrong_decodes(got, ref, limit) -> dict:
+    """What a wrong decode would read from ``ref``, made from the same
+    output ``got``: channels swapped, chroma dropped, shifted one pixel.
+    A decoder's limit must stay below two thirds of each, so that it
+    tells a wrong decode from a sound one."""
+    good, ref = got.to(torch.int32), ref.to(torch.int32)
+    luma = torch.round(good.to(torch.float32) @ torch.tensor([0.299, 0.587, 0.114], device=good.device))
+    wrong = {"channels_swapped": int((good.flip(-1) - ref).abs().max()),
+             "chroma_dropped": int((luma[..., None].to(torch.int32) - ref).abs().max()),
+             "shifted_one_pixel": int((good.roll(1, dims=2) - ref).abs().max())}
+    print(f"  a wrong decode would read {wrong} levels (the limit {limit} must stay below two thirds of each)",
+          flush=True)
+    check(1.5 * limit < min(wrong.values()), f"the limit cannot tell a wrong decode: {wrong}")
+    return wrong
+
+
 def tar_path(dev, card, P):
     """The ImageNet tar loader on the committed fixture, decoded on the card."""
     from keystone_tpu_torch.loaders import jpeg
@@ -1349,16 +1474,7 @@ def tar_path(dev, card, P):
               "load did not skip the undecodable member alone")
         check(torch.equal(mem.data.array, got[keep]), "load and stream decode differently")
         check(int(diff.max()) <= NVJPEG_MAX_DIFF, f"nvJPEG's pixels {int(diff.max())} levels from libjpeg's")
-        # what a wrong decode would read, from the same output: the limit
-        # must tell it from a sound one
-        good, ref_good = got[keep].to(torch.int32), ref[keep].to(torch.int32)
-        luma = torch.round(good.to(torch.float32) @ torch.tensor([0.299, 0.587, 0.114], device=dev))
-        wrong = {"channels_swapped": int((good.flip(-1) - ref_good).abs().max()),
-                 "chroma_dropped": int((luma[..., None].to(torch.int32) - ref_good).abs().max()),
-                 "shifted_one_pixel": int((good.roll(1, dims=2) - ref_good).abs().max())}
-        print(f"  a wrong decode would read {wrong} levels (the limit {NVJPEG_MAX_DIFF} must stay below two "
-              f"thirds of each)", flush=True)
-        check(1.5 * NVJPEG_MAX_DIFF < min(wrong.values()), f"the limit cannot tell a wrong decode: {wrong}")
+        wrong = wrong_decodes(got[keep], ref[keep], NVJPEG_MAX_DIFF)
         check(jpeg.LAUNCHES["nvjpeg"] > 0 and jpeg.LAUNCHES["libjpeg"] == 0, f"decoders {jpeg.LAUNCHES}")
         cfg = P.Config(num_classes=3, image_size=TAR_SIZE[0], gmm_k=4, pca_dims=16, num_epochs=2,
                        descriptor_samples_per_image=16, solver_block_size=64, stream=True, stream_batch_size=5,
@@ -1426,14 +1542,15 @@ def counted_run(label, gk, fk, fn):
 @contextlib.contextmanager
 def fit_timer():
     """Times ``Pipeline.fit`` (ended by a synchronize) and, inside it, the
-    block solver's spill to a FeatureBlockStore and its out-of-core solve;
+    block solvers' spill to a FeatureBlockStore and their out-of-core solve;
     the methods are restored on exit."""
     from keystone_tpu_torch.models.block_ls import BlockLeastSquaresEstimator as BLS
+    from keystone_tpu_torch.models.block_weighted_ls import BlockWeightedLeastSquaresEstimator as BWLS
     from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
     from keystone_tpu_torch.workflow.pipeline import Pipeline
 
     t = {"fit": 0.0, "spill": 0.0, "solve": 0.0}
-    fit, spill, solve = Pipeline.fit, FeatureBlockStore.from_batches.__func__, BLS.fit_store
+    fit, spill, solve, wsolve = Pipeline.fit, FeatureBlockStore.from_batches.__func__, BLS.fit_store, BWLS.fit_store
 
     def timed(key, fn):
         def wrapper(*a, **kw):
@@ -1444,12 +1561,13 @@ def fit_timer():
             return out
         return wrapper
 
-    Pipeline.fit, BLS.fit_store = timed("fit", fit), timed("solve", solve)
+    Pipeline.fit, BLS.fit_store, BWLS.fit_store = timed("fit", fit), timed("solve", solve), timed("solve", wsolve)
     FeatureBlockStore.from_batches = classmethod(timed("spill", spill))
     try:
         yield t
     finally:
-        Pipeline.fit, BLS.fit_store, FeatureBlockStore.from_batches = fit, solve, classmethod(spill)
+        Pipeline.fit, BLS.fit_store, BWLS.fit_store = fit, solve, wsolve
+        FeatureBlockStore.from_batches = classmethod(spill)
 
 
 def chunk_launches(rows, chunk, m, d):
@@ -1951,6 +2069,597 @@ def gram_lines(gk, serving, krr_x, errs, f64, results):
     return [gram, poly]
 
 
+# ---------------------------------------------------------------- the dense apps
+
+
+def cuda_storages(min_bytes=0) -> dict:
+    """The CUDA storages that live Python tensors hold, of at least
+    ``min_bytes``: data pointer → (bytes, the largest view's shape)."""
+    out = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            if st.nbytes() >= min_bytes and (st.data_ptr() not in out or o.numel() > np.prod(out[st.data_ptr()][1])):
+                out[st.data_ptr()] = (st.nbytes(), tuple(o.shape))
+    return out
+
+
+@contextlib.contextmanager
+def solve_memory_probe():
+    """The device memory at the dense apps' solver.  On entry to the first
+    ``Pipeline.fit``, the peak so far (loading and building).  On entry to
+    the solver's outermost ``fit_dataset``: the bytes live (the featurized
+    training set and what else the run holds), the peak so far (the
+    featurization's) and the largest CUDA storages that live tensors
+    hold; on its exit the peak again (the solve's, where it is higher).
+    ``seconds`` is the probe's own time, for the caller to take off the
+    fit's; the methods are restored on exit."""
+    from keystone_tpu_torch.models.block_ls import BlockLeastSquaresEstimator as BLS
+    from keystone_tpu_torch.models.block_weighted_ls import BlockWeightedLeastSquaresEstimator as BWLS
+    from keystone_tpu_torch.models.linear import LinearMapEstimator, LocalLeastSquaresEstimator
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    rec = {"seconds": 0.0}
+    depth = [0]
+    classes = (BLS, BWLS, LinearMapEstimator, LocalLeastSquaresEstimator)
+    own = {cls: cls.__dict__.get("fit_dataset") for cls in classes}
+    fit = Pipeline.fit
+
+    def fit_entry(*a, **kw):
+        if "peak_before_fit" not in rec:
+            torch.cuda.synchronize()
+            rec["peak_before_fit"] = torch.cuda.max_memory_allocated()
+        return fit(*a, **kw)
+
+    def wrap(fn):
+        def wrapper(*a, **kw):
+            if depth[0]:
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            rec["live_at_solve"] = torch.cuda.memory_allocated()
+            rec["peak_before_solve"] = torch.cuda.max_memory_allocated()
+            rec["storages"] = cuda_storages(64 * 2**20)
+            rec["seconds"] += time.perf_counter() - t0
+            depth[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                torch.cuda.synchronize()
+                rec["peak_after_solve"] = torch.cuda.max_memory_allocated()
+        return wrapper
+
+    for cls in classes:
+        cls.fit_dataset = wrap(cls.fit_dataset)
+    Pipeline.fit = fit_entry
+    try:
+        yield rec
+    finally:
+        Pipeline.fit = fit
+        for cls, fn in own.items():
+            if fn is None:
+                delattr(cls, "fit_dataset")
+            else:
+                cls.fit_dataset = fn
+
+
+def app_run(label, card, gk, fk, run, cfg, n):
+    """One dense app's ``run`` on the card, every launch count set to 0 just
+    before and read just after: its ``Pipeline.fit`` seconds (the spill and
+    the out-of-core solve apart), the whole run's, the peak device memory
+    above the run's start, and where it peaks: the featurization's peak,
+    the bytes live when the solver starts (with the largest storages the
+    run made) and the solve's peak.  Returns (result, detail, record,
+    launches)."""
+    detail = {}
+    before = cuda_storages()
+    with fit_timer() as ft, solve_memory_probe() as mp:
+        torch.cuda.synchronize()
+        reset_all(gk, fk)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run(cfg, out=detail)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0 - mp["seconds"]
+        peak = torch.cuda.max_memory_allocated() - base
+    fit_s = ft["fit"] - mp["seconds"]
+    launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    metric = "mean_ap" if "mean_ap" in res else "accuracy"
+    print(f"  Pipeline.fit {fit_s:.3f} s ({n / fit_s:.1f} training items/s; of it the solver's spill "
+          f"{ft['spill']:.3f} s, its out-of-core solve {ft['solve']:.3f} s); run's fit_seconds (making or loading "
+          f"the training set, and building, included) {res['fit_seconds']:.3f} s, the whole run {dt:.3f} s; "
+          f"held-out {metric} {res[metric]:.4f}; peak device memory {peak / 2**30:.3f} GiB above the run's start "
+          f"({card})", flush=True)
+    gib = 2.0 ** 30
+    made = sorted(((b, shape) for ptr, (b, shape) in mp["storages"].items() if ptr not in before), reverse=True)
+    where = {"build_peak": mp["peak_before_fit"] - base, "featurize_peak": mp["peak_before_solve"] - base,
+             "live_at_solve": mp["live_at_solve"] - base, "solve_peak": mp["peak_after_solve"] - base,
+             "largest_at_solve": [[b, list(sh)] for b, sh in made[:8]]}
+    print(f"  where it peaks (above the run's start): loading and building {where['build_peak'] / gib:.3f} GiB; "
+          f"with the featurization {where['featurize_peak'] / gib:.3f} GiB; live when the solver starts "
+          f"{where['live_at_solve'] / gib:.3f} GiB, of it the run's storages of 64 MiB or more: "
+          + (", ".join(f"{sh} {b / gib:.3f}" for b, sh in made[:8]) or "none")
+          + f"; the solve's peak {where['solve_peak'] / gib:.3f} GiB", flush=True)
+    print(f"  launches {launches}", flush=True)
+    check(not res["model_loaded"], f"{label}: loaded a model")
+    record = {"fit_seconds": fit_s, "spill_seconds": ft["spill"], "oc_solve_seconds": ft["solve"],
+              "run_fit_seconds": res["fit_seconds"], "run_seconds": dt, "items_per_s": n / fit_s,
+              metric: res[metric], "peak_bytes": peak, "peak_by_stage": where}
+    return res, detail, record, launches
+
+
+def no_launch(label, launches) -> None:
+    check(not any(launches.values()), f"{label}: a kernel launched on a path without one: {launches}")
+
+
+def f32_grade(label, f32_err, tf32_err, tol) -> dict:
+    """A dense path without a kernel against float64: its f32 error within
+    ``tol`` and at most 1/TF32_MARGIN of the same computation's with
+    one-pass TF32 products (which tells that TF32 is off)."""
+    print(f"  {label} against float64: f32 {f32_err:.3e} (at most {tol:.0e}); one-pass TF32 {tf32_err:.3e} (at "
+          f"least {TF32_MARGIN}x the f32 error)", flush=True)
+    check(f32_err <= tol, f"{label}: {f32_err:.3e} from float64")
+    check(tf32_err >= TF32_MARGIN * f32_err, f"{label}: the check cannot tell TF32 from f32")
+    return {"f32": f32_err, "tf32": tf32_err}
+
+
+@contextlib.contextmanager
+def tf32_everything():
+    """One-pass TF32 for f32 matmuls and cuDNN convolutions (a negative
+    control), restored after."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with tf32_matmul():
+            yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def applied(fitted, x):
+    """A fitted pipeline's output on the tensor x, through the graph."""
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    return fitted(Dataset(x)).get().array
+
+
+def ridge_f64(feats, y, lam):
+    """The centred ridge solution in float64 (the normal equations of
+    ``models/linear.py``): (W, b)."""
+    x, y = feats.double(), y.double()
+    xm, ym = x.mean(0), y.mean(0)
+    xc, yc = x - xm, y - ym
+    w = torch.linalg.solve(xc.T @ xc + lam * x.shape[0] * torch.eye(x.shape[1], dtype=torch.float64,
+                                                                      device=x.device), xc.T @ yc)
+    return w, ym - xm @ w
+
+
+def linear_app_pair(label, card, gk, fk, run, cfg, stream_cfg, n, test_x, train_x, train_y, num_classes):
+    """A linear app (MnistRandomFFT, LinearPixels) in memory, then streamed:
+    launches (none), fit seconds, peak memory; the two fits' weights and
+    held-out scores held together; both fits' weights and the in-memory
+    scores against the float64 normal equations on the same features,
+    with a one-pass TF32 control that must leave the app's limit."""
+    from keystone_tpu_torch.models.linear import LinearMapEstimator, LinearMapper
+    from keystone_tpu_torch.ops.util import ClassLabelIndicators
+
+    tol = TOL_LINEAR_W[label]
+    out, fitted = {}, {}
+    for mode, c in (("in memory", cfg), ("stream", stream_cfg)):
+        with phase(f"main path: {label}.run, {mode}"):
+            res, detail, rec, launches = app_run(f"{label} {mode}", card, gk, fk, run, c, n)
+            no_launch(f"{label} {mode}", launches)
+            check(res["accuracy"] >= DENSE_ACCURACY_MIN, f"{label} {mode}: accuracy {res['accuracy']:.4f}")
+            fitted[mode] = detail["fitted"]
+            out[mode] = {**rec, "predictions": detail["predictions"]}
+    with phase(f"{label}: the streamed fit against the in-memory fit; both against float64"):
+        feat, lm = split_at(fitted["in memory"], LinearMapper)
+        feat_s, lm_s = split_at(fitted["stream"], LinearMapper)
+        feats = applied(feat, train_x)
+        y = ClassLabelIndicators(num_classes)(train_y)
+        w64, b64 = ridge_f64(feats, y, cfg.lam)
+        scale = w64.abs().max().item()
+        with tf32_matmul():
+            w_t = LinearMapEstimator(cfg.lam).fit_arrays(feats, y, device=feats.device).weights
+        e_t = max_err64(w_t, w64) / scale
+        print(f"  {label} weights with one-pass TF32 products against the float64 normal equations: {e_t:.3e} of "
+              f"|w| max {scale:.3e} (must exceed {tol:.1e})", flush=True)
+        check(e_t > tol, f"{label}: the weight limit cannot tell TF32 from f32 ({e_t:.3e})")
+        out["f64_check"] = {"tf32": e_t, "limit": tol}
+        for mode, m in (("in memory", lm), ("stream", lm_s)):
+            e = max_err64(m.weights, w64) / scale
+            print(f"  {label} weights, {mode}, against the float64 normal equations: {e:.3e} of |w| max {scale:.3e} "
+                  f"(at most {tol:.1e})", flush=True)
+            check(e <= tol, f"{label} weights, {mode}: {e:.3e} from float64")
+            out["f64_check"][mode] = e
+        w_err = max_err(lm_s.weights, lm.weights) / scale
+        print(f"  weights, stream vs in memory: largest difference {w_err:.3e} of the largest weight (at most "
+              f"{tol:.1e})", flush=True)
+        check(w_err <= tol, f"{label}: the streamed weights differ by {w_err:.3e}")
+        test_feats = applied(feat, test_x)
+        sa, sb = lm(test_feats), lm_s(applied(feat_s, test_x))
+        err = compare("held-out scores, stream vs in memory", sb, sa, TOL_PIPE_SCORES, RTOL_PIPE_SCORES)
+        s64 = test_feats.double() @ w64 + b64
+        e_s = compare("held-out scores, in memory vs the float64 fit", sa, s64, TOL_PIPE_SCORES, RTOL_PIPE_SCORES)
+        pa, pb = out["in memory"].pop("predictions"), out["stream"].pop("predictions")
+        agree = float((pa == pb).mean())
+        print(f"  predicted classes agree on {agree:.6f} of {len(pa)}", flush=True)
+        check(agree >= PIPE_AGREEMENT, f"{label}: classes agree on {agree:.6f}")
+        out["agreement"] = {"weights_rel": w_err, "scores_max_abs_err": err, "scores_vs_f64": e_s, "classes": agree}
+        del feats, test_feats
+    return out
+
+
+def mnist_path(dev, card, gk, fk, tmp):
+    """MnistRandomFFT.run at its Config (4 FFT branches, λ 1e-2) on MNIST's
+    split sizes, synthetic rows written as the MNIST CSV: in memory
+    (``load``) and streamed from the CSV in batches of 4096."""
+    from keystone_tpu_torch.loaders.mnist import MnistLoader, write_csv
+    from keystone_tpu_torch.pipelines import mnist_random_fft as M
+
+    with phase("MnistRandomFFT: the CSV files"):
+        M.MnistRandomFFT.run(M.Config(synthetic_n=1024), dev)  # warm-up, not counted
+        t0 = time.perf_counter()
+        paths = {}
+        for key, n, seed in (("train_path", MNIST_N, 1), ("test_path", MNIST_TEST_N, 2)):
+            paths[key] = str(tmp / f"{key}.csv")
+            write_csv(paths[key], *MnistLoader.synthetic_arrays(n, seed))
+        print(f"  {MNIST_N} + {MNIST_TEST_N} rows written in {time.perf_counter() - t0:.2f} s "
+              f"({os.path.getsize(paths['train_path'])} bytes of training CSV)", flush=True)
+        train = MnistLoader.load(paths["train_path"], device=dev)
+        test_x = MnistLoader.load(paths["test_path"], device=dev).data.array
+    cfg = M.Config(**paths)
+
+    def run(c, out):
+        return M.MnistRandomFFT.run(c, dev, out=out)
+
+    return linear_app_pair("MnistRandomFFT", card, gk, fk, run, cfg,
+                           dataclasses.replace(cfg, stream=True, stream_batch_size=cfg.stream_batch_size), MNIST_N,
+                           test_x, train.data.array, train.labels.array, 10)
+
+
+def linear_pixels_path(dev, card, gk, fk, cifar_paths):
+    """LinearPixels.run at its Config (λ 1e-3) on the CIFAR record files of
+    the kernel CIFAR phase: in memory and streamed in batches of 1024."""
+    from keystone_tpu_torch.loaders.cifar import CifarLoader
+    from keystone_tpu_torch.pipelines import linear_pixels as LP
+
+    LP.LinearPixels.run(LP.Config(synthetic_n=1024), dev)  # warm-up, not counted
+    cfg = LP.Config(**cifar_paths)
+    train = CifarLoader.load(cifar_paths["train_path"], device=dev)
+    test_x = CifarLoader.load(cifar_paths["test_path"], device=dev).data.array
+
+    def run(c, out):
+        return LP.LinearPixels.run(c, dev, out=out)
+
+    return linear_app_pair("LinearPixels", card, gk, fk, run, cfg, dataclasses.replace(cfg, stream=True), CIFAR_N,
+                           test_x, train.data.array, train.labels.array, 10)
+
+
+def conv_f64(x, filters, offset, stride=1):
+    out = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2), filters.double().permute(0, 3, 1, 2),
+                                     stride=stride).permute(0, 2, 3, 1)
+    return out if offset is None else out + offset.double()
+
+
+def convolver_forms(card, conv):
+    """The Convolver's two forms on ``conv``'s filters at RandomPatchCifar's
+    shape (a chunk of 128 32×32×3 images) and at 128×128×3: against each
+    other and a float64 conv (f32-grade, with a one-pass TF32 control),
+    and each form's device time."""
+    from keystone_tpu_torch.ops.images import Convolver, _pick_conv_strategy
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    out = {}
+    for hw in CONV_SIZES:
+        x = torch.rand((DENSE_CHUNK, hw, hw, 3), generator=g, device=DEVICE)
+        forms = {s: Convolver(conv.filters, offset=conv.offset, strategy=s) for s in ("direct", "im2col")}
+        got = {s: f(x) for s, f in forms.items()}
+        ref = conv_f64(x, conv.filters, conv.offset)
+        scale = ref.abs().max().item()
+        # each form with one-pass TF32 products: cuDNN's conv (the Convolver
+        # itself turns its TF32 off), the im2col product
+        with tf32_everything():
+            tf32 = {"direct": torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), conv.filters.permute(0, 3, 1, 2))
+                    .permute(0, 2, 3, 1) + conv.offset, "im2col": forms["im2col"](x)}
+        label = f"({DENSE_CHUNK}, {hw}, {hw}, 3) * {tuple(conv.filters.shape)}"
+        entry = {"shape": label}
+        for s, o in got.items():
+            entry[s] = {"f64_check": f32_grade(f"Convolver {s} {label}, relative to |ref| max {scale:.3e}",
+                                               max_err64(o, ref) / scale, max_err64(tf32[s], ref) / scale,
+                                               TOL_CONV_REL),
+                        "ms": cuda_ms(lambda f=forms[s]: f(x), reps=10)}
+        diff = max_err(got["direct"], got["im2col"]) / scale
+        print(f"  {label}: direct {entry['direct']['ms']:.4f} ms, im2col {entry['im2col']['ms']:.4f} ms; the forms "
+              f"{diff:.3e} apart (relative); auto picks {_pick_conv_strategy(hw, hw, tuple(conv.filters.shape), 1)} "
+              f"({card})", flush=True)
+        check(diff <= TOL_CONV_REL, f"the Convolver's forms differ by {diff:.3e} at {label}")
+        entry["forms_rel_diff"] = diff
+        out[f"{hw}x{hw}x3"] = entry
+        del x, got, ref, tf32
+    return out
+
+
+def random_patch_path(dev, card, gk, fk, cifar_paths):
+    """RandomPatchCifar.run at its Config on the CIFAR record files; the
+    Convolver's two forms; the ZCA whitening against float64."""
+    from keystone_tpu_torch.loaders.cifar import CifarLoader
+    from keystone_tpu_torch.models.zca import ZCAWhitenerEstimator, _zca_fit
+    from keystone_tpu_torch.ops.images import Convolver, RandomPatcher, _pick_conv_strategy
+    from keystone_tpu_torch.pipelines import random_patch_cifar as RP
+
+    RP.RandomPatchCifar.run(RP.Config(synthetic_n=1024), dev)  # warm-up, not counted
+    cfg = RP.Config(**cifar_paths)
+    out = {}
+    with phase("main path: RandomPatchCifar.run"):
+        res, detail, rec, launches = app_run("RandomPatchCifar", card, gk, fk,
+                                             lambda c, out: RP.RandomPatchCifar.run(c, dev, out=out), cfg, CIFAR_N)
+        no_launch("RandomPatchCifar", launches)
+        check(res["accuracy"] >= PATCH_ACCURACY_MIN, f"accuracy {res['accuracy']:.4f}")
+        conv = [st for st in fitted_stages(detail["fitted"]) if isinstance(st, Convolver)]
+        check(len(conv) == 1, f"{len(conv)} Convolvers in the fitted pipeline")
+        # "auto" resolves per images' shape when a batch is applied
+        form = conv[0].strategy
+        if form == "auto":
+            form = _pick_conv_strategy(32, 32, tuple(conv[0].filters.shape), 1)
+        print(f"  the fitted Convolver's strategy {conv[0].strategy!r}: the {form} form on 32×32 images", flush=True)
+        out.update(rec, strategy=form)
+    with phase("RandomPatchCifar: the Convolver's two forms against each other and float64; times"):
+        out["convolver"] = convolver_forms(card, conv[0])
+    with phase("RandomPatchCifar: the ZCA whitening against float64"):
+        train = CifarLoader.load(cifar_paths["train_path"], device=dev)
+        patches = RandomPatcher(cfg.patches_per_image, cfg.patch_size, cfg.patch_size, seed=cfg.seed).apply_dataset(
+            train.data).array
+        del train
+        filt = patches[:cfg.num_filters]
+        white = ZCAWhitenerEstimator(eps=cfg.zca_eps).fit_arrays(patches, device=dev)
+        x64 = patches.double()
+        mean64 = x64.mean(0)
+        xc = x64 - mean64
+        ev, vec = torch.linalg.eigh(xc.T @ xc / x64.shape[0])
+        w64 = (vec / torch.sqrt(ev.clamp(min=0.0) + cfg.zca_eps)) @ vec.T
+        ref = (filt.double() - mean64) @ w64  # the whitened patches the filters are made of
+        scale = ref.abs().max().item()
+        e32 = max_err64(white(filt), ref) / scale
+        with tf32_matmul():
+            wt, mt = _zca_fit(patches, cfg.zca_eps)
+            e_t = max_err64((filt - mt) @ wt, ref) / scale
+        print(f"  {tuple(patches.shape)} patches; covariance eigenvalues {ev.min().item():.3e}..{ev.max().item():.3e}; "
+              f"the whitener against float64: {max_err64(white.whitener, w64):.3e}", flush=True)
+        out["zca_f64_check"] = f32_grade(f"the {cfg.num_filters} whitened filter patches, relative to |ref| max "
+                                         f"{scale:.3e}", e32, e_t, TOL_ZCA_REL)
+        del patches, x64, xc
+    return out
+
+
+def timit_path(dev, card, gk, fk, timit_dir):
+    """TimitPipeline.run at its Config on the kernel TIMIT phase's .npy
+    frames (262 144 + 65 536): in memory, then streamed in batches of
+    8192; the cosine features' phase against float64."""
+    from keystone_tpu_torch.ops.stats import CosineRandomFeatures, StandardScalerModel
+    from keystone_tpu_torch.ops.util import MaxClassifier
+    from keystone_tpu_torch.pipelines import timit as T
+
+    paths = {"features_path": str(timit_dir / "features.npy"), "labels_path": str(timit_dir / "features_labels.npy"),
+             "test_features_path": str(timit_dir / "test_features.npy"),
+             "test_labels_path": str(timit_dir / "test_features_labels.npy")}
+    T.TimitPipeline.run(T.Config(synthetic_n=4096), dev)  # warm-up, not counted
+    cfg = T.Config(**paths)
+    out, fitted = {}, {}
+    for mode, c in (("in memory", cfg), ("stream", dataclasses.replace(cfg, stream=True))):
+        with phase(f"main path: TimitPipeline.run, {mode}"):
+            res, detail, rec, launches = app_run(f"TimitPipeline {mode}", card, gk, fk,
+                                                 lambda c, out: T.TimitPipeline.run(c, dev, out=out), c, KT_N)
+            no_launch(f"TimitPipeline {mode}", launches)
+            check(res["accuracy"] >= PIPE_ACCURACY_MIN, f"{mode}: accuracy {res['accuracy']:.4f}")
+            fitted[mode] = detail["fitted"]
+            out[mode] = {**rec, "predictions": detail["predictions"]}
+    test_x = torch.from_numpy(np.load(paths["test_features_path"])).to(dev)
+    with phase("TimitPipeline: the streamed fit against the in-memory fit; the phase against float64"):
+        sa = applied(split_at(fitted["in memory"], MaxClassifier)[0], test_x)
+        sb = applied(split_at(fitted["stream"], MaxClassifier)[0], test_x)
+        err = compare("held-out scores, stream vs in memory", sb, sa, TOL_PIPE_SCORES, RTOL_PIPE_SCORES)
+        pa, pb = out["in memory"].pop("predictions"), out["stream"].pop("predictions")
+        agree = float((pa == pb).mean())
+        print(f"  predicted classes agree on {agree:.6f} of {len(pa)}", flush=True)
+        check(agree >= PIPE_AGREEMENT, f"classes agree on {agree:.6f}")
+        out["agreement"] = {"scores_max_abs_err": err, "classes": agree}
+        stages = fitted_stages(fitted["in memory"])
+        scaler = [s for s in stages if isinstance(s, StandardScalerModel)][0]
+        crf = [s for s in stages if isinstance(s, CosineRandomFeatures)]
+        check(len(crf) == cfg.num_cosine_features // cfg.cosine_block_size, f"{len(crf)} cosine feature blocks")
+        xs = scaler(test_x[:DENSE_CHUNK])
+        ref = torch.cos(xs.double() @ crf[0].w.double().T + crf[0].b.double())
+        e32 = max_err64(crf[0](xs), ref)
+        with tf32_matmul():
+            e_t = max_err64(crf[0](xs), ref)
+        out["cosine_f64_check"] = f32_grade(f"cos(x·Wᵀ + b) on {DENSE_CHUNK} scaled frames", e32, e_t, TOL_COSINE)
+    return out
+
+
+@contextlib.contextmanager
+def plain_fv():
+    """The FV nodes on their plain chains (``ops/fisher._use_kernel`` says
+    no), restored after: the comparison run of a graph path."""
+    from keystone_tpu_torch.ops import fisher
+
+    saved = fisher._use_kernel
+    fisher._use_kernel = lambda flag, xs: False
+    try:
+        yield
+    finally:
+        fisher._use_kernel = saved
+
+
+def voc_vocabulary(fitted):
+    """(PCATransformer, FisherVector) of a fitted VOCSIFTFisher."""
+    from keystone_tpu_torch.models.pca import PCATransformer
+    from keystone_tpu_torch.ops.fisher import FisherVector
+
+    stages = fitted_stages(fitted)
+    pca = [s for s in stages if isinstance(s, PCATransformer)]
+    fv = [s for s in stages if isinstance(s, FisherVector)]
+    check(len(pca) == len(fv) == 1, f"{len(pca)} PCA and {len(fv)} FV nodes in the fitted VOC pipeline")
+    return pca[0], fv[0]
+
+
+def voc_path(dev, card, gk, fk):
+    """VOCSIFTFisher.run at its Config on VOC 2007's counts (5011 synthetic
+    trainval images; run's own test set, then VOC's 4952 held out): in
+    memory with B2 in the fit and B1 in scoring through FvFusionRule, the
+    same run on the plain FV chains, streamed in batches of 32; B1 and B2
+    at VOC's shape against their plain versions and float64."""
+    from keystone_tpu_torch.evaluation.evaluators import MeanAveragePrecisionEvaluator
+    from keystone_tpu_torch.loaders.voc import NUM_CLASSES, VOCLoader
+    from keystone_tpu_torch.ops.fisher import FusedPcaFisherVector
+    from keystone_tpu_torch.ops.images import GrayScaler, PixelScaler
+    from keystone_tpu_torch.ops.sift import SIFTExtractor
+    from keystone_tpu_torch.pipelines import voc_sift_fisher as V
+    from keystone_tpu_torch.workflow import transformer as WT
+    from keystone_tpu_torch.workflow.dataset import Dataset
+    from keystone_tpu_torch.workflow.pipeline import PipelineEnv
+
+    chunk = WT.APPLY_CHUNK_ROWS
+    cfg = V.Config(synthetic_n=VOC_N)
+    size = (cfg.image_size, cfg.image_size)
+    run_test_n = max(8, VOC_N // 3)
+    V.VOCSIFTFisher.run(V.Config(synthetic_n=256), dev)  # warm-up, not counted
+    held = VOCLoader.synthetic(VOC_TEST_N, size=size, seed=3, device=dev)
+    evaluator = MeanAveragePrecisionEvaluator(NUM_CLASSES)
+    out, fitted, scores = {}, {}, {}
+
+    def run(c, out):
+        return V.VOCSIFTFisher.run(c, dev, out=out)
+
+    modes = (("in memory", cfg, fv_launches(encode=-(-VOC_N // chunk)), contextlib.nullcontext),
+             ("plain FV chains", cfg, fv_launches(), plain_fv),
+             ("stream", dataclasses.replace(cfg, stream=True), fv_launches(encode=-(-VOC_N // cfg.stream_batch_size)),
+              contextlib.nullcontext))
+    for mode, c, want_fit, ctx in modes:
+        with phase(f"main path: VOCSIFTFisher.run, {mode}"):
+            with ctx():
+                with fit_probe(fk) as probe:
+                    res, detail, rec, launches = app_run(f"VOCSIFTFisher {mode}", card, gk, fk, run, c, VOC_N)
+                fit_l = probe["fit_launches"]
+                score_l = {k: fk.LAUNCHES[k] - fit_l[k] for k in fk.LAUNCHES}
+                want_score = fv_launches() if mode.startswith("plain") else fv_launches(fused=-(-run_test_n // chunk))
+                print(f"  FV launches: fit {fit_l}, scoring {score_l}; SIFT rows {probe['rows']}", flush=True)
+                check(fit_l == want_fit, f"{mode}: fit launches {fit_l}, expected {want_fit}")
+                check(score_l == want_score, f"{mode}: scoring launches {score_l}, expected {want_score}")
+                check(not any(gk.LAUNCHES.values()), f"{mode}: gram kernels launched {gk.LAUNCHES}")
+                check(res["mean_ap"] >= VOC_MAP_MIN, f"{mode}: mean AP {res['mean_ap']:.4f}")
+                # VOC 2007's test count, scored by the fitted pipeline
+                reset_all(fk)
+                s = detail["fitted"](held.data).get().array
+                torch.cuda.synchronize()
+                held_l = dict(fk.LAUNCHES)
+                want_held = fv_launches() if mode.startswith("plain") else fv_launches(fused=-(-VOC_TEST_N // chunk))
+                check(held_l == want_held, f"{mode}: held-out scoring launches {held_l}, expected {want_held}")
+                m_held = evaluator.evaluate(s.cpu().numpy(), held.labels.numpy())
+                print(f"  {VOC_TEST_N} held-out images: mean AP {m_held:.4f}, FV launches {held_l}", flush=True)
+            g = PipelineEnv.get_optimizer().execute(detail["fitted"](held.data).graph)
+            fused = [op.transformer for op in g.operators.values()
+                     if isinstance(getattr(op, "transformer", None), FusedPcaFisherVector)]
+            check([f.sift_normalize for f in fused] == [True], "the scoring graph lacks its one fused FV node")
+            fitted[mode], scores[mode] = detail["fitted"], (torch.from_numpy(detail["scores"]).to(dev), s)
+            out[mode] = {**rec, "held_out_mean_ap": m_held, "launches_fit": fit_l, "launches_scoring": score_l,
+                         "launches_held_out": held_l, "sift_rows": probe["rows"]}
+    with phase("VOCSIFTFisher: the kernel run against the plain run and the streamed run"):
+        pk, fv = voc_vocabulary(fitted["in memory"])
+        for other in ("plain FV chains", "stream"):
+            po, fo = voc_vocabulary(fitted[other])
+            vocab = {"projector": max_err(pk.components @ pk.components.T, po.components @ po.components.T),
+                     **{a: max_err(getattr(fv.gmm, a), getattr(fo.gmm, a)) for a in ("weights", "means", "variances")}}
+            limits = {"projector": TOL_STREAM_PROJECTOR, "weights": TOL_EM_W, "means": TOL_EM_MU,
+                      "variances": TOL_EM_VAR}
+            print(f"  {other}: vocabulary against the kernel run's (largest differences) {vocab}, limits {limits}",
+                  flush=True)
+            check(all(vocab[k] <= limits[k] for k in limits), f"{other}: the vocabulary differs {vocab}")
+            errs = [compare(f"{other} vs the kernel run, {what} scores", so, sk, TOL_GRAPH_SCORES, RTOL_GRAPH_SCORES)
+                    for what, so, sk in zip(("run's held-out", f"{VOC_TEST_N} held-out"), scores[other],
+                                            scores["in memory"])]
+            d_map = abs(out[other]["held_out_mean_ap"] - out["in memory"]["held_out_mean_ap"])
+            print(f"  mean AP {out[other]['held_out_mean_ap']:.4f} against the kernel run's "
+                  f"{out['in memory']['held_out_mean_ap']:.4f} (at most {VOC_MAP_AGREE} apart)", flush=True)
+            check(d_map <= VOC_MAP_AGREE, f"{other}: mean AP {d_map:.4f} apart")
+            out[f"vs_{other.replace(' ', '_')}"] = {"vocabulary": vocab, "scores_max_abs_err": max(errs),
+                                                     "mean_ap_diff": d_map}
+    with phase("VOCSIFTFisher: B1 and B2 at VOC's shape against their plain versions and float64"):
+        imgs = VOCLoader.synthetic(chunk, size=size, seed=1, device=dev).data.array
+        xf = PixelScaler(only_if_integer=True)(imgs)
+        raw, mask = SIFTExtractor(cfg.sift_step, (cfg.sift_bin_size,), normalize=False)(GrayScaler()(xf))
+        z, zm = pk(*SIFTExtractor(cfg.sift_step, (cfg.sift_bin_size,))(GrayScaler()(xf)))
+        gm = fv.gmm
+        n, t, d = z.shape
+        b2_args = (z, zm, gm.weights, gm.means, gm.variances)
+        b1_args = (raw.contiguous(), mask, pk.components, pk.mean, gm.weights, gm.means, gm.variances, True)
+        check(tuple(raw.shape) == (n, t, 128) and d == cfg.pca_dims, f"VOC's shapes {tuple(raw.shape)}, {d}")
+        b2_err, b2_f64 = fv_shape_check(f"B2 at VOC's shape ({n}, {t}, {d}), K={cfg.gmm_k}", fk.fisher_encode,
+                                        fk.fisher_encode_ref, fv_f64, b2_args, TOL_FV)
+        b1_err, b1_f64 = fv_shape_check(f"B1 at VOC's shape ({n}, {t}, 128->{d}), K={cfg.gmm_k}", fk.fused_forward,
+                                        fk.fused_forward_ref, fused_f64, b1_args, TOL_FUSED)
+        b2_cost, b1_cost = fv_cost(n, t, d, cfg.gmm_k), fv_cost(n, t, d, cfg.gmm_k, d_in=128)
+        out["b2_voc_shape"] = {"shape": f"({n}, {t}, {d}) K={cfg.gmm_k}, a training chunk", "max_abs_err": b2_err,
+                               "f64_check": b2_f64, "ms": cuda_ms(lambda: fk.fisher_encode(*b2_args)),
+                               "plain_ms": cuda_ms(lambda: fk.fisher_encode_ref(*b2_args), reps=5),
+                               "bound_ms": bound_ms(*b2_cost), "bound_by": bound_by(*b2_cost),
+                               "bound_ms_tc": fv_bound_ms_tc(n, t, d, cfg.gmm_k)}
+        out["b1_voc_shape"] = {"shape": f"({n}, {t}, 128->{d}) K={cfg.gmm_k}, a scoring chunk",
+                               "max_abs_err": b1_err, "f64_check": b1_f64,
+                               "ms": cuda_ms(lambda: fk.fused_forward(*b1_args)),
+                               "plain_ms": cuda_ms(lambda: fk.fused_forward_ref(*b1_args), reps=5),
+                               "bound_ms": bound_ms(*b1_cost), "bound_by": bound_by(*b1_cost),
+                               "bound_ms_tc": fv_bound_ms_tc(n, t, d, cfg.gmm_k, d_in=128)}
+        for key in ("b2_voc_shape", "b1_voc_shape"):
+            r = out[key]
+            print(f"  {key} {r['shape']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                  f"ms by {r['bound_by']}, on the tensor cores {r['bound_ms_tc']:.4f} ms), {card}", flush=True)
+        torch.cuda.synchronize()
+    return out
+
+
+def voc_fixture_path(dev, card):
+    """The committed VOC fixture (tests/data/voc) on the card: nvJPEG's
+    pixels against the reference's libjpeg pixels, and VOCSIFTFisher.run
+    from its directories, in memory and streamed."""
+    from keystone_tpu_torch.loaders import jpeg
+    from keystone_tpu_torch.loaders.voc import VOCLoader
+    from keystone_tpu_torch.pipelines import voc_sift_fisher as V
+
+    out = {}
+    with phase("VOC fixture: nvJPEG against libjpeg, and run from the directories"):
+        ref = torch.from_numpy(np.load(VOC_PIXELS)).to(dev)
+        jpeg.reset_launches()
+        got = VOCLoader.load(**VOC_DIRS, size=VOC_FIXTURE_SIZE, device=dev)
+        st = VOCLoader.stream(**VOC_DIRS, size=VOC_FIXTURE_SIZE, batch_size=8, device=dev)
+        streamed = torch.cat([a for a, _ in st.data.device_batches()])
+        diff = (got.data.array.to(torch.int32) - ref.to(torch.int32)).abs()
+        print(f"  {got.data.n} images; nvJPEG against libjpeg: largest difference {int(diff.max())} levels (at most "
+              f"{VOC_NVJPEG_MAX_DIFF}), mean {diff.float().mean().item():.4f}; decoder launches {jpeg.LAUNCHES}",
+              flush=True)
+        check(got.data.n == VOC_FIXTURE_N and got.data.device.type == dev.type, f"{got.data.n} fixture images")
+        check(int(diff.max()) <= VOC_NVJPEG_MAX_DIFF, f"nvJPEG's pixels {int(diff.max())} levels from libjpeg's")
+        wrong = wrong_decodes(got.data.array[:-1], ref[:-1], VOC_NVJPEG_MAX_DIFF)
+        check(not bool(got.data.array[-1].any()), "the undecodable file is not a zero image")
+        check(torch.equal(streamed, got.data.array), "load and stream decode differently")
+        check(jpeg.LAUNCHES["nvjpeg"] > 0 and jpeg.LAUNCHES["libjpeg"] == 0, f"decoders {jpeg.LAUNCHES}")
+        cfg = V.Config(**VOC_DIRS, image_size=VOC_FIXTURE_SIZE[0])
+        sout, mout = {}, {}
+        res = V.VOCSIFTFisher.run(cfg, dev, out=mout)
+        res_s = V.VOCSIFTFisher.run(dataclasses.replace(cfg, stream=True, stream_batch_size=8), dev, out=sout)
+        print(f"  run from the directories: mean AP {res['mean_ap']:.4f} (above {VOC_FIXTURE_MAP_MIN}); streamed "
+              f"{res_s['mean_ap']:.4f}", flush=True)
+        check(res["mean_ap"] > VOC_FIXTURE_MAP_MIN, f"mean AP {res['mean_ap']:.4f} from the fixture")
+        err = compare("held-out scores, stream vs in memory", torch.from_numpy(sout["scores"]),
+                      torch.from_numpy(mout["scores"]), TOL_GRAPH_SCORES, RTOL_GRAPH_SCORES)
+        out.update({"images": got.data.n, "nvjpeg_max_diff": int(diff.max()), "wrong_decode_max_diff": wrong,
+                    "nvjpeg_mean_diff": diff.float().mean().item(), "mean_ap": res["mean_ap"],
+                    "mean_ap_stream": res_s["mean_ap"], "scores_stream_max_abs_err": err})
+    return out
+
+
 def profile_once(fn) -> None:
     """Device time by operator over one call of ``fn`` (after a warm-up
     call), and two idle shares.  One window: the device's busy time
@@ -2227,14 +2936,23 @@ def main(argv=None) -> int:
     results["tar"] = tar_path(dev, card, P)
     tier_tmp = Path(tempfile.mkdtemp(prefix="kernel_tier_", dir=REPO))
     try:
-        for sub in ("timit", "cifar", "oc", "disk"):
+        for sub in ("timit", "cifar", "oc", "disk", "mnist"):
             (tier_tmp / sub).mkdir()
         results["kernel_timit_pipeline"] = kernel_timit_pipeline_path(dev, card, gk, fk, tier_tmp / "timit")
         results["kernel_cifar_pipeline"] = kernel_cifar_pipeline_path(dev, card, gk, fk, tier_tmp / "cifar")
         results["oc_krr"] = oc_krr_path(dev, card, gk, fk, data, tier_tmp / "oc")
         results["disk_tier"] = disk_tier_path(dev, card, gk, fk, data, tier_tmp / "disk")
+        # the dense apps; LinearPixels, RandomPatchCifar and TimitPipeline
+        # read the kernel pipelines' files
+        cifar_paths = {k: str(tier_tmp / "cifar" / f"{k}.bin") for k in ("train_path", "test_path")}
+        results["mnist"] = mnist_path(dev, card, gk, fk, tier_tmp / "mnist")
+        results["linear_pixels"] = linear_pixels_path(dev, card, gk, fk, cifar_paths)
+        results["random_patch_cifar"] = random_patch_path(dev, card, gk, fk, cifar_paths)
+        results["timit"] = timit_path(dev, card, gk, fk, tier_tmp / "timit")
     finally:
         shutil.rmtree(tier_tmp, ignore_errors=True)
+    results["voc"] = voc_path(dev, card, gk, fk)
+    results["voc_fixture"] = voc_fixture_path(dev, card)
 
     with phase("kernel timing"):
         def kernel_line(name, replaces, kernel, plain, calls, shape):
@@ -2294,23 +3012,10 @@ def main(argv=None) -> int:
         b1["f64_check_fit"], b1["max_abs_err_fit"] = {}, 0.0
         for a, (n, t, d_in) in fit_calls:
             check(tuple(a[0].shape) == (n, t, d_in), f"B1 fit input {tuple(a[0].shape)}")
-            label = f"B1 at the fit's shape ({n}, {t}, {d_in}->{PCA_DIMS}), K={FIT_GMM_K}"
-            got, plain = fk.fused_forward(*a), fk.fused_forward_ref(*a)
-            ref = fused_f64(*a)
-            b1["max_abs_err_fit"] = max(b1["max_abs_err_fit"], max_err(got, plain))
-            err, ratio = within(f"{label} vs the plain chain in float64", got, ref, TOL_FUSED)
-            e_plain = max_err64(plain, ref)
-            with tf32_matmul():
-                e_tf32 = max_err64(fk.fused_forward_ref(*a), ref)
-            print(f"  largest error against float64: kernel {err:.3e}, plain f32 chain {e_plain:.3e} (ratio "
-                  f"{err / e_plain:.3f}, at most {F64_RATIO}{' where the tolerance is left' if ratio > 1 else ''}); "
-                  f"one-pass TF32 {e_tf32:.3e} (ratio {e_tf32 / e_plain:.1f}, must exceed {F64_RATIO}); "
-                  f"kernel against the plain f32 chain {max_err(got, plain):.3e}", flush=True)
-            if ratio > 1.0:
-                check(err <= F64_RATIO * e_plain, f"{label}: not f32-grade against float64")
-            check(e_tf32 > F64_RATIO * e_plain, f"{label}: the check cannot tell TF32 from f32")
-            b1["f64_check_fit"][f"({n}, {t}, {d_in}->{PCA_DIMS}) K={FIT_GMM_K}"] = {
-                "kernel": err, "plain_f32": e_plain, "tf32": e_tf32}
+            e, f64 = fv_shape_check(f"B1 at the fit's shape ({n}, {t}, {d_in}->{PCA_DIMS}), K={FIT_GMM_K}",
+                                    fk.fused_forward, fk.fused_forward_ref, fused_f64, a, TOL_FUSED)
+            b1["max_abs_err_fit"] = max(b1["max_abs_err_fit"], e)
+            b1["f64_check_fit"][f"({n}, {t}, {d_in}->{PCA_DIMS}) K={FIT_GMM_K}"] = f64
         graph = results["graph"]
         stream = results["stream"]
         b1["launches"] += (results["fit"]["launches"] + graph["launches_scoring"]["fused_forward"]
@@ -2324,6 +3029,17 @@ def main(argv=None) -> int:
         b2["launches_by_path"] = {"bench_forward": results["fisher_encode"]["launches"],
                                   "graph_fit": graph["launches_fit"]["fisher_encode"],
                                   "stream_fit": stream["launches_fit"]["fisher_encode"]}
+        # VOCSIFTFisher: B2 featurizes the training set in the fit, B1 (one
+        # fused node) scores run's test set and VOC's 4952
+        voc = results["voc"]
+        for ln, kname, key in ((b1, "fused_forward", "b1_voc_shape"), (b2, "fisher_encode", "b2_voc_shape")):
+            for mode in ("in memory", "stream"):
+                for part in ("launches_fit", "launches_scoring", "launches_held_out"):
+                    c = voc[mode][part][kname]
+                    if c:
+                        ln["launches_by_path"][f"VOCSIFTFisher {mode} {part[9:].replace('_', ' ')}"] = c
+                        ln["launches"] += c
+            ln["voc_shape"] = voc[key]
         b2["f64_check_graph_fit"], b2["max_abs_err_graph_fit"] = b2g["f64_check"], b2g["max_abs_err"]
         b2["f64_check_stream_fit"] = stream["b2_batch_shape"]["f64_check"]
         b2["max_abs_err_stream_fit"] = stream["b2_batch_shape"]["max_abs_err"]
@@ -2392,6 +3108,26 @@ def main(argv=None) -> int:
         ):
             with phase(f"profile {label}"):
                 profile_once(fn)
+        # the dense apps' graph fits in memory, each pipeline built once
+        # (RandomPatchCifar learns its filters in the build)
+        from keystone_tpu_torch.loaders.cifar import CifarLoader
+        from keystone_tpu_torch.loaders.mnist import MnistLoader
+        from keystone_tpu_torch.loaders.voc import VOCLoader
+        from keystone_tpu_torch.pipelines import linear_pixels, mnist_random_fft, random_patch_cifar, timit
+        from keystone_tpu_torch.pipelines import voc_sift_fisher
+
+        mn = MnistLoader.synthetic(MNIST_N, seed=1, device=dev)
+        cf = CifarLoader.synthetic(CIFAR_N, seed=1, device=dev)
+        vo = VOCLoader.synthetic(VOC_N, seed=1, device=dev)
+        for app, mod, ld in ((mnist_random_fft.MnistRandomFFT, mnist_random_fft, mn),
+                             (linear_pixels.LinearPixels, linear_pixels, cf),
+                             (random_patch_cifar.RandomPatchCifar, random_patch_cifar, cf),
+                             (timit.TimitPipeline, timit, kt_train),
+                             (voc_sift_fisher.VOCSIFTFisher, voc_sift_fisher, vo)):
+            pipe = app.build(mod.Config(), ld.data, ld.labels)
+            with phase(f"profile one {app.name} graph fit in memory (Pipeline.fit)"):
+                profile_once(pipe.fit)
+            del pipe
         shutil.rmtree(prof_tmp, ignore_errors=True)
 
     print(json.dumps({
@@ -2406,6 +3142,8 @@ def main(argv=None) -> int:
         "kernel_cifar_pipeline": results["kernel_cifar_pipeline"],
         "oc_krr": results["oc_krr"],
         "disk_tier": results["disk_tier"],
+        "dense_apps": {k: results[k] for k in ("mnist", "linear_pixels", "random_patch_cifar", "timit", "voc",
+                                                "voc_fixture")},
         "card": card,
     }))
     print(json.dumps({"kernels": lines}))

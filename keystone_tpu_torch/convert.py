@@ -47,6 +47,15 @@ key                    shape            reference object
 Scalars (γ, the block size, the train row count) are passed to the
 builders as arguments.  The keys suit ``np.savez``.
 
+The dense apps' fitted or drawn transformers come across one at a time,
+each from its reference object's arrays, as the port's transformer on
+``device``: ``cosine_random_features_from_numpy`` (``w`` (D_out, D_in),
+``b`` (D_out,)), ``random_sign_node_from_numpy`` (``signs`` (D,)),
+``zca_whitener_from_numpy`` (``whitener`` (d, d), ``mean`` (d,)),
+``convolver_from_numpy`` (``filters`` (K, fh, fw, c), ``offset`` (K,) or
+None) and ``linear_mapper_from_numpy`` (``weights`` (d, k),
+``intercept`` (k,) or None).
+
 ``oc_krr_mapper_from_numpy`` carries an out-of-core kernel model across:
 its α (``_oc_krr_fit``'s (nb·bs, k) output) and the directory of the
 ``RowBlockStore`` it was fitted on, which the port reads as it is.
@@ -190,3 +199,68 @@ def oc_krr_mapper_from_numpy(alpha: np.ndarray, store_directory: str, gamma: flo
         raise _shape_error("alpha", a.shape, f"({rows}, k)")
     return OutOfCoreKernelBlockLinearMapper(GaussianKernelGenerator(float(gamma)), store_directory,
                                             torch.from_numpy(a).to(dev), store.n)
+
+
+def _f32(name: str, a, ndim: int, device) -> torch.Tensor:
+    """``a`` as an f32 tensor on ``device``, refusing another rank."""
+    arr = np.array(a, np.float32)
+    if arr.ndim != ndim:
+        raise _shape_error(name, arr.shape, f"{ndim} axes")
+    return torch.from_numpy(arr).to(resolve_device(device))
+
+
+def _check_len(name: str, t, n: int) -> None:
+    if t is not None and tuple(t.shape) != (n,):
+        raise _shape_error(name, t.shape, f"({n},)")
+
+
+def cosine_random_features_from_numpy(w, b, device="cuda"):
+    """A ``CosineRandomFeatures`` from the reference's drawn ``w`` and ``b``."""
+    from keystone_tpu_torch.ops.stats import CosineRandomFeatures
+
+    wt, bt = _f32("w", w, 2, device), _f32("b", b, 1, device)
+    _check_len("b", bt, wt.shape[0])
+    return CosineRandomFeatures(wt, bt)
+
+
+def random_sign_node_from_numpy(signs, device="cuda"):
+    """A ``RandomSignNode`` from the reference's drawn ±1 ``signs``."""
+    from keystone_tpu_torch.ops.stats import RandomSignNode
+
+    st = _f32("signs", signs, 1, device)
+    if not bool(((st == 1.0) | (st == -1.0)).all()):
+        raise ValueError("signs must be ±1")
+    return RandomSignNode(st)
+
+
+def zca_whitener_from_numpy(whitener, mean, device="cuda"):
+    """A ``ZCAWhitener`` from the reference's fitted map and mean."""
+    from keystone_tpu_torch.models.zca import ZCAWhitener
+
+    wt, mt = _f32("whitener", whitener, 2, device), _f32("mean", mean, 1, device)
+    if wt.shape[0] != wt.shape[1]:
+        raise _shape_error("whitener", wt.shape, "(d, d)")
+    _check_len("mean", mt, wt.shape[0])
+    return ZCAWhitener(wt, mt)
+
+
+def convolver_from_numpy(filters, offset=None, stride: int = 1, strategy: str = "auto", device="cuda"):
+    """A ``Convolver`` from the reference's (K, fh, fw, c) filters and
+    optional (K,) offset."""
+    from keystone_tpu_torch.ops.images import Convolver
+
+    ft = _f32("filters", filters, 4, device)
+    ot = None if offset is None else _f32("offset", offset, 1, device)
+    _check_len("offset", ot, ft.shape[0])
+    return Convolver(ft, stride=stride, offset=ot, strategy=strategy)
+
+
+def linear_mapper_from_numpy(weights, intercept=None, device="cuda"):
+    """A ``LinearMapper`` from the reference's (d, k) weights and optional
+    (k,) intercept."""
+    from keystone_tpu_torch.models.linear import LinearMapper
+
+    wt = _f32("weights", weights, 2, device)
+    bt = None if intercept is None else _f32("intercept", intercept, 1, device)
+    _check_len("intercept", bt, wt.shape[1])
+    return LinearMapper(wt, bt)

@@ -220,7 +220,8 @@ class ImageNetLoader:
 
 
 class _Packed:
-    """A batch's entries and their bytes, on their way to nvJPEG."""
+    """A batch's entries (index entries, or file paths) and their bytes,
+    on their way to nvJPEG."""
 
     def __init__(self, entries: List[Entry], packed):
         self.entries = entries

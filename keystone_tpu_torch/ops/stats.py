@@ -1,8 +1,14 @@
-"""Row normalizers, column standardization and samplers (counterpart of
-``keystone_tpu/ops/stats.py`` § SignedHellingerMapper, NormalizeRows,
-StandardScaler, StandardScalerModel, Sampler, ColumnSampler; the
-scaler's Kahan step is ``keystone_tpu/models/common.py`` § kahan_add).  The
-samplers are transformers over a ``Dataset``: they read the whole set to
+"""Random features, row normalizers, column standardization and samplers
+(counterpart of ``keystone_tpu/ops/stats.py`` § CosineRandomFeatures,
+RandomSignNode, PaddedFFT, LinearRectifier, SignedHellingerMapper,
+NormalizeRows, StandardScaler, StandardScalerModel, Sampler,
+ColumnSampler).
+
+The random-feature transformers draw their parameters from a CPU
+``torch.Generator`` seeded with ``seed``, so every device draws the same
+values; they are not the reference's draws (its generator is another
+one): a parity test passes the reference's arrays in through
+``convert``.  The samplers are transformers over a ``Dataset``: they read the whole set to
 draw from it, so they take no part in stage fusion.  Over a
 ``StreamDataset`` they sweep it once, keep only the drawn rows, and draw
 the rows the same seed draws over the set in memory."""
@@ -14,10 +20,100 @@ from typing import Optional
 import numpy as np
 import torch
 
+from keystone_tpu_torch.models.common import kahan_add
 from keystone_tpu_torch.utils.device import resolve_device
+from keystone_tpu_torch.utils.stats import rand_matrix_cauchy, rand_matrix_gaussian
 from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset
 from keystone_tpu_torch.workflow.estimator import Estimator
 from keystone_tpu_torch.workflow.transformer import Transformer, iter_row_chunks, tensor_identity
+
+
+class CosineRandomFeatures(Transformer):
+    """Random Fourier features cos(x·Wᵀ + b) (CosineRandomFeatures.scala,
+    TIMIT's featurizer): W's rows ~ γ·Gaussian for the RBF kernel or
+    γ·Cauchy for the Laplacian kernel, b ~ Uniform[0, 2π)."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.register_buffer("w", w)  # (num_out, num_in)
+        self.register_buffer("b", b)  # (num_out,)
+
+    @classmethod
+    def init(cls, num_input_features: int, num_output_features: int, gamma: float = 1.0, seed: int = 0,
+             distribution: str = "gaussian", device="cuda") -> "CosineRandomFeatures":
+        """Seeded draws on ``device``."""
+        dev = resolve_device(device)
+        g = torch.Generator().manual_seed(int(seed))
+        shape = (num_output_features, num_input_features)
+        if distribution == "gaussian":
+            w = rand_matrix_gaussian(g, *shape)
+        elif distribution == "cauchy":
+            w = rand_matrix_cauchy(g, *shape)
+        else:
+            raise ValueError(f"unknown distribution {distribution!r}")
+        b = torch.rand((num_output_features,), generator=g) * (2 * np.pi)
+        return cls((gamma * w).to(dev), b.to(dev))
+
+    def params(self):
+        return tensor_identity(self.w, self.b)
+
+    def apply_batch(self, xs, mask=None):
+        # the phase x·Wᵀ is unbounded, so a relative rounding of it is an
+        # absolute phase error that cos wraps: it stays true f32 (the
+        # pipelines turn TF32 off), as the reference keeps it out of bf16
+        return torch.cos(torch.matmul(xs, self.w.T) + self.b)
+
+
+class RandomSignNode(Transformer):
+    """Elementwise Rademacher sign flip (RandomSignNode.scala), paired with
+    PaddedFFT for fastfood-style random features."""
+
+    def __init__(self, signs: torch.Tensor):
+        super().__init__()
+        self.register_buffer("signs", signs)
+
+    @classmethod
+    def init(cls, num_features: int, seed: int = 0, device="cuda") -> "RandomSignNode":
+        bits = torch.rand((num_features,), generator=torch.Generator().manual_seed(int(seed))) < 0.5
+        return cls((bits.to(torch.float32) * 2.0 - 1.0).to(resolve_device(device)))
+
+    def params(self):
+        return tensor_identity(self.signs)
+
+    def apply_batch(self, xs, mask=None):
+        return xs * self.signs
+
+
+class PaddedFFT(Transformer):
+    """Zero-pad the last axis to the next power of two and take its real
+    FFT (PaddedFFT.scala, MNIST's featurizer): [Re, Im] of the
+    positive-frequency half, concatenated.  The transform is unitary
+    (``norm="ortho"``), so the features keep the input's scale, which the
+    f32 normal equations downstream need."""
+
+    def params(self):
+        return ()
+
+    def apply_batch(self, xs, mask=None):
+        d = xs.shape[-1]
+        padded = 1 << (d - 1).bit_length()
+        spec = torch.fft.rfft(xs.to(torch.float32), n=padded, dim=-1, norm="ortho")
+        return torch.cat([spec.real, spec.imag], dim=-1)
+
+
+class LinearRectifier(Transformer):
+    """max(x − α, maxVal) (LinearRectifier.scala)."""
+
+    def __init__(self, max_val: float = 0.0, alpha: float = 0.0):
+        super().__init__()
+        self.max_val = float(max_val)
+        self.alpha = float(alpha)
+
+    def params(self):
+        return (self.max_val, self.alpha)
+
+    def apply_batch(self, xs, mask=None):
+        return torch.clamp(xs - self.alpha, min=self.max_val)
 
 
 class SignedHellingerMapper(Transformer):
@@ -129,7 +225,7 @@ class StandardScaler(Estimator):
         n = 0
         for x in staged():
             n += x.shape[0]
-            s1, c1 = _kahan_add(s1, c1, torch.sum(x, dim=0))
+            s1, c1 = kahan_add(s1, c1, torch.sum(x, dim=0))
         if n == 0:
             raise ValueError("empty batch stream")
         mean = s1 / n
@@ -138,21 +234,11 @@ class StandardScaler(Estimator):
         for x in staged():
             n2 += x.shape[0]
             xc = x - mean
-            s2, c2 = _kahan_add(s2, c2, torch.sum(xc * xc, dim=0))
+            s2, c2 = kahan_add(s2, c2, torch.sum(xc * xc, dim=0))
         if n2 != n:
             raise ValueError(f"batch stream is not re-iterable: first pass saw {n} rows, second pass {n2}. Pass a "
                              "callable returning a fresh iterator (or a re-iterable like a list).")
         return self._model(mean, s2, n)
-
-
-def _kahan_add(s, c, inc):
-    """One compensated-summation step: (sum, compensation) after adding
-    ``inc``; the first step starts them from ``inc`` and zero."""
-    if s is None:
-        return inc, torch.zeros_like(inc)
-    y = inc - c
-    t = s + y
-    return t, (t - s) - y
 
 
 class Sampler(Transformer):

@@ -83,6 +83,11 @@ class Dataset:
         return torch.device("cpu") if self._array is None else self._array.device
 
     @property
+    def item_shape(self) -> tuple:
+        """The shape of one item (a stream peeks at its first batch)."""
+        return tuple(self.array.shape[1:])
+
+    @property
     def items(self) -> list:
         if self._host is not None:
             return self._host

@@ -20,6 +20,7 @@ Fisher-vector kernel's node where the data lives on a CUDA device.
 from __future__ import annotations
 
 import copy
+import inspect
 import logging
 from typing import Sequence
 
@@ -177,6 +178,10 @@ class NodeChoiceRule(Rule):
     def apply(self, graph: G.Graph) -> G.Graph:
         from keystone_tpu_torch.workflow.executor import DatasetExpr, GraphExecutor
 
+        # the full row count: a size-based choice (the local solve) looks
+        # past the truncated sample
+        full_n = max((op.dataset.n if isinstance(op.dataset, Dataset) else len(op.dataset)
+                      for op in graph.operators.values() if isinstance(op, G.DatasetOperator)), default=None)
         for n in list(graph.topological_nodes()):
             op = graph.operators.get(n)
             if isinstance(op, G.EstimatorOperator):
@@ -194,7 +199,12 @@ class NodeChoiceRule(Rule):
                     sample = expr.dataset
             except Exception as e:  # sampling is best-effort, like upstream
                 logger.debug("node-choice sampling failed for %s: %s", node.label, e)
-            chosen = node.choose_physical(sample)
+            # as the reference's rule: the base hook and the overrides that
+            # choose from the sample alone take the sample only
+            if "full_n" in inspect.signature(node.choose_physical).parameters:
+                chosen = node.choose_physical(sample, full_n=full_n)
+            else:
+                chosen = node.choose_physical(sample)
             if chosen is not node:
                 logger.info("node choice: %s -> %s", node.label, chosen.label)
                 graph = graph.set_operator(n, rewrap(chosen))
