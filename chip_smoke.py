@@ -7,7 +7,8 @@ Phases, each of which must pass (any failure exits non-zero before the
 result line):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: every CUDA source of the port compiled by nvcc for sm_90a;
+2. build: every CUDA source of the port compiled by nvcc for sm_90a, and
+   the host text chain (csrc/text.cpp) by g++, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (f32 and a bf16 descriptor stream), plus a
    ragged T with masked rows, within the stated tolerances; then the
@@ -136,11 +137,28 @@ result line):
    versions and float64; then the committed VOC fixture
    (tests/data/voc) through nvJPEG against the reference's libjpeg
    pixels, and run from its directories, in memory and streamed;
-21. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+21. main path, NewsgroupsPipeline.run at its Config (100 000 features,
+   bigrams, nb λ 1.0, ls λ 1e-2) on 20 Newsgroups' bydate split sizes
+   (11 314 + 7 532 synthetic documents in 20 groups, written as
+   root/<group>/<doc> trees), both heads in memory and streamed in
+   batches of 512, each under the profiler: no kernel launched, the
+   vocabulary, fit seconds and documents/s, the host text, bucketing and
+   device seconds apart, the L-BFGS iterations, line-search trials and
+   host reads, the idle share and peak device memory; sparse_matmul and
+   sparse_grad at its bucket shapes against a float64 torch.sparse.mm of
+   the same rows, naive Bayes against float64 counts, the card's ls fit
+   against the same fit on the CPU, streamed against in memory;
+22. main path, AmazonReviewsPipeline.run at its Config (16 384 hashed
+   features as CSR rows, λ 1e-4, 40 iterations) on 100 000 + 25 000
+   synthetic reviews written as JSON lines, in memory and streamed in
+   batches of 1024, printed and held the same way, the logistic fit in
+   place of the ls fit;
+23. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches, float64 errors) for all four
    kernels, B3's and B4's times at the new paths' shapes and B1's and
    B2's at VOC's among them, then the last line {"ok": true, "device":
-   {...}}.
+   {...}}.  The card's name and power limit and scipy's version are
+   printed first.
 
 Imports nothing of JAX; exits non-zero without a result when torch sees
 no CUDA device.
@@ -420,6 +438,46 @@ VOC_NVJPEG_MAX_DIFF = 40
 # out-of-core sweep against the in-core sweep, the reference's 1e-5
 # (tests/test_kernel_oc.py:107), and its prediction r²
 TOL_OC_ALPHA, OC_R2 = 1e-5, 0.999
+
+
+# ---- the text apps, each fitted through the graph by its ``run`` at its
+# Config's width: NewsgroupsPipeline (100 000 features, bigrams, nb λ 1.0,
+# ls λ 1e-2) on 20 Newsgroups' "bydate" split sizes, 11 314 training and
+# 7 532 test documents of the reference's synthetic corpus at 20 groups
+# (seeds 1 and 2), written here as root/<group>/<doc> trees: both heads in
+# memory and streamed in batches of 512; AmazonReviewsPipeline (16 384
+# hashed features as CSR rows, λ 1e-4, 40 iterations) on 100 000 synthetic
+# reviews and the Config's quarter, 25 000, for test (seeds 1 and 2),
+# written here as JSON lines: in memory and streamed in batches of 1024.
+# No kernel lies on these paths: the gathers, scatter-adds and the L-BFGS
+# loop are torch's own ops, as XLA's are in the reference.
+NEWS_N, NEWS_TEST_N, NEWS_CLASSES, NEWS_BATCH = 11_314, 7_532, 20, 512
+AMAZON_N, AMAZON_BATCH = 100_000, 1024
+TEXT_ACCURACY_MIN = 0.9
+# the sparse ops at the apps' bucket shapes against a float64
+# torch.sparse.mm of the same CSR rows: an f32 sum of m terms in any order
+# is within m·2⁻²⁴·Σ|terms| of the exact sum (about √m times less in
+# practice); held elementwise at 1e-5·Σ|terms| (m ≤ 11 314 rows in a
+# gradient's column, 2⁻²⁴·m = 6.7e-4 at worst)
+TOL_SPARSE_REL = 1e-5
+# naive Bayes' log conditionals against float64 counts (scipy), and two
+# card fits against each other: the reference's own f32 limits
+# (tests/test_sparse.py:179-203)
+TOL_NB_RTOL, TOL_NB_ATOL = 1e-5, 1e-5
+# two L-BFGS fits of one problem whose f32 sums are taken in other orders
+# (the card's index_add_ adds in no fixed order, the CPU's in row order).
+# Where both took the same line-search path (equal trial counts), the
+# weights within 1e-4 of the largest.  Near the optimum the Armijo test
+# compares objective changes with the objective's own f32 rounding, so a
+# trial can go either way; where the paths parted (unequal counts), the
+# fits are two points of the optimum's f32 noise floor, and the weights
+# are held at the reference's own limit for fits whose paths differ,
+# 2e-2 of the largest (tests/test_sparse.py:60).  Either way both fits
+# must satisfy the strong-convexity certificates of the objective (λ-
+# strongly convex, in float64): ‖w_a − w_b‖ ≤ (‖∇f(w_a)‖ + ‖∇f(w_b)‖)/λ
+# and |f(w_a) − f(w_b)| ≤ max ‖∇f‖²/(2λ), and their argmax agree on
+# ≥ 99.9% of the test documents
+TOL_TEXT_W, TOL_PARTED_W, TEXT_AGREEMENT = 1e-4, 2e-2, 0.999
 
 
 @contextlib.contextmanager
@@ -2660,6 +2718,438 @@ def voc_fixture_path(dev, card):
     return out
 
 
+def device_busy_ms(prof) -> float:
+    """The kernels' own device time in a profiler trace (an operator's
+    self device time repeats its kernels')."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3
+
+
+class TextClock:
+    """Exclusive wall seconds of a text app's run by part: ``load`` (the
+    loaders reading the files, and a stream's consumer waiting for its
+    producer thread's next batch), ``text`` (the host chain: the Python host transformers, the vocabulary fit, the
+    native chain and its CSR rows), ``bucket`` (CSR rows into nnz buckets
+    and onto the card) and ``device`` (the heads' fits and the sparse
+    scoring, each ended by a synchronize).  A region nested in another
+    counts to its own part only."""
+
+    def __init__(self):
+        self.seconds = {"load": 0.0, "text": 0.0, "bucket": 0.0, "device": 0.0}
+        self._stack = []
+
+    def wrap(self, key, fn, sync=False, when=None):
+        def wrapper(*a, **kw):
+            if when is not None and not when(*a):
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            self._stack.append(0.0)
+            try:
+                out = fn(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                el = time.perf_counter() - t0
+                self.seconds[key] += el - self._stack.pop()
+                if self._stack:
+                    self._stack[-1] += el
+        return wrapper
+
+
+@contextlib.contextmanager
+def text_clock():
+    """A TextClock over the text apps' functions, restored on exit."""
+    from keystone_tpu_torch.loaders import stream as stream_mod
+    from keystone_tpu_torch.loaders.amazon import AmazonReviewsDataLoader
+    from keystone_tpu_torch.loaders.newsgroups import NewsgroupsDataLoader
+    from keystone_tpu_torch.models.lbfgs import SparseLBFGSwithL2
+    from keystone_tpu_torch.models.logistic import LogisticRegressionEstimator
+    from keystone_tpu_torch.models.naive_bayes import NaiveBayesEstimator
+    from keystone_tpu_torch.ops import nlp, nlp_native, sparse
+    from keystone_tpu_torch.workflow.transformer import Transformer
+
+    clock = TextClock()
+    loaders = [(cls, name) for cls in (NewsgroupsDataLoader, AmazonReviewsDataLoader) for name in ("load", "stream")]
+    patches = [
+        (nlp_native, "featurize_docs", "text", False, None), (nlp_native, "hashtf_docs", "text", False, None),
+        (nlp_native.DfAccumulator, "update", "text", False, None),
+        (nlp_native.DfAccumulator, "topn", "text", False, None),
+        (Transformer, "apply_dataset", "text", False, lambda self, *_: self.is_host),
+        (nlp._RowFeaturizer, "apply_dataset", "text", False, None),
+        (nlp.CommonSparseFeatures, "fit_dataset", "text", False, None),
+        (sparse, "bucketize_with_labels", "bucket", False, None),
+        (NaiveBayesEstimator, "fit_dataset", "device", True, None),
+        (SparseLBFGSwithL2, "fit_dataset", "device", True, None),
+        (LogisticRegressionEstimator, "fit_dataset", "device", True, None),
+        (sparse, "score_sparse_dataset", "device", True, None),
+    ]
+    saved = [(obj, name, obj.__dict__[name]) for obj, name, *_ in patches]
+    for obj, name, key, sync, when in patches:
+        setattr(obj, name, clock.wrap(key, obj.__dict__[name], sync, when))
+    statics = [(sparse.BucketedSparseRows, "from_scipy_rows", "bucket")] + [(c, n, "load") for c, n in loaders]
+    saved += [(obj, name, obj.__dict__[name]) for obj, name, _ in statics]
+    for obj, name, key in statics:
+        setattr(obj, name, staticmethod(clock.wrap(key, obj.__dict__[name].__func__)))
+    prefetched = stream_mod.prefetched
+    saved.append((stream_mod, "prefetched", prefetched))
+
+    def timed_prefetched(source, prefetch=2):
+        inner = prefetched(source, prefetch=prefetch)
+        take = clock.wrap("load", next)
+
+        def gen():
+            it, done = inner(), object()
+            try:
+                while (item := take(it, done)) is not done:
+                    yield item
+            finally:
+                it.close()
+        return gen
+
+    stream_mod.prefetched = timed_prefetched
+    try:
+        yield clock
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def text_run(label, card, gk, fk, run, cfg, n):
+    """One text app's ``run`` on the card, every launch count and the
+    L-BFGS counters set to 0 just before and read just after, under the
+    profiler (device activity only, for the idle share: 1 − the kernels'
+    busy time over the run's host-clock time, profiler overhead included,
+    so it reads high): ``Pipeline.fit`` seconds, documents a second, the
+    host text, bucketing and device seconds apart, the L-BFGS iterations,
+    line-search trials and host reads, and the peak device memory above
+    the run's start.  Returns (result, detail, record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from keystone_tpu_torch.models import lbfgs
+
+    detail = {}
+    with text_clock() as clock:
+        torch.cuda.synchronize()
+        reset_all(gk, fk)
+        lbfgs.reset_stats()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = run(cfg, DEVICE, out=detail)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+    busy = device_busy_ms(prof) / 1e3
+    stats = dict(lbfgs.STATS)
+    launches = {**fk.LAUNCHES, **gk.LAUNCHES}
+    no_launch(label, launches)
+    check(not res["model_loaded"], f"{label}: loaded a model")
+    parts = dict(clock.seconds)
+    parts["other"] = wall - sum(parts.values())
+    idle = max(0.0, 1.0 - busy / wall)
+    print(f"  Pipeline.fit (with the build) {res['fit_seconds']:.3f} s, {n / res['fit_seconds']:.1f} training "
+          f"documents/s; the whole run {wall:.3f} s: loading {parts['load']:.3f} s, host text {parts['text']:.3f} "
+          f"s, bucketing onto the card {parts['bucket']:.3f} s, device work {parts['device']:.3f} s, the rest (the "
+          f"graph, the evaluation) {parts['other']:.3f} s; L-BFGS {stats['iterations']} iterations, {stats['trials']} line-search "
+          f"trials, {stats['host_reads']} host reads; device busy {busy:.3f} s, idle share {idle:.4f} (one "
+          f"window, profiler overhead included); peak device memory {peak / 2**30:.4f} GiB above the run's "
+          f"start; held-out accuracy {res['accuracy']:.4f} ({card})", flush=True)
+    check(res["accuracy"] >= TEXT_ACCURACY_MIN, f"{label}: accuracy {res['accuracy']:.4f}")
+    record = {"fit_seconds": res["fit_seconds"], "docs_per_s": n / res["fit_seconds"], "run_seconds": wall,
+              "seconds_by_part": parts, "lbfgs": stats, "device_busy_seconds": busy, "idle_share": idle,
+              "peak_bytes": peak, **{k: res[k] for k in ("accuracy", "test_error", "f1") if k in res}}
+    return res, detail, record
+
+
+def csr_torch(rows, dtype, dev, transpose=False):
+    """scipy CSR rows (or their transpose) as one torch sparse CSR matrix."""
+    import warnings
+
+    import scipy.sparse as sps
+
+    m = sps.vstack(rows).tocsr()
+    if transpose:
+        m = m.T.tocsr()
+    m.sort_indices()
+    with warnings.catch_warnings():  # torch's sparse CSR is "beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(torch.from_numpy(m.indptr.astype(np.int64)),
+                                       torch.from_numpy(m.indices.astype(np.int64)),
+                                       torch.from_numpy(m.data).to(dtype), size=m.shape).to(dev)
+
+
+def sparse_op_checks(label, rows, k, dev, card):
+    """``sparse_matmul`` and ``sparse_grad`` at the app's own bucket shapes
+    (its training rows bucketed as its fit buckets them) against a float64
+    ``torch.sparse.mm`` of the same CSR rows, elementwise within
+    TOL_SPARSE_REL of Σ|terms|; both timed beside ``torch.sparse.mm`` in
+    f32 (a check and a yardstick: the port uses no library call)."""
+    from keystone_tpu_torch.ops import sparse
+
+    sp = sparse.BucketedSparseRows.from_scipy_rows(rows, device=dev)
+    d = sp.num_features
+    gen = torch.Generator(device=dev).manual_seed(11)
+    w = torch.randn((d, k), generator=gen, device=dev)
+    out, start, worst = [], 0, 0.0
+    for b in sp.buckets:
+        brows = [rows[i] for i in sp.perm[start:start + b.n]]
+        start += b.n
+        r = torch.randn((b.n, k), generator=gen, device=dev)
+        x64, xt64 = csr_torch(brows, torch.float64, dev), csr_torch(brows, torch.float64, dev, transpose=True)
+        ax64, axt64 = torch.sparse_csr_tensor(x64.crow_indices(), x64.col_indices(), x64.values().abs(),
+                                              size=x64.shape), \
+            torch.sparse_csr_tensor(xt64.crow_indices(), xt64.col_indices(), xt64.values().abs(), size=xt64.shape)
+        got_mm = sparse.sparse_matmul(b.indices, b.values, w)
+        got_g = sparse.sparse_grad(b.indices, b.values, r, d)
+        for what, got, ref, bound in (
+            ("sparse_matmul", got_mm, torch.sparse.mm(x64, w.double()), torch.sparse.mm(ax64, w.abs().double())),
+            ("sparse_grad", got_g, torch.sparse.mm(xt64, r.double()), torch.sparse.mm(axt64, r.abs().double())),
+        ):
+            diff = (got.double() - ref).abs()
+            check(bool(torch.isfinite(got).all()), f"{label} {what}: non-finite output")
+            ok = bool((diff <= TOL_SPARSE_REL * bound).all())
+            ratio = (diff / (TOL_SPARSE_REL * bound).clamp_min(1e-300)).max().item()
+            worst = max(worst, ratio)
+            check(ok, f"{label} {what} at ({b.n}, {b.nnz_max}): worst ratio {ratio:.3f}")
+        x32, xt32 = csr_torch(brows, torch.float32, dev), csr_torch(brows, torch.float32, dev, transpose=True)
+        t = {"rows": b.n, "nnz_cap": b.nnz_max,
+             "matmul_ms": cuda_ms(lambda b=b: sparse.sparse_matmul(b.indices, b.values, w), reps=10),
+             "grad_ms": cuda_ms(lambda b=b, r=r: sparse.sparse_grad(b.indices, b.values, r, d), reps=10),
+             "library_matmul_ms": cuda_ms(lambda x32=x32: torch.sparse.mm(x32, w), reps=10),
+             "library_grad_ms": cuda_ms(lambda xt32=xt32, r=r: torch.sparse.mm(xt32, r), reps=10)}
+        out.append(t)
+        print(f"  {label} bucket ({b.n}, {b.nnz_max}) x ({d}, {k}): sparse_matmul {t['matmul_ms']:.4f} ms "
+              f"(torch.sparse.mm f32 {t['library_matmul_ms']:.4f} ms), sparse_grad {t['grad_ms']:.4f} ms "
+              f"(torch.sparse.mm of the transpose {t['library_grad_ms']:.4f} ms), {card}", flush=True)
+    print(f"  {label}: both ops within {TOL_SPARSE_REL:.0e}·Σ|terms| of float64 on every bucket (worst ratio "
+          f"{worst:.3f})", flush=True)
+    return {"buckets": out, "worst_ratio": worst}
+
+
+def ls_objective(x, y, lam):
+    """The least-squares objective and its gradient in float64 on the
+    host: 1/(2n)·‖XW − Y‖² + λ/2·‖W‖² (x scipy CSR)."""
+    def f(w):
+        w = w.double().cpu().numpy()
+        r = x @ w - y
+        return 0.5 * np.sum(r * r) / x.shape[0] + 0.5 * lam * np.sum(w * w), x.T @ r / x.shape[0] + lam * w
+    return f
+
+
+def ce_objective(x, onehot, lam):
+    """The softmax cross-entropy objective and its gradient in float64."""
+    def f(w):
+        w = w.double().cpu().numpy()
+        z = x @ w
+        z = z - z.max(1, keepdims=True)
+        lse = np.log(np.exp(z).sum(1, keepdims=True))
+        p = np.exp(z - lse)
+        val = -np.sum(np.sum((z - lse) * onehot, 1)) / x.shape[0] + 0.5 * lam * np.sum(w * w)
+        return val, x.T @ (p - onehot) / x.shape[0] + lam * w
+    return f
+
+
+def lbfgs_pair(label, w, trials, w_ref, trials_ref, objective, lam, x_test):
+    """Two L-BFGS fits of one problem held as TOL_TEXT_W/TOL_PARTED_W
+    say: the weights by their line-search paths, both fits by the
+    strong-convexity certificates in float64, the argmax on the test rows
+    (scipy CSR) agreeing on TEXT_AGREEMENT."""
+    w, w_ref = w.double().cpu(), w_ref.double().cpu()
+    scale = w_ref.abs().max().item()
+    err = (w - w_ref).abs().max().item() / scale
+    parted = trials != trials_ref
+    tol = TOL_PARTED_W if parted else TOL_TEXT_W
+    (f_a, g_a), (f_b, g_b) = objective(w), objective(w_ref)
+    na, nb = float(np.linalg.norm(g_a)), float(np.linalg.norm(g_b))
+    dist = float(torch.linalg.vector_norm(w - w_ref))
+    dist_bound, f_bound = (na + nb) / lam, max(na, nb) ** 2 / (2 * lam)
+    a = np.argmax(x_test @ w.numpy(), 1)
+    b = np.argmax(x_test @ w_ref.numpy(), 1)
+    agree = float((a == b).mean())
+    print(f"  {label}: line searches of {trials} and {trials_ref} trials ({'parted' if parted else 'one path'}); "
+          f"weights {err:.3e} of the largest ({scale:.3e}; at most {tol:.0e}); ‖Δw‖ {dist:.3e} (certificate "
+          f"{dist_bound:.3e}); objective {f_a:.9e} and {f_b:.9e}, {abs(f_a - f_b):.3e} apart (certificate "
+          f"{f_bound:.3e}); gradient norms {na:.3e}, {nb:.3e}; argmax agreement {agree:.6f} over {len(a)} test "
+          f"documents", flush=True)
+    check(err <= tol, f"{label}: weights {err:.3e} apart")
+    check(dist <= dist_bound, f"{label}: the fits are farther apart than their gradients allow")
+    check(abs(f_a - f_b) <= f_bound, f"{label}: the objectives are farther apart than their gradients allow")
+    check(agree >= TEXT_AGREEMENT, f"{label}: argmax agreement {agree:.6f}")
+    return {"weights_rel": err, "tolerance": tol, "trials": [trials, trials_ref], "distance": dist,
+            "distance_certificate": dist_bound, "objective": [f_a, f_b], "objective_certificate": f_bound,
+            "grad_norms": [na, nb], "argmax_agreement": agree}
+
+
+def newsgroups_path(dev, card, gk, fk, tmp):
+    """NewsgroupsPipeline.run at its Config, both heads, in memory and
+    streamed from the trees written here; the sparse ops at its bucket
+    shapes, naive Bayes against float64 counts, the card's least-squares
+    fit against the same fit on the CPU, streamed against in memory."""
+    import scipy.sparse as sps
+
+    from keystone_tpu_torch.loaders.newsgroups import NEWSGROUPS, NewsgroupsDataLoader, synthetic_texts, write_tree
+    from keystone_tpu_torch.models import lbfgs
+    from keystone_tpu_torch.models.lbfgs import SparseLBFGSwithL2
+    from keystone_tpu_torch.models.linear import LinearMapper
+    from keystone_tpu_torch.models.naive_bayes import NaiveBayesModel
+    from keystone_tpu_torch.ops.nlp import CommonSparseFeaturesModel
+    from keystone_tpu_torch.pipelines import newsgroups as NG
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    out = {}
+    with phase("text: the Newsgroups trees (20 Newsgroups' bydate split sizes)"):
+        groups = sorted(NEWSGROUPS)
+        texts, labels = synthetic_texts(NEWS_N, NEWS_CLASSES, 1)
+        ttexts, tlabels = synthetic_texts(NEWS_TEST_N, NEWS_CLASSES, 2)
+        write_tree(str(tmp / "train"), texts, labels, groups)
+        write_tree(str(tmp / "test"), ttexts, tlabels, groups)
+    base = NG.Config(data_path=str(tmp / "train"), test_path=str(tmp / "test"), stream_batch_size=NEWS_BATCH)
+    fitted = {}
+    for head in ("nb", "ls"):
+        for mode in ("in memory", "stream"):
+            with phase(f"main path: NewsgroupsPipeline.run, {head}, {mode}"):
+                cfg = dataclasses.replace(base, head=head, stream=mode == "stream")
+                res, detail, rec = text_run(f"Newsgroups {head} {mode}", card, gk, fk, NG.NewsgroupsPipeline.run,
+                                            cfg, NEWS_N)
+                vocab = next(s for s in fitted_stages(detail["fitted"]) if isinstance(s, CommonSparseFeaturesModel))
+                rec["vocabulary"] = len(vocab.vocab)
+                print(f"  vocabulary {len(vocab.vocab)} terms (the Config's {cfg.num_features}); test error "
+                      f"{res['test_error']:.6f}", flush=True)
+                out[f"{head} {mode}"] = rec
+                fitted[head, mode] = (detail["fitted"], vocab, detail["predictions"], res)
+    with phase("Newsgroups: the vocabulary, the sparse ops at its bucket shapes, naive Bayes against float64"):
+        vocab = fitted["nb", "in memory"][1]
+        distinct = len(NG.CommonSparseFeatures(10**7).fit_dataset(
+            NG.text_featurizer(2).fit()(Dataset(texts, device=dev)).get()).vocab)
+        print(f"  the training corpus has {distinct} distinct terms (unigrams and bigrams); the vocabulary keeps "
+              f"{len(vocab.vocab)} of them, at most the Config's {base.num_features}; the rows are "
+              f"{base.num_features} wide", flush=True)
+        check(len(vocab.vocab) == min(distinct, base.num_features), f"vocabulary of {len(vocab.vocab)} terms")
+        check(vocab.num_features == base.num_features, f"rows {vocab.num_features} wide")
+        out["distinct_terms"], out["vocabulary"] = distinct, len(vocab.vocab)
+        # the rows in the loader's order (group by group), as the fits take them
+        train = NewsgroupsDataLoader.load(base.data_path, groups=groups, device=dev)
+        test = NewsgroupsDataLoader.load(base.test_path, groups=groups, device=dev)
+        labels = train.labels.numpy()
+        feat, nbm = split_at(fitted["nb", "in memory"][0], NaiveBayesModel)
+        rows = feat(train.data).get().items
+        trows = feat(test.data).get().items
+        x, xt = sps.vstack(rows).tocsr().astype(np.float64), sps.vstack(trows).tocsr().astype(np.float64)
+        out["sparse_ops"] = sparse_op_checks("Newsgroups", rows, NEWS_CLASSES, dev, card)
+        onehot = np.eye(NEWS_CLASSES)[labels]
+        counts = np.asarray((x.T @ onehot).T) + base.nb_lam
+        lc64 = np.log(counts) - np.log(counts.sum(1, keepdims=True))
+        lp64 = np.log(onehot.sum(0)) - np.log(NEWS_N)
+        e_lc = compare("naive Bayes log_cond against float64 counts", nbm.log_cond.cpu(),
+                       torch.from_numpy(lc64), TOL_NB_ATOL, TOL_NB_RTOL)
+        e_lp = compare("naive Bayes log_prior against float64", nbm.log_prior.cpu(), torch.from_numpy(lp64),
+                       TOL_NB_ATOL, TOL_NB_RTOL)
+        out["nb_f64"] = {"log_cond": e_lc, "log_prior": e_lp}
+    with phase("Newsgroups: the card's ls fit against the same fit on the CPU; streamed against in memory"):
+        lm = split_at(fitted["ls", "in memory"][0], LinearMapper)[1]
+        y = np.where(np.eye(NEWS_CLASSES)[labels] > 0, 1.0, -1.0).astype(np.float32)
+        objective = ls_objective(x, y.astype(np.float64), base.ls_lam)
+        lbfgs.reset_stats()
+        t0 = time.perf_counter()
+        cpu = SparseLBFGSwithL2(lam=base.ls_lam, num_iterations=100, fit_intercept=False).fit_dataset(
+            Dataset(rows, device="cpu"), Dataset(torch.from_numpy(y)))
+        cpu_s, cpu_stats = time.perf_counter() - t0, dict(lbfgs.STATS)
+        print(f"  the CPU fit: {cpu_s:.3f} s, {cpu_stats}", flush=True)
+        card_trials = out["ls in memory"]["lbfgs"]["trials"]
+        out["ls_card_vs_cpu"] = {**lbfgs_pair("ls weights, card vs CPU", lm.weights, card_trials, cpu.weights,
+                                              cpu_stats["trials"], objective, base.ls_lam, xt),
+                                 "cpu_fit_seconds": cpu_s}
+        agree = {}
+        for head in ("nb", "ls"):
+            (fm, vm, pm, rm), (fs, vs, ps, rs) = fitted[head, "in memory"], fitted[head, "stream"]
+            check(list(vm.vocab.items()) == list(vs.vocab.items()), f"{head}: the streamed vocabulary differs")
+            derr = abs(rm["test_error"] - rs["test_error"]) * NEWS_TEST_N
+            print(f"  {head}: vocabularies equal; test error {rm['test_error']:.6f} in memory, "
+                  f"{rs['test_error']:.6f} streamed ({derr:.1f} documents apart, at most 1)", flush=True)
+            check(derr <= 1.0 + 1e-9, f"{head}: streamed test error {derr:.1f} documents off")
+            if head == "nb":
+                a, b = split_at(fm, NaiveBayesModel)[1], split_at(fs, NaiveBayesModel)[1]
+                e = compare("nb log_cond, stream vs in memory", b.log_cond, a.log_cond, TOL_NB_ATOL, TOL_NB_RTOL)
+                agree[head] = {"log_cond_max_abs_err": e, "test_error_docs": derr}
+            else:
+                a, b = split_at(fm, LinearMapper)[1], split_at(fs, LinearMapper)[1]
+                agree[head] = {**lbfgs_pair("ls weights, stream vs in memory", b.weights,
+                                            out["ls stream"]["lbfgs"]["trials"], a.weights,
+                                            out["ls in memory"]["lbfgs"]["trials"], objective, base.ls_lam, xt),
+                               "test_error_docs": derr}
+        out["stream_vs_memory"] = agree
+    return out
+
+
+def amazon_path(dev, card, gk, fk, tmp):
+    """AmazonReviewsPipeline.run at its Config, in memory and streamed from
+    the JSON-lines file written here; the sparse ops at its bucket shapes,
+    the card's logistic fit against the same fit on the CPU, streamed
+    against in memory."""
+    import scipy.sparse as sps
+
+    from keystone_tpu_torch.loaders.amazon import synthetic_reviews, write_jsonl
+    from keystone_tpu_torch.models import lbfgs
+    from keystone_tpu_torch.models.logistic import LogisticRegressionEstimator, LogisticRegressionModel
+    from keystone_tpu_torch.pipelines import amazon_reviews as AR
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    out = {}
+    with phase("text: the Amazon reviews files"):
+        texts, labels = synthetic_reviews(AMAZON_N, 1)
+        ttexts, tlabels = synthetic_reviews(AMAZON_N // 4, 2)
+        write_jsonl(str(tmp / "train.jsonl"), texts, labels)
+        write_jsonl(str(tmp / "test.jsonl"), ttexts, tlabels)
+        labels = np.asarray(labels)
+    base = AR.Config(data_path=str(tmp / "train.jsonl"), test_path=str(tmp / "test.jsonl"),
+                     stream_batch_size=AMAZON_BATCH)
+    fitted = {}
+    for mode in ("in memory", "stream"):
+        with phase(f"main path: AmazonReviewsPipeline.run, {mode}"):
+            res, detail, rec = text_run(f"Amazon {mode}", card, gk, fk, AR.AmazonReviewsPipeline.run,
+                                        dataclasses.replace(base, stream=mode == "stream"), AMAZON_N)
+            print(f"  f1 {res['f1']:.6f}", flush=True)
+            out[mode] = rec
+            fitted[mode] = (detail["fitted"], res)
+    with phase("Amazon: the sparse ops at its bucket shapes; the card's fit against the CPU's; stream vs memory"):
+        feat, lr = split_at(fitted["in memory"][0], LogisticRegressionModel)
+        rows = feat(Dataset(texts, device=dev)).get().items
+        trows = feat(Dataset(ttexts, device=dev)).get().items
+        xt = sps.vstack(trows).tocsr().astype(np.float64)
+        used = len(np.unique(sps.vstack(rows).tocsr().indices))
+        print(f"  {used} of the {base.num_features} hashed columns in use", flush=True)
+        out["hashed_columns_used"] = used
+        out["sparse_ops"] = sparse_op_checks("Amazon", rows, 2, dev, card)
+        x = sps.vstack(rows).tocsr().astype(np.float64)
+        objective = ce_objective(x, np.eye(2)[labels], base.lam)
+        lbfgs.reset_stats()
+        t0 = time.perf_counter()
+        cpu = LogisticRegressionEstimator(2, lam=base.lam, num_iters=base.num_iters).fit_dataset(
+            Dataset(rows, device="cpu"), Dataset(torch.from_numpy(labels)))
+        cpu_s, cpu_stats = time.perf_counter() - t0, dict(lbfgs.STATS)
+        print(f"  the CPU fit: {cpu_s:.3f} s, {cpu_stats}", flush=True)
+        out["card_vs_cpu"] = {**lbfgs_pair("logistic weights, card vs CPU", lr.weights,
+                                           out["in memory"]["lbfgs"]["trials"], cpu.weights, cpu_stats["trials"],
+                                           objective, base.lam, xt), "cpu_fit_seconds": cpu_s}
+        (fm, rm), (fs, rs) = fitted["in memory"], fitted["stream"]
+        n_test = AMAZON_N // 4
+        dacc = abs(rm["accuracy"] - rs["accuracy"]) * n_test
+        print(f"  accuracy {rm['accuracy']:.6f} in memory, {rs['accuracy']:.6f} streamed ({dacc:.1f} documents "
+              f"apart, at most 1); f1 {rm['f1']:.6f} and {rs['f1']:.6f}", flush=True)
+        check(dacc <= 1.0 + 1e-9, f"streamed accuracy {dacc:.1f} documents off")
+        # one document moves f1 = 2tp/(2tp + fp + fn) by at most 2/(positives − 1)
+        check(abs(rm["f1"] - rs["f1"]) <= 2.0 / (int(np.sum(tlabels)) - 1), "streamed f1 more than one document off")
+        b = split_at(fs, LogisticRegressionModel)[1]
+        out["stream_vs_memory"] = {**lbfgs_pair("logistic weights, stream vs in memory", b.weights,
+                                                out["stream"]["lbfgs"]["trials"], lr.weights,
+                                                out["in memory"]["lbfgs"]["trials"], objective, base.lam, xt),
+                                   "accuracy_docs": dacc}
+    return out
+
+
 def profile_once(fn) -> None:
     """Device time by operator over one call of ``fn`` (after a warm-up
     call), and two idle shares.  One window: the device's busy time
@@ -2667,14 +3157,9 @@ def profile_once(fn) -> None:
     only; it includes the profiler's own host overhead, so it reads high.
     Two calls: that busy time against the host-clock time of an
     unprofiled call; it assumes both calls kept the device equally busy."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def busy_ms(prof):
-        # the kernels' own time (an operator's self device time repeats its kernels')
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3
-
+    busy_ms = device_busy_ms
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2728,14 +3213,20 @@ def main(argv=None) -> int:
         card = smi[0].strip()
         name = torch.cuda.get_device_name(0)
         print(card)
+        import scipy
+
+        print(f"  scipy {scipy.__version__}")
         print(f"  torch: {torch.__version__} cuda {torch.version.cuda}; device 0: {name}; "
               f"count {torch.cuda.device_count()}")
 
     with phase("build"):
+        # every CUDA source with nvcc and the host text chain with g++, all
+        # compilers started together (jpeg.cpp needs libjpeg, which the
+        # card's machine lacks: the CPU decoder is not on a card path)
         sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
         t0 = time.perf_counter()
-        paths = build.build(sources)
-        print(f"  built {sources} in {time.perf_counter() - t0:.1f} s")
+        paths = build.build(sources + ["text"])
+        print(f"  built {sources + ['text']} in {time.perf_counter() - t0:.1f} s")
         for s in sources:
             regs = [ln.strip() for ln in (build.BUILD_DIR / f"{s}.log").read_text().splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -2953,6 +3444,14 @@ def main(argv=None) -> int:
         shutil.rmtree(tier_tmp, ignore_errors=True)
     results["voc"] = voc_path(dev, card, gk, fk)
     results["voc_fixture"] = voc_fixture_path(dev, card)
+    # the text apps: trees and JSON lines written here
+    text_tmp = Path(tempfile.mkdtemp(prefix="text_apps_", dir=REPO))
+    try:
+        (text_tmp / "news").mkdir()
+        results["newsgroups"] = newsgroups_path(dev, card, gk, fk, text_tmp / "news")
+        results["amazon"] = amazon_path(dev, card, gk, fk, text_tmp)
+    finally:
+        shutil.rmtree(text_tmp, ignore_errors=True)
 
     with phase("kernel timing"):
         def kernel_line(name, replaces, kernel, plain, calls, shape):
@@ -3144,6 +3643,7 @@ def main(argv=None) -> int:
         "disk_tier": results["disk_tier"],
         "dense_apps": {k: results[k] for k in ("mnist", "linear_pixels", "random_patch_cifar", "timit", "voc",
                                                 "voc_fixture")},
+        "text_apps": {k: results[k] for k in ("newsgroups", "amazon")},
         "card": card,
     }))
     print(json.dumps({"kernels": lines}))

@@ -56,6 +56,13 @@ each from its reference object's arrays, as the port's transformer on
 None) and ``linear_mapper_from_numpy`` (``weights`` (d, k),
 ``intercept`` (k,) or None).
 
+The text apps' fitted state: ``common_sparse_features_model_from_vocab``
+(the vocabulary, a host object, copied), ``hashing_tf_from_reference``
+(its width; the hash is the reference's), ``naive_bayes_model_from_numpy``
+(``log_prior`` (K,), ``log_cond`` (K, d)),
+``logistic_regression_model_from_numpy`` (``weights`` (d, K)) and, for
+the sparse least-squares head, ``linear_mapper_from_numpy``.
+
 ``oc_krr_mapper_from_numpy`` carries an out-of-core kernel model across:
 its α (``_oc_krr_fit``'s (nb·bs, k) output) and the directory of the
 ``RowBlockStore`` it was fitted on, which the port reads as it is.
@@ -264,3 +271,39 @@ def linear_mapper_from_numpy(weights, intercept=None, device="cuda"):
     bt = None if intercept is None else _f32("intercept", intercept, 1, device)
     _check_len("intercept", bt, wt.shape[1])
     return LinearMapper(wt, bt)
+
+
+def common_sparse_features_model_from_vocab(vocab: Mapping, num_features: int, sparse_output: bool = False):
+    """A ``CommonSparseFeaturesModel`` over the reference's fitted
+    vocabulary ({token tuple: column}, a host object, copied)."""
+    from keystone_tpu_torch.ops.nlp import CommonSparseFeaturesModel
+
+    vocab = {tuple(t): int(i) for t, i in vocab.items()}
+    if vocab and (max(vocab.values()) >= num_features or min(vocab.values()) < 0):
+        raise ValueError(f"vocabulary columns outside [0, {num_features})")
+    return CommonSparseFeaturesModel(vocab, num_features, sparse_output)
+
+
+def hashing_tf_from_reference(num_features: int, sparse_output: bool = False):
+    """A ``HashingTF`` of the reference's width (it holds no fitted state:
+    the hash is the reference's)."""
+    from keystone_tpu_torch.ops.nlp import HashingTF
+
+    return HashingTF(num_features, sparse_output)
+
+
+def naive_bayes_model_from_numpy(log_prior, log_cond, device="cuda"):
+    """A ``NaiveBayesModel`` from the reference's (K,) log prior and (K, d)
+    log conditionals."""
+    from keystone_tpu_torch.models.naive_bayes import NaiveBayesModel
+
+    lp, lc = _f32("log_prior", log_prior, 1, device), _f32("log_cond", log_cond, 2, device)
+    _check_len("log_prior", lp, lc.shape[0])
+    return NaiveBayesModel(lp, lc)
+
+
+def logistic_regression_model_from_numpy(weights, device="cuda"):
+    """A ``LogisticRegressionModel`` from the reference's (d, K) weights."""
+    from keystone_tpu_torch.models.logistic import LogisticRegressionModel
+
+    return LogisticRegressionModel(_f32("weights", weights, 2, device))

@@ -7,7 +7,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``, and each
 edited source rebuilds and an unchanged one is loaded from the build
 directory.  Nothing builds at import: the first call that needs a
 library builds it.  Only the repository's sources, the CUDA toolkit and
-the system's libjpeg are used.
+the system's libjpeg are used (``text.cpp``, the host text chain, needs
+nothing beyond the C++ standard library).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
 #: the reference's native build flags (native/Makefile), for host code
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++20", "-shared")
 #: libraries a source links against
-LINK = {"jpeg": ("-ljpeg", "-lpthread"), "nvjpeg": ("-lnvjpeg",)}
+LINK = {"jpeg": ("-ljpeg", "-lpthread"), "nvjpeg": ("-lnvjpeg",), "text": ("-lpthread",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -5,7 +5,8 @@ LocalLeastSquaresEstimator.scala).
 
 The normal equations (XᵀX + λn·I) W = XᵀY, centred explicitly before the
 Gramian when there is an intercept, solved by Cholesky
-(``models/common.py::solve_spd``).  In memory and streamed the fit is one
+(``models/common.py::solve_spd``); scipy sparse rows go to the sparse
+L-BFGS solver (``models/lbfgs.py``).  In memory and streamed the fit is one
 path, ``LinearMapEstimator.fit_stream``: an in-memory fit streams
 4096-row views of its tensors.  The Gramians are f32 products of row
 blocks, Kahan-summed (``models/common.py::gram``); the pipelines turn
@@ -31,11 +32,6 @@ from keystone_tpu_torch.workflow.transformer import Transformer, tensor_identity
 _LOCAL_SOLVE_MAX_ELEMENTS = 1 << 21
 
 
-def _is_sparse_rows(items) -> bool:
-    """Host rows of scipy sparse matrices (the text pipelines' features)."""
-    return bool(items) and type(items[0]).__module__.startswith("scipy.sparse")
-
-
 class LinearMapper(Transformer):
     """x·W + b (LinearMapper.scala § LinearMapper)."""
 
@@ -50,6 +46,15 @@ class LinearMapper(Transformer):
     def apply_batch(self, xs, mask=None):
         out = torch.matmul(xs.to(torch.float32), self.weights)
         return out if self.intercept is None else out + self.intercept
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        # scipy sparse rows score by gathering weight rows (the sparse
+        # solvers' features): n×d never densifies
+        from keystone_tpu_torch.ops.sparse import is_scipy_sparse_rows, score_sparse_dataset
+
+        if ds.is_host and is_scipy_sparse_rows(ds.items):
+            return score_sparse_dataset(ds, self.weights, self.intercept)
+        return super().apply_dataset(ds)
 
 
 class LinearMapEstimator(LabelEstimator):
@@ -67,12 +72,18 @@ class LinearMapEstimator(LabelEstimator):
 
     def choose_physical(self, sample, full_n=None):
         """The reference's physical choice: scipy sparse host rows go to the
-        sparse L-BFGS solver (not ported: the text pipelines), and a dense
-        problem of at most ``_LOCAL_SOLVE_MAX_ELEMENTS`` entries (the full
-        row count times the sample's width) to the local solve."""
-        if sample is not None and sample.is_host and _is_sparse_rows(sample.items):
-            raise NotImplementedError("sparse rows go to SparseLBFGSwithL2, which the text pipelines bring "
-                                      "(ROADMAP A7)")
+        sparse L-BFGS solver, which minimizes the same objective
+        (1/(2n)‖XW−Y‖² + λ/2‖W‖², whose minimum solves (XᵀX+λnI)W = XᵀY)
+        without densifying n×d or forming d×d, an intercept kept as an
+        unpenalized constant column; and a dense problem of at most
+        ``_LOCAL_SOLVE_MAX_ELEMENTS`` entries (the full row count times the
+        sample's width) to the local solve."""
+        from keystone_tpu_torch.ops.sparse import is_scipy_sparse_rows
+
+        if sample is not None and sample.is_host and is_scipy_sparse_rows(sample.items):
+            from keystone_tpu_torch.models.lbfgs import SparseLBFGSwithL2
+
+            return SparseLBFGSwithL2(lam=self.lam, num_iterations=100, fit_intercept=self.fit_intercept)
         if (sample is not None and not sample.is_host and full_n is not None and sample.array.ndim == 2
                 and full_n * sample.array.shape[1] <= _LOCAL_SOLVE_MAX_ELEMENTS):
             return LocalLeastSquaresEstimator(lam=self.lam, fit_intercept=self.fit_intercept)
@@ -82,8 +93,12 @@ class LinearMapEstimator(LabelEstimator):
         if labels is None:
             raise ValueError("LinearMapEstimator requires labels")
         if data.is_host:
-            self.choose_physical(data)  # sparse rows: refused there
-            raise TypeError("LinearMapEstimator fits dense rows; featurize the host payload first")
+            from keystone_tpu_torch.ops.sparse import is_scipy_sparse_rows
+
+            # sparse rows fit here too where no optimizer chose for them
+            if is_scipy_sparse_rows(data.items):
+                return self.choose_physical(data).fit_dataset(data, labels)
+            raise TypeError("LinearMapEstimator fits dense or scipy sparse rows; featurize the host payload first")
         if isinstance(data, StreamDataset):
             # out of core: the labels (n, k) stay in memory, the features
             # stream past the accumulators, batch by batch

@@ -24,6 +24,12 @@ def _nchw(xs: torch.Tensor) -> torch.Tensor:
     return xs.to(torch.float32).permute(0, 3, 1, 2)
 
 
+def _valid_extent(size: int, window: int, stride: int) -> int:
+    """Windows of a VALID sweep along one axis: none where the window does
+    not fit, as in the reference, where the torch ops raise."""
+    return (size - window) // stride + 1 if size >= window else 0
+
+
 class Convolver(Transformer):
     """K filters convolved over images, VALID (Convolver.scala, the CIFAR
     feature extractor).  ``filters``: (K, fh, fw, c); ``offset``: (K,) or
@@ -66,6 +72,10 @@ class Convolver(Transformer):
 
     def apply_batch(self, xs, mask=None):
         x = _nchw(xs)
+        k, fh, fw, _ = self.filters.shape
+        oh, ow = _valid_extent(x.shape[2], fh, self.stride), _valid_extent(x.shape[3], fw, self.stride)
+        if oh == 0 or ow == 0:  # an image smaller than the filters
+            return torch.zeros((x.shape[0], oh, ow, k), device=x.device)
         strategy = self.strategy
         if strategy == "auto":
             strategy = _pick_conv_strategy(x.shape[2], x.shape[3], tuple(self.filters.shape), self.stride)
@@ -126,6 +136,10 @@ class Pooler(Transformer):
         if self.pixel_fn is not None:
             x = self.pixel_fn(x)
         x = x.permute(0, 3, 1, 2)
+        oh = _valid_extent(x.shape[2], self.pool_size, self.stride)
+        ow = _valid_extent(x.shape[3], self.pool_size, self.stride)
+        if oh == 0 or ow == 0:  # an image smaller than the window
+            return torch.zeros((x.shape[0], oh, ow, x.shape[1]), device=x.device)
         if self.pool_mode == "sum":
             out = F.avg_pool2d(x, self.pool_size, self.stride, divisor_override=1)
         else:
@@ -180,7 +194,8 @@ class GrayScaler(Transformer):
     def apply_batch(self, xs, mask=None):
         if xs.ndim == 3 or xs.shape[-1] == 1:
             return xs.reshape(xs.shape[:3])
-        return xs.mean(dim=-1)
+        # integer pixels average in f32, as jnp.mean does
+        return xs.mean(dim=-1, dtype=None if xs.is_floating_point() else torch.float32)
 
 
 class ImageVectorizer(Transformer):
@@ -236,6 +251,8 @@ class Windower(Transformer):
         x = _nchw(xs)
         n, c = x.shape[:2]
         ws = self.window_size
+        if _valid_extent(x.shape[2], ws, self.step) == 0 or _valid_extent(x.shape[3], ws, self.step) == 0:
+            return torch.zeros((n, 0, ws * ws * c), device=x.device)
         patches = F.unfold(x, ws, stride=self.step)  # (n, c·ws·ws, L), (c, dy, dx) order
         return patches.reshape(n, c, ws, ws, -1).permute(0, 4, 2, 3, 1).reshape(n, -1, ws * ws * c)
 

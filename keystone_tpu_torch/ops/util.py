@@ -1,12 +1,15 @@
-"""Prediction heads and label indicators (counterpart of
-``keystone_tpu/ops/util.py`` § TopKClassifier, MaxClassifier,
-ClassLabelIndicators).  Applied to a label ``Dataset``,
-ClassLabelIndicators gives the ±1 target Dataset a LabelEstimator fits."""
+"""Prediction heads, label indicators and representation casts
+(counterpart of ``keystone_tpu/ops/util.py`` § TopKClassifier,
+MaxClassifier, ClassLabelIndicators, Densify, Sparsify, FloatToDouble).
+Applied to a label ``Dataset``, ClassLabelIndicators gives the ±1 target
+Dataset a LabelEstimator fits."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from keystone_tpu_torch.workflow.dataset import Dataset
 from keystone_tpu_torch.workflow.transformer import Transformer
 
 
@@ -53,3 +56,64 @@ class ClassLabelIndicators(Transformer):
         classes = torch.arange(self.num_classes, device=xs.device)
         onehot = xs.to(torch.int64)[..., None] == classes
         return onehot.to(torch.float32) * 2.0 - 1.0
+
+
+class Densify(Transformer):
+    """scipy sparse rows → dense f32 rows on the data's device
+    (nodes/util/Densify.scala), the physical cast between the sparse text
+    features and the dense solvers."""
+
+    is_host = True
+    fusable = False
+
+    def params(self):
+        return ()
+
+    def apply_one(self, x):
+        if hasattr(x, "toarray"):
+            return np.asarray(x.toarray()).ravel().astype(np.float32)
+        return np.asarray(x, np.float32)
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        items = ds.items
+        if len(items) and hasattr(items[0], "toarray"):
+            import scipy.sparse as sp
+
+            return Dataset(sp.vstack(items).toarray().astype(np.float32), device=ds.device)
+        return Dataset(np.stack([self.apply_one(x) for x in items]).astype(np.float32), device=ds.device)
+
+
+class Sparsify(Transformer):
+    """Dense rows → scipy CSR rows on the host (nodes/util/Sparsify.scala);
+    the rows' tensors go back to the dataset's device when featurized."""
+
+    is_host = True
+    fusable = False
+
+    def params(self):
+        return ()
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        import scipy.sparse as sp
+
+        mat = sp.csr_matrix(np.asarray(ds.numpy()))
+        return ds.with_items([mat[i] for i in range(mat.shape[0])])
+
+    def apply_one(self, x):
+        import scipy.sparse as sp
+
+        return sp.csr_matrix(np.asarray(x))
+
+
+class FloatToDouble(Transformer):
+    """The dtype cast of nodes/util/FloatToDouble.scala, to f32 as in the
+    reference (the device computes in f32)."""
+
+    def params(self):
+        return ()
+
+    def apply_batch(self, xs, mask=None):
+        return xs.to(torch.float32)
+
+    def apply_one(self, x):
+        return torch.as_tensor(x, dtype=torch.float32)

@@ -51,6 +51,7 @@ class Dataset:
             self._array = None
             self.n = len(self._host) if n is None else int(n)
             self.mask = None
+            self._device = None if device is None else torch.device(device)
             return
         if isinstance(data, (list, tuple)):
             is_tensor = isinstance(data[0], torch.Tensor)
@@ -80,7 +81,11 @@ class Dataset:
 
     @property
     def device(self) -> torch.device:
-        return torch.device("cpu") if self._array is None else self._array.device
+        """Where the tensor lives; for a host payload, where the tensors
+        featurized from it go (its ``device`` argument, else the card)."""
+        if self._array is not None:
+            return self._array.device
+        return self._device if self._device is not None else resolve_device()
 
     @property
     def item_shape(self) -> tuple:
@@ -112,12 +117,14 @@ class Dataset:
         return d
 
     def with_items(self, items: Sequence) -> "Dataset":
+        """New host Dataset of this one's length and device over ``items``."""
         d = Dataset.__new__(Dataset)
         d._host = list(items)
         d._array = None
         d.n = self.n
         d.mask = None
         d.name = None
+        d._device = self._device if self._array is None else self._array.device
         return d
 
     def cache(self) -> "Dataset":
@@ -156,8 +163,14 @@ class StreamDataset(Dataset):
 
     Each sweep re-runs the source and every map over it: a consumer
     without a streaming path that reads ``array`` materializes the
-    whole stream, with a warning.  Host-payload streams (the text
-    pipelines' documents) wait for ROADMAP A7."""
+    whole stream, with a warning.
+
+    ``host=True`` makes a stream of host-object batches (lists of
+    documents, term dicts, CSR rows: the text pipelines' payloads before
+    featurization): host transformers map over it item by item, batch by
+    batch, and nothing reaches the device until a featurizer makes
+    tensors; ``device`` is where they go.  Its ``items`` collect the
+    stream (the CSR rows after featurization are small)."""
 
     def __init__(
         self,
@@ -169,8 +182,6 @@ class StreamDataset(Dataset):
         device=None,
         stage: Optional[Callable] = None,
     ):
-        if host:
-            raise NotImplementedError("host-payload streams (the text pipelines) are not ported (ROADMAP A7)")
         if not callable(source) and iter(source) is source:
             # a one-shot iterator would be shared, and interleaved, by
             # the consumers that fan out of one stream (a Gather's branches)
@@ -184,14 +195,19 @@ class StreamDataset(Dataset):
         dev = resolve_device() if device is None else torch.device(device)
         put = stage if stage is not None else (lambda a: _to_device(a, dev))
 
-        def gen():
-            for batch in source() if callable(source) else iter(source):
-                arr, mask = batch if isinstance(batch, tuple) else (batch, None)
-                yield put(arr), None if mask is None else _to_device(mask, dev)
+        if host:
+            def gen():
+                for batch in source() if callable(source) else iter(source):
+                    yield list(batch), None
+        else:
+            def gen():
+                for batch in source() if callable(source) else iter(source):
+                    arr, mask = batch if isinstance(batch, tuple) else (batch, None)
+                    yield put(arr), None if mask is None else _to_device(mask, dev)
 
-        self._init(gen, n, dev, name)
+        self._init(gen, n, dev, name, host)
 
-    def _init(self, gen, n, device, name=None):
+    def _init(self, gen, n, device, name=None, host=False):
         self.name = name
         self.n = int(n)
         self._host = None
@@ -199,16 +215,17 @@ class StreamDataset(Dataset):
         self.mask = None
         self._device = device
         self._gen = gen
+        self._host_stream = bool(host)
 
     @classmethod
-    def _wrap(cls, gen, n: int, device, name: Optional[str] = None) -> "StreamDataset":
+    def _wrap(cls, gen, n: int, device, name: Optional[str] = None, host: bool = False) -> "StreamDataset":
         d = cls.__new__(cls)
-        d._init(gen, n, device, name)
+        d._init(gen, n, device, name, host)
         return d
 
     @property
     def is_host(self) -> bool:
-        return False
+        return self._host_stream
 
     @property
     def device(self) -> torch.device:
@@ -235,21 +252,30 @@ class StreamDataset(Dataset):
         return self.peek_shape()
 
     def batches(self):
-        """Iterate the batches as host numpy arrays."""
+        """Iterate the batches as host numpy arrays (lists, on a host stream)."""
         for arr, _ in self._gen():
-            yield arr.cpu().numpy()
+            yield arr if self._host_stream else arr.cpu().numpy()
 
-    def map_batches(self, fn) -> "StreamDataset":
+    def map_batches(self, fn, host: Optional[bool] = None) -> "StreamDataset":
         """Lazily compose ``fn(batch, mask)`` (returning a tensor or a
-        ``(tensor, mask)`` pair) over the stream."""
+        ``(tensor, mask)`` pair, or a list on a host stream) over the
+        stream.  ``host`` is the child stream's payload kind (default:
+        this one's); a host stream's device child puts each batch that
+        ``fn`` makes on the stream's device."""
         parent = self._gen
+        host = self._host_stream if host is None else bool(host)
+        to_device = self._host_stream and not host
+        dev = self._device
 
         def gen():
             for arr, mask in parent():
                 out = fn(arr, mask)
-                yield out if isinstance(out, tuple) else (out, None)
+                out, m = out if isinstance(out, tuple) else (out, None)
+                if to_device:
+                    out = _to_device(out, dev)
+                yield out, m
 
-        return StreamDataset._wrap(gen, self.n, self._device)
+        return StreamDataset._wrap(gen, self.n, self._device, host=host)
 
     @staticmethod
     def zip_concat(streams: Sequence["StreamDataset"]) -> "StreamDataset":
@@ -272,6 +298,8 @@ class StreamDataset(Dataset):
     def array(self) -> torch.Tensor:
         """The whole stream as one tensor on the device: the escape hatch
         of a consumer without a streaming path, which defeats out-of-core."""
+        if self._host_stream:
+            raise TypeError("host-payload StreamDataset has no array; featurize it first")
         if self._array is None:
             logging.getLogger(__name__).warning(
                 "materializing StreamDataset (n=%d) into device memory; this consumer has no out-of-core path",
@@ -286,12 +314,27 @@ class StreamDataset(Dataset):
                 self.mask = torch.cat(masks)
         return self._array
 
+    @property
+    def items(self) -> list:
+        """A host stream's items, collected once (after featurization they
+        are CSR rows, small); a device stream's rows, materialized."""
+        if not self._host_stream:
+            return list(self.array[:self.n].cpu().numpy())
+        if self._host is None:
+            logging.getLogger(__name__).debug("collecting host StreamDataset (n=%d) items", self.n)
+            out: list = []
+            for batch, _ in self._gen():
+                out.extend(batch)
+            self._host = out
+        return self._host
+
     def cache(self) -> "StreamDataset":
         """A Cacher must not collapse the stream into memory: a no-op."""
         return self
 
     def __repr__(self):
-        return f"StreamDataset(n={self.n}, device={self._device})"
+        kind = "host, " if self._host_stream else ""
+        return f"StreamDataset({kind}n={self.n}, device={self._device})"
 
 
 def _to_device(arr, device: torch.device) -> torch.Tensor:

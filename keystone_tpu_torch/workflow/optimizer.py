@@ -226,7 +226,7 @@ def _truncate_datasets(graph: G.Graph, k: int) -> G.Graph:
         if ds.n <= k:
             continue
         if ds.is_host:
-            sliced = Dataset(ds.items[:k])
+            sliced = Dataset(ds.items[:k], device=ds.device)
         else:
             sliced = Dataset(ds.array[:k], mask=None if ds.mask is None else ds.mask[:k])
         graph = graph.set_operator(n, G.DatasetOperator(sliced))
@@ -235,7 +235,16 @@ def _truncate_datasets(graph: G.Graph, k: int) -> G.Graph:
 
 def _stream_head(ds: StreamDataset, k: int) -> Dataset:
     """The first k rows of a stream, masks kept (or sampled nodes would
-    take padded descriptor rows for data)."""
+    take padded descriptor rows for data); a host stream's first k items."""
+    if ds.is_host:
+        items: list = []
+        for batch in ds.batches():
+            items.extend(batch)
+            if len(items) >= k:
+                break
+        if not items:
+            raise ValueError("empty stream")
+        return Dataset(items[:k], device=ds.device)
     parts, masks, got = [], [], 0
     for arr, mask in ds.device_batches():
         parts.append(arr)
@@ -279,6 +288,17 @@ class FusedTransformer(Transformer):
             out = s.apply_batch(xs, mask=mask)
             xs, mask = out if isinstance(out, tuple) else (out, None)
         return xs if mask is None else (xs, mask)
+
+    def apply_dataset(self, ds: Dataset) -> Dataset:
+        """A host payload (the text apps' CSR rows) goes through the first
+        stage's own ``apply_dataset`` (the sparse scorers'), the rest of
+        the chain on the tensor it makes.  The reference maps such a
+        payload item by item through the chain, with the same result."""
+        if ds.is_host:
+            out = self.stages[0].apply_dataset(ds)
+            rest = list(self.stages)[1:]
+            return FusedTransformer(rest).apply_dataset(out) if rest else out
+        return super().apply_dataset(ds)
 
 
 class StageFusionRule(Rule):

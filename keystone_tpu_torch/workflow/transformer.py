@@ -15,7 +15,10 @@ reduces the sets to dense rows returns ``out``.  Called on a tensor, a
 transformer applies its batch path (``forward``); on a ``Dataset`` it
 applies ``apply_dataset``, in row chunks (on a ``StreamDataset``, batch
 by batch, lazily); on a pipeline or a lazy result
-it chains lazily, as the reference's ``__call__`` does.
+it chains lazily, as the reference's ``__call__`` does.  A host
+transformer (``is_host``: the text chain) maps Python objects item by
+item, over a host list or a host stream, and records the chain it
+belongs to (``_host_chain``).
 
 The reference's jit caches (``_JIT_APPLY_CACHE``, ``traced_attrs``,
 ``stripped_template``) are XLA compile-cache machinery with no
@@ -113,6 +116,15 @@ class Transformer(nn.Module, Chainable):
         is a per-item map, so chunk boundaries change no row.  Over a
         stream it is a lazy map, batch by batch as the stream is swept."""
         if isinstance(ds, StreamDataset):
+            if ds.is_host:
+                if not self.is_host:
+                    raise TypeError(f"{self.label} is a device transformer; this stream carries host objects. "
+                                    "Featurize to arrays first.")
+                # item by item, batch by batch: the raw corpus never
+                # materializes.  The reference fans large batches over a
+                # process pool (utils/hostmap.py); here they map in turn
+                out = ds.map_batches(lambda batch, _mask: [self.apply_one(x) for x in batch])
+                return _with_host_chain(out, ds, self)
             if self.is_host:
                 raise TypeError(f"{self.label} is a host transformer; streams carry device batches. "
                                 "Featurize to arrays before streaming.")
@@ -121,7 +133,7 @@ class Transformer(nn.Module, Chainable):
             out = [self.apply_one(x) for x in ds.items]
             if _stackable(out):
                 return ds.with_array(torch.stack([torch.as_tensor(o) for o in out]))
-            return ds.with_items(out)
+            return _with_host_chain(ds.with_items(out), ds, self)
         arr, mask = ds.array, ds.mask
         if arr.shape[0] <= APPLY_CHUNK_ROWS:
             r = self.apply_batch(arr, mask=mask)
@@ -238,6 +250,15 @@ class GatherTransformer(Transformer):
                 raise ValueError(f"gather needs dense branch outputs; {b.label} kept a mask")
             outs.append(out)
         return torch.cat(outs, dim=-1)
+
+
+def _with_host_chain(out: Dataset, ds: Dataset, t: Transformer) -> Dataset:
+    """``out`` with its provenance: the base raw dataset (or stream) and
+    the host transformers applied since, so that a featurizer can re-run
+    the whole chain natively from the raw documents (``ops/nlp_native.py``)."""
+    base, stages = getattr(ds, "_host_chain", None) or (ds, ())
+    out._host_chain = (base, stages + (t,))
+    return out
 
 
 def _stackable(out) -> bool:

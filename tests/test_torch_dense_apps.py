@@ -407,7 +407,7 @@ def test_pipelines_package_exports_the_apps():
     from keystone_tpu.pipelines import ALL_PIPELINES as J_ALL
     from keystone_tpu_torch.pipelines import ALL_PIPELINES
 
-    assert set(ALL_PIPELINES) == set(J_ALL) - {"NewsgroupsPipeline", "AmazonReviewsPipeline"}
+    assert set(ALL_PIPELINES) == set(J_ALL)
     for name, app in ALL_PIPELINES.items():
         assert app.name == name and dataclasses.is_dataclass(app.Config)
 

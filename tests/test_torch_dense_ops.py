@@ -347,13 +347,23 @@ def test_choose_physical_picks_the_references_solver(n, d):
 
 
 def test_sparse_rows_wait_for_the_text_pipelines():
+    """Scipy sparse rows take the sparse L-BFGS route, as in the reference:
+    the same choice, and a fit whose weights agree with the reference's."""
     sp = pytest.importorskip("scipy.sparse")
-    rows = [sp.csr_matrix(np.ones((1, 4))) for _ in range(3)]
-    est = lin.LinearMapEstimator()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        est.choose_physical(Dataset(rows))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        est.fit_dataset(Dataset(rows), Dataset(torch.ones(3, 1)))
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(24, 6)) * (rng.random((24, 6)) > 0.5)).astype(np.float32)
+    y = rng.normal(size=(24, 2)).astype(np.float32)
+    rows = [sp.csr_matrix(x[i:i + 1]) for i in range(24)]
+    est, jest = lin.LinearMapEstimator(1e-2), jlin.LinearMapEstimator(1e-2)
+    chosen, jchosen = est.choose_physical(Dataset(rows, device="cpu")), jest.choose_physical(JDataset(rows))
+    assert type(chosen).__name__ == type(jchosen).__name__ == "SparseLBFGSwithL2"
+    assert (chosen.lam, chosen.num_iterations, chosen.fit_intercept) == (jchosen.lam, jchosen.num_iterations,
+                                                                         jchosen.fit_intercept)
+    m = est.fit_dataset(Dataset(rows, device="cpu"), Dataset(torch.from_numpy(y)))
+    jm = jest.fit_dataset(JDataset(rows), JDataset(y))
+    scale = np.abs(np.asarray(jm.weights)).max()
+    np.testing.assert_allclose(m.weights.numpy(), np.asarray(jm.weights), rtol=0, atol=1e-3 * scale)
+    np.testing.assert_allclose(m.intercept.numpy(), np.asarray(jm.intercept), rtol=0, atol=1e-3 * scale)
 
 
 def test_converters_reject_bad_input():

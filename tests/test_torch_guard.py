@@ -49,7 +49,10 @@ def test_every_module_imports_without_jax():
               "workflow.graph", "workflow.dataset", "workflow.transformer", "workflow.estimator",
               "workflow.executor", "workflow.optimizer", "workflow.pipeline", "loaders.labeled", "ops.images",
               "ops.filters", "workflow.blockstore", "loaders.stream", "loaders.jpeg", "utils.durable",
-              "utils.hashing", "loaders.cifar", "pipelines.kernel_cifar"):
+              "utils.hashing", "loaders.cifar", "pipelines.kernel_cifar", "ops.nlp", "ops.nlp_native",
+              "ops.sparse", "ops.util", "models.lbfgs", "models.logistic", "models.naive_bayes", "models.linear",
+              "loaders.newsgroups", "loaders.amazon", "pipelines.newsgroups", "pipelines.amazon_reviews",
+              "convert"):
         assert f"keystone_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -301,3 +304,61 @@ def test_kernel_pipeline_runs_on_the_cpu_launch_no_kernel(stream):
                                                              synthetic_n=64, stream=stream, stream_batch_size=20),
                                          device="cpu")
     assert gram_kernels.LAUNCHES == {"gram_block": 0, "poly_block": 0} and not gram_kernels.LAUNCH_SHAPES
+
+
+def test_text_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card: the CPU-only refusal is not observable")
+    import scipy.sparse as sps
+
+    from keystone_tpu_torch.convert import logistic_regression_model_from_numpy, naive_bayes_model_from_numpy
+    from keystone_tpu_torch.loaders.amazon import AmazonReviewsDataLoader, write_jsonl
+    from keystone_tpu_torch.loaders.newsgroups import NewsgroupsDataLoader, write_tree
+    from keystone_tpu_torch.models.lbfgs import DenseLBFGSwithL2
+    from keystone_tpu_torch.models.logistic import LogisticRegressionEstimator
+    from keystone_tpu_torch.models.naive_bayes import NaiveBayesEstimator
+    from keystone_tpu_torch.ops.sparse import BucketedSparseRows, PaddedSparseRows
+    from keystone_tpu_torch.pipelines import amazon_reviews, newsgroups
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    write_tree(str(tmp_path / "news"), ["a b", "c d"], [0, 1], ["g0", "g1"])
+    write_jsonl(str(tmp_path / "r.jsonl"), ["good", "bad"], [1, 0])
+    news, reviews = str(tmp_path / "news"), str(tmp_path / "r.jsonl")
+    rows = [sps.csr_matrix(np.ones((1, 3), np.float32))] * 2
+    x, y = np.ones((2, 3), np.float32), np.zeros(2, np.int64)
+    for call in (
+        lambda: newsgroups.NewsgroupsPipeline.run(newsgroups.Config(synthetic_n=8)),
+        lambda: amazon_reviews.AmazonReviewsPipeline.run(amazon_reviews.Config(synthetic_n=8)),
+        lambda: NewsgroupsDataLoader.load(news),
+        lambda: NewsgroupsDataLoader.stream(news),
+        lambda: NewsgroupsDataLoader.synthetic(4),
+        lambda: AmazonReviewsDataLoader.load(reviews),
+        lambda: AmazonReviewsDataLoader.stream(reviews),
+        lambda: AmazonReviewsDataLoader.synthetic(4),
+        lambda: PaddedSparseRows(np.zeros((2, 1), np.int32), np.ones((2, 1), np.float32), 3),
+        lambda: PaddedSparseRows.from_scipy_rows(rows),
+        lambda: BucketedSparseRows.from_scipy_rows(rows),
+        # a host payload's features go to the card unless it was given the CPU
+        lambda: NaiveBayesEstimator(2).fit_dataset(Dataset(rows), Dataset(y, device="cpu")),
+        lambda: DenseLBFGSwithL2().fit_arrays(x, x),
+        lambda: LogisticRegressionEstimator(2).fit_arrays(x, y),
+        lambda: NaiveBayesEstimator(2).fit_arrays(x, y),
+        lambda: naive_bayes_model_from_numpy(np.zeros(2), np.zeros((2, 3))),
+        lambda: logistic_regression_model_from_numpy(np.zeros((3, 2))),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_text_runs_on_the_cpu_launch_no_kernel():
+    from keystone_tpu_torch.pipelines import amazon_reviews, newsgroups
+
+    fisher_kernels.reset_launches()
+    gram_kernels.reset_launches()
+    for head in ("nb", "ls"):
+        res = newsgroups.NewsgroupsPipeline.run(newsgroups.Config(synthetic_n=80, head=head, stream=head == "ls",
+                                                                  stream_batch_size=32), device="cpu")
+        assert 0.0 <= res["accuracy"] <= 1.0
+    assert 0.0 <= amazon_reviews.AmazonReviewsPipeline.run(amazon_reviews.Config(synthetic_n=80),
+                                                           device="cpu")["accuracy"] <= 1.0
+    assert not any(fisher_kernels.LAUNCHES.values()) and not any(gram_kernels.LAUNCHES.values())

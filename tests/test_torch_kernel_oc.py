@@ -243,8 +243,11 @@ def test_failed_sweep_removes_only_a_spill_it_placed(tmp_path, monkeypatch):
 def test_host_payload_refused():
     with pytest.raises(TypeError, match="host-payload"):
         _est().fit_dataset(Dataset(["a", "b"]), _labels(np.zeros((2, 1), np.float32)))
-    with pytest.raises(NotImplementedError, match="A7"):
-        StreamDataset([["a", "b"]], n=2, host=True)
+    # a host stream (the text apps' documents) is taken, and the kernel
+    # solver refuses it as it refuses a host list
+    with pytest.raises(TypeError, match="host-payload"):
+        _est().fit_dataset(StreamDataset([["a", "b"]], n=2, host=True, device="cpu"),
+                           _labels(np.zeros((2, 1), np.float32)))
 
 
 def test_checkpoint_resume_bit_identical(tmp_path):

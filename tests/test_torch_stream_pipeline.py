@@ -77,8 +77,17 @@ def test_stream_dataset_is_reiterable_and_lazy():
 def test_stream_dataset_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="re-iterable"):
         StreamDataset(iter([np.zeros((2, 2))]), n=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        StreamDataset([["a doc"]], n=1, host=True, device="cpu")
+    # a host stream is taken, and a host transformer maps it lazily
+    calls = []
+    host = StreamDataset([["a doc", "b"], ["c"]], n=3, host=True, device="cpu")
+    upper = transformer(lambda v: calls.append(v) or v.upper(), host=True)(host)
+    assert isinstance(upper, StreamDataset) and upper.is_host and calls == []
+    assert list(upper.batches()) == [["A DOC", "B"], ["C"]] and calls == ["a doc", "b", "c"]
+    assert upper.items == ["A DOC", "B", "C"] and upper._host_chain[0] is host
+    with pytest.raises(TypeError, match="host-payload"):
+        upper.array
+    with pytest.raises(TypeError, match="device transformer"):
+        transformer(lambda v: v)(host)
     with pytest.raises(TypeError, match="host transformer"):
         transformer(lambda v: v, host=True)(_stream(np.zeros((4, 2), np.float32), 2))
 
