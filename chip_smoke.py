@@ -153,7 +153,30 @@ result line):
    synthetic reviews written as JSON lines, in memory and streamed in
    batches of 1024, printed and held the same way, the logistic fit in
    place of the ls fit;
-23. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+23. main path, the operations layer of a fit, each part with its own
+   temporary directories: the streamed ImageNetSiftLcsFV fit at phase
+   10's leg three ways (nothing attached, a run ledger, an empty fault
+   plan: seconds against phase 10's, B1/B2 launches, the three fits bit
+   for bit, the ledger's span and event counts); ``fit_with_recovery``
+   of that fit in two child processes of this script (``--recovery-child``)
+   with a state_dir and the solver's checkpoint_dir, attempt 1 under a
+   KEYSTONE_FAULTS plan (a stage, two stream batches and two block reads
+   raised and survived, injected = survived per site; ``exit`` at the
+   second epoch save), attempt 2 relaunched, resuming the BCD from epoch
+   1, its vocabularies, weights and held-out scores equal to the
+   uninterrupted fit's bit for bit, the ledger of both attempts; the
+   in-core ``fit_checkpointed`` at the fit leg's BCD geometry interrupted
+   at a save and resumed, then a damaged newest checkpoint falling back,
+   both bit for bit; the checkpointed L-BFGS, sparse on Newsgroups' ls
+   rows (the plain fit's two-run spread beside it) and dense on
+   MnistRandomFFT's features, each interrupted at a save and resumed bit
+   for bit; the out-of-core KRR under ``kernel.sweep`` (a raise at a
+   diagonal step of epoch 2, resumed from epoch 1; a damaged newest
+   checkpoint; α bit for bit; B3 counted); ``Pipeline.fit(deadline=...)``
+   on the streamed fit, then the next fit bit for bit; a hung stage
+   under a deadline leaving no memory; an optional stage's breaker
+   opening and degrading to its fallback;
+24. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches, float64 errors) for all four
    kernels, B3's and B4's times at the new paths' shapes and B1's and
    B2's at VOC's among them, then the last line {"ok": true, "device":
@@ -933,8 +956,7 @@ def fit_setup(dev, P):
     card, as set-up) and the held-out set."""
     from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
 
-    cfg = P.Config(num_classes=FIT_CLASSES, synthetic_n=FIT_N, image_size=IMAGE_HW, gmm_k=FIT_GMM_K,
-                   pca_dims=PCA_DIMS, num_epochs=FIT_EPOCHS, solver_block_size=FIT_BLOCK)
+    cfg = fit_setup_config(P)
     size = (IMAGE_HW, IMAGE_HW)
     tx, ty = ImageNetLoader.synthetic_arrays(FIT_N, FIT_CLASSES, size, seed=1)
     vx, vy = ImageNetLoader.synthetic_arrays(FIT_TEST_N, FIT_CLASSES, size, seed=2)
@@ -2056,6 +2078,7 @@ def gram_lines(gk, serving, krr_x, errs, f64, results):
         "KernelCifarPipeline stream": kc["stream"]["launches"],
         "out-of-core KRR sweep": oc["launches"], "out-of-core KRR predict": oc["predict_launches"],
         "disk tier gaussian": disk["gaussian"]["launches"], "cached fit over the budget": disk["cached_fit"]["launches"],
+        "out-of-core KRR under kernel.sweep": results["operations"]["oc_krr_sweep_fault"]["launches"],
     })
     poly_launches["disk tier polynomial"] = disk["polynomial"]["launches"]
     paths = (("KernelTimitPipeline", kt["b3_operands"]), ("KernelCifarPipeline", kc["b3_operands"]),
@@ -3051,6 +3074,7 @@ def newsgroups_path(dev, card, gk, fk, tmp):
     with phase("Newsgroups: the card's ls fit against the same fit on the CPU; streamed against in memory"):
         lm = split_at(fitted["ls", "in memory"][0], LinearMapper)[1]
         y = np.where(np.eye(NEWS_CLASSES)[labels] > 0, 1.0, -1.0).astype(np.float32)
+        out["ls_problem"] = (rows, y, base.ls_lam)  # the checkpointed L-BFGS phase's, popped by main
         objective = ls_objective(x, y.astype(np.float64), base.ls_lam)
         lbfgs.reset_stats()
         t0 = time.perf_counter()
@@ -3150,6 +3174,616 @@ def amazon_path(dev, card, gk, fk, tmp):
     return out
 
 
+# ---- the operations layer: fault plans, durable checkpoints and
+# resume, recovery, deadlines, breakers and the run ledger on the card.
+#
+# The recovery of the streamed ImageNetSiftLcsFV fit at the fit leg
+# (2048 images, K = 64, PCA 64, batches of 64, blocks of 4096, 2 epochs):
+# fit_with_recovery with a state_dir and the solver's checkpoint_dir, in a
+# child process of this script, under one KEYSTONE_FAULTS plan: the first
+# stage raises once (node_retries=1 absorbs it), the training stream's
+# 6th and 7th fetches raise (its 2 retries a batch absorb them), the 3rd
+# and 4th block reads raise (the I/O layer's 2 retries absorb them), and
+# the second epoch checkpoint's save ends the process (exit 75).  The
+# relaunched child resumes the BCD from the epoch-1 checkpoint; its
+# vocabularies, BCD weights and held-out scores must equal an
+# uninterrupted fit's (the hooks-at-rest fit with nothing attached) bit for
+# bit: the dense path has no atomics, and the resumed epoch starts from
+# the full (W, P) state
+RECOVERY_EXIT = 75
+RECOVERY_PLAN = ("executor.stage:times=1:raise;stream.batch:after=5:times=2:raise;"
+                 "blockstore.read:after=2:times=2:raise;ckpt.save:after=1:exit=75")
+# the sites the plan's raises hit, and the counter that records each
+# absorbed one: injected must equal survived at every site
+SURVIVED_BY = {"executor.stage": "executor.stage_retries", "stream.batch": "stream.retries",
+               "blockstore.read": "blockstore.read_retries"}
+# hooks at rest: the streamed fit's seconds with nothing attached against
+# phase 10's, on the host clock, which moved by up to a third between
+# runs of one tree (PERF.md §2)
+HOOK_RATIO = 1.5
+# Pipeline.fit(deadline=...) on the streamed fit (~20 s on an H100): a
+# budget a tenth of it; the executor splits it over the stages, so the
+# raise comes at the first stage to overrun its share, within the budget
+# plus DEADLINE_SLACK (the watchdog's join and the raise take
+# microseconds; the slack leaves room for a busy host)
+DEADLINE_BUDGET, DEADLINE_SLACK = 2.0, 0.25
+BREAKER_THRESHOLD = 2
+# the in-core checkpointed BCD at the fit leg's geometry: 2048 x 16 384
+# features (random, seed 11), 64 classes, blocks of 4096, 2 epochs
+CKPT_N, CKPT_D = FIT_N, 2 * 2 * FIT_GMM_K * PCA_DIMS
+# the dense checkpointed L-BFGS on MnistRandomFFT's features (60 000 x
+# 4104, 10 classes): the reference test's λ and history
+# (tests/test_lbfgs_checkpoint.py:32), 25 iterations, a checkpoint every 5
+LBFGS_LAM, LBFGS_HISTORY, LBFGS_ITERS, LBFGS_EVERY = 1e-3, 5, 25, 5
+# the sparse one on Newsgroups' ls rows: its Config's λ and 100
+# iterations, a checkpoint every 10.  Its scatter-adds run in a fixed
+# order there (ops/sparse.py: scatter_plan, segment sums), so a
+# resumed fit is held to the uninterrupted one bit for bit; the two-run
+# spread of the plain (atomic) fit is measured and printed beside it
+SPARSE_EVERY = 10
+
+
+def streamed_build(P, dev, cfg):
+    """The streamed ImageNetSiftLcsFV pipeline, as ``run`` builds it."""
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+
+    train = ImageNetLoader.synthetic_stream(cfg.synthetic_n, cfg.num_classes, (cfg.image_size, cfg.image_size),
+                                            seed=1, batch_size=cfg.stream_batch_size, device=dev,
+                                            retries=cfg.stream_retries)
+    return P.ImageNetSiftLcsFV.build(cfg, train.data, train.labels)
+
+
+def fitted_arrays(fitted, vx) -> dict:
+    """A fitted ImageNetSiftLcsFV's vocabularies, BCD weights and held-out
+    class scores, as host arrays."""
+    from keystone_tpu_torch.models.block_ls import BlockLinearMapper
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    out = {}
+    for b, (pca, fv) in fitted_vocabulary(fitted).items():
+        out[f"{b}.pca.components"], out[f"{b}.pca.mean"] = pca.components, pca.mean
+        for a in ("weights", "means", "variances"):
+            out[f"{b}.gmm.{a}"] = getattr(fv.gmm, a)
+    bl = split_at(fitted, BlockLinearMapper)[1]
+    out["bcd.weights"], out["bcd.intercept"] = bl.weights, bl.intercept
+    out["scores"] = scores_pipeline(fitted)(Dataset(vx)).get().array
+    return {k: v.detach().cpu().numpy() for k, v in out.items() if v is not None}
+
+
+def held_out_images(dev):
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+
+    vx, _ = ImageNetLoader.synthetic_arrays(FIT_TEST_N, FIT_CLASSES, (IMAGE_HW, IMAGE_HW), seed=2)
+    return torch.from_numpy(vx).to(dev)
+
+
+def recovery_child(work: str) -> int:
+    """One attempt of the recovered fit, in a process of its own: builds the
+    kernels (the parent's build, cached), runs fit_with_recovery and scores
+    the held-out images.  Prints a STATS line at every checkpoint save (the
+    last one before an ``exit`` fault is the attempt's record) and, when
+    the fit completes, a DONE line; the arrays go to ``work/fitted.npz``."""
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.kernels import build
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.ops import fisher_kernels as fk
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as P
+    from keystone_tpu_torch.utils import durable, precision
+    from keystone_tpu_torch.workflow import state as WS
+    from keystone_tpu_torch.workflow.pipeline import PipelineEnv
+    from keystone_tpu_torch.workflow.recovery import fit_with_recovery
+
+    dev = torch.device(DEVICE)
+    precision.disable_tf32()
+    build.build(["fisher"])
+    cfg = dataclasses.replace(fit_setup_config(P), stream=True, stream_batch_size=STREAM_BATCH,
+                              checkpoint_dir=os.path.join(work, "ckpt"), stream_retries=2)
+    ckpt = os.path.join(cfg.checkpoint_dir, "oc_bcd_epoch.npz")
+    loaded = durable.load_npz(ckpt)
+    print("RESUME " + json.dumps({"from_epoch": None if loaded is None else int(loaded[0]["epoch"]) + 1}),
+          flush=True)
+    save = durable.save_npz
+
+    def recorded_save(path, arrays, **kw):
+        rec = {"epoch": int(arrays["epoch"]) if "epoch" in arrays else None, "launches": dict(fk.LAUNCHES),
+               "faults": faults.stats(),
+               "survived": {s: metrics.REGISTRY.counter_value(c) for s, c in SURVIVED_BY.items()}}
+        print("STATS " + json.dumps(rec), flush=True)
+        return save(path, arrays, **kw)
+
+    durable.save_npz = recorded_save
+    reloaded = []
+    load_rule = WS.SavedStateLoadRule.apply
+
+    def recorded_apply(self, graph):
+        seen = len(self.reloaded)
+        graph = load_rule(self, graph)
+        reloaded.extend(self.reloaded[seen:])
+        return graph
+
+    WS.SavedStateLoadRule.apply = recorded_apply
+    PipelineEnv.node_retries = 1
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    fitted, attempts = fit_with_recovery(lambda: streamed_build(P, dev, cfg), state_dir=os.path.join(work, "state"))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(fk.LAUNCHES)
+    arrays = fitted_arrays(fitted, held_out_images(dev))
+    np.savez(os.path.join(work, "fitted.npz"), **arrays)
+    print("DONE " + json.dumps({"attempts": attempts, "fit_seconds": fit_s, "launches_fit": fit_launches,
+                                "launches": dict(fk.LAUNCHES), "reloaded_prefixes": reloaded,
+                                "faults": faults.stats()}), flush=True)
+    return 0
+
+
+def fit_setup_config(P):
+    return P.Config(num_classes=FIT_CLASSES, synthetic_n=FIT_N, image_size=IMAGE_HW, gmm_k=FIT_GMM_K,
+                    pca_dims=PCA_DIMS, num_epochs=FIT_EPOCHS, solver_block_size=FIT_BLOCK)
+
+
+def run_child(work, env_extra, timeout=900):
+    """This script's ``--recovery-child`` mode in a process of its own,
+    with the environment's plan and ledger replaced by ``env_extra``."""
+    env = {k: v for k, v in os.environ.items() if k not in ("KEYSTONE_FAULTS", "KEYSTONE_OBS_DIR")}
+    env.update(env_extra)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--recovery-child", work],
+                         capture_output=True, text=True, timeout=timeout, env=env, cwd=str(REPO))
+    lines = {}
+    for ln in out.stdout.splitlines():
+        key, _, rest = ln.partition(" ")
+        if key in ("RESUME", "STATS", "DONE"):
+            lines.setdefault(key, []).append(json.loads(rest))
+    return out, lines, time.perf_counter() - t0
+
+
+def ledger_counts(directory) -> dict:
+    """Span and event counts by name over a ledger directory's runs."""
+    counts = {"spans": {}, "events": {}, "runs": 0}
+    for path in sorted(Path(directory).glob("run_*.jsonl")):
+        counts["runs"] += 1
+        for ln in path.read_text().splitlines():
+            e = json.loads(ln)
+            key = {"span_start": "spans", "event": "events"}.get(e["kind"])
+            if key:
+                counts[key][e["name"]] = counts[key].get(e["name"], 0) + 1
+    return counts
+
+
+def bitwise(label, got: dict, want: dict) -> dict:
+    """Each array of ``got`` against ``want``'s: their largest differences,
+    and a check that all are 0."""
+    diffs = {k: float(np.abs(got[k].astype(np.float64) - want[k].astype(np.float64)).max()) for k in want}
+    check(set(got) == set(want), f"{label}: arrays {sorted(got)} vs {sorted(want)}")
+    print(f"  {label}: largest differences {diffs}", flush=True)
+    check(all(np.array_equal(got[k], want[k]) for k in want), f"{label}: not bit for bit")
+    return diffs
+
+
+def hooks_at_rest(dev, card, P, fk, stream_out, tmp):
+    """The streamed fit three ways (nothing attached, a run ledger, an empty
+    fault plan), each timed with its B1/B2 launches; the first is the
+    uninterrupted fit the recovery is held to."""
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.obs import ledger
+
+    cfg = dataclasses.replace(fit_setup_config(P), stream=True, stream_batch_size=STREAM_BATCH)
+    vx = held_out_images(dev)
+    out, arrays = {}, {}
+    for mode in ("nothing attached", "a run ledger", "an empty fault plan"):
+        with phase(f"operations: the streamed fit with {mode}"):
+            ctx = contextlib.nullcontext()
+            if mode == "a run ledger":
+                ledger.start_run(str(tmp / "ledger"))
+            elif mode == "an empty fault plan":
+                ctx = faults.inject(faults.FaultPlan([]))
+            torch.cuda.synchronize()
+            fk.reset_launches()
+            try:
+                with ctx:
+                    t0 = time.perf_counter()
+                    fitted = streamed_build(P, dev, cfg).fit()
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+            finally:
+                ledger.stop_run()
+            fit_l = dict(fk.LAUNCHES)
+            arrays[mode] = fitted_arrays(fitted, vx)
+            launches = dict(fk.LAUNCHES)
+            print(f"  Pipeline.fit {secs:.4f} s with {mode} (phase 10: {stream_out['fit_seconds']:.4f} s); "
+                  f"launches fit {fit_l}, with scoring {launches} ({card})", flush=True)
+            check(fit_l == fv_launches(encode=2 * -(-FIT_N // STREAM_BATCH)), f"fit launches {fit_l}")
+            out[mode] = {"fit_seconds": secs, "launches_fit": fit_l, "launches": launches}
+            del fitted
+    ratio = out["nothing attached"]["fit_seconds"] / stream_out["fit_seconds"]
+    print(f"  nothing attached / phase 10: {ratio:.4f} (within 1/{HOOK_RATIO} .. {HOOK_RATIO}); ledger "
+          f"{out['a run ledger']['fit_seconds'] / out['nothing attached']['fit_seconds']:.4f}x, empty plan "
+          f"{out['an empty fault plan']['fit_seconds'] / out['nothing attached']['fit_seconds']:.4f}x of it",
+          flush=True)
+    check(1 / HOOK_RATIO <= ratio <= HOOK_RATIO, f"the inert streamed fit took {ratio:.3f}x phase 10's")
+    led = ledger_counts(tmp / "ledger")
+    print(f"  the ledger of the observed fit: {led}", flush=True)
+    check(led["spans"].get("pipeline.fit") == 1 and led["spans"].get("solver.spill") == 1,
+          f"ledger spans {led['spans']}")
+    check(led["events"].get("solver.epoch", 0) >= FIT_EPOCHS, f"ledger events {led['events']}")
+    out["ledger"] = led
+    for mode in ("a run ledger", "an empty fault plan"):
+        bitwise(f"the fit with {mode} against the one with nothing attached", arrays[mode],
+                arrays["nothing attached"])
+    return out, arrays["nothing attached"]
+
+
+def recovery_path(card, tmp, reference):
+    """The recovered fit: attempt 1 under the plan, killed at its second
+    epoch checkpoint; attempt 2 relaunched with the same directories."""
+    work, obs = tmp / "work", tmp / "obs"
+    work.mkdir()
+    out = {}
+    with phase("operations: fit_with_recovery, attempt 1 under the fault plan (killed at a checkpoint)"):
+        p1, l1, s1 = run_child(str(work), {"KEYSTONE_FAULTS": RECOVERY_PLAN, "KEYSTONE_OBS_DIR": str(obs)})
+        stats = l1.get("STATS", [])
+        print(f"  exit code {p1.returncode} after {s1:.2f} s; saves seen {len(stats)}; last record "
+              f"{stats[-1] if stats else None}", flush=True)
+        check(p1.returncode == RECOVERY_EXIT, f"attempt 1 exited {p1.returncode}: {p1.stderr[-3000:]}")
+        check("DONE" not in l1 and len(stats) == 2, f"attempt 1 records {l1}")
+        last = stats[-1]
+        for site, survived in last["survived"].items():
+            inj = last["faults"].get(site, {}).get("injected", 0)
+            print(f"  {site}: injected {inj}, survived {survived:.0f}", flush=True)
+            check(inj == survived > 0, f"{site}: injected {inj}, survived {survived}")
+        # the record precedes the killing save: one save made, none injected
+        check(last["faults"]["ckpt.save"] == {"calls": 1, "injected": 0}, f"ckpt.save {last['faults']}")
+        check(last["epoch"] == 1 and stats[0]["epoch"] == 0, f"saves {[s['epoch'] for s in stats]}")
+        out["attempt_1"] = {"exit_code": p1.returncode, "seconds": s1, "faults_at_kill": last["faults"],
+                            "survived": last["survived"], "launches_at_kill": last["launches"]}
+    with phase("operations: fit_with_recovery, attempt 2 relaunched (resumes the BCD from epoch 1)"):
+        p2, l2, s2 = run_child(str(work), {"KEYSTONE_OBS_DIR": str(obs)})
+        check(p2.returncode == 0, f"attempt 2 exited {p2.returncode}: {p2.stderr[-3000:]}")
+        done, resume = l2["DONE"][0], l2["RESUME"][0]
+        print(f"  {s2:.2f} s; resumed from epoch {resume['from_epoch']}; saves {len(l2.get('STATS', []))}; "
+              f"launches in the fit {done['launches_fit']}, with scoring {done['launches']}; prefixes "
+              f"reloaded {done['reloaded_prefixes']}; faults {done['faults']} ({card})", flush=True)
+        check(resume["from_epoch"] == 1 and len(l2.get("STATS", [])) == 1, f"attempt 2 {resume} {l2.get('STATS')}")
+        check(done["launches_fit"] == fv_launches(encode=2 * -(-FIT_N // STREAM_BATCH)),
+              f"attempt 2 fit launches {done['launches_fit']}")
+        got = dict(np.load(work / "fitted.npz"))
+        out["attempt_2"] = {"seconds": s2, "fit_seconds": done["fit_seconds"], "resumed_from_epoch": 1,
+                            "launches_fit": done["launches_fit"], "launches": done["launches"],
+                            "reloaded_prefixes": done["reloaded_prefixes"],
+                            "max_abs_diff": bitwise("the resumed fit against the uninterrupted fit", got, reference)}
+        led = ledger_counts(obs)
+        print(f"  the ledger over both attempts: {led}", flush=True)
+        check(led["runs"] == 2 and led["spans"].get("pipeline.fit") == 2, f"ledger {led}")
+        check(led["events"].get("executor.retry", 0) == 1, f"ledger events {led['events']}")
+        out["ledger"] = led
+        out["launches"] = {k: out["attempt_1"]["launches_at_kill"].get(k, 0) + done["launches"].get(k, 0)
+                           for k in done["launches"]}
+    return out
+
+
+def checkpointed_bcd_path(dev, card):
+    """The in-core fit_checkpointed at the fit leg's BCD geometry: an
+    uninterrupted fit, one interrupted at its epoch-2 save and resumed,
+    one whose newest checkpoint is damaged and which falls back."""
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.models.block_ls import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    rng = np.random.default_rng(11)
+    x = Dataset(torch.from_numpy(rng.normal(size=(CKPT_N, CKPT_D)).astype(np.float32)).to(dev))
+    lab = rng.integers(0, FIT_CLASSES, CKPT_N)
+    y = -np.ones((CKPT_N, FIT_CLASSES), np.float32)
+    y[np.arange(CKPT_N), lab] = 1.0
+    y = Dataset(torch.from_numpy(y).to(dev))
+    est = BlockLeastSquaresEstimator(block_size=FIT_BLOCK, num_iter=FIT_EPOCHS, lam=1e-4)
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt_bcd_", dir=REPO))
+    out = {}
+    try:
+        with phase("operations: the in-core fit_checkpointed (2048 x 16384, blocks of 4096, 2 epochs)"):
+            metrics.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = est.fit_checkpointed(x, y, str(tmp / "a"))
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            saves = metrics.snapshot()["histograms"]["solver.checkpoint_save_seconds"]
+            with faults.inject("ckpt.save:after=1:times=3:raise"):
+                try:
+                    est.fit_checkpointed(x, y, str(tmp / "b"))
+                    check(False, "the ckpt.save raise did not stop the fit")
+                except faults.FaultInjected:
+                    pass
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resumed = est.fit_checkpointed(x, y, str(tmp / "b"))
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            with faults.inject("ckpt.save:after=1:times=1:corrupt"):
+                est.fit_checkpointed(x, y, str(tmp / "c"))
+            fallback = est.fit_checkpointed(x, y, str(tmp / "c"))
+            e1 = float((resumed.weights - ref.weights).abs().max())
+            e2 = float((fallback.weights - ref.weights).abs().max())
+            print(f"  uninterrupted {fit_s:.4f} s ({saves['count']} saves, {saves['sum']:.4f} s in all of "
+                  f"{FIT_EPOCHS} x {(CKPT_D * FIT_CLASSES + CKPT_N * FIT_CLASSES) * 4} bytes); resumed after "
+                  f"epoch 1 in {resume_s:.4f} s; resumed vs uninterrupted {e1:.3e}, fallback vs uninterrupted "
+                  f"{e2:.3e} ({card})", flush=True)
+            check(torch.equal(resumed.weights, ref.weights) and torch.equal(resumed.intercept, ref.intercept),
+                  "the resumed in-core fit is not the uninterrupted one bit for bit")
+            check(torch.equal(fallback.weights, ref.weights), "the fallback fit is not the uninterrupted one")
+            out = {"fit_seconds": fit_s, "resume_seconds": resume_s, "saves": saves["count"],
+                   "save_seconds": saves["sum"], "resumed_max_abs_diff": e1, "fallback_max_abs_diff": e2}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def lbfgs_checkpoint_path(dev, card, ls_problem):
+    """The checkpointed L-BFGS at the text apps' shapes: the sparse fit on
+    Newsgroups' ls rows (``ls_problem``: the rows, ±1 labels and λ of the
+    newsgroups phase) and the dense fit on MnistRandomFFT's features, each
+    interrupted at a checkpoint save and resumed."""
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.loaders.mnist import MnistLoader
+    from keystone_tpu_torch.models import lbfgs
+    from keystone_tpu_torch.models.lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
+    from keystone_tpu_torch.ops.sparse import BucketedSparseRows
+    from keystone_tpu_torch.ops.util import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines import mnist_random_fft as M
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt_lbfgs_", dir=REPO))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        lbfgs.reset_stats()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, dict(lbfgs.STATS)
+
+    try:
+        with phase("operations: the checkpointed sparse L-BFGS on Newsgroups' ls rows"):
+            rows, y, lam = ls_problem
+            sp = BucketedSparseRows.from_scipy_rows(rows, device=dev)
+            est = SparseLBFGSwithL2(lam=lam, num_iterations=100, fit_intercept=False)
+            plain = [timed(lambda: est.fit_sparse(sp, y)) for _ in range(2)]
+            spread = float((plain[0][0].weights - plain[1][0].weights).abs().max())
+            scale = float(plain[0][0].weights.abs().max())
+            ref, ref_s, ref_stats = timed(lambda: est.fit_sparse(sp, y, checkpoint_dir=str(tmp / "s0"),
+                                                                  checkpoint_every=SPARSE_EVERY))
+            twice, _, _ = timed(lambda: est.fit_sparse(sp, y, checkpoint_dir=str(tmp / "s1"),
+                                                       checkpoint_every=SPARSE_EVERY))
+            with faults.inject("ckpt.save:after=4:times=3:raise"):
+                try:
+                    est.fit_sparse(sp, y, checkpoint_dir=str(tmp / "s2"), checkpoint_every=SPARSE_EVERY)
+                    check(False, "the ckpt.save raise did not stop the sparse fit")
+                except faults.FaultInjected:
+                    pass
+            resumed, res_s, res_stats = timed(lambda: est.fit_sparse(sp, y, checkpoint_dir=str(tmp / "s2"),
+                                                                     checkpoint_every=SPARSE_EVERY))
+            e = float((resumed.weights - ref.weights).abs().max())
+            print(f"  {len(rows)} rows x {sp.num_features}: two plain fits {plain[0][1]:.3f} and {plain[1][1]:.3f} s "
+                  f"(trials {plain[0][2]['trials']}, {plain[1][2]['trials']}), apart by {spread:.3e} "
+                  f"({spread / scale:.3e} of the largest weight {scale:.3e}); the checkpointed fit (a fixed "
+                  f"scatter order) {ref_s:.3f} s, {ref_stats}; twice apart by "
+                  f"{float((twice.weights - ref.weights).abs().max()):.3e}; interrupted at the iteration-50 save "
+                  f"and resumed from iteration 40 in {res_s:.3f} s ({res_stats['iterations']} iterations run), apart by {e:.3e} ({card})", flush=True)
+            check(torch.equal(twice.weights, ref.weights), "two checkpointed sparse fits differ")
+            check(torch.equal(resumed.weights, ref.weights), "the resumed sparse fit is not bit for bit")
+            out["sparse"] = {"rows": len(rows), "features": sp.num_features, "plain_seconds": [p[1] for p in plain],
+                             "plain_trials": [p[2]["trials"] for p in plain], "plain_spread": spread,
+                             "plain_spread_rel": spread / scale, "checkpointed_seconds": ref_s,
+                             "checkpointed_stats": ref_stats, "resume_seconds": res_s, "resumed_max_abs_diff": e}
+            del sp, rows
+        with phase("operations: the checkpointed dense L-BFGS on MnistRandomFFT's features (60000 x 4104)"):
+            mn = MnistLoader.synthetic(MNIST_N, seed=1, device=dev)
+            cfg = M.Config()
+            feats = M.MnistRandomFFT.featurizer(cfg, mn.data.item_shape[0], dev)(mn.data).get()
+            labels = ClassLabelIndicators(10)(mn.labels)
+            check(tuple(feats.array.shape) == (MNIST_N, 4104), f"MNIST features {tuple(feats.array.shape)}")
+            est = DenseLBFGSwithL2(lam=LBFGS_LAM, num_iterations=LBFGS_ITERS, history=LBFGS_HISTORY)
+            ref, ref_s, ref_stats = timed(lambda: est.fit_checkpointed(feats, labels, checkpoint_dir=str(tmp / "d0"),
+                                                                       checkpoint_every=LBFGS_EVERY))
+            with faults.inject("ckpt.save:after=1:times=3:raise"):
+                try:
+                    est.fit_checkpointed(feats, labels, checkpoint_dir=str(tmp / "d1"), checkpoint_every=LBFGS_EVERY)
+                    check(False, "the ckpt.save raise did not stop the dense fit")
+                except faults.FaultInjected:
+                    pass
+            resumed, res_s, res_stats = timed(lambda: est.fit_checkpointed(
+                feats, labels, checkpoint_dir=str(tmp / "d1"), checkpoint_every=LBFGS_EVERY))
+            e = float((resumed.weights - ref.weights).abs().max())
+            print(f"  uninterrupted {ref_s:.3f} s, {ref_stats}; interrupted at the iteration-10 save and resumed "
+                  f"from iteration 5 in {res_s:.3f} s "
+                  f"({res_stats['iterations']} iterations run); apart by {e:.3e} ({card})", flush=True)
+            check(torch.equal(resumed.weights, ref.weights), "the resumed dense fit is not bit for bit")
+            out["dense"] = {"fit_seconds": ref_s, "stats": ref_stats, "resume_seconds": res_s,
+                            "resumed_max_abs_diff": e}
+            del feats, mn
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def oc_krr_sweep_fault_path(dev, card, gk, data):
+    """The out-of-core KRR at the KRR geometry under ``kernel.sweep``: an
+    uninterrupted checkpointed fit, one interrupted at a diagonal step of
+    epoch 2 and resumed from epoch 1, then a damaged newest checkpoint
+    falling back; every α bit for bit the uninterrupted one's."""
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.models import kernel_ridge as KR
+    from keystone_tpu_torch.workflow.blockstore import RowBlockStore
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    tmp = Path(tempfile.mkdtemp(prefix="krr_sweep_", dir=REPO))
+    nb = KRR_N // KRR_BLOCK
+    est = KR.KernelRidgeRegressionEstimator(KR.GaussianKernelGenerator(KRR_GAMMA), lam=KRR_LAM,
+                                            block_size=KRR_BLOCK, num_epochs=KRR_EPOCHS)
+    try:
+        with phase("operations: the out-of-core KRR under kernel.sweep (n=8192, d=256, blocks of 512, 2 epochs)"):
+            store = RowBlockStore.from_array(str(tmp / "rows"), data[0], KRR_BLOCK)
+            labels = Dataset(data[1])
+            gk.reset_launches()
+            ref = est.fit_store(store, labels, checkpoint_dir=str(tmp / "a")).alpha
+            faults.reset_stats()
+            with faults.inject(f"kernel.sweep:after={nb + 3}:times=1:raise"):
+                try:
+                    est.fit_store(store, labels, checkpoint_dir=str(tmp / "b"))
+                    check(False, "the kernel.sweep raise did not stop the sweep")
+                except faults.FaultInjected:
+                    pass
+            interrupted = faults.stats()["kernel.sweep"]
+            faults.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resumed = est.fit_store(store, labels, checkpoint_dir=str(tmp / "b")).alpha
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            steps = faults.stats()["kernel.sweep"]["calls"]
+            with faults.inject("ckpt.save:after=1:times=1:corrupt"):
+                est.fit_store(store, labels, checkpoint_dir=str(tmp / "c"))
+            fallback = est.fit_store(store, labels, checkpoint_dir=str(tmp / "c")).alpha
+            launches = gk.LAUNCHES["gram_block"]
+            print(f"  the fault at diagonal step {nb + 4} ({interrupted}); the resumed sweep ran {steps} diagonal "
+                  f"steps in {resume_s:.4f} s; α resumed vs uninterrupted "
+                  f"{float((resumed - ref).abs().max()):.3e}, fallback {float((fallback - ref).abs().max()):.3e}; "
+                  f"B3 launches {launches} ({card})", flush=True)
+            check(interrupted == {"calls": nb + 4, "injected": 1}, f"kernel.sweep {interrupted}")
+            check(steps == nb, f"the resumed sweep ran {steps} diagonal steps, not epoch 2's {nb}")
+            check(torch.equal(resumed, ref) and torch.equal(fallback, ref), "α is not the uninterrupted one")
+            check(launches > 0, "B3 never launched")
+            return {"launches": launches, "interrupted_at_step": nb + 4, "resume_seconds": resume_s,
+                    "resumed_steps": steps}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def deadline_breaker_path(dev, card, P, stream_seconds):
+    """Pipeline.fit(deadline=...) far below the streamed fit's time raises
+    within the slack, and the next fit on the device equals the one before
+    bit for bit; a hung stage under a deadline gives the allocator its
+    memory back; an optional stage past KEYSTONE_BREAKER_THRESHOLD opens
+    its breaker and degrades to its fallback."""
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.models.block_ls import BlockLeastSquaresEstimator, BlockLinearMapper
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.ops.stats import LinearRectifier
+    from keystone_tpu_torch.utils import guard
+    from keystone_tpu_torch.workflow.dataset import Dataset
+    from keystone_tpu_torch.workflow.pipeline import Pipeline, PipelineEnv
+    from keystone_tpu_torch.workflow.transformer import Transformer
+
+    out = {}
+    rng = np.random.default_rng(13)
+    x = Dataset(torch.from_numpy(rng.normal(size=(CKPT_N, CKPT_D)).astype(np.float32)).to(dev))
+    y = Dataset(torch.from_numpy(rng.normal(size=(CKPT_N, FIT_CLASSES)).astype(np.float32)).to(dev))
+    est = BlockLeastSquaresEstimator(block_size=FIT_BLOCK, num_iter=FIT_EPOCHS, lam=1e-4)
+    cfg = dataclasses.replace(fit_setup_config(P), stream=True, stream_batch_size=STREAM_BATCH)
+    with phase("operations: the streamed Pipeline.fit(deadline=...) below its time, then the next fit"):
+        check(DEADLINE_BUDGET * 5 < stream_seconds, f"the budget {DEADLINE_BUDGET} s is not far below the fit's "
+              f"{stream_seconds:.1f} s")
+        ref = est.with_data(x, y).fit().block_until_ready()
+        pipe = streamed_build(P, dev, cfg)
+        t0 = time.perf_counter()
+        try:
+            pipe.fit(deadline=DEADLINE_BUDGET)
+            check(False, "the deadline did not fire")
+        except guard.DeadlineExceeded as e:
+            raised = time.perf_counter() - t0
+            site, worker = str(e), e.worker
+        t0 = time.perf_counter()
+        if worker is not None:
+            worker.join(120.0)
+            check(not worker.is_alive(), "the abandoned stage never finished")
+        torch.cuda.synchronize()
+        drained = time.perf_counter() - t0
+        after = est.with_data(x, y).fit().block_until_ready()
+        wr, wa = split_at(ref, BlockLinearMapper)[1], split_at(after, BlockLinearMapper)[1]
+        print(f"  the streamed fit {stream_seconds:.4f} s; budget {DEADLINE_BUDGET} s raised after {raised:.4f} s "
+              f"({site}; slack {DEADLINE_SLACK} s); the abandoned stage drained in {drained:.4f} s; the next fit "
+              f"equal to the one before bit for bit: {torch.equal(wr.weights, wa.weights)} ({card})", flush=True)
+        check(raised <= DEADLINE_BUDGET + DEADLINE_SLACK, f"the deadline raised after {raised:.3f} s")
+        check(torch.equal(wr.weights, wa.weights), "the fit after the deadline differs")
+        out["deadline"] = {"fit_seconds": stream_seconds, "budget": DEADLINE_BUDGET, "raised_after": raised,
+                           "drained_seconds": drained}
+        del pipe
+    with phase("operations: a hung stage under a deadline leaves no memory behind"):
+        os.environ[guard.ENV_HANG_SECONDS] = "2"
+        try:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            with faults.inject("executor.stage:after=2:times=1:hang"):
+                try:
+                    est.with_data(x, y).fit(deadline=0.5)
+                    check(False, "the hung stage did not raise")
+                except guard.DeadlineExceeded as e:
+                    if e.worker is not None:
+                        e.worker.join(30.0)
+            gc.collect()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - before
+        finally:
+            del os.environ[guard.ENV_HANG_SECONDS]
+        print(f"  device memory allocated after the hung attempt, less before it: {held} bytes", flush=True)
+        check(held <= 0, f"the hung attempt left {held} bytes allocated")
+        out["hang_bytes_held"] = held
+
+    class Failing(Transformer):
+        """A stage that fails on the card every time."""
+
+        def apply_batch(self, xs, mask=None):
+            raise OSError("failing stage")
+
+    with phase("operations: an optional stage's breaker opens and it degrades to its fallback"):
+        os.environ[guard.ENV_BREAKER_THRESHOLD] = str(BREAKER_THRESHOLD)
+        guard.reset_breakers()
+        metrics.reset()
+        try:
+            pipe = Pipeline.of(Failing().with_fallback(LinearRectifier(0.0)))
+            want = LinearRectifier(0.0).apply_batch(x.array[:256])
+            outs = []
+            for _ in range(3):
+                PipelineEnv.node_retries = 1
+                try:
+                    outs.append(pipe(Dataset(x.array[:256])).get().array)
+                finally:
+                    PipelineEnv.node_retries = None
+            opens = metrics.REGISTRY.counter_total("breaker.opens")
+            degraded = metrics.REGISTRY.counter_total("executor.degraded")
+        finally:
+            del os.environ[guard.ENV_BREAKER_THRESHOLD]
+            guard.reset_breakers()
+        print(f"  three runs: breaker opens {opens:.0f}, degraded {degraded:.0f}; outputs equal the fallback's: "
+              f"{all(torch.equal(o, want) for o in outs)}", flush=True)
+        check(opens == 1 and degraded == 3, f"breaker opens {opens}, degraded {degraded}")
+        check(all(torch.equal(o, want) for o in outs), "a degraded output is not the fallback's")
+        out["breaker"] = {"opens": opens, "degraded": degraded}
+    return out
+
+
+def operations_path(dev, card, P, fk, gk, stream_out, krr, ls_problem):
+    """The operations layer's phases, in order: hooks at rest, the recovered
+    streamed fit, the in-core checkpointed BCD, the checkpointed L-BFGS,
+    the out-of-core KRR under kernel.sweep, deadlines and breakers."""
+    tmp = Path(tempfile.mkdtemp(prefix="operations_", dir=REPO))
+    try:
+        out, reference = hooks_at_rest(dev, card, P, fk, stream_out, tmp)
+        out["recovery"] = recovery_path(card, tmp, reference)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["fv_launches"] = {k: sum(out[m]["launches"].get(k, 0) for m in
+                                 ("nothing attached", "a run ledger", "an empty fault plan"))
+                          + out["recovery"]["launches"].get(k, 0) for k in ("fisher_encode", "fused_forward")}
+    out["checkpointed_bcd"] = checkpointed_bcd_path(dev, card)
+    out["lbfgs_checkpoint"] = lbfgs_checkpoint_path(dev, card, ls_problem)
+    out["oc_krr_sweep_fault"] = oc_krr_sweep_fault_path(dev, card, gk, krr)
+    out["deadlines_breakers"] = deadline_breaker_path(dev, card, P, out["nothing attached"]["fit_seconds"])
+    return out
+
+
 def profile_once(fn) -> None:
     """Device time by operator over one call of ``fn`` (after a warm-up
     call), and two idle shares.  One window: the device's busy time
@@ -3187,11 +3821,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one batch or fit of each main path (after the checks)")
+    ap.add_argument("--recovery-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    if args.recovery_child:
+        return recovery_child(args.recovery_child)
 
     from keystone_tpu_torch.convert import params_from_numpy
     from keystone_tpu_torch.kernels import build
@@ -3452,6 +4089,10 @@ def main(argv=None) -> int:
         results["amazon"] = amazon_path(dev, card, gk, fk, text_tmp)
     finally:
         shutil.rmtree(text_tmp, ignore_errors=True)
+    # the operations layer: the recovered streamed fit, the checkpointed
+    # solvers, deadlines and breakers (phase 10's fit seconds, phase 14's data)
+    results["operations"] = operations_path(dev, card, P, fk, gk, results["stream"], data,
+                                            results["newsgroups"].pop("ls_problem"))
 
     with phase("kernel timing"):
         def kernel_line(name, replaces, kernel, plain, calls, shape):
@@ -3528,6 +4169,12 @@ def main(argv=None) -> int:
         b2["launches_by_path"] = {"bench_forward": results["fisher_encode"]["launches"],
                                   "graph_fit": graph["launches_fit"]["fisher_encode"],
                                   "stream_fit": stream["launches_fit"]["fisher_encode"]}
+        # the operations phases: the three hooks-at-rest fits and both
+        # attempts of the recovered fit (the child processes' counts)
+        for ln, kname in ((b1, "fused_forward"), (b2, "fisher_encode")):
+            c = results["operations"]["fv_launches"][kname]
+            ln["launches_by_path"]["operations (streamed fits and their recovery)"] = c
+            ln["launches"] += c
         # VOCSIFTFisher: B2 featurizes the training set in the fit, B1 (one
         # fused node) scores run's test set and VOC's 4952
         voc = results["voc"]
@@ -3644,6 +4291,7 @@ def main(argv=None) -> int:
         "dense_apps": {k: results[k] for k in ("mnist", "linear_pixels", "random_patch_cifar", "timit", "voc",
                                                 "voc_fixture")},
         "text_apps": {k: results[k] for k in ("newsgroups", "amazon")},
+        "operations": results["operations"],
         "card": card,
     }))
     print(json.dumps({"kernels": lines}))

@@ -100,6 +100,7 @@ class ImageNetLoader:
         size: Tuple[int, int] = (256, 256),
         batch_size: int = 64,
         device="cuda",
+        retries: int = 0,
     ) -> LabeledData:
         """Labels from an index pass, pixels from a re-iterable decoded
         stream on ``device``.
@@ -107,7 +108,8 @@ class ImageNetLoader:
         Each stage that sweeps the data re-reads and re-decodes the tar
         shards: the disk is the backing tier, and the host holds
         ``PREFETCH + 1`` batches.  The labels stay in memory (4 bytes an
-        image)."""
+        image).  ``retries``: per-batch retries of a failed read
+        (``StreamDataset``'s resilient source)."""
         dev = resolve_device(device)
         entries = ImageNetLoader.index(path)
         labels = np.asarray([e[3] for e in entries], np.int32)
@@ -129,7 +131,7 @@ class ImageNetLoader:
             stage = None
         name = f"imagenet-stream:{os.path.abspath(path)}:{size[0]}x{size[1]}:b{batch_size}"
         return LabeledData(
-            StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev, stage=stage),
+            StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev, stage=stage, retries=retries),
             Dataset(labels, name=name + "-labels", device=dev),
         )
 
@@ -167,10 +169,13 @@ class ImageNetLoader:
         seed: int = 0,
         batch_size: int = 32,
         device="cuda",
+        retries: int = 0,
     ) -> LabeledData:
         """The streamed ``synthetic``, pixel-identical to it for the same
         (n, num_classes, size, seed): each sweep replays the generator,
-        making ``batch_size`` images at a time on the producer thread."""
+        making ``batch_size`` images at a time on the producer thread.
+        ``retries``: per-batch retries of a failed batch (a retry replays
+        the generator to the batch)."""
         dev = resolve_device(device)
         labels = np.random.default_rng(seed).integers(0, num_classes, size=n).astype(np.int32)
 
@@ -188,7 +193,7 @@ class ImageNetLoader:
 
         name = f"imagenet-synth-stream-n{n}-c{num_classes}-{size[0]}x{size[1]}-s{seed}-b{batch_size}"
         return LabeledData(
-            StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev),
+            StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev, retries=retries),
             Dataset(labels, name=name + "-labels", device=dev),
         )
 

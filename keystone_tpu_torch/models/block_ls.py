@@ -15,26 +15,37 @@ Cholesky solves (``models/common.py::solve_spd``); it computes in the
 dtype it is given.  The out-of-core fit (``fit_store``,
 ``fit_stream_dataset``: a StreamDataset reaching the estimator through
 the graph) runs the same sweep over blocks read back from a
-``FeatureBlockStore``, with a per-epoch checkpoint.  The in-core
-``fit_checkpointed`` is not ported (ROADMAP A5).
+``FeatureBlockStore``.
+
+Both fits checkpoint per epoch (``fit_checkpointed`` in core,
+``checkpoint_dir`` out of core; an estimator built with
+``checkpoint_dir`` passes it to the fits the graph runs): each finished
+epoch saves the full (W, P) state through ``utils/durable`` under a
+content fingerprint of the problem (the reference's, so either package
+resumes the other's checkpoint), and a fit of the same problem resumes
+after the last saved epoch, bit for bit as the uninterrupted fit, since
+the resumed epoch starts from a full state.  Each save is timed into
+``solver.checkpoint_save_seconds``; with a run ledger each epoch reports
+its objective (``solver.epoch``).
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
 import shutil
 import tempfile
+import time
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from keystone_tpu_torch.models.common import solve_spd
+from keystone_tpu_torch.obs import ledger, metrics
 from keystone_tpu_torch.utils import durable
 from keystone_tpu_torch.utils.device import resolve_device
-from keystone_tpu_torch.utils.hashing import array_fingerprint
 from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset, as_dataset
 from keystone_tpu_torch.workflow.estimator import LabelEstimator
 from keystone_tpu_torch.workflow.transformer import Transformer, tensor_identity
@@ -108,11 +119,14 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     (BlockLeastSquares.scala § BlockLeastSquaresEstimator)."""
 
     def __init__(self, block_size: int = 4096, num_iter: int = 1, lam: float = 0.0,
-                 fit_intercept: bool = True):
+                 fit_intercept: bool = True, checkpoint_dir: Optional[str] = None):
         self.block_size = int(block_size)
         self.num_iter = int(num_iter)
         self.lam = float(lam)
         self.fit_intercept = fit_intercept
+        #: where the fits the graph runs checkpoint each epoch (None: no
+        #: checkpoint); where, not what, so it is not a parameter
+        self.checkpoint_dir = checkpoint_dir
 
     def params(self):
         return (self.block_size, self.num_iter, self.lam, self.fit_intercept)
@@ -123,7 +137,11 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         if labels is None:
             raise ValueError("BlockLeastSquaresEstimator requires labels")
         if isinstance(data, StreamDataset):
-            return self.fit_stream_dataset(data, labels)
+            if self.checkpoint_dir is None:
+                return self.fit_stream_dataset(data, labels)
+            return self.fit_stream_dataset(data, labels, checkpoint_dir=self.checkpoint_dir)
+        if self.checkpoint_dir is not None:
+            return self.fit_checkpointed(data, labels, self.checkpoint_dir)
         return self._fit(data.array.to(torch.float32), labels.array.to(torch.float32), data.n)
 
     def fit_stream_dataset(self, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None) -> BlockLinearMapper:
@@ -142,6 +160,60 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         weights, xm, ym = _oc_bcd_fit(store, y, alpha, float(labels.n), self.lam, self.num_iter,
                                       self.fit_intercept, checkpoint_dir=checkpoint_dir)
         return finish_block_model(weights, xm, ym, store.d, self.block_size, self.fit_intercept)
+
+    def fit_checkpointed(self, data, labels, checkpoint_dir: str) -> BlockLinearMapper:
+        """The in-core fit with a per-epoch checkpoint and resume: each
+        epoch's (W, P) lands in ``checkpoint_dir/bcd_epoch.npz`` (the
+        previous one kept as ``.1``, the fallback when the newest is
+        found damaged), and a fit of the same problem resumes after the
+        last saved epoch.  A StreamDataset goes to the out-of-core fit
+        with the same ``checkpoint_dir``.  Data that is not a Dataset
+        goes to the card (``as_dataset``)."""
+        if isinstance(data, StreamDataset):
+            return self.fit_stream_dataset(data, labels, checkpoint_dir=checkpoint_dir)
+        data = as_dataset(data)
+        labels = as_dataset(labels, device=data.device)
+        x = data.array.to(torch.float32)
+        y = labels.array.to(torch.float32)
+        n = data.n
+        if self.fit_intercept:
+            xm, ym = torch.sum(x, dim=0) / n, torch.sum(y, dim=0) / n
+            row_ok = (torch.arange(x.shape[0], device=x.device) < n).to(x.dtype)[:, None]
+            xc, yc = (x - xm) * row_ok, (y - ym) * row_ok
+        else:
+            xm = ym = None
+            xc, yc = x, y
+        xb = blockify(xc, self.block_size)
+        nb, _, bs = xb.shape
+        k = yc.shape[1]
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        path = os.path.join(checkpoint_dir, "bcd_epoch.npz")
+        problem = _incore_problem(x, y, n, self.lam, self.block_size, self.fit_intercept)
+        w = torch.zeros((nb, bs, k), dtype=torch.float32, device=x.device)
+        p = torch.zeros_like(yc)
+        loaded = durable.load_npz(path, validate=lambda z: str(z.get("problem")) == problem
+                                  and z["w"].shape == tuple(w.shape) and z["p"].shape == tuple(p.shape))
+        start = 0
+        if loaded is not None:
+            z, _ = loaded
+            start = int(z["epoch"]) + 1
+            w.copy_(torch.from_numpy(z["w"]))
+            p.copy_(torch.from_numpy(z["p"]))
+        observe = ledger.solver_obs()
+        for e in range(start, self.num_iter):
+            t_epoch = time.perf_counter()
+            _bcd_epoch_body(xb, yc, n, self.lam, w, p)
+            ledger.device_wait((w, p), force=True)  # the host copies below read them
+            w_host, p_host = w.cpu().numpy(), p.cpu().numpy()
+            t_save = time.perf_counter()
+            durable.save_npz(path, {"epoch": e, "w": w_host, "p": p_host, "problem": problem}, keep=2)
+            save_seconds = time.perf_counter() - t_save
+            metrics.observe("solver.checkpoint_save_seconds", save_seconds)
+            if observe:
+                ledger.solver_epoch("bcd.checkpointed", epoch=e, objective=float(_bcd_objective(yc, p, n)),
+                                    epoch_seconds=time.perf_counter() - t_epoch,
+                                    checkpoint_save_seconds=save_seconds)
+        return finish_block_model(w, xm, ym, x.shape[1], self.block_size, self.fit_intercept)
 
     def fit_arrays(self, x, y, device="cuda") -> BlockLinearMapper:
         """x: (n, d), y: (n, k), numpy or tensors, fitted in f32 on ``device``."""
@@ -188,13 +260,43 @@ def _bcd_epoch_body(xb, y, n, lam, w, p):
 
 
 def _bcd_fit(xb, y, n, lam, num_iter: int):
-    """xb: (nb, n_rows, bs); y: (n_rows, k) → weights (nb, bs, k)."""
+    """xb: (nb, n_rows, bs); y: (n_rows, k) → weights (nb, bs, k).  With a
+    run ledger, each epoch reports its objective (a host read)."""
     nb, _, bs = xb.shape
     w = torch.zeros((nb, bs, y.shape[1]), dtype=y.dtype, device=y.device)
     p = torch.zeros_like(y)
-    for _ in range(num_iter):
+    observe = ledger.solver_obs()
+    for e in range(num_iter):
         _bcd_epoch_body(xb, y, n, lam, w, p)
-    return w
+        if observe:
+            ledger.solver_epoch("bcd", epoch=e, objective=float(_bcd_objective(y, p, n)))
+    return ledger.device_wait(w)
+
+
+def _bcd_objective(y, p, n):
+    """The residual objective ½‖Y − P‖²/n of a BCD state."""
+    r = y - p
+    return 0.5 * torch.sum(r * r) / n
+
+
+def _probe_digest(*arrays) -> int:
+    """The reference's probe of an in-core problem: a SHA-256 over the
+    first and last rows of each array, as a 64-bit integer."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a[0].cpu().numpy().tobytes())
+        h.update(a[-1].cpu().numpy().tobytes())
+    return int.from_bytes(h.digest()[:8], "little")
+
+
+def _incore_problem(x, y, n, lam, block_size, fit_intercept) -> str:
+    """The content fingerprint of an in-core BCD problem, the reference's
+    byte for byte: other data, labels, λ, blocking or intercept setting
+    restart the fit, the same problem resumes it on any device."""
+    fp = hashlib.sha256()
+    fp.update(repr((tuple(x.shape), tuple(y.shape), int(n), float(lam), int(block_size), bool(fit_intercept),
+                    (_probe_digest(x, y),))).encode())
+    return fp.hexdigest()
 
 
 # --------------------------------------------------------------------------
@@ -205,10 +307,10 @@ def _bcd_fit(xb, y, n, lam, num_iter: int):
 # so the feature matrix may exceed device memory by any factor.  The
 # unweighted fit is the weighted one with α_i = 1, so one sweep serves
 # both solvers and its arithmetic is ``block_weighted_ls._weighted_bcd_fit``'s.
-# The reference's multi-host row slices wait for ROADMAP A8 and its
-# ledger spans for A9.  It donates the carried residual to each step;
-# here the step updates it in place, and the copies' events bound the
-# sweep's lead over the card (``FeatureBlockStore.iter_device_blocks``).
+# The reference's multi-host row slices wait for ROADMAP A8.  It donates
+# the carried residual to each step; here the step updates it in place,
+# and the copies' events bound the sweep's lead over the card
+# (``FeatureBlockStore.iter_device_blocks``).
 # --------------------------------------------------------------------------
 
 
@@ -267,42 +369,73 @@ def _oc_bcd_fit(store, y, alpha, n, lam, num_iter, fit_intercept, checkpoint_dir
     if checkpoint_dir is not None:
         os.makedirs(checkpoint_dir, exist_ok=True)
         ckpt_path = os.path.join(checkpoint_dir, "oc_bcd_epoch.npz")
-        # content, never the directory: other data, labels, weights, λ or
-        # intercept setting restart, a re-spill of the same data resumes
-        problem = array_fingerprint(
-            np.frombuffer(repr((store.n, store.d, bs, (n_rows, k), float(lam), n, bool(fit_intercept))).encode(),
-                          np.uint8),
-            store.read_block(0)[0].to(torch.float32).numpy(),
-            y[:1].cpu().numpy(),
-            alpha[:64].cpu().numpy(),
-        )
+        problem = _oc_problem(store, y, alpha, n_rows, k, lam, n, fit_intercept)
         loaded = durable.load_npz(
             ckpt_path, validate=lambda z: str(z.get("problem")) == problem and z["w"].shape == (nb, bs, k))
         if loaded is not None:
             z, _ = loaded
             start = int(z["epoch"]) + 1
             w = torch.from_numpy(z["w"]).to(dev)
-            p = torch.from_numpy(z["p"]).to(dev)
+            p = torch.from_numpy(z["p"][:n_rows]).to(dev)
 
     lam_n = float(lam * n)
     order = [b for _ in range(start, num_iter) for b in range(nb)]
     epoch = start
+    observe = ledger.solver_obs()
+    t_epoch = time.perf_counter()
     for i, (b, a) in enumerate(store.iter_device_blocks(order, dev)):
         w[b] = _oc_block_step(a, xm[b], yc, sa, row_ok, p, w[b], lam_n)
-        if ckpt_path is not None and (i + 1) % nb == 0:
-            durable.save_npz(ckpt_path, {"epoch": epoch, "w": w.cpu().numpy(), "p": p.cpu().numpy(),
-                                         "problem": problem}, keep=2)
-        if (i + 1) % nb == 0:
-            epoch += 1
-    return w, xm.reshape(-1), ym
+        if (i + 1) % nb:
+            continue
+        save_seconds = None
+        if ckpt_path is not None:
+            ledger.device_wait((w, p), force=True)  # the host copies below read them
+            w_host, p_host = w.cpu().numpy(), p.cpu().numpy()
+            t_save = time.perf_counter()
+            durable.save_npz(ckpt_path, {"epoch": epoch, "w": w_host, "p": p_host, "problem": problem}, keep=2)
+            save_seconds = time.perf_counter() - t_save
+            metrics.observe("solver.checkpoint_save_seconds", save_seconds)
+        if observe:
+            t_dev = time.perf_counter()
+            obj = float(_bcd_objective(yc, p, n))
+            metrics.observe("device.busy_seconds", time.perf_counter() - t_dev)
+            ledger.solver_epoch("bcd.out_of_core", epoch=epoch, objective=obj,
+                                epoch_seconds=time.perf_counter() - t_epoch, checkpoint_save_seconds=save_seconds)
+        t_epoch = time.perf_counter()
+        epoch += 1
+    return ledger.device_wait(w), xm.reshape(-1), ym
+
+
+def _oc_problem(store, y, alpha, n_rows, k, lam, n, fit_intercept) -> str:
+    """The content fingerprint of an out-of-core BCD problem, the
+    reference's byte for byte: other data, labels, weights, λ or
+    intercept setting restart the fit, a re-spill of the same data to
+    another directory resumes it.  Block 0's first row, the first label
+    row and the first 64 weights stand for the content."""
+    probe = int.from_bytes(hashlib.sha256(_row_bytes(store.read_block(0)[0])).digest()[:8], "little")
+    fp = hashlib.sha256()
+    fp.update(repr((store.n, store.d, store.block_size, (n_rows, k), float(lam), n, bool(fit_intercept),
+                    (probe,))).encode())
+    fp.update(y[:1].cpu().numpy().tobytes())
+    fp.update(alpha[:min(n_rows, 64)].cpu().numpy().tobytes())
+    return fp.hexdigest()
+
+
+def _row_bytes(row: torch.Tensor) -> bytes:
+    """A stored row's bytes (bf16 as its bit patterns)."""
+    return (row.view(torch.int16) if row.dtype == torch.bfloat16 else row).numpy().tobytes()
 
 
 def _spill_dir(hint=None) -> str:
-    """A fresh directory for spilled feature blocks, under ``hint`` or
-    the system's temporary directory."""
-    if hint is not None:
-        os.makedirs(hint, exist_ok=True)
-    return tempfile.mkdtemp(prefix="kst_spill_", dir=hint)
+    """A fresh directory for spilled feature blocks: under ``hint``, else
+    under the PipelineEnv state directory, else the system's temporary
+    directory."""
+    from keystone_tpu_torch.workflow.pipeline import PipelineEnv
+
+    base = hint or PipelineEnv.state_dir
+    if base is not None:
+        os.makedirs(base, exist_ok=True)
+    return tempfile.mkdtemp(prefix="kst_spill_", dir=base)
 
 
 def fit_streamed(est, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None):
@@ -310,7 +443,8 @@ def fit_streamed(est, data: StreamDataset, labels, spill_dir=None, checkpoint_di
     f32 block store; the spill is deleted after a fit that succeeds."""
     from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
 
-    store = FeatureBlockStore.from_batches(_spill_dir(spill_dir), data.batches(), data.n, est.block_size)
+    with ledger.span("solver.spill", solver="bcd", n=data.n):
+        store = FeatureBlockStore.from_batches(_spill_dir(spill_dir), data.batches(), data.n, est.block_size)
     logging.getLogger(__name__).info("spilled %d x %d features to %s (%d blocks, %d bytes)", store.n, store.d,
                                      store.directory, store.num_blocks, store.nbytes())
     fitted = est.fit_store(store, labels, checkpoint_dir=checkpoint_dir)

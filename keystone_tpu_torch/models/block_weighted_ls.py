@@ -11,7 +11,10 @@ Gauss–Seidel over feature blocks, with weighted mean-centring giving
 the intercept.  The sweep computes in the dtype it is given.  A
 StreamDataset reaching the estimator is fitted out of core: its features
 spill to a ``FeatureBlockStore`` and ``block_ls._oc_bcd_fit`` sweeps the
-blocks from disk with the same arithmetic.
+blocks from disk with the same arithmetic, with its per-epoch checkpoint,
+fault points and timing.  The reference has no in-core checkpointed fit
+for this estimator, and neither has the port: ``checkpoint_dir`` reaches
+the streamed fit only.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from keystone_tpu_torch.models.block_ls import (
     fit_streamed,
 )
 from keystone_tpu_torch.models.common import solve_spd
+from keystone_tpu_torch.obs import ledger
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset, as_dataset
 from keystone_tpu_torch.workflow.estimator import LabelEstimator
@@ -49,12 +53,15 @@ def class_weights(y: torch.Tensor, n, mixture_weight: float) -> torch.Tensor:
 
 class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     def __init__(self, block_size: int = 4096, num_iter: int = 1, lam: float = 0.0,
-                 mixture_weight: float = 0.5, fit_intercept: bool = True):
+                 mixture_weight: float = 0.5, fit_intercept: bool = True, checkpoint_dir: Optional[str] = None):
         self.block_size = int(block_size)
         self.num_iter = int(num_iter)
         self.lam = float(lam)
         self.mixture_weight = float(mixture_weight)
         self.fit_intercept = fit_intercept
+        #: where a streamed fit the graph runs checkpoints each epoch
+        #: (None: no checkpoint); where, not what, so not a parameter
+        self.checkpoint_dir = checkpoint_dir
 
     def params(self):
         return (self.block_size, self.num_iter, self.lam, self.mixture_weight, self.fit_intercept)
@@ -65,7 +72,9 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         if labels is None:
             raise ValueError("BlockWeightedLeastSquaresEstimator requires labels")
         if isinstance(data, StreamDataset):
-            return self.fit_stream_dataset(data, labels)
+            if self.checkpoint_dir is None:
+                return self.fit_stream_dataset(data, labels)
+            return self.fit_stream_dataset(data, labels, checkpoint_dir=self.checkpoint_dir)
         return self._fit(data.array.to(torch.float32), labels.array.to(torch.float32), data.n)
 
     def fit_stream_dataset(self, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None) -> BlockLinearMapper:
@@ -100,7 +109,8 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
 
 def _weighted_bcd_fit(x, y, alpha, n, lam, num_iter: int, block_size: int, fit_intercept: bool):
     """Weights (nb, bs, K) and the weighted means (x̄, ȳ) the intercept
-    needs.  Each block solves with its √α-scaled rows, AᵀA = XᵀDX."""
+    needs.  Each block solves with its √α-scaled rows, AᵀA = XᵀDX.  With
+    a run ledger, each epoch reports its objective (a host read)."""
     wsum = torch.sum(alpha)
     if fit_intercept:
         xm = (alpha @ x) / wsum
@@ -116,11 +126,15 @@ def _weighted_bcd_fit(x, y, alpha, n, lam, num_iter: int, block_size: int, fit_i
     sa = torch.sqrt(alpha)[:, None]
     w = torch.zeros((nb, bs, yc.shape[1]), dtype=yc.dtype, device=yc.device)
     p = torch.zeros_like(yc)
-    for _ in range(num_iter):
+    observe = ledger.solver_obs()
+    for e in range(num_iter):
         for b in range(nb):
             a = xb[b] * sa
             target = (yc - p) * sa + a @ w[b]
             wb_new = solve_spd(a.T @ a, a.T @ target, reg=lam * n)
             p += xb[b] @ (wb_new - w[b])
             w[b] = wb_new
-    return w, xm, ym
+        if observe:
+            r = (yc - p) * sa
+            ledger.solver_epoch("bcd.weighted", epoch=e, objective=float(0.5 * torch.sum(r * r) / n))
+    return ledger.device_wait(w), xm, ym

@@ -7,9 +7,9 @@ The fit starts from k-means++ centres, the global variance floored at
 from one log-density gemm pair and a logsumexp, then the weighted
 moments.  The k-means++ draws come from a ``torch.Generator`` seeded
 with ``seed`` (the reference's draws cannot be repeated here); EM itself is
-deterministic from its starting mixture.  The reference's
-per-iteration telemetry (``obs``) waits for the port's ``obs/`` layer
-(ROADMAP A9).
+deterministic from its starting mixture.  With a run ledger each EM
+iteration reports its mean log-likelihood (``solver.epoch``, a host
+read); without one it reads nothing back.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import torch
 
 from keystone_tpu_torch.models.kmeans import _kmeans_fit, generator
+from keystone_tpu_torch.obs import ledger
 from keystone_tpu_torch.utils import timing
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
@@ -116,9 +117,13 @@ def _em_steps(x, n, row_ok, w0, mu0, var0, iters: int, min_var: float):
     the fit).  x: (n_rows, d); row_ok: (n_rows,) 1.0 for the rows that
     count; n: their number.  Computes in x's dtype."""
     w, mu, var = w0, mu0, var0
-    for _ in range(iters):
+    observe = ledger.solver_obs()
+    for it in range(iters):
         lg = _log_gaussians(x, mu, var, torch.log(w))
-        r = torch.exp(lg - torch.logsumexp(lg, dim=1, keepdim=True)) * row_ok[:, None]
+        lse = torch.logsumexp(lg, dim=1, keepdim=True)
+        r = torch.exp(lg - lse) * row_ok[:, None]
+        if observe:
+            ledger.solver_epoch("gmm", epoch=it, mean_log_likelihood=float(torch.sum(lse[:, 0] * row_ok) / n))
         nk = torch.clamp(torch.sum(r, dim=0), min=1e-10)
         mu = (r.T @ x) / nk[:, None]
         ex2 = (r.T @ (x * x)) / nk[:, None]

@@ -7,9 +7,12 @@ LRUs; the full n×n matrix is never formed unless the cache holds it.
 With ``spill_dir`` the column blocks go tiered: each computed column is
 published to disk through ``utils/durable`` and at most ``hbm_cols`` of
 them stay on the device, so K may exceed the card's memory and later
-sweeps reread it from disk instead of recomputing its gemms.  The
-reference's spill metrics (``kernel.spill_*``) are counters on the
-matrix here; its metrics registry waits for ROADMAP A9.
+sweeps reread it from disk instead of recomputing its gemms.  The spill
+is counted twice: on the matrix (``spill_reads``, ``spill_writes``,
+``spill_corruption``) and, as the reference counts it, in the metrics
+registry (``kernel.spill_reads``, ``kernel.spill_read_bytes``,
+``kernel.spill_writes``, ``kernel.spill_write_bytes``,
+``kernel.spill_corruption``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from keystone_tpu_torch.obs import metrics
 from keystone_tpu_torch.ops.gram_kernels import gram_block_for
 from keystone_tpu_torch.utils import durable
 
@@ -217,9 +221,12 @@ class BlockKernelMatrix:
             try:
                 raw = durable.with_retries(read, description=f"kernel spill read {path}")
                 self.spill_reads += 1
+                metrics.inc("kernel.spill_reads")
+                metrics.inc("kernel.spill_read_bytes", int(raw.nbytes))
                 blk = torch.from_numpy(raw).to(self.x.device)
             except durable.CorruptStateError:
                 self.spill_corruption += 1
+                metrics.inc("kernel.spill_corruption")
                 for p in (path, durable.checksum_path(path)):
                     try:
                         os.remove(p)
@@ -235,6 +242,8 @@ class BlockKernelMatrix:
 
             durable.atomic_write(path, write)
             self.spill_writes += 1
+            metrics.inc("kernel.spill_writes")
+            metrics.inc("kernel.spill_write_bytes", int(host.nbytes))
         self._col_cache[j] = blk
         if len(self._col_cache) > self.hbm_cols:
             self._col_cache.popitem(last=False)  # the evicted column stays on disk

@@ -17,8 +17,12 @@ The out-of-core sweep (``_oc_krr_fit``; ``fit_store``,
 ``fit_stream_dataset``) streams the train rows from a ``RowBlockStore``
 and forms every kernel tile from two row blocks, so neither K nor X is
 ever resident; ``OutOfCoreKernelBlockLinearMapper`` predicts from the
-same store.  The reference's fault point, ledger spans and solver
-metrics wait for ROADMAP A9.
+same store.  Its ``kernel.sweep`` fault site fires once per diagonal
+step, each checkpoint save is timed into
+``solver.checkpoint_save_seconds``, and the spill runs in a
+``solver.spill`` ledger span.  With a run ledger every sweep reports each
+epoch's dual objective ½‖Y − F‖²/n (``solver.epoch``, a host read);
+without one it reads nothing back.
 """
 
 from __future__ import annotations
@@ -28,13 +32,16 @@ import hashlib
 import os
 import shutil
 import tempfile
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from keystone_tpu_torch.faults import fault_point
 from keystone_tpu_torch.models.common import solve_spd
+from keystone_tpu_torch.obs import ledger, metrics
 from keystone_tpu_torch.ops.gram_kernels import gram_block, gram_block_ref, poly_block_ref
 from keystone_tpu_torch.utils import durable, precision
 from keystone_tpu_torch.utils.device import resolve_device
@@ -155,7 +162,8 @@ class KernelRidgeRegressionEstimator(LabelEstimator):
         from keystone_tpu_torch.models.block_ls import _spill_dir
         from keystone_tpu_torch.workflow.blockstore import RowBlockStore
 
-        store = RowBlockStore.from_batches(_spill_dir(spill_dir), data.batches(), data.n, self.block_size)
+        with ledger.span("solver.spill", solver="krr", n=data.n):
+            store = RowBlockStore.from_batches(_spill_dir(spill_dir), data.batches(), data.n, self.block_size)
         try:
             return self.fit_store(store, labels, checkpoint_dir=checkpoint_dir)
         except BaseException:
@@ -218,7 +226,8 @@ def _krr_fit(x, y, n, gamma, lam, bs, num_epochs, use_kernel=None):
     y = y * row_ok[:, None]
     alpha = torch.zeros_like(y)
     f = torch.zeros_like(y)
-    for _ in range(num_epochs):
+    observe = ledger.solver_obs()
+    for e in range(num_epochs):
         for b in range(nb):
             lo = b * bs
             kcol = gram_block(x, x[lo:lo + bs], gamma, use_kernel=use_kernel)
@@ -228,7 +237,9 @@ def _krr_fit(x, y, n, gamma, lam, bs, num_epochs, use_kernel=None):
             )
             alpha[lo:lo + bs] = ab_new
             f += f_delta
-    return alpha
+        if observe:
+            ledger.solver_epoch("krr", epoch=e, objective=float(_krr_objective(y, f, n)))
+    return ledger.device_wait(alpha)
 
 
 def _cached_block_update(kcol, kbb, row_ok, ok_b, ab, yb, fb, lam_n):
@@ -272,8 +283,11 @@ def _krr_fit_cached(x, y, n, kern, lam, bs, num_epochs, cache_dir=None, use_kern
                                use_kernel=use_kernel)
     alpha = torch.zeros_like(y)
     f = torch.zeros_like(y)
+    observe = ledger.solver_obs()
     try:
-        for _ in range(num_epochs):
+        for e in range(num_epochs):
+            t_epoch = time.perf_counter()
+            hits0 = km.cache_hits
             for b in range(nb):
                 lo = b * bs
                 kcol = km.column_block(b)
@@ -283,6 +297,9 @@ def _krr_fit_cached(x, y, n, kern, lam, bs, num_epochs, cache_dir=None, use_kern
                 )
                 alpha[lo:lo + bs] = ab_new
                 f += f_delta
+            if observe:
+                ledger.solver_epoch("krr.cached", epoch=e, objective=float(_krr_objective(y, f, n)),
+                                    epoch_seconds=time.perf_counter() - t_epoch, cache_hits=km.cache_hits - hits0)
     finally:
         if tmp_dir is not None:
             shutil.rmtree(tmp_dir, ignore_errors=True)
@@ -415,19 +432,35 @@ def _oc_krr_fit(store, y, n, gamma, lam, num_epochs, checkpoint_dir=None, use_ke
     epoch = start
     xb = dab = None
     b_cur = -1
+    observe = ledger.solver_obs()
+    t_epoch = time.perf_counter()
     for i, (j, a) in enumerate(store.iter_device_blocks(order, dev)):
         pos = i % per_epoch
         if pos % nb == 0:  # the diagonal step: X_b stays for this block's F pass
             b_cur, xb = j, a
+            fault_point("kernel.sweep", block=str(j))
             dab = _oc_krr_diag_step(xb, f[j], alpha[j], yb[j], ok[j], lam_n, gamma, use_kernel)
         else:
             _oc_krr_offdiag_step(f[j], a, xb, dab, ok[j], ok[b_cur], gamma, use_kernel)
-        if pos == per_epoch - 1:
-            if ckpt_path is not None:
-                durable.save_npz(ckpt_path, {"epoch": epoch, "alpha": alpha.cpu().numpy(), "f": f.cpu().numpy(),
-                                             "problem": problem}, keep=2)
-            epoch += 1
-    return alpha.reshape(n_rows, k)
+        if pos != per_epoch - 1:
+            continue
+        save_seconds = None
+        if ckpt_path is not None:
+            ledger.device_wait((alpha, f), force=True)  # the host copies below read them
+            a_host, f_host = alpha.cpu().numpy(), f.cpu().numpy()
+            t_save = time.perf_counter()
+            durable.save_npz(ckpt_path, {"epoch": epoch, "alpha": a_host, "f": f_host, "problem": problem}, keep=2)
+            save_seconds = time.perf_counter() - t_save
+            metrics.observe("solver.checkpoint_save_seconds", save_seconds)
+        if observe:
+            t_dev = time.perf_counter()
+            obj = float(_krr_objective(yb, f, n))
+            metrics.observe("device.busy_seconds", time.perf_counter() - t_dev)
+            ledger.solver_epoch("krr.out_of_core", epoch=epoch, objective=obj,
+                                epoch_seconds=time.perf_counter() - t_epoch, checkpoint_save_seconds=save_seconds)
+        t_epoch = time.perf_counter()
+        epoch += 1
+    return ledger.device_wait(alpha).reshape(n_rows, k)
 
 
 #: test rows a streamed prediction's gram covers: K(x, X_b) stays

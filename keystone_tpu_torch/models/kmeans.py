@@ -6,15 +6,16 @@ nearest centre so far, then Lloyd iterations move each centre to the
 mean of its rows (argmin, the lowest index on ties; an empty cluster
 keeps its centre).  The draws come from an explicit ``torch.Generator``:
 the reference draws with its framework's generator, which the port cannot repeat,
-so parity is held from given centres (``_lloyd``).  The reference's
-per-iteration telemetry (``obs``) waits for the port's ``obs/`` layer
-(ROADMAP A9).
+so parity is held from given centres (``_lloyd``).  With a run ledger
+each Lloyd iteration reports its distortion and centre shift
+(``solver.epoch``, a host read); without one it reads nothing back.
 """
 
 from __future__ import annotations
 
 import torch
 
+from keystone_tpu_torch.obs import ledger
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.transformer import Transformer
 
@@ -92,12 +93,19 @@ def _lloyd(x, row_ok, centers, iters: int):
     the fit): each row to its nearest centre, each centre to its rows'
     mean; an empty cluster keeps its centre."""
     k = centers.shape[0]
-    for _ in range(iters):
-        assign = torch.nn.functional.one_hot(torch.argmin(_sq_dists(x, centers), dim=1), k)
+    observe = ledger.solver_obs()
+    for it in range(iters):
+        d = _sq_dists(x, centers)
+        assign = torch.nn.functional.one_hot(torch.argmin(d, dim=1), k)
         assign = assign.to(x.dtype) * row_ok[:, None]
         counts = torch.sum(assign, dim=0)
         new = (assign.T @ x) / torch.clamp(counts, min=1.0)[:, None]
-        centers = torch.where((counts > 0)[:, None], new, centers)
+        new = torch.where((counts > 0)[:, None], new, centers)
+        if observe:
+            distortion = torch.sum(torch.clamp(torch.min(d, dim=1).values, min=0.0) * row_ok)
+            shift = torch.sqrt(torch.sum((new - centers) ** 2))
+            ledger.solver_epoch("kmeans", epoch=it, distortion=float(distortion), center_shift=float(shift))
+        centers = new
     return centers
 
 

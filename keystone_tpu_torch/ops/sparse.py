@@ -14,7 +14,9 @@ The gathers and scatter-adds are torch's own indexing and
 ``index_add_``: the reference computes them with plain XLA ops outside
 any Pallas kernel.  ``index_add_`` on a CUDA tensor adds in no fixed
 order, so two computations of one gradient on the card may differ in the
-last bits of f32; on the CPU they repeat bit for bit.  The reference
+last bits of f32; on the CPU they repeat bit for bit.  Given a
+``scatter_plan`` (the checkpointed L-BFGS's), ``sparse_grad`` sums each
+index's entries in a fixed order instead (``torch.segment_reduce``).  The reference
 shards rows over its mesh (``mesh.shard_batch``); the port copies them
 to its one device.
 """
@@ -160,17 +162,43 @@ def sparse_matmul(indices: torch.Tensor, values: torch.Tensor, w: torch.Tensor) 
                       for i in range(0, rows, chunk)])
 
 
-def sparse_grad(indices: torch.Tensor, values: torch.Tensor, r: torch.Tensor, d: int) -> torch.Tensor:
+def scatter_plan(indices: torch.Tensor, k: int) -> list:
+    """A fixed summation order for ``sparse_grad`` over these indices: per
+    row chunk (``sparse_grad``'s chunks for k label columns), the stable
+    sort of its entries by index, the distinct indices and their run
+    lengths.  A fit's rows keep their indices, so it is made once."""
+    rows, nnz = indices.shape
+    chunk = _auto_chunk(rows, nnz, k)
+    plan = []
+    for i in range(0, rows, chunk):
+        flat = indices[i:i + chunk].reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        keys, counts = torch.unique_consecutive(flat[order], return_counts=True)
+        plan.append((order, keys, counts))
+    return plan
+
+
+def sparse_grad(indices: torch.Tensor, values: torch.Tensor, r: torch.Tensor, d: int,
+                plan: Optional[list] = None) -> torch.Tensor:
     """``Xᵀ r`` by scatter-add: (d, k) from (rows, nnz) COO and (rows, k);
     duplicate indices accumulate, padding entries add zero; in the same
-    row chunks as ``sparse_matmul``."""
+    row chunks as ``sparse_matmul``.  With ``plan`` (``scatter_plan``'s)
+    each index's entries are summed in the plan's order
+    (``torch.segment_reduce``), so that two computations of one gradient
+    agree bit for bit on the card too, where ``index_add_``'s atomics add
+    in no fixed order (and cuSPARSE's CSR product of Xᵀ, tried, did not
+    repeat bit for bit either)."""
     rows, nnz = indices.shape
     k = r.shape[1]
     chunk = _auto_chunk(rows, nnz, k)
     out = torch.zeros((d, k), dtype=torch.float32, device=r.device)
-    for i in range(0, rows, chunk):
+    for j, i in enumerate(range(0, rows, chunk)):
         contrib = values[i:i + chunk, :, None] * r[i:i + chunk, None, :]  # (chunk, nnz, k)
-        out.index_add_(0, indices[i:i + chunk].reshape(-1), contrib.reshape(-1, k))
+        if plan is None:
+            out.index_add_(0, indices[i:i + chunk].reshape(-1), contrib.reshape(-1, k))
+        else:
+            order, keys, counts = plan[j]
+            out[keys] += torch.segment_reduce(contrib.reshape(-1, k)[order], "sum", lengths=counts, axis=0)
     return out
 
 

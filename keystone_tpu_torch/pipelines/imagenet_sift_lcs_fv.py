@@ -111,6 +111,11 @@ class Config:
     # the features spill to a FeatureBlockStore instead of device memory
     stream: bool = False
     stream_batch_size: int = 64
+    # the port's operations layer: the solver's per-epoch checkpoint (a
+    # killed fit resumes from it) and the streamed training set's
+    # per-batch retries; where and how, not what, so no refit follows
+    checkpoint_dir: Optional[str] = None
+    stream_retries: int = 0
 
 
 def _gmm(p, b) -> GaussianMixtureModel:
@@ -434,6 +439,7 @@ class ImageNetSiftLcsFV:
                 num_iter=config.num_epochs,
                 lam=config.lam,
                 mixture_weight=config.mixture_weight,
+                checkpoint_dir=config.checkpoint_dir,
             ),
             train_x,
             labels_pm1,
@@ -472,9 +478,10 @@ class ImageNetSiftLcsFV:
             if config.stream:
                 if config.train_path:
                     return ImageNetLoader.stream(config.train_path, size=sz, batch_size=config.stream_batch_size,
-                                                 device=dev)
+                                                 device=dev, retries=config.stream_retries)
                 return ImageNetLoader.synthetic_stream(config.synthetic_n, config.num_classes, sz, seed=1,
-                                                       batch_size=config.stream_batch_size, device=dev)
+                                                       batch_size=config.stream_batch_size, device=dev,
+                                                       retries=config.stream_retries)
             if config.train_path:
                 return ImageNetLoader.load(config.train_path, size=sz, device=dev)
             return ImageNetLoader.synthetic(config.synthetic_n, config.num_classes, sz, seed=1, device=dev)
@@ -542,6 +549,8 @@ def main(argv=None):
                    help="stream training images from tar shards; features spill to a disk block store instead "
                         "of device memory")
     p.add_argument("--stream-batch-size", type=int, default=64)
+    p.add_argument("--stream-retries", type=int, default=0, help="per-batch retries of the training stream")
+    p.add_argument("--checkpoint-dir", help="the solver's per-epoch checkpoint; a killed fit resumes from it")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     a = p.parse_args(argv)
     cfg = Config(
@@ -557,6 +566,8 @@ def main(argv=None):
         model_path=a.model_path,
         stream=a.stream,
         stream_batch_size=a.stream_batch_size,
+        stream_retries=a.stream_retries,
+        checkpoint_dir=a.checkpoint_dir,
     )
     print(ImageNetSiftLcsFV.run(cfg, device=a.device))
 

@@ -45,16 +45,21 @@ class MnistRandomFFT:
     Config = Config
 
     @staticmethod
-    def build(config: Config, train_x: Dataset, train_labels: Dataset) -> Pipeline:
-        (dim,) = train_x.item_shape
+    def featurizer(config: Config, dim: int, device) -> Pipeline:
+        """The random-FFT featurizer of ``dim``-pixel rows on ``device``."""
         branches = [
-            Pipeline.of(RandomSignNode.init(dim, seed=config.seed + i, device=train_x.device))
+            Pipeline.of(RandomSignNode.init(dim, seed=config.seed + i, device=device))
             .and_then(PaddedFFT())
             .and_then(LinearRectifier(0.0))
             for i in range(config.num_ffts)
         ]
         # pixels in [0, 1] keep the f32 normal equations well conditioned
-        featurizer = Pipeline.of(PixelScaler()).then_pipeline(Pipeline.gather(branches))
+        return Pipeline.of(PixelScaler()).then_pipeline(Pipeline.gather(branches))
+
+    @staticmethod
+    def build(config: Config, train_x: Dataset, train_labels: Dataset) -> Pipeline:
+        (dim,) = train_x.item_shape
+        featurizer = MnistRandomFFT.featurizer(config, dim, train_x.device)
         labels_pm1 = ClassLabelIndicators(NUM_CLASSES)(train_labels)
         return featurizer.and_then(LinearMapEstimator(lam=config.lam), train_x, labels_pm1).and_then(MaxClassifier())
 

@@ -27,7 +27,13 @@ stream wait for its copy, and ``_WINDOW`` bounds the blocks in flight.
 rows, one ``(block_size, d)`` file a row block, which the out-of-core
 kernel sweep streams through the same feed.  Both layouts are the
 reference's own, so a store written by either package reads in the
-other.  The reference's fault points and metrics wait for ROADMAP A9.
+other.
+
+Fault sites (``keystone_tpu_torch.faults``): ``blockstore.write`` after
+each block file's rows are written, ``blockstore.read`` inside each
+read's retry scope.  Counters: ``blockstore.writes``, ``write_bytes``,
+``reads``, ``read_bytes``, ``read_retries``, and the histogram
+``blockstore.stage_wait_seconds`` of the device feed.
 """
 
 from __future__ import annotations
@@ -35,13 +41,16 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import time
 from collections import deque
 from typing import Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from keystone_tpu_torch.faults import fault_point
 from keystone_tpu_torch.loaders.stream import prefetched
+from keystone_tpu_torch.obs import metrics
 from keystone_tpu_torch.utils import durable
 from keystone_tpu_torch.utils.device import resolve_device
 
@@ -133,7 +142,11 @@ class _BlockStreamBase:
         try:
             j = 0
             for b, blk in it:
+                t0 = time.perf_counter()
                 stage(j, b, blk)
+                # the staging's host time (a pinned buffer's wait, its
+                # copy, the dispatch): the feed's transfer account
+                metrics.observe("blockstore.stage_wait_seconds", time.perf_counter() - t0)
                 j += 1
                 if len(staged) <= window:
                     continue
@@ -230,6 +243,9 @@ class FeatureBlockStore(_BlockStreamBase):
             del mm
             if self._hashers is not None:
                 self._hashers[b].update(np.ascontiguousarray(raw).tobytes())
+            fault_point("blockstore.write", path=self._block_path(self.directory, b))
+            metrics.inc("blockstore.write_bytes", int(raw.nbytes))
+        metrics.inc("blockstore.writes")
         self._cursor = stop
 
     def finalize(self) -> None:
@@ -307,8 +323,11 @@ def _read_block_file(path: str, shape: Tuple[int, int], dtype: str) -> torch.Ten
     """One block file as a CPU tensor of ``dtype``: truncation and the
     sealed checksum checked, a transient read error retried."""
     expected = shape[0] * shape[1] * (2 if dtype == "bfloat16" else 4)
+    attempts = [0]
 
     def read():
+        attempts[0] += 1
+        fault_point("blockstore.read", path=path)
         if os.path.getsize(path) < expected:
             raise durable.CorruptStateError(
                 f"truncated block {path}: {os.path.getsize(path)} bytes < {expected} of payload for shape {shape}")
@@ -321,7 +340,12 @@ def _read_block_file(path: str, shape: Tuple[int, int], dtype: str) -> torch.Ten
             raise durable.CorruptStateError(f"block {path} has shape {raw.shape}, expected {shape}")
         return raw
 
-    t = torch.from_numpy(durable.with_retries(read, description=f"block read {path}"))
+    raw = durable.with_retries(read, description=f"block read {path}")
+    metrics.inc("blockstore.reads")
+    metrics.inc("blockstore.read_bytes", int(raw.nbytes))
+    if attempts[0] > 1:
+        metrics.inc("blockstore.read_retries", attempts[0] - 1)
+    t = torch.from_numpy(raw)
     return t.view(torch.bfloat16) if dtype == "bfloat16" else t
 
 
@@ -399,6 +423,9 @@ class RowBlockStore(_BlockStreamBase):
             del mm
             if self._hashers is not None:
                 self._hashers[b].update(np.ascontiguousarray(raw).tobytes())
+            fault_point("blockstore.write", path=self._block_path(self.directory, b))
+            metrics.inc("blockstore.write_bytes", int(raw.nbytes))
+        metrics.inc("blockstore.writes")
         self._cursor = stop
 
     def finalize(self) -> None:

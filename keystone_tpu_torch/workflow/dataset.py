@@ -170,7 +170,12 @@ class StreamDataset(Dataset):
     featurization): host transformers map over it item by item, batch by
     batch, and nothing reaches the device until a featurizer makes
     tensors; ``device`` is where they go.  Its ``items`` collect the
-    stream (the CSR rows after featurization are small)."""
+    stream (the CSR rows after featurization are small).
+
+    ``retries``, ``max_bad_batches`` and ``timeout`` harden a flaky
+    source (``loaders/stream.resilient``): bounded per-batch retry with
+    backoff, then a drop quota, and a watchdog on each fetch.  The
+    wrapper sits under the producer thread, so retries run there."""
 
     def __init__(
         self,
@@ -181,6 +186,9 @@ class StreamDataset(Dataset):
         host: bool = False,
         device=None,
         stage: Optional[Callable] = None,
+        retries: int = 0,
+        max_bad_batches: int = 0,
+        timeout: Optional[float] = None,
     ):
         if not callable(source) and iter(source) is source:
             # a one-shot iterator would be shared, and interleaved, by
@@ -188,6 +196,10 @@ class StreamDataset(Dataset):
             raise ValueError(
                 "StreamDataset source must be re-iterable: pass a callable returning a fresh iterator "
                 "(or a list of batches), not a one-shot generator/iterator")
+        if retries > 0 or max_bad_batches > 0 or timeout is not None:
+            from keystone_tpu_torch.loaders.stream import resilient
+
+            source = resilient(source, retries=retries, max_bad_batches=max_bad_batches, timeout=timeout)
         if prefetch > 0:
             from keystone_tpu_torch.loaders.stream import prefetched
 

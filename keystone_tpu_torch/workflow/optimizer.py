@@ -22,11 +22,13 @@ from __future__ import annotations
 import copy
 import inspect
 import logging
+import time
 from typing import Sequence
 
 import torch
 from torch import nn
 
+from keystone_tpu_torch.obs import ledger, metrics
 from keystone_tpu_torch.workflow import graph as G
 from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset, as_dataset
 from keystone_tpu_torch.workflow.estimator import Estimator
@@ -67,13 +69,21 @@ class Optimizer:
         self.batches = list(batches)
 
     def execute(self, graph: G.Graph) -> G.Graph:
-        for batch in self.batches:
-            for _ in range(batch.strategy.max_iterations):
-                before = _graph_fingerprint(graph)
-                for rule in batch.rules:
-                    graph = rule.apply(graph)
-                if _graph_fingerprint(graph) == before:
-                    break
+        """Each rule's seconds land in ``optimizer.rule_seconds{rule=...}``
+        and, with a run ledger, an ``optimizer.rule`` event inside the
+        ``optimizer.execute`` span."""
+        with ledger.span("optimizer.execute"):
+            for batch in self.batches:
+                for _ in range(batch.strategy.max_iterations):
+                    before = _graph_fingerprint(graph)
+                    for rule in batch.rules:
+                        t0 = time.perf_counter()
+                        graph = rule.apply(graph)
+                        dt = time.perf_counter() - t0
+                        metrics.observe("optimizer.rule_seconds", dt, rule=rule.name)
+                        ledger.event("optimizer.rule", rule=rule.name, batch=batch.name, seconds=dt)
+                    if _graph_fingerprint(graph) == before:
+                        break
         return graph
 
 
@@ -335,7 +345,16 @@ def _fusable(op) -> bool:
         and not op.transformer.is_host
         and getattr(op.transformer, "fusable", True)
         and not isinstance(op.transformer, Cacher)
+        and _plain(op)
     )
+
+
+def _plain(op) -> bool:
+    """False for a stage that declares degradation (``optional``,
+    ``with_fallback``): it stays a node of its own, or the executor would
+    degrade a whole fused chain where one stage was meant to."""
+    t = op.transformer
+    return not getattr(t, "optional", False) and getattr(t, "fallback", None) is None
 
 
 def _stages(op) -> list:
@@ -390,7 +409,7 @@ class FvFusionRule(Rule):
 
         def transformer_of(node, cls):
             op = graph.operators.get(node)
-            if isinstance(op, G.TransformerOperator) and isinstance(op.transformer, cls):
+            if isinstance(op, G.TransformerOperator) and isinstance(op.transformer, cls) and _plain(op):
                 return op.transformer
             return None
 

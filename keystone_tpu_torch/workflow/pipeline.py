@@ -18,9 +18,17 @@ Typical usage:
                  .and_then(TopKClassifier(5)))
     top5 = predictor.fit()(test_x).get().numpy()
 
+``PipelineEnv.state_dir`` puts a ``SavedStateLoadRule`` batch first in
+the default optimizer (saved prefixes reload, ``workflow/state.py``);
+``PipelineEnv.node_retries`` / ``KEYSTONE_STAGE_RETRIES`` set every
+executor's stage retries; ``fit(deadline=...)`` and ``get(deadline=...)``
+bound a walk's wall clock (``workflow/executor.py``).  A fit runs in a
+``pipeline.fit`` ledger span and ends with a metrics snapshot when a run
+ledger is active (``obs/ledger.py``).
+
 Not ported yet: ``freeze``/``FrozenApplier`` and the AOT artifacts
-(ROADMAP A11), the pre-fit out-of-core conversion (A5), the static
-validator (A10) and the run ledger (A9).
+(ROADMAP A11), the pre-fit out-of-core conversion (A14) and the static
+validator (A10).
 """
 
 from __future__ import annotations
@@ -41,20 +49,65 @@ from keystone_tpu_torch.workflow.transformer import Chainable, Transformer
 
 class PipelineEnv:
     """Process-global pipeline environment (workflow/PipelineEnv.scala):
-    the optimizer every fit and lazy result runs."""
+    the optimizer every fit and lazy result runs, the state directory of
+    saved prefixes, and the stage-retry budget.
+
+    Setting ``state_dir`` puts a ``SavedStateLoadRule`` batch first in the
+    default optimizer, so previously saved prefixes reload (the
+    reference's saved-state flow)."""
 
     optimizer = None  # lazily constructed default
+    state_dir: Optional[str] = None
+    #: stage retries of every executor the framework creates; None reads
+    #: KEYSTONE_STAGE_RETRIES at use time (a malformed value must not
+    #: break the import, and later changes of the variable take effect)
+    node_retries: Optional[int] = None
+    _built_for_state_dir: Optional[str] = None
+    _auto_built = None  # the instance get_optimizer constructed itself
+    _auto_built_sig = ()  # identity of its rule batches at build time
+
+    @classmethod
+    def stage_retries(cls) -> int:
+        if cls.node_retries is not None:
+            return max(0, int(cls.node_retries))
+        raw = os.environ.get("KEYSTONE_STAGE_RETRIES", "0")
+        try:
+            return max(0, int(raw))
+        except ValueError:
+            logging.getLogger(__name__).warning("KEYSTONE_STAGE_RETRIES=%r is not an integer; using 0", raw)
+            return 0
 
     @classmethod
     def set_optimizer(cls, optimizer) -> None:
+        """Install a custom optimizer; the state_dir wiring never replaces
+        it (add a SavedStateLoadRule to it yourself if needed)."""
         cls.optimizer = optimizer
+        cls._auto_built = None
+        cls._auto_built_sig = ()
 
     @classmethod
     def get_optimizer(cls):
-        if cls.optimizer is None:
-            from keystone_tpu_torch.workflow.optimizer import default_optimizer
+        # anything this method did not build (set_optimizer, assignment to
+        # the attribute, or rule batches added to the built default) is
+        # the user's: honour it
+        if cls.optimizer is not None and (
+            cls.optimizer is not cls._auto_built
+            or len(cls.optimizer.batches) != len(cls._auto_built_sig)
+            or any(b is not s for b, s in zip(cls.optimizer.batches, cls._auto_built_sig))
+        ):
+            return cls.optimizer
+        if cls.optimizer is None or cls._built_for_state_dir != cls.state_dir:
+            from keystone_tpu_torch.workflow.optimizer import Once, RuleBatch, default_optimizer
 
-            cls.optimizer = default_optimizer()
+            opt = default_optimizer()
+            if cls.state_dir:
+                from keystone_tpu_torch.workflow.state import SavedStateLoadRule
+
+                opt.batches.insert(0, RuleBatch("saved-state", Once(), [SavedStateLoadRule(cls.state_dir)]))
+            cls.optimizer = opt
+            cls._auto_built = opt
+            cls._auto_built_sig = tuple(opt.batches)
+            cls._built_for_state_dir = cls.state_dir
         return cls.optimizer
 
 
@@ -160,14 +213,35 @@ class Pipeline(Chainable):
         return PipelineDatum(g, self.sink)
 
     # --------------------------------------------------------------- fit
-    def fit(self) -> "FittedPipeline":
+    def fit(self, deadline=None) -> "FittedPipeline":
         """Optimize, execute every estimator fit, and return a pure
         transformer pipeline (the reference's ``Pipeline.fit():
         PipelineModel``).  One executor serves every estimator, so shared
         prefixes run once; its memoized results are dropped with it when
-        the fit returns, and the fitted pipeline keeps none of them."""
+        the fit returns, and the fitted pipeline keeps none of them.
+
+        ``deadline``: a wall-clock budget for the whole fit, seconds or a
+        ``utils.guard.Deadline``, apportioned over the stages by the
+        executor: a stage that overruns its share raises
+        ``DeadlineExceeded`` inside the stage-retry scope, so a hung
+        stage is retried, degraded or fails the fit in bounded time.
+        None (the default): no watchdog, no thread.
+
+        With a run ledger (``KEYSTONE_OBS_DIR`` or ``obs.ledger.start_run``)
+        the fit runs in a ``pipeline.fit`` span and a metrics snapshot is
+        written at its end."""
+        from keystone_tpu_torch.obs import ledger
+
+        with ledger.span("pipeline.fit"):
+            fitted = self._fit_inner(deadline)
+        led = ledger.active()
+        if led is not None:
+            led.metrics_snapshot()
+        return fitted
+
+    def _fit_inner(self, deadline) -> "FittedPipeline":
         g = PipelineEnv.get_optimizer().execute(self.graph)
-        ex = GraphExecutor(g)
+        ex = GraphExecutor(g, deadline=deadline)
         fitted: dict = {}
         for n in g.topological_nodes():
             if isinstance(g.operators[n], G.EstimatorOperator):
@@ -198,7 +272,7 @@ class FittedPipeline(Pipeline):
     PipelineModel).  Its fitted transformers' tensors travel with it, on
     the device ``load``'s ``map_location`` names."""
 
-    def fit(self) -> "FittedPipeline":
+    def fit(self, deadline=None) -> "FittedPipeline":
         return self
 
     def block_until_ready(self) -> "FittedPipeline":
@@ -276,6 +350,8 @@ def fit_relevant_config(config, exclude=()):
         "view_patch",
         "stream",
         "stream_batch_size",
+        "stream_retries",
+        "checkpoint_dir",
     } | set(exclude)
     for k in eval_only:
         d.pop(k, None)
@@ -292,10 +368,13 @@ class PipelineDataset:
         self.sink = sink
         self._result: Optional[Dataset] = None
 
-    def get(self) -> Dataset:
+    def get(self, deadline=None) -> Dataset:
+        """``deadline``: a wall-clock budget for the apply, apportioned
+        over its stages by the executor (the scoring twin of
+        ``Pipeline.fit(deadline=...)``)."""
         if self._result is None:
             g = PipelineEnv.get_optimizer().execute(self.graph)
-            expr = GraphExecutor(g).execute(g.sink_dependencies.get(self.sink, self.sink))
+            expr = GraphExecutor(g, deadline=deadline).execute(g.sink_dependencies.get(self.sink, self.sink))
             if not isinstance(expr, DatasetExpr):
                 raise TypeError(f"sink produced {type(expr).__name__}, expected dataset")
             self._result = expr.dataset
@@ -314,10 +393,10 @@ class PipelineDatum:
         self._result = None
         self._done = False
 
-    def get(self):
+    def get(self, deadline=None):
         if not self._done:
             g = PipelineEnv.get_optimizer().execute(self.graph)
-            expr = GraphExecutor(g).execute(g.sink_dependencies.get(self.sink, self.sink))
+            expr = GraphExecutor(g, deadline=deadline).execute(g.sink_dependencies.get(self.sink, self.sink))
             if not isinstance(expr, DatumExpr):
                 raise TypeError(f"sink produced {type(expr).__name__}, expected datum")
             self._result = expr.value

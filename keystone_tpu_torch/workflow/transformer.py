@@ -20,14 +20,18 @@ transformer (``is_host``: the text chain) maps Python objects item by
 item, over a host list or a host stream, and records the chain it
 belongs to (``_host_chain``).
 
-The reference's jit caches (``_JIT_APPLY_CACHE``, ``traced_attrs``,
+The degradation declarations are the reference's: an ``optional`` stage
+whose retry or deadline budget is spent, or whose circuit breaker is
+open, passes its input through (Identity); one made by ``with_fallback``
+applies its substitute instead (``workflow/executor.py``).  The
+reference's jit caches (``_JIT_APPLY_CACHE``, ``traced_attrs``,
 ``stripped_template``) are XLA compile-cache machinery with no
-counterpart here, and its degradation declarations (``optional``,
-``with_fallback``) wait for the executor's deadlines (ROADMAP A9).
+counterpart here.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -76,6 +80,29 @@ class Transformer(nn.Module, Chainable):
     #: False keeps the stage out of StageFusionRule's chains (ops that
     #: reduce ragged sets or read a whole dataset).
     fusable: bool = True
+    #: graceful degradation (workflow/executor.py): an ``optional`` stage
+    #: whose budget is spent, or whose breaker is open, is replaced by
+    #: Identity; a ``fallback`` (set by ``with_fallback``) is applied
+    #: instead.  Default: neither, and a failure propagates.
+    optional: bool = False
+    fallback: Optional["Transformer"] = None
+
+    def with_fallback(self, substitute: "Transformer") -> "Transformer":
+        """A copy of this transformer that degrades to ``substitute``: when
+        the stage's failure budget (retries, deadline) is spent or its
+        breaker is open, the executor applies ``substitute`` to the
+        stage's input and records a ``degraded`` event instead of failing
+        the run.  The copy shares this one's tensors; this one is left
+        as it was."""
+        c = copy.copy(self)
+        # a shallow copy of a module shares its registries: give the copy
+        # its own, so that nothing done to one reaches the other
+        for reg in ("_parameters", "_buffers", "_modules"):
+            c.__dict__[reg] = dict(self.__dict__[reg])
+        # a plain attribute, not a submodule: the class default would
+        # shadow a registered one
+        object.__setattr__(c, "fallback", substitute)
+        return c
 
     @property
     def label(self) -> str:
@@ -88,7 +115,16 @@ class Transformer(nn.Module, Chainable):
 
     def signature(self):
         p = self.params()
-        return None if p is None else (type(self).__name__, p)
+        if p is None:
+            return None
+        sig = (type(self).__name__, p)
+        if self.optional or self.fallback is not None:
+            # degradation declarations are part of a node's identity: CSE
+            # merging an optional node with a plain twin would widen (or
+            # drop) the degradation contract
+            fb = self.fallback
+            sig = sig + ("degrade", self.optional, None if fb is None else (fb.signature() or id(fb)))
+        return sig
 
     # Optimizer hook: physical-operator choice (workflow/NodeOptimizationRule).
     def choose_physical(self, sample) -> "Transformer":

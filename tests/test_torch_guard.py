@@ -49,10 +49,11 @@ def test_every_module_imports_without_jax():
               "workflow.graph", "workflow.dataset", "workflow.transformer", "workflow.estimator",
               "workflow.executor", "workflow.optimizer", "workflow.pipeline", "loaders.labeled", "ops.images",
               "ops.filters", "workflow.blockstore", "loaders.stream", "loaders.jpeg", "utils.durable",
-              "utils.hashing", "loaders.cifar", "pipelines.kernel_cifar", "ops.nlp", "ops.nlp_native",
+              "loaders.cifar", "pipelines.kernel_cifar", "ops.nlp", "ops.nlp_native",
               "ops.sparse", "ops.util", "models.lbfgs", "models.logistic", "models.naive_bayes", "models.linear",
               "loaders.newsgroups", "loaders.amazon", "pipelines.newsgroups", "pipelines.amazon_reviews",
-              "convert"):
+              "convert", "obs", "obs.metrics", "obs.ledger", "faults", "utils.guard", "workflow.state",
+              "workflow.recovery"):
         assert f"keystone_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -196,6 +197,26 @@ def test_fit_entry_points_default_to_the_card():
         lambda: BlockWeightedLeastSquaresEstimator(block_size=2).fit_arrays(x, y),
         lambda: port.fit_params(TINY_FIT, imgs, np.zeros(2, np.int32)),
         lambda: port.run_synthetic(TINY_FIT),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fit()
+
+
+def test_checkpointed_fits_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card: the CPU-only refusal is not observable")
+    from keystone_tpu_torch.models.lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
+    from keystone_tpu_torch.workflow.recovery import fit_with_recovery
+
+    x = np.random.default_rng(0).normal(size=(16, 4)).astype(np.float32)
+    y = np.ones((16, 2), np.float32)
+    ckpt = str(tmp_path / "ckpt")
+    for fit in (
+        lambda: BlockLeastSquaresEstimator(block_size=2).fit_checkpointed(x, y, ckpt),
+        lambda: DenseLBFGSwithL2(num_iterations=2).fit_checkpointed(x, y, checkpoint_dir=ckpt),
+        lambda: SparseLBFGSwithL2(num_iterations=2).fit_checkpointed(x, y, checkpoint_dir=ckpt),
+        lambda: fit_with_recovery(lambda: BlockLeastSquaresEstimator(block_size=2).with_data(x, y),
+                                  max_restarts=0),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             fit()
