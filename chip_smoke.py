@@ -176,7 +176,32 @@ result line):
    on the streamed fit, then the next fit bit for bit; a hung stage
    under a deadline leaving no memory; an optional stage's breaker
    opening and degrading to its fallback;
-24. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+24. main path, serving (the serving slice): B1 against its plain
+   version at the smallest and largest padding bucket (8 and 128 rows)
+   on the served scorer's weights; S1, the full-width scorer behind
+   ``serve()`` on the card (one replica, buckets 8..128): closed loops of
+   single-image submits from 8 threads at saturation (32 outstanding a
+   thread) and at low concurrency (one), and submit_batch calls of 50,
+   every answer's top-5 ids against the offline ``scorer(x)`` (equal, or
+   a near-tie within B1's tolerance), B1 twice a flush and no B2, images/s,
+   requests a flush, p50/p99 latency, and under the profiler the device
+   ms a flush against its host-clock ms (the idle share) at saturation
+   and at low concurrency, with the buckets the flushes padded to; the
+   served raw scores (``scores_of``) within B1's
+   tolerance; S1b, the unfused bench forward behind ``serve()`` (B2 once
+   a flush); S2, phase 9's graph-fitted model saved and served by
+   ``python -m keystone_tpu_torch.cli serve`` in a child process: held-out
+   images POSTed in requests of 1..16 against the in-process fitted(x), a
+   400 on a mis-shaped body, the echoed X-Request-Id, /requestz, /statusz,
+   the child's launch counts (FvFusionRule fused at freeze: B1, no B2),
+   SIGINT drains and exits 0; S3, two replicas on the card under fault
+   plans (a crashed worker restarted with no future lost, a failed flush,
+   a poison row bisected out) and two replicas of the scorer hot-swapped
+   under load to other weights (nothing lost, answers after the commit
+   from the new weights), a draining close; S4, serve_bench's open-loop
+   generator at 50% and 90% of S1's saturation rate (p50/p99/p99.9, sheds,
+   queue depth);
+25. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches, float64 errors) for all four
    kernels, B3's and B4's times at the new paths' shapes and B1's and
    B2's at VOC's among them, then the last line {"ok": true, "device":
@@ -3295,9 +3320,9 @@ def recovery_child(work: str) -> int:
     reloaded = []
     load_rule = WS.SavedStateLoadRule.apply
 
-    def recorded_apply(self, graph):
+    def recorded_apply(self, graph, device=None):
         seen = len(self.reloaded)
-        graph = load_rule(self, graph)
+        graph = load_rule(self, graph, device=device)
         reloaded.extend(self.reloaded[seen:])
         return graph
 
@@ -3784,6 +3809,530 @@ def operations_path(dev, card, P, fk, gk, stream_out, krr, ls_problem):
     return out
 
 
+# ---- serving (the serving slice): the full-width scorer behind serve() on
+# the card.  Flushes pad to buckets of 8..128 rows; B1 runs twice a flush
+# (one launch a branch), B2 never.  Served rows against the offline
+# scorer(x) on the same images: the padded batch changes the BLM product's
+# shape in cuBLAS, so scores need not match bit for bit: they are held at
+# B1's stated tolerance (2e-5 + 1e-5·|ref|, TOL_SERVE_SCORES), and top-5
+# ids must be equal, or differ only where the offline scores of the
+# swapped classes lie within that tolerance (a near-tie, counted)
+SERVE_BUCKETS = (8, 16, 32, 64, 128)
+SERVE_CLIENTS = 8
+SERVE_SAT_N = 4096  # saturation: 8 client threads, 32 requests outstanding each
+SERVE_SAT_WINDOW = 32
+SERVE_LOW_N = 512  # low concurrency: 8 client threads, one request outstanding each
+SERVE_PROFILED_N = 1024  # the saturation window traced for the idle share
+SERVE_BLOCKS, SERVE_BLOCK = 4, 50  # submit_batch calls
+SERVE_WAIT_MS = 1.0
+TOL_SERVE_SCORES, RTOL_SERVE_SCORES = 2e-5, 1e-5
+SERVE_FWD_N = 256  # the unfused bench forward behind serve(): B2
+SERVE_HTTP_N = 128  # held-out images POSTed to `cli serve`
+SERVE_HTTP_MAX_BATCH = 16
+SERVE_RESULT_S = 120.0  # the bound of every wait on a served future
+SERVE_S4_FRACTIONS = (0.5, 0.9)  # open-loop offered load, fractions of S1's saturation rate
+SERVE_S4_SECONDS = 3.0
+SERVE_S4_BURST = 8
+SERVE_S4_DEADLINE_MS = 250.0
+
+
+def serve_closed_loop(svc, rows, n, window, clients=SERVE_CLIENTS, submit=None):
+    """``clients`` threads submit rows[i % len(rows)] for i < n, each keeping
+    ``window`` requests outstanding (closed loop).  Returns (outputs by
+    index, latency seconds by index, wall seconds)."""
+    import threading
+
+    submit = submit or svc.submit
+    outs, lat = [None] * n, [0.0] * n
+    nxt = iter(range(n))
+    lock = threading.Lock()
+    errors = []
+
+    def client():
+        pending = []
+        while True:
+            while len(pending) < window:
+                with lock:
+                    i = next(nxt, None)
+                if i is None:
+                    break
+                t0 = time.perf_counter()
+                try:
+                    fut = submit(rows[i % len(rows)])
+                except Exception as e:  # reported below
+                    errors.append(e)
+                    return
+
+                def done(f, i=i, t0=t0):
+                    lat[i] = time.perf_counter() - t0
+
+                fut.add_done_callback(done)
+                pending.append((i, fut))
+            if not pending:
+                return
+            i, fut = pending.pop(0)
+            try:
+                outs[i] = fut.result(timeout=SERVE_RESULT_S)
+            except Exception as e:  # reported below
+                errors.append(e)
+                return
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_RESULT_S * 2)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a serve client thread hung")
+    check(not errors, f"served requests failed: {errors[:3]}")
+    return outs, np.asarray(lat), wall
+
+
+def serve_counters(metrics_mod) -> dict:
+    reg = metrics_mod.REGISTRY
+    return {k: reg.counter_total(f"serve.{k}") for k in ("batches", "completed", "shed", "batch_errors")}
+
+
+def top5_check(label, served, offline_ids, offline_scores):
+    """Served top-5 ids against the offline scorer's: equal, or a near-tie
+    (every served id scores within TOL_SERVE_SCORES of the offline 5th
+    score or above it, in order within it)."""
+    served = np.asarray(served)
+    equal = (served == offline_ids).all(axis=1)
+    ties = 0
+    for r in np.nonzero(~equal)[0]:
+        s, ids = offline_scores[r], served[r]
+        tol = TOL_SERVE_SCORES + RTOL_SERVE_SCORES * np.abs(s[ids])
+        ok = (s[ids] >= s[offline_ids[r][-1]] - tol).all() and (s[ids][:-1] >= s[ids][1:] - tol[1:]).all()
+        check(bool(ok), f"{label}: served top-5 {ids} on image {r} is not the offline {offline_ids[r]} "
+                        f"within the tolerance")
+        ties += 1
+    print(f"  {label}: top-5 ids equal on {int(equal.sum())} of {len(equal)} requests, near-ties {ties}", flush=True)
+    return {"equal": int(equal.sum()), "near_ties": ties, "n": int(len(equal))}
+
+
+def serve_path(dev, card, P, fk, scorer, forward, images, float_batches, b1_args):
+    """S1 and S1b: the full-width scorer, then the unfused bench forward,
+    behind serve() on the card, one replica; B1 at the smallest and largest
+    bucket against its plain version on the served scorer's weights."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.serve import RowBlock, serve
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    out = {}
+    imgs = images.cpu().numpy()
+    with phase("serve S1: B1 at the smallest and largest bucket on the served scorer's weights"):
+        out["b1_buckets"] = {}
+        for rows in (SERVE_BUCKETS[0], SERVE_BUCKETS[-1]):
+            x = images[:rows]
+            errs = [compare(f"B1 at the {rows}-row bucket, {name}", fk.fused_forward(*a), fk.fused_forward_ref(*a),
+                            TOL_FUSED) for name, a in b1_args(x)]
+            out["b1_buckets"][rows] = max(errs)
+        torch.cuda.synchronize()
+    with phase("serve S1: the offline scorer on the served images"):
+        off_ids = torch.cat([scorer(b) for b in images.split(BATCH)]).cpu().numpy()
+        off_scores = torch.cat([P.scores_of(scorer)(b) for b in images.split(BATCH)]).cpu().numpy()
+        torch.cuda.synchronize()
+    with phase("serve S1: the full-width scorer behind serve() (one replica, buckets 8..128)"):
+        t0 = time.perf_counter()
+        svc = serve(Pipeline.of(scorer).freeze(device=dev), max_batch=BATCH, buckets=SERVE_BUCKETS,
+                    max_wait_ms=SERVE_WAIT_MS, queue_bound=4 * SERVE_CLIENTS * SERVE_SAT_WINDOW, example=imgs[0], name="s1")
+        print(f"  built and primed ({len(SERVE_BUCKETS)} buckets) in {time.perf_counter() - t0:.2f} s", flush=True)
+        try:
+            rep = svc._pool.replicas[0]
+            check(rep.device.type == dev.type and (rep.stream is not None) == (dev.type == "cuda"),
+                  f"replica on {rep.device}, stream {rep.stream}")
+            torch.cuda.synchronize()
+            fk.reset_launches()
+            c0 = serve_counters(metrics)
+            regimes = {}
+            for regime, n, window in (("saturation", SERVE_SAT_N, SERVE_SAT_WINDOW), ("low", SERVE_LOW_N, 1)):
+                r0 = serve_counters(metrics)
+                outs, lat, wall = serve_closed_loop(svc, imgs, n, window)
+                r1 = serve_counters(metrics)
+                flushes = r1["batches"] - r0["batches"]
+                regimes[regime] = {
+                    "requests": n, "clients": SERVE_CLIENTS, "outstanding_per_client": window, "seconds": wall,
+                    "images_per_s": n / wall, "flushes": flushes, "requests_per_flush": n / max(1, flushes),
+                    "p50_ms": float(np.percentile(lat, 50) * 1e3), "p99_ms": float(np.percentile(lat, 99) * 1e3),
+                    "top5": top5_check(f"{regime} ({n} requests)", outs, off_ids[np.arange(n) % len(imgs)],
+                                       off_scores[np.arange(n) % len(imgs)]),
+                }
+                print(f"  {regime}: {n} requests from {SERVE_CLIENTS} threads ({window} outstanding each) in "
+                      f"{wall:.3f} s: {n / wall:.1f} images/s, {flushes} flushes, {n / max(1, flushes):.2f} "
+                      f"requests a flush, latency p50 {regimes[regime]['p50_ms']:.3f} ms, p99 "
+                      f"{regimes[regime]['p99_ms']:.3f} ms ({card})", flush=True)
+            block_outs = []
+            for j in range(SERVE_BLOCKS):
+                rows = imgs[j * SERVE_BLOCK:(j + 1) * SERVE_BLOCK]
+                block_outs += [f.result(timeout=SERVE_RESULT_S) for f in svc.submit_batch(RowBlock(rows))]
+            regimes["submit_batch"] = {"top5": top5_check(f"{SERVE_BLOCKS} submit_batch calls of {SERVE_BLOCK}",
+                                                          block_outs, off_ids[:len(block_outs)],
+                                                          off_scores[:len(block_outs)])}
+            torch.cuda.synchronize()
+            c1 = serve_counters(metrics)
+            launches = dict(fk.LAUNCHES)
+            flushes = c1["batches"] - c0["batches"]
+            print(f"  launches {launches} over {flushes} flushes", flush=True)
+            check(launches == fv_launches(fused=2 * flushes), f"launches {launches}: expected B1 twice a flush, no B2")
+            check(c1["shed"] == c0["shed"] and c1["batch_errors"] == c0["batch_errors"], "a request was shed or failed")
+            # the idle share: device busy time (profiler, CUDA activity only)
+            # against host-clock time, per flush, at the 128- and 8-row buckets
+            idle = {}
+            for regime, n, window in (("saturation", SERVE_PROFILED_N, SERVE_SAT_WINDOW),
+                                      ("low concurrency", SERVE_PROFILED_N // 4, 1)):
+                r0 = serve_counters(metrics)
+                seen = {b["batch"] for b in svc.recorder.dump()["batches"]}
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    _, _, wall = serve_closed_loop(svc, imgs, n, window)
+                    torch.cuda.synchronize()
+                fl = serve_counters(metrics)["batches"] - r0["batches"]
+                # the buckets this window's flushes padded to (the recorder's batch records)
+                mix = {}
+                for b in svc.recorder.dump()["batches"]:
+                    if b["batch"] not in seen and "bucket" in b:
+                        mix[b["bucket"]] = mix.get(b["bucket"], 0) + 1
+                busy = device_busy_ms(prof)
+                # one replica, one stream: busy time past the wall means kernels counted twice
+                check(busy <= wall * 1e3 * 1.05, f"{regime}: device busy {busy:.3f} ms past the wall {wall * 1e3:.3f} ms")
+                idle[regime] = {"flushes": fl, "requests_per_flush": n / max(1, fl), "buckets": mix,
+                                "device_ms_per_flush": busy / fl, "wall_ms_per_flush": wall * 1e3 / fl,
+                                "idle_share": 1.0 - busy / (wall * 1e3)}
+                print(f"  {regime} (profiled): {fl} flushes of {n / max(1, fl):.2f} requests (flushes by bucket "
+                      f"{dict(sorted(mix.items()))}), device {busy / fl:.4f} ms a flush against {wall * 1e3 / fl:.4f} "
+                      f"ms of host clock, idle share {idle[regime]['idle_share']:.4f} ({card})", flush=True)
+            out["s1"] = {"regimes": regimes, "idle": idle, "launches": launches, "flushes": flushes,
+                         "status": {k: svc.status()[k] for k in ("latency_ms", "batch_ms", "counters")}}
+            out["launches_fused_forward"] = launches["fused_forward"]
+        finally:
+            svc.close(timeout=SERVE_RESULT_S)
+    with phase("serve S1: raw scores served (scores_of(scorer), submit_batch of 50)"):
+        svc = serve(Pipeline.of(P.scores_of(scorer)).freeze(device=dev), max_batch=BATCH, buckets=SERVE_BUCKETS,
+                    max_wait_ms=SERVE_WAIT_MS, example=imgs[0], name="s1_scores")
+        try:
+            fk.reset_launches()
+            got = []
+            for j in range(SERVE_BLOCKS):
+                rows = imgs[j * SERVE_BLOCK:(j + 1) * SERVE_BLOCK]
+                got += [f.result(timeout=SERVE_RESULT_S) for f in svc.submit_batch(RowBlock(rows))]
+            got += [f.result(timeout=SERVE_RESULT_S) for f in [svc.submit(x) for x in imgs[:SERVE_BLOCK]]]
+            torch.cuda.synchronize()
+            n = len(got)
+            ref = torch.from_numpy(np.concatenate([off_scores[:SERVE_BLOCKS * SERVE_BLOCK], off_scores[:SERVE_BLOCK]]))
+            out["scores_max_abs_err"] = compare(f"{n} served raw scores against the offline scores_of(scorer)",
+                                                torch.from_numpy(np.stack(got)), ref, TOL_SERVE_SCORES,
+                                                RTOL_SERVE_SCORES)
+            out["launches_fused_forward"] += fk.LAUNCHES["fused_forward"]
+            check(fk.LAUNCHES["fisher_encode"] == 0, f"B2 launched: {dict(fk.LAUNCHES)}")
+        finally:
+            svc.close(timeout=SERVE_RESULT_S)
+    with phase("serve S1b: the unfused bench forward behind serve() (B2 through the frozen walk)"):
+        fbat = float_batches[:-(-SERVE_FWD_N // BATCH)]
+        fimgs = torch.cat(fbat).cpu().numpy()
+        ref = torch.cat([forward(b) for b in fbat]).cpu()
+        svc = serve(Pipeline.of(forward).freeze(device=dev), max_batch=BATCH, buckets=SERVE_BUCKETS,
+                    max_wait_ms=SERVE_WAIT_MS, queue_bound=4 * SERVE_CLIENTS * SERVE_SAT_WINDOW, example=fimgs[0],
+                    name="s1b")
+        try:
+            torch.cuda.synchronize()
+            fk.reset_launches()
+            c0 = serve_counters(metrics)
+            outs, lat, wall = serve_closed_loop(svc, fimgs, SERVE_FWD_N, SERVE_SAT_WINDOW)
+            torch.cuda.synchronize()
+            flushes = serve_counters(metrics)["batches"] - c0["batches"]
+            launches = dict(fk.LAUNCHES)
+            print(f"  {SERVE_FWD_N} requests in {wall:.3f} s ({SERVE_FWD_N / wall:.1f} images/s), {flushes} flushes, "
+                  f"launches {launches} ({card})", flush=True)
+            check(launches == fv_launches(encode=flushes), f"launches {launches}: expected B2 once a flush, no B1")
+            compare("served bench-forward scores against the offline forward", torch.from_numpy(np.stack(outs)),
+                    ref[:SERVE_FWD_N], TOL_SERVE_SCORES, RTOL_SERVE_SCORES)
+            out["s1b"] = {"requests": SERVE_FWD_N, "flushes": flushes, "images_per_s": SERVE_FWD_N / wall,
+                          "launches": launches}
+            out["launches_fisher_encode"] = launches["fisher_encode"]
+        finally:
+            svc.close(timeout=SERVE_RESULT_S)
+    return out
+
+
+def http_call(url, payload=None, headers=None, timeout=SERVE_RESULT_S):
+    """(status, body as JSON or text, headers) of one HTTP request."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers=dict(headers or {}))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw, hdrs = resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        status, raw, hdrs = e.code, e.read(), dict(e.headers)
+    try:
+        return status, json.loads(raw), hdrs
+    except ValueError:
+        return status, raw.decode(), hdrs
+
+
+def serve_http_path(dev, card, graph_fitted, vx):
+    """S2: the graph-fitted ImageNetSiftLcsFV model (phase 9's fit leg,
+    K = 64) saved, served by ``python -m keystone_tpu_torch.cli serve`` in a
+    child process on the card, and held-out images POSTed in requests of 1
+    to 16 against the in-process fitted(x); the child's own launch counts
+    show FvFusionRule fused at freeze (B1, no B2)."""
+    import re
+    import signal
+
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    out = {}
+    with phase("serve S2: a saved graph-fitted model through `cli serve`, over HTTP"):
+        x = vx[:SERVE_HTTP_N]
+        want = graph_fitted(Dataset(x)).get().numpy()
+        want_scores = scores_pipeline(graph_fitted)(Dataset(x)).get().numpy()
+        xf = (x.float() / 255.0).cpu().numpy()
+        tmp = Path(tempfile.mkdtemp(prefix="serve_model_", dir=REPO))
+        proc = None
+        try:
+            path = tmp / "imagenet_sift_lcs_fv.pt"
+            graph_fitted.save(str(path))
+            cmd = [sys.executable, "-m", "keystone_tpu_torch.cli", "serve", "--model", str(path), "--device", DEVICE,
+                   "--port", "0",
+                   "--max-batch", str(SERVE_HTTP_MAX_BATCH), "--max-wait-ms", "2", "--example-shape",
+                   f"{IMAGE_HW},{IMAGE_HW},3"]
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(REPO),
+                                    env={**os.environ, "PYTHONPATH": str(REPO)})
+            line, lines = "", []
+            while "serving" not in line and proc.poll() is None and time.perf_counter() - t0 < 600:
+                line = proc.stdout.readline()
+                lines.append(line)
+            check("serving" in line, f"`cli serve` did not start: {''.join(lines)[-2000:]}")
+            base = line.split(" on ", 1)[1].split(" ", 1)[0]
+            status, health, _ = http_call(base + "/healthz")
+            check(status == 200 and health["status"] == "ok", f"/healthz {status} {health}")
+            print(f"  `cli serve` up in {time.perf_counter() - t0:.2f} s at {base}", flush=True)
+            got, sizes, i, t0 = [], [], 0, time.perf_counter()
+            while i < SERVE_HTTP_N:
+                k = min(1 + len(sizes) % SERVE_HTTP_MAX_BATCH, SERVE_HTTP_N - i)
+                rid = f"s2-{len(sizes)}"
+                status, body, hdrs = http_call(base + "/predict", {"instances": xf[i:i + k].tolist()},
+                                               headers={"X-Request-Id": rid})
+                check(status == 200, f"/predict answered {status}: {str(body)[:300]}")
+                check(hdrs.get("X-Request-Id") == rid and body["request_id"] == rid, "X-Request-Id not echoed")
+                got += body["predictions"]
+                sizes.append(k)
+                i += k
+            http_s = time.perf_counter() - t0
+            top = top5_check(f"{SERVE_HTTP_N} held-out images over HTTP in {len(sizes)} requests of 1..16",
+                             np.asarray(got), want, want_scores)
+            status, body, hdrs = http_call(base + "/predict", {"instance": [[0.0] * 3] * 5},
+                                           headers={"X-Request-Id": "s2-bad"})
+            check(status == 400 and hdrs.get("X-Request-Id") == "s2-bad", f"mis-shaped body answered {status}")
+            status, tr, _ = http_call(base + "/requestz/s2-0")
+            check(status == 200 and tr["outcome"] == "completed", f"/requestz/s2-0: {status} {str(tr)[:300]}")
+            status, st, _ = http_call(base + "/statusz")
+            check(status == 200 and st["counters"]["completed"] >= SERVE_HTTP_N, f"/statusz {status}")
+            status, text, _ = http_call(base + "/metrics")
+            batches = float(re.search(r"^serve_batches_total (\S+)$", text, re.M).group(1))
+            proc.send_signal(signal.SIGINT)
+            tail, _ = proc.communicate(timeout=120)
+            check(proc.returncode == 0, f"`cli serve` exited {proc.returncode} on SIGINT: {tail[-2000:]}")
+            m = re.search(r"fisher_kernels launches (\{.*\})", tail)
+            check(m is not None, f"no launch counts printed: {tail[-2000:]}")
+            launches = json.loads(m.group(1).replace("'", '"'))
+            primes = 2  # default buckets of max batch 16: 8 and 16
+            print(f"  {len(sizes)} requests in {http_s:.2f} s; child's launches {launches} over {int(batches)} flushes "
+                  f"and {primes} primes; SIGINT: exit 0 ({card})", flush=True)
+            check(launches == fv_launches(fused=2 * (int(batches) + primes)),
+                  f"launches {launches}: FvFusionRule did not fuse at freeze (expected B1 twice a flush, no B2)")
+            out = {"requests": len(sizes), "images": SERVE_HTTP_N, "http_seconds": http_s, "top5": top,
+                   "flushes": int(batches), "launches": launches}
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=30)
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def fleet_path(dev, card, P, fk, scorer, images, params_b):
+    """S3: two replicas on cuda:0 of serve_bench's pipeline behind a
+    finite-row gate under fault plans (a crashed worker, a failed flush, a
+    poison row), then two replicas of the full-width scorer hot-swapped
+    under load to other weights, and a draining close."""
+    import threading
+
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.serve import PoisonRequest, serve
+    from keystone_tpu_torch.tools import serve_bench
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+    from keystone_tpu_torch.workflow.transformer import Transformer
+
+    class FiniteGate(Transformer):
+        """Refuses a batch holding a non-finite row: a content fault."""
+
+        def params(self):
+            return ()
+
+        def apply_batch(self, xs, mask=None):
+            if not bool(torch.isfinite(xs).all()):
+                raise ValueError("a non-finite row")
+            return xs
+
+    out = {}
+    with phase("serve S3: fleet and self-healing, two replicas on one card"):
+        pipe = Pipeline.of(FiniteGate()) | serve_bench.build_pipeline(device=dev)
+        svc = serve(pipe, replicas=2, devices=[dev, dev], max_batch=32, max_wait_ms=2.0, queue_bound=1024, example=np.zeros(64, np.float32),
+                    name="s3", supervise_interval_s=0.1, heartbeat_s=30.0)
+        try:
+            reps = svc._pool.replicas
+            check([r.device for r in reps] == [dev, dev] and (dev.type != "cuda" or reps[0].stream is not reps[1].stream),
+                  "the replicas are not two streams on one device")
+            rows = np.random.default_rng(5).normal(size=(256, 64)).astype(np.float32)
+            ref = svc.submit_many(rows)
+            ref = np.stack([f.result(timeout=SERVE_RESULT_S) for f in ref])
+            r0 = svc.supervisor.restarts_total
+            with faults.inject("serve.worker:after=3:times=1:raise"):
+                futs = []
+                for j in range(0, 256, 16):
+                    futs += svc.submit_many(rows[j:j + 16])
+                    time.sleep(0.002)
+                got = np.stack([f.result(timeout=SERVE_RESULT_S) for f in futs])
+            deadline = time.monotonic() + 30
+            while svc.supervisor.restarts_total == r0 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            check(svc.supervisor.restarts_total > r0, "the crashed replica was not restarted")
+            check(np.array_equal(got, ref), "answers across the worker crash differ")
+            print(f"  serve.worker crash: restarted ({svc.supervisor.last_restart}), 256 of 256 futures resolved",
+                  flush=True)
+            with faults.inject("serve.batch:times=1:raise"):
+                errs = [f.exception(timeout=SERVE_RESULT_S) for f in svc.submit_many(rows[:16])]
+            check(all(isinstance(e, faults.FaultInjected) for e in errs), f"serve.batch: {errs[:2]}")
+            after = np.stack([f.result(timeout=SERVE_RESULT_S) for f in svc.submit_many(rows[:16])])
+            check(np.array_equal(after, ref[:16]), "the service did not live on after a failed flush")
+            bad = rows[:8].copy()
+            bad[3, 0] = np.nan
+            futs = svc.submit_many(bad)
+            excs = [f.exception(timeout=SERVE_RESULT_S) for f in futs]
+            check(isinstance(excs[3], PoisonRequest) and all(e is None for i, e in enumerate(excs) if i != 3),
+                  f"poison bisection: {excs}")
+            mates = np.stack([futs[i].result() for i in range(8) if i != 3])
+            check(np.array_equal(mates, np.delete(ref[:8], 3, axis=0)), "batch-mates of the poison row differ")
+            print("  serve.batch fault failed one flush, the next served; the NaN row was bisected out "
+                  "(PoisonRequest), its 7 batch-mates answered", flush=True)
+            pending = svc.submit_many(rows[:64])
+            svc.close(drain=True, timeout=SERVE_RESULT_S)
+            check(all(f.done() and f.exception() is None for f in pending), "close(drain=True) left a future")
+            out["faults"] = {"restarts": svc.supervisor.restarts_total - r0, "poison_isolated": True}
+        finally:
+            svc.close(timeout=SERVE_RESULT_S)
+        # the hot swap, on the full-width scorer: two replicas, new weights
+        imgs = images.cpu().numpy()
+        new_scorer = P.build_scorer_from_params(params_b, P.Config(sift_step=SIFT_STEP, sift_bin_size=SIFT_BIN,
+                                                                   lcs_step=LCS_STEP, lcs_subpatch=LCS_SUB), dev)
+        new_ids = torch.cat([new_scorer(b) for b in images.split(BATCH)]).cpu().numpy()
+        new_scores = torch.cat([P.scores_of(new_scorer)(b) for b in images.split(BATCH)]).cpu().numpy()
+        fk.reset_launches()
+        svc = serve(Pipeline.of(scorer), replicas=2, devices=[dev, dev], max_batch=BATCH, buckets=SERVE_BUCKETS, max_wait_ms=2.0,
+                    queue_bound=1024, example=imgs[0], name="s3_swap")
+        try:
+            stop, futs, errors = threading.Event(), [], []
+
+            def load():
+                i = 0
+                while not stop.is_set():
+                    try:
+                        futs.append((i, svc.submit(imgs[i % len(imgs)])))
+                    except Exception as e:  # overload backs off; anything else fails the phase
+                        if type(e).__name__ != "Overloaded":
+                            errors.append(e)
+                            return
+                        time.sleep(0.001)
+                    i += 1
+
+            gen = threading.Thread(target=load)
+            gen.start()
+            time.sleep(0.5)
+            info = svc.swap(Pipeline.of(new_scorer), version="green")
+            t_commit = len(futs)
+            time.sleep(0.5)
+            stop.set()
+            gen.join(SERVE_RESULT_S)
+            check(not gen.is_alive() and not errors, f"swap load generator: {errors[:2]}")
+            lost = [i for i, f in futs if f.exception(timeout=SERVE_RESULT_S) is not None]
+            check(not lost, f"{len(lost)} requests failed across the swap")
+            after = [(i, f.result()) for i, f in futs[t_commit:]]
+            top = top5_check(f"{len(after)} answers after the commit against the new weights",
+                             np.stack([r for _, r in after]), new_ids[[i % len(imgs) for i, _ in after]],
+                             new_scores[[i % len(imgs) for i, _ in after]])
+            print(f"  swap under load: {len(futs)} requests, none lost; pause {info['pause_seconds'] * 1e3:.4f} ms, "
+                  f"prime {info['prime_seconds']:.3f} s ({card})", flush=True)
+            out["swap"] = {"requests": len(futs), "after_commit": len(after), "pause_seconds": info["pause_seconds"],
+                           "prime_seconds": info["prime_seconds"], "top5_after": top}
+        finally:
+            svc.close(timeout=SERVE_RESULT_S)
+        # the swap service's launches, its two generations' primes included
+        out["launches"] = dict(fk.LAUNCHES)
+        check(out["launches"]["fisher_encode"] == 0 and out["launches"]["fused_forward"] > 0,
+              f"swap service launches {out['launches']}")
+    return out
+
+
+def open_loop_path(dev, card, fk, scorer, images, saturation_ips):
+    """S4: serve_bench's open-loop generator against the full-width scorer
+    at fractions of S1's saturation rate: latency percentiles, sheds, the
+    queue depth (sampled every millisecond)."""
+    import threading
+
+    from keystone_tpu_torch.serve import serve
+    from keystone_tpu_torch.tools import serve_bench
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    out = {}
+    imgs = images.cpu().numpy()
+    with phase("serve S4: open-loop load at fractions of the saturation rate"):
+        fk.reset_launches()
+        svc = serve(Pipeline.of(scorer).freeze(device=dev), max_batch=BATCH, buckets=SERVE_BUCKETS, max_wait_ms=2.0,
+                    queue_bound=4096, example=imgs[0], deadline_ms=SERVE_S4_DEADLINE_MS, name="s4")
+        try:
+            for frac in SERVE_S4_FRACTIONS:
+                depth, stop = [], threading.Event()
+
+                def sample():
+                    while not stop.wait(0.001):
+                        depth.append(svc.queue_depth)
+
+                sampler = threading.Thread(target=sample)
+                sampler.start()
+                try:
+                    rep = serve_bench.run_bench(svc, imgs.shape[1:], qps=frac * saturation_ips,
+                                                duration=SERVE_S4_SECONDS, burst=SERVE_S4_BURST,
+                                                deadline_ms=SERVE_S4_DEADLINE_MS, payload=imgs)
+                finally:
+                    stop.set()
+                    sampler.join(10)
+                rep["queue_depth_mean"] = float(np.mean(depth)) if depth else 0.0
+                rep["queue_depth_max"] = int(max(depth)) if depth else 0
+                check(rep["errors"] == 0, f"open loop at {frac}: {rep['errors']} errors")
+                # a walk that outruns its riders' deadlines is a late shed:
+                # the lone replica's breaker stays closed under the load
+                breakers = [st["breaker"] for st in svc.replica_statuses()]
+                check(breakers == ["closed"], f"open loop at {frac}: breakers {breakers}")
+                print(f"  offered {rep['offered_qps']:.1f}/s ({frac:.0%} of saturation) for {SERVE_S4_SECONDS} s in "
+                      f"bursts of {SERVE_S4_BURST}: achieved {rep['achieved_qps']:.1f}/s, p50 {rep['p50_ms']:.3f} ms, "
+                      f"p99 {rep['p99_ms']:.3f} ms, p99.9 {rep['p999_ms']:.3f} ms, shed {rep['shed']}, rejected "
+                      f"{rep['rejected']}, queue depth mean {rep['queue_depth_mean']:.1f} max {rep['queue_depth_max']}, "
+                      f"{rep['mean_batch_occupancy']:.2f} requests a flush ({card})", flush=True)
+                out[f"{frac:.2f}"] = rep
+        finally:
+            svc.close(timeout=SERVE_RESULT_S)
+        out["launches"] = dict(fk.LAUNCHES)
+        check(out["launches"]["fisher_encode"] == 0, f"open-loop launches {out['launches']}")
+    return out
+
+
 def profile_once(fn) -> None:
     """Device time by operator over one call of ``fn`` (after a warm-up
     call), and two idle shares.  One window: the device's busy time
@@ -4060,6 +4609,7 @@ def main(argv=None) -> int:
     results["fit"], fitted = fit_path(dev, card, P, fk, fit_data)
     results["graph"], graph_detail = graph_path(dev, card, P, fk, fit_data, fitted)
     results["stream"] = stream_path(dev, card, P, fk, fit_data, results["graph"], graph_detail)
+    graph_fitted = graph_detail["fitted"]  # served over HTTP by the serving phases
     del graph_detail
     results["tar"] = tar_path(dev, card, P)
     tier_tmp = Path(tempfile.mkdtemp(prefix="kernel_tier_", dir=REPO))
@@ -4093,6 +4643,25 @@ def main(argv=None) -> int:
     # solvers, deadlines and breakers (phase 10's fit seconds, phase 14's data)
     results["operations"] = operations_path(dev, card, P, fk, gk, results["stream"], data,
                                             results["newsgroups"].pop("ls_problem"))
+
+    # the serving path: S1 the full-width scorer behind serve(), S1b the
+    # bench forward, S2 a saved graph-fitted model through `cli serve`, S3
+    # the fleet's self-healing and a hot swap, S4 open-loop latency
+    def b1_args(x):
+        """B1's two calls on images ``x``, as the served scorer makes them."""
+        xf = scorer.stages[0].apply_batch(x)
+        raw, mask = FusedTransformer(list(sift_branch.stages)[:2]).apply_batch(xf)
+        desc, dmask = lcs_branch.stages[0].apply_batch(xf)
+        return [("SIFT", fused_args(fused_sift, raw, mask, fused_sift.mean)),
+                ("LCS", fused_args(fused_lcs, desc, dmask, fused_lcs.mean))]
+
+    served = serve_path(dev, card, P, fk, scorer, forward, images, float_batches, b1_args)
+    served["s2"] = serve_http_path(dev, card, graph_fitted, fit_data[3])
+    del graph_fitted
+    served["s3"] = fleet_path(dev, card, P, fk, scorer, images, params_from_numpy(
+        P.random_params(pca_dims=PCA_DIMS, gmm_k=GMM_K, num_classes=NUM_CLASSES, seed=4), dev))
+    served["s4"] = open_loop_path(dev, card, fk, scorer, images, served["s1"]["regimes"]["saturation"]["images_per_s"])
+    results["serve"] = served
 
     with phase("kernel timing"):
         def kernel_line(name, replaces, kernel, plain, calls, shape):
@@ -4175,6 +4744,21 @@ def main(argv=None) -> int:
             c = results["operations"]["fv_launches"][kname]
             ln["launches_by_path"]["operations (streamed fits and their recovery)"] = c
             ln["launches"] += c
+        # the serving phases: B1 in every flush of the served scorer (S1,
+        # its raw scores, the `cli serve` child's graph-fitted model, the
+        # swap service's two generations, the open loop), B2 in the served
+        # bench forward's
+        for ln, kname, parts in (
+            (b1, "fused_forward", (("serve S1 scorer and raw scores", served["launches_fused_forward"]),
+                                   ("serve S2 `cli serve` child", served["s2"]["launches"]["fused_forward"]),
+                                   ("serve S3 swap service", served["s3"]["launches"]["fused_forward"]),
+                                   ("serve S4 open loop", served["s4"]["launches"]["fused_forward"]))),
+            (b2, "fisher_encode", (("serve S1b bench forward", served["launches_fisher_encode"]),)),
+        ):
+            for label, c in parts:
+                ln["launches_by_path"][label] = c
+                ln["launches"] += c
+        b1["serve_bucket_checks"] = served["b1_buckets"]
         # VOCSIFTFisher: B2 featurizes the training set in the fit, B1 (one
         # fused node) scores run's test set and VOC's 4952
         voc = results["voc"]
@@ -4292,6 +4876,7 @@ def main(argv=None) -> int:
                                                 "voc_fixture")},
         "text_apps": {k: results[k] for k in ("newsgroups", "amazon")},
         "operations": results["operations"],
+        "serve": results["serve"],
         "card": card,
     }))
     print(json.dumps({"kernels": lines}))

@@ -13,7 +13,11 @@
 //
 // Plain C interface for ctypes.  The wrapper (loaders/jpeg.py) allocates
 // the device buffers; nvJPEG allocates its own working memory.  Every call
-// runs on the caller's stream.
+// runs on the caller's stream, and waits for it after each image: nvJPEG's
+// hybrid backend decodes the next image's entropy data on the host into
+// the decoder state's pinned buffer, which the stream may not yet have
+// copied to the card for the image before: with work queued ahead on the
+// stream, a batch decode without that wait gives wrong pixels.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -100,8 +104,8 @@ int ks_nvjpeg_info(void* p, const uint8_t* blob, const int64_t* offsets, const i
 // (device, zero-filled by the caller) through scratch (device, at least
 // max h·w·3 bytes): ok[i] (host) is 0 for a decoded image, else the
 // nvjpegStatus_t of its failure (-1: no size).  Returns 0, or the CUDA
-// error of a resize launch.  The stream orders each resize before the
-// next image's decode into the shared scratch.
+// error of a resize launch or of the wait after it.  The stream orders
+// each resize before the next image's decode into the shared scratch.
 int ks_nvjpeg_decode(void* p, const uint8_t* blob, const int64_t* offsets, const int64_t* sizes, int64_t n,
                      const int32_t* heights, const int32_t* widths, uint8_t* scratch, int64_t th, int64_t tw,
                      uint8_t* out, int32_t* ok, void* stream) {
@@ -125,6 +129,7 @@ int ks_nvjpeg_decode(void* p, const uint8_t* blob, const int64_t* offsets, const
     resize_kernel<<<(unsigned)((pixels + threads - 1) / threads), threads, 0, s>>>(
         scratch, h, w, th, tw, out + i * th * tw * 3);
     cudaError_t e = cudaGetLastError();
+    if (e == cudaSuccess) e = cudaStreamSynchronize(s);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;

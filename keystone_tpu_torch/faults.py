@@ -20,9 +20,17 @@ Named **sites** wired through the port::
                         scope and the watchdog)
     kernel.sweep        the out-of-core kernel ridge sweep, once per
                         diagonal step
+    serve.enqueue       PipelineService admission (each datum submitted)
+    serve.batch         a flush's apply on its replica worker
+    serve.replica       a replica's apply of one live flush (not primes)
+    serve.worker        the replica worker loop, before it runs a flush
+                        (a raise is a worker crash, a hang a wedge)
+    serve.swap          PipelineService.swap, before it stages the new
+                        generation
 
 The reference's other sites join with the slices that wire them:
-``multihost.init`` (ROADMAP A8), ``serve.*`` (A11) and ``plan.sample``
+``serve.artifact_load`` (ROADMAP A11b), ``serve.net.*`` (A11c),
+``serve.rollout`` (A11d), ``multihost.init`` (A8) and ``plan.sample``
 (A10).  Until then a plan that names one of them raises
 :class:`UnknownFaultSiteError`, as any unregistered site does: a site
 nothing fires would report nothing.
@@ -83,6 +91,11 @@ SITES = {
     "stream.batch",
     "executor.stage",
     "kernel.sweep",
+    "serve.enqueue",
+    "serve.batch",
+    "serve.replica",
+    "serve.worker",
+    "serve.swap",
 }
 
 _ACTIONS = ("raise", "corrupt", "truncate", "exit", "delay", "hang", "drop")

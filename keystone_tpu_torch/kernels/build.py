@@ -9,6 +9,12 @@ directory.  Nothing builds at import: the first call that needs a
 library builds it.  Only the repository's sources, the CUDA toolkit and
 the system's libjpeg are used (``text.cpp``, the host text chain, needs
 nothing beyond the C++ standard library).
+
+``build`` and ``load`` run under one process-wide re-entrant lock
+(``LOCK``), which the kernel wrappers' first-use loaders take too: two
+threads (two serving replicas priming at once) build a library once and
+load one copy of it.  A compiler's temporary output is named by process
+and thread.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -37,6 +44,16 @@ LINK = {"jpeg": ("-ljpeg", "-lpthread"), "nvjpeg": ("-lnvjpeg",), "text": ("-lpt
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A native source failed to build, or a kernel failed to launch: a
+    fault of the machine, never of the data (the serving path does not
+    bisect a flush for it)."""
+
+
+#: held around every build and load, and by the wrappers' first-use loaders
+LOCK = threading.RLock()
+
+
 def nvcc_path() -> str:
     for cand in (
         os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
@@ -45,7 +62,7 @@ def nvcc_path() -> str:
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
 def _source(name: str) -> Path:
@@ -68,7 +85,7 @@ def _compiler(name: str) -> str:
         return nvcc_path()
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the host sources build with it")
+        raise KernelError("g++ not found: the host sources build with it")
     return gxx
 
 
@@ -78,13 +95,18 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     fails.  Returns the library path of each name.  The compiler's
     output (for ``nvcc``, the resource report of ``-Xptxas -v``) goes to
     ``_build/<name>.log``."""
+    with LOCK:
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     procs = {}
     for n, out in paths.items():
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_compiler(n), *_flags(n), "-o", str(tmp), str(_source(n)), *LINK.get(n, ())]
         procs[n] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -98,15 +120,16 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
             continue
         os.replace(tmp, paths[n])
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return paths
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` or ``.cpp``, built on first use."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = build([name])[name]
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
-    return lib
+    with LOCK:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = build([name])[name]
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib

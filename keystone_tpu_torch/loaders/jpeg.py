@@ -64,13 +64,19 @@ def _load(name: str, library: str) -> ctypes.CDLL:
 
 
 def _libjpeg() -> ctypes.CDLL:
-    lib = _load("jpeg", "libjpeg")
-    lib.ks_jpeg_decode.restype = ctypes.c_int
-    lib.ks_jpeg_decode.argtypes = [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P, _P]
-    return lib
+    with build.LOCK:
+        lib = _load("jpeg", "libjpeg")
+        lib.ks_jpeg_decode.restype = ctypes.c_int
+        lib.ks_jpeg_decode.argtypes = [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P, _P]
+        return lib
 
 
 def _nvjpeg(device: torch.device):
+    with build.LOCK:
+        return _nvjpeg_locked(device)
+
+
+def _nvjpeg_locked(device: torch.device):
     lib = _load("nvjpeg", "nvJPEG (libnvjpeg)")
     lib.ks_nvjpeg_create.restype = ctypes.c_int
     lib.ks_nvjpeg_create.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
@@ -127,6 +133,6 @@ def decode(buf: np.ndarray, offsets: np.ndarray, sizes: np.ndarray, size: Tuple[
             # from the stream's queued work: done before they go
             torch.cuda.current_stream(dev).synchronize()
     if err != 0:
-        raise RuntimeError(f"the resize kernel after nvJPEG failed to launch: CUDA error {err}")
+        raise RuntimeError(f"the resize kernel after nvJPEG failed to launch or run: CUDA error {err}")
     LAUNCHES["nvjpeg"] += 1
     return out, status == 0

@@ -11,11 +11,16 @@
   of their name and sample device-memory and RSS watermarks.  Long-lived
   runs rotate past ``KEYSTONE_OBS_MAX_BYTES`` into
   ``KEYSTONE_OBS_KEEP_SEGMENTS`` numbered segments.
+- :mod:`keystone_tpu_torch.obs.recorder` — the serving path's flight
+  recorder: a bounded in-memory store of request traces, batch records
+  and ops spans with tail-based retention (``FlightRecorder``,
+  ``new_request_id``), ON by default in ``serve()``.
 
-The reference's serving flight recorder (``obs/recorder.py``) is not
-ported here: it joins with the serving slice (ROADMAP A11).
+The reference's fleet telemetry (``serve/telemetry.py``, the spans and
+metrics its worker processes ship) is ROADMAP A11d's.
 """
 
-from keystone_tpu_torch.obs import ledger, metrics  # noqa: F401
+from keystone_tpu_torch.obs import ledger, metrics, recorder  # noqa: F401
 from keystone_tpu_torch.obs.ledger import RunLedger, event, span, start_run, stop_run  # noqa: F401
 from keystone_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry, WindowedHistogram  # noqa: F401
+from keystone_tpu_torch.obs.recorder import FlightRecorder, new_request_id  # noqa: F401

@@ -85,9 +85,13 @@ def fused_forward_ref(desc, mask, components, mean, w, mu, var, normalize: bool 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """csrc/fisher.cu, built on first use, with its C signatures declared."""
-    from keystone_tpu_torch.kernels.build import load
+    from keystone_tpu_torch.kernels.build import LOCK, load
 
-    lib = load("fisher")
+    with LOCK:
+        return _declare(load("fisher"))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ks_fisher_encode.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, p, p]
     lib.ks_fisher_encode.restype = i
@@ -189,7 +193,9 @@ def _aligned(t):
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         msg = _lib().ks_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed ({rc}): {msg}")
+        from keystone_tpu_torch.kernels.build import KernelError
+
+        raise KernelError(f"{name} kernel launch failed ({rc}): {msg}")
 
 
 def _check_gmm(w, mu, var, device):

@@ -75,9 +75,13 @@ def poly_block_ref(x, z, alpha, c, degree):
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """csrc/gram.cu, built on first use, with its C signatures declared."""
-    from keystone_tpu_torch.kernels.build import load
+    from keystone_tpu_torch.kernels.build import LOCK, load
 
-    lib = load("gram")
+    with LOCK:
+        return _declare(load("gram"))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ks_gram_block.argtypes = [p, p, i, p, i, i, i, f, p]
     lib.ks_gram_block.restype = i
@@ -119,7 +123,9 @@ def _launch(name, fn, x, z, *scalars):
             *scalars, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         msg = _lib().ks_gram_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed ({rc}): {msg}")
+        from keystone_tpu_torch.kernels.build import KernelError
+
+        raise KernelError(f"{name} kernel launch failed ({rc}): {msg}")
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[(name, n, m, d)] += 1
     return out

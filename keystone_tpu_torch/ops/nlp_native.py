@@ -40,7 +40,11 @@ def _lib() -> ctypes.CDLL:
     """The built library, its signatures declared; a failed build raises."""
     from keystone_tpu_torch.kernels import build
 
-    lib = build.load("text")
+    with build.LOCK:
+        return _declare(build.load("text"))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     if not getattr(lib, "_ks_declared", False):
         i64, i64p, cp, ci = ctypes.c_int64, _P(ctypes.c_int64), ctypes.c_char_p, ctypes.c_int
         csr_out = (i64p, _P(_P(ctypes.c_int32)), _P(_P(ctypes.c_float)))

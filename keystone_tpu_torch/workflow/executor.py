@@ -36,8 +36,10 @@ Each stage runs inside the operations layer, as in the reference:
 
 With no deadline, no breaker threshold, no plan and no ledger, a stage
 costs a few ``None`` checks and a counter bump: no thread, no
-synchronize.  The reference's shared-stage pool is the serving slice's
-(ROADMAP A11).
+synchronize.  The serving path (``FrozenApplier``, ``keystone_tpu_torch/
+serve``) runs each flush as one such walk.  The reference's shared-stage
+pool for co-served pipelines (``workflow/stage_pool.py``) comes with the
+multi-tenant service (ROADMAP A11d).
 """
 
 from __future__ import annotations

@@ -40,7 +40,11 @@ logger = logging.getLogger(__name__)
 class Rule:
     name: str = "rule"
 
-    def apply(self, graph: G.Graph) -> G.Graph:
+    def apply(self, graph: G.Graph, device=None) -> G.Graph:
+        """``device``: where the graph will run, for a graph optimized
+        before any data is bound to it (``FrozenApplier``); a rule that
+        decides by the bound data's device decides by it instead, the
+        others ignore it."""
         raise NotImplementedError
 
 
@@ -68,17 +72,18 @@ class Optimizer:
     def __init__(self, batches: Sequence[RuleBatch]):
         self.batches = list(batches)
 
-    def execute(self, graph: G.Graph) -> G.Graph:
+    def execute(self, graph: G.Graph, device=None) -> G.Graph:
         """Each rule's seconds land in ``optimizer.rule_seconds{rule=...}``
         and, with a run ledger, an ``optimizer.rule`` event inside the
-        ``optimizer.execute`` span."""
+        ``optimizer.execute`` span.  ``device`` goes to every rule's
+        ``apply`` (see :meth:`Rule.apply`)."""
         with ledger.span("optimizer.execute"):
             for batch in self.batches:
                 for _ in range(batch.strategy.max_iterations):
                     before = _graph_fingerprint(graph)
                     for rule in batch.rules:
                         t0 = time.perf_counter()
-                        graph = rule.apply(graph)
+                        graph = rule.apply(graph, device=device)
                         dt = time.perf_counter() - t0
                         metrics.observe("optimizer.rule_seconds", dt, rule=rule.name)
                         ledger.event("optimizer.rule", rule=rule.name, batch=batch.name, seconds=dt)
@@ -102,7 +107,7 @@ class EquivalentNodeMergeRule(Rule):
 
     name = "EquivalentNodeMerge"
 
-    def apply(self, graph: G.Graph) -> G.Graph:
+    def apply(self, graph: G.Graph, device=None) -> G.Graph:
         memo: dict = {}
         groups: dict = {}
         for n in graph.topological_nodes():
@@ -135,7 +140,7 @@ class AutoMaterializeRule(Rule):
 
     name = "AutoMaterialize"
 
-    def apply(self, graph: G.Graph) -> G.Graph:
+    def apply(self, graph: G.Graph, device=None) -> G.Graph:
         for n in list(graph.topological_nodes()):
             op = graph.operators.get(n)
             if not isinstance(op, G.TransformerOperator) or isinstance(op.transformer, Cacher):
@@ -166,7 +171,7 @@ class ProfiledMaterializeRule(Rule):
 
     name = "ProfiledMaterialize"
 
-    def apply(self, graph: G.Graph) -> G.Graph:
+    def apply(self, graph: G.Graph, device=None) -> G.Graph:
         return AutoMaterializeRule().apply(graph)
 
 
@@ -185,7 +190,7 @@ class NodeChoiceRule(Rule):
     #: rows of each dataset literal the sampled run reads
     sample_size = 256
 
-    def apply(self, graph: G.Graph) -> G.Graph:
+    def apply(self, graph: G.Graph, device=None) -> G.Graph:
         from keystone_tpu_torch.workflow.executor import DatasetExpr, GraphExecutor
 
         # the full row count: a size-based choice (the local solve) looks
@@ -316,7 +321,7 @@ class StageFusionRule(Rule):
 
     name = "StageFusion"
 
-    def apply(self, graph: G.Graph) -> G.Graph:
+    def apply(self, graph: G.Graph, device=None) -> G.Graph:
         changed = True
         while changed:
             changed = False
@@ -381,6 +386,11 @@ def data_on_cuda(graph: G.Graph) -> bool:
     return False
 
 
+def device_is_cuda(device) -> bool:
+    """Whether ``device`` is a CUDA device."""
+    return torch.device(device).type == "cuda"
+
+
 class FvFusionRule(Rule):
     """Rewrite each single-consumer ``PCATransformer → FisherVector`` pair
     into one ``FusedPcaFisherVector`` node, the fused Fisher-vector kernel
@@ -395,13 +405,16 @@ class FvFusionRule(Rule):
 
     Fires where the graph's data lives on a CUDA device (in place of the
     reference's ``pallas_supported()``): a CPU graph keeps the plain
-    chain.  A FisherVector with ``use_kernel=False`` is left as it is, as
-    the reference honours ``use_pallas=False``."""
+    chain.  A graph frozen for serving has no data yet: there the
+    applier's device decides (``Optimizer.execute(graph, device=...)``),
+    as the reference's backend does at freeze.  A FisherVector with
+    ``use_kernel=False`` is left as it is, as the reference honours
+    ``use_pallas=False``."""
 
     name = "FvFusion"
 
-    def apply(self, graph: G.Graph) -> G.Graph:
-        if not data_on_cuda(graph):
+    def apply(self, graph: G.Graph, device=None) -> G.Graph:
+        if not (data_on_cuda(graph) if device is None else device_is_cuda(device)):
             return graph
         from keystone_tpu_torch.models.pca import PCATransformer
         from keystone_tpu_torch.ops.fisher import FisherVector, FusedPcaFisherVector

@@ -26,9 +26,13 @@ bound a walk's wall clock (``workflow/executor.py``).  A fit runs in a
 ``pipeline.fit`` ledger span and ends with a metrics snapshot when a run
 ledger is active (``obs/ledger.py``).
 
-Not ported yet: ``freeze``/``FrozenApplier`` and the AOT artifacts
-(ROADMAP A11), the pre-fit out-of-core conversion (A14) and the static
-validator (A10).
+``Pipeline.freeze`` returns a ``FrozenApplier``: the graph optimized
+once for the device it will serve on, then applied batch by batch, the
+serving path's entry (``keystone_tpu_torch/serve``).
+
+Not ported yet: the frozen applier's AOT artifacts (ROADMAP A11b), the
+pre-fit out-of-core conversion (A14), and the static validator and the
+cost-based planner behind ``validate=``/``plan=`` (A10).
 """
 
 from __future__ import annotations
@@ -45,6 +49,12 @@ from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
 from keystone_tpu_torch.workflow.estimator import Estimator, LabelEstimator
 from keystone_tpu_torch.workflow.executor import DatasetExpr, DatumExpr, GraphExecutor, TransformerExpr, synchronize
 from keystone_tpu_torch.workflow.transformer import Chainable, Transformer
+from keystone_tpu_torch.utils.device import resolve_device
+
+
+class NotPortedError(NotImplementedError):
+    """An option of the reference that the port does not have yet; the
+    message names the ROADMAP item that ports it."""
 
 
 class PipelineEnv:
@@ -262,6 +272,16 @@ class Pipeline(Chainable):
 
         return FittedPipeline(StageFusionRule().apply(g), self.source, self.sink)
 
+    def freeze(self, validate=None, example=None, plan=None, device="cuda") -> "FrozenApplier":
+        """Freeze this fitted pipeline for repeated online application:
+        optimize it once now, for ``device``, and return a
+        :class:`FrozenApplier` that binds each incoming batch to the
+        optimized graph (the serving entry point).  ``validate``,
+        ``example`` and ``plan`` are the reference's pre-flight analyzer
+        and cost-based planner (ROADMAP A10): asked for, they raise
+        :class:`NotPortedError`; left at their defaults they are inert."""
+        return FrozenApplier(self, validate=validate, example=example, plan=plan, device=device)
+
     def __repr__(self):
         return f"Pipeline({self.graph!r})"
 
@@ -330,6 +350,63 @@ class FittedPipeline(Pipeline):
         if path:
             fitted.save(path, config)
         return fitted, False
+
+
+class FrozenApplier:
+    """A fitted pipeline optimized once and applied many times: the
+    online-serving apply path (``keystone_tpu_torch.serve``).
+
+    ``Pipeline(...)`` / ``PipelineDataset.get()`` run the whole-pipeline
+    optimizer on every application, the right trade for one big offline
+    batch and the wrong one for a stream of small requests.  Freezing
+    runs the optimizer once over the unbound graph, for ``device`` (the
+    card unless the caller asks for the CPU): ``FvFusionRule`` fuses each
+    PCA → Fisher-vector pair into the fused kernel's node when that device
+    is CUDA, as ``fitted(x)`` does on CUDA data.  Each call binds its
+    batch to the optimized graph and runs a fresh ``GraphExecutor`` walk
+    over it, so a per-call ``deadline`` is apportioned over the stages and
+    ``optional`` / ``with_fallback`` stages degrade on the serve path as
+    they do in fits.
+
+    The reference's AOT bucket programs (``export_artifacts``,
+    ``install_artifacts``, ``fingerprint``) are ROADMAP A11b: they raise
+    :class:`NotPortedError`; with nothing installed the reference's call
+    is this walk.  An applier pickles and deep-copies (replica clones)."""
+
+    def __init__(self, pipeline: "Pipeline", validate=None, example=None, plan=None, device="cuda"):
+        for op in pipeline.graph.operators.values():
+            if isinstance(op, G.EstimatorOperator):
+                raise TypeError(f"cannot freeze a pipeline with unfitted estimator {op.label()!r}; call fit() first")
+        if validate if validate is not None else os.environ.get("KEYSTONE_VALIDATE", "0") == "1":
+            raise NotPortedError("freeze(validate=...): the pre-flight analyzer is not ported yet (ROADMAP A10)")
+        if plan is not None and plan is not False:
+            raise NotPortedError("freeze(plan=...): the cost-based physical planner is not ported yet (ROADMAP A10)")
+        self.device = resolve_device(device)
+        self.graph = PipelineEnv.get_optimizer().execute(pipeline.graph, device=self.device)
+        self.source = pipeline.source
+        self.sink = pipeline.sink
+        #: True when a stage declares optional/with_fallback degradation
+        from keystone_tpu_torch.workflow.executor import _degradable
+
+        self._degradable = any(_degradable(op) is not None for op in self.graph.operators.values())
+
+    def __call__(self, data, deadline=None) -> Dataset:
+        """Apply the frozen graph to one batch (a Dataset, or a tensor or
+        array, which goes to the applier's device); returns the result
+        Dataset.  ``deadline``: a wall-clock budget for this batch,
+        apportioned per stage by the executor."""
+        ds = as_dataset(data, device=self.device)
+        g, _ = self.graph.replace_source_with_node(self.source, G.DatasetOperator(ds))
+        expr = GraphExecutor(g, deadline=deadline).execute(g.sink_dependencies[self.sink])
+        if not isinstance(expr, DatasetExpr):
+            raise TypeError(f"frozen apply produced {type(expr).__name__}, expected dataset")
+        return expr.dataset
+
+    def export_artifacts(self, *args, **kwargs):
+        raise NotPortedError("the frozen applier's AOT artifacts (export_artifacts, install_artifacts, "
+                             "fingerprint: a torch export or a CUDA-graph form) are not ported yet (ROADMAP A11b)")
+
+    install_artifacts = fingerprint = export_artifacts
 
 
 def fit_relevant_config(config, exclude=()):

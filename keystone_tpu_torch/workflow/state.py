@@ -82,7 +82,7 @@ class SavedStateLoadRule(Rule):
         #: prefixes this rule reloaded, by key (read by tests and reports)
         self.reloaded: list = []
 
-    def apply(self, graph: G.Graph) -> G.Graph:
+    def apply(self, graph: G.Graph, device=None) -> G.Graph:
         if not os.path.isdir(self.state_dir):
             return graph
         # deepest first: replacing a shallow prefix would rewrite deeper

@@ -52,7 +52,7 @@ def test_seeded_plan_fires_at_the_reference_call_counts(plan, site):
     assert 0 < sum(got) < 60
 
 
-@pytest.mark.parametrize("site", ["multihost.init", "serve.batch", "serve.net.send", "plan.sample"])
+@pytest.mark.parametrize("site", ["multihost.init", "serve.rollout", "serve.net.send", "plan.sample"])
 def test_sites_of_unported_slices_are_refused(site):
     """The reference's other sites join with the slices that wire them;
     until then a plan naming one is refused, not silently inert."""
@@ -67,8 +67,27 @@ def test_sites_of_unported_slices_are_refused(site):
 
 def test_wired_sites_are_the_slice_sites():
     assert faults.SITES == {"blockstore.read", "blockstore.write", "ckpt.save", "ckpt.load", "stream.batch",
-                            "executor.stage", "kernel.sweep"}
+                            "executor.stage", "kernel.sweep", "serve.enqueue", "serve.batch", "serve.replica",
+                            "serve.worker", "serve.swap"}
     assert faults.SITES <= ref_faults.SITES
+
+
+@pytest.mark.parametrize("site,ctx", [
+    ("serve.enqueue", {}), ("serve.batch", {}), ("serve.replica", {"replica": 1}), ("serve.worker", {"replica": 0}),
+    ("serve.swap", {"version": "v2"}),
+])
+def test_serve_sites_fire_at_the_reference_calls(site, ctx):
+    """Each serving site, wired in this slice, fires at the same calls as
+    the reference's under the same seeded plan (with the context the
+    service passes there)."""
+    plan = f"{site}:p=0.4:seed=5:after=1"
+    got = _pattern(faults, plan, site, 40, **ctx)
+    assert got == _pattern(ref_faults, plan, site, 40, **ctx)
+    assert 0 < sum(got) < 40
+    key, value = next(iter(ctx.items()), (None, None))
+    if key is not None:
+        matched = f"{site}:ctx.{key}={value}:every=3"
+        assert _pattern(faults, matched, site, 12, **ctx) == _pattern(ref_faults, matched, site, 12, **ctx)
 
 
 def test_plan_grammar_round_trip():

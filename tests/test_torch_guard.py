@@ -53,7 +53,8 @@ def test_every_module_imports_without_jax():
               "ops.sparse", "ops.util", "models.lbfgs", "models.logistic", "models.naive_bayes", "models.linear",
               "loaders.newsgroups", "loaders.amazon", "pipelines.newsgroups", "pipelines.amazon_reviews",
               "convert", "obs", "obs.metrics", "obs.ledger", "faults", "utils.guard", "workflow.state",
-              "workflow.recovery"):
+              "workflow.recovery", "obs.recorder", "serve", "serve.service", "serve.fleet", "serve.http", "cli",
+              "tools.serve_bench"):
         assert f"keystone_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -383,3 +384,40 @@ def test_text_runs_on_the_cpu_launch_no_kernel():
     assert 0.0 <= amazon_reviews.AmazonReviewsPipeline.run(amazon_reviews.Config(synthetic_n=80),
                                                            device="cpu")["accuracy"] <= 1.0
     assert not any(fisher_kernels.LAUNCHES.values()) and not any(gram_kernels.LAUNCHES.values())
+
+
+def test_serve_entry_points_default_to_the_card(tmp_path):
+    """serve(pipeline), FrozenApplier(pipeline) and ``cli serve`` without
+    a device take the card, and refuse a box without one."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card: the CPU-only refusal is not observable")
+    from keystone_tpu_torch import cli
+    from keystone_tpu_torch.models.linear import LinearMapper
+    from keystone_tpu_torch.ops.stats import NormalizeRows
+    from keystone_tpu_torch.serve import serve
+    from keystone_tpu_torch.workflow.pipeline import FrozenApplier, Pipeline
+
+    pipe = Pipeline.of(NormalizeRows()) | LinearMapper(torch.eye(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FrozenApplier(pipe)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipe.freeze()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(pipe)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(pipe, replicas=2)
+    path = tmp_path / "m.pt"
+    pipe.fit().save(str(path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["serve", "--model", str(path)])
+
+
+def test_library_import_path_excludes_serve():
+    """``import keystone_tpu_torch`` (and its workflow) imports nothing of
+    the serving package, as the reference pins for its own."""
+    code = ("import sys, keystone_tpu_torch, keystone_tpu_torch.workflow.pipeline; "
+            "print(sorted(m for m in sys.modules if m.startswith('keystone_tpu_torch.serve')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

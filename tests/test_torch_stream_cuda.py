@@ -87,6 +87,19 @@ def test_nvjpeg_decodes_the_fixture_near_libjpeg(dev):
     assert mem.data.n == 12 and torch.equal(mem.data.array, got[keep])
 
 
+def test_nvjpeg_decode_behind_queued_work_on_its_stream(dev):
+    """Work queued ahead on the decode's stream must not change a pixel:
+    a batch decode equals each image decoded alone on an idle stream."""
+    from keystone_tpu_torch.loaders.imagenet import _read_blobs
+
+    entries = [e for i, e in enumerate(ImageNetLoader.index(TARS)) if i != BAD]
+    alone = torch.cat([jpeg.decode(*_read_blobs([e]), (32, 32), dev)[0] for e in entries])
+    for _ in range(5):
+        torch.cuda._sleep(40_000_000)
+        got, ok = jpeg.decode(*_read_blobs(entries), (32, 32), dev)
+        assert ok.all() and torch.equal(got, alone)
+
+
 def test_nvjpeg_resize_keeps_the_corners(dev):
     """The resize samples the decoded image's corners exactly at any size,
     whatever the decode gave."""
