@@ -78,6 +78,24 @@ result line):
    ``iter_device_blocks`` (pinned buffers, the side copy stream, events)
    against ``read_block`` bit for bit at the fit's block shape, f32 and
    bf16, under a slow consumer;
+10b. main path, the fit's planning layer at the same fit leg
+   (build_scorer's ``Pipeline.fit`` and its held-out scoring, each with
+   its launch counts, seconds, peak device memory and the pre-flight's
+   predicted bytes): the default optimizer's profiled materialization
+   pass (its ``optimizer.cache_placement`` event under a run ledger, the
+   budget half of the card's memory, the fit split by rule batch through
+   ``tools/profile_fit.split_fit``) against the structural pass, bit for
+   bit; every shared node demoted by a 1-byte budget and recomputed for
+   each consumer, bit for bit; the fit auto-spilled by its pre-flight
+   (KEYSTONE_HBM_BUDGET_BYTES below the image source): one source
+   converted, B2 over its 512-row batches, the spill and the out-of-core
+   BCD, its peak below the in-memory fit's, held to it at the streamed
+   fit's limits; then ``PreflightOOMError`` on the card's real memory
+   (KEYSTONE_AUTO_SPILL=0, a uint8 source of 0.46 of the card) before any
+   featurization beyond the profiled pass's sample.  Every graph fit of
+   the script prints the pre-flight's prediction beside its peak, and
+   no fit may take the profiled pass's structural fallback (the passes
+   and their seconds are printed before the kernels' line);
 11. the tar loader on the committed fixture (tests/data/imagenet_tars),
    decoded on the card by nvJPEG: ``index``, ``load`` and ``stream``
    agree (the undecodable member skipped by ``load``, a zero image with
@@ -392,6 +410,27 @@ STREAM_SWEEPS = 3
 TOL_STREAM_PROJECTOR = 1e-5
 TOL_STREAM_SCORES, RTOL_STREAM_SCORES = TOL_GRAPH_SCORES, RTOL_GRAPH_SCORES
 STREAM_TOP1_AGREEMENT = 1.0
+
+# ---- the fit's planning layer at the same fit leg (build_scorer's
+# Pipeline.fit, its held-out scores on the 512 images): the default
+# optimizer's profiled materialization pass (its sample of
+# materialize_sample() rows, the cache budget half of the card's memory)
+# against the structural pass, bit for bit (a Cacher is an identity); every
+# shared node demoted (a budget of 1 byte) and recomputed for each
+# consumer, bit for bit; the fit auto-spilled by its pre-flight with the
+# device's memory overridden to SPILL_OVERRIDE, below the 96 MiB image
+# source: the source a stream of KEYSTONE_SPILL_BATCH's 512-row batches,
+# B2 over each, the features spilled and the BCD out of core.  That fit's
+# extractors run over batches of 512 where the in-memory fit runs chunks
+# of 128, which the libraries may round otherwise (as the streamed fit's
+# batches of 64): it is held at the streamed fit's limits, with top-1
+# agreement on every image, and whether it came out bit for bit is
+# printed.  Then the refusal on the card's real memory: with
+# KEYSTONE_AUTO_SPILL=0 a uint8 source of REFUSAL_FRACTION of the card
+# (over the pre-flight's 0.45) is refused before any featurization of it
+SPILL_OVERRIDE = 64 << 20
+SPILL_BATCH = 512
+REFUSAL_FRACTION = 0.46
 
 # ---- the tar loader: the committed fixture (tests/data/make_imagenet_tars.py),
 # decoded on the card by nvJPEG, against the reference's libjpeg pixels.
@@ -1139,19 +1178,35 @@ def fit_f64_checks(dev, card, P, cfg, tx, vx, ty, params):
     return out
 
 
+def materialize_sample() -> int:
+    """The rows of the profiled materialization pass's sample."""
+    from keystone_tpu_torch.workflow.optimizer import ProfiledMaterializeRule
+
+    return ProfiledMaterializeRule.sample_size
+
+
 @contextlib.contextmanager
 def fit_probe(fk):
     """Instruments ImageNetSiftLcsFV.run for the graph phases: the seconds
     of ``Pipeline.fit`` (ended by a synchronize), its peak device memory
-    (the peak reset just before it) and the FV launches at its end, and
-    the rows each descriptor extractor was applied to inside the fit and
-    after it.  The classes' methods are restored on exit."""
+    (the peak reset just before it), the pre-flight's predicted resident
+    bytes and the FV launches at its end, and the rows each descriptor
+    extractor was applied to inside the fit's walk, inside the profiled
+    materialization passes' samples (``profile``, the fit's and the
+    scoring's) and in scoring.  The profiled pass's pricing runs the
+    extractors on fake tensors, which read no rows and are not counted.
+    The methods are restored on exit."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from keystone_tpu_torch.obs import metrics
     from keystone_tpu_torch.ops.lcs import LCSExtractor
     from keystone_tpu_torch.ops.sift import SIFTExtractor
+    from keystone_tpu_torch.workflow import profiling
     from keystone_tpu_torch.workflow.pipeline import Pipeline
 
-    probe = {"in_fit": False, "rows": {"fit": {}, "scoring": {}}}
-    saved = [(Pipeline, "fit", Pipeline.fit), (SIFTExtractor, "apply_batch", SIFTExtractor.apply_batch),
+    probe = {"in_fit": False, "in_profile": False, "rows": {"fit": {}, "profile": {}, "scoring": {}}}
+    saved = [(Pipeline, "fit", Pipeline.fit), (profiling, "profile_graph", profiling.profile_graph),
+             (SIFTExtractor, "apply_batch", SIFTExtractor.apply_batch),
              (LCSExtractor, "apply_batch", LCSExtractor.apply_batch)]
 
     def fit(self):
@@ -1163,19 +1218,28 @@ def fit_probe(fk):
         torch.cuda.synchronize()
         probe["fit_seconds"] = time.perf_counter() - t0
         probe["peak_bytes"] = torch.cuda.max_memory_allocated()
+        probe["predicted_bytes"] = metrics.REGISTRY.gauge_value("pipeline.preflight_predicted_bytes")
         probe["fit_launches"] = dict(fk.LAUNCHES)
         probe["in_fit"] = False
         return fitted
 
+    def profile_graph(*a, **kw):
+        probe["in_profile"] = True
+        try:
+            return saved[1][2](*a, **kw)
+        finally:
+            probe["in_profile"] = False
+
     def counted(name, orig):
         def apply_batch(self, xs, mask=None):
-            rows = probe["rows"]["fit" if probe["in_fit"] else "scoring"]
-            rows[name] = rows.get(name, 0) + xs.shape[0]
+            if not isinstance(xs, FakeTensor):
+                key = "profile" if probe["in_profile"] else "fit" if probe["in_fit"] else "scoring"
+                probe["rows"][key][name] = probe["rows"][key].get(name, 0) + xs.shape[0]
             return orig(self, xs, mask)
         return apply_batch
 
-    Pipeline.fit = fit
-    for cls, name, orig in saved[1:]:
+    Pipeline.fit, profiling.profile_graph = fit, profile_graph
+    for cls, name, orig in saved[2:]:
         setattr(cls, name, counted(cls.__name__, orig))
     try:
         yield probe
@@ -1199,6 +1263,29 @@ def fitted_vocabulary(fitted):
             out["sift" if pca.components.shape[0] == 128 else "lcs"] = (pca, fv)
     check(sorted(out) == ["lcs", "sift"], f"fitted branches {sorted(out)}")
     return out
+
+
+def vocabulary_diff(label, fitted, reference):
+    """Two graph fits' vocabularies (PCA projector and mean, GMM) against
+    each other: the largest differences by branch, held at the streamed
+    fit's limits (the same rows sampled, their extractors' products
+    rounded over other batch shapes), and whether they are bit for bit."""
+    va, vb = fitted_vocabulary(fitted), fitted_vocabulary(reference)
+    vocab, bitwise = {}, True
+    for b in ("sift", "lcs"):
+        (pa, fa), (pb, fb) = va[b], vb[b]
+        pairs = {"projector": (pa.components @ pa.components.T, pb.components @ pb.components.T),
+                 "pca_mean": (pa.mean, pb.mean)}
+        pairs.update({a: (getattr(fa.gmm, a), getattr(fb.gmm, a)) for a in ("weights", "means", "variances")})
+        vocab[b] = {k: max_err(a, c) for k, (a, c) in pairs.items()}
+        bitwise = bitwise and torch.equal(pa.components, pb.components) and all(
+            torch.equal(a, c) for k, (a, c) in pairs.items() if k != "projector")
+    print(f"  {label}: vocabularies, largest differences {vocab}; bit for bit: {bitwise}", flush=True)
+    for b, d in vocab.items():
+        for k, tol in (("projector", TOL_STREAM_PROJECTOR), ("pca_mean", TOL_VOCAB), ("weights", TOL_EM_W),
+                       ("means", TOL_EM_MU), ("variances", TOL_EM_VAR)):
+            check(d[k] <= tol, f"{label}, {b}: the {k} is {d[k]:.3e} from the reference fit's (at most {tol})")
+    return vocab, bitwise
 
 
 def graph_path(dev, card, P, fk, setup, params):
@@ -1243,7 +1330,12 @@ def graph_path(dev, card, P, fk, setup, params):
         check(score_l == fv_launches(fused=2 * nb_test), f"scoring launches {score_l}, expected B1 twice a chunk")
         once = {"SIFTExtractor": FIT_N, "LCSExtractor": FIT_N}
         check(rows["fit"] == once, f"the fit's extractor rows {rows['fit']}, expected each once over the set")
+        check(rows["profile"] == {k: materialize_sample() for k in once},
+              f"the profiled pass's extractor rows {rows['profile']}, expected each once over its sample")
         check(rows["scoring"] == {k: FIT_TEST_N for k in once}, f"scoring's extractor rows {rows['scoring']}")
+        print(f"  the pre-flight's predicted resident bytes (source + shared) {probe['predicted_bytes'] / 2**30:.4f} "
+              f"GiB against the fit's peak {probe['peak_bytes'] / 2**30:.4f} GiB: peak / predicted "
+              f"{probe['peak_bytes'] / probe['predicted_bytes']:.3f} ({card})", flush=True)
         check(not res["model_loaded"], "the timed run loaded a model")
         check(res["top1_error"] <= FIT_TOP1_ERROR_MAX, f"held-out top-1 error {res['top1_error']:.4f}")
         pred = detail["predictions"]
@@ -1259,7 +1351,7 @@ def graph_path(dev, card, P, fk, setup, params):
         print(f"  top-1 agreement with fit_params' scorer {agree:.5f} (at least {GRAPH_TOP1_AGREEMENT})", flush=True)
         check(agree >= GRAPH_TOP1_AGREEMENT, f"top-1 agreement {agree:.5f}")
         out.update({"fit_seconds": probe["fit_seconds"], "run_fit_seconds": res["fit_seconds"],
-                    "peak_bytes": probe["peak_bytes"],
+                    "peak_bytes": probe["peak_bytes"], "predicted_bytes": probe["predicted_bytes"],
                     "images_per_s": FIT_N / probe["fit_seconds"], "top1_error": res["top1_error"],
                     "top5_error": res["top5_error"], "launches_fit": fit_l, "launches_scoring": score_l,
                     "extractor_rows": rows, "top1_agreement": agree})
@@ -1383,16 +1475,26 @@ def scores_pipeline(fitted):
     return split_at(fitted, TopKClassifier)[0]
 
 
-class MaterializeWatch(logging.Handler):
-    """Collects the warnings a StreamDataset logs when a stage materializes it."""
+class LogWatch(logging.Handler):
+    """Collects the warnings whose message holds ``needle``."""
 
-    def __init__(self):
+    def __init__(self, needle):
         super().__init__(logging.WARNING)
-        self.messages = []
+        self.needle, self.messages = needle, []
 
     def emit(self, record):
-        if "materializing StreamDataset" in record.getMessage():
+        if self.needle in record.getMessage():
             self.messages.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def watching(logger_name, needle):
+    watch = LogWatch(needle)
+    logging.getLogger(logger_name).addHandler(watch)
+    try:
+        yield watch.messages
+    finally:
+        logging.getLogger(logger_name).removeHandler(watch)
 
 
 def stream_path(dev, card, P, fk, setup, graph_out, graph_detail):
@@ -1431,7 +1533,7 @@ def stream_path(dev, card, P, fk, setup, graph_out, graph_detail):
             solve_s.append(time.perf_counter() - t0)
             return fitted
 
-        watch = MaterializeWatch()
+        watch = LogWatch("materializing StreamDataset")
         logging.getLogger("keystone_tpu_torch.workflow.dataset").addHandler(watch)
         FeatureBlockStore.from_batches, BWLS.fit_store = classmethod(spy), timed_solve
         torch.cuda.synchronize()
@@ -1466,6 +1568,8 @@ def stream_path(dev, card, P, fk, setup, graph_out, graph_detail):
         check(score_l == fv_launches(fused=2 * nb_test), f"scoring launches {score_l}, expected B1 twice a chunk")
         swept = {"SIFTExtractor": STREAM_SWEEPS * FIT_N, "LCSExtractor": STREAM_SWEEPS * FIT_N}
         check(rows["fit"] == swept, f"the fit's extractor rows {rows['fit']}, predicted {swept}")
+        check(rows["profile"] == {k: materialize_sample() for k in swept},
+              f"the profiled pass's extractor rows {rows['profile']}, expected each over the stream's head")
         check(rows["scoring"] == {k: FIT_TEST_N for k in swept}, f"scoring's extractor rows {rows['scoring']}")
         check(not watch.messages, f"a stage materialized the stream: {watch.messages}")
         check(not res["model_loaded"], "the streamed run loaded a model")
@@ -1478,21 +1582,7 @@ def stream_path(dev, card, P, fk, setup, graph_out, graph_detail):
                     "launches_scoring": score_l, "extractor_rows": rows, "top1_error": res["top1_error"],
                     "top5_error": res["top5_error"]})
     with phase("stream: the streamed fit against the in-memory graph fit"):
-        vs, vm = fitted_vocabulary(detail["fitted"]), fitted_vocabulary(graph_detail["fitted"])
-        vocab, bitwise = {}, True
-        for b in ("sift", "lcs"):
-            (ps, fs), (pm, fm) = vs[b], vm[b]
-            pairs = {"projector": (ps.components @ ps.components.T, pm.components @ pm.components.T),
-                     "pca_mean": (ps.mean, pm.mean)}
-            pairs.update({a: (getattr(fs.gmm, a), getattr(fm.gmm, a)) for a in ("weights", "means", "variances")})
-            vocab[b] = {k: max_err(a, c) for k, (a, c) in pairs.items()}
-            bitwise = bitwise and torch.equal(ps.components, pm.components) and all(
-                torch.equal(a, c) for k, (a, c) in pairs.items() if k != "projector")
-        print(f"  vocabularies, largest differences {vocab}; bit for bit: {bitwise}", flush=True)
-        for b, d in vocab.items():
-            for k, tol in (("projector", TOL_STREAM_PROJECTOR), ("pca_mean", TOL_VOCAB), ("weights", TOL_EM_W),
-                           ("means", TOL_EM_MU), ("variances", TOL_EM_VAR)):
-                check(d[k] <= tol, f"{b}: the streamed {k} is {d[k]:.3e} from the in-memory fit's (at most {tol})")
+        vocab, bitwise = vocabulary_diff("the streamed fit", detail["fitted"], graph_detail["fitted"])
         ss = scores_pipeline(detail["fitted"])(Dataset(vx)).get().array
         sm = scores_pipeline(graph_detail["fitted"])(Dataset(vx)).get().array
         check(tuple(ss.shape) == (FIT_TEST_N, FIT_CLASSES) and bool(torch.isfinite(ss).all()), "held-out scores")
@@ -1533,6 +1623,171 @@ def stream_path(dev, card, P, fk, setup, graph_out, graph_detail):
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         out["device_feed"] = feed
+    return out
+
+
+def planning_path(dev, card, P, fk, setup):
+    """The fit's planning layer at the fit leg: the profiled pass against
+    the structural one, every shared node demoted, the auto-spilled fit,
+    the refusal on the card's real memory (see the constants above).
+    Each fit's launch counts are zeroed just before it and read after its
+    held-out scoring."""
+    from keystone_tpu_torch.obs import ledger, metrics
+    from keystone_tpu_torch.tools.profile_fit import split_fit
+    from keystone_tpu_torch.workflow import optimizer as O
+    from keystone_tpu_torch.workflow import profiling
+    from keystone_tpu_torch.workflow import transformer as WT
+    from keystone_tpu_torch.workflow.dataset import Dataset
+    from keystone_tpu_torch.workflow.pipeline import PipelineEnv, PreflightOOMError
+
+    cfg, tx, ty, vx, vy = setup
+    labels = Dataset(torch.from_numpy(ty).to(dev))
+    nb_test = -(-FIT_TEST_N // WT.APPLY_CHUNK_ROWS)
+    once = ("SIFTExtractor", "LCSExtractor")
+
+    def build(x=tx, y=labels):
+        return P.ImageNetSiftLcsFV.build_scorer(cfg, Dataset(x), y)
+
+    def with_materialize(rule):
+        return O.Optimizer([b if b.name != "materialize" else O.RuleBatch("materialize", O.Once(), [rule])
+                            for b in O.default_optimizer().batches])
+
+    def timed_fit(label, optimizer=None):
+        """build().fit() and its held-out scores: seconds, peak device
+        memory, prediction, FV launches (fit, scoring), extractor rows."""
+        PipelineEnv.set_optimizer(optimizer)
+        try:
+            torch.cuda.synchronize()
+            fk.reset_launches()
+            demoted = metrics.REGISTRY.counter_value("optimizer.no_memoize_demotions")
+            with fit_probe(fk) as probe, fit_timer() as ft:
+                fitted = build().fit()
+                scores = fitted(Dataset(vx)).get().array
+                torch.cuda.synchronize()
+        finally:
+            PipelineEnv.set_optimizer(None)
+        fit_l = probe["fit_launches"]
+        r = {"fitted": fitted, "scores": scores, "seconds": probe["fit_seconds"], "peak_bytes": probe["peak_bytes"],
+             "predicted_bytes": probe["predicted_bytes"], "launches_fit": fit_l,
+             "launches_scoring": {k: fk.LAUNCHES[k] - fit_l[k] for k in fk.LAUNCHES}, "rows": probe["rows"],
+             "spill_seconds": ft["spill"], "oc_solve_seconds": ft["solve"],
+             "demotions": metrics.REGISTRY.counter_value("optimizer.no_memoize_demotions") - demoted}
+        print(f"  {label}: Pipeline.fit {r['seconds']:.4f} s, peak device memory {r['peak_bytes'] / 2**30:.4f} GiB, "
+              f"predicted (source + shared) {r['predicted_bytes'] / 2**30:.4f} GiB; spill {ft['spill']:.4f} s, "
+              f"out-of-core solve {ft['solve']:.4f} s; launches: fit {fit_l}, scoring {r['launches_scoring']}; "
+              f"no_memoize demotions {r['demotions']:g}; extractor rows {r['rows']} ({card})", flush=True)
+        check(tuple(scores.shape) == (FIT_TEST_N, FIT_CLASSES) and bool(torch.isfinite(scores).all()),
+              f"{label}: held-out scores")
+        check(r["launches_scoring"] == fv_launches(fused=2 * nb_test),
+              f"{label}: scoring launches {r['launches_scoring']}, expected B1 twice a chunk")
+        return r
+
+    def same_fit(label, got, want):
+        vocab, bitwise = vocabulary_diff(label, got["fitted"], want["fitted"])
+        same = bitwise and torch.equal(got["scores"], want["scores"])
+        print(f"  {label}: held-out scores {max_err(got['scores'], want['scores']):.3e} apart; vocabularies and "
+              f"scores bit for bit: {same}", flush=True)
+        return vocab, same
+
+    out = {}
+    with phase("fit planning: the profiled materialization pass against the structural pass, in memory"):
+        structural = timed_fit("structural pass", with_materialize(O.AutoMaterializeRule()))
+        led_dir = Path(tempfile.mkdtemp(prefix="planning_ledger_", dir=REPO))
+        try:
+            ledger.start_run(str(led_dir))
+            try:
+                PipelineEnv.get_optimizer().execute(build().graph)
+            finally:
+                ledger.stop_run()
+            events = [json.loads(line) for f in led_dir.glob("run_*.jsonl") for line in f.read_text().splitlines()]
+        finally:
+            shutil.rmtree(led_dir, ignore_errors=True)
+        placement = [e["attrs"] for e in events if e["kind"] == "event" and e["name"] == "optimizer.cache_placement"]
+        print(f"  optimizer.cache_placement {placement}; the card's memory {torch.cuda.mem_get_info(dev)[1]} bytes "
+              f"({card})", flush=True)
+        check(len(placement) == 1, f"cache placement events {placement}: the profiled pass did not run")
+        check(placement[0]["budget_bytes"] == profiling.device_hbm_budget(device=dev),
+              f"the budget {placement[0]['budget_bytes']} is not half the card's memory")
+        check(placement[0]["no_memoize_demotions"] == 0, "the fit leg's shared outputs do not fit half the card")
+        profiled = timed_fit("profiled pass (the default)")
+        split = split_fit(build())
+        print(f"  the fit split by rule batch: {split['batches']}, pre-flight {split['preflight']:.4f} s, the "
+              f"walk {split['execute']:.4f} s; Pipeline.fit {profiled['seconds']:.4f} s with the profiled pass, "
+              f"{structural['seconds']:.4f} s with the structural pass ({card})", flush=True)
+        _, same = same_fit("profiled against structural", profiled, structural)
+        check(same, "the profiled pass's fit differs from the structural pass's")
+        for r, label in ((profiled, "profiled"), (structural, "structural")):
+            check(r["launches_fit"] == fv_launches(encode=2 * -(-FIT_N // WT.APPLY_CHUNK_ROWS)),
+                  f"{label}: fit launches {r['launches_fit']}, expected B2 twice a chunk")
+        check(profiled["rows"]["fit"] == {k: FIT_N for k in once}, f"extractor rows {profiled['rows']}")
+        out["in_memory"] = {"placement": placement[0], "split": split, "seconds": profiled["seconds"],
+                            "structural_seconds": structural["seconds"], "peak_bytes": profiled["peak_bytes"],
+                            "predicted_bytes": profiled["predicted_bytes"], "bitwise": same}
+    with phase("fit planning: every shared node demoted (a budget of 1 byte), recomputed for each consumer"):
+        demoted = timed_fit("demoted", with_materialize(profiling.ProfilingAutoCacheRule(
+            budget_bytes=1, sample_size=materialize_sample(), static_cost=True)))
+        _, same = same_fit("demoted against the default", demoted, profiled)
+        check(demoted["demotions"] > 0, "nothing was demoted")
+        check(same, "the demoted fit differs from the default fit")
+        out["demoted"] = {k: demoted[k] for k in ("seconds", "peak_bytes", "demotions", "rows")}
+        out["demoted"]["bitwise"] = same
+    with phase("fit planning: the auto-spilled fit (the pre-flight streams the source, B2 over its batches)"):
+        with env_var("KEYSTONE_HBM_BUDGET_BYTES", str(SPILL_OVERRIDE)), \
+                watching("keystone_tpu_torch.workflow.pipeline", "converted to a stream") as converted, \
+                watching("keystone_tpu_torch.workflow.dataset", "materializing StreamDataset") as materialized:
+            spilled = timed_fit("auto-spilled")
+        print(f"  pre-flight: {converted}", flush=True)
+        check(len(converted) == 1, f"the pre-flight converted {len(converted)} sources, expected the images")
+        check(not materialized, f"a stage materialized the auto-spill stream: {materialized}")
+        check(spilled["spill_seconds"] > 0 and spilled["oc_solve_seconds"] > 0, "the fit did not spill out of core")
+        check(spilled["launches_fit"] == fv_launches(encode=2 * -(-FIT_N // SPILL_BATCH)),
+              f"fit launches {spilled['launches_fit']}, expected B2 twice a {SPILL_BATCH}-row batch")
+        check(spilled["rows"]["fit"] == {k: STREAM_SWEEPS * FIT_N for k in once},
+              f"the fit's extractor rows {spilled['rows']['fit']}, predicted {STREAM_SWEEPS} sweeps")
+        check(spilled["peak_bytes"] < profiled["peak_bytes"], "the auto-spilled fit's peak is not below in memory")
+        vocab, same = same_fit("auto-spilled against in memory", spilled, profiled)
+        err = compare("held-out scores, auto-spilled fit vs in-memory fit", spilled["scores"], profiled["scores"],
+                      TOL_STREAM_SCORES, RTOL_STREAM_SCORES)
+        agree = float((spilled["scores"].argmax(1) == profiled["scores"].argmax(1)).float().mean())
+        print(f"  top-1 agreement {agree:.5f} (at least {STREAM_TOP1_AGREEMENT})", flush=True)
+        check(agree >= STREAM_TOP1_AGREEMENT, f"top-1 agreement {agree:.5f}")
+        out["auto_spill"] = {k: spilled[k] for k in ("seconds", "peak_bytes", "predicted_bytes", "launches_fit",
+                                                     "launches_scoring", "spill_seconds", "oc_solve_seconds")}
+        out["auto_spill"].update(bitwise=same, vocabulary_max_abs_err=vocab, scores_max_abs_err=err,
+                                 top1_agreement=agree)
+    with phase("fit planning: the refusal on the card's real memory (KEYSTONE_AUTO_SPILL=0)"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        total = torch.cuda.mem_get_info(dev)[1]
+        n_big = int(REFUSAL_FRACTION * total) // (IMAGE_HW * IMAGE_HW * 3) + 1
+        big = torch.empty((n_big, IMAGE_HW, IMAGE_HW, 3), dtype=torch.uint8, device=dev)
+        big[:FIT_N] = tx  # the samples read the head
+        big_labels = Dataset(torch.from_numpy(np.resize(ty, n_big)).to(dev))
+        try:
+            with env_var("KEYSTONE_AUTO_SPILL", "0"), env_var("KEYSTONE_HBM_BUDGET_BYTES", None), \
+                    fit_probe(fk) as probe:
+                t0 = time.perf_counter()
+                try:
+                    build(big, big_labels).fit()
+                    refused = None
+                except PreflightOOMError as e:
+                    refused = str(e)
+                dt = time.perf_counter() - t0
+        finally:
+            del big, big_labels
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"  a {n_big} x {IMAGE_HW} x {IMAGE_HW} x 3 uint8 source ({n_big * IMAGE_HW * IMAGE_HW * 3 / 1e9:.2f} "
+              f"GB of the card's {total / 1e9:.2f} GB): refused in {dt:.3f} s; extractor rows {probe['rows']}; "
+              f"{refused} ({card})", flush=True)
+        check(refused is not None, "fit() was not refused")
+        check("GB" in refused and "--stream" in refused, f"the refusal's message: {refused}")
+        check(not probe["rows"]["fit"] and probe["rows"]["profile"] == {k: materialize_sample() for k in once},
+              f"the refused fit featurized more than the profiled pass's sample: {probe['rows']}")
+        out["refusal"] = {"source_bytes": n_big * IMAGE_HW * IMAGE_HW * 3, "total_bytes": total, "seconds": dt,
+                          "message": refused}
+    out["launches"] = {k: sum(r[p][k] for r in (structural, profiled, demoted, spilled)
+                              for p in ("launches_fit", "launches_scoring")) for k in fk.LAUNCHES}
     return out
 
 
@@ -1647,14 +1902,17 @@ def counted_run(label, gk, fk, fn):
 @contextlib.contextmanager
 def fit_timer():
     """Times ``Pipeline.fit`` (ended by a synchronize) and, inside it, the
-    block solvers' spill to a FeatureBlockStore and their out-of-core solve;
-    the methods are restored on exit."""
+    block solvers' spill to a FeatureBlockStore and their out-of-core solve,
+    and reads the fit pre-flight's predicted resident bytes after it; the
+    methods are restored on exit."""
     from keystone_tpu_torch.models.block_ls import BlockLeastSquaresEstimator as BLS
     from keystone_tpu_torch.models.block_weighted_ls import BlockWeightedLeastSquaresEstimator as BWLS
     from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
     from keystone_tpu_torch.workflow.pipeline import Pipeline
 
-    t = {"fit": 0.0, "spill": 0.0, "solve": 0.0}
+    from keystone_tpu_torch.obs import metrics
+
+    t = {"fit": 0.0, "spill": 0.0, "solve": 0.0, "predicted": None}
     fit, spill, solve, wsolve = Pipeline.fit, FeatureBlockStore.from_batches.__func__, BLS.fit_store, BWLS.fit_store
 
     def timed(key, fn):
@@ -1663,6 +1921,8 @@ def fit_timer():
             out = fn(*a, **kw)
             torch.cuda.synchronize()
             t[key] += time.perf_counter() - t0
+            if key == "fit":  # the fit pre-flight's prediction: source + shared bytes
+                t["predicted"] = metrics.REGISTRY.gauge_value("pipeline.preflight_predicted_bytes")
             return out
         return wrapper
 
@@ -1673,6 +1933,16 @@ def fit_timer():
     finally:
         Pipeline.fit, BLS.fit_store, BWLS.fit_store = fit, solve, wsolve
         FeatureBlockStore.from_batches = classmethod(spill)
+
+
+def print_prediction(predicted, peak, card) -> None:
+    """The fit pre-flight's predicted resident bytes (the sources and the
+    profiled pass's shared outputs; a stream source counts nothing)
+    beside the measured peak: the card's own reading of how far the
+    estimate undercounts, which KEYSTONE_OOC_FRACTION's 0.45 must cover."""
+    check(predicted is not None, "no fit pre-flight ran")
+    print(f"  the pre-flight's predicted resident bytes (source + shared) {predicted / 2**30:.4f} GiB against the "
+          f"peak {peak / 2**30:.4f} GiB: peak / predicted {peak / max(predicted, 1):.3f} ({card})", flush=True)
 
 
 def chunk_launches(rows, chunk, m, d):
@@ -1760,6 +2030,7 @@ def pipeline_pair(label, card, gk, fk, run, cfg, stream_cfg, n, expected, expect
                   f"{dt:.3f} s; held-out accuracy {res['accuracy']:.4f}; peak device memory {peak / 2**30:.3f} GiB "
                   f"above the run's start ({card})", flush=True)
             print(f"  B3 launches by shape {shapes}", flush=True)
+            print_prediction(ft["predicted"], peak, card)
             check(launches["poly_block"] == 0, f"{mode}: B4 launched {launches}")
             check(shapes == want, f"{mode}: launches by shape {shapes}, expected {want}")
             check(not res["model_loaded"], f"{mode}: loaded a model")
@@ -1767,7 +2038,8 @@ def pipeline_pair(label, card, gk, fk, run, cfg, stream_cfg, n, expected, expect
             fitted[mode] = detail["fitted"]
             out[mode] = {"fit_seconds": ft["fit"], "spill_seconds": ft["spill"], "oc_solve_seconds": ft["solve"],
                          "run_fit_seconds": res["fit_seconds"], "run_seconds": dt, "items_per_s": n / ft["fit"],
-                         "accuracy": res["accuracy"], "peak_bytes": peak, "launches": launches["gram_block"],
+                         "accuracy": res["accuracy"], "peak_bytes": peak, "predicted_bytes": ft["predicted"],
+                         "launches": launches["gram_block"],
                          "launches_by_shape": shapes, "predictions": detail["predictions"]}
     with phase(f"{label}: the streamed fit against the in-memory fit"):
         a, b = nystrom_of(fitted["in memory"]), nystrom_of(fitted["stream"])
@@ -2039,17 +2311,16 @@ def disk_tier_path(dev, card, gk, fk, data, tmp):
         kw = dict(lam=KRR_LAM, block_size=bs, num_epochs=KRR_EPOCHS, cache_kernel_blocks=True)
         est = KR.KernelRidgeRegressionEstimator(gens["gaussian"][0], **kw)
         in_memory = est.fit_arrays(xd, yd, device=dev).alpha
-        real = profiling.device_hbm_budget
-        # a budget one byte short of K: the fit takes the tier, nb − 1 columns on the card
-        profiling.device_hbm_budget = lambda fraction, device=None: n * n * 4 - 1
-        try:
+        # a budget one byte short of K, through the device-memory override
+        # (the fit reads half of it): the fit takes the tier, nb − 1
+        # columns on the card
+        with env_var("KEYSTONE_HBM_BUDGET_BYTES", str(2 * (n * n * 4 - 1))):
+            check(profiling.device_hbm_budget(0.5, dev) == n * n * 4 - 1, "the budget override")
             cache = tmp / "kcache"
             tiered, launches, shapes, peak, dt = counted_run(
                 "cached KRR fit over the budget", gk, fk,
                 lambda: KR.KernelRidgeRegressionEstimator(gens["gaussian"][0], kernel_cache_dir=str(cache),
                                                           **kw).fit_arrays(xd, yd, device=dev).alpha)
-        finally:
-            profiling.device_hbm_budget = real
         spilled = sorted(p.name for p in cache.glob("kcol_*.npy"))
         same = bool(torch.equal(tiered, in_memory))
         print(f"  launches {launches}; {len(spilled)} columns spilled; {dt:.4f} s; peak device memory "
@@ -2061,6 +2332,23 @@ def disk_tier_path(dev, card, gk, fk, data, tmp):
         out["cached_fit"] = {"launches": launches["gram_block"], "seconds": dt, "peak_bytes": peak,
                              "alpha_identical": same}
     return out
+
+
+@contextlib.contextmanager
+def env_var(name, value):
+    """``name`` set to ``value`` (None: unset) inside the block, restored after."""
+    before = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = before
 
 
 def gram_shape_times(gk, cases):
@@ -2289,10 +2577,11 @@ def app_run(label, card, gk, fk, run, cfg, n):
           + (", ".join(f"{sh} {b / gib:.3f}" for b, sh in made[:8]) or "none")
           + f"; the solve's peak {where['solve_peak'] / gib:.3f} GiB", flush=True)
     print(f"  launches {launches}", flush=True)
+    print_prediction(ft["predicted"], peak, card)
     check(not res["model_loaded"], f"{label}: loaded a model")
     record = {"fit_seconds": fit_s, "spill_seconds": ft["spill"], "oc_solve_seconds": ft["solve"],
               "run_fit_seconds": res["fit_seconds"], "run_seconds": dt, "items_per_s": n / fit_s,
-              metric: res[metric], "peak_bytes": peak, "peak_by_stage": where}
+              metric: res[metric], "peak_bytes": peak, "predicted_bytes": ft["predicted"], "peak_by_stage": where}
     return res, detail, record, launches
 
 
@@ -3282,6 +3571,30 @@ def held_out_images(dev):
     return torch.from_numpy(vx).to(dev)
 
 
+def watch_materialize() -> dict:
+    """Wraps the default optimizer's profiled materialization pass for the
+    rest of this process; the dict returned counts its passes, their
+    seconds, and the passes that took the structural fallback (each
+    counted by ``optimizer.materialize_fallbacks``)."""
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.workflow.optimizer import ProfiledMaterializeRule
+
+    stats = {"passes": 0, "seconds": 0.0, "fallbacks": 0}
+    apply = ProfiledMaterializeRule.apply
+
+    def counted(self, graph, device=None):
+        before = metrics.REGISTRY.counter_value("optimizer.materialize_fallbacks")
+        t0 = time.perf_counter()
+        out = apply(self, graph, device=device)
+        stats["seconds"] += time.perf_counter() - t0
+        stats["passes"] += 1
+        stats["fallbacks"] += int(metrics.REGISTRY.counter_value("optimizer.materialize_fallbacks") - before)
+        return out
+
+    ProfiledMaterializeRule.apply = counted
+    return stats
+
+
 def recovery_child(work: str) -> int:
     """One attempt of the recovered fit, in a process of its own: builds the
     kernels (the parent's build, cached), runs fit_with_recovery and scores
@@ -3301,6 +3614,7 @@ def recovery_child(work: str) -> int:
     dev = torch.device(DEVICE)
     precision.disable_tf32()
     build.build(["fisher"])
+    materialize = watch_materialize()
     cfg = dataclasses.replace(fit_setup_config(P), stream=True, stream_batch_size=STREAM_BATCH,
                               checkpoint_dir=os.path.join(work, "ckpt"), stream_retries=2)
     ckpt = os.path.join(cfg.checkpoint_dir, "oc_bcd_epoch.npz")
@@ -3312,7 +3626,8 @@ def recovery_child(work: str) -> int:
     def recorded_save(path, arrays, **kw):
         rec = {"epoch": int(arrays["epoch"]) if "epoch" in arrays else None, "launches": dict(fk.LAUNCHES),
                "faults": faults.stats(),
-               "survived": {s: metrics.REGISTRY.counter_value(c) for s, c in SURVIVED_BY.items()}}
+               "survived": {s: metrics.REGISTRY.counter_value(c) for s, c in SURVIVED_BY.items()},
+               "materialize_fallbacks": materialize["fallbacks"]}
         print("STATS " + json.dumps(rec), flush=True)
         return save(path, arrays, **kw)
 
@@ -3338,7 +3653,7 @@ def recovery_child(work: str) -> int:
     np.savez(os.path.join(work, "fitted.npz"), **arrays)
     print("DONE " + json.dumps({"attempts": attempts, "fit_seconds": fit_s, "launches_fit": fit_launches,
                                 "launches": dict(fk.LAUNCHES), "reloaded_prefixes": reloaded,
-                                "faults": faults.stats()}), flush=True)
+                                "faults": faults.stats(), "materialize": materialize}), flush=True)
     return 0
 
 
@@ -3460,6 +3775,7 @@ def recovery_path(card, tmp, reference):
         # the record precedes the killing save: one save made, none injected
         check(last["faults"]["ckpt.save"] == {"calls": 1, "injected": 0}, f"ckpt.save {last['faults']}")
         check(last["epoch"] == 1 and stats[0]["epoch"] == 0, f"saves {[s['epoch'] for s in stats]}")
+        check(last["materialize_fallbacks"] == 0, "attempt 1's fit took the structural materialization fallback")
         out["attempt_1"] = {"exit_code": p1.returncode, "seconds": s1, "faults_at_kill": last["faults"],
                             "survived": last["survived"], "launches_at_kill": last["launches"]}
     with phase("operations: fit_with_recovery, attempt 2 relaunched (resumes the BCD from epoch 1)"):
@@ -3470,6 +3786,8 @@ def recovery_path(card, tmp, reference):
               f"launches in the fit {done['launches_fit']}, with scoring {done['launches']}; prefixes "
               f"reloaded {done['reloaded_prefixes']}; faults {done['faults']} ({card})", flush=True)
         check(resume["from_epoch"] == 1 and len(l2.get("STATS", [])) == 1, f"attempt 2 {resume} {l2.get('STATS')}")
+        check(done["materialize"]["passes"] > 0 and done["materialize"]["fallbacks"] == 0,
+              f"attempt 2's profiled materialization {done['materialize']}")
         check(done["launches_fit"] == fv_launches(encode=2 * -(-FIT_N // STREAM_BATCH)),
               f"attempt 2 fit launches {done['launches_fit']}")
         got = dict(np.load(work / "fitted.npz"))
@@ -4405,6 +4723,7 @@ def main(argv=None) -> int:
         print(f"  torch: {torch.__version__} cuda {torch.version.cuda}; device 0: {name}; "
               f"count {torch.cuda.device_count()}")
 
+    materialize = watch_materialize()
     with phase("build"):
         # every CUDA source with nvcc and the host text chain with g++, all
         # compilers started together (jpeg.cpp needs libjpeg, which the
@@ -4609,6 +4928,7 @@ def main(argv=None) -> int:
     results["fit"], fitted = fit_path(dev, card, P, fk, fit_data)
     results["graph"], graph_detail = graph_path(dev, card, P, fk, fit_data, fitted)
     results["stream"] = stream_path(dev, card, P, fk, fit_data, results["graph"], graph_detail)
+    results["planning"] = planning_path(dev, card, P, fk, fit_data)
     graph_fitted = graph_detail["fitted"]  # served over HTTP by the serving phases
     del graph_detail
     results["tar"] = tar_path(dev, card, P)
@@ -4663,6 +4983,12 @@ def main(argv=None) -> int:
     served["s4"] = open_loop_path(dev, card, fk, scorer, images, served["s1"]["regimes"]["saturation"]["images_per_s"])
     results["serve"] = served
 
+    with phase("the profiled materialization passes of this process"):
+        print(f"  {materialize['passes']} passes, {materialize['seconds']:.3f} s in all, "
+              f"{materialize['fallbacks']} taken by the structural fallback ({card})", flush=True)
+        check(materialize["passes"] > 0 and materialize["fallbacks"] == 0,
+              f"profiled materialization {materialize}: a fit took the structural fallback")
+        results["materialize"] = dict(materialize)
     with phase("kernel timing"):
         def kernel_line(name, replaces, kernel, plain, calls, shape):
             """Times summed over the kernel's calls in one forward of a
@@ -4738,6 +5064,12 @@ def main(argv=None) -> int:
         b2["launches_by_path"] = {"bench_forward": results["fisher_encode"]["launches"],
                                   "graph_fit": graph["launches_fit"]["fisher_encode"],
                                   "stream_fit": stream["launches_fit"]["fisher_encode"]}
+        # the fit planning phases: the structural, profiled, demoted and
+        # auto-spilled fits (B2 in each fit, B1 in each one's scoring)
+        for ln, kname in ((b1, "fused_forward"), (b2, "fisher_encode")):
+            c = results["planning"]["launches"][kname]
+            ln["launches_by_path"]["fit planning (four fits and their scoring)"] = c
+            ln["launches"] += c
         # the operations phases: the three hooks-at-rest fits and both
         # attempts of the recovered fit (the child processes' counts)
         for ln, kname in ((b1, "fused_forward"), (b2, "fisher_encode")):

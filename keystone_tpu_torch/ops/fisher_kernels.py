@@ -25,6 +25,7 @@ import functools
 from collections import OrderedDict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from keystone_tpu_torch.models.gmm import _LOG2PI, _log_gaussians
 from keystone_tpu_torch.ops.sift import _sift_normalize
@@ -123,6 +124,10 @@ def _workspace(n, t, d, k, d_in, dev):
 
 
 def _check(name: str, t: torch.Tensor, shape, dtypes, device) -> None:
+    if isinstance(t, FakeTensor):
+        # a stage priced by its shapes (workflow/profiling.stage_cost): a
+        # fake tensor's data pointer is null, so the kernel must not launch
+        raise TypeError(f"{name} is a fake tensor; a kernel launches on data only")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:

@@ -32,6 +32,7 @@ import functools
 from collections import Counter
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from keystone_tpu_torch.utils import precision
 
@@ -99,6 +100,10 @@ def _operands(name, x, z):
     """Check the two operands for a launch; returns (n, m, d)."""
     dev = x.device
     for label, t in (("x", x), ("z", z)):
+        if isinstance(t, FakeTensor):
+            # a stage priced by its shapes (workflow/profiling.stage_cost):
+            # a fake tensor's data pointer is null
+            raise TypeError(f"{name}: {label} is a fake tensor; a kernel launches on data only")
         if t.device != dev:
             raise ValueError(f"{name}: {label} is on {t.device}, expected {dev}")
         if t.dtype not in _OPERAND:

@@ -16,7 +16,9 @@ Results here are:
 
 The walk queues device work and never waits on it, unless ``profile``
 asks for per-node timings: then each node ends in a device synchronize,
-so its seconds are its own.
+so its seconds are its own.  An operator flagged ``no_memoize`` (by the
+cache rule, ``workflow/profiling.py``, when its output is over the
+device budget) is not memoized: each consumer recomputes it.
 
 Each stage runs inside the operations layer, as in the reference:
 
@@ -183,7 +185,10 @@ class GraphExecutor:
             if self.profile:
                 synchronize()
                 self.timings[target] = time.perf_counter() - t0
-        self.results[target] = result
+        if not getattr(op, "no_memoize", False):
+            # a node over the device budget (workflow/profiling.py) is
+            # recomputed for each consumer instead of pinned
+            self.results[target] = result
         return result
 
     def _attempt(self, op, deps):

@@ -7,7 +7,8 @@ three rule families:
 
   - EquivalentNodeMergeRule: CSE — merge structurally identical subgraphs
     so e.g. two branches sharing SIFT compute it once.
-  - AutoCacheRule: decide which shared outputs to materialize.
+  - AutoCacheRule: decide which shared outputs to materialize (the
+    profiled, budgeted pass of ``workflow/profiling.py``).
   - NodeOptimizationRule: per-node physical operator choice from sampled
     data statistics.
 
@@ -132,10 +133,10 @@ class AutoMaterializeRule(Rule):
 
     The reference's AutoCacheRule profiles nodes on sampled partitions and
     greedily places ``.cache()`` calls under a cluster-memory budget
-    (workflow/AutoCacheRule.scala).  Here the executor already memoizes
-    per-node results, so "cache or recompute" is decided structurally:
-    shared outputs get an explicit materialization barrier, which also
-    pins them as stage boundaries for the fusion rule below.
+    (workflow/AutoCacheRule.scala); that is ``ProfiledMaterializeRule``
+    below.  This is its structural fallback: every shared output gets an
+    explicit materialization barrier, which also pins it as a stage
+    boundary for the fusion rule.
     """
 
     name = "AutoMaterialize"
@@ -163,16 +164,28 @@ class AutoMaterializeRule(Rule):
 
 
 class ProfiledMaterializeRule(Rule):
-    """The reference's default materialization pass: its HBM-budgeted
-    ProfilingAutoCacheRule, which prices stages from XLA's compiled cost
-    analysis, falling back to the structural AutoMaterializeRule when
-    profiling is unavailable.  The port has no such cost source yet
-    (ROADMAP A14), so it always takes that fallback."""
+    """The default materialization pass, the reference's: the budgeted
+    ``ProfilingAutoCacheRule`` (``workflow/profiling.py``) with the budget
+    read from the device the graph runs on (``torch.cuda.mem_get_info``),
+    falling back to the structural AutoMaterializeRule when profiling
+    fails.  The fallback logs a warning and counts
+    ``optimizer.materialize_fallbacks``."""
 
     name = "ProfiledMaterialize"
+    #: rows of each dataset literal the profiled pass reads (fewer than
+    #: node choice's: it executes the shared nodes' whole prefix)
+    sample_size = 64
 
     def apply(self, graph: G.Graph, device=None) -> G.Graph:
-        return AutoMaterializeRule().apply(graph)
+        from keystone_tpu_torch.workflow.profiling import ProfilingAutoCacheRule, device_hbm_budget
+
+        try:
+            return ProfilingAutoCacheRule(budget_bytes=device_hbm_budget(device=data_device(graph, device)),
+                                          sample_size=self.sample_size, static_cost=True).apply(graph)
+        except Exception as e:
+            logger.warning("profiled materialization failed (%s); using the structural rule", e)
+            metrics.inc("optimizer.materialize_fallbacks")
+            return AutoMaterializeRule().apply(graph)
 
 
 # ------------------------------------------------------------- node choice
@@ -336,12 +349,23 @@ class StageFusionRule(Rule):
                 mop = graph.operators.get(m)
                 if not _fusable(mop) or graph.dependencies[m] != (n,):
                     continue
-                graph = graph.set_operator(m, G.TransformerOperator(FusedTransformer(_stages(op) + _stages(mop))))
+                graph = graph.set_operator(m, _carry_no_memoize(mop, FusedTransformer(_stages(op) + _stages(mop))))
                 graph = graph.set_dependencies(m, graph.dependencies[n])
                 graph = graph.remove_node(n)
                 changed = True
                 break
         return graph
+
+
+def _carry_no_memoize(op, fused: Transformer) -> G.TransformerOperator:
+    """The fused node's operator: its output is ``op``'s, so it carries the
+    cache rule's over-budget flag, or the executor would pin the very
+    output the device cannot afford.  (The node fused into it had one
+    consumer: its output is gone.)"""
+    out = G.TransformerOperator(fused)
+    if getattr(op, "no_memoize", False):
+        out.no_memoize = True
+    return out
 
 
 def _fusable(op) -> bool:
@@ -368,9 +392,12 @@ def _stages(op) -> list:
 
 
 # ------------------------------------------------------------ FV fusion
-def data_on_cuda(graph: G.Graph) -> bool:
-    """Whether the data bound into ``graph`` lives on a CUDA device (an
-    unbound graph has none)."""
+def data_device(graph: G.Graph, device=None) -> torch.device:
+    """Where ``graph`` runs: ``device`` when given (a graph optimized before
+    data is bound to it), else the CUDA device of its bound data, else the
+    CPU."""
+    if device is not None:
+        return torch.device(device)
     for op in graph.operators.values():
         if isinstance(op, G.DatasetOperator):
             ds = op.dataset
@@ -378,12 +405,12 @@ def data_on_cuda(graph: G.Graph) -> bool:
                 # the device, not the array: a stream's array would
                 # materialize it
                 if not ds.is_host and ds.device.type == "cuda":
-                    return True
+                    return ds.device
             elif isinstance(ds, torch.Tensor) and ds.is_cuda:
-                return True
+                return ds.device
         elif isinstance(op, G.DatumOperator) and isinstance(op.datum, torch.Tensor) and op.datum.is_cuda:
-            return True
-    return False
+            return op.datum.device
+    return torch.device("cpu")
 
 
 def device_is_cuda(device) -> bool:
@@ -414,7 +441,7 @@ class FvFusionRule(Rule):
     name = "FvFusion"
 
     def apply(self, graph: G.Graph, device=None) -> G.Graph:
-        if not (data_on_cuda(graph) if device is None else device_is_cuda(device)):
+        if not device_is_cuda(data_device(graph, device)):
             return graph
         from keystone_tpu_torch.models.pca import PCATransformer
         from keystone_tpu_torch.ops.fisher import FisherVector, FusedPcaFisherVector
@@ -446,7 +473,7 @@ class FvFusionRule(Rule):
                     raw.normalize = False
                     graph = graph.set_operator(feed[0], G.TransformerOperator(raw))
                 fused = FusedPcaFisherVector(pca, fv.gmm, sift_normalize=sift_normalize, use_kernel=fv.use_kernel)
-                graph = graph.set_operator(m, G.TransformerOperator(fused))
+                graph = graph.set_operator(m, _carry_no_memoize(graph.operators[m], fused))
                 graph = graph.set_dependencies(m, feed)
                 graph = graph.remove_node(n)
                 changed = True

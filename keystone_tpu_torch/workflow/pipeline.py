@@ -30,9 +30,15 @@ ledger is active (``obs/ledger.py``).
 once for the device it will serve on, then applied batch by batch, the
 serving path's entry (``keystone_tpu_torch/serve``).
 
-Not ported yet: the frozen applier's AOT artifacts (ROADMAP A11b), the
-pre-fit out-of-core conversion (A14), and the static validator and the
-cost-based planner behind ``validate=``/``plan=`` (A10).
+A fit's pre-flight (``_auto_out_of_core``) runs right after the
+optimizer: where the profiled materialization pass predicts a resident
+footprint over ``KEYSTONE_OOC_FRACTION`` of the device, the large tensor
+sources become streams and the fit spills out of core, or, with
+``KEYSTONE_AUTO_SPILL=0``, refuses with :class:`PreflightOOMError`.
+
+Not ported yet: the frozen applier's AOT artifacts (ROADMAP A11b), and
+the static validator and the cost-based planner behind
+``validate=``/``plan=`` (A10).
 """
 
 from __future__ import annotations
@@ -231,8 +237,9 @@ class Pipeline(Chainable):
         the fit returns, and the fitted pipeline keeps none of them.
 
         ``deadline``: a wall-clock budget for the whole fit, seconds or a
-        ``utils.guard.Deadline``, apportioned over the stages by the
-        executor: a stage that overruns its share raises
+        ``utils.guard.Deadline``, counted from this call (the optimizer's
+        profiled pass spends from it) and apportioned over the stages by
+        the executor: a stage that overruns its share raises
         ``DeadlineExceeded`` inside the stage-retry scope, so a hung
         stage is retried, degraded or fails the fit in bounded time.
         None (the default): no watchdog, no thread.
@@ -241,7 +248,9 @@ class Pipeline(Chainable):
         the fit runs in a ``pipeline.fit`` span and a metrics snapshot is
         written at its end."""
         from keystone_tpu_torch.obs import ledger
+        from keystone_tpu_torch.utils import guard
 
+        deadline = guard.as_deadline(deadline)
         with ledger.span("pipeline.fit"):
             fitted = self._fit_inner(deadline)
         led = ledger.active()
@@ -250,14 +259,13 @@ class Pipeline(Chainable):
         return fitted
 
     def _fit_inner(self, deadline) -> "FittedPipeline":
-        g = PipelineEnv.get_optimizer().execute(self.graph)
-        ex = GraphExecutor(g, deadline=deadline)
-        fitted: dict = {}
-        for n in g.topological_nodes():
-            if isinstance(g.operators[n], G.EstimatorOperator):
-                expr = ex.execute(n)
-                assert isinstance(expr, TransformerExpr)
-                fitted[n] = expr.transformer
+        from keystone_tpu_torch.workflow import profiling
+
+        # the pre-flight reads this fit's own materialize pass: a lazy
+        # apply's pass since the last fit must not stand in for it
+        profiling.last_footprint.clear()
+        g = _auto_out_of_core(PipelineEnv.get_optimizer().execute(self.graph))
+        fitted = fit_estimators(g, GraphExecutor(g, deadline=deadline))
         for n, t in fitted.items():
             for dep in g.dependents(n):
                 if isinstance(dep, G.NodeId) and isinstance(g.operators[dep], G.DelegatingOperator):
@@ -407,6 +415,91 @@ class FrozenApplier:
                              "fingerprint: a torch export or a CUDA-graph form) are not ported yet (ROADMAP A11b)")
 
     install_artifacts = fingerprint = export_artifacts
+
+
+def fit_estimators(g: G.Graph, ex: GraphExecutor) -> dict:
+    """Execute every estimator node of the optimized graph ``g`` on ``ex``,
+    in topological order: ``{node: fitted transformer}``."""
+    fitted: dict = {}
+    for n in g.topological_nodes():
+        if isinstance(g.operators[n], G.EstimatorOperator):
+            expr = ex.execute(n)
+            assert isinstance(expr, TransformerExpr)
+            fitted[n] = expr.transformer
+    return fitted
+
+
+class PreflightOOMError(RuntimeError):
+    """``fit()`` refused to start: the predicted resident footprint is over
+    the device's budget and auto-spill is off (``KEYSTONE_AUTO_SPILL=0``).
+    The message carries the predicted bytes and the ``--stream`` pointer."""
+
+
+def _auto_out_of_core(g: G.Graph) -> G.Graph:
+    """No ``fit()`` may run the card out of memory: the fit's pre-flight.
+
+    The profiled materialization pass priced every shared output
+    (``profiling.last_footprint``); this adds the bytes of the tensor
+    sources and compares the sum with ``KEYSTONE_OOC_FRACTION`` (0.45) of
+    the device's memory.  The estimate counts less than the fit holds
+    (unshared memoized outputs, the solver's features and state, and each
+    stage's temporaries ride on top), hence a fraction under one half.
+    Over it, each large tensor source (at least 1 MiB and an eighth of
+    the largest; labels and constants stay) becomes a ``StreamDataset``
+    over the same rows, in batches of ``KEYSTONE_SPILL_BATCH`` (512) made
+    by one device-to-host read and sent back to the source's device: the
+    featurization then streams and the solvers spill their features to a
+    ``FeatureBlockStore``, the ``--stream`` path.  ``KEYSTONE_AUTO_SPILL=0``
+    refuses instead with the predicted footprint.  The prediction is the
+    gauge ``pipeline.preflight_predicted_bytes``."""
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.workflow import profiling
+    from keystone_tpu_torch.workflow.dataset import StreamDataset
+
+    sources = []
+    for n, op in g.operators.items():
+        if isinstance(op, G.DatasetOperator):
+            ds = as_dataset(op.dataset)
+            if not isinstance(ds, StreamDataset) and not ds.is_host and ds.mask is None:
+                sources.append((n, ds, ds.array.numel() * ds.array.element_size()))
+    source_bytes = sum(b for _, _, b in sources)
+    shared_bytes = int(profiling.last_footprint.get("shared_bytes", 0))
+    # consume once: the estimate is this fit's materialize pass's
+    profiling.last_footprint.clear()
+    predicted = source_bytes + shared_bytes
+    metrics.set_gauge("pipeline.preflight_predicted_bytes", float(predicted))
+    frac = float(os.environ.get("KEYSTONE_OOC_FRACTION", "0.45"))
+    if not sources:
+        return g
+    _, largest, biggest = max(sources, key=lambda s: s[2])
+    limit = profiling.device_hbm_budget(fraction=frac, device=largest.device)
+    if predicted <= limit:
+        return g
+    if os.environ.get("KEYSTONE_AUTO_SPILL", "1") == "0":
+        raise PreflightOOMError(
+            f"fit() pre-flight: predicted resident footprint ~{predicted / 1e9:.2f} GB (sources "
+            f"{source_bytes / 1e9:.2f} GB + shared featurized outputs {shared_bytes / 1e9:.2f} GB) exceeds "
+            f"{frac:.0%} of device memory ({limit / 1e9:.2f} GB). Load the training data as a stream (app flag "
+            "--stream / --out-of-core, or build with a StreamDataset) so features spill to the disk block store, "
+            "or re-enable auto-spill (unset KEYSTONE_AUTO_SPILL).")
+    batch = int(os.environ.get("KEYSTONE_SPILL_BATCH", "512"))
+    for n, ds, b in sources:
+        # parameter-sized datasets (labels, constants) stay resident:
+        # streaming them saves nothing, and estimators read labels whole
+        if b < max(1 << 20, biggest // 8):
+            continue
+        rows = ds.array[: ds.n].cpu()  # one device-to-host read
+
+        def batches(_rows=rows):
+            for i in range(0, _rows.shape[0], batch):
+                yield _rows[i:i + batch]
+
+        g = g.set_operator(n, G.DatasetOperator(StreamDataset(batches, n=ds.n, name=ds.name, device=ds.device)))
+        logging.getLogger(__name__).warning(
+            "fit() pre-flight: predicted footprint %.2f GB exceeds the %.2f GB device budget; source %s (%.2f GB) "
+            "converted to a stream, its features will spill to the disk block store (KEYSTONE_AUTO_SPILL=0 to "
+            "refuse instead)", predicted / 1e9, limit / 1e9, ds.name or "dataset", b / 1e9)
+    return g
 
 
 def fit_relevant_config(config, exclude=()):

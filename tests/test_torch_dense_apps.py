@@ -243,7 +243,7 @@ def test_voc_scoring_fuses_the_sift_branch(monkeypatch):
     test = VOCLoader.synthetic(8, size=size, seed=2, device="cpu")
     fitted = pvo.VOCSIFTFisher.build(dataclasses.replace(cfg, synthetic_n=24), train.data, train.labels).fit()
     plain = fitted(test.data).get().numpy()
-    monkeypatch.setattr(opt, "data_on_cuda", lambda graph: True)
+    monkeypatch.setattr(opt, "device_is_cuda", lambda device: True)
     g = PipelineEnv.get_optimizer().execute(fitted(test.data).graph)
     fused = [op.transformer for op in g.operators.values()
              if isinstance(getattr(op, "transformer", None), FusedPcaFisherVector)]

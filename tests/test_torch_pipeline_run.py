@@ -90,17 +90,38 @@ def test_graph_fit_scores_match_fit_params(graph_and_params):
 
 def test_fit_featurizes_the_training_set_once(monkeypatch):
     """CSE merges the samplers' and the solver's featurizations of the
-    training set (and both branches' PixelScaler): each runs once."""
-    rows = {}
+    training set (and both branches' PixelScaler): each runs once.  The
+    profiled materialization pass runs the shared ones once more on its
+    sample (the first 64 rows, a third of a 192-row set); its pricing at
+    full batch runs them on fake tensors, which read no data and are not
+    counted."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from keystone_tpu_torch.workflow import profiling
+
+    n = 192
+    rows = {"fit": {}, "profile": {}}
+    where = ["fit"]
     for cls in (PixelScaler, SIFTExtractor, LCSExtractor):
         def counted(self, xs, mask=None, _orig=cls.apply_batch, _name=cls.__name__):
-            rows[_name] = rows.get(_name, 0) + xs.shape[0]
+            if not isinstance(xs, FakeTensor):
+                rows[where[0]][_name] = rows[where[0]].get(_name, 0) + xs.shape[0]
             return _orig(self, xs, mask)
         monkeypatch.setattr(cls, "apply_batch", counted)
-    train = ImageNetLoader.synthetic(CFG.synthetic_n, CFG.num_classes, SIZE, seed=1, device="cpu")
+    orig_profile = profiling.profile_graph
+
+    def profiled(*a, **kw):
+        where[0] = "profile"
+        try:
+            return orig_profile(*a, **kw)
+        finally:
+            where[0] = "fit"
+
+    monkeypatch.setattr(profiling, "profile_graph", profiled)
+    train = ImageNetLoader.synthetic(n, CFG.num_classes, SIZE, seed=1, device="cpu")
     ImageNetSiftLcsFV.build(CFG, train.data, train.labels).fit()
-    assert rows == {"PixelScaler": CFG.synthetic_n, "SIFTExtractor": CFG.synthetic_n,
-                    "LCSExtractor": CFG.synthetic_n}
+    assert rows == {"fit": {"PixelScaler": n, "SIFTExtractor": n, "LCSExtractor": n},
+                    "profile": {"PixelScaler": 64, "SIFTExtractor": 64, "LCSExtractor": 64}}
 
 
 def test_model_path_round_trip(tmp_path):

@@ -425,16 +425,17 @@ def fitted_fv():
 
 def test_freeze_fuses_fv_for_a_cuda_applier_only(fitted_fv, monkeypatch):
     """Freeze decides FV fusion by the applier's device: not for the CPU;
-    for CUDA (the device check patched, as the data check is for
-    ``Pipeline.apply`` in test_torch_workflow.py) both PCA → FV pairs fuse
-    and SIFT's normalize moves into the fused node.  Either graph serves
-    the offline top-k; ``Pipeline.apply`` on CPU data is unchanged."""
+    for CUDA (the device check patched to call the applier's ``cpu:0`` a
+    CUDA device, and not the test data's ``cpu``) both PCA → FV pairs
+    fuse and SIFT's normalize moves into the fused node.  Either graph
+    serves the offline top-k; ``Pipeline.apply`` on CPU data is
+    unchanged."""
     fitted, test = fitted_fv
     want = fitted(test.data).get().numpy()
     cpu = fitted.freeze(device="cpu")
     assert _fv_nodes(cpu.graph) == ["FisherVector", "FisherVector"]
-    monkeypatch.setattr(O, "device_is_cuda", lambda device: True)
-    fused = fitted.freeze(device="cpu")
+    monkeypatch.setattr(O, "device_is_cuda", lambda device: device == torch.device("cpu", 0))
+    fused = fitted.freeze(device="cpu:0")
     assert _fv_nodes(fused.graph) == ["FusedFV[PCA > FV]", "FusedFV[SiftNorm > PCA > FV]"]
     assert _fv_nodes(O.default_optimizer().execute(fitted(test.data).graph)) == ["FisherVector", "FisherVector"]
     imgs = test.data.array

@@ -193,7 +193,7 @@ def test_optimizer_samples_a_stream_from_its_first_batches():
     cuda_stream = StreamDataset._wrap(lambda: iter(()), 5, torch.device("cuda"))
     g, _ = Pipeline.of(GrayScaler()).graph.replace_source_with_node(
         Pipeline.of(GrayScaler()).source, optimizer.G.DatasetOperator(cuda_stream))
-    assert optimizer.data_on_cuda(g)  # from the stream's device, without sweeping it
+    assert optimizer.data_device(g) == torch.device("cuda")  # from the stream's device, without sweeping it
 
 
 # ------------------------------------------------------- the streamed fit
@@ -240,30 +240,50 @@ def test_streamed_fit_sweeps_the_stream_as_predicted(monkeypatch):
     """Each consumer re-sweeps the training stream: the two samplers of a
     branch and the solver's spill each run its extractor once over it
     (three sweeps a branch), and the spill's gather decodes the source
-    once a branch."""
+    once a branch.  The profiled materialization pass before them reads
+    the stream's head (its sample of 64 rows, here all 24) and runs the
+    shared extractors on it once; its pricing at full batch runs them on
+    fake tensors, which read no data and are not counted."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
     from keystone_tpu_torch.ops.lcs import LCSExtractor
     from keystone_tpu_torch.ops.sift import SIFTExtractor
+    from keystone_tpu_torch.workflow import profiling
 
-    rows = {"SIFTExtractor": 0, "LCSExtractor": 0, "source": 0}
+    rows = {"fit": {"SIFTExtractor": 0, "LCSExtractor": 0, "source": 0},
+            "profile": {"SIFTExtractor": 0, "LCSExtractor": 0, "source": 0}}
+    where = ["fit"]
     for cls in (SIFTExtractor, LCSExtractor):
         orig = cls.apply_batch
 
         def counted(self, xs, mask=None, _orig=orig, _name=cls.__name__):
-            rows[_name] += xs.shape[0]
+            if not isinstance(xs, FakeTensor):
+                rows[where[0]][_name] += xs.shape[0]
             return _orig(self, xs, mask)
 
         monkeypatch.setattr(cls, "apply_batch", counted)
+    orig_profile = profiling.profile_graph
+
+    def profiled(*a, **kw):
+        where[0] = "profile"
+        try:
+            return orig_profile(*a, **kw)
+        finally:
+            where[0] = "fit"
+
+    monkeypatch.setattr(profiling, "profile_graph", profiled)
     st = ImageNetLoader.synthetic_stream(24, 4, (48, 48), seed=1, batch_size=7, device="cpu")
     src = st.data._gen
 
     def counted_source():
         for arr, mask in src():
-            rows["source"] += arr.shape[0]
+            rows[where[0]]["source"] += arr.shape[0]
             yield arr, mask
 
     st.data._gen = counted_source
     ImageNetSiftLcsFV.build(Config(**BASE, stream=True), st.data, st.labels).fit()
-    assert rows == {"SIFTExtractor": 3 * 24, "LCSExtractor": 3 * 24, "source": 6 * 24}
+    assert rows == {"fit": {"SIFTExtractor": 3 * 24, "LCSExtractor": 3 * 24, "source": 6 * 24},
+                    "profile": {"SIFTExtractor": 24, "LCSExtractor": 24, "source": 24}}
 
 
 def test_run_streams_with_stream_batch_size(monkeypatch):

@@ -347,7 +347,7 @@ def test_fv_fusion_rule_rewrites_as_the_reference(fitted_small, monkeypatch):
     base = fitted(test.data).get().numpy()
     # inert where the data is on the CPU: the graph is untouched
     assert O.FvFusionRule().apply(bound) is bound
-    monkeypatch.setattr(O, "data_on_cuda", lambda graph: True)
+    monkeypatch.setattr(O, "device_is_cuda", lambda device: True)
     g2 = O.FvFusionRule().apply(bound)
     monkeypatch.setattr(jfp, "pallas_supported", lambda x=None: True)
     jg2 = JO.PallasFvFusionRule().apply(jfitted(jtest.data).graph)
@@ -369,7 +369,7 @@ def test_fv_fusion_rule_rewrites_as_the_reference(fitted_small, monkeypatch):
 
 def test_fv_fusion_rule_honours_use_kernel_false(fitted_small, monkeypatch):
     fitted, test, _, _ = fitted_small
-    monkeypatch.setattr(O, "data_on_cuda", lambda graph: True)
+    monkeypatch.setattr(O, "device_is_cuda", lambda device: True)
     g = fitted(test.data).graph
     for n, op in list(g.operators.items()):
         if isinstance(getattr(op, "transformer", None), FisherVector):
