@@ -218,10 +218,26 @@ result line):
    under load to other weights (nothing lost, answers after the commit
    from the new weights), a draining close; S4, serve_bench's open-loop
    generator at 50% and 90% of S1's saturation rate (p50/p99/p99.9, sheds,
-   queue depth);
+   queue depth); S5, the model lifecycle: the scorer's raw scores
+   exported at buckets 8..128 and published with S3's weights to a
+   temporary registry (v0001, v0002), v0001 served from it on two
+   replicas with one CUDA graph a bucket captured at prime (pool bytes by
+   bucket, B1 twice in each graph), each replica's replay at each bucket
+   bit for bit against its own walk, the served scores against the
+   offline scorer; S1's saturation loop with the graphs on and off
+   (images/s, p50/p99, the worker's ms a flush by step from
+   tools/serve_hostprof.py); ``cli serve --model-dir --watch --canary
+   --bake-s`` in a child under POSTed traffic: v0002 committed by the
+   canary and baked, a marker-gated v0003 rolled back and quarantined,
+   ``POST /rollback`` to v0001, the three episodes in /rolloutz, the
+   answers of each phase from its version's weights, nothing lost,
+   SIGINT exit 0; the autoscaler (1..3) under an open-loop burst at 1.5x
+   S1's saturation growing the fleet, each new replica primed from the
+   graphs, and shrinking back to 1 when idle; no artifact fallback
+   anywhere, B1's launches by the wrapper and by replays;
 25. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
-   cores and on the tensor cores, launches, float64 errors) for all four
-   kernels, B3's and B4's times at the new paths' shapes and B1's and
+   cores and on the tensor cores, launches (bucket-graph replays
+   included), float64 errors) for all four kernels, B3's and B4's times at the new paths' shapes and B1's and
    B2's at VOC's among them, then the last line {"ok": true, "device":
    {...}}.  The card's name and power limit and scipy's version are
    printed first.
@@ -4651,6 +4667,410 @@ def open_loop_path(dev, card, fk, scorer, images, saturation_ips):
     return out
 
 
+# ---- the model lifecycle (S5): the full-width scorer's raw scores exported
+# at the serving buckets and published to a temporary registry (v0001; S3's
+# other weights v0002), served from it on two replicas with their bucket
+# graphs (captured at prime, replayed a flush), S1's saturation loop with
+# the graphs on and off, the registry watcher with a canary and a bake in
+# a `cli serve` child under POSTed traffic (v0002 committed, a bad v0003
+# rolled back and quarantined, POST /rollback to v0001), then the
+# autoscaler under an open-loop burst.  A bucket graph replays the walk's
+# kernels on the same inputs: its rows are held to the walk's bit for bit;
+# served rows against the offline scorer at TOL_SERVE_SCORES, as S1's.
+# The phase fails if serve.artifact_fallbacks moves at all.
+S5_WATCH_S, S5_CANARY, S5_BAKE_S = 0.2, 0.25, 2.0
+S5_HTTP_CLIENTS = 2
+S5_HTTP_MAX_BATCH = 16
+S5_EPISODE_S = 90.0  # the bound of each wait on a rollout episode
+S5_AUTOSCALE = {"min_workers": 1, "max_workers": 3, "interval_s": 0.1, "up_cooldown_s": 0.5,
+                "down_cooldown_s": 1.0, "down_ticks": 5}
+S5_OVERLOAD = 1.5  # the burst's offered load, a multiple of S1's saturation rate
+S5_BURST_S = 3.0
+
+
+def _marked(i: int) -> np.ndarray:
+    """Request image ``i`` of the S5 HTTP traffic: seeded, distinct for
+    every i, with the rollout drill's marker in its first pixel (the bad
+    version's gate fails it; the good versions serve it)."""
+    x = np.random.default_rng(10_000 + i).integers(0, 256, (IMAGE_HW, IMAGE_HW, 3), dtype=np.uint8)
+    x[0, 0, 0] = 123
+    return x
+
+
+class _HttpTraffic:
+    """Client threads POSTing one marked image a request to ``base`` until
+    stopped; every request's (index, status, body, sent, answered)."""
+
+    def __init__(self, base: str, clients: int):
+        import threading
+
+        self.base, self.log, self._lock = base, [], threading.Lock()
+        self._next = iter(range(10 ** 9))
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, daemon=True) for _ in range(clients)]
+
+    def _run(self):
+        while not self._stop.is_set():
+            with self._lock:
+                i = next(self._next)
+            t0 = time.monotonic()
+            try:
+                # pixels as JSON integers: a body the server parses without
+                # a float object per pixel
+                status, body, _ = http_call(self.base + "/predict", {"instances": [_marked(i).tolist()]},
+                                            headers={"X-Request-Id": f"s5-{i}"})
+            except Exception as e:  # a lost request: reported by the phase
+                status, body = None, f"{type(e).__name__}: {e}"
+            with self._lock:
+                self.log.append((i, status, body, t0, time.monotonic()))
+
+    def __enter__(self):
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for t in self._threads:
+            t.join(SERVE_RESULT_S)
+
+    def since(self, t: float) -> list:
+        with self._lock:
+            return [e for e in self.log if e[3] >= t]
+
+
+def lifecycle_path(dev, card, P, fk, scorer, images, params_b, saturation_ips):
+    """S5: the model lifecycle on the card (see the comment above)."""
+    import re
+    import signal
+    import threading
+
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.serve import ModelRegistry, serve
+    from keystone_tpu_torch.tools import serve_bench, serve_hostprof
+    from keystone_tpu_torch.utils import graphs
+    from keystone_tpu_torch.workflow.dataset import Dataset
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    out = {}
+    t_s5 = time.perf_counter()
+    reg_counter = metrics.REGISTRY.counter_total
+    fb0 = reg_counter("serve.artifact_fallbacks")
+
+    def no_fallback(where):
+        fb = reg_counter("serve.artifact_fallbacks") - fb0
+        check(fb == 0, f"S5 {where}: serve.artifact_fallbacks moved by {fb}")
+
+    def prime_count(source):
+        h = metrics.REGISTRY.histogram_value("serve.prime_seconds", source=source) or {}
+        return int(h.get("count") or 0)
+
+    imgs = images.cpu().numpy()
+    cfg = P.Config(sift_step=SIFT_STEP, sift_bin_size=SIFT_BIN, lcs_step=LCS_STEP, lcs_subpatch=LCS_SUB)
+    scorer_b = P.build_scorer_from_params(params_b, cfg, dev)
+    scores_a, scores_b = P.scores_of(scorer), P.scores_of(scorer_b)
+    v1_pipe, v2_pipe = Pipeline.of(scores_a).fit(), Pipeline.of(scores_b).fit()
+    v3_pipe = (Pipeline.of(serve_bench.MarkerGate()) | scores_b).fit()
+    off_scores = torch.cat([scores_a(b) for b in images.split(BATCH)]).cpu().numpy()
+    off_ids = torch.cat([scorer(b) for b in images.split(BATCH)]).cpu().numpy()
+    tmp = Path(tempfile.mkdtemp(prefix="serve_registry_", dir=REPO))
+    fk.reset_launches()
+    graphs.reset_replayed()
+    try:
+        with phase("serve S5: export the scorer at the serving buckets, publish v0001 and v0002 with artifacts"):
+            reg = ModelRegistry(str(tmp / "registry"))
+            t0 = time.perf_counter()
+            bundle_a = v1_pipe.freeze(device=dev).export_artifacts(example=imgs[0], buckets=SERVE_BUCKETS)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            v1 = reg.publish(v1_pipe, artifacts=bundle_a)
+            publish_s = time.perf_counter() - t0
+            bundle_b = v2_pipe.freeze(device=dev).export_artifacts(example=imgs[0], buckets=SERVE_BUCKETS)
+            v2 = reg.publish(v2_pipe, artifacts=bundle_b, set_current=False)
+            man = bundle_a["manifest"]
+            check(reg.versions() == [v1, v2] and reg.current() == v1, f"registry {reg.versions()} {reg.current()}")
+            check(reg.load_artifacts(v1)["manifest"] == man and man["buckets"] == list(SERVE_BUCKETS),
+                  "the published manifest differs from the exported one")
+            check(man["signature"] != bundle_b["manifest"]["signature"], "two weight sets share a signature")
+            print(f"  export {export_s:.3f} s, publish {publish_s:.3f} s; manifest: torch {man['torch_version']}, "
+                  f"CUDA {man['cuda_version']}, {man['device']}, kernels {man['kernels']}, signature "
+                  f"{man['signature']}, buckets {man['buckets']} of {tuple(man['item_shape'])} {man['dtype']}",
+                  flush=True)
+            out["export"] = {"export_s": export_s, "publish_s": publish_s, "manifest": man}
+
+        with phase("serve S5: v0001 from the registry on two replicas with its bucket graphs"):
+            fitted, ver = reg.load(map_location=dev)
+            check(ver == v1, f"the deploy pick is {ver}")
+            a0, c0 = prime_count("artifact"), prime_count("compile")
+            t0 = time.perf_counter()
+            svc = serve(fitted.freeze(device=dev), replicas=2, devices=[dev, dev], max_batch=BATCH,
+                        buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS, queue_bound=4 * SERVE_CLIENTS * SERVE_SAT_WINDOW,
+                        example=imgs[0], version=ver, artifacts=reg.load_artifacts(ver), name="s5")
+            build_s = time.perf_counter() - t0
+            try:
+                no_fallback("build and prime")
+                check(prime_count("artifact") - a0 == 2 * len(SERVE_BUCKETS) and prime_count("compile") == c0,
+                      "a bucket primed without its graph")
+                pools = {}
+                for r in svc._pool.replicas:
+                    st = r.applier.graph_stats()
+                    check(sorted(st) == list(SERVE_BUCKETS), f"replica {r.index} graphs {sorted(st)}")
+                    for b, g in st.items():
+                        check(g["captured"] and g["launches"] == {"fused_forward": 2},
+                              f"replica {r.index} bucket {b}: {g} (B1 twice a graph expected)")
+                    pools[r.index] = {b: g["pool_bytes"] for b, g in st.items()}
+                    print(f"  replica {r.index}: graph pool bytes by bucket {pools[r.index]} "
+                          f"({sum(pools[r.index].values()) / 2 ** 20:.1f} MiB)", flush=True)
+                print(f"  built, installed and captured {2 * len(SERVE_BUCKETS)} graphs in {build_s:.3f} s "
+                      f"({card})", flush=True)
+                # each replica, each bucket: one flush's apply through the
+                # service's path (pad, pinned copy, replay, read-back) against
+                # the same applier's walk, bit for bit
+                for r in svc._pool.replicas:
+                    for b in SERVE_BUCKETS:
+                        got = svc._apply_rows(imgs[:b], replica=r)
+                        with r.on_stream():
+                            want = r.applier._walk(Dataset(torch.from_numpy(imgs[:b]).to(r.device))).array
+                            want = want.cpu().numpy()
+                        check(got.tobytes() == want.tobytes(), f"replica {r.index} bucket {b}: replay != walk")
+                for r in svc._pool.replicas:
+                    check(all(g["replays"] >= 1 for g in r.applier.graph_stats().values()),
+                          f"replica {r.index}: a bucket never replayed")
+                # through the batcher: one flush a bucket, against the offline scorer
+                served, start = [], 0
+                for b in SERVE_BUCKETS:
+                    served += [f.result(timeout=SERVE_RESULT_S) for f in svc.submit_many(list(imgs[start:start + b]))]
+                    start += b
+                served = np.stack(served)
+                err = compare(f"{len(served)} served raw scores (one flush a bucket) against the offline scores",
+                              torch.from_numpy(served), torch.from_numpy(off_scores[:len(served)]), TOL_SERVE_SCORES,
+                              RTOL_SERVE_SCORES)
+                top = top5_check("S5 top-5 of the served scores", np.argsort(-served, axis=1, kind="stable")[:, :5],
+                                 off_ids[:len(served)], off_scores[:len(served)])
+                no_fallback("serving")
+                out["registry_serve"] = {"build_s": build_s, "pool_bytes": pools, "scores_max_abs_err": err,
+                                         "top5": top, "bit_equal_buckets": list(SERVE_BUCKETS)}
+            finally:
+                svc.close(timeout=SERVE_RESULT_S)
+
+        with phase("serve S5: S1's saturation closed loop, bucket graphs on and off (one replica each)"):
+            svcs = {}
+            for mode in ("on", "off"):
+                svcs[mode] = serve(fitted.freeze(device=dev), max_batch=BATCH, buckets=SERVE_BUCKETS,
+                                   max_wait_ms=SERVE_WAIT_MS, queue_bound=4 * SERVE_CLIENTS * SERVE_SAT_WINDOW,
+                                   example=imgs[0], version=ver, name=f"s5_{mode}",
+                                   artifacts=reg.load_artifacts(ver) if mode == "on" else None)
+            loops = {"on": [], "off": []}
+            try:
+                check(svcs["on"]._pool.replicas[0].applier.installed_buckets() == len(SERVE_BUCKETS)
+                      and svcs["off"]._pool.replicas[0].applier.installed_buckets() == 0, "graph tiers")
+                for mode in ("on", "off", "off", "on"):
+                    svc = svcs[mode]
+                    r0 = serve_counters(metrics)
+                    outs, lat, wall = serve_closed_loop(svc, imgs, SERVE_SAT_N, SERVE_SAT_WINDOW)
+                    flushes = serve_counters(metrics)["batches"] - r0["batches"]
+                    got = np.stack(outs)
+                    idx = np.arange(SERVE_SAT_N) % len(imgs)
+                    err = compare(f"closed loop, graphs {mode}: {SERVE_SAT_N} served raw scores", torch.from_numpy(got),
+                                  torch.from_numpy(off_scores[idx]), TOL_SERVE_SCORES, RTOL_SERVE_SCORES)
+                    prof = serve_hostprof.run(svc, imgs, "threads", SERVE_SAT_N, SERVE_CLIENTS, SERVE_SAT_WINDOW)
+                    rec = {"images_per_s": SERVE_SAT_N / wall, "flushes": flushes,
+                           "requests_per_flush": SERVE_SAT_N / max(1, flushes),
+                           "p50_ms": float(np.percentile(lat, 50) * 1e3), "p99_ms": float(np.percentile(lat, 99) * 1e3),
+                           "max_abs_err": err, "hostprof": {k: prof[k] for k in (
+                               "images_per_s", "requests_per_flush", "wall_ms_per_flush", "flush_ms", "cpu_s")}}
+                    loops[mode].append(rec)
+                    fm = prof["flush_ms"]
+                    print(f"  graphs {mode}: {rec['images_per_s']:.1f} images/s, {rec['requests_per_flush']:.2f} "
+                          f"requests a flush, p50 {rec['p50_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms; profiled loop "
+                          f"{prof['images_per_s']:.1f} images/s, the worker's ms a flush: "
+                          + ", ".join(f"{k} {v:.3f}" for k, v in fm.items()) + f" ({card})", flush=True)
+                no_fallback("closed loops")
+                rep = svcs["on"]._pool.replicas[0].applier
+                check(all(g["replays"] > 0 for b, g in rep.graph_stats().items() if b == BATCH),
+                      "the 128-row bucket never replayed in the closed loop")
+            finally:
+                for svc in svcs.values():
+                    svc.close(timeout=SERVE_RESULT_S)
+            out["closed_loop"] = loops
+
+        with phase("serve S5: `cli serve --model-dir --watch --canary --bake-s`: commit, rollback, /rollback"):
+            scores_v = {v1: scores_a, v2: scores_b}
+
+            def offline(i, version):
+                x = torch.from_numpy(_marked(i)[None]).to(dev)
+                return scores_v[version](x)[0].cpu().numpy()
+
+            def answered_by(entries, version, label):
+                """Every 200 answer among ``entries`` is ``version``'s scores."""
+                ok = [e for e in entries if e[1] == 200]
+                check(ok, f"{label}: no answer")
+                for i, _, body, _, _ in ok[:: max(1, len(ok) // 16)]:
+                    got = np.asarray(body["predictions"][0], np.float32)
+                    want = offline(i, version)
+                    err = np.abs(got - want).max()
+                    check(bool(np.all(np.abs(got - want) <= TOL_SERVE_SCORES + RTOL_SERVE_SCORES * np.abs(want))),
+                          f"{label}: request {i} differs from {version}'s scores by {err:.3e}")
+                return len(ok)
+
+            cmd = [sys.executable, "-m", "keystone_tpu_torch.cli", "serve", "--model-dir", reg.root, "--device",
+                   DEVICE, "--port", "0", "--max-batch", str(S5_HTTP_MAX_BATCH), "--max-wait-ms", "2",
+                   "--example-shape", f"{IMAGE_HW},{IMAGE_HW},3", "--watch", str(S5_WATCH_S), "--canary",
+                   str(S5_CANARY), "--bake-s", str(S5_BAKE_S)]
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(REPO),
+                                    env={**os.environ, "PYTHONPATH": str(REPO)})
+            try:
+                line, lines = "", []
+                while "serving" not in line and proc.poll() is None and time.perf_counter() - t0 < 600:
+                    line = proc.stdout.readline()
+                    lines.append(line)
+                check("serving" in line and "artifacts on" in line, f"`cli serve` did not start: {''.join(lines)[-2000:]}")
+                base = line.split(" on ", 1)[1].split(" ", 1)[0]
+                # drain the child's log as it comes: a full pipe would stall it
+                drain = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+                drain.start()
+                print(f"  `cli serve --model-dir` up in {time.perf_counter() - t0:.2f} s at {base}", flush=True)
+
+                def rolloutz():
+                    return http_call(base + "/rolloutz")[1]
+
+                def wait_episode(version, verdict):
+                    deadline = time.monotonic() + S5_EPISODE_S
+                    while time.monotonic() < deadline:
+                        hist = rolloutz()["history"]
+                        hit = [h for h in hist if h["version"] == version and h["verdict"] == verdict]
+                        if hit:
+                            return hit[-1]
+                        time.sleep(0.1)
+                    raise AssertionError(f"no {verdict} episode of {version} in {S5_EPISODE_S} s: {rolloutz()}")
+
+                episodes = {}
+                with _HttpTraffic(base, S5_HTTP_CLIENTS) as traffic:
+                    time.sleep(1.0)
+                    answered_by(traffic.since(0.0), v1, "before the first publish")
+                    t_pub2 = time.monotonic()
+                    reg.set_current(v2)
+                    episodes["v0002"] = wait_episode(v2, "committed")
+                    t_commit = time.monotonic()
+                    print(f"  v0002 published: committed in {t_commit - t_pub2:.2f} s ({episodes['v0002']['reason']}, "
+                          f"canary {episodes['v0002']['canary']})", flush=True)
+                    deadline = time.monotonic() + S5_BAKE_S + 10.0
+                    while rolloutz()["active"] is not None and time.monotonic() < deadline:
+                        time.sleep(0.1)  # the bake
+                    check(rolloutz()["active"] is None and rolloutz()["version"] == v2, f"the bake: {rolloutz()}")
+                    t_baked = time.monotonic()
+                    time.sleep(0.5)
+                    n2 = answered_by(traffic.since(t_baked), v2, "after v0002's commit")
+                    t_pub3 = time.monotonic()
+                    v3 = reg.publish(v3_pipe)
+                    episodes["v0003"] = wait_episode(v3, "rolled_back")
+                    t_rb = time.monotonic()
+                    check(reg.quarantined(v3) is not None and reg.current() == v2,
+                          f"v0003 quarantined {reg.quarantined(v3)}, CURRENT {reg.current()}")
+                    print(f"  v0003 (marker gate) published: rolled back in {t_rb - t_pub3:.2f} s "
+                          f"({episodes['v0003']['reason']}, canary {episodes['v0003']['canary']}); BAD "
+                          f"{reg.quarantined(v3)!r}, CURRENT {reg.current()}", flush=True)
+                    time.sleep(1.0)
+                    n3 = answered_by(traffic.since(t_rb + 0.2), v2, "after v0003's rollback")
+                    status, info, _ = http_call(base + "/rollback", {})
+                    check(status == 200 and info.get("rolled_back_to") == v1, f"/rollback: {status} {info}")
+                    t_manual = time.monotonic()
+                    time.sleep(1.0)
+                    n1 = answered_by(traffic.since(t_manual + 0.2), v1, "after POST /rollback")
+                hist = rolloutz()["history"]
+                check([(h["version"], h["verdict"]) for h in hist] == [(v2, "committed"), (v3, "rolled_back"),
+                                                                       (v1, "rolled_back")], f"/rolloutz {hist}")
+                log = traffic.log
+                lost = [e for e in log if e[1] is None]
+                check(not lost, f"{len(lost)} requests lost: {lost[:2]}")
+                refused = [e for e in log if e[1] != 200]
+                check(all(e[1] == 422 and t_pub3 <= e[3] <= t_rb for e in refused),
+                      f"answers other than 200 outside v0003's canary: {[(e[0], e[1]) for e in refused[:4]]}")
+                status, st, _ = http_call(base + "/statusz")
+                check(status == 200 and st["counters"]["artifact_fallbacks"] == 0 and st["version"] == v1,
+                      f"/statusz {st.get('counters')} {st.get('version')}")
+                proc.send_signal(signal.SIGINT)
+                proc.wait(timeout=120)
+                drain.join(30)
+                tail = "".join(lines)
+                check(proc.returncode == 0, f"`cli serve` exited {proc.returncode} on SIGINT: {tail[-2000:]}")
+                m = re.search(r"fisher_kernels launches (\{.*\})", tail)
+                r = re.search(r"graph replay launches (\{.*\})", tail)
+                check(m is not None and r is not None, f"no launch counts printed: {tail[-2000:]}")
+                launches = json.loads(m.group(1).replace("'", '"'))
+                replayed = json.loads(r.group(1).replace("'", '"'))
+                print(f"  {len(log)} requests from {S5_HTTP_CLIENTS} threads, none lost, {len(refused)} refused by "
+                      f"v0003's gate in its canary (422); answers checked: v0002 {n2}, after the rollback {n3}, after "
+                      f"/rollback {n1}; child's launches {launches}, graph replays {replayed}; SIGINT: exit 0 "
+                      f"({card})", flush=True)
+                check(replayed.get("fused_forward", 0) > 0, "the child replayed no bucket graph")
+                out["watcher"] = {"requests": len(log), "refused_422": len(refused), "episodes": hist,
+                                  "commit_s": t_commit - t_pub2, "rollback_s": t_rb - t_pub3,
+                                  "launches": launches, "replayed": replayed}
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+
+        with phase("serve S5: autoscale 1..3 under an open-loop burst, then idle"):
+            a0, c0 = prime_count("artifact"), prime_count("compile")
+            ups0, downs0 = reg_counter("serve.scale_ups"), reg_counter("serve.scale_downs")
+            svc = serve(reg.load(v1, map_location=dev)[0].freeze(device=dev), max_batch=BATCH, buckets=SERVE_BUCKETS,
+                        max_wait_ms=SERVE_WAIT_MS, queue_bound=8192, example=imgs[0], version=v1,
+                        artifacts=reg.load_artifacts(v1), name="s5_autoscale", autoscale=dict(S5_AUTOSCALE))
+            try:
+                sizes, stop = [], threading.Event()
+
+                def sample():
+                    while not stop.wait(0.01):
+                        sizes.append(svc.replicas)
+
+                sampler = threading.Thread(target=sample)
+                sampler.start()
+                try:
+                    t0 = time.perf_counter()
+                    rep = serve_bench.run_bench(svc, imgs.shape[1:], qps=S5_OVERLOAD * saturation_ips,
+                                                duration=S5_BURST_S, burst=SERVE_S4_BURST, payload=imgs)
+                    burst_s = time.perf_counter() - t0
+                    peak = max(sizes) if sizes else svc.replicas
+                    deadline = time.monotonic() + 60.0
+                    while svc.replicas > 1 and time.monotonic() < deadline:
+                        time.sleep(0.05)
+                    idle_s = time.perf_counter() - t0 - burst_s
+                finally:
+                    stop.set()
+                    sampler.join(10)
+                ups, downs = reg_counter("serve.scale_ups") - ups0, reg_counter("serve.scale_downs") - downs0
+                check(rep["errors"] == 0 and rep["shed"] == 0 and rep["completed"] + rep["rejected"] == rep["n_requests"],
+                      f"autoscale burst lost futures: {rep}")
+                check(peak >= 2 and svc.replicas == 1, f"the fleet peaked at {peak} and ended at {svc.replicas}")
+                check(prime_count("artifact") - a0 == len(SERVE_BUCKETS) * (1 + ups) and prime_count("compile") == c0,
+                      "a scale-up primed a bucket without its graph")
+                no_fallback("autoscale")
+                st = svc.status()["autoscaler"]
+                print(f"  offered {rep['offered_qps']:.1f}/s ({S5_OVERLOAD:g}x saturation) for {S5_BURST_S} s: "
+                      f"completed {rep['completed']}, rejected {rep['rejected']}, errors 0, achieved "
+                      f"{rep['achieved_qps']:.1f}/s, p99 {rep['p99_ms']:.3f} ms; fleet 1 -> {peak} -> {svc.replicas} "
+                      f"({ups:g} up, {downs:g} down, each new replica's {len(SERVE_BUCKETS)} buckets primed from its "
+                      f"graphs), back to 1 in {idle_s:.2f} s idle; last action {st['last_action']} ({card})",
+                      flush=True)
+                out["autoscale"] = {"burst": rep, "peak_replicas": peak, "ups": ups, "downs": downs,
+                                    "idle_to_one_s": idle_s}
+            finally:
+                svc.close(timeout=SERVE_RESULT_S)
+        out["launches"] = dict(fk.LAUNCHES)
+        out["replayed"] = dict(graphs.REPLAYED)
+        check(out["replayed"].get("fused_forward", 0) > 0 and out["launches"]["fisher_encode"] == 0
+              and out["replayed"].get("fisher_encode", 0) == 0, f"S5 launches {out['launches']} {out['replayed']}")
+        out["seconds"] = time.perf_counter() - t_s5
+        print(f"  S5 took {out['seconds']:.1f} s; B1 launched {out['launches']['fused_forward']} times by its wrapper "
+              f"and {out['replayed']['fused_forward']} times by graph replays in this process ({card})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def profile_once(fn) -> None:
     """Device time by operator over one call of ``fn`` (after a warm-up
     call), and two idle shares.  One window: the device's busy time
@@ -4978,9 +5398,13 @@ def main(argv=None) -> int:
     served = serve_path(dev, card, P, fk, scorer, forward, images, float_batches, b1_args)
     served["s2"] = serve_http_path(dev, card, graph_fitted, fit_data[3])
     del graph_fitted
-    served["s3"] = fleet_path(dev, card, P, fk, scorer, images, params_from_numpy(
-        P.random_params(pca_dims=PCA_DIMS, gmm_k=GMM_K, num_classes=NUM_CLASSES, seed=4), dev))
-    served["s4"] = open_loop_path(dev, card, fk, scorer, images, served["s1"]["regimes"]["saturation"]["images_per_s"])
+    params_swap = params_from_numpy(P.random_params(pca_dims=PCA_DIMS, gmm_k=GMM_K, num_classes=NUM_CLASSES, seed=4),
+                                    dev)
+    served["s3"] = fleet_path(dev, card, P, fk, scorer, images, params_swap)
+    saturation_ips = served["s1"]["regimes"]["saturation"]["images_per_s"]
+    served["s4"] = open_loop_path(dev, card, fk, scorer, images, saturation_ips)
+    served["s5"] = lifecycle_path(dev, card, P, fk, scorer, images, params_swap, saturation_ips)
+    del params_swap
     results["serve"] = served
 
     with phase("the profiled materialization passes of this process"):
@@ -5078,19 +5502,28 @@ def main(argv=None) -> int:
             ln["launches"] += c
         # the serving phases: B1 in every flush of the served scorer (S1,
         # its raw scores, the `cli serve` child's graph-fitted model, the
-        # swap service's two generations, the open loop), B2 in the served
-        # bench forward's
+        # swap service's two generations, the open loop, the lifecycle's
+        # walks and its bucket graphs' replays, in this process and in its
+        # `cli serve` child), B2 in the served bench forward's
+        s5 = served["s5"]
         for ln, kname, parts in (
             (b1, "fused_forward", (("serve S1 scorer and raw scores", served["launches_fused_forward"]),
                                    ("serve S2 `cli serve` child", served["s2"]["launches"]["fused_forward"]),
                                    ("serve S3 swap service", served["s3"]["launches"]["fused_forward"]),
-                                   ("serve S4 open loop", served["s4"]["launches"]["fused_forward"]))),
+                                   ("serve S4 open loop", served["s4"]["launches"]["fused_forward"]),
+                                   ("serve S5 lifecycle, by the wrapper", s5["launches"]["fused_forward"]),
+                                   ("serve S5 lifecycle, by bucket-graph replays", s5["replayed"]["fused_forward"]),
+                                   ("serve S5 `cli serve --watch` child, by the wrapper",
+                                    s5["watcher"]["launches"]["fused_forward"]),
+                                   ("serve S5 `cli serve --watch` child, by bucket-graph replays",
+                                    s5["watcher"]["replayed"].get("fused_forward", 0)))),
             (b2, "fisher_encode", (("serve S1b bench forward", served["launches_fisher_encode"]),)),
         ):
             for label, c in parts:
                 ln["launches_by_path"][label] = c
                 ln["launches"] += c
         b1["serve_bucket_checks"] = served["b1_buckets"]
+        b1["graph_replays"] = s5["replayed"]["fused_forward"] + s5["watcher"]["replayed"].get("fused_forward", 0)
         # VOCSIFTFisher: B2 featurizes the training set in the fit, B1 (one
         # fused node) scores run's test set and VOC's 4952
         voc = results["voc"]

@@ -27,11 +27,14 @@ Named **sites** wired through the port::
                         (a raise is a worker crash, a hang a wedge)
     serve.swap          PipelineService.swap, before it stages the new
                         generation
+    serve.artifact_load ModelRegistry.load_artifacts (per file read) and
+                        the fleet's install of a bundle into a replica
+    serve.rollout       a guarded rollout episode, before it stages the
+                        canary generation
 
 The reference's other sites join with the slices that wire them:
-``serve.artifact_load`` (ROADMAP A11b), ``serve.net.*`` (A11c),
-``serve.rollout`` (A11d), ``multihost.init`` (A8) and ``plan.sample``
-(A10).  Until then a plan that names one of them raises
+``serve.net.*`` (ROADMAP A11c), ``multihost.init`` (A8) and
+``plan.sample`` (A10).  Until then a plan that names one of them raises
 :class:`UnknownFaultSiteError`, as any unregistered site does: a site
 nothing fires would report nothing.
 
@@ -96,6 +99,8 @@ SITES = {
     "serve.replica",
     "serve.worker",
     "serve.swap",
+    "serve.artifact_load",
+    "serve.rollout",
 }
 
 _ACTIONS = ("raise", "corrupt", "truncate", "exit", "delay", "hang", "drop")

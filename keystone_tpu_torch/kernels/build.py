@@ -80,6 +80,16 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
 
 
+def source_hashes() -> Dict[str, str]:
+    """Each native library's source-and-flags hash, by name (the hash its
+    build is named by), for every source under ``csrc/``.  Builds
+    nothing: a frozen applier's CUDA-graph bundle is keyed by these, so a
+    changed kernel source or build flag refuses a bundle captured
+    against the old one."""
+    names = sorted({p.stem for p in CSRC.iterdir() if p.suffix in (".cu", ".cpp")})
+    return {n: _lib_path(n).stem.rsplit("-", 1)[1] for n in names}
+
+
 def _compiler(name: str) -> str:
     if _source(name).suffix == ".cu":
         return nvcc_path()

@@ -14,7 +14,9 @@ through a device workspace.  ``csrc/fisher.cu`` picks the path from the
 shape.  Each wrapper launches for a CUDA tensor (or raises) and takes
 its plain version, ``fisher_encode_ref`` / ``fused_forward_ref``, only
 for a tensor on the CPU.  ``LAUNCHES`` counts the launches by wrapper
-and path.  Descriptors may be f32 or bf16 (the reference's
+and path; a launch recorded into a CUDA graph (the frozen applier's
+bucket graphs) is counted by the graph and its replays instead
+(``utils/graphs.py``).  Descriptors may be f32 or bf16 (the reference's
 ``mxu='bf16'`` stream); the kernels compute in f32 either way.
 """
 
@@ -29,6 +31,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 
 from keystone_tpu_torch.models.gmm import _LOG2PI, _log_gaussians
 from keystone_tpu_torch.ops.sift import _sift_normalize
+from keystone_tpu_torch.utils import graphs
 
 #: kernel launches by wrapper name, the general path's under
 #: ``<name>_general``; reset with ``reset_launches``
@@ -182,11 +185,14 @@ def _weights_for(w, mu, var):
     hit = _WEIGHTS.get(key)
     if hit is not None and all(a is b for a, b in zip(hit[0], (w, mu, var))):
         _WEIGHTS.move_to_end(key)
-        return hit[1]
-    _WEIGHTS[key] = ((w, mu, var), _posterior_weights(w, mu, var))
-    if len(_WEIGHTS) > _WEIGHTS_KEPT:
-        _WEIGHTS.popitem(last=False)
-    return _WEIGHTS[key][1]
+    else:
+        hit = _WEIGHTS[key] = ((w, mu, var), _posterior_weights(w, mu, var))
+        if len(_WEIGHTS) > _WEIGHTS_KEPT:
+            _WEIGHTS.popitem(last=False)
+    # a graph captured now reads them by address: it keeps them alive
+    # past this cache's eviction
+    graphs.keep(*hit[1])
+    return hit[1]
 
 
 def _aligned(t):
@@ -239,7 +245,9 @@ def fisher_encode(xs, mask, w, mu, var):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "fisher_encode")
-    LAUNCHES["fisher_encode_general" if general else "fisher_encode"] += 1
+    key = "fisher_encode_general" if general else "fisher_encode"
+    if not graphs.note_launch(key):  # a launch recorded into a graph runs nothing now
+        LAUNCHES[key] += 1
     return out
 
 
@@ -277,6 +285,8 @@ def fused_forward(desc, mask, components, mean, w, mu, var, normalize: bool = Tr
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(rc, "fused_forward")
-    LAUNCHES["fused_forward_general" if general else "fused_forward"] += 1
+    key = "fused_forward_general" if general else "fused_forward"
+    if not graphs.note_launch(key):  # a launch recorded into a graph runs nothing now
+        LAUNCHES[key] += 1
     return out
 

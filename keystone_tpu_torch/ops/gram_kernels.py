@@ -11,7 +11,9 @@ shared tile body with two epilogues:
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 its plain version, ``gram_block_ref`` / ``poly_block_ref``, only for a
 tensor on the CPU.  ``LAUNCHES`` counts the kernel launches and
-``LAUNCH_SHAPES`` the same launches by (name, n, m, d).  Operands
+``LAUNCH_SHAPES`` the same launches by (name, n, m, d); a launch
+recorded into a CUDA graph is counted by the graph instead
+(``utils/graphs.py``).  Operands
 may be f32 or bf16 (the reference's ``mxu='bf16'`` stream); the kernels
 compute in f32 either way.
 
@@ -34,7 +36,7 @@ from collections import Counter
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
-from keystone_tpu_torch.utils import precision
+from keystone_tpu_torch.utils import graphs, precision
 
 #: kernel launches by wrapper name; reset with ``reset_launches``
 LAUNCHES = {"gram_block": 0, "poly_block": 0}
@@ -131,8 +133,9 @@ def _launch(name, fn, x, z, *scalars):
         from keystone_tpu_torch.kernels.build import KernelError
 
         raise KernelError(f"{name} kernel launch failed ({rc}): {msg}")
-    LAUNCHES[name] += 1
-    LAUNCH_SHAPES[(name, n, m, d)] += 1
+    if not graphs.note_launch(name):  # a launch recorded into a graph runs nothing now
+        LAUNCHES[name] += 1
+        LAUNCH_SHAPES[(name, n, m, d)] += 1
     return out
 
 

@@ -27,7 +27,16 @@
 - **Blue/green swap** — ``stage()`` builds a full generation for a new
   model on the same devices while the old one serves; ``commit()`` swaps
   the routing list under the router lock and retires the old generation,
-  whose workers drain their queued flushes first.
+  whose workers drain their queued flushes first.  A guarded rollout
+  (``serve/rollout.py``) routes a fraction of flushes onto the staged
+  generation (``dispatch_staged``) before it commits, or abandons it
+  (``abandon_staged``).
+- **Artifacts** — the pool's artifact bundle (``artifacts=``) moves with
+  its generation: every replica it builds (the first generation, a
+  staged one, a supervisor's replacement, a scale-up) installs it, and
+  captures its bucket graphs on its own stream when the service primes
+  it.  A bundle that fails to install (skew, a damaged blob, the
+  ``serve.artifact_load`` fault site) is counted and the replica walks.
 
 Per-replica series share the label key ``replica``
 (``serve.replica_flushes{replica=i}``, ``serve.replica_outstanding``,
@@ -39,8 +48,8 @@ reference's.
 directly: no copy, no placement.  ``devices=None`` with more replicas
 cycles over the CUDA devices torch sees (on one card every replica
 shares ``cuda:0``).  The reference's process and network backends
-(``backend="process"``/``"net"``) are ROADMAP A11c; its AOT artifacts
-(``artifacts=``) are A11b: asked for, they raise ``NotPortedError``.
+(``backend="process"``/``"net"``) are ROADMAP A11c: asked for, they
+raise ``NotPortedError``.
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ from torch import nn
 
 from keystone_tpu_torch.faults import fault_point
 from keystone_tpu_torch.obs import ledger, metrics
-from keystone_tpu_torch.utils import guard
+from keystone_tpu_torch.utils import graphs, guard
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.pipeline import FrozenApplier, NotPortedError
 
@@ -172,6 +181,8 @@ def _as_applier(pipeline, device=None):
 
 
 _SENTINEL = object()
+#: ``_build_one``'s default: install the pool's own bundle
+_POOL_BUNDLE = object()
 
 
 class Replica:
@@ -347,8 +358,7 @@ class Replica:
             "dead": self.is_dead(),
             "quarantined": self.quarantined,
             "restarts": self.restarts,
-            # the reference's AOT bucket programs (ROADMAP A11b): none here
-            "artifact_buckets": 0,
+            "artifact_buckets": self.applier.installed_buckets(),
         }
 
 
@@ -382,8 +392,6 @@ class ReplicaPool:
                                  "(ROADMAP A11c)")
         if backend != "thread":
             raise ValueError(f"backend must be 'thread', 'process' or 'net', got {backend!r}")
-        if artifacts:
-            raise NotPortedError("artifacts=: AOT artifact bundles are not ported yet (ROADMAP A11b)")
         self.name = name
         self.backend = backend
         self._lock = threading.Lock()
@@ -392,6 +400,12 @@ class ReplicaPool:
         #: stage()/commit() move it with the generation
         self._source = pipeline
         self._staged_source = None
+        #: the artifact bundle of the current generation: every replica
+        #: built for it installs it; stage()/commit() move it with the
+        #: generation (None is meaningful: a version without artifacts)
+        self._artifacts = artifacts
+        self._staged_artifacts = None
+        self._staged_artifacts_set = False
         self._heartbeat_s = float(heartbeat_s)
         #: sticky hint set when dispatch finds the whole fleet unavailable,
         #: cleared by the next availability recheck or a restart/commit:
@@ -426,25 +440,73 @@ class ReplicaPool:
         count = torch.cuda.device_count()
         return [torch.device("cuda", i % count) for i in range(n)]
 
-    def _build_one(self, source, index: int, device, version, n: int, force_clone: bool = False) -> Replica:
+    def _build_one(self, source, index: int, device, version, n: int, force_clone: bool = False,
+                   artifacts=_POOL_BUNDLE) -> Replica:
         """One replica for slot ``index``: the direct wrap for a
         one-replica deviceless pool, the copy+place path otherwise.  The
         supervisor's restarts pass ``force_clone``: the replaced worker
-        may still be running inside the old applier."""
+        may still be running inside the old applier.  ``artifacts``
+        (default: the pool's bundle) is installed into the new applier;
+        without one, a cloned applier that carried a verified bundle
+        re-installs it (its graphs stayed with the original)."""
         if device is None and n == 1 and not force_clone:
             applier = _as_applier(source)
         else:
             applier = _as_applier(_clone_and_place(source, device), device)
         if applier.device.type == "cuda":
             # the copy and placement ran on this thread's stream: finish
-            # them before the replica's own stream reads the weights
-            torch.cuda.synchronize(applier.device)
+            # them before the replica's own stream reads the weights (not
+            # while another thread captures a bucket graph)
+            with graphs.CAPTURE_LOCK:
+                torch.cuda.synchronize(applier.device)
+        if artifacts is _POOL_BUNDLE:
+            artifacts = self._artifacts
+        if not artifacts and not applier.installed_buckets():
+            artifacts = applier.installed_bundle
+        if artifacts:
+            self._install_artifacts(applier, device, artifacts, source)
         return Replica(index, applier, device=device, version=version, pool_name=self.name,
                        heartbeat_timeout=self._heartbeat_s)
+
+    @staticmethod
+    def _source_signature(source) -> str:
+        """The pipeline hash an install is verified against, from the
+        pool's unplaced source (cached on it: every replica and heal
+        shares one read of the weights)."""
+        if isinstance(source, FrozenApplier):
+            return source.fingerprint()
+        from keystone_tpu_torch.utils.hashing import pipeline_fingerprint
+
+        return pipeline_fingerprint(source)
+
+    def _install_artifacts(self, applier, device, artifacts, source) -> int:
+        """Install a bundle into one fresh applier.  Any failure (skew, a
+        damaged bundle, the ``serve.artifact_load`` fault site) is counted
+        as ``serve.artifact_fallbacks`` and logged, never raised: the
+        replica walks.  Returns the bucket programs installed, counted as
+        ``serve.artifact_hits``."""
+        try:
+            fault_point("serve.artifact_load")
+            n = applier.install_artifacts(artifacts, device=device, signature=self._source_signature(source))
+        except Exception as e:
+            metrics.inc("serve.artifact_fallbacks")
+            logger.warning("pool %r: artifact install failed (%s: %s); the replica walks", self.name,
+                           type(e).__name__, e)
+            return 0
+        if n:
+            metrics.inc("serve.artifact_hits", n)
+        return n
 
     @property
     def size(self) -> int:
         return len(self.replicas)
+
+    @property
+    def has_artifacts(self) -> bool:
+        """Was an artifact bundle configured for the live generation?
+        (An install may still have been refused per replica: the replicas'
+        ``artifact_buckets`` and the ``serve.artifact_*`` counters say.)"""
+        return self._artifacts is not None
 
     # ----------------------------------------------------------- router
     def start(self, runner: Callable, obs_context=None) -> None:
@@ -536,6 +598,55 @@ class ReplicaPool:
             chosen.enqueue(batch)
         return chosen
 
+    def dispatch_staged(self, batch, staged) -> Optional[Replica]:
+        """Best-effort dispatch onto a STAGED generation (the canary split
+        of ``serve/rollout.py``): the least-outstanding routable replica
+        of ``staged`` with window headroom and an admitting breaker.
+        Never blocks or raises: None when no staged replica can take the
+        batch (the caller serves it on the live generation).  No
+        ``serve.replica_outstanding`` write: staged indices shadow live
+        ones."""
+        with self._cond:
+            if self._draining:
+                return None
+            cands = sorted((r for r in staged if r.routable() and r.outstanding < self._window),
+                           key=lambda r: (r.outstanding, r.index))
+            chosen = None
+            for r in cands:
+                if r.breaker.allow():
+                    chosen = r
+                    break
+            if chosen is None:
+                return None
+            try:
+                batch.primary = chosen.index
+            except AttributeError:
+                pass
+            chosen.outstanding += 1
+            # enqueue under the router lock, as dispatch() does: a canary
+            # flush lands ahead of abandon_staged's retire sentinel
+            chosen.enqueue(batch)
+        return chosen
+
+    def abandon_staged(self, staged, timeout: float = 30.0) -> list:
+        """Retire a staged generation WITHOUT committing it (a canary
+        rollback): clear what :meth:`stage` captured, retire each staged
+        replica (the sentinel queues behind routed canary flushes, which
+        are served first), join each worker and return what it could not
+        serve, for the caller to re-dispatch onto the live generation."""
+        with self._cond:
+            self._staged_source = None
+            self._staged_artifacts = None
+            self._staged_artifacts_set = False
+            for r in staged:
+                # under the router lock: a concurrent dispatch_staged
+                # cannot slot a flush behind the sentinel
+                r.retire()
+        leftovers: list = []
+        for r in staged:
+            leftovers.extend(r.join(timeout))
+        return leftovers
+
     # ------------------------------------------------------ availability
     def _compute_available(self) -> bool:
         with self._lock:
@@ -599,16 +710,20 @@ class ReplicaPool:
             replica.breaker.record_failure()
 
     # ------------------------------------------------------------- swap
-    def stage(self, pipeline, version: str) -> List[Replica]:
+    def stage(self, pipeline, version: str, artifacts: Optional[dict] = None) -> List[Replica]:
         """Build (and start) a full staged generation for ``version`` on
         the current generation's devices.  Staged replicas take priming
-        applies but no routed traffic until :meth:`commit`.  A single
-        deviceless replica still copies: the old generation keeps serving
-        the caller's applier meanwhile."""
+        applies (each captures its bucket graphs from ``artifacts``, the
+        new version's bundle) but no routed traffic until :meth:`commit`,
+        which makes ``artifacts`` the pool's bundle.  A single deviceless
+        replica still copies: the old generation keeps serving the
+        caller's applier meanwhile."""
         devices = [r.device for r in self.replicas]
-        staged = [self._build_one(pipeline, i, dev, version, len(devices), force_clone=True)
+        staged = [self._build_one(pipeline, i, dev, version, len(devices), force_clone=True, artifacts=artifacts)
                   for i, dev in enumerate(devices)]
         self._staged_source = pipeline
+        self._staged_artifacts = artifacts
+        self._staged_artifacts_set = True
         if self._runner is not None:
             for r in staged:
                 r.start(self._runner, self._obs_ctx)
@@ -627,6 +742,12 @@ class ReplicaPool:
                 if self._staged_source is not None:
                     self._source = self._staged_source
                     self._staged_source = None
+                if self._staged_artifacts_set:
+                    # the bundle moves with the generation: heals and
+                    # scale-ups must not install the old version's
+                    self._artifacts = self._staged_artifacts
+                    self._staged_artifacts = None
+                    self._staged_artifacts_set = False
                 self._known_unavailable = False
                 pause = time.perf_counter() - t0
                 self._cond.notify_all()
@@ -697,6 +818,17 @@ class ReplicaPool:
     @property
     def window(self) -> int:
         return self._window
+
+    def set_window(self, n: int) -> int:
+        """Retune the dispatch window live (the autoscaler's second
+        lever); returns the clamped value.  A batcher blocked at the old
+        window re-evaluates at once."""
+        n = max(1, int(n))
+        with self._cond:
+            self._window = n
+            self._cond.notify_all()
+        metrics.set_gauge("serve.dispatch_window", float(n))
+        return n
 
     def next_index(self) -> int:
         with self._lock:

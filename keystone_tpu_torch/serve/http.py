@@ -26,10 +26,20 @@ Endpoints (JSON unless noted):
   unknown or evicted id.
 - ``POST /tracez/dump`` — write the recorder's state to a directory (the
   body's ``dir``, else the front end's ``trace_dump_dir``).
-- ``POST /swap``, ``POST /rollback``, ``GET /rolloutz`` — the
-  reference's registry and guarded-rollout admin surface (ROADMAP A11b,
-  A11d): with no registry attached, ``/swap`` and ``/rollback`` answer
-  409 as the reference's do, and ``/rolloutz`` its idle body.
+- ``POST /swap`` — admin hot-swap from the attached model registry
+  (``registry=``): body ``{"version": "v0002"}`` (default: the
+  registry's deploy pick), the version's artifacts shipped with it;
+  ``"clear_bad": true`` lifts a quarantine first, and the rollout knobs
+  of ``RolloutConfig.REQUEST_KEYS`` (``"canary"`` et al.) make it a
+  guarded rollout (a bad knob is a 400; a verdict either way is a 200).
+  ``CURRENT`` follows the swap.  409 with no registry, 404 unknown
+  version, 503 closed, 502 the load or swap failed.
+- ``POST /rollback`` — swap back to the newest prior version of the
+  swap history that is published and not quarantined, ``CURRENT`` with
+  it, recorded as a ``manual`` episode of ``/rolloutz``'s history; 409
+  when there is none.
+- ``GET /rolloutz`` — the guarded-rollout status block
+  (``PipelineService.rollout_status``).
 
 ``POST /predict`` honors an ``X-Request-Id`` header (else mints an id)
 and echoes it in every response, body and header; a multi-instance body
@@ -52,13 +62,14 @@ import json
 import logging
 import math
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, unquote, urlsplit
 
 import numpy as np
 
-from keystone_tpu_torch.obs import metrics
+from keystone_tpu_torch.obs import ledger, metrics
 from keystone_tpu_torch.obs.recorder import new_request_id
 from keystone_tpu_torch.serve.fleet import FleetUnavailable
 from keystone_tpu_torch.serve.service import (
@@ -68,7 +79,6 @@ from keystone_tpu_torch.serve.service import (
     ServiceClosed,
 )
 from keystone_tpu_torch.utils import guard
-from keystone_tpu_torch.workflow.pipeline import NotPortedError
 
 logger = logging.getLogger(__name__)
 
@@ -436,14 +446,139 @@ class _Handler(BaseHTTPRequestHandler):
             return
         self._send(200, {"path": path, "stats": rec.stats()})
 
-    def _do_swap(self):
-        """Admin swap from a model registry: the registry is ROADMAP
-        A11b, so none is ever attached and the endpoint answers 409, as
-        the reference's does without one."""
-        self._send(409, {"error": "no model registry attached; start the frontend with serve_http(svc, "
-                                  "registry=...) or `cli serve --model-dir` (ROADMAP A11b)"})
+    def _registry_or_409(self):
+        registry = getattr(self.server, "registry", None)
+        if registry is None:
+            self._send(409, {"error": "no model registry attached; start the frontend with serve_http(svc, "
+                                      "registry=...) or `cli serve --model-dir`"})
+        return registry
 
-    _do_rollback = _do_swap
+    def _do_swap(self):
+        """Admin blue/green swap from the attached registry.  Codes: 200
+        swapped (or a guarded rollout's verdict), 400 a bad body or
+        rollout knob, 409 no registry, 404 unknown version, 503 service
+        closed, 502 the load or swap failed (the old version serves on)."""
+        registry = self._registry_or_409()
+        if registry is None:
+            return
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+            body = json.loads(self.rfile.read(length) or b"{}") or {}
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+            version = body.get("version")
+            # a malformed rollout knob is a 400 here, not a 502 from deep
+            # inside the episode
+            rollout_cfg = None
+            if body.get("canary") is not None:
+                from keystone_tpu_torch.serve.rollout import RolloutConfig
+
+                rollout_cfg = RolloutConfig.from_request(body)
+        except (ValueError, json.JSONDecodeError) as e:
+            self._send(400, {"error": f"bad request: {e}"})
+            return
+        from keystone_tpu_torch.serve.registry import RegistryError
+
+        try:
+            if body.get("clear_bad") and version:
+                # the operator's explicit override of a quarantine
+                registry.clear_quarantine(version)
+            fitted, ver = registry.load(version, map_location=self.service.device)
+            # the version's artifacts ship with it, as the watcher's do
+            arts = registry.load_artifacts(ver)
+            if rollout_cfg is not None:
+                # the controller owns CURRENT here: moved on a commit,
+                # restored (with the quarantine) on a rollback
+                from keystone_tpu_torch.serve.rollout import guarded_swap
+
+                info = guarded_swap(self.service, fitted, version=ver, artifacts=arts, config=rollout_cfg,
+                                    registry=registry)
+                self._send(200, info)
+                return
+            info = self.service.swap(fitted, version=ver, artifacts=arts)
+        except RegistryError as e:
+            self._send(404, {"error": str(e)})
+            return
+        except ServiceClosed as e:
+            self._send(503, {"error": str(e)})
+            return
+        except Exception as e:
+            logger.warning("admin swap failed: %s: %s", type(e).__name__, e)
+            self._send(502, {"error": f"swap failed: {type(e).__name__}: {e}"})
+            return
+        # the registry is the source of truth: CURRENT follows what the
+        # fleet serves, or a watcher would revert the admin swap
+        info = self._move_current(registry, ver, info)
+        self._send(200, info)
+
+    @staticmethod
+    def _move_current(registry, ver: str, info: dict) -> dict:
+        try:
+            if registry.current() != ver:
+                registry.set_current(ver)
+        except Exception as e:
+            logger.warning("swap to %s succeeded but CURRENT update failed: %s", ver, e)
+            info = dict(info)
+            info["current_pointer_error"] = f"{type(e).__name__}: {e}"
+        return info
+
+    def _do_rollback(self):
+        """Admin revert: swap back to the newest version of the service's
+        swap history that is published and not quarantined, and move
+        ``CURRENT`` with it.  Codes: 200 reverted (the swap info plus
+        ``rolled_back_to`` / ``rolled_back_from``), 409 no registry or no
+        viable prior version, 503 closed, 502 the load or swap failed."""
+        registry = self._registry_or_409()
+        if registry is None:
+            return
+        svc = self.service
+        from keystone_tpu_torch.serve.registry import RegistryError
+
+        history = svc._version_history
+        published = set(registry.versions())
+        target = target_idx = None
+        for idx in range(len(history) - 1, -1, -1):
+            cand = history[idx]
+            if cand == svc.version or cand not in published or registry.quarantined(cand) is not None:
+                continue
+            target, target_idx = cand, idx
+            break
+        if target is None:
+            self._send(409, {"error": "no viable prior version in swap history (nothing swapped yet, or every "
+                                      "prior version is unpublished or quarantined)", "history": list(history)})
+            return
+        from_version = svc.version
+        try:
+            fitted, ver = registry.load(target, map_location=svc.device)
+            info = svc.swap(fitted, version=ver, artifacts=registry.load_artifacts(ver))
+        except RegistryError as e:
+            self._send(404, {"error": str(e)})
+            return
+        except ServiceClosed as e:
+            self._send(503, {"error": str(e)})
+            return
+        except Exception as e:
+            logger.warning("admin rollback failed: %s: %s", type(e).__name__, e)
+            self._send(502, {"error": f"rollback failed: {type(e).__name__}: {e}"})
+            return
+        # drop the walked-past suffix (the entry swap() just appended for
+        # the version reverted from included): a repeated /rollback walks
+        # further back, never ping-pongs
+        del history[target_idx:]
+        metrics.inc("serve.rollout.manual_rollbacks")
+        # an episode of /rolloutz's history like the guarded ones (the
+        # reference records it in the flight recorder only)
+        svc._rollout_history.append({"version": ver, "from_version": from_version, "verdict": "rolled_back",
+                                     "reason": "manual", "canary_fraction": None, "at": time.time()})
+        ledger.event("serve.rollout", from_version=from_version, to_version=ver, verdict="rolled_back",
+                     reason="manual")
+        if svc.recorder is not None:
+            svc.recorder.ops("serve.rollout", from_version=from_version, to_version=ver, verdict="rolled_back",
+                             reason="manual")
+        info = dict(self._move_current(registry, ver, info))
+        info["rolled_back_to"] = ver
+        info["rolled_back_from"] = from_version
+        self._send(200, info)
 
 
 class HttpFrontend:
@@ -460,10 +595,10 @@ class HttpFrontend:
         registry=None,
         trace_dump_dir: Optional[str] = None,
     ):
-        if registry is not None:
-            raise NotPortedError("registry=: the model registry behind POST /swap is not ported yet (ROADMAP A11b)")
         self.server = ThreadingHTTPServer((host, port), _Handler)
         self.server.service = service  # type: ignore[attr-defined]
+        #: the ModelRegistry behind POST /swap and /rollback (None: 409)
+        self.server.registry = registry  # type: ignore[attr-defined]
         #: default directory for POST /tracez/dump (None: the endpoint
         #: needs an explicit "dir" in its body)
         self.server.trace_dump_dir = trace_dump_dir  # type: ignore[attr-defined]
@@ -517,7 +652,8 @@ def serve_http(
     """Stand up (and start) the HTTP front end for ``service`` on a
     background thread; returns the :class:`HttpFrontend` (``.port`` for
     ephemeral binds, ``.stop()`` to shut down).  ``registry``: the
-    reference's model registry (ROADMAP A11b: ``NotPortedError``).
+    :class:`~keystone_tpu_torch.serve.registry.ModelRegistry` enabling
+    ``POST /swap`` and ``POST /rollback``.
     ``trace_dump_dir``: default
     directory for ``POST /tracez/dump`` snapshots."""
     return HttpFrontend(

@@ -36,6 +36,17 @@ and shed work that cannot meet its deadline.
   fails (:class:`PoisonRequest`, HTTP 422) and its content is refused at
   admission afterwards; hedged dispatch (``hedge_ms``) re-enqueues a
   flush stuck behind a straggling replica onto a second one.
+- **Bucket graphs** — ``artifacts=`` (a bundle of
+  ``FrozenApplier.export_artifacts``, or a registry version's) makes
+  every replica capture one CUDA graph of the frozen apply per padding
+  bucket when it primes; a flush then replays its bucket's graph instead
+  of walking.  The bundle moves with its generation through swaps,
+  heals and scale-ups.
+- **Lifecycle** — ``swap(artifacts=)`` stages a new version with its
+  bundle; a guarded rollout (``serve/rollout.py``) serves a canary
+  fraction of flushes on the staged generation before it commits or
+  rolls back, and ``autoscale=`` starts the SLO-driven
+  :class:`~keystone_tpu_torch.serve.autoscale.Autoscaler`.
 - **Tracing** — every request carries a ``request_id`` into the
   :class:`~keystone_tpu_torch.obs.recorder.FlightRecorder` (on by
   default), ``serve.batch`` ledger spans list their riders, and each
@@ -49,8 +60,7 @@ Observability: ``serve.queue_depth`` gauge, ``serve.batch_rows`` /
 ``serve.swap`` (a hot-swap's stage).
 
 Not ported yet, each raising ``NotPortedError`` when asked for: the
-process and network fleets (``workers=``, ``hosts=``, ROADMAP A11c), AOT
-artifacts (``artifacts=``, A11b), autoscaling (``autoscale=``, A11d).
+process and network fleets (``workers=``, ``hosts=``, ROADMAP A11c).
 The reference's tenant and dedup override points are kept, inert.  The
 physical planner's knobs (A10) resolve to the reference's static
 defaults: a 5 ms wait, power-of-two buckets, hedging off, a dispatch
@@ -189,7 +199,7 @@ class RowBlock:
 
 
 class _Request:
-    __slots__ = ("x", "deadline", "future", "t_submit", "request_id", "tenant")
+    __slots__ = ("x", "deadline", "future", "t_submit", "request_id", "tenant", "gen")
 
     def __init__(self, x, deadline: Optional[guard.Deadline], request_id: Optional[str] = None,
                  tenant: Optional[str] = None):
@@ -201,6 +211,10 @@ class _Request:
         self.request_id = request_id
         #: multi-tenant routing label: None on this single-tenant service
         self.tenant = tenant
+        #: rollout generation tag (serve/rollout.py): "canary" when a
+        #: guarded rollout routed the rider to the staged generation,
+        #: "live" while a judge window is open, None otherwise
+        self.gen: Optional[str] = None
 
 
 class _Flush:
@@ -340,10 +354,6 @@ class PipelineService:
         if workers or hosts is not None or worker_opts:
             raise NotPortedError("workers=/hosts=/worker_opts=: the process and network fleets are not ported "
                                  "yet (ROADMAP A11c); replicas= serves a threaded fleet")
-        if artifacts:
-            raise NotPortedError("artifacts=: AOT artifact bundles are not ported yet (ROADMAP A11b)")
-        if autoscale:
-            raise NotPortedError("autoscale=: SLO-driven autoscaling is not ported yet (ROADMAP A11d)")
         self.max_batch = int(max_batch)
         self.buckets = tuple(sorted({int(b) for b in buckets})) if buckets else default_buckets(self.max_batch)
         if self.buckets[-1] < self.max_batch:
@@ -360,7 +370,7 @@ class PipelineService:
             self._dtype = ex.dtype
         self.workers = 0
         self._pool = ReplicaPool(pipeline, replicas=replicas, devices=devices, version=version, name=name,
-                                 heartbeat_s=heartbeat_s)
+                                 heartbeat_s=heartbeat_s, artifacts=artifacts)
         #: the flight recorder: True (default) = a fresh bounded recorder,
         #: False/None = tracing off (no ids minted, no hook runs), or a
         #: caller-provided FlightRecorder
@@ -403,9 +413,18 @@ class PipelineService:
         self._bisect = bool(bisect)
         self._poison_cache: "OrderedDict[bytes, float]" = OrderedDict()
         self._poison_lock = threading.Lock()
-        #: prior version ids, newest last (what the reference's POST
-        #: /rollback walks; guarded rollouts are ROADMAP A11d)
+        #: prior version ids, newest last (what POST /rollback walks)
         self._version_history: list = []
+        #: guarded-rollout hooks (serve/rollout.py): ``_rollout`` the
+        #: CanaryController whose judge window is open (the batcher's
+        #: routing hook and the terminals' observe hook; None: one
+        #: attribute read a flush), ``_rollout_guard`` the post-commit
+        #: bake watch, ``_rollout_state`` the active phase for /rolloutz,
+        #: ``_rollout_history`` the recent episodes' verdicts
+        self._rollout = None
+        self._rollout_guard = None
+        self._rollout_state: Optional[dict] = None
+        self._rollout_history: deque = deque(maxlen=16)
         if example is not None:
             self.prime()
         self._pool.start(self._run_flush, obs_context=self._obs_ctx)
@@ -420,33 +439,73 @@ class PipelineService:
                               restart_window=restart_window_s).start()
             if supervise else None
         )
+        #: SLO-driven autoscaling (off unless ``autoscale=``, a config dict
+        #: for :class:`~keystone_tpu_torch.serve.autoscale.Autoscaler`)
         self.autoscaler = None
+        if autoscale:
+            from keystone_tpu_torch.serve.autoscale import Autoscaler
+
+            try:
+                self.autoscaler = Autoscaler(self, **dict(autoscale)).start()
+            except BaseException:
+                # a bad config must not leak the fleet already built
+                self.close(drain=False, timeout=10.0)
+                raise
         metrics.set_gauge("serve.workers", float(self._pool.size))
 
     # ------------------------------------------------------------ priming
-    def prime(self, replicas=None) -> None:
+    def prime(self, replicas=None, have_artifacts: Optional[bool] = None) -> None:
         """Run every bucket's shape through every replica NOW (the
-        first-use kernel builds, the allocator's first blocks), so no
-        request pays them against its deadline.  Needs the item shape (an
-        ``example``, or a request already served).  ``replicas``: prime
-        just these (a staged generation, a supervisor replacement)."""
+        first-use kernel builds, the allocator's first blocks, and, with
+        an artifact bundle, the capture of each bucket's CUDA graph), so
+        no request pays them against its deadline.  Needs the item shape
+        (an ``example``, or a request already served).  ``replicas``:
+        prime just these (a staged generation, a supervisor replacement).
+
+        Each bucket is metered as ``serve.prime_seconds{source=}``:
+        ``artifact`` when the replica's bucket graph served it (captured
+        then), ``compile`` when the walk did; a bucket with no graph while
+        a bundle was configured counts a ``serve.artifact_misses``.
+        ``have_artifacts``: whether the generation being primed was given
+        a bundle (the swap path passes the staged bundle's presence; the
+        default reads the pool's)."""
         if self._item_shape is None:
             raise ValueError("prime() needs the request item shape; construct the service with "
                              "example=<one datum> (or serve a request first)")
+        have_bundle = self._pool.has_artifacts if have_artifacts is None else bool(have_artifacts)
         t_all = time.monotonic()
-        n = n_replicas = 0
+        sources: dict = {}
+        n_replicas = 0
         for replica in self._pool.replicas if replicas is None else replicas:
             n_replicas += 1
             for bucket in self.buckets:
                 zeros = np.zeros((bucket,) + self._item_shape, self._dtype)
                 t0 = time.monotonic()
                 self._apply_rows(zeros, deadline=None, replica=replica, prime=True)
-                metrics.observe("serve.prime_seconds", time.monotonic() - t0, source="compile")
-                n += 1
+                dt = time.monotonic() - t0
+                applier = replica.applier
+                if applier.has_bucket_program(zeros.shape, zeros.dtype):
+                    source = "artifact"
+                else:
+                    if have_bundle:
+                        metrics.inc("serve.artifact_misses")
+                    source = "compile"
+                metrics.observe("serve.prime_seconds", dt, source=source)
+                sources[source] = sources.get(source, 0) + 1
+                if source == "artifact" and applier._degradable:
+                    # a degradable pipeline's deadline-carrying flushes
+                    # walk: warm the walk too (a far deadline never fires)
+                    t1 = time.monotonic()
+                    self._apply_rows(zeros, deadline=guard.Deadline.after(86400.0), replica=replica, prime=True)
+                    metrics.observe("serve.prime_seconds", time.monotonic() - t1, source="compile")
+                    sources["compile"] = sources.get("compile", 0) + 1
         took = time.monotonic() - t_all
-        ledger.event("serve.prime", seconds=round(took, 6), replicas=n_replicas, source="compile", n=n)
+        source = max(sources, key=sources.get) if sources else "compile"
+        n = sum(sources.values())
+        ledger.event("serve.prime", seconds=round(took, 6), replicas=n_replicas, source=source, n=n, sources=sources)
         if self.recorder is not None:
-            self.recorder.ops("serve.prime", seconds=round(took, 6), replicas=n_replicas, source="compile", n=n)
+            self.recorder.ops("serve.prime", seconds=round(took, 6), replicas=n_replicas, source=source, n=n,
+                              sources=sources)
 
     def prime_replacement(self, replica) -> None:
         """Prime one not-yet-routed replica (the supervisor's restart and
@@ -696,6 +755,12 @@ class PipelineService:
     def replicas(self) -> int:
         return self._pool.size
 
+    @property
+    def device(self) -> torch.device:
+        """The device the live generation serves on (its first replica's):
+        where a version loaded from a registry goes."""
+        return self._pool.replicas[0].device
+
     def replica_statuses(self) -> list:
         """Per-replica status dicts (the fleet view of /healthz, /replicas)."""
         return self._pool.statuses()
@@ -730,6 +795,18 @@ class PipelineService:
         occ = min(1.0, (s["sum"] or 0.0) / denom) if denom > 0 else 0.0
         metrics.set_gauge("serve.occupancy", occ)
         return occ
+
+    def slo_burn_rate(self) -> Optional[float]:
+        """The windowed SLO burn rate (None without an objective, or with
+        no error budget), the number /statusz embeds, for the autoscaler;
+        :meth:`slo_burn` carries the sample counts."""
+        detail = self.slo_burn()
+        return None if detail is None else detail["burn_rate"]
+
+    def set_dispatch_window(self, n: int) -> int:
+        """Retune the router's dispatch window live (the autoscaler's
+        lever)."""
+        return self._pool.set_window(n)
 
     def slo_burn(self) -> Optional[dict]:
         """The windowed SLO burn detail (None without an objective): the
@@ -809,6 +886,7 @@ class PipelineService:
         reference's keys, those of unported parts at their idle values."""
         reg = metrics.REGISTRY
         rec = self.recorder
+        replica_stats = self.replica_statuses()
         out = {
             "name": self.name,
             "status": "closed" if self._closed else "ok",
@@ -834,16 +912,18 @@ class PipelineService:
                     "serve.worker_crashes", "serve.scale_ups", "serve.scale_downs", "serve.dedup_hits",
                 )
             },
-            # the AOT tier (ROADMAP A11b): never configured here
+            # the bucket graphs at a glance: was a bundle configured, how
+            # many bucket programs the live replicas hold, the primes' time
+            # by source (the reference's "cache" tier has no counterpart)
             "artifacts": {
-                "configured": False,
-                "installed_buckets": 0,
+                "configured": self._pool.has_artifacts,
+                "installed_buckets": sum(r.get("artifact_buckets", 0) for r in replica_stats),
                 "prime_seconds": {src: reg.histogram_value("serve.prime_seconds", source=src)
                                   for src in ("artifact", "cache", "compile")},
             },
-            "replicas": self.replica_statuses(),
+            "replicas": replica_stats,
             "supervisor": None if self.supervisor is None else self.supervisor.status(),
-            "autoscaler": None,
+            "autoscaler": None if self.autoscaler is None else self.autoscaler.status(),
             "plan": None,
             "recorder": None if rec is None else rec.stats(),
         }
@@ -863,12 +943,21 @@ class PipelineService:
         return out
 
     def rollout_status(self) -> dict:
-        """The GET /rolloutz block: guarded rollouts are ROADMAP A11d, so
-        no phase is ever active; the swap history and SLO burn are live."""
+        """The ``GET /rolloutz`` block: the live rollout phase (canary
+        window or bake watch) when one is active, the recent episodes'
+        verdicts, and the swap history ``POST /rollback`` walks."""
+        active = self._rollout_state
+        guard_ = self._rollout_guard
+        if guard_ is not None:
+            active = guard_.status()
+        rollout = self._rollout
+        if rollout is not None and isinstance(active, dict):
+            active = dict(active)
+            active["canary"] = rollout.snapshot()
         return {
             "version": self.version,
-            "active": None,
-            "history": [],
+            "active": active,
+            "history": list(self._rollout_history),
             "prior_versions": list(self._version_history),
             "slo": self.slo_burn(),
         }
@@ -903,11 +992,12 @@ class PipelineService:
         ``pipeline``, prime it while the OLD generation keeps serving,
         then commit at the flush boundary.  Queued requests never drop:
         flushes routed to an old replica resolve from the version that
-        admitted them.  Returns ``{"version", "pause_seconds",
-        "prime_seconds", "replicas"}``.  A failed stage or prime (the
-        ``serve.swap`` fault site) leaves the old generation serving."""
-        if artifacts:
-            raise NotPortedError("swap(artifacts=...): AOT artifact bundles are not ported yet (ROADMAP A11b)")
+        admitted them.  ``artifacts``: the new version's bundle (a
+        registry's ``load_artifacts``): each staged replica captures its
+        bucket graphs as it primes, and the commit makes it the pool's
+        bundle.  Returns ``{"version", "pause_seconds", "prime_seconds",
+        "replicas"}``.  A failed stage or prime (the ``serve.swap`` fault
+        site) leaves the old generation serving."""
         if self._closing:
             raise ServiceClosed(f"service {self.name!r} is closed")
         with self._swap_lock:
@@ -921,10 +1011,10 @@ class PipelineService:
             with ledger.span("serve.swap", version=version):
                 fault_point("serve.swap", version=version)
                 t0 = time.monotonic()
-                staged = self._pool.stage(pipeline, version)
+                staged = self._pool.stage(pipeline, version, artifacts=artifacts)
                 try:
                     if prime and self._item_shape is not None:
-                        self.prime(replicas=staged)
+                        self.prime(replicas=staged, have_artifacts=artifacts is not None)
                 except BaseException:
                     for r in staged:
                         r.retire()
@@ -953,12 +1043,18 @@ class PipelineService:
             if not drain:
                 self._fail_queued_locked(lambda: ServiceClosed("service closed before execution"))
             self._cond.notify_all()
-        # stop the healers first: a restart or a hedge into a pool being
-        # torn down would race the retirement below
+        # stop the healers first: a resize, a restart or a hedge into a
+        # pool being torn down would race the retirement below
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
         if self.supervisor is not None:
             self.supervisor.stop()
         if self._hedge is not None:
             self._hedge.stop()
+        # the bake guard too: its revert swap would stage into a closing pool
+        guard_ = self._rollout_guard
+        if guard_ is not None:
+            guard_.stop()
         # wait out an in-flight swap (bounded: the pool's draining flag
         # makes a late commit refuse)
         if self._swap_lock.acquire(timeout=timeout):
@@ -996,6 +1092,13 @@ class PipelineService:
             flush = self._next_batch()
             if flush is None:
                 return
+            # the canary split: while a guarded rollout's judge window is
+            # open, the controller claims a seeded-hash fraction of the
+            # flushes for the staged generation (not hedged: a live hedge
+            # would mask a slow canary)
+            rollout = self._rollout
+            if rollout is not None and rollout.take(flush):
+                continue
             try:
                 self._pool.dispatch(flush)
             except FleetUnavailable as e:
@@ -1044,6 +1147,9 @@ class PipelineService:
         else:
             outcome = "error"
         self._account_tenant(req, outcome, waited)
+        rollout = self._rollout
+        if rollout is not None:
+            rollout.observe(req, outcome, waited)
         rid = req.request_id
         if rid is not None:
             if self.recorder is not None:
@@ -1179,6 +1285,7 @@ class PipelineService:
         outcome = "degraded" if degraded else "completed"
         done_t = time.monotonic()
         led_on = ledger.active() is not None
+        rollout = self._rollout
         for i, req in enumerate(reqs):
             if req.future.done():
                 continue
@@ -1189,6 +1296,8 @@ class PipelineService:
                 metrics.inc("serve.deadline_miss")
             metrics.inc("serve.completed")
             self._account_tenant(req, outcome, done_t - req.t_submit)
+            if rollout is not None:
+                rollout.observe(req, outcome, done_t - req.t_submit)
             if req.request_id is not None:
                 if rec is not None:
                     rec.finish(req.request_id, outcome, batch=bid, replica=replica.index,
@@ -1361,8 +1470,18 @@ def serve(
       supervisor (on by default; ``heartbeat_s`` is the wedge budget).
     - ``hedge_ms`` — hedged dispatch (off by default).
     - ``bisect`` — batch-failure bisection (on by default).
-    - ``artifacts``, ``workers``, ``worker_opts``, ``hosts``,
-      ``autoscale`` — ROADMAP A11b, A11c and A11d: ``NotPortedError``.
+    - ``artifacts`` — an artifact bundle (``FrozenApplier.export_artifacts``
+      or a registry's ``load_artifacts``): every replica installs it and
+      captures one CUDA graph a bucket as it primes; a bundle that does
+      not match (versions, device, kernels, weights) is counted and the
+      walk serves.
+    - ``autoscale`` — a config dict for
+      :class:`~keystone_tpu_torch.serve.autoscale.Autoscaler`
+      (``min_workers``, ``max_workers``, ``interval_s``, thresholds):
+      grows the fleet under queue or SLO pressure, a replica primed from
+      the artifacts, and drains idle ones.
+    - ``workers``, ``worker_opts``, ``hosts`` — ROADMAP A11c:
+      ``NotPortedError``.
     """
     return PipelineService(
         pipeline, max_batch=max_batch, max_wait_ms=max_wait_ms, queue_bound=queue_bound, buckets=buckets,

@@ -29,6 +29,11 @@ from concurrent.futures import wait as futures_wait
 import numpy as np
 import torch
 
+from keystone_tpu_torch.workflow.transformer import Transformer
+
+#: the rollout drill's poison marker: a row whose first element is this
+MARK = 123.0
+
 
 def build_pipeline(dim: int = 64, classes: int = 16, seed: int = 0, device="cuda"):
     """The synthetic two-stage workload (NormalizeRows → LinearMapper),
@@ -41,6 +46,25 @@ def build_pipeline(dim: int = 64, classes: int = 16, seed: int = 0, device="cuda
     rng = np.random.default_rng(seed)
     w = torch.from_numpy(rng.normal(size=(dim, classes)).astype(np.float32)).to(resolve_device(device))
     return Pipeline.of(NormalizeRows()) | LinearMapper(w)
+
+
+class MarkerGate(Transformer):
+    """The rollout drill's bad model version's first stage (the
+    reference's ``tools/workloads.py`` MarkerGate): raises ``ValueError``,
+    a content fault, on a batch holding a marker row (its first element
+    is :data:`MARK`) and passes any other batch through, so the version
+    primes on zero rows and fails the marked traffic a good version
+    serves.  Module-level, so a registry-published pipeline carrying it
+    loads in another process.  It reads the batch's first column back to
+    the host: no bucket graph can hold it."""
+
+    def params(self):
+        return ("marker-gate", MARK)
+
+    def apply_batch(self, xs, mask=None):
+        if bool((xs.reshape(xs.shape[0], -1)[:, 0] == MARK).any()):
+            raise ValueError("poison marker row")
+        return xs
 
 
 def build_service(

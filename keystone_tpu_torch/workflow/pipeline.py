@@ -28,7 +28,9 @@ ledger is active (``obs/ledger.py``).
 
 ``Pipeline.freeze`` returns a ``FrozenApplier``: the graph optimized
 once for the device it will serve on, then applied batch by batch, the
-serving path's entry (``keystone_tpu_torch/serve``).
+serving path's entry (``keystone_tpu_torch/serve``); with an artifact
+bundle installed, a batch at a padding bucket's shape replays that
+bucket's CUDA graph instead of walking.
 
 A fit's pre-flight (``_auto_out_of_core``) runs right after the
 optimizer: where the profiled materialization pass predicts a resident
@@ -36,9 +38,8 @@ footprint over ``KEYSTONE_OOC_FRACTION`` of the device, the large tensor
 sources become streams and the fit spills out of core, or, with
 ``KEYSTONE_AUTO_SPILL=0``, refuses with :class:`PreflightOOMError`.
 
-Not ported yet: the frozen applier's AOT artifacts (ROADMAP A11b), and
-the static validator and the cost-based planner behind
-``validate=``/``plan=`` (A10).
+Not ported yet: the static validator and the cost-based planner behind
+``validate=``/``plan=`` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -46,6 +47,9 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import threading
+import weakref
+from collections import Counter
 from typing import Optional, Sequence, Union
 
 import torch
@@ -55,6 +59,7 @@ from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
 from keystone_tpu_torch.workflow.estimator import Estimator, LabelEstimator
 from keystone_tpu_torch.workflow.executor import DatasetExpr, DatumExpr, GraphExecutor, TransformerExpr, synchronize
 from keystone_tpu_torch.workflow.transformer import Chainable, Transformer
+from keystone_tpu_torch.utils import graphs
 from keystone_tpu_torch.utils.device import resolve_device
 
 
@@ -376,10 +381,23 @@ class FrozenApplier:
     ``optional`` / ``with_fallback`` stages degrade on the serve path as
     they do in fits.
 
-    The reference's AOT bucket programs (``export_artifacts``,
-    ``install_artifacts``, ``fingerprint``) are ROADMAP A11b: they raise
-    :class:`NotPortedError`; with nothing installed the reference's call
-    is this walk.  An applier pickles and deep-copies (replica clones)."""
+    **Bucket graphs** (the reference's AOT bucket programs): an artifact
+    bundle (:meth:`export_artifacts`) names the padding buckets and keys
+    them by the format, torch and CUDA versions, the device's compute
+    capability, the kernel sources' hashes and the pipeline's
+    :meth:`fingerprint`.  :meth:`install_artifacts` verifies the key
+    (any skew rejects the bundle, counted, and the walk serves) and
+    registers one bucket program per bucket: the first call at that
+    bucket's exact shape and dtype runs the walk once (the kernels' first
+    launches) and captures a second walk as one CUDA graph on the
+    caller's stream; later calls copy into the graph's static input,
+    replay, and clone its output.  The graphs of one applier share one
+    memory pool and replay one at a time.  The bundle ships no code: each
+    process and each replica captures its own graphs, and a pickled or
+    deep-copied applier keeps the bundle and drops the graphs.  An
+    applier pickles and deep-copies (replica clones)."""
+
+    ARTIFACT_FORMAT = 1
 
     def __init__(self, pipeline: "Pipeline", validate=None, example=None, plan=None, device="cuda"):
         for op in pipeline.graph.operators.values():
@@ -393,28 +411,399 @@ class FrozenApplier:
         self.graph = PipelineEnv.get_optimizer().execute(pipeline.graph, device=self.device)
         self.source = pipeline.source
         self.sink = pipeline.sink
+        #: the pre-optimizer pipeline: :meth:`fingerprint` hashes it (the
+        #: optimized graph depends on the device it was frozen for)
+        self._frozen_from = pipeline
         #: True when a stage declares optional/with_fallback degradation
         from keystone_tpu_torch.workflow.executor import _degradable
 
         self._degradable = any(_degradable(op) is not None for op in self.graph.operators.values())
+        #: the verified bundle installed last (kept through pickling, so a
+        #: replica clone captures its own graphs from it)
+        self._bundle: Optional[dict] = None
+        self._reset_graphs()
+
+    def _reset_graphs(self) -> None:
+        """The per-process, per-replica graph state: bucket programs by
+        (shape, dtype), their memory pool, the replay lock, and the event
+        the last replay's output clone recorded."""
+        #: (shape, dtype str) -> a callable of the padded batch
+        self._bucket_programs: dict = {}
+        self._graph_pool = None
+        self._graph_lock = threading.Lock()
+        self._graph_done = None
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        for k in ("_bucket_programs", "_graph_pool", "_graph_lock", "_graph_done"):
+            state.pop(k, None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.__dict__.setdefault("_frozen_from", None)
+        self.__dict__.setdefault("_bundle", None)
+        self._reset_graphs()
 
     def __call__(self, data, deadline=None) -> Dataset:
         """Apply the frozen graph to one batch (a Dataset, or a tensor or
         array, which goes to the applier's device); returns the result
         Dataset.  ``deadline``: a wall-clock budget for this batch,
-        apportioned per stage by the executor."""
+        apportioned per stage by the executor.
+
+        A batch at an installed bucket's exact shape and dtype, on the
+        applier's device, runs the bucket's program instead of the walk.
+        Streams, host datasets and masked batches never do, nor does a
+        deadline-carrying call on a pipeline that declares degradation
+        (degrading needs stage boundaries), nor a deadline-carrying call
+        whose bucket is not captured yet (a capture runs on the caller's
+        thread, never under the watchdog).  Otherwise a deadline runs the
+        replay under one whole-batch ``guard.run_with_deadline``
+        (``site="serve.artifact"``): an overrun raises the walk's typed
+        ``DeadlineExceeded`` and keeps the graph.  Any other failure of a
+        bucket program drops it for good, counts
+        ``serve.artifact_fallbacks``, and walks."""
+        from keystone_tpu_torch.workflow.dataset import StreamDataset
+
         ds = as_dataset(data, device=self.device)
+        if (self._bucket_programs and not isinstance(ds, StreamDataset) and not ds.is_host and ds.mask is None
+                and (deadline is None or not self._degradable) and _on_device(ds.array, self.device)):
+            key = (tuple(ds.array.shape), _dtype_name(ds.array.dtype))
+            fn = self._bucket_programs.get(key)
+            if fn is not None and (deadline is None or getattr(fn, "captured", True)):
+                from keystone_tpu_torch.utils import guard
+
+                try:
+                    if deadline is None:
+                        out = fn(ds.array)
+                    else:
+                        out = guard.run_with_deadline(lambda: fn(ds.array), guard.as_deadline(deadline),
+                                                      site="serve.artifact")
+                    return Dataset(out, n=ds.n)
+                except guard.DeadlineExceeded:
+                    # a timeout, not a broken program: the caller's
+                    # deadline contract fires and the graph stays
+                    raise
+                except Exception as e:
+                    # one failed program must not fail serving, nor be
+                    # retried on every flush: drop it and walk
+                    self._bucket_programs.pop(key, None)
+                    from keystone_tpu_torch.obs import metrics
+
+                    metrics.inc("serve.artifact_fallbacks")
+                    logging.getLogger(__name__).warning(
+                        "bucket graph %s failed (%s: %s); falling back to the executor walk", key,
+                        type(e).__name__, e)
+        return self._walk(ds, deadline)
+
+    def _walk(self, ds: Dataset, deadline=None) -> Dataset:
+        """The executor walk of the frozen graph over ``ds``."""
         g, _ = self.graph.replace_source_with_node(self.source, G.DatasetOperator(ds))
         expr = GraphExecutor(g, deadline=deadline).execute(g.sink_dependencies[self.sink])
         if not isinstance(expr, DatasetExpr):
             raise TypeError(f"frozen apply produced {type(expr).__name__}, expected dataset")
         return expr.dataset
 
-    def export_artifacts(self, *args, **kwargs):
-        raise NotPortedError("the frozen applier's AOT artifacts (export_artifacts, install_artifacts, "
-                             "fingerprint: a torch export or a CUDA-graph form) are not ported yet (ROADMAP A11b)")
+    # ------------------------------------------------------ bucket graphs
+    def fingerprint(self) -> str:
+        """The pipeline signature a bundle is keyed by: structure and
+        every fitted tensor's bytes of the pre-optimizer pipeline
+        (``utils.hashing.pipeline_fingerprint``)."""
+        if self._frozen_from is None:
+            raise RuntimeError("this FrozenApplier lost its source pipeline; re-freeze it to use artifacts")
+        from keystone_tpu_torch.utils.hashing import pipeline_fingerprint
 
-    install_artifacts = fingerprint = export_artifacts
+        return pipeline_fingerprint(self._frozen_from)
+
+    @staticmethod
+    def _bucket_entry_key(rows: int) -> str:
+        return f"b{int(rows):05d}"
+
+    def export_artifacts(self, example=None, buckets=(8, 16, 32), item_shape=None, dtype=None) -> dict:
+        """The artifact bundle ``{"manifest": {...}, "blobs": {entry:
+        bytes}}`` for the padding ``buckets``, which the registry stores
+        beside the model file (``serve/registry.py``).  The manifest
+        keys the bucket graphs: format, torch and CUDA versions, the
+        device's name and compute capability, each kernel source's hash
+        (``kernels/build.py::source_hashes``), the signature
+        (:meth:`fingerprint`), the item shape and dtype, and one entry per
+        bucket; each entry's blob is its bucket's JSON spec.  Nothing is
+        captured here: a graph holds device addresses, so each replica
+        captures its own at install.  ``example``: one datum the item
+        shape and dtype are read from; or pass ``item_shape``/``dtype``."""
+        import json
+
+        import numpy as np
+
+        from keystone_tpu_torch.kernels.build import source_hashes
+
+        if example is not None:
+            ex = np.asarray(example)
+            item_shape, dtype = tuple(ex.shape), ex.dtype
+        if item_shape is None:
+            raise ValueError("export_artifacts needs the per-item shape: pass example=<one datum> or item_shape=")
+        dtype = np.dtype(dtype if dtype is not None else np.float32)
+        buckets = sorted({int(b) for b in buckets})
+        if not buckets or min(buckets) < 1:
+            raise ValueError(f"buckets must be positive ints, got {buckets}")
+        blobs: dict = {}
+        entries: dict = {}
+        for b in buckets:
+            key = self._bucket_entry_key(b)
+            spec = {"rows": b, "item_shape": [int(d) for d in item_shape], "dtype": str(dtype)}
+            blobs[key] = json.dumps(spec, sort_keys=True).encode()
+            entries[key] = {"rows": b, "file": f"{key}.json"}
+        manifest = {
+            "format": FrozenApplier.ARTIFACT_FORMAT,
+            "torch_version": torch.__version__,
+            "cuda_version": torch.version.cuda,
+            "device": _device_info(self.device),
+            "kernels": source_hashes(),
+            "signature": self.fingerprint(),
+            "item_shape": [int(d) for d in item_shape],
+            "dtype": str(dtype),
+            "buckets": buckets,
+            "entries": entries,
+        }
+        return {"manifest": manifest, "blobs": blobs}
+
+    def install_artifacts(self, bundle, device=None, signature=None, strict: bool = False) -> int:
+        """Verify an artifact bundle against this process and applier and
+        register its bucket programs; returns how many were registered.
+
+        Any mismatch rejects the whole bundle: format drift, torch or CUDA
+        version skew, an applier not on a CUDA device ("backend skew": a
+        CUDA graph needs the card), another compute capability, a changed
+        kernel source, or signature drift.  A rejection is logged and
+        counted as ``serve.artifact_fallbacks`` and the walk serves;
+        ``strict=True`` raises :class:`ArtifactMismatch` instead.  A bucket
+        whose blob is missing or does not match its entry is skipped and
+        counted.  ``device``: the device the replica serves on (default:
+        the applier's).  ``signature``: the expected fingerprint,
+        precomputed by the caller (default: :meth:`fingerprint`, which
+        reads every fitted tensor once)."""
+        import json
+
+        from keystone_tpu_torch.kernels.build import source_hashes
+        from keystone_tpu_torch.obs import metrics
+
+        log = logging.getLogger(__name__)
+
+        def reject(why: str) -> int:
+            if strict:
+                raise ArtifactMismatch(why)
+            metrics.inc("serve.artifact_fallbacks")
+            log.warning("artifact bundle rejected (%s); the executor walk serves", why)
+            return 0
+
+        manifest = (bundle or {}).get("manifest") or {}
+        blobs = (bundle or {}).get("blobs") or {}
+        if manifest.get("format") != FrozenApplier.ARTIFACT_FORMAT:
+            return reject(f"unknown artifact format {manifest.get('format')!r}")
+        if manifest.get("torch_version") != torch.__version__:
+            return reject(f"torch version skew (artifact {manifest.get('torch_version')}, running {torch.__version__})")
+        if manifest.get("cuda_version") != torch.version.cuda:
+            return reject(f"CUDA version skew (artifact {manifest.get('cuda_version')}, running {torch.version.cuda})")
+        dev = self.device if device is None else torch.device(device)
+        if dev.type != "cuda":
+            return reject(f"backend skew (artifact for {(manifest.get('device') or {}).get('type')!r}, applier on "
+                          f"{dev}: a CUDA graph needs a CUDA device)")
+        want_dev = manifest.get("device") or {}
+        here = _device_info(dev)
+        if want_dev.get("capability") != here["capability"]:
+            return reject(f"compute capability skew (artifact {want_dev.get('capability')} {want_dev.get('name')!r}, "
+                          f"running {here['capability']} {here['name']!r})")
+        if manifest.get("kernels") != source_hashes():
+            return reject(f"kernel source skew (artifact {manifest.get('kernels')}, running {source_hashes()})")
+        want = signature if signature is not None else self.fingerprint()
+        if manifest.get("signature") != want:
+            return reject(f"pipeline signature drift (artifact {manifest.get('signature')!r}, pipeline {want!r})")
+        item_shape = tuple(int(d) for d in manifest.get("item_shape") or ())
+        dtype = str(manifest.get("dtype") or "float32")
+        installed = 0
+        for key, ent in (manifest.get("entries") or {}).items():
+            blob = blobs.get(key)
+            if blob is None:
+                continue  # the reader counted the unreadable file
+            spec = {"rows": int(ent.get("rows", -1)), "item_shape": list(item_shape), "dtype": dtype}
+            try:
+                ok = json.loads(bytes(blob).decode()) == spec
+            except (ValueError, UnicodeDecodeError):
+                ok = False
+            if not ok:
+                if strict:
+                    raise ArtifactMismatch(f"artifact {key} does not match its manifest entry")
+                metrics.inc("serve.artifact_fallbacks")
+                log.warning("artifact %s does not match its manifest entry; that bucket walks", key)
+                continue
+            shape = (spec["rows"],) + item_shape
+            self._bucket_programs[(shape, dtype)] = _BucketGraph(self, shape, dtype)
+            installed += 1
+        self._bundle = bundle
+        return installed
+
+    @property
+    def installed_bundle(self) -> Optional[dict]:
+        """The bundle :meth:`install_artifacts` accepted last (kept
+        through pickling and deep copies), or None."""
+        return self._bundle
+
+    def has_bucket_program(self, shape, dtype) -> bool:
+        return (tuple(shape), _dtype_name(dtype)) in self._bucket_programs
+
+    def installed_buckets(self) -> int:
+        """How many bucket programs this applier currently holds."""
+        return len(self._bucket_programs)
+
+    def graph_stats(self) -> dict:
+        """Per bucket (rows): whether its graph is captured, its replays,
+        the kernel launches recorded into it, and the bytes its capture
+        reserved in the applier's memory pool."""
+        out = {}
+        for (shape, _dtype), fn in sorted(self._bucket_programs.items(), key=lambda kv: kv[0][0]):
+            if isinstance(fn, _BucketGraph):
+                out[shape[0]] = fn.stats()
+        return out
+
+
+def _on_device(t: torch.Tensor, dev: torch.device) -> bool:
+    """Is ``t`` on ``dev`` (``cuda`` without an index: the current card)?"""
+    if t.device.type != dev.type:
+        return False
+    if dev.type != "cuda":
+        return True
+    return t.device.index == (dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+def _dtype_name(dtype) -> str:
+    """A torch or numpy dtype as numpy names it (``float32``, ``uint8``)."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    import numpy as np
+
+    return np.dtype(dtype).name
+
+
+def _device_info(dev: torch.device) -> dict:
+    """The device keys of an artifact manifest."""
+    if dev.type != "cuda":
+        return {"type": dev.type, "name": dev.type, "capability": None}
+    return {"type": "cuda", "name": torch.cuda.get_device_name(dev),
+            "capability": list(torch.cuda.get_device_capability(dev))}
+
+
+class _BucketGraph:
+    """One padding bucket's CUDA graph of a frozen applier's walk.
+
+    The first call at the bucket's shape captures: the batch is copied
+    into a static input, the walk runs once on the caller's stream (its
+    kernels' first launches set their shared-memory attributes, and
+    their caches fill), then a second walk over the static input is
+    captured on the caller's stream (``capture_error_mode=
+    "thread_local"``: another replica's allocations during the capture
+    are its own business) into the applier's memory pool, after the
+    caching allocator released its free blocks to the device (a capture
+    cannot reclaim them); the first walk's output answers the call.  Later calls copy into the static
+    input, replay, and clone the static output, all on the caller's
+    stream, under the applier's replay lock and after the previous
+    replay's clone (the applier's graphs share one pool).  The launches
+    the capture recorded are added to ``utils.graphs.REPLAYED`` per
+    replay; tensors the kernels read from their own caches are kept with
+    the graph.  A walk with a host synchronization cannot be captured:
+    the capture raises and the applier drops the program."""
+
+    def __init__(self, applier: "FrozenApplier", shape, dtype: str):
+        # weak: the applier holds its programs, and a retired replica's
+        # graphs must free their pool with it, not at the next collection
+        self._applier = weakref.ref(applier)
+        self.shape = tuple(shape)
+        self.dtype = dtype
+        self.graph = None
+        self.static_in = None
+        self.static_out = None
+        self.launches = Counter()
+        self.kept: list = []
+        self.replays = 0
+        self.pool_bytes = 0
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def stats(self) -> dict:
+        return {"captured": self.captured, "replays": self.replays, "launches": dict(self.launches),
+                "pool_bytes": self.pool_bytes}
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cuda":
+            raise RuntimeError(f"a bucket graph replays on a CUDA device, not {x.device}")
+        ap = self._applier()
+        with ap._graph_lock:
+            if self.graph is None:
+                return self._capture(x)
+            stream = torch.cuda.current_stream(x.device)
+            if ap._graph_done is not None:
+                stream.wait_event(ap._graph_done)
+            self.static_in.copy_(x)
+            self.graph.replay()
+            out = self.static_out.clone()
+            done = torch.cuda.Event()
+            done.record(stream)
+            ap._graph_done = done
+            self.replays += 1
+        graphs.add_replayed(self.launches)
+        return out
+
+    def _capture(self, x: torch.Tensor) -> torch.Tensor:
+        ap = self._applier()
+        dev = x.device
+        stream = torch.cuda.current_stream(dev)
+        rows = self.shape[0]
+        with graphs.CAPTURE_LOCK:
+            if ap._graph_done is not None:
+                stream.wait_event(ap._graph_done)
+            static_in = x.clone()
+            warm = ap._walk(Dataset(static_in, n=rows))
+            if warm.mask is not None or warm.is_host:
+                raise TypeError("the frozen apply's output is not one plain tensor; a bucket graph cannot hold it")
+            # capture on a side stream: the caller's, unless it is the
+            # default stream (which cannot capture)
+            cap = stream if stream != torch.cuda.default_stream(dev) else torch.cuda.Stream(dev)
+            if cap is not stream:
+                cap.wait_stream(stream)
+            if ap._graph_pool is None:
+                ap._graph_pool = torch.cuda.graph_pool_handle()
+            # a capture allocates from its own pool and cannot take back
+            # the caching allocator's free blocks mid-capture: release
+            # them to the device first, as torch.cuda.graph does
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved(dev)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(cap), graphs.recording() as rec:
+                g.capture_begin(pool=ap._graph_pool, capture_error_mode="thread_local")
+                try:
+                    out = ap._walk(Dataset(static_in, n=rows))
+                except BaseException:
+                    try:
+                        g.capture_end()
+                    except RuntimeError:
+                        pass  # the capture was invalidated by what raised
+                    raise
+                g.capture_end()
+            if cap is not stream:
+                stream.wait_stream(cap)
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved0
+        self.graph, self.static_in, self.static_out = g, static_in, out.array
+        self.launches, self.kept = rec.launches, rec.kept
+        return warm.array
+
+
+class ArtifactMismatch(RuntimeError):
+    """An artifact bundle does not match this process or pipeline (format,
+    torch or CUDA version, device, kernel sources, or signature): raised
+    only under ``install_artifacts(strict=True)``; the serving path counts
+    the mismatch and walks instead."""
 
 
 def fit_estimators(g: G.Graph, ex: GraphExecutor) -> dict:

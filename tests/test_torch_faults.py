@@ -52,7 +52,7 @@ def test_seeded_plan_fires_at_the_reference_call_counts(plan, site):
     assert 0 < sum(got) < 60
 
 
-@pytest.mark.parametrize("site", ["multihost.init", "serve.rollout", "serve.net.send", "plan.sample"])
+@pytest.mark.parametrize("site", ["multihost.init", "serve.net.connect", "serve.net.send", "plan.sample"])
 def test_sites_of_unported_slices_are_refused(site):
     """The reference's other sites join with the slices that wire them;
     until then a plan naming one is refused, not silently inert."""
@@ -68,13 +68,14 @@ def test_sites_of_unported_slices_are_refused(site):
 def test_wired_sites_are_the_slice_sites():
     assert faults.SITES == {"blockstore.read", "blockstore.write", "ckpt.save", "ckpt.load", "stream.batch",
                             "executor.stage", "kernel.sweep", "serve.enqueue", "serve.batch", "serve.replica",
-                            "serve.worker", "serve.swap"}
+                            "serve.worker", "serve.swap", "serve.artifact_load", "serve.rollout"}
     assert faults.SITES <= ref_faults.SITES
 
 
 @pytest.mark.parametrize("site,ctx", [
     ("serve.enqueue", {}), ("serve.batch", {}), ("serve.replica", {"replica": 1}), ("serve.worker", {"replica": 0}),
-    ("serve.swap", {"version": "v2"}),
+    ("serve.swap", {"version": "v2"}), ("serve.rollout", {"version": "v0003"}),
+    ("serve.artifact_load", {"path": "MANIFEST.json"}),
 ])
 def test_serve_sites_fire_at_the_reference_calls(site, ctx):
     """Each serving site, wired in this slice, fires at the same calls as

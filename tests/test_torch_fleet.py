@@ -194,10 +194,27 @@ def test_replica_chaos_one_flush_fails_service_survives():
 
 
 def test_unported_backends_name_their_roadmap_item():
-    for kw, item in ((dict(backend="process"), "A11c"), (dict(backend="net"), "A11c"),
-                     (dict(artifacts={"manifest": {}}), "A11b")):
+    for kw, item in ((dict(backend="process"), "A11c"), (dict(backend="net"), "A11c")):
         with pytest.raises(NotPortedError, match=item):
             ReplicaPool(_pipeline(), devices=["cpu"], **kw)
+
+
+def test_pool_artifacts_move_with_the_generation():
+    """The pool's bundle (``artifacts=``): each replica built for a
+    generation tries it (refused on the CPU, counted), a staged generation
+    carries its own into the commit, and an abandoned one leaves the live
+    bundle in place; the dispatch window retunes live."""
+    bundle = {"manifest": {"format": 1}, "blobs": {}}
+    f0 = metrics.REGISTRY.counter_total("serve.artifact_fallbacks")
+    pool = ReplicaPool(_pipeline(), replicas=2, devices=["cpu", "cpu"], artifacts=bundle)
+    assert pool.has_artifacts and metrics.REGISTRY.counter_total("serve.artifact_fallbacks") == f0 + 2
+    staged = pool.stage(_pipeline(), "v2", artifacts=None)
+    assert pool.abandon_staged(staged) == [] and pool.has_artifacts
+    staged = pool.stage(_pipeline(), "v3", artifacts=None)
+    pool.commit(staged, "v3")
+    assert not pool.has_artifacts and pool.version == "v3"
+    assert pool.set_window(5) == 5 and pool.window == 5 and pool.set_window(0) == 1
+    pool.close(timeout=WAIT)
 
 
 # ------------------------------------------------------------ hot-swap

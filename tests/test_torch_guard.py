@@ -54,7 +54,8 @@ def test_every_module_imports_without_jax():
               "loaders.newsgroups", "loaders.amazon", "pipelines.newsgroups", "pipelines.amazon_reviews",
               "convert", "obs", "obs.metrics", "obs.ledger", "faults", "utils.guard", "workflow.state",
               "workflow.recovery", "obs.recorder", "serve", "serve.service", "serve.fleet", "serve.http", "cli",
-              "tools.serve_bench"):
+              "tools.serve_bench", "serve.registry", "serve.rollout", "serve.autoscale", "utils.hashing",
+              "utils.graphs"):
         assert f"keystone_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

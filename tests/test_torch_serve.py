@@ -493,20 +493,32 @@ def test_small_scorer_served_as_the_reference_serves_it():
 
 
 def test_unported_options_name_their_roadmap_item():
-    for kw, item in ((dict(workers=2), "A11c"), (dict(hosts="local:2"), "A11c"), (dict(artifacts={"x": 1}), "A11b"),
-                     (dict(autoscale={"min_workers": 1}), "A11d")):
+    for kw, item in ((dict(workers=2), "A11c"), (dict(hosts="local:2"), "A11c")):
         with pytest.raises(NotPortedError, match=item):
             serve(_pipeline(), devices=["cpu"], **kw)
     with pytest.raises(NotPortedError, match="A10"):
         _pipeline().freeze(device="cpu", validate=True)
     with pytest.raises(NotPortedError, match="A10"):
         _pipeline().freeze(device="cpu", plan=True)
-    app = _pipeline().freeze(device="cpu")
-    for m in (app.export_artifacts, app.install_artifacts, app.fingerprint):
-        with pytest.raises(NotPortedError, match="A11b"):
-            m()
     with _service() as svc:
-        with pytest.raises(NotPortedError, match="A11b"):
-            svc.swap(_pipeline(3.0), artifacts={"x": 1})
         with pytest.raises(TypeError, match="A11d"):
             svc.submit(np.ones(DIM, np.float32), tenant="t1")
+
+
+def test_artifacts_and_autoscale_options_serve():
+    """``artifacts=`` and ``autoscale=`` are taken (the lifecycle slice):
+    on the CPU the bundle is refused as backend skew and counted, the walk
+    serves, and the autoscaler reports in /statusz."""
+    app = _pipeline().freeze(device="cpu")
+    bundle = app.export_artifacts(example=np.zeros(DIM, np.float32), buckets=(8,))
+    assert bundle["manifest"]["signature"] == app.fingerprint() and app.install_artifacts(bundle) == 0
+    f0 = _counter("serve.artifact_fallbacks")
+    x = np.random.default_rng(0).normal(size=(3, DIM)).astype(np.float32)
+    with _service(artifacts=bundle, autoscale={"min_workers": 1, "max_workers": 2}) as svc:
+        got = np.stack([f.result(timeout=WAIT) for f in svc.submit_many(x)])
+        st = svc.status()
+        info = svc.swap(_pipeline(3.0), artifacts=bundle)
+    np.testing.assert_allclose(got, _offline(x), rtol=1e-6, atol=1e-7)
+    assert _counter("serve.artifact_fallbacks") >= f0 + 2  # the replica's install, the staged one's
+    assert st["artifacts"]["configured"] and st["artifacts"]["installed_buckets"] == 0
+    assert st["autoscaler"]["max_workers"] == 2 and info["replicas"] == 1

@@ -33,9 +33,9 @@ from keystone_tpu_torch import faults
 from keystone_tpu_torch.models.linear import LinearMapper
 from keystone_tpu_torch.obs import ledger, metrics
 from keystone_tpu_torch.ops.stats import NormalizeRows
-from keystone_tpu_torch.serve import HttpFrontend, Overloaded, serve, serve_http
+from keystone_tpu_torch.serve import HttpFrontend, ModelRegistry, Overloaded, serve, serve_http
 from keystone_tpu_torch.workflow.dataset import Dataset
-from keystone_tpu_torch.workflow.pipeline import NotPortedError, Pipeline
+from keystone_tpu_torch.workflow.pipeline import Pipeline
 
 pytestmark = pytest.mark.serve
 
@@ -113,13 +113,18 @@ def test_http_bad_request_and_single_instance():
         assert status == 200 and len(body["predictions"]) == 1 and len(body["predictions"][0]) == DIM
 
 
-def test_http_frontend_stop_without_start_does_not_hang():
+def test_http_frontend_stop_without_start_does_not_hang(tmp_path):
     with _service() as svc:
         HttpFrontend(svc, port=0).stop()
         with HttpFrontend(svc, port=0) as started:
             assert _call(f"http://127.0.0.1:{started.port}/healthz")[0] == 200
-        with pytest.raises(NotPortedError, match="A11b"):
-            HttpFrontend(svc, port=0, registry=object())
+            assert _call(f"http://127.0.0.1:{started.port}/swap", {})[0] == 409  # no registry attached
+        HttpFrontend(svc, port=0, registry=ModelRegistry(str(tmp_path))).stop()
+        with HttpFrontend(svc, port=0, registry=ModelRegistry(str(tmp_path))) as front:
+            base = f"http://127.0.0.1:{front.port}"
+            assert _call(base + "/swap", {})[0] == 404  # an empty registry
+            assert _call(base + "/swap", b"[1]")[0] == 400
+            assert _call(base + "/rollback", {})[0] == 409  # nothing swapped yet
 
 
 def test_http_429_retry_after_is_derived():
@@ -326,15 +331,112 @@ def test_cli_serve_on_the_cpu_answers_and_exits_on_sigint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["check"], "A10"), (["MnistRandomFFT"], "A10"), (["export", "--model", "m"], "A11b"),
-    (["worker"], "A11c"), (["serve", "--model-dir", "d"], "A11b"), (["serve", "--model", "m", "--workers", "2"],
-                                                                    "A11c"),
-    (["serve", "--model", "m", "--hosts", "local:2"], "A11c"), (["serve", "--model", "m", "--autoscale", "1:2"], "A11d"),
-    (["serve", "--model", "m", "--watch", "5"], "A11d"), (["serve", "--model", "a=m", "--model", "b=n"], "A11d"),
+    (["check"], "A10"), (["plan"], "A10"), (["worker"], "A11c"), (["serve", "--model", "m", "--workers", "2"], "A11c"),
+    (["serve", "--model", "m", "--hosts", "local:2"], "A11c"), (["serve", "--model", "a=m", "--model", "b=n"], "A11d"),
     (["serve", "--model", "m", "--tenants", "2"], "A11d"),
+    (["export", "--model", "m", "--example-shape", "4", "--out", "o", "--plan"], "A10"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item, capsys):
     from keystone_tpu_torch import cli
 
     assert cli.main(argv) != 0
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_cli_lists_the_ten_pipelines(capsys):
+    from keystone_tpu_torch import cli
+
+    assert cli.main(["--list"]) == 0
+    out = capsys.readouterr().out
+    for name in ("MnistRandomFFT", "LinearPixels", "RandomPatchCifar", "NewsgroupsPipeline", "TimitPipeline",
+                 "ImageNetSiftLcsFV", "VOCSIFTFisher", "AmazonReviewsPipeline", "KernelTimitPipeline",
+                 "KernelCifarPipeline"):
+        assert f"  {name}" in out
+    assert cli.main(["NoSuchPipeline"]) == 2
+
+
+def test_cli_dispatches_a_pipeline_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """A pipeline name runs that pipeline's main with the rest of the
+    flags; KEYSTONE_STATE_DIR sets the saved-state directory first."""
+    from keystone_tpu_torch import cli
+    from keystone_tpu_torch.workflow.pipeline import PipelineEnv
+
+    monkeypatch.setenv("KEYSTONE_STATE_DIR", str(tmp_path / "state"))
+    monkeypatch.setattr(PipelineEnv, "state_dir", None)
+    assert cli.main(["MnistRandomFFT", "--synthetic-n", "128", "--num-ffts", "1", "--device", "cpu"]) == 0
+    assert "'pipeline': 'MnistRandomFFT'" in capsys.readouterr().out
+    assert PipelineEnv.state_dir == str(tmp_path / "state")
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve", "--model", "m", "--watch", "5"],
+    ["serve", "--model-dir", "d", "--canary", "0.5"],
+    ["serve", "--model-dir", "d", "--watch", "1", "--bake-s", "2"],
+    ["serve", "--model", "m", "--autoscale", "two"],
+    ["serve"],
+])
+def test_cli_serve_checks_its_lifecycle_flags(argv, capsys):
+    """The reference's argument checks: --watch needs --model-dir, --canary
+    needs --watch, --bake-s needs --canary, --autoscale takes MIN:MAX."""
+    from keystone_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert e.value.code == 2 and "error:" in capsys.readouterr().err
+
+
+def test_cli_serve_from_a_registry_watches_a_guarded_publish(tmp_path):
+    """``cli serve --model-dir --watch --canary --autoscale`` on the CPU:
+    serves the registry's current version (its bundle refused as backend
+    skew, the walk serving), a new publish is canaried and committed under
+    traffic, CURRENT follows, POST /rollback returns to the first version,
+    and SIGINT exits 0."""
+    from keystone_tpu_torch.serve import ModelRegistry
+
+    reg = ModelRegistry(str(tmp_path / "reg"))
+    first = _pipeline().fit()
+    v1 = reg.publish(first, artifacts=first.freeze(device="cpu").export_artifacts(example=np.zeros(DIM, np.float32),
+                                                                                  buckets=(4,)))
+    second = (Pipeline.of(NormalizeRows()) | LinearMapper(torch.eye(DIM) * 3.0)).fit()
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "keystone_tpu_torch.cli", "serve", "--model-dir", reg.root, "--device", "cpu",
+         "--port", "0", "--max-batch", "4", "--max-wait-ms", "1", "--example-shape", str(DIM), "--watch", "0.05",
+         "--canary", "1.0", "--bake-s", "0.2", "--autoscale", "1:2"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(tmp_path), env=env)
+    try:
+        line = ""
+        deadline = time.monotonic() + 120
+        while "serving" not in line and time.monotonic() < deadline and proc.poll() is None:
+            line = proc.stdout.readline()
+        assert "serving" in line and "artifacts on" in line and "canary 1" in line, line
+        base = line.split(" on ", 1)[1].split(" ", 1)[0]
+        x = np.ones((1, DIM), np.float32)
+
+        def norm():
+            status, body, _ = _call(base + "/predict", {"instances": x.tolist()})
+            assert status == 200, body
+            return float(np.linalg.norm(body["predictions"][0]))
+
+        assert abs(norm() - 2.0) < 1e-5
+        reg.publish(second)
+        deadline = time.monotonic() + 60
+        while reg.current() != "v0002" or _call(base + "/statusz")[1]["version"] != "v0002":
+            assert time.monotonic() < deadline, _call(base + "/rolloutz")[1]
+            norm()  # the canary's samples
+        assert abs(norm() - 3.0) < 1e-5
+        hist = _call(base + "/rolloutz")[1]["history"]
+        assert hist[-1]["version"] == "v0002" and hist[-1]["verdict"] == "committed"
+        status, info, _ = _call(base + "/rollback", {})
+        assert status == 200 and info["rolled_back_to"] == v1 and reg.current() == v1
+        assert abs(norm() - 2.0) < 1e-5
+        st = _call(base + "/statusz")[1]
+        assert st["autoscaler"]["max_workers"] == 2 and st["artifacts"]["installed_buckets"] == 0
+        proc.send_signal(signal.SIGINT)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=10)
+    assert proc.returncode == 0, out
+    assert "graph replay launches {}" in out
