@@ -234,7 +234,27 @@ result line):
    SIGINT exit 0; the autoscaler (1..3) under an open-loop burst at 1.5x
    S1's saturation growing the fleet, each new replica primed from the
    graphs, and shrinking back to 1 when idle; no artifact fallback
-   anywhere, B1's launches by the wrapper and by replays;
+   anywhere, B1's launches by the wrapper and by replays; S6, the process
+   and network fleets: B1 at the serving buckets 8..64 (times, bounds,
+   errors); the raw scorer with its bundle behind ``serve(workers=2)``,
+   each worker on the card with its own bucket graphs (spawn and ready
+   seconds, its peak reserved memory), the served scores against the
+   offline ones with top-5 equal, one full 128-row slab block through it
+   and through the threaded fleet (``replicas=1``) bit for bit, a worker
+   SIGKILLed under the closed loop (no future lost, the slot healed, the
+   replacement's graphs captured), S1's saturation loop three times on
+   the threaded fleet and on workers=1, 2, 4 (images/s, p50/p99, requests
+   a flush, the flushes in flight on the router and the share of the wall
+   each worker spent in its applies, nvidia-smi's utilization as a coarse counter),
+   the binary ingress in front of workers=2 (bit for bit the HTTP JSON
+   answers, no byte copied on the slab-direct path), serve_bench's
+   ingress A/B at full width in front of the threaded fleet and of
+   workers=2 (per-datum HTTP JSON against binary 128-image batches),
+   the network fleet of two ``cli worker`` children
+   over loopback with one link partitioned past its lease mid-load
+   (nothing lost, healed, bit for bit the process fleet's); the
+   workers' B1 launches and replays, as they reported them, and none in
+   the router while they serve;
 25. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches (bucket-graph replays
    included), float64 errors) for all four kernels, B3's and B4's times at the new paths' shapes and B1's and
@@ -4253,11 +4273,23 @@ def serve_path(dev, card, P, fk, scorer, forward, images, float_batches, b1_args
     from torch.profiler import ProfilerActivity, profile
 
     from keystone_tpu_torch.obs import metrics
-    from keystone_tpu_torch.serve import RowBlock, serve
+    from keystone_tpu_torch.serve import serve, wire
     from keystone_tpu_torch.workflow.pipeline import Pipeline
 
     out = {}
     imgs = images.cpu().numpy()
+    pool = wire.SlabPool(prefix="s1")
+
+    def admit_block(svc, rows):
+        """``rows`` admitted as one shared-memory admission block
+        (``submit_batch``); the block returns to the pool with its answers."""
+        blk = wire.alloc_block(pool, len(rows), rows.shape[1:], rows.dtype)
+        blk.array[:] = rows
+        try:
+            return [f.result(timeout=SERVE_RESULT_S) for f in svc.submit_batch(blk)]
+        finally:
+            blk.close()
+
     with phase("serve S1: B1 at the smallest and largest bucket on the served scorer's weights"):
         out["b1_buckets"] = {}
         for rows in (SERVE_BUCKETS[0], SERVE_BUCKETS[-1]):
@@ -4302,7 +4334,7 @@ def serve_path(dev, card, P, fk, scorer, forward, images, float_batches, b1_args
             block_outs = []
             for j in range(SERVE_BLOCKS):
                 rows = imgs[j * SERVE_BLOCK:(j + 1) * SERVE_BLOCK]
-                block_outs += [f.result(timeout=SERVE_RESULT_S) for f in svc.submit_batch(RowBlock(rows))]
+                block_outs += admit_block(svc, rows)
             regimes["submit_batch"] = {"top5": top5_check(f"{SERVE_BLOCKS} submit_batch calls of {SERVE_BLOCK}",
                                                           block_outs, off_ids[:len(block_outs)],
                                                           off_scores[:len(block_outs)])}
@@ -4351,7 +4383,7 @@ def serve_path(dev, card, P, fk, scorer, forward, images, float_batches, b1_args
             got = []
             for j in range(SERVE_BLOCKS):
                 rows = imgs[j * SERVE_BLOCK:(j + 1) * SERVE_BLOCK]
-                got += [f.result(timeout=SERVE_RESULT_S) for f in svc.submit_batch(RowBlock(rows))]
+                got += admit_block(svc, rows)
             got += [f.result(timeout=SERVE_RESULT_S) for f in [svc.submit(x) for x in imgs[:SERVE_BLOCK]]]
             torch.cuda.synchronize()
             n = len(got)
@@ -4388,6 +4420,7 @@ def serve_path(dev, card, P, fk, scorer, forward, images, float_batches, b1_args
             out["launches_fisher_encode"] = launches["fisher_encode"]
         finally:
             svc.close(timeout=SERVE_RESULT_S)
+    pool.close()
     return out
 
 
@@ -5071,6 +5104,444 @@ def lifecycle_path(dev, card, P, fk, scorer, images, params_b, saturation_ips):
     return out
 
 
+# ---- S6, the process and network fleets: S1's full-width raw scorer
+# (scores_of) with its artifact bundle at S1's buckets, served by worker
+# processes that each load it onto cuda:0, capture their own bucket graphs
+# (B1 twice in each) and report their kernels back; the router (this
+# process) holds no weights for them and launches nothing while they serve.
+# Several processes on one card take turns on it (no MPS daemon): the
+# gain is on the host.  Each saturation loop runs S6_SAT_REPS times.  What
+# keeps a slot busy is read from host-clock spans over a loop's wall time:
+# each worker's `worker.apply` spans (the router's merge of its telemetry,
+# the device's wait inside) and the router's flush spans (their sum over
+# the wall: the flushes in flight).  No device trace
+# reaches into the workers: nvidia-smi's utilization.gpu, sampled every
+# S6_SMI_MS, stands beside them as a coarse counter (the share of sample
+# periods in which a kernel of any process ran), not a trace.
+S6_WORKERS = (1, 2, 4)  # S1's saturation loop on each process fleet
+S6_SAT_REPS = 3  # runs of each configuration's saturation loop
+S6_AB_S, S6_AB_ROUNDS = 1.5, 3  # the ingress A/B: seconds a leg, measured rounds of both legs
+S6_B1_BUCKETS = (8, 16, 32, 64)  # B1 timed at the serving buckets below S1's batch
+S6_SCORED_N = 1024  # served through the two-worker fleet against the offline scores
+S6_KILL_N = 2048  # the closed loop one worker is SIGKILLed under
+S6_KILL_AFTER_S = 0.2
+S6_NET_N = 1024  # the closed loop the network fleet's partition lands in
+S6_LEASE_S = 1.0
+S6_PARTITION_S = 2.5  # past the lease: the victim's flush forfeits, it fences
+S6_HEAL_S = 120.0  # the bound of every wait for a heal
+S6_SMI_MS = 100
+
+
+class _SmiSampler:
+    """nvidia-smi's utilization.gpu every S6_SMI_MS while the block runs
+    (the mean of its samples is the card's busy share over the block)."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits", f"--loop-ms={S6_SMI_MS}"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate(timeout=10)
+        self.samples = [float(v) for v in out.split() if v.strip().replace(".", "", 1).isdigit()]
+
+    @property
+    def busy_share(self):
+        return None if not self.samples else sum(self.samples) / (100.0 * len(self.samples))
+
+
+def _rounded(d, places=3):
+    """A dict's or a list's numbers rounded, for a printed line."""
+    if isinstance(d, dict):
+        return {k: round(v, places) for k, v in d.items()}
+    return [round(v, places) for v in d]
+
+
+def _kernel_delta(before: dict, after: dict) -> dict:
+    out = {}
+    for part in ("launches", "replayed"):
+        out[part] = {k: after[part].get(k, 0) - before.get(part, {}).get(k, 0) for k in after[part]}
+    return out
+
+
+def _worker_peaks(svc) -> dict:
+    """Each worker process's peak reserved device memory (MiB) from its
+    last kernel report, by worker name and pid."""
+    return {f"{w}/{pid}": rep["peak_reserved_bytes"] / 2 ** 20
+            for (w, pid), rep in svc.telemetry.kernel_reports().items()}
+
+
+def process_fleet_path(dev, card, P, fk, scorer, images, b1_args):
+    """S6: B1 at the serving buckets, then the process and network fleets
+    on the card (see the comment above)."""
+    import signal
+    import threading
+    import urllib.request
+
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.serve import serve, wire
+    from keystone_tpu_torch.serve.ingress import BinaryClient, serve_ingress
+    from keystone_tpu_torch.tools import serve_bench
+    from keystone_tpu_torch.utils import graphs
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    out = {}
+    t_s6 = time.perf_counter()
+    imgs = images.cpu().numpy()
+    reg = metrics.REGISTRY
+    with phase("serve S6: B1 at the serving buckets 8..64 on the served scorer's weights"):
+        out["b1_buckets"] = {}
+        for rows in S6_B1_BUCKETS:
+            calls = b1_args(images[:rows])
+            errs = [compare(f"B1 at the {rows}-row bucket, {name}", fk.fused_forward(*a), fk.fused_forward_ref(*a),
+                            TOL_FUSED) for name, a in calls]
+            ms = sum(cuda_ms(lambda a=a: fk.fused_forward(*a)) for _, a in calls)
+            plain = sum(cuda_ms(lambda a=a: fk.fused_forward_ref(*a), reps=5) for _, a in calls)
+            shapes = ((rows, 784, 128), (rows, 324, 96))
+            costs = [fv_cost(n, t, PCA_DIMS, GMM_K, d_in=d_in) for n, t, d_in in shapes]
+            nbytes, flops = sum(c[0] for c in costs), sum(c[1] for c in costs)
+            rec = {"ms": ms, "plain_ms": plain, "bound_ms": sum(bound_ms(*c) for c in costs),
+                   "bound_by": bound_by(nbytes, flops),
+                   "bound_ms_tc": sum(fv_bound_ms_tc(n, t, PCA_DIMS, GMM_K, d_in=d_in) for n, t, d_in in shapes),
+                   "max_abs_err": max(errs)}
+            out["b1_buckets"][rows] = rec
+            print(f"  B1 at {rows} rows (SIFT ({rows}, 784, 128->64) + LCS ({rows}, 324, 96->64) K=256): "
+                  f"{ms:.4f} ms (plain {plain:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}, on the "
+                  f"tensor cores {rec['bound_ms_tc']:.4f} ms), max_abs_err {rec['max_abs_err']:.3e} ({card})",
+                  flush=True)
+        torch.cuda.synchronize()
+
+    scores_pipe = Pipeline.of(P.scores_of(scorer)).fit()
+    bundle = scores_pipe.freeze(device=dev).export_artifacts(example=imgs[0], buckets=SERVE_BUCKETS)
+    off_scores = torch.cat([P.scores_of(scorer)(b) for b in images.split(BATCH)]).cpu().numpy()
+    off_ids = torch.cat([scorer(b) for b in images.split(BATCH)]).cpu().numpy()
+    torch.cuda.synchronize()
+    kw = dict(max_batch=BATCH, buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS,
+              queue_bound=4 * SERVE_CLIENTS * SERVE_SAT_WINDOW, example=imgs[0], artifacts=bundle)
+    fb0 = reg.counter_total("serve.artifact_fallbacks")
+    services, totals = [], {"launches": {}, "replayed": {}}
+
+    def add_totals(svc, before):
+        d = _kernel_delta(before, svc.telemetry.kernel_totals())
+        for part in d:
+            for k, v in d[part].items():
+                totals[part][k] = totals[part].get(k, 0) + v
+
+    def spawn(label, **fleet):
+        t0 = time.perf_counter()
+        svc = serve(scores_pipe, name=label, supervise_interval_s=0.2, restart_limit=1000, **fleet, **kw)
+        services.append(svc)
+        took = time.perf_counter() - t0
+        workers = {}
+        for r in svc._pool.replicas:
+            h, kern = r.handle, r.handle.kernels or {}
+            workers[h.name] = {"pid": h.pid, "ready_s": h.spawn_seconds,
+                               "startup_s": h.ready_info.get("startup_seconds"),
+                               "graphs": h.ready_info.get("artifact_buckets"), "device": kern.get("device"),
+                               "peak_reserved_mib": (kern.get("peak_reserved_bytes") or 0) / 2 ** 20}
+            check(h.ready_info.get("artifact_buckets") == len(SERVE_BUCKETS) and kern.get("device") == "cuda:0",
+                  f"{label} {h.name}: ready {h.ready_info}")
+            check(kern["launches"]["fused_forward"] == 2 * len(SERVE_BUCKETS),
+                  f"{label} {h.name}: B1 launched {kern['launches']} at prime, not twice a bucket graph's capture")
+        print(f"  {label}: {len(workers)} worker(s) spawned, primed and captured in {took:.3f} s: "
+              + "; ".join(f"{n} pid {w['pid']} ready {w['ready_s']:.3f} s (startup {w['startup_s']} s), "
+                          f"{w['graphs']} bucket graphs, peak reserved {w['peak_reserved_mib']:.1f} MiB"
+                          for n, w in workers.items()) + f" ({card})", flush=True)
+        return svc, {"build_s": took, "workers": workers}
+
+    def hist_sums(name):
+        """(count, sum) of each label set of one histogram series."""
+        return {tuple(sorted(lb.items())): (h["count"], h["sum"]) for lb, h in reg.histogram_series(name)}
+
+    def mean_ms(before, after):
+        """Mean ms of the samples a histogram took between two reads, by
+        label set (the worker name for the workers' apply spans)."""
+        out = {}
+        for key, (c, t) in after.items():
+            c0, t0 = before.get(key, (0, 0.0))
+            if c > c0:
+                out[dict(key).get("worker", "router")] = 1e3 * (t - t0) / (c - c0)
+        return out
+
+    def span_share(before, after, wall):
+        """The seconds of a histogram's samples between two reads over
+        ``wall``, by label set: the share of the loop a slot spent in
+        those spans."""
+        out = {}
+        for key, (c, t) in after.items():
+            c0, t0 = before.get(key, (0, 0.0))
+            if c > c0:
+                out[dict(key).get("worker", "router")] = (t - t0) / wall
+        return out
+
+    def loop(label, svc, n):
+        r0 = serve_counters(metrics)
+        fl0, ap0 = hist_sums("serve.batch_seconds"), hist_sums("serve.fleet.apply_seconds")
+        with _SmiSampler() as smi:
+            outs, lat, wall = serve_closed_loop(svc, imgs, n, SERVE_SAT_WINDOW)
+        flushes = serve_counters(metrics)["batches"] - r0["batches"]
+        # a flush's mean ms on the router (the apply, over the wire for a
+        # process fleet) and in each worker (its apply span, the device's
+        # wait included); the router's flush seconds over the wall are the
+        # mean number of flushes in flight, a worker's apply seconds its
+        # busy share
+        fl1, ap1 = hist_sums("serve.batch_seconds"), hist_sums("serve.fleet.apply_seconds")
+        flush_ms = mean_ms(fl0, fl1).get("router")
+        apply_ms = mean_ms(ap0, ap1)
+        in_flight = span_share(fl0, fl1, wall).get("router")
+        apply_share = span_share(ap0, ap1, wall)
+        idx = np.arange(n) % len(imgs)
+        got = np.stack(outs)
+        err = compare(f"{label}: {n} served raw scores against the offline scores", torch.from_numpy(got),
+                      torch.from_numpy(off_scores[idx]), TOL_SERVE_SCORES, RTOL_SERVE_SCORES)
+        rec = {"requests": n, "seconds": wall, "images_per_s": n / wall, "flushes": flushes,
+               "requests_per_flush": n / max(1, flushes), "p50_ms": float(np.percentile(lat, 50) * 1e3),
+               "p99_ms": float(np.percentile(lat, 99) * 1e3), "smi_util": smi.busy_share,
+               "smi_samples": len(smi.samples), "scores_max_abs_err": err, "flush_ms": flush_ms,
+               "worker_apply_ms": apply_ms, "flushes_in_flight": in_flight, "worker_apply_share": apply_share}
+        print(f"  {label}: {n} requests from {SERVE_CLIENTS} threads ({SERVE_SAT_WINDOW} outstanding each) in "
+              f"{wall:.3f} s: {rec['images_per_s']:.1f} images/s, {flushes} flushes, "
+              f"{rec['requests_per_flush']:.2f} requests a flush, p50 {rec['p50_ms']:.3f} ms, p99 "
+              f"{rec['p99_ms']:.3f} ms; a flush {flush_ms} ms on the router ({in_flight} flushes in flight on "
+              f"the mean), the workers' apply {_rounded(apply_ms)} ms (in applies {_rounded(apply_share)} of the wall); "
+              f"nvidia-smi utilization.gpu {rec['smi_util']} over {len(smi.samples)} samples, a coarse "
+              f"counter ({card})", flush=True)
+        return rec, got
+
+    def sat_loops(label, svc):
+        """S6_SAT_REPS runs of S1's saturation loop on ``svc``, and their
+        median images/s."""
+        runs = [loop(f"{label}, run {i + 1} of {S6_SAT_REPS}", svc, SERVE_SAT_N)[0] for i in range(S6_SAT_REPS)]
+        ips = [r["images_per_s"] for r in runs]
+        print(f"  {label}: images/s over {S6_SAT_REPS} runs {[round(v, 1) for v in ips]}, median "
+              f"{float(np.median(ips)):.1f} ({card})", flush=True)
+        return {"runs": runs, "images_per_s": ips, "images_per_s_median": float(np.median(ips))}
+
+    def ab(label, svc):
+        """serve_bench's ingress A/B at full width in front of ``svc``:
+        per-datum HTTP JSON clients against binary clients sending one
+        full 128-image batch a frame."""
+        rep = serve_bench.ingress_ab(svc, imgs[:BATCH], duration=S6_AB_S, rounds=S6_AB_ROUNDS)
+        check(rep["predictions_identical"], f"{label}: binary != HTTP JSON on the A/B's {BATCH} images")
+        check(rep["http"]["errors"] == 0 and rep["binary"]["errors"] == 0,
+              f"{label}: failed requests {rep['http']['errors']} HTTP, {rep['binary']['errors']} binary")
+        check(rep["bytes_copied"].get("binary", 0) == 0, f"{label}: the binary arm copied {rep['bytes_copied']}")
+        print(f"  ingress A/B in front of {label} ({S6_AB_ROUNDS} rounds of {S6_AB_S} s a leg): per-datum "
+              f"requests/s HTTP JSON {_rounded(rep['http']['runs_qps'], 1)} (median {rep['http']['per_datum_qps']:.1f}, "
+              f"p50 {rep['http']['p50_ms']:.3f} ms, p99 {rep['http']['p99_ms']:.3f} ms) against binary "
+              f"{_rounded(rep['binary']['runs_qps'], 1)} (median {rep['binary']['per_datum_qps']:.1f}, a "
+              f"{BATCH}-image frame p50 {rep['binary']['frame_p50_ms']:.3f} ms, p99 "
+              f"{rep['binary']['frame_p99_ms']:.3f} ms): {rep['speedup']:.2f}x; bit for bit; bytes copied at "
+              f"admission {rep['bytes_copied']}; {rep['preformed_flushes']} preformed flushes ({card})", flush=True)
+        return rep
+
+    def heal(svc, n_workers, restarts0, what):
+        deadline = time.monotonic() + S6_HEAL_S
+        while time.monotonic() < deadline:
+            alive = [r for r in svc.replica_statuses() if r.get("worker_alive")]
+            if svc.supervisor.restarts_total > restarts0 and len(alive) == n_workers:
+                return
+            time.sleep(0.1)
+        raise AssertionError(f"{what}: the fleet did not heal to {n_workers} live workers in {S6_HEAL_S} s: "
+                             f"{svc.replica_statuses()}")
+
+    def full_block(svc, pool):
+        blk = wire.alloc_block(pool, BATCH, imgs.shape[1:], imgs.dtype)
+        blk.array[:] = imgs[:BATCH]
+        blk.retain(BATCH)
+        futs = svc.submit_batch(blk)
+        for f in futs:
+            f.add_done_callback(blk.release_one)
+        return np.stack([f.result(timeout=SERVE_RESULT_S) for f in futs])
+
+    pool = wire.SlabPool(prefix="s6")
+    torch.cuda.synchronize()
+    # the workers allocate in their own processes: what this process's
+    # caching allocator holds unused after the earlier phases goes back to
+    # the card first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  this process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved before the workers "
+          f"start ({card})", flush=True)
+    fk.reset_launches()
+    graphs.reset_replayed()
+    try:
+        with phase("serve S6: serve(workers=2) on the card, each worker with its own bucket graphs"):
+            p2, out["workers_2"] = spawn("s6_p2", workers=2)
+            k2 = {}  # the two-worker fleet's counts are taken once, at the end
+            check(p2.device.type == "cpu", f"the process fleet's router places models on {p2.device}")
+            rec, got = loop("process fleet, 2 workers, first loop", p2, S6_SCORED_N)
+            top = top5_check("S6 top-5 of the served scores", np.argsort(-got, axis=1, kind="stable")[:, :5],
+                             off_ids[np.arange(S6_SCORED_N) % len(imgs)], off_scores[np.arange(S6_SCORED_N) % len(imgs)])
+            out["scored"] = dict(rec, top5=top)
+            pre0, disp0 = reg.counter_total("serve.preformed_flushes"), reg.counter_total("dispatch.bytes_copied")
+            proc_block = full_block(p2, pool)
+            check(reg.counter_total("serve.preformed_flushes") == pre0 + 1
+                  and reg.counter_total("dispatch.bytes_copied") == disp0,
+                  "the full 128-row block was not one preformed flush shipped by reference")
+        with phase("serve S6: the same full 128-row block through the threaded fleet (replicas=1), bit for bit"):
+            parent0 = (dict(fk.LAUNCHES), dict(graphs.REPLAYED))
+            check(parent0[0]["fused_forward"] == 0 and not parent0[1].get("fused_forward"),
+                  f"the router launched B1 while the process fleet served: {parent0}")
+            thr = serve(scores_pipe.freeze(device=dev), name="s6_threads", **kw)
+            services.append(thr)
+            thr_block = full_block(thr, pool)
+            check(thr_block.tobytes() == proc_block.tobytes(),
+                  f"process fleet != threaded fleet on one full bucket: max diff "
+                  f"{np.abs(thr_block - proc_block).max():.3e}")
+            print(f"  one full {BATCH}-row slab block: process fleet and threaded fleet bit for bit ({card})",
+                  flush=True)
+            out["full_block_bit_equal"] = True
+        with phase("serve S6: SIGKILL one worker under the closed loop; the supervisor heals the slot"):
+            restarts0 = p2.supervisor.restarts_total
+            victim = p2._pool.replicas[0].handle.pid
+            killed = []
+
+            def killer():
+                time.sleep(S6_KILL_AFTER_S)
+                os.kill(victim, signal.SIGKILL)
+                killed.append(time.monotonic())
+
+            t = threading.Thread(target=killer)
+            t.start()
+            crashes0 = reg.counter_total("serve.worker_crashes")
+            rec, _ = loop("process fleet, 2 workers, one SIGKILLed", p2, S6_KILL_N)
+            t.join(30)
+            check(bool(killed), "the killer never fired")
+            t0 = time.monotonic()
+            heal(p2, 2, restarts0, "after the SIGKILL")
+            fresh = next(r for r in p2._pool.replicas if r.index == 0)
+            check(fresh.handle.pid != victim and fresh.handle.ready_info.get("artifact_buckets") == len(SERVE_BUCKETS),
+                  f"replacement {fresh.handle.pid} ready {fresh.handle.ready_info}")
+            out["kill"] = dict(rec, victim_pid=victim, replacement_pid=fresh.handle.pid,
+                               heal_s=time.monotonic() - killed[0], worker_crashes=reg.counter_total(
+                                   "serve.worker_crashes") - crashes0, restarts=p2.supervisor.restarts_total - restarts0,
+                               replacement_graphs=fresh.handle.ready_info.get("artifact_buckets"))
+            print(f"  pid {victim} SIGKILLed {S6_KILL_AFTER_S} s into the loop: no future lost, "
+                  f"{out['kill']['worker_crashes']:g} flush(es) re-run, healed by pid {fresh.handle.pid} "
+                  f"({out['kill']['replacement_graphs']} bucket graphs captured) {out['kill']['heal_s']:.2f} s after "
+                  f"the kill ({t0 - killed[0]:.2f} s of it after the loop) ({card})", flush=True)
+        with phase("serve S6: S1's saturation loop, threaded fleet (replicas=1) against workers=1, 2, 4"):
+            sat = {}
+            sat["threads"] = sat_loops("threaded fleet, replicas=1", thr)
+            out["ingress_ab"] = {"threads": ab("the threaded fleet (replicas=1)", thr)}
+            thr.close(timeout=SERVE_RESULT_S)
+            services.remove(thr)
+            out["threaded_launches"] = {"launches": dict(fk.LAUNCHES), "replayed": dict(graphs.REPLAYED)}
+            fk.reset_launches()
+            graphs.reset_replayed()
+            for n in S6_WORKERS:
+                if n == 2:
+                    svc = p2
+                else:
+                    svc, out[f"workers_{n}"] = spawn(f"s6_p{n}", workers=n)
+                sat[f"workers_{n}"] = sat_loops(f"process fleet, workers={n}", svc)
+                sat[f"workers_{n}"]["peak_reserved_mib"] = _worker_peaks(svc)
+                print(f"  workers={n}: each worker's peak reserved memory (MiB) "
+                      f"{ {k: round(v, 1) for k, v in sat[f'workers_{n}']['peak_reserved_mib'].items()} } ({card})",
+                      flush=True)
+                if n != 2:
+                    add_totals(svc, {})
+                    svc.close(timeout=SERVE_RESULT_S)
+                    services.remove(svc)
+            out["saturation"] = sat
+        with phase("serve S6: the binary ingress in front of workers=2"):
+            front = serve_ingress(p2, port=0, shards=1)
+            try:
+                few = imgs[:SERVE_BUCKETS[0]]
+                with BinaryClient("127.0.0.1", front.port) as c:
+                    got_bin = c.predict(few)
+                    ing0, pre0 = reg.counter_total("ingress.bytes_copied"), reg.counter_total("serve.preformed_flushes")
+                    disp0 = reg.counter_total("dispatch.bytes_copied")
+                    got_block = c.predict(imgs[:BATCH])
+                    copied = reg.counter_total("ingress.bytes_copied") - ing0
+                    dispatched = reg.counter_total("dispatch.bytes_copied") - disp0
+                    preformed = reg.counter_total("serve.preformed_flushes") - pre0
+                req = urllib.request.Request(f"http://127.0.0.1:{front.port}/predict",
+                                             data=json.dumps({"instances": few.tolist()}).encode(),
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=SERVE_RESULT_S) as resp:
+                    got_http = np.asarray(json.loads(resp.read())["predictions"], np.float32)
+            finally:
+                front.stop()
+            check(got_bin.tobytes() == got_http.tobytes(), "binary ingress != HTTP JSON on the same 8 rows")
+            check(copied == 0 and dispatched == 0 and preformed == 1,
+                  f"slab-direct path: ingress.bytes_copied {copied}, dispatch.bytes_copied {dispatched}, "
+                  f"preformed flushes {preformed}")
+            check(got_block.tobytes() == proc_block.tobytes(), "the binary 128-row batch != the slab block's answers")
+            out["ingress"] = {"bit_equal_http": True, "slab_direct_bytes_copied": copied,
+                              "slab_direct_dispatch_bytes": dispatched, "preformed": preformed}
+            print(f"  BinaryClient over loopback: {len(few)} rows bit for bit the HTTP JSON answers; a {BATCH}-row "
+                  f"batch slab-direct: ingress.bytes_copied +{copied:g}, dispatch.bytes_copied +{dispatched:g}, "
+                  f"{preformed:g} preformed flush, bit for bit the slab block's ({card})", flush=True)
+            out["ingress_ab"]["workers_2"] = ab("workers=2", p2)
+        add_totals(p2, k2)
+        with phase("serve S6: the network fleet, two `cli worker` children over loopback, a partition mid-load"):
+            net, out["net"] = spawn("s6_net", workers=2, hosts=["local", "local"],
+                                    worker_opts={"lease_s": S6_LEASE_S, "spawn_grace_s": 5.0})
+            check(net.listen_address is not None, "no worker listener")
+            net_block = np.stack([f.result(timeout=SERVE_RESULT_S) for f in net.submit_many(list(imgs[:BATCH]))])
+            check(net_block.tobytes() == proc_block.tobytes(), "network fleet != process fleet on one full bucket")
+            victim = net._pool.replicas[0].handle.name
+            plan = f"serve.net.send:ctx.link={victim}:partition;serve.net.recv:ctx.link={victim}:partition"
+            restarts0, retrans0 = net.supervisor.restarts_total, reg.counter_total("serve.net.retransmits")
+            result = {}
+
+            def drive():
+                try:
+                    result["loop"] = loop("network fleet, 2 workers, one partitioned", net, S6_NET_N)[0]
+                except BaseException as e:  # raised below
+                    result["error"] = e
+
+            t = threading.Thread(target=drive)
+            t.start()
+            time.sleep(0.1)
+            with faults.inject(plan):
+                time.sleep(S6_PARTITION_S)
+            t.join(SERVE_RESULT_S * 3)
+            check(not t.is_alive(), "the partitioned loop hung")
+            if "error" in result:
+                raise result["error"]
+            heal(net, 2, restarts0, "after the partition")
+            healed_block = np.stack([f.result(timeout=SERVE_RESULT_S)
+                                     for f in net.submit_many(list(imgs[:BATCH]))])
+            check(healed_block.tobytes() == proc_block.tobytes(), "the healed network fleet's answers moved")
+            out["net"].update(result["loop"], partition_s=S6_PARTITION_S, lease_s=S6_LEASE_S, victim=victim,
+                              restarts=net.supervisor.restarts_total - restarts0,
+                              retransmits=reg.counter_total("serve.net.retransmits") - retrans0,
+                              bit_equal_process_fleet=True)
+            print(f"  {victim} partitioned both ways for {S6_PARTITION_S} s (lease {S6_LEASE_S} s) in a loop of "
+                  f"{S6_NET_N}: none lost, {out['net']['restarts']} restart(s), {out['net']['retransmits']:g} "
+                  f"retransmits, healed to 2 leased workers; a full bucket bit for bit the process fleet's before and "
+                  f"after ({card})", flush=True)
+            add_totals(net, {})
+        check(reg.counter_total("serve.artifact_fallbacks") == fb0, "a worker's bundle was refused")
+        parent = {"launches": dict(fk.LAUNCHES), "replayed": dict(graphs.REPLAYED)}
+        check(parent["launches"]["fused_forward"] == 0 and not parent["replayed"].get("fused_forward"),
+              f"the router launched B1 while its workers served: {parent}")
+        check(totals["launches"].get("fisher_encode", 0) == 0 and totals["replayed"].get("fisher_encode", 0) == 0,
+              f"B2 ran in a worker: {totals}")
+        check(totals["replayed"].get("fused_forward", 0) > 0, f"no worker replayed a bucket graph: {totals}")
+        out["parent"], out["workers_kernels"] = parent, totals
+        out["seconds"] = time.perf_counter() - t_s6
+        print(f"  S6 took {out['seconds']:.1f} s; the workers' B1: {totals['launches'].get('fused_forward', 0)} by "
+              f"the wrapper, {totals['replayed'].get('fused_forward', 0)} by bucket-graph replays; this process's: "
+              f"{parent['launches']['fused_forward']} and {parent['replayed'].get('fused_forward', 0)}; the threaded "
+              f"comparison's {out['threaded_launches']} ({card})", flush=True)
+    finally:
+        for svc in services:
+            svc.close(timeout=SERVE_RESULT_S)
+        pool.close()
+    return out
+
+
 def profile_once(fn) -> None:
     """Device time by operator over one call of ``fn`` (after a warm-up
     call), and two idle shares.  One window: the device's busy time
@@ -5191,6 +5662,14 @@ def main(argv=None) -> int:
     def fused_args(node, desc, mask, mean):
         gm = node.gmm
         return desc, mask, node.components, mean, gm.weights, gm.means, gm.variances, node.sift_normalize
+
+    def b1_args(x):
+        """B1's two calls on images ``x``, as the served scorer makes them."""
+        xf = scorer.stages[0].apply_batch(x)
+        raw, mask = FusedTransformer(list(sift_branch.stages)[:2]).apply_batch(xf)
+        desc, dmask = lcs_branch.stages[0].apply_batch(xf)
+        return [("SIFT", fused_args(fused_sift, raw, mask, fused_sift.mean)),
+                ("LCS", fused_args(fused_lcs, desc, dmask, fused_lcs.mean))]
 
     errs = {"fisher_encode": 0.0, "fused_forward": 0.0}
     with phase("kernels vs plain versions"):
@@ -5386,15 +5865,8 @@ def main(argv=None) -> int:
 
     # the serving path: S1 the full-width scorer behind serve(), S1b the
     # bench forward, S2 a saved graph-fitted model through `cli serve`, S3
-    # the fleet's self-healing and a hot swap, S4 open-loop latency
-    def b1_args(x):
-        """B1's two calls on images ``x``, as the served scorer makes them."""
-        xf = scorer.stages[0].apply_batch(x)
-        raw, mask = FusedTransformer(list(sift_branch.stages)[:2]).apply_batch(xf)
-        desc, dmask = lcs_branch.stages[0].apply_batch(xf)
-        return [("SIFT", fused_args(fused_sift, raw, mask, fused_sift.mean)),
-                ("LCS", fused_args(fused_lcs, desc, dmask, fused_lcs.mean))]
-
+    # the fleet's self-healing and a hot swap, S4 open-loop latency, S5 the
+    # model lifecycle, S6 the process and network fleets
     served = serve_path(dev, card, P, fk, scorer, forward, images, float_batches, b1_args)
     served["s2"] = serve_http_path(dev, card, graph_fitted, fit_data[3])
     del graph_fitted
@@ -5405,6 +5877,7 @@ def main(argv=None) -> int:
     served["s4"] = open_loop_path(dev, card, fk, scorer, images, saturation_ips)
     served["s5"] = lifecycle_path(dev, card, P, fk, scorer, images, params_swap, saturation_ips)
     del params_swap
+    served["s6"] = process_fleet_path(dev, card, P, fk, scorer, images, b1_args)
     results["serve"] = served
 
     with phase("the profiled materialization passes of this process"):
@@ -5505,7 +5978,7 @@ def main(argv=None) -> int:
         # swap service's two generations, the open loop, the lifecycle's
         # walks and its bucket graphs' replays, in this process and in its
         # `cli serve` child), B2 in the served bench forward's
-        s5 = served["s5"]
+        s5, s6 = served["s5"], served["s6"]
         for ln, kname, parts in (
             (b1, "fused_forward", (("serve S1 scorer and raw scores", served["launches_fused_forward"]),
                                    ("serve S2 `cli serve` child", served["s2"]["launches"]["fused_forward"]),
@@ -5516,14 +5989,28 @@ def main(argv=None) -> int:
                                    ("serve S5 `cli serve --watch` child, by the wrapper",
                                     s5["watcher"]["launches"]["fused_forward"]),
                                    ("serve S5 `cli serve --watch` child, by bucket-graph replays",
-                                    s5["watcher"]["replayed"].get("fused_forward", 0)))),
+                                    s5["watcher"]["replayed"].get("fused_forward", 0)),
+                                   ("serve S6 worker processes, by the wrapper",
+                                    s6["workers_kernels"]["launches"].get("fused_forward", 0)),
+                                   ("serve S6 worker processes, by bucket-graph replays",
+                                    s6["workers_kernels"]["replayed"].get("fused_forward", 0)),
+                                   ("serve S6 this process (the router)", s6["parent"]["launches"]["fused_forward"]
+                                    + s6["parent"]["replayed"].get("fused_forward", 0)),
+                                   ("serve S6 threaded comparison, by the wrapper",
+                                    s6["threaded_launches"]["launches"]["fused_forward"]),
+                                   ("serve S6 threaded comparison, by bucket-graph replays",
+                                    s6["threaded_launches"]["replayed"].get("fused_forward", 0)))),
             (b2, "fisher_encode", (("serve S1b bench forward", served["launches_fisher_encode"]),)),
         ):
             for label, c in parts:
                 ln["launches_by_path"][label] = c
                 ln["launches"] += c
         b1["serve_bucket_checks"] = served["b1_buckets"]
-        b1["graph_replays"] = s5["replayed"]["fused_forward"] + s5["watcher"]["replayed"].get("fused_forward", 0)
+        b1["graph_replays"] = (s5["replayed"]["fused_forward"] + s5["watcher"]["replayed"].get("fused_forward", 0)
+                               + s6["workers_kernels"]["replayed"].get("fused_forward", 0)
+                               + s6["threaded_launches"]["replayed"].get("fused_forward", 0))
+        # B1 at the serving buckets below S1's batch (S6's first phase)
+        b1["serve_buckets"] = s6["b1_buckets"]
         # VOCSIFTFisher: B2 featurizes the training set in the fit, B1 (one
         # fused node) scores run's test set and VOC's 4952
         voc = results["voc"]

@@ -3,6 +3,8 @@
     python -m keystone_tpu_torch.cli <PipelineName> [pipeline flags...]
     python -m keystone_tpu_torch.cli serve --model model.pt [serve flags...]
     python -m keystone_tpu_torch.cli serve --model-dir REG [--watch S [--canary F [--bake-s S]]] [--autoscale MIN:MAX]
+    python -m keystone_tpu_torch.cli serve --model model.pt --workers N [--hosts HOST[:SLOTS],... [--lease-s S]]
+    python -m keystone_tpu_torch.cli worker --connect HOST:PORT [--name NAME]
     python -m keystone_tpu_torch.cli export --model model.pt --example-shape D0[,D1,...] (--out DIR | --model-dir REG)
     python -m keystone_tpu_torch.cli --list
 
@@ -15,10 +17,19 @@ first, so saved featurized prefixes reload.
 (``--model-dir``, with the version's artifact bundle unless
 ``--no-artifacts``), onto ``--device`` (the card unless ``--device
 cpu``) and serves it over HTTP through the micro-batching service and
-its threaded replica fleet.  ``--watch`` polls the registry and swaps in
-each new ``CURRENT`` (guarded by a canary with ``--canary``, baked with
-``--bake-s``); ``--autoscale`` resizes the fleet under load.  SIGINT
-drains the in-flight requests and exits 0.
+its threaded replica fleet.  ``--workers N`` serves with N worker
+processes instead (each loads the model onto ``--device`` and captures
+its own bucket graphs; the router keeps the model on the host);
+``--hosts`` carries that fleet over TCP with heartbeat leases
+(``--lease-s``), its workers dialing ``--listen-host:--listen-port``.
+``--watch`` polls the registry and swaps in each new ``CURRENT``
+(guarded by a canary with ``--canary``, baked with ``--bake-s``);
+``--autoscale`` resizes the fleet under load.  SIGINT drains the
+in-flight requests and exits 0.
+
+``worker`` runs one network-fleet worker: it dials a router started
+with ``serve --hosts``, receives the model over TCP, primes, and serves
+under a heartbeat lease, dialing back after a partition.
 
 ``export`` freezes a saved model for ``--device`` and writes its artifact
 bundle (the padding buckets each replica captures a CUDA graph for)
@@ -28,8 +39,7 @@ registry's current one).
 
 The reference's other subcommands and flags exit non-zero naming the
 ROADMAP item that ports them: ``check``, ``plan`` and export's
-``--plan`` (A10), ``worker``, ``--workers`` and ``--hosts`` (A11c),
-``--tenants`` and several models (A11d).
+``--plan`` (A10), ``--tenants`` and several models (A11d).
 """
 
 from __future__ import annotations
@@ -58,12 +68,6 @@ _PIPELINE_MODULES = {
 _NOT_PORTED = {
     "check": "A10",
     "plan": "A10",
-    "worker": "A11c",
-    "--workers": "A11c",
-    "--hosts": "A11c",
-    "--lease-s": "A11c",
-    "--listen-host": "A11c",
-    "--listen-port": "A11c",
     "--tenants": "A11d",
 }
 
@@ -93,6 +97,17 @@ def _serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--replicas", type=int, default=1,
                     help="serving fleet size: one copy of the model a replica, each with its own CUDA stream "
                          "(replicas share the card)")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="a PROCESS fleet of this many worker processes, each with the model on --device and its "
+                         "own bucket graphs (0, the default: the threaded fleet; exclusive with --replicas > 1)")
+    ap.add_argument("--hosts", default=None, metavar="HOST[:SLOTS],...",
+                    help="the TCP fleet (needs --workers): a host map where workers are spawned, e.g. 'local:2'; "
+                         "they dial back to --listen-host:--listen-port and hold a heartbeat lease")
+    ap.add_argument("--lease-s", type=float, default=None, metavar="SECONDS",
+                    help="the TCP fleet's heartbeat lease (default 5): this much silence declares a worker dead")
+    ap.add_argument("--listen-host", default=None, metavar="ADDR",
+                    help="the interface the TCP fleet's worker listener binds (default 127.0.0.1)")
+    ap.add_argument("--listen-port", type=int, default=None, help="the worker listener's port (default: any free)")
     ap.add_argument("--autoscale", default=None, metavar="MIN:MAX",
                     help="SLO-driven autoscaling between MIN and MAX replicas")
     ap.add_argument("--watch", type=float, default=None, metavar="SECONDS",
@@ -168,25 +183,36 @@ def _serve_main(argv) -> int:
         ap.error("--canary guards --watch swaps; add --watch SECONDS")
     if args.bake_s and args.canary is None:
         ap.error("--bake-s needs --canary")
+    if args.workers and args.replicas > 1:
+        ap.error("--workers and --replicas > 1 are exclusive")
+    if args.hosts and not args.workers:
+        ap.error("--hosts needs --workers >= 1")
+    if not args.hosts and any(v is not None for v in (args.lease_s, args.listen_host, args.listen_port)):
+        ap.error("--lease-s / --listen-host / --listen-port configure the --hosts fleet")
 
     import numpy as np
+
+    from torch import device as torch_device
 
     from keystone_tpu_torch.serve import HttpFrontend, ModelRegistry, serve
     from keystone_tpu_torch.utils.device import resolve_device
     from keystone_tpu_torch.workflow.pipeline import FittedPipeline
 
     device = resolve_device(args.device)
+    # a worker fleet's router keeps the model on the host: its workers
+    # load it onto the device
+    load_to = torch_device("cpu") if args.workers else device
     registry = artifacts = None
     if model_dirs:
         registry = ModelRegistry(model_dirs[0])
-        fitted, version = registry.load(map_location=device)
+        fitted, version = registry.load(map_location=load_to)
         if not args.no_artifacts:
             # best effort: absent or damaged artifacts mean this deploy
             # walks, never that it fails
             artifacts = registry.load_artifacts(version)
         source = f"{model_dirs[0]} ({version})"
     else:
-        fitted = FittedPipeline.load(models[0], map_location=device)
+        fitted = FittedPipeline.load(models[0], map_location=load_to)
         version, source = "v0", models[0]
     example = None
     if args.example_shape:
@@ -198,16 +224,23 @@ def _serve_main(argv) -> int:
             # cast to it at admission
             dtype = np.dtype(manifest["dtype"])
         example = np.zeros(shape, dtype)
+    fleet_kw: dict = dict(replicas=args.replicas, devices=None if args.replicas == 1 else [device] * args.replicas)
+    if args.workers:
+        # each worker freezes the fitted pipeline for its own device
+        worker_opts = {"device": str(device)}
+        for key in ("lease_s", "listen_host", "listen_port"):
+            if getattr(args, key) is not None:
+                worker_opts[key] = getattr(args, key)
+        fleet_kw = dict(workers=args.workers, worker_opts=worker_opts, hosts=args.hosts)
     # one replica serves the applier frozen here; more are copies of it
     svc = serve(
-        fitted.freeze(device=device),
+        fitted if args.workers else fitted.freeze(device=device),
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
         queue_bound=args.queue_bound,
         deadline_ms=args.deadline_ms,
         example=example,
-        replicas=args.replicas,
-        devices=None if args.replicas == 1 else [device] * args.replicas,
+        **fleet_kw,
         version=version,
         recorder=not args.no_recorder,
         slo_ms=args.slo_ms,
@@ -229,7 +262,11 @@ def _serve_main(argv) -> int:
         rollout_cfg = None if args.canary is None else RolloutConfig(canary=args.canary, bake_s=args.bake_s)
         watcher = RegistryWatcher(svc, registry, poll_seconds=args.watch, rollout=rollout_cfg).start()
     front = HttpFrontend(svc, host=args.host, port=args.port, registry=registry, trace_dump_dir=args.trace_dump)
-    print(f"serving {source} on http://{args.host}:{front.port} (device={device}, replicas={svc.replicas}, "
+    fleet = f"replicas={svc.replicas}"
+    if args.workers:
+        fleet = f"workers={svc.replicas}" + (f", hosts={args.hosts}, listening on {svc.listen_address}"
+                                             if args.hosts else "")
+    print(f"serving {source} on http://{args.host}:{front.port} (device={device}, {fleet}, "
           f"max_batch={args.max_batch}, max_wait_ms={svc.max_wait_s * 1000.0:g}, queue_bound={args.queue_bound}"
           + (f", watching every {args.watch:g}s" if watcher else "")
           + (f", canary {args.canary:g}" if args.canary is not None else "")
@@ -342,11 +379,36 @@ def _export_main(argv) -> int:
     return 0
 
 
+def _worker_main(argv) -> int:
+    """``worker``: one network-fleet worker.  Dials a router started with
+    ``serve --hosts``, receives the model over TCP, loads it onto the
+    device the router's deploy names, primes, and serves applies until
+    the router says bye, dialing back through partitions and fencing
+    itself whenever its heartbeat lease lapses."""
+    ap = argparse.ArgumentParser(
+        prog="python -m keystone_tpu_torch.cli worker",
+        description="run one network-fleet serving worker: connect to a router's worker listener, receive the "
+                    "model over TCP, prime, and serve under a heartbeat lease",
+    )
+    ap.add_argument("--connect", required=True, metavar="HOST:PORT",
+                    help="the router's worker listener (printed by serve --hosts; service.listen_address)")
+    ap.add_argument("--name", default=None, help="the worker's label in the router's logs and metrics")
+    ap.add_argument("--connect-attempts", type=int, default=30,
+                    help="connect and reconnect attempts (backoff and jitter) before giving up")
+    ap.add_argument("--backoff-seed", type=int, default=None, help="seed of the reconnect jitter")
+    args = ap.parse_args(argv)
+    from keystone_tpu_torch.serve.net import run_worker
+
+    return run_worker(args.connect, name=args.name, connect_attempts=args.connect_attempts,
+                      backoff_seed=args.backoff_seed)
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("--list", "-l", "--help", "-h"):
         print("usage: python -m keystone_tpu_torch.cli <PipelineName> [flags]")
         print("       python -m keystone_tpu_torch.cli serve --model model.pt|--model-dir DIR [flags]")
+        print("       python -m keystone_tpu_torch.cli worker --connect HOST:PORT [flags]")
         print("       python -m keystone_tpu_torch.cli export --model model.pt --example-shape D0[,D1,...] [flags]")
         print("pipelines:")
         for name in _PIPELINE_MODULES:
@@ -357,6 +419,8 @@ def main(argv=None) -> int:
         return _serve_main(rest)
     if name == "export":
         return _export_main(rest)
+    if name == "worker":
+        return _worker_main(rest)
     if name in _NOT_PORTED:
         return _refuse(f"the {name!r} subcommand", _NOT_PORTED[name])
     if name not in _PIPELINE_MODULES:

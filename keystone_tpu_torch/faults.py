@@ -31,10 +31,15 @@ Named **sites** wired through the port::
                         the fleet's install of a bundle into a replica
     serve.rollout       a guarded rollout episode, before it stages the
                         canary generation
+    serve.net.connect   a network-fleet worker dialing the router
+                        (serve/net.py)
+    serve.net.send      one outbound stream frame, either side; ctx
+                        ``link=NAME`` names the worker the frame is
+                        to/from, ``role=router|worker`` names the side
+    serve.net.recv      one inbound stream frame, either side (same ctx)
 
 The reference's other sites join with the slices that wire them:
-``serve.net.*`` (ROADMAP A11c), ``multihost.init`` (A8) and
-``plan.sample`` (A10).  Until then a plan that names one of them raises
+``multihost.init`` (A8) and ``plan.sample`` (A10).  Until then a plan that names one of them raises
 :class:`UnknownFaultSiteError`, as any unregistered site does: a site
 nothing fires would report nothing.
 
@@ -57,8 +62,10 @@ Plan grammar: ``site:token:token;site:token...`` where tokens are
   ``hang`` (stall far past any deadline: ``KEYSTONE_HANG_SECONDS``,
   default 3600 s).  The stalls ride ``utils.guard.interruptible_sleep``,
   so a watchdog that gives up on the operation also unparks the stall.
-  The wire action ``drop`` (alias ``partition``) is parsed as in the
-  reference and, as there, refused outside the ``serve.net.*`` sites;
+  The wire action ``drop`` (alias ``partition``) is valid only at the
+  ``serve.net.*`` sites, where the transport discards the frame silently
+  (the peer sees silence, as in a partition); there ``corrupt`` flips a
+  byte of the frame so the peer's CRC check condemns the connection;
 - context matches: ``ctx.<key>=<value>`` restricts the spec to calls
   whose site context carries that value (string-compared), e.g.
   ``executor.stage:ctx.node=SIFTExtractor:raise``.  Non-matching calls do
@@ -101,6 +108,9 @@ SITES = {
     "serve.swap",
     "serve.artifact_load",
     "serve.rollout",
+    "serve.net.connect",
+    "serve.net.send",
+    "serve.net.recv",
 }
 
 _ACTIONS = ("raise", "corrupt", "truncate", "exit", "delay", "hang", "drop")

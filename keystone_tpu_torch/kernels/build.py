@@ -13,13 +13,17 @@ nothing beyond the C++ standard library).
 ``build`` and ``load`` run under one process-wide re-entrant lock
 (``LOCK``), which the kernel wrappers' first-use loaders take too: two
 threads (two serving replicas priming at once) build a library once and
-load one copy of it.  A compiler's temporary output is named by process
-and thread.
+load one copy of it.  Across processes (a process fleet's workers
+priming at once) a build holds an exclusive ``fcntl.flock`` on
+``_build/.lock`` and looks for each library again once it has it: the
+compiler runs in one process, the others load what it built.  A
+compiler's temporary output is named by process and thread.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -42,7 +46,6 @@ CXX_FLAGS = ("-O3", "-fPIC", "-std=c++20", "-shared")
 LINK = {"jpeg": ("-ljpeg", "-lpthread"), "nvjpeg": ("-lnvjpeg",), "text": ("-lpthread",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-
 
 class KernelError(RuntimeError):
     """A native source failed to build, or a kernel failed to launch: a
@@ -106,11 +109,18 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     output (for ``nvcc``, the resource report of ``-Xptxas -v``) goes to
     ``_build/<name>.log``."""
     with LOCK:
-        return _build(names)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".lock", "a") as lock:
+            # across processes: whoever holds it builds, and the others
+            # find the libraries built when they get it
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                return _build(names)
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 def _build(names: Sequence[str]) -> Dict[str, Path]:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     procs = {}
     for n, out in paths.items():

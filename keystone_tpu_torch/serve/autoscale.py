@@ -1,5 +1,8 @@
-"""SLO-driven autoscaling of the threaded replica fleet (counterpart of
-``keystone_tpu/serve/autoscale.py``).
+"""SLO-driven autoscaling of the replica fleet (counterpart of
+``keystone_tpu/serve/autoscale.py``): threads, or, for a process or
+network fleet (``workers=``), worker processes, each spawned, primed
+(capturing its own bucket graphs) and admitted by ``scale_to``, and
+reaped when it drains.
 
 One control thread samples the service's signals every ``interval_s``
 and
@@ -252,8 +255,7 @@ class Autoscaler:
         )
         if action == "up":
             target = min(self.policy.max_workers, s.workers + 1)
-            # a service that maps its workers onto hosts (the reference's
-            # cross-host fleet, ROADMAP A11c) bounds growth by their slots
+            # a network fleet's host map bounds growth by its slots
             cap = getattr(svc, "host_capacity", None)
             if cap is not None:
                 target = min(target, int(cap))

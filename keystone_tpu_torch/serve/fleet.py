@@ -47,9 +47,23 @@ reference's.
 ``replicas=1`` with no devices wraps the given pipeline's applier
 directly: no copy, no placement.  ``devices=None`` with more replicas
 cycles over the CUDA devices torch sees (on one card every replica
-shares ``cuda:0``).  The reference's process and network backends
-(``backend="process"``/``"net"``) are ROADMAP A11c: asked for, they
-raise ``NotPortedError``.
+shares ``cuda:0``).
+
+**Backends.**  ``backend="thread"`` (the default) is everything above.
+``backend="process"`` keeps this module's control plane (the router,
+the dispatch window, swaps, supervision) and moves each slot's compute
+into a worker process (``serve/procfleet.py``): ``_build_one`` spawns a
+:class:`~keystone_tpu_torch.serve.procfleet.ProcessReplica` from a
+staged payload file (one a generation; each worker loads it onto its
+own device, ``worker_opts["device"]``, the card by default, and captures
+its own bucket graphs), generations move the payload at ``commit()``,
+and ``add_replica``/``remove_replica`` spawn and reap workers.
+``backend="net"`` does the same over TCP (``serve/net.py``): workers
+dial the pool's listener, are deployed the payload's bytes, and hold a
+heartbeat lease.  A replica's queue and claim semantics are the same in
+every backend.  ``telemetry=`` (a
+:class:`~keystone_tpu_torch.serve.telemetry.FleetTelemetry`) is attached
+to every worker handle the pool builds.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -69,7 +84,7 @@ from keystone_tpu_torch.faults import fault_point
 from keystone_tpu_torch.obs import ledger, metrics
 from keystone_tpu_torch.utils import graphs, guard
 from keystone_tpu_torch.utils.device import resolve_device
-from keystone_tpu_torch.workflow.pipeline import FrozenApplier, NotPortedError
+from keystone_tpu_torch.workflow.pipeline import FrozenApplier
 
 logger = logging.getLogger(__name__)
 
@@ -203,11 +218,12 @@ class Replica:
         self.index = int(index)
         self.applier = applier
         #: the device the replica's flushes run on: the placement, or the
-        #: directly wrapped applier's own
-        self.device = device if device is not None else applier.device
+        #: directly wrapped applier's own (None: a worker process's)
+        self.device = device if device is not None else getattr(applier, "device", None)
         #: the replica's CUDA stream: its batch copy, apply and read-back
         #: all run on it, and the read waits on it alone
-        self.stream = torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
+        self.stream = (torch.cuda.Stream(device=self.device)
+                       if self.device is not None and self.device.type == "cuda" else None)
         self.version = version
         self.pool_name = pool_name
         self.breaker = breaker or guard.CircuitBreaker(
@@ -231,6 +247,11 @@ class Replica:
         self.quarantined = False
         #: restarts of this SLOT (carried onto replacements)
         self.restarts = 0
+        #: the pool's re-dispatch for a crashed runner's flush that can no
+        #: longer be requeued here (the slot was drained or retired in the
+        #: race window: a process death the supervisor saw first); None
+        #: requeues in place
+        self.on_stranded: Optional[Callable] = None
         self._q: list = []
         self._cond = threading.Condition()
         self._worker: Optional[threading.Thread] = None
@@ -254,13 +275,15 @@ class Replica:
         return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
 
     # ------------------------------------------------------------ apply
-    def apply(self, ds, deadline=None, prime: bool = False):
+    def apply(self, ds, deadline=None, prime: bool = False, **kw):
         """Run the frozen graph over one padded batch on THIS replica.
         Live flushes pass the ``serve.replica`` fault site; priming
-        warm-ups (``prime=True``) do not: chaos plans target traffic."""
+        warm-ups (``prime=True``) do not: chaos plans target traffic.
+        Other keywords go to the applier (a remote applier's ``n``,
+        ``slab_ref`` and ``trace``)."""
         if not prime:
             fault_point("serve.replica", replica=self.index)
-        return self.applier(ds, deadline=deadline)
+        return self.applier(ds, deadline=deadline, **kw)
 
     # ----------------------------------------------------------- worker
     def start(self, runner: Callable, obs_context=None) -> None:
@@ -272,40 +295,55 @@ class Replica:
 
         def loop():
             ledger.restore_context(obs_context)
-            while True:
-                with self._cond:
-                    while not self._q:
-                        self._cond.wait()
-                    item = self._q.pop(0)
-                if item is _SENTINEL:
-                    return
-                self.inflight = item
-                self.heartbeat.beat()
-                try:
-                    # the worker-level fault site: a ``raise`` here is a
-                    # WORKER CRASH (the thread dies; the in-hand flush was
-                    # never claimed, so it is requeued at the front for the
-                    # supervisor's replacement: no future lost), and a
-                    # ``hang`` wedges the worker for the supervisor to find
-                    fault_point("serve.worker", replica=self.index)
-                    runner(self, item)
-                except BaseException as e:
-                    # the runner fails its own riders for post-claim
-                    # escapes, so anything reaching here is pre-claim and
-                    # safe to re-run
+            try:
+                while True:
                     with self._cond:
-                        self._q.insert(0, item)
-                    self.inflight = None
-                    self.dead_error = f"{type(e).__name__}: {e}"
-                    self.dead = True
-                    logger.error("replica %d worker crashed: %s", self.index, self.dead_error)
-                    return
-                finally:
-                    self.inflight = None
+                        while not self._q:
+                            self._cond.wait()
+                        item = self._q.pop(0)
+                    if item is _SENTINEL:
+                        return
+                    self.inflight = item
                     self.heartbeat.beat()
+                    try:
+                        # the worker-level fault site: a ``raise`` here is a
+                        # WORKER CRASH (the thread dies; the in-hand flush
+                        # was never claimed, so it is requeued at the front
+                        # for the supervisor's replacement: no future lost),
+                        # and a ``hang`` wedges the worker for the
+                        # supervisor to find
+                        fault_point("serve.worker", replica=self.index)
+                        runner(self, item)
+                    except BaseException as e:
+                        # what reaches here is safe to re-run: never
+                        # claimed, or un-claimed by the runner (a worker
+                        # process that died under it).  Requeue it at the
+                        # front, unless the slot was already drained or
+                        # retired (the supervisor saw the process death
+                        # first): then the pool re-dispatches it
+                        with self._cond:
+                            if not self._retired or self.on_stranded is None:
+                                self._q.insert(0, item)
+                                item = None
+                        self.inflight = None
+                        self.dead_error = f"{type(e).__name__}: {e}"
+                        self.dead = True
+                        logger.error("replica %d worker crashed: %s", self.index, self.dead_error)
+                        if item is not None:
+                            self.on_stranded(item)
+                        return
+                    finally:
+                        self.inflight = None
+                        self.heartbeat.beat()
+            finally:
+                self._on_worker_exit()
 
         self._worker = threading.Thread(target=loop, daemon=True, name=f"{self.pool_name}-replica{self.index}")
         self._worker.start()
+
+    def _on_worker_exit(self) -> None:
+        """The worker thread's exit hook (sentinel or crash): nothing for a
+        thread replica; a process or network replica reaps its worker."""
 
     def enqueue(self, batch) -> None:
         with self._cond:
@@ -349,7 +387,7 @@ class Replica:
     def status(self) -> dict:
         return {
             "replica": self.index,
-            "device": str(self.device),
+            "device": None if self.device is None else str(self.device),
             "version": self.version,
             "breaker": self.breaker.state(),
             "outstanding": self.outstanding,
@@ -369,7 +407,13 @@ class ReplicaPool:
     ``replicas=1`` and no devices the pool wraps its applier directly
     (a pipeline is frozen for the card); otherwise each replica gets an
     independent copy placed on its device (``devices=None`` cycles the
-    CUDA devices), which a pipeline source then freezes for that device."""
+    CUDA devices), which a pipeline source then freezes for that device.
+    ``backend="process"``/``"net"``: each replica's compute is a worker
+    process (see the module docstring); ``worker_opts`` carries the
+    workers' knobs (``device``, ``buckets``, ``item_shape``, ``dtype``,
+    ``ready_timeout``, ``max_slab_bytes``; for the network fleet
+    ``hosts``, ``lease_s``, ``listen_host``, ``listen_port``,
+    ``spawn_grace_s``, ``max_frame_bytes``)."""
 
     def __init__(
         self,
@@ -382,18 +426,28 @@ class ReplicaPool:
         heartbeat_s: float = DEFAULT_HEARTBEAT_SECONDS,
         artifacts: Optional[dict] = None,
         backend: str = "thread",
+        worker_opts: Optional[dict] = None,
+        telemetry=None,
     ):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         if dispatch_window < 1:
             raise ValueError(f"dispatch_window must be >= 1, got {dispatch_window}")
-        if backend in ("process", "net"):
-            raise NotPortedError(f"backend={backend!r}: the process and network fleets are not ported yet "
-                                 "(ROADMAP A11c)")
-        if backend != "thread":
+        if backend not in ("thread", "process", "net"):
             raise ValueError(f"backend must be 'thread', 'process' or 'net', got {backend!r}")
+        if backend != "thread" and devices is not None:
+            raise ValueError(f"backend={backend!r} places the model in its workers; devices= applies to the "
+                             "thread backend only")
         self.name = name
         self.backend = backend
+        #: the fleet-telemetry sink every worker handle this pool builds is
+        #: attached to (first build, staged generations, heals, scale-ups)
+        self.telemetry = telemetry
+        self._worker_opts = dict(worker_opts or {})
+        if backend == "process":
+            # the workers' device, checked here: a process fleet on a box
+            # without the card refuses before it spawns anything
+            resolve_device(self._worker_opts.get("device") or "cuda")
         self._lock = threading.Lock()
         #: the fitted pipeline (or applier) the CURRENT generation was
         #: built from: the supervisor re-clones replacements from it;
@@ -420,15 +474,179 @@ class ReplicaPool:
         self._draining = False
         self._runner: Optional[Callable] = None
         self._obs_ctx = None
+        self._on_stranded: Optional[Callable] = None
         self.version = version
-        self._devices = self._devices_for(int(replicas), devices)
-        self.replicas: List[Replica] = [
-            self._build_one(pipeline, i, dev, version, int(replicas)) for i, dev in enumerate(self._devices)
-        ]
+        #: process and network backends: the staged payload files the
+        #: workers load (one a generation; removed with the pool)
+        self._payload_dir: Optional[str] = None
+        self._payload_seq = 0
+        self._payload_path: Optional[str] = None
+        self._staged_payload_path: Optional[str] = None
+        #: network backend: the listener workers dial, and the host map
+        #: scale-ups and heals spawn workers from
+        self._listener = None
+        self._hostmap = None
+        if backend != "thread":
+            import tempfile
+
+            self._payload_dir = tempfile.mkdtemp(prefix=f"ksw-{name}-")
+        try:
+            if backend != "thread":
+                self._payload_path = self._stage_payload(pipeline, artifacts)
+            if backend == "net":
+                from keystone_tpu_torch.serve import net as netmod
+                from keystone_tpu_torch.utils import hostmap as hostmap_mod
+
+                opts = self._worker_opts
+                self._listener = netmod.WorkerListener(host=opts.get("listen_host", "127.0.0.1"),
+                                                       port=int(opts.get("listen_port", 0)))
+                hosts = opts.get("hosts") or ["local"]
+                self._hostmap = hosts if isinstance(hosts, hostmap_mod.HostMap) else hostmap_mod.HostMap(hosts)
+            self._devices = self._devices_for(int(replicas), devices)
+            if backend == "thread":
+                self.replicas: List[Replica] = [
+                    self._build_one(pipeline, i, dev, version, int(replicas)) for i, dev in enumerate(self._devices)
+                ]
+            else:
+                self.replicas = self._build_process_many(int(replicas), version, self._payload_path)
+        except BaseException:
+            # a failed build leaves no pool to close(): sweep what it made
+            # (spawned workers were reaped by _build_process_many)
+            self._release_backend()
+            raise
+
+    def _release_backend(self) -> None:
+        """Remove the staged payloads, close the listener, reap the host
+        map's spawned workers."""
+        if self._payload_dir is not None:
+            import shutil
+
+            shutil.rmtree(self._payload_dir, ignore_errors=True)
+            self._payload_dir = None
+        if self._listener is not None:
+            self._listener.close()
+        if self._hostmap is not None:
+            # spawned workers are reaped here; workers started by hand see
+            # the listener close and exit when their reconnects run out
+            self._hostmap.close()
+
+    # ------------------------------------------------- worker processes
+    def _stage_payload(self, source, artifacts) -> str:
+        """Write one generation's deploy payload: every worker of it (the
+        first build, a staged generation, heals, scale-ups) loads it."""
+        from keystone_tpu_torch.serve.procfleet import stage_payload
+
+        self._payload_seq += 1
+        return stage_payload(self._payload_dir, self._payload_seq, source, artifacts)
+
+    def _count_worker_install(self, handle) -> None:
+        installed = int(handle.ready_info.get("artifact_buckets", 0))
+        if installed:
+            metrics.inc("serve.artifact_hits", installed)
+        elif self._artifacts or self._staged_artifacts:
+            metrics.inc("serve.artifact_fallbacks")
+
+    def _build_process_one(self, index: int, version: str, payload_path: Optional[str] = None) -> Replica:
+        """Spawn one worker process and wrap it in a routing slot; the
+        ready handshake bounds the wait."""
+        from keystone_tpu_torch.serve import procfleet
+
+        opts = self._worker_opts
+        t0 = time.monotonic()
+        handle = procfleet.WorkerHandle(
+            self.name, index, payload_path or self._payload_path, buckets=opts.get("buckets"),
+            item_shape=opts.get("item_shape"), dtype=opts.get("dtype"),
+            ready_timeout=opts.get("ready_timeout", procfleet.DEFAULT_READY_TIMEOUT_S),
+            max_slab_bytes=opts.get("max_slab_bytes", procfleet.wire.DEFAULT_MAX_SLAB_BYTES),
+            device=opts.get("device") or "cuda",
+        )
+        metrics.observe("serve.worker_spawn_seconds", time.monotonic() - t0)
+        handle.attach_telemetry(self.telemetry)
+        self._count_worker_install(handle)
+        return procfleet.ProcessReplica(index, handle, version=version, pool_name=self.name,
+                                        heartbeat_timeout=self._heartbeat_s)
+
+    def _build_net_one(self, index: int, version: str, payload_path: Optional[str] = None,
+                       spawn_grace_s: Optional[float] = None, allow_overflow: bool = False) -> Replica:
+        """Claim (or spawn) one remote worker and deploy the staged
+        generation onto it.  A pending registration (a fenced worker
+        rejoining after a healed partition, or one started by hand) is
+        adopted within ``spawn_grace_s`` before the host map spawns fresh
+        capacity, so a heal prefers the worker that already holds this
+        generation's built applier.  ``allow_overflow``: exempt the spawn
+        from the host map's slot budget (a swap's workers coexist with the
+        old generation's until commit)."""
+        from keystone_tpu_torch.serve import net as netmod
+        from keystone_tpu_torch.serve import procfleet
+
+        opts = self._worker_opts
+        with open(payload_path or self._payload_path, "rb") as f:
+            payload_bytes = f.read()
+        grace = float(opts.get("spawn_grace_s", 2.0)) if spawn_grace_s is None else float(spawn_grace_s)
+        ready_timeout = float(opts.get("ready_timeout", procfleet.DEFAULT_READY_TIMEOUT_S))
+        t0 = time.monotonic()
+        pending = self._listener.next_pending(timeout=grace)
+        if pending is None:
+            self._hostmap.spawn(self._listener.address, allow_overflow=allow_overflow)
+            pending = self._listener.next_pending(timeout=ready_timeout)
+            if pending is None:
+                raise procfleet.WorkerSpawnError(
+                    f"{self.name}: spawned worker for slot {index} never registered within {ready_timeout:.0f}s")
+        handle = netmod.deploy_worker(
+            self.name, index, pending, payload_bytes, buckets=opts.get("buckets"), item_shape=opts.get("item_shape"),
+            dtype=opts.get("dtype"), lease_s=float(opts.get("lease_s", netmod.DEFAULT_LEASE_S)),
+            ready_timeout=ready_timeout,
+            max_frame_bytes=int(opts.get("max_frame_bytes", procfleet.wire.DEFAULT_MAX_FRAME_BYTES)),
+            device=opts.get("device") or "cuda",
+        )
+        metrics.observe("serve.worker_spawn_seconds", time.monotonic() - t0)
+        handle.attach_telemetry(self.telemetry)
+        self._count_worker_install(handle)
+        return netmod.NetReplica(index, handle, version=version, pool_name=self.name,
+                                 heartbeat_timeout=self._heartbeat_s)
+
+    def _build_process_many(self, n: int, version: str, payload_path: Optional[str],
+                            swap: bool = False) -> List[Replica]:
+        """Spawn a whole generation's workers concurrently (each pays an
+        interpreter, torch's import, the payload's load and its primes;
+        serially a generation would take n cold starts).  On any failure
+        the workers already ready are reaped before the error propagates.
+        The network backend adopts already-registered workers first (no
+        grace), then spawns the shortfall; ``swap``: the generation
+        replaces one that holds its host-map slots until commit."""
+        if self.backend == "net":
+            def build(i: int) -> Replica:
+                return self._build_net_one(i, version, payload_path, spawn_grace_s=0.0, allow_overflow=swap)
+        else:
+            def build(i: int) -> Replica:
+                return self._build_process_one(i, version, payload_path)
+
+        if n == 1:
+            return [build(0)]
+        from concurrent.futures import ThreadPoolExecutor
+
+        results: List[Optional[Replica]] = [None] * n
+        errors: List[BaseException] = []
+
+        def one(i: int) -> None:
+            try:
+                results[i] = build(i)
+            except BaseException as e:
+                errors.append(e)
+
+        with ThreadPoolExecutor(max_workers=n) as ex:
+            list(ex.map(one, range(n)))
+        if errors:
+            for r in results:
+                if r is not None:
+                    r.handle.shutdown()
+            raise errors[0]
+        return [r for r in results if r is not None]
 
     # ------------------------------------------------------------ build
-    @staticmethod
-    def _devices_for(n: int, devices) -> list:
+    def _devices_for(self, n: int, devices) -> list:
+        if self.backend != "thread":
+            return [None] * n  # the workers place the model
         if devices is not None:
             devices = [resolve_device(d) for d in devices]
             if not devices:
@@ -441,14 +659,20 @@ class ReplicaPool:
         return [torch.device("cuda", i % count) for i in range(n)]
 
     def _build_one(self, source, index: int, device, version, n: int, force_clone: bool = False,
-                   artifacts=_POOL_BUNDLE) -> Replica:
+                   artifacts=_POOL_BUNDLE, payload_path: Optional[str] = None) -> Replica:
         """One replica for slot ``index``: the direct wrap for a
         one-replica deviceless pool, the copy+place path otherwise.  The
         supervisor's restarts pass ``force_clone``: the replaced worker
         may still be running inside the old applier.  ``artifacts``
         (default: the pool's bundle) is installed into the new applier;
         without one, a cloned applier that carried a verified bundle
-        re-installs it (its graphs stayed with the original)."""
+        re-installs it (its graphs stayed with the original).  Process
+        and network backends: a worker from ``payload_path`` (default:
+        the live generation's), which does all of that itself."""
+        if self.backend == "process":
+            return self._build_process_one(index, version, payload_path=payload_path)
+        if self.backend == "net":
+            return self._build_net_one(index, version, payload_path=payload_path)
         if device is None and n == 1 and not force_clone:
             applier = _as_applier(source)
         else:
@@ -508,15 +732,34 @@ class ReplicaPool:
         ``artifact_buckets`` and the ``serve.artifact_*`` counters say.)"""
         return self._artifacts is not None
 
+    @property
+    def max_slab_bytes(self) -> int:
+        """The dispatch slab cap of this fleet's workers: the ingress sizes
+        its admission pool to it, so a payload it accepts is never refused
+        downstream (a thread fleet reports the wire's default)."""
+        cap = self._worker_opts.get("max_slab_bytes")
+        if cap is not None:
+            return int(cap)
+        from keystone_tpu_torch.serve import wire
+
+        return int(wire.DEFAULT_MAX_SLAB_BYTES)
+
     # ----------------------------------------------------------- router
-    def start(self, runner: Callable, obs_context=None) -> None:
+    def start(self, runner: Callable, obs_context=None, on_stranded=None) -> None:
         """Start every replica worker; ``runner(replica, flush)`` is the
         service's flush body.  ``obs_context`` is restored in every worker,
-        staged generations included."""
+        staged generations included.  ``on_stranded``: the service's
+        re-dispatch of a crashed runner's flush whose slot was drained in
+        the race window (a worker process's death)."""
         self._runner = runner
         self._obs_ctx = obs_context
+        self._on_stranded = on_stranded
         for r in self.replicas:
-            r.start(self._runner, self._obs_ctx)
+            self._start_replica(r)
+
+    def _start_replica(self, r: Replica) -> None:
+        r.on_stranded = self._on_stranded
+        r.start(self._runner, self._obs_ctx)
 
     def dispatch(self, batch) -> Replica:
         """Route one batch: least outstanding work first among routable
@@ -719,14 +962,21 @@ class ReplicaPool:
         replica still copies: the old generation keeps serving the
         caller's applier meanwhile."""
         devices = [r.device for r in self.replicas]
-        staged = [self._build_one(pipeline, i, dev, version, len(devices), force_clone=True, artifacts=artifacts)
-                  for i, dev in enumerate(devices)]
+        if self.backend != "thread":
+            # a fresh generation of workers off a fresh payload, spawned
+            # together; the old workers serve their own meanwhile
+            path = self._stage_payload(pipeline, artifacts)
+            staged = self._build_process_many(len(devices), version, path, swap=True)
+            self._staged_payload_path = path
+        else:
+            staged = [self._build_one(pipeline, i, dev, version, len(devices), force_clone=True, artifacts=artifacts)
+                      for i, dev in enumerate(devices)]
         self._staged_source = pipeline
         self._staged_artifacts = artifacts
         self._staged_artifacts_set = True
         if self._runner is not None:
             for r in staged:
-                r.start(self._runner, self._obs_ctx)
+                self._start_replica(r)
         return staged
 
     def commit(self, staged: List[Replica], version: str) -> float:
@@ -748,6 +998,15 @@ class ReplicaPool:
                     self._artifacts = self._staged_artifacts
                     self._staged_artifacts = None
                     self._staged_artifacts_set = False
+                if self._staged_payload_path is not None:
+                    # the payload moves with the generation: later heals
+                    # and scale-ups spawn from the new file; the old one's
+                    # workers loaded it long ago
+                    old_payload, self._payload_path = self._payload_path, self._staged_payload_path
+                    self._staged_payload_path = None
+                    if old_payload and old_payload != self._payload_path:
+                        with contextlib.suppress(OSError):
+                            os.unlink(old_payload)
                 self._known_unavailable = False
                 pause = time.perf_counter() - t0
                 self._cond.notify_all()
@@ -769,11 +1028,11 @@ class ReplicaPool:
         slot's restart count and a fresh CLOSED breaker."""
         with self._lock:
             n = len(self.replicas)
-            source, version = self._source, self.version
-        fresh = self._build_one(source, old.index, old.device, version, n, force_clone=True)
+            source, version, payload = self._source, self.version, self._payload_path
+        fresh = self._build_one(source, old.index, old.device, version, n, force_clone=True, payload_path=payload)
         fresh.restarts = old.restarts + 1
         if self._runner is not None:
-            fresh.start(self._runner, self._obs_ctx)
+            self._start_replica(fresh)
         return fresh
 
     def adopt_replacement(self, old: Replica, fresh: Replica):
@@ -846,12 +1105,12 @@ class ReplicaPool:
             if self._draining:
                 raise RuntimeError(f"pool {self.name!r} is closing; scale-up refused")
             n = len(self.replicas)
-            source, version = self._source, self.version
+            source, version, payload = self._source, self.version, self._payload_path
         index = self.next_index()
         device = self.replicas[0].device if self._devices[0] is None else self._devices[index % len(self._devices)]
-        fresh = self._build_one(source, index, device, version, n + 1, force_clone=True)
+        fresh = self._build_one(source, index, device, version, n + 1, force_clone=True, payload_path=payload)
         if self._runner is not None:
-            fresh.start(self._runner, self._obs_ctx)
+            self._start_replica(fresh)
         if primer is not None:
             try:
                 primer(fresh)
@@ -884,6 +1143,8 @@ class ReplicaPool:
             self._cond.notify_all()
         victim.retire()
         left = victim.join(max(0.1, float(timeout)))
+        # a thread that would not drain keeps its in-hand flush (a worker
+        # process's join killed the child instead)
         if victim._worker is not None and victim._worker.is_alive() and victim.inflight is not None:
             left.append(victim.inflight)
         for gauge in ("serve.replica_outstanding", "serve.replica_queue_share"):
@@ -911,7 +1172,20 @@ class ReplicaPool:
         deadline = time.monotonic() + timeout
         for r in replicas:
             abandoned.extend(r.join(max(0.1, deadline - time.monotonic())))
+        self._release_backend()
         return abandoned
+
+    @property
+    def host_capacity(self) -> Optional[int]:
+        """The host map's total worker slots (network backend), or None
+        when unbounded or another backend: the autoscaler's ceiling."""
+        return None if self._hostmap is None else self._hostmap.capacity()
+
+    @property
+    def listen_address(self) -> Optional[str]:
+        """``host:port`` of the worker listener (network backend): what a
+        worker started by hand dials (``cli worker --connect``)."""
+        return None if self._listener is None else self._listener.address
 
     def statuses(self) -> List[dict]:
         with self._lock:

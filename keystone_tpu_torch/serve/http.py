@@ -642,6 +642,35 @@ class HttpFrontend:
         self.stop()
 
 
+class _DelegateServer:
+    """The ``server`` object :class:`_Handler` reads when a connection
+    comes from outside a ``ThreadingHTTPServer``: the binary ingress
+    (``serve/ingress.py``) sniffs an HTTP client on its port and hands
+    the accepted socket here, so every endpoint keeps one
+    implementation."""
+
+    def __init__(self, service: PipelineService, registry=None, trace_dump_dir=None):
+        self.service = service
+        self.registry = registry
+        self.trace_dump_dir = trace_dump_dir
+
+
+def handle_http_connection(sock, client_address, service: PipelineService, registry=None,
+                           trace_dump_dir=None) -> None:
+    """Serve one accepted connection with the stdlib handler (blocking:
+    run it on its own thread).  The handler's keep-alive loop serves the
+    connection's whole request stream; the socket is closed on return."""
+    try:
+        _Handler(sock, client_address, _DelegateServer(service, registry, trace_dump_dir))
+    except OSError as e:
+        logger.debug("http: delegated connection died: %s", e)
+    finally:
+        try:
+            sock.close()
+        except OSError:
+            pass
+
+
 def serve_http(
     service: PipelineService,
     host: str = "127.0.0.1",

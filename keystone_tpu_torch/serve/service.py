@@ -51,6 +51,23 @@ and shed work that cannot meet its deadline.
   :class:`~keystone_tpu_torch.obs.recorder.FlightRecorder` (on by
   default), ``serve.batch`` ledger spans list their riders, and each
   terminal outcome emits a ``serve.request`` ledger event.
+- **Process and network fleets** — ``workers=N`` moves replica compute
+  into N worker processes (``serve/procfleet.py`` over the
+  shared-memory wire of ``serve/wire.py``) behind this same control
+  plane; each worker holds the model on its own device (``worker_opts=
+  {"device": ...}``, the card by default) and captures its own bucket
+  graphs.  ``hosts=`` carries the same fleet over TCP with heartbeat
+  leases (``serve/net.py``).  A worker's death mid-flush raises
+  :class:`~keystone_tpu_torch.serve.procfleet.WorkerCrashed`: the flush
+  is un-claimed, requeued and served by the supervisor's replacement.
+  Worker spans, metrics and kernel counts reach the router's
+  :class:`~keystone_tpu_torch.serve.telemetry.FleetTelemetry` (the
+  ``fleet`` block of ``/statusz``).
+- **Slab-direct admission** — ``submit_batch`` takes an admission block
+  (``serve/wire.py::SlabBlock``, a padded batch in one shared-memory
+  slab, as the binary ingress fills it): a flush made of exactly one
+  block's rows skips the stack and pad copies, and a process worker
+  attaches the block's slab by reference.
 
 Observability: ``serve.queue_depth`` gauge, ``serve.batch_rows`` /
 ``serve.batch_seconds`` / ``serve.latency_seconds`` histograms, the
@@ -59,8 +76,6 @@ Observability: ``serve.queue_depth`` gauge, ``serve.batch_rows`` /
 ``serve.enqueue`` (admission), ``serve.batch`` (a flush's apply) and
 ``serve.swap`` (a hot-swap's stage).
 
-Not ported yet, each raising ``NotPortedError`` when asked for: the
-process and network fleets (``workers=``, ``hosts=``, ROADMAP A11c).
 The reference's tenant and dedup override points are kept, inert.  The
 physical planner's knobs (A10) resolve to the reference's static
 defaults: a 5 ms wait, power-of-two buckets, hedging off, a dispatch
@@ -95,9 +110,9 @@ from keystone_tpu_torch.kernels.build import KernelError
 from keystone_tpu_torch.obs import ledger, metrics
 from keystone_tpu_torch.obs.recorder import FlightRecorder, new_request_id
 from keystone_tpu_torch.serve.fleet import FleetUnavailable, ReplicaPool, ReplicaSupervisor
+from keystone_tpu_torch.serve.procfleet import WorkerCrashed
 from keystone_tpu_torch.utils import guard
 from keystone_tpu_torch.workflow.dataset import Dataset, _to_device
-from keystone_tpu_torch.workflow.pipeline import NotPortedError
 
 logger = logging.getLogger(__name__)
 
@@ -182,24 +197,8 @@ def pad_rows(rows: np.ndarray, bucket: int) -> np.ndarray:
     return out
 
 
-class RowBlock:
-    """An admission block: rows admitted together by
-    :meth:`PipelineService.submit_batch`, each request a view of one row.
-    The reference's shared-memory slab block (``serve/wire.py``) is
-    ROADMAP A11c."""
-
-    admission_block = True
-
-    def __init__(self, array):
-        self.array = np.asarray(array)
-        self.count = self.array.shape[0]
-
-    def rows(self):
-        return [self.array[i] for i in range(self.count)]
-
-
 class _Request:
-    __slots__ = ("x", "deadline", "future", "t_submit", "request_id", "tenant", "gen")
+    __slots__ = ("x", "deadline", "future", "t_submit", "request_id", "tenant", "block", "row", "gen")
 
     def __init__(self, x, deadline: Optional[guard.Deadline], request_id: Optional[str] = None,
                  tenant: Optional[str] = None):
@@ -211,10 +210,28 @@ class _Request:
         self.request_id = request_id
         #: multi-tenant routing label: None on this single-tenant service
         self.tenant = tenant
+        #: slab-direct admission: ``x`` is row ``row`` of admission block
+        #: ``block`` (a view of its shared-memory slab); None otherwise
+        self.block = None
+        self.row = 0
         #: rollout generation tag (serve/rollout.py): "canary" when a
         #: guarded rollout routed the rider to the staged generation,
         #: "live" while a judge window is open, None otherwise
         self.gen: Optional[str] = None
+
+
+def _block_of(reqs) -> Optional[object]:
+    """The admission block a flush is a complete in-order image of, or
+    None: exactly the block's rows 0..count-1 in order (a shed or
+    cancelled rider, a flush mixing two submits, or a block spanning
+    flushes take the stack and pad copies, which are right for views)."""
+    blk = getattr(reqs[0], "block", None)
+    if blk is None or not getattr(blk, "admission_block", False) or len(reqs) != blk.count:
+        return None
+    for i, r in enumerate(reqs):
+        if r.block is not blk or r.row != i:
+            return None
+    return blk
 
 
 class _Flush:
@@ -260,6 +277,16 @@ class _Flush:
         with self._lock:
             if self._state == _Flush.QUEUED:
                 self._state = _Flush.ABORTED
+                return True
+            return False
+
+    def unclaim(self) -> bool:
+        """Return a RUNNING flush to QUEUED: the worker-process death path
+        only (its runner produced and delivered nothing, so the
+        replacement re-runs it; resolved riders are skipped)."""
+        with self._lock:
+            if self._state == _Flush.RUNNING:
+                self._state = _Flush.QUEUED
                 return True
             return False
 
@@ -351,9 +378,19 @@ class PipelineService:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if queue_bound < 1:
             raise ValueError(f"queue_bound must be >= 1, got {queue_bound}")
-        if workers or hosts is not None or worker_opts:
-            raise NotPortedError("workers=/hosts=/worker_opts=: the process and network fleets are not ported "
-                                 "yet (ROADMAP A11c); replicas= serves a threaded fleet")
+        workers = int(workers or 0)
+        if workers < 0:
+            raise ValueError(f"workers must be >= 0, got {workers}")
+        if workers > 0 and replicas != 1:
+            raise ValueError("workers= (process fleet) and replicas= (thread fleet) are exclusive; pass exactly one")
+        if workers > 0 and devices is not None:
+            raise ValueError("workers= places the model in the worker processes (worker_opts={'device': ...}); "
+                             "devices= applies to the thread fleet only")
+        if hosts is not None and workers < 1:
+            raise ValueError("hosts= selects the TCP fleet and needs workers>=1 to size it; workers=N without "
+                             "hosts stays on the shared-memory transport")
+        if worker_opts and workers < 1:
+            raise ValueError("worker_opts= configures the workers of workers>=1")
         self.max_batch = int(max_batch)
         self.buckets = tuple(sorted({int(b) for b in buckets})) if buckets else default_buckets(self.max_batch)
         if self.buckets[-1] < self.max_batch:
@@ -368,9 +405,32 @@ class PipelineService:
             ex = np.asarray(example)
             self._item_shape = tuple(ex.shape)
             self._dtype = ex.dtype
-        self.workers = 0
+        #: the process fleet's size (0: the threaded fleet)
+        self.workers = workers
+        backend, pool_opts = "thread", None
+        #: fleet telemetry (workers > 0): the one sink every worker handle
+        #: ships its spans, metric deltas and kernel reports into; its
+        #: recorder is set once the recorder exists (below)
+        self._telemetry = None
+        self._trace_ctx_cap = 0
+        if workers > 0:
+            from keystone_tpu_torch.serve.telemetry import MAX_TRACE_REQUEST_IDS, FleetTelemetry
+
+            backend = "net" if hosts is not None else "process"
+            replicas = workers
+            pool_opts = dict(worker_opts or {})
+            if hosts is not None:
+                pool_opts.setdefault("hosts", hosts)
+            # workers prime their buckets at spawn: the final bucket set
+            # and item contract travel with them
+            pool_opts.setdefault("buckets", list(self.buckets))
+            pool_opts.setdefault("item_shape", self._item_shape)
+            pool_opts.setdefault("dtype", None if self._dtype is None else np.dtype(self._dtype).str)
+            self._telemetry = FleetTelemetry()
+            self._trace_ctx_cap = MAX_TRACE_REQUEST_IDS
         self._pool = ReplicaPool(pipeline, replicas=replicas, devices=devices, version=version, name=name,
-                                 heartbeat_s=heartbeat_s, artifacts=artifacts)
+                                 heartbeat_s=heartbeat_s, artifacts=artifacts, backend=backend,
+                                 worker_opts=pool_opts, telemetry=self._telemetry)
         #: the flight recorder: True (default) = a fresh bounded recorder,
         #: False/None = tracing off (no ids minted, no hook runs), or a
         #: caller-provided FlightRecorder
@@ -380,6 +440,14 @@ class PipelineService:
             self.recorder = recorder
         else:
             self.recorder = None
+        if self._telemetry is not None:
+            # worker spans stitch into /requestz through the recorder; with
+            # it off the sink still folds the workers' metrics
+            self._telemetry.recorder = self.recorder
+        #: the trace context of the flush a remote replica is applying (set
+        #: by _run_batch with the recorder on, read by _apply_rows): out of
+        #: band, as _apply_reqs is an override point
+        self._trace_tls = threading.local()
         #: rolling-window instruments behind /statusz; every observe also
         #: feeds the cumulative registry series of the same name (/metrics)
         slo_window = max(1.0, float(slo_window_s)) if slo_window_s else 60.0
@@ -427,7 +495,7 @@ class PipelineService:
         self._rollout_history: deque = deque(maxlen=16)
         if example is not None:
             self.prime()
-        self._pool.start(self._run_flush, obs_context=self._obs_ctx)
+        self._pool.start(self._run_flush, obs_context=self._obs_ctx, on_stranded=self._handle_stranded_flush)
         self._worker = threading.Thread(target=self._loop, daemon=True, name=f"{name}-batcher")
         self._worker.start()
         #: hedged dispatch: off unless ``hedge_ms`` is given (0 is a
@@ -492,7 +560,7 @@ class PipelineService:
                     source = "compile"
                 metrics.observe("serve.prime_seconds", dt, source=source)
                 sources[source] = sources.get(source, 0) + 1
-                if source == "artifact" and applier._degradable:
+                if source == "artifact" and getattr(applier, "_degradable", False):
                     # a degradable pipeline's deadline-carrying flushes
                     # walk: warm the walk too (a far deadline never fires)
                     t1 = time.monotonic()
@@ -564,15 +632,25 @@ class PipelineService:
         return self._submit_all(list(xs), deadline, request_ids, tenant=tenant)
 
     def submit_batch(self, block, deadline=None, request_ids=None, tenant: Optional[str] = None) -> list:
-        """Admit a whole admission block (a :class:`RowBlock`, or any
-        carrier with ``admission_block``, ``count`` and ``rows()``) under
-        one queue-lock round; one Future per row, in order, each request a
-        view of its row.  Atomic, and raises what :meth:`submit_many`
-        raises."""
+        """Admit a whole admission block (``serve/wire.py::SlabBlock``, or
+        any carrier with ``admission_block``, ``count`` and ``rows()``)
+        under one queue-lock round; one Future per row, in order, each
+        request a view of its row.  When the block forms a flush by itself
+        the router skips the stack and pad copies, and a process worker
+        attaches the block's slab by name.  The caller keeps the block
+        alive until every returned future resolves (``block.retain(n)``
+        and ``release_one`` callbacks): the router may read it until then
+        (hedges, crash requeues, bisection).  Atomic, and raises what
+        :meth:`submit_many` raises."""
         if not getattr(block, "admission_block", False):
-            raise TypeError(f"submit_batch wants an admission block (RowBlock); got {type(block).__name__} — "
-                            "use submit_many for plain sequences")
-        return self._submit_all(list(block.rows()), deadline, request_ids, tenant=tenant)
+            raise TypeError(f"submit_batch wants an admission block (wire.SlabBlock); got {type(block).__name__} "
+                            "— use submit_many for plain sequences")
+        return self._submit_all(list(block.rows()), deadline, request_ids, tenant=tenant, block=block)
+
+    def bucket_for(self, k: int) -> int:
+        """The padding bucket a ``k``-row flush pads to (the ingress pads
+        its admission blocks to it)."""
+        return self._bucket_for(int(k))
 
     # ------------------------------------------------------ tenant hooks
     # The reference's multi-tenant service (ROADMAP A11d) overrides these;
@@ -640,7 +718,7 @@ class PipelineService:
             return [new_request_id() for _ in range(n)]
         return [None] * n
 
-    def _submit_all(self, xs, deadline, request_ids=None, tenant=None) -> list:
+    def _submit_all(self, xs, deadline, request_ids=None, tenant=None, block=None) -> list:
         if not xs:
             return []
         rids = self._resolve_request_ids(len(xs), request_ids)
@@ -698,8 +776,15 @@ class PipelineService:
                     followers = self._dedup_match(tenant, dd_keys)
                 self._check_bound_locked(len(arrs) - len(followers), tenant)
                 self._item_shape, self._dtype = item_shape, dtype
-                reqs = [_Request(a if a.dtype == dtype else a.astype(dtype), dl, rid, tenant=tenant)
-                        for a, rid in zip(arrs, rids)]
+                reqs = []
+                for i, (a, rid) in enumerate(zip(arrs, rids)):
+                    xa = a if a.dtype == dtype else a.astype(dtype)
+                    r = _Request(xa, dl, rid, tenant=tenant)
+                    # slab-direct: tag the block's row only when no
+                    # conversion copied the view
+                    if block is not None and xa is a:
+                        r.block, r.row = block, i
+                    reqs.append(r)
                 if dd_keys is not None:
                     self._dedup_register(tenant, dd_keys, reqs, followers)
                 # push, then annotate, both under the queue lock: the
@@ -756,9 +841,30 @@ class PipelineService:
         return self._pool.size
 
     @property
+    def host_capacity(self) -> Optional[int]:
+        """The TCP fleet's host-map slot total (None otherwise, or when a
+        host is unbounded): the autoscaler's ceiling."""
+        return self._pool.host_capacity
+
+    @property
+    def listen_address(self) -> Optional[str]:
+        """``host:port`` the TCP fleet's workers dial (None otherwise)."""
+        return self._pool.listen_address
+
+    @property
+    def telemetry(self):
+        """The fleet-telemetry sink of a process or TCP fleet (None for
+        threads): the workers' spans, metrics and kernel reports."""
+        return self._telemetry
+
+    @property
     def device(self) -> torch.device:
         """The device the live generation serves on (its first replica's):
-        where a version loaded from a registry goes."""
+        where a version loaded from a registry goes.  A process or TCP
+        fleet's router keeps models on the host (its workers place them),
+        so its device is the CPU."""
+        if self.workers:
+            return torch.device("cpu")
         return self._pool.replicas[0].device
 
     def replica_statuses(self) -> list:
@@ -927,6 +1033,23 @@ class PipelineService:
             "plan": None,
             "recorder": None if rec is None else rec.stats(),
         }
+        # the front end's health, once any front end has counted a
+        # connection
+        conns = reg.counter_total("ingress.bin_conns") + reg.counter_total("ingress.http_conns")
+        if conns or reg.counter_total("ingress.accepts"):
+            out["ingress"] = {
+                key: reg.counter_total(f"ingress.{key}")
+                for key in ("accepts", "bin_conns", "http_conns", "frames", "batch_rows", "bytes_copied")
+            }
+            out["ingress"]["frame_errors"] = {
+                labels.get("kind", "?"): value for labels, value in reg.counter_series("ingress.frame_errors")}
+            for key in ("parse", "admit"):
+                summary = reg.histogram_summary(f"ingress.{key}_seconds")
+                out["ingress"][f"{key}_ms"] = None if summary is None else self._ms(summary)
+        if self._telemetry is not None:
+            # per worker: apply and wire percentiles, clock sync, device
+            # and peak reserved memory, from what the workers shipped
+            out["fleet"] = self._telemetry.fleet_status()
         if self._slo_s is not None:
             detail = self.slo_burn()
             bad = detail["bad_fraction"]
@@ -1178,6 +1301,14 @@ class PipelineService:
         ok: Optional[bool] = False
         try:
             ok = self._run_batch(flush, replica)
+        except WorkerCrashed:
+            # the replica's worker PROCESS died under this flush and
+            # delivered nothing: return the claim and re-raise, so the
+            # replica loop requeues it at the front and marks the slot
+            # dead, and the supervisor's replacement serves it
+            flush.unclaim()
+            metrics.inc("serve.worker_crashes", replica=replica.index)
+            raise
         except BaseException as e:
             # an escape past _run_batch's containment: the claim is spent,
             # so fail the unresolved riders while we still own them
@@ -1207,7 +1338,7 @@ class PipelineService:
         for req in batch:
             fut = req.future
             if fut.done():
-                continue
+                continue  # resolved on an earlier attempt (a crashed worker's re-run)
             if not (fut.running() or fut.set_running_or_notify_cancel()):
                 # the caller cancelled while the request was queued
                 metrics.inc("serve.cancelled")
@@ -1244,7 +1375,16 @@ class PipelineService:
                     dls = [r.deadline for r in live if r.deadline is not None]
                     if dls and len(dls) == len(live):
                         batch_deadline = max(dls, key=lambda d: d.at)
-                out = self._apply_reqs(live, replica, batch_deadline)
+                # the wire's trace context: only with the recorder on and a
+                # remote fleet (a recorder-off apply frame has no trace key)
+                if rec is not None and self._telemetry is not None:
+                    self._trace_tls.ctx = {"batch": bid, "request_ids": trace_ids[: self._trace_ctx_cap]}
+                try:
+                    out = self._apply_reqs(live, replica, batch_deadline)
+                finally:
+                    self._trace_tls.ctx = None
+        except WorkerCrashed:
+            raise  # not a batch error: the flush re-runs whole on the replacement
         except BaseException as e:  # one bad batch must not kill the worker
             metrics.inc("serve.batch_errors")
             logger.warning("serve batch of %d failed on replica %d: %s: %s", k, replica.index, type(e).__name__, e)
@@ -1346,6 +1486,8 @@ class PipelineService:
                 t0 = time.monotonic()
                 out = self._apply_reqs(reqs, replica, batch_deadline)
             except BaseException as ge:
+                if isinstance(ge, WorkerCrashed):
+                    raise  # the worker died mid-bisect: the flush re-runs whole
                 if not _poison_suspect(ge):
                     # infrastructure failed the re-run: the group gets the
                     # real error and the replica is charged
@@ -1385,7 +1527,15 @@ class PipelineService:
         """One flush's apply body: stack the riders' rows and run the
         frozen graph; returns one numpy row per rider.  Both the flush and
         bisection's re-runs go through it (an override point of the
-        reference's multi-tenant service)."""
+        reference's multi-tenant service).  A flush that is a complete
+        in-order image of ONE admission block is already padded to its
+        bucket in the block's slab: no stack, no pad, and a process worker
+        attaches the slab by reference."""
+        blk = _block_of(reqs)
+        if blk is not None and blk.padded_rows == self._bucket_for(len(reqs)):
+            metrics.inc("serve.preformed_flushes")
+            return self._apply_rows(blk.array, deadline=deadline, replica=replica, pre_padded_n=len(reqs),
+                                    slab_ref=blk.ref)
         stacked = np.stack([req.x for req in reqs])
         metrics.inc("serve.bytes_copied", stacked.nbytes)
         return self._apply_rows(stacked, deadline=deadline, replica=replica)
@@ -1396,14 +1546,31 @@ class PipelineService:
                 return b
         return self.buckets[-1]
 
-    def _apply_rows(self, stacked: np.ndarray, deadline=None, replica=None, prime: bool = False) -> np.ndarray:
+    def _apply_rows(self, stacked: np.ndarray, deadline=None, replica=None, prime: bool = False,
+                    pre_padded_n: Optional[int] = None, slab_ref: Optional[dict] = None) -> np.ndarray:
         """Pad ``(k, ...)`` rows with zero rows up to the smallest bucket
-        that holds them, copy the batch to the replica's device (pinned,
-        on the replica's stream), apply the frozen graph there, and read
-        the first k output rows back to the host in one copy."""
-        k = stacked.shape[0]
-        padded = pad_rows(stacked, self._bucket_for(k))
+        that holds them (``pre_padded_n``: ``stacked`` is an admission
+        block's array, padded already), and apply the frozen graph on the
+        replica.  A thread replica copies the batch to its device (pinned,
+        on its stream), applies there and reads the first k output rows
+        back in one copy; a remote replica ships the padded host batch
+        over the wire (``slab_ref``: the block's slab, by reference, where
+        the worker can attach it) and its worker does all of that."""
+        if pre_padded_n is not None:
+            k, padded = int(pre_padded_n), stacked
+        else:
+            k = stacked.shape[0]
+            padded = pad_rows(stacked, self._bucket_for(k))
         rep = replica if replica is not None else self._pool.replicas[0]
+        if getattr(rep.applier, "remote_worker", False):
+            kw = {"n": k}
+            if slab_ref is not None and rep.applier.accepts_slab_ref:
+                kw["slab_ref"] = slab_ref
+            trace_ctx = getattr(self._trace_tls, "ctx", None)
+            if trace_ctx is not None:
+                kw["trace"] = trace_ctx
+            out = rep.apply(padded, deadline=deadline, prime=prime, **kw)
+            return np.asarray(out.array)[:k]
         with rep.on_stream():
             out = rep.apply(Dataset(_to_device(padded, rep.device), n=k), deadline=deadline, prime=prime)
             # on the replica's stream: the read waits for its work alone
@@ -1480,8 +1647,13 @@ def serve(
       (``min_workers``, ``max_workers``, ``interval_s``, thresholds):
       grows the fleet under queue or SLO pressure, a replica primed from
       the artifacts, and drains idle ones.
-    - ``workers``, ``worker_opts``, ``hosts`` — ROADMAP A11c:
-      ``NotPortedError``.
+    - ``workers`` — a process fleet of that many worker processes
+      (exclusive with ``replicas``/``devices``); ``worker_opts``: their
+      knobs (``device``, the card unless ``"cpu"``; ``ready_timeout``,
+      ``max_slab_bytes``; for ``hosts``: ``lease_s``, ``listen_host``,
+      ``listen_port``); ``hosts`` — the TCP fleet over a host map
+      (``"local:2"``, ``host[:slots],...``), workers dialing the
+      service's ``listen_address``.
     """
     return PipelineService(
         pipeline, max_batch=max_batch, max_wait_ms=max_wait_ms, queue_bound=queue_bound, buckets=buckets,

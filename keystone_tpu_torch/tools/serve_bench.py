@@ -1,6 +1,6 @@
 """Open-loop load generator for the serving path (counterpart of
-``tools/serve_bench.py``'s ``build_pipeline``, ``build_service`` and
-``run_bench``).
+``tools/serve_bench.py``'s ``build_pipeline``, ``build_service``,
+``run_bench`` and ``run_ingress_ab``).
 
 Drives a :class:`keystone_tpu_torch.serve.PipelineService` with a fixed
 arrival schedule: requests are submitted at the target rate whether or
@@ -14,7 +14,14 @@ shed/rejected counts.
 The default workload is the reference's synthetic two-stage pipeline
 (NormalizeRows → LinearMapper), which measures the serving layer
 itself; ``--model`` serves a saved fitted pipeline whose input is a
-``--dim``-vector.  The report is one JSON object on stdout.
+``--dim``-vector.  ``--workers N`` serves it with a process fleet of N
+workers (each with the model on ``--device``) in place of the threaded
+fleet.  ``--ingress-ab`` runs the front-end A/B instead: one service
+behind one binary ingress port, saturated in turns by per-datum HTTP
+JSON clients and by whole-batch binary clients, with the two paths'
+answers compared bit for bit.  The report is one JSON object on stdout.
+
+    python -m keystone_tpu_torch.tools.serve_bench --device cpu --workers 2 --ingress-ab --duration 1
 """
 
 from __future__ import annotations
@@ -79,22 +86,30 @@ def build_service(
     replicas: int = 1,
     recorder: bool = True,
     device="cuda",
+    workers: int = 0,
     **serve_kw,
 ):
     """A primed service over the synthetic pipeline (or a saved fitted
-    model) on ``device``; returns ``(service, item_shape)``.  Extra
-    keywords (``hedge_ms``, ``supervise``, ``heartbeat_s``, ...) pass
-    through to :func:`keystone_tpu_torch.serve.serve`."""
+    model) on ``device``; returns ``(service, item_shape)``.  ``workers``:
+    a process fleet of that many workers, each with the model on
+    ``device`` (the router keeps it on the host).  Extra keywords
+    (``hedge_ms``, ``supervise``, ``heartbeat_s``, ...) pass through to
+    :func:`keystone_tpu_torch.serve.serve`."""
     from keystone_tpu_torch.serve import serve
     from keystone_tpu_torch.utils.device import resolve_device
     from keystone_tpu_torch.workflow.pipeline import FittedPipeline
 
     dev = resolve_device(device)
+    home = torch.device("cpu") if workers else dev
     if model:
-        pipe = FittedPipeline.load(model, map_location=dev)
+        pipe = FittedPipeline.load(model, map_location=home)
     else:
-        pipe = build_pipeline(dim=dim, classes=classes, seed=seed, device=dev)
+        pipe = build_pipeline(dim=dim, classes=classes, seed=seed, device=home)
     item_shape = (int(dim),)
+    if workers:
+        fleet = dict(workers=int(workers), worker_opts={"device": str(dev)})
+    else:
+        fleet = dict(replicas=replicas, devices=[dev] * replicas)
     svc = serve(
         pipe,
         max_batch=max_batch,
@@ -103,9 +118,8 @@ def build_service(
         deadline_ms=deadline_ms,
         example=np.zeros(item_shape, np.float32),
         name="serve_bench",
-        replicas=replicas,
-        devices=[dev] * replicas,
         recorder=recorder,
+        **fleet,
         **serve_kw,
     )
     return svc, item_shape
@@ -283,6 +297,188 @@ def _occupancy(replica_stats: list, c0: dict, c1: dict) -> list:
     return [d / total for d in deltas]
 
 
+def _http_datum_client(host, port, rows, stop_evt, lock, lats, counts):
+    """One keep-alive HTTP/1.1 client POSTing one datum a request (the
+    JSON front end's submit shape) until ``stop_evt``."""
+    import http.client
+
+    def connect():
+        return http.client.HTTPConnection(host, port, timeout=30.0)
+
+    conn = connect()
+    i = 0
+    try:
+        while not stop_evt.is_set():
+            body = json.dumps({"instance": rows[i % len(rows)]}).encode()
+            i += 1
+            t0 = time.monotonic()
+            try:
+                conn.request("POST", "/predict", body, {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                resp.read()
+                ok = resp.status == 200
+            except (OSError, http.client.HTTPException):
+                ok = False
+                conn.close()
+                conn = connect()
+            dt = time.monotonic() - t0
+            with lock:
+                if ok:
+                    counts["completed"] += 1
+                    lats.append(dt)
+                else:
+                    counts["errors"] += 1
+    finally:
+        conn.close()
+
+
+def _binary_batch_client(host, port, batch, stop_evt, lock, lats, counts):
+    """One binary client sending whole ``(b, dim)`` batches on one
+    connection until ``stop_evt``."""
+    from keystone_tpu_torch.serve.ingress import BinaryClient, IngressError
+    from keystone_tpu_torch.serve.wire import WireError
+
+    b = int(batch.shape[0])
+    try:
+        with BinaryClient(host, port) as c:
+            while not stop_evt.is_set():
+                t0 = time.monotonic()
+                try:
+                    c.predict(batch)
+                    ok = True
+                except IngressError:
+                    ok = False
+                dt = time.monotonic() - t0
+                with lock:
+                    if ok:
+                        counts["completed"] += b
+                        lats.append(dt)
+                    else:
+                        counts["errors"] += b
+    except (OSError, WireError, EOFError):
+        with lock:
+            counts["errors"] += b
+
+
+def _saturate(client, n_clients, args_common, duration) -> dict:
+    """A closed-loop saturation leg: ``n_clients`` persistent client
+    threads for ``duration`` seconds; the per-datum rate over the window
+    is the front end's ceiling (a closed loop throttles itself at
+    capacity)."""
+    lock = threading.Lock()
+    lats: list = []
+    counts = {"completed": 0, "errors": 0}
+    stop_evt = threading.Event()
+    threads = [threading.Thread(target=client, args=args_common + (stop_evt, lock, lats, counts), daemon=True)
+               for _ in range(int(n_clients))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    time.sleep(max(0.2, float(duration)))
+    stop_evt.set()
+    for t in threads:
+        t.join(30.0)
+    elapsed = time.monotonic() - t0
+    lat_ms = np.asarray(lats) * 1000.0
+    return {
+        "clients": int(n_clients),
+        "completed": counts["completed"],
+        "errors": counts["errors"],
+        "per_datum_qps": counts["completed"] / elapsed if elapsed > 0 else None,
+        "p50_ms": float(np.percentile(lat_ms, 50)) if lat_ms.size else None,
+        "p99_ms": float(np.percentile(lat_ms, 99)) if lat_ms.size else None,
+    }
+
+
+def run_ingress_ab(duration: float = 2.0, rounds: int = 2, dim: int = 64, max_batch: int = 64, shards: int = 2,
+                   http_clients: int = 8, bin_clients: int = 4, bin_batch: int | None = None, device="cuda",
+                   workers: int = 0) -> dict:
+    """:func:`ingress_ab` on serve_bench's synthetic pipeline of width
+    ``dim`` (a process fleet with ``workers``), fed ``bin_batch``-row
+    batches of seeded normal rows."""
+    bin_batch = int(bin_batch or max_batch)
+    svc, item_shape = build_service(dim=dim, max_batch=max_batch, max_wait_ms=2.0, queue_bound=4096,
+                                    deadline_ms=None, recorder=False, device=device, workers=workers)
+    probe = np.random.default_rng(3).normal(size=(bin_batch,) + tuple(item_shape)).astype(np.float32)
+    try:
+        rep = ingress_ab(svc, probe, duration=duration, rounds=rounds, shards=shards, http_clients=http_clients,
+                         bin_clients=bin_clients)
+    finally:
+        svc.close()
+    return dict(rep, device=str(device), workers=int(workers), dim=dim, max_batch=max_batch)
+
+
+def ingress_ab(svc, probe: np.ndarray, duration: float = 2.0, rounds: int = 2, shards: int = 2,
+               http_clients: int = 8, bin_clients: int = 4) -> dict:
+    """The front-end A/B: ``svc`` behind one
+    :class:`~keystone_tpu_torch.serve.ingress.AsyncIngress` port,
+    saturated in turns by per-datum HTTP JSON clients (the sniffed slow
+    path, cycling over ``probe``'s rows) and by binary clients sending
+    all of ``probe`` as one batch, order alternating after a discarded
+    warm-up round; the median per-datum rate and latency of each,
+    ``serve.preformed_flushes`` (binary batches that skipped the stack
+    and pad copies) and each arm's ``ingress.bytes_copied`` (the JSON
+    arm charges every parsed byte, the binary arm none), with ``probe``'s
+    answers through both paths compared bit for bit on the quiet service
+    first.  The caller owns ``svc``."""
+    import statistics
+    import urllib.request
+
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.serve.ingress import BinaryClient, serve_ingress
+
+    front = serve_ingress(svc, port=0, shards=shards)
+    samples: dict = {"http": [], "binary": []}
+    try:
+        with BinaryClient("127.0.0.1", front.port) as c:
+            bin_out = c.predict(probe)
+        req = urllib.request.Request(f"http://127.0.0.1:{front.port}/predict",
+                                     data=json.dumps({"instances": probe.tolist()}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            http_out = np.asarray(json.loads(resp.read())["predictions"], dtype=np.float32)
+        identical = bin_out.tobytes() == http_out.tobytes()
+        rows_json = [r.tolist() for r in probe]
+        bytes_copied: dict = {}
+        reg = metrics.REGISTRY
+        pre0 = reg.counter_value("serve.preformed_flushes")
+        for rnd in range(max(1, int(rounds)) + 1):
+            for mode in (("http", "binary") if rnd % 2 == 0 else ("binary", "http")):
+                b0 = reg.counter_value("ingress.bytes_copied")
+                leg = duration if rnd > 0 else 0.5
+                if mode == "http":
+                    rep = _saturate(_http_datum_client, http_clients, ("127.0.0.1", front.port, rows_json), leg)
+                else:
+                    rep = _saturate(_binary_batch_client, bin_clients, ("127.0.0.1", front.port, probe), leg)
+                rep["bytes_copied"] = int(reg.counter_value("ingress.bytes_copied") - b0)
+                if rnd > 0:  # round 0 warms up
+                    samples[mode].append(rep)
+                    bytes_copied[mode] = bytes_copied.get(mode, 0) + rep["bytes_copied"]
+        preformed = int(reg.counter_value("serve.preformed_flushes") - pre0)
+    finally:
+        front.stop()
+
+    def med(mode: str, key: str):
+        vals = [r[key] for r in samples[mode] if r.get(key) is not None]
+        return float(statistics.median(vals)) if vals else None
+
+    http_qps, bin_qps = med("http", "per_datum_qps"), med("binary", "per_datum_qps")
+    return {
+        "mode": "closed-loop saturation", "duration_s": duration, "rounds": len(samples["http"]), "shards": shards,
+        "bin_batch": int(probe.shape[0]),
+        "http": {"clients": http_clients, "per_datum_qps": http_qps, "p50_ms": med("http", "p50_ms"),
+                 "p99_ms": med("http", "p99_ms"), "errors": sum(r["errors"] for r in samples["http"]),
+                 "runs_qps": [r["per_datum_qps"] for r in samples["http"]]},
+        "binary": {"clients": bin_clients, "per_datum_qps": bin_qps, "frame_p50_ms": med("binary", "p50_ms"),
+                   "frame_p99_ms": med("binary", "p99_ms"), "errors": sum(r["errors"] for r in samples["binary"]),
+                   "runs_qps": [r["per_datum_qps"] for r in samples["binary"]]},
+        "speedup": bin_qps / http_qps if http_qps and bin_qps else None,
+        "predictions_identical": identical,
+        "preformed_flushes": preformed,
+        "bytes_copied": bytes_copied,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
@@ -298,11 +494,22 @@ def main(argv=None) -> int:
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--batch-delay-ms", type=float, default=0.0)
     ap.add_argument("--model", default=None)
+    ap.add_argument("--workers", type=int, default=0,
+                    help="a process fleet of this many workers in place of the threaded fleet")
+    ap.add_argument("--ingress-ab", action="store_true",
+                    help="the front-end A/B (HTTP JSON against binary batches) in place of the open loop")
+    ap.add_argument("--rounds", type=int, default=2, help="--ingress-ab's measured rounds")
+    ap.add_argument("--shards", type=int, default=2, help="--ingress-ab's ingress loops")
     args = ap.parse_args(argv)
+    if args.ingress_ab:
+        print(json.dumps(run_ingress_ab(duration=args.duration, rounds=args.rounds, dim=args.dim,
+                                        max_batch=args.max_batch, shards=args.shards, device=args.device,
+                                        workers=args.workers)))
+        return 0
     svc, item_shape = build_service(dim=args.dim, classes=args.classes, max_batch=args.max_batch,
                                     max_wait_ms=args.max_wait_ms, queue_bound=args.queue_bound,
                                     deadline_ms=args.deadline_ms, model=args.model, replicas=args.replicas,
-                                    device=args.device)
+                                    device=args.device, workers=args.workers)
     try:
         rep = run_bench(svc, item_shape, qps=args.qps, duration=args.duration, burst=args.burst,
                         deadline_ms=args.deadline_ms, batch_delay_ms=args.batch_delay_ms)

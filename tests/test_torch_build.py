@@ -65,3 +65,43 @@ def test_compiler_output_is_named_by_process_and_thread(tmp_path, monkeypatch):
     (tmp,) = seen
     assert tmp.endswith(f".{build.os.getpid()}.{threading.get_ident()}.tmp")
     assert issubclass(build.KernelError, RuntimeError)
+
+
+def _spawned_build(build_dir: str, start) -> int:
+    """A spawned process's build of csrc/text.cpp into ``build_dir``,
+    after ``start`` releases it; returns how many compilers it started."""
+    from pathlib import Path
+
+    from keystone_tpu_torch.kernels import build as b
+
+    b.BUILD_DIR = Path(build_dir)
+    compiles = []
+    popen = b.subprocess.Popen
+
+    def counting_popen(cmd, *a, **kw):
+        compiles.append(cmd)
+        return popen(cmd, *a, **kw)
+
+    b.subprocess.Popen = counting_popen
+    start.wait(timeout=60)
+    b.build(["text"])
+    return len(compiles)
+
+
+def test_two_processes_build_one_library(tmp_path):
+    """Two spawned processes (a process fleet's workers priming at once)
+    build the same source into one build directory: the compiler runs
+    once, the other process finds the library built, and no temporary
+    output is left."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    ctx = mp.get_context("spawn")
+    with ctx.Manager() as manager:
+        start = manager.Barrier(2)
+        with ProcessPoolExecutor(max_workers=2, mp_context=ctx) as ex:
+            futs = [ex.submit(_spawned_build, str(tmp_path), start) for _ in range(2)]
+            compiled = [f.result(timeout=300) for f in futs]
+    assert sum(compiled) == 1, compiled
+    assert [p.suffix for p in tmp_path.iterdir() if p.name.startswith("libtext")] == [".so"]
+    assert not list(tmp_path.glob("*.tmp"))

@@ -52,7 +52,7 @@ def test_seeded_plan_fires_at_the_reference_call_counts(plan, site):
     assert 0 < sum(got) < 60
 
 
-@pytest.mark.parametrize("site", ["multihost.init", "serve.net.connect", "serve.net.send", "plan.sample"])
+@pytest.mark.parametrize("site", ["multihost.init", "plan.sample"])
 def test_sites_of_unported_slices_are_refused(site):
     """The reference's other sites join with the slices that wire them;
     until then a plan naming one is refused, not silently inert."""
@@ -68,7 +68,8 @@ def test_sites_of_unported_slices_are_refused(site):
 def test_wired_sites_are_the_slice_sites():
     assert faults.SITES == {"blockstore.read", "blockstore.write", "ckpt.save", "ckpt.load", "stream.batch",
                             "executor.stage", "kernel.sweep", "serve.enqueue", "serve.batch", "serve.replica",
-                            "serve.worker", "serve.swap", "serve.artifact_load", "serve.rollout"}
+                            "serve.worker", "serve.swap", "serve.artifact_load", "serve.rollout",
+                            "serve.net.connect", "serve.net.send", "serve.net.recv"}
     assert faults.SITES <= ref_faults.SITES
 
 
@@ -76,6 +77,7 @@ def test_wired_sites_are_the_slice_sites():
     ("serve.enqueue", {}), ("serve.batch", {}), ("serve.replica", {"replica": 1}), ("serve.worker", {"replica": 0}),
     ("serve.swap", {"version": "v2"}), ("serve.rollout", {"version": "v0003"}),
     ("serve.artifact_load", {"path": "MANIFEST.json"}),
+    ("serve.net.connect", {"link": "w0"}), ("serve.net.send", {"link": "w1"}), ("serve.net.recv", {"link": "w0"}),
 ])
 def test_serve_sites_fire_at_the_reference_calls(site, ctx):
     """Each serving site, wired in this slice, fires at the same calls as

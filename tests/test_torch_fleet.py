@@ -26,7 +26,7 @@ from keystone_tpu_torch.serve import FleetUnavailable, Overloaded, PoisonRequest
 from keystone_tpu_torch.serve.fleet import ReplicaPool, _clone_and_place, _place_on_device
 from keystone_tpu_torch.utils import guard
 from keystone_tpu_torch.workflow.dataset import Dataset
-from keystone_tpu_torch.workflow.pipeline import FrozenApplier, NotPortedError, Pipeline
+from keystone_tpu_torch.workflow.pipeline import FrozenApplier, Pipeline
 from keystone_tpu_torch.workflow.transformer import Transformer
 
 pytestmark = pytest.mark.serve
@@ -194,9 +194,14 @@ def test_replica_chaos_one_flush_fails_service_survives():
 
 
 def test_unported_backends_name_their_roadmap_item():
-    for kw, item in ((dict(backend="process"), "A11c"), (dict(backend="net"), "A11c")):
-        with pytest.raises(NotPortedError, match=item):
-            ReplicaPool(_pipeline(), devices=["cpu"], **kw)
+    """The process and network backends are ported (tests/test_torch_procfleet.py,
+    tests/test_torch_netfleet*.py): they place the model in their workers,
+    so ``devices=`` is refused with them, and an unknown backend is refused."""
+    for backend in ("process", "net"):
+        with pytest.raises(ValueError, match="devices= applies to the thread backend only"):
+            ReplicaPool(_pipeline(), devices=["cpu"], backend=backend)
+    with pytest.raises(ValueError, match="backend must be"):
+        ReplicaPool(_pipeline(), devices=["cpu"], backend="fork")
 
 
 def test_pool_artifacts_move_with_the_generation():

@@ -407,10 +407,15 @@ def test_serve_entry_points_default_to_the_card(tmp_path):
         serve(pipe)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve(pipe, replicas=2)
+    # a process fleet's workers take the card too: refused before a spawn
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(pipe, workers=1)
     path = tmp_path / "m.pt"
     pipe.fit().save(str(path))
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["serve", "--model", str(path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["serve", "--model", str(path), "--workers", "1"])
 
 
 def test_library_import_path_excludes_serve():

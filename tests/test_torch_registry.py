@@ -249,7 +249,9 @@ def test_watcher_swaps_when_current_moves(tmp_path):
         s0 = _counter("serve.watch_swaps")
         v2 = reg.publish(_pipeline(3.0))
         deadline = time.monotonic() + WAIT
-        while svc.version != v2 and time.monotonic() < deadline:
+        # the pool's version moves inside swap(); the watcher counts the
+        # swap and calls on_swap after swap() returns: wait for both
+        while not (svc.version == v2 and swaps and swaps[-1]["version"] == v2) and time.monotonic() < deadline:
             time.sleep(0.02)
         assert svc.version == v2 and swaps and swaps[-1]["version"] == v2
         assert _counter("serve.watch_swaps") == s0 + 1

@@ -23,7 +23,7 @@ from keystone_tpu_torch import faults
 from keystone_tpu_torch.models.linear import LinearMapEstimator, LinearMapper
 from keystone_tpu_torch.obs import metrics
 from keystone_tpu_torch.ops.stats import NormalizeRows
-from keystone_tpu_torch.serve import Overloaded, PipelineService, RowBlock, ServiceClosed, default_buckets, serve
+from keystone_tpu_torch.serve import Overloaded, PipelineService, ServiceClosed, default_buckets, serve, wire
 from keystone_tpu_torch.serve.service import pad_rows
 from keystone_tpu_torch.utils import guard
 from keystone_tpu_torch.workflow import optimizer as O
@@ -262,20 +262,31 @@ def test_shape_mismatch_rejected_at_submit():
         assert np.asarray(good.result(timeout=WAIT)).shape == (DIM,)
 
 
+def _block(pool, x):
+    """``x``'s rows in one shared-memory admission block (wire.alloc_block)."""
+    blk = wire.alloc_block(pool, x.shape[0], x.shape[1:], x.dtype)
+    blk.array[: x.shape[0]] = x
+    return blk
+
+
 def test_submit_batch_admits_a_block_atomically():
     x = np.random.default_rng(4).normal(size=(5, DIM)).astype(np.float32)
-    with _service(max_batch=8, max_wait_ms=5.0, queue_bound=5) as svc:
-        got = np.stack([f.result(timeout=WAIT) for f in svc.submit_batch(RowBlock(x))])
-        with pytest.raises(TypeError, match="admission block"):
-            svc.submit_batch(x)
-    np.testing.assert_allclose(got, _offline(x), rtol=1e-6, atol=1e-7)
-    svc = _service(max_batch=64, max_wait_ms=10_000.0, queue_bound=4)
+    pool = wire.SlabPool(prefix="t_submit_batch")
     try:
-        with pytest.raises(Overloaded):
-            svc.submit_batch(RowBlock(x))
-        assert svc.queue_depth == 0
+        with _service(max_batch=8, max_wait_ms=5.0, queue_bound=5) as svc:
+            got = np.stack([f.result(timeout=WAIT) for f in svc.submit_batch(_block(pool, x))])
+            with pytest.raises(TypeError, match="admission block"):
+                svc.submit_batch(x)
+        np.testing.assert_allclose(got, _offline(x), rtol=1e-6, atol=1e-7)
+        svc = _service(max_batch=64, max_wait_ms=10_000.0, queue_bound=4)
+        try:
+            with pytest.raises(Overloaded):
+                svc.submit_batch(_block(pool, x))
+            assert svc.queue_depth == 0
+        finally:
+            svc.close(timeout=WAIT)
     finally:
-        svc.close(timeout=WAIT)
+        pool.close()
 
 
 # ----------------------------------------------------------------- chaos
@@ -493,8 +504,12 @@ def test_small_scorer_served_as_the_reference_serves_it():
 
 
 def test_unported_options_name_their_roadmap_item():
-    for kw, item in ((dict(workers=2), "A11c"), (dict(hosts="local:2"), "A11c")):
-        with pytest.raises(NotPortedError, match=item):
+    # the process and network fleets are ported: what they refuse is
+    # their own argument errors, before anything is spawned
+    for kw, why in ((dict(workers=2), "devices= applies to the thread fleet only"),
+                    (dict(hosts="local:2"), "needs workers>=1"),
+                    (dict(worker_opts={"device": "cpu"}), "workers>=1")):
+        with pytest.raises(ValueError, match=why):
             serve(_pipeline(), devices=["cpu"], **kw)
     with pytest.raises(NotPortedError, match="A10"):
         _pipeline().freeze(device="cpu", validate=True)

@@ -331,8 +331,7 @@ def test_cli_serve_on_the_cpu_answers_and_exits_on_sigint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["check"], "A10"), (["plan"], "A10"), (["worker"], "A11c"), (["serve", "--model", "m", "--workers", "2"], "A11c"),
-    (["serve", "--model", "m", "--hosts", "local:2"], "A11c"), (["serve", "--model", "a=m", "--model", "b=n"], "A11d"),
+    (["check"], "A10"), (["plan"], "A10"), (["serve", "--model", "a=m", "--model", "b=n"], "A11d"),
     (["serve", "--model", "m", "--tenants", "2"], "A11d"),
     (["export", "--model", "m", "--example-shape", "4", "--out", "o", "--plan"], "A10"),
 ])
@@ -341,6 +340,24 @@ def test_cli_refuses_what_is_not_ported(argv, item, capsys):
 
     assert cli.main(argv) != 0
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,why", [
+    (["worker"], "--connect"),
+    (["serve", "--model", "m", "--workers", "2", "--replicas", "2"], "exclusive"),
+    (["serve", "--model", "m", "--hosts", "local:2"], "--hosts needs --workers"),
+    (["serve", "--model", "m", "--workers", "1", "--lease-s", "2"], "configure the --hosts fleet"),
+])
+def test_cli_fleet_flags_are_checked(argv, why, capsys):
+    """``worker``, ``--workers``, ``--hosts`` and ``--lease-s`` are ported
+    (the process and network fleets): a malformed use is an argument
+    error naming what is wrong, before any model is read."""
+    from keystone_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert e.value.code == 2
+    assert why in capsys.readouterr().err
 
 
 def test_cli_lists_the_ten_pipelines(capsys):
