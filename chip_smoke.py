@@ -140,8 +140,8 @@ result line):
    128×128×3, and the whitened filter patches against a float64 eigh;
 19. main path, TimitPipeline.run at its Config (4096 cosine features in
    blocks of 1024, γ 0.05, λ 1e-3, mixture weight 0.5, blocks of 1024,
-   3 epochs, 147 classes) on phase 12's .npy frames (262 144 + 65 536),
-   in memory and streamed in batches of 8192: scores and classes
+   3 epochs, 147 classes) on the first eighth of phase 12's .npy frames
+   (32 768 + 8192), in memory and streamed in batches of 8192: scores and classes
    together, the cosine features' phase against float64;
 20. main path, VOCSIFTFisher.run at its Config (SIFT step 6, bin 4, PCA
    64, K = 16, 10 EM iterations, 64 descriptors an image, λ 1e-4,
@@ -173,8 +173,9 @@ result line):
    place of the ls fit;
 23. main path, the operations layer of a fit, each part with its own
    temporary directories: the streamed ImageNetSiftLcsFV fit at phase
-   10's leg three ways (nothing attached, a run ledger, an empty fault
-   plan: seconds against phase 10's, B1/B2 launches, the three fits bit
+   10's leg on half its images three ways (nothing attached, a run ledger,
+   an empty fault plan: seconds an image against phase 10's, B1/B2
+   launches, the three fits bit
    for bit, the ledger's span and event counts); ``fit_with_recovery``
    of that fit in two child processes of this script (``--recovery-child``)
    with a state_dir and the solver's checkpoint_dir, attempt 1 under a
@@ -232,7 +233,7 @@ result line):
    ``POST /rollback`` to v0001, the three episodes in /rolloutz, the
    answers of each phase from its version's weights, nothing lost,
    SIGINT exit 0; the autoscaler (1..3) under an open-loop burst at 1.5x
-   S1's saturation growing the fleet, each new replica primed from the
+   the larger of S1's and the graphs-on loop's saturation growing the fleet, each new replica primed from the
    graphs, and shrinking back to 1 when idle; no artifact fallback
    anywhere, B1's launches by the wrapper and by replays; S6, the process
    and network fleets: B1 at the serving buckets 8..64 (times, bounds,
@@ -254,8 +255,21 @@ result line):
    over loopback with one link partitioned past its lease mid-load
    (nothing lost, healed, bit for bit the process fleet's); the
    workers' B1 launches and replays, as they reported them, and none in
-   the router while they serve;
-25. one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+   the router while they serve; S7, multi-tenant serving: three tenants
+   over S1's featurizer, each with a head of its own, as workflow graphs
+   saved and loaded apart (the sharing plan keys them by content), the
+   card's freeze fusing each PCA -> FV pair; one padded batch of 128
+   through MultiTenantApplier with the share on and off (B1 2 and 6
+   times, bit for bit, pool hits, peak under the budget, 0 bytes left);
+   serve_multi's closed loop (each tenant's scores against its offline
+   scorer, top-5, B1 twice a combined flush); a serve.batch fault aimed
+   at one tenant failing its riders only; one tenant against serve()
+   bit for bit; ``cli serve`` with three named models over HTTP (an
+   unknown tenant 400; the child's B1 twice a flush); serve_bench's
+   tenant A/B in short legs (rates printed); then the chaos tool on the
+   card: the ``tenants`` workload and a seeded 20 s soak over two worker
+   processes, each exiting 0;
+25. the whole script's seconds; one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches (bucket-graph replays
    included), float64 errors) for all four kernels, B3's and B4's times at the new paths' shapes and B1's and
    B2's at VOC's among them, then the last line {"ok": true, "device":
@@ -498,6 +512,10 @@ TAR_ACCURACY_MIN = 0.9
 # The whitening is held f32-grade against float64 (kernel fit's error at
 # most F64_RATIO times the plain f32 chain's) or within TOL_WHITEN.
 KT_N, KT_TEST_N, KT_BATCH = 262_144, 65_536, 8192
+# TimitPipeline on the first eighth of those frames (both runs, and the
+# streamed one in 4 batches of its Config's 8192): its streamed run read
+# all 262 144 in 96.4 s of the script's 1200 s limit on an H100
+TIMIT_PIPE_N, TIMIT_PIPE_TEST_N = KT_N // 8, KT_TEST_N // 8
 CIFAR_N, CIFAR_TEST_N = 50_000, 10_000
 TOL_PIPE_SCORES, RTOL_PIPE_SCORES, PIPE_AGREEMENT = 1e-3, 1e-3, 0.999
 PIPE_ACCURACY_MIN = 0.5  # the reference's own gate on both pipelines (tests/test_pipelines.py)
@@ -601,6 +619,10 @@ TOL_NB_RTOL, TOL_NB_ATOL = 1e-5, 1e-5
 # and |f(w_a) − f(w_b)| ≤ max ‖∇f‖²/(2λ), and their argmax agree on
 # ≥ 99.9% of the test documents
 TOL_TEXT_W, TOL_PARTED_W, TEXT_AGREEMENT = 1e-4, 2e-2, 0.999
+
+
+#: the script's start, for its total seconds
+T_START = time.perf_counter()
 
 
 @contextlib.contextmanager
@@ -2866,23 +2888,27 @@ def random_patch_path(dev, card, gk, fk, cifar_paths):
 
 
 def timit_path(dev, card, gk, fk, timit_dir):
-    """TimitPipeline.run at its Config on the kernel TIMIT phase's .npy
-    frames (262 144 + 65 536): in memory, then streamed in batches of
-    8192; the cosine features' phase against float64."""
+    """TimitPipeline.run at its Config on the first TIMIT_PIPE_N +
+    TIMIT_PIPE_TEST_N of the kernel TIMIT phase's .npy frames: in memory,
+    then streamed in batches of 8192; the cosine features' phase against
+    float64."""
     from keystone_tpu_torch.ops.stats import CosineRandomFeatures, StandardScalerModel
     from keystone_tpu_torch.ops.util import MaxClassifier
     from keystone_tpu_torch.pipelines import timit as T
 
-    paths = {"features_path": str(timit_dir / "features.npy"), "labels_path": str(timit_dir / "features_labels.npy"),
-             "test_features_path": str(timit_dir / "test_features.npy"),
-             "test_labels_path": str(timit_dir / "test_features_labels.npy")}
+    paths = {}
+    for key, src, n in (("features_path", "features", TIMIT_PIPE_N), ("labels_path", "features_labels", TIMIT_PIPE_N),
+                        ("test_features_path", "test_features", TIMIT_PIPE_TEST_N),
+                        ("test_labels_path", "test_features_labels", TIMIT_PIPE_TEST_N)):
+        paths[key] = str(timit_dir / f"pipe_{src}.npy")
+        np.save(paths[key], np.load(timit_dir / f"{src}.npy", mmap_mode="r")[:n])
     T.TimitPipeline.run(T.Config(synthetic_n=4096), dev)  # warm-up, not counted
     cfg = T.Config(**paths)
     out, fitted = {}, {}
     for mode, c in (("in memory", cfg), ("stream", dataclasses.replace(cfg, stream=True))):
         with phase(f"main path: TimitPipeline.run, {mode}"):
             res, detail, rec, launches = app_run(f"TimitPipeline {mode}", card, gk, fk,
-                                                 lambda c, out: T.TimitPipeline.run(c, dev, out=out), c, KT_N)
+                                                 lambda c, out: T.TimitPipeline.run(c, dev, out=out), c, TIMIT_PIPE_N)
             no_launch(f"TimitPipeline {mode}", launches)
             check(res["accuracy"] >= PIPE_ACCURACY_MIN, f"{mode}: accuracy {res['accuracy']:.4f}")
             fitted[mode] = detail["fitted"]
@@ -3551,6 +3577,10 @@ SURVIVED_BY = {"executor.stage": "executor.stage_retries", "stream.batch": "stre
 # phase 10's, on the host clock, which moved by up to a third between
 # runs of one tree (PERF.md §2)
 HOOK_RATIO = 1.5
+# the operations layer's streamed fits (hooks at rest, the recovered fit)
+# on half the fit leg's images: the phases took 231.7 s of the script's
+# 1200 s on an H100; the deadline phase keeps the fit leg's streamed fit
+OPS_N = FIT_N // 2
 # Pipeline.fit(deadline=...) on the streamed fit (~20 s on an H100): a
 # budget a tenth of it; the executor splits it over the stages, so the
 # raise comes at the first stage to overrun its share, within the budget
@@ -3565,12 +3595,16 @@ CKPT_N, CKPT_D = FIT_N, 2 * 2 * FIT_GMM_K * PCA_DIMS
 # 4104, 10 classes): the reference test's λ and history
 # (tests/test_lbfgs_checkpoint.py:32), 25 iterations, a checkpoint every 5
 LBFGS_LAM, LBFGS_HISTORY, LBFGS_ITERS, LBFGS_EVERY = 1e-3, 5, 25, 5
-# the sparse one on Newsgroups' ls rows: its Config's λ and 100
-# iterations, a checkpoint every 10.  Its scatter-adds run in a fixed
+# the sparse one on Newsgroups' ls rows: its Config's λ, a checkpoint
+# every 10 iterations.  Its scatter-adds run in a fixed
 # order there (ops/sparse.py: scatter_plan, segment sums), so a
 # resumed fit is held to the uninterrupted one bit for bit; the two-run
 # spread of the plain (atomic) fit is measured and printed beside it
 SPARSE_EVERY = 10
+# its iterations (100 took 44.1 s over its five fits on an H100;
+# the cut keeps every fit), and the save it is interrupted at: the third,
+# so it resumes from the second
+SPARSE_ITERS, SPARSE_STOP_SAVE = 40, 3
 
 
 def streamed_build(P, dev, cfg):
@@ -3651,7 +3685,7 @@ def recovery_child(work: str) -> int:
     precision.disable_tf32()
     build.build(["fisher"])
     materialize = watch_materialize()
-    cfg = dataclasses.replace(fit_setup_config(P), stream=True, stream_batch_size=STREAM_BATCH,
+    cfg = dataclasses.replace(fit_setup_config(P), synthetic_n=OPS_N, stream=True, stream_batch_size=STREAM_BATCH,
                               checkpoint_dir=os.path.join(work, "ckpt"), stream_retries=2)
     ckpt = os.path.join(cfg.checkpoint_dir, "oc_bcd_epoch.npz")
     loaded = durable.load_npz(ckpt)
@@ -3744,7 +3778,7 @@ def hooks_at_rest(dev, card, P, fk, stream_out, tmp):
     from keystone_tpu_torch import faults
     from keystone_tpu_torch.obs import ledger
 
-    cfg = dataclasses.replace(fit_setup_config(P), stream=True, stream_batch_size=STREAM_BATCH)
+    cfg = dataclasses.replace(fit_setup_config(P), synthetic_n=OPS_N, stream=True, stream_batch_size=STREAM_BATCH)
     vx = held_out_images(dev)
     out, arrays = {}, {}
     for mode in ("nothing attached", "a run ledger", "an empty fault plan"):
@@ -3767,13 +3801,15 @@ def hooks_at_rest(dev, card, P, fk, stream_out, tmp):
             fit_l = dict(fk.LAUNCHES)
             arrays[mode] = fitted_arrays(fitted, vx)
             launches = dict(fk.LAUNCHES)
-            print(f"  Pipeline.fit {secs:.4f} s with {mode} (phase 10: {stream_out['fit_seconds']:.4f} s); "
-                  f"launches fit {fit_l}, with scoring {launches} ({card})", flush=True)
-            check(fit_l == fv_launches(encode=2 * -(-FIT_N // STREAM_BATCH)), f"fit launches {fit_l}")
+            print(f"  Pipeline.fit {secs:.4f} s on {OPS_N} images with {mode} (phase 10: "
+                  f"{stream_out['fit_seconds']:.4f} s on {FIT_N}); launches fit {fit_l}, with scoring {launches} "
+                  f"({card})", flush=True)
+            check(fit_l == fv_launches(encode=2 * -(-OPS_N // STREAM_BATCH)), f"fit launches {fit_l}")
             out[mode] = {"fit_seconds": secs, "launches_fit": fit_l, "launches": launches}
             del fitted
-    ratio = out["nothing attached"]["fit_seconds"] / stream_out["fit_seconds"]
-    print(f"  nothing attached / phase 10: {ratio:.4f} (within 1/{HOOK_RATIO} .. {HOOK_RATIO}); ledger "
+    # seconds an image: the streamed fit's stages all scale with its images
+    ratio = (out["nothing attached"]["fit_seconds"] / OPS_N) / (stream_out["fit_seconds"] / FIT_N)
+    print(f"  nothing attached / phase 10, an image: {ratio:.4f} (within 1/{HOOK_RATIO} .. {HOOK_RATIO}); ledger "
           f"{out['a run ledger']['fit_seconds'] / out['nothing attached']['fit_seconds']:.4f}x, empty plan "
           f"{out['an empty fault plan']['fit_seconds'] / out['nothing attached']['fit_seconds']:.4f}x of it",
           flush=True)
@@ -3824,7 +3860,7 @@ def recovery_path(card, tmp, reference):
         check(resume["from_epoch"] == 1 and len(l2.get("STATS", [])) == 1, f"attempt 2 {resume} {l2.get('STATS')}")
         check(done["materialize"]["passes"] > 0 and done["materialize"]["fallbacks"] == 0,
               f"attempt 2's profiled materialization {done['materialize']}")
-        check(done["launches_fit"] == fv_launches(encode=2 * -(-FIT_N // STREAM_BATCH)),
+        check(done["launches_fit"] == fv_launches(encode=2 * -(-OPS_N // STREAM_BATCH)),
               f"attempt 2 fit launches {done['launches_fit']}")
         got = dict(np.load(work / "fitted.npz"))
         out["attempt_2"] = {"seconds": s2, "fit_seconds": done["fit_seconds"], "resumed_from_epoch": 1,
@@ -3927,7 +3963,7 @@ def lbfgs_checkpoint_path(dev, card, ls_problem):
         with phase("operations: the checkpointed sparse L-BFGS on Newsgroups' ls rows"):
             rows, y, lam = ls_problem
             sp = BucketedSparseRows.from_scipy_rows(rows, device=dev)
-            est = SparseLBFGSwithL2(lam=lam, num_iterations=100, fit_intercept=False)
+            est = SparseLBFGSwithL2(lam=lam, num_iterations=SPARSE_ITERS, fit_intercept=False)
             plain = [timed(lambda: est.fit_sparse(sp, y)) for _ in range(2)]
             spread = float((plain[0][0].weights - plain[1][0].weights).abs().max())
             scale = float(plain[0][0].weights.abs().max())
@@ -3935,7 +3971,7 @@ def lbfgs_checkpoint_path(dev, card, ls_problem):
                                                                   checkpoint_every=SPARSE_EVERY))
             twice, _, _ = timed(lambda: est.fit_sparse(sp, y, checkpoint_dir=str(tmp / "s1"),
                                                        checkpoint_every=SPARSE_EVERY))
-            with faults.inject("ckpt.save:after=4:times=3:raise"):
+            with faults.inject(f"ckpt.save:after={SPARSE_STOP_SAVE - 1}:times=3:raise"):
                 try:
                     est.fit_sparse(sp, y, checkpoint_dir=str(tmp / "s2"), checkpoint_every=SPARSE_EVERY)
                     check(False, "the ckpt.save raise did not stop the sparse fit")
@@ -3948,8 +3984,10 @@ def lbfgs_checkpoint_path(dev, card, ls_problem):
                   f"(trials {plain[0][2]['trials']}, {plain[1][2]['trials']}), apart by {spread:.3e} "
                   f"({spread / scale:.3e} of the largest weight {scale:.3e}); the checkpointed fit (a fixed "
                   f"scatter order) {ref_s:.3f} s, {ref_stats}; twice apart by "
-                  f"{float((twice.weights - ref.weights).abs().max()):.3e}; interrupted at the iteration-50 save "
-                  f"and resumed from iteration 40 in {res_s:.3f} s ({res_stats['iterations']} iterations run), apart by {e:.3e} ({card})", flush=True)
+                  f"{float((twice.weights - ref.weights).abs().max()):.3e}; interrupted at the iteration-"
+                  f"{SPARSE_STOP_SAVE * SPARSE_EVERY} save and resumed from iteration "
+                  f"{(SPARSE_STOP_SAVE - 1) * SPARSE_EVERY} in {res_s:.3f} s ({res_stats['iterations']} iterations "
+                  f"run), apart by {e:.3e} ({card})", flush=True)
             check(torch.equal(twice.weights, ref.weights), "two checkpointed sparse fits differ")
             check(torch.equal(resumed.weights, ref.weights), "the resumed sparse fit is not bit for bit")
             out["sparse"] = {"rows": len(rows), "features": sp.num_features, "plain_seconds": [p[1] for p in plain],
@@ -4159,7 +4197,7 @@ def operations_path(dev, card, P, fk, gk, stream_out, krr, ls_problem):
     out["checkpointed_bcd"] = checkpointed_bcd_path(dev, card)
     out["lbfgs_checkpoint"] = lbfgs_checkpoint_path(dev, card, ls_problem)
     out["oc_krr_sweep_fault"] = oc_krr_sweep_fault_path(dev, card, gk, krr)
-    out["deadlines_breakers"] = deadline_breaker_path(dev, card, P, out["nothing attached"]["fit_seconds"])
+    out["deadlines_breakers"] = deadline_breaker_path(dev, card, P, stream_out["fit_seconds"])
     return out
 
 
@@ -4717,7 +4755,10 @@ S5_HTTP_MAX_BATCH = 16
 S5_EPISODE_S = 90.0  # the bound of each wait on a rollout episode
 S5_AUTOSCALE = {"min_workers": 1, "max_workers": 3, "interval_s": 0.1, "up_cooldown_s": 0.5,
                 "down_cooldown_s": 1.0, "down_ticks": 5}
-S5_OVERLOAD = 1.5  # the burst's offered load, a multiple of S1's saturation rate
+# the burst's offered load: a multiple of the larger of S1's saturation
+# rate and the graphs-on closed loop's best (the autoscaled service
+# replays graphs; at S1's rate alone it may not be overloaded at all)
+S5_OVERLOAD = 1.5
 S5_BURST_S = 3.0
 
 
@@ -5063,7 +5104,8 @@ def lifecycle_path(dev, card, P, fk, scorer, images, params_b, saturation_ips):
                 sampler.start()
                 try:
                     t0 = time.perf_counter()
-                    rep = serve_bench.run_bench(svc, imgs.shape[1:], qps=S5_OVERLOAD * saturation_ips,
+                    capacity = max([saturation_ips] + [r["images_per_s"] for r in out["closed_loop"]["on"]])
+                    rep = serve_bench.run_bench(svc, imgs.shape[1:], qps=S5_OVERLOAD * capacity,
                                                 duration=S5_BURST_S, burst=SERVE_S4_BURST, payload=imgs)
                     burst_s = time.perf_counter() - t0
                     peak = max(sizes) if sizes else svc.replicas
@@ -5082,7 +5124,8 @@ def lifecycle_path(dev, card, P, fk, scorer, images, params_b, saturation_ips):
                       "a scale-up primed a bucket without its graph")
                 no_fallback("autoscale")
                 st = svc.status()["autoscaler"]
-                print(f"  offered {rep['offered_qps']:.1f}/s ({S5_OVERLOAD:g}x saturation) for {S5_BURST_S} s: "
+                print(f"  offered {rep['offered_qps']:.1f}/s ({S5_OVERLOAD:g}x the graphs-on or S1 saturation, the "
+                      f"larger) for {S5_BURST_S} s: "
                       f"completed {rep['completed']}, rejected {rep['rejected']}, errors 0, achieved "
                       f"{rep['achieved_qps']:.1f}/s, p99 {rep['p99_ms']:.3f} ms; fleet 1 -> {peak} -> {svc.replicas} "
                       f"({ups:g} up, {downs:g} down, each new replica's {len(SERVE_BUCKETS)} buckets primed from its "
@@ -5120,7 +5163,9 @@ def lifecycle_path(dev, card, P, fk, scorer, images, params_b, saturation_ips):
 # periods in which a kernel of any process ran), not a trace.
 S6_WORKERS = (1, 2, 4)  # S1's saturation loop on each process fleet
 S6_SAT_REPS = 3  # runs of each configuration's saturation loop
-S6_AB_S, S6_AB_ROUNDS = 1.5, 3  # the ingress A/B: seconds a leg, measured rounds of both legs
+# the ingress A/B: seconds a leg, measured rounds of both legs (1.5 s and
+# 3 rounds before they were cut for the script's time)
+S6_AB_S, S6_AB_ROUNDS = 1.0, 2
 S6_B1_BUCKETS = (8, 16, 32, 64)  # B1 timed at the serving buckets below S1's batch
 S6_SCORED_N = 1024  # served through the two-worker fleet against the offline scores
 S6_KILL_N = 2048  # the closed loop one worker is SIGKILLed under
@@ -5542,6 +5587,274 @@ def process_fleet_path(dev, card, P, fk, scorer, images, b1_args):
     return out
 
 
+# ---- serving S7 (the multi-tenant slice): three tenants over S1's
+# full-width featurizer, each with a BlockLinearMapper head of its own
+# (S1's, and two seeded 0.01·normal draws at its shape), built as workflow
+# graphs (P.scorer_pipeline), saved to a file each and loaded apart, so
+# their equal featurizers are distinct tensors the sharing plan keys by
+# content.  Frozen for the card, FvFusionRule puts B1 in the shared prefix:
+# a combined flush launches it once a branch with the share on, three
+# times that with it off.  Served scores against each tenant's offline
+# eager scorer at S1's tolerance (TOL_SERVE_SCORES), top-5 equal or a
+# near-tie; share on against off and one tenant against serve(), bit for
+# bit.  Then `cli serve` with three named models over HTTP, serve_bench's
+# tenant A/B in short legs (rates printed, nothing claimed), and the chaos
+# tool on the card: the `tenants` workload and a seeded 20 s soak over two
+# worker processes.
+S7_TENANTS = ("t0", "t1", "t2")
+S7_SERVED_N = 384  # requests a tenant in the closed loop (3 x 128 images)
+S7_HTTP_N = 4  # images POSTed a tenant to the `cli serve` child
+S7_AB = {"qps": 8000.0, "duration": 1.0, "rounds": 2, "max_batch": BATCH}
+S7_SOAK_S, S7_SOAK_WORKERS = 20, 2
+
+
+def s7_models(P, cfg, scorer_params, dev, tmp):
+    """The three tenants saved apart; returns {tenant: path} and each
+    tenant's params (its head differs)."""
+    paths, params = {}, {}
+    head = scorer_params["blm.weights"]
+    for i, t in enumerate(S7_TENANTS):
+        p = dict(scorer_params)
+        if i:
+            g = torch.Generator(device=dev).manual_seed(100 + i)
+            p["blm.weights"] = 0.01 * torch.randn(tuple(head.shape), generator=g, device=dev, dtype=head.dtype)
+        params[t] = p
+        paths[t] = tmp / f"tenant_{t}.pt"
+        P.scorer_pipeline(p, cfg).save(str(paths[t]))
+    return paths, params
+
+
+def tenants_path(dev, card, P, fk, cfg, scorer_params, images):
+    """S7: multi-tenant serving on the card, then the chaos tool."""
+    import re
+    import signal
+
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.serve import MultiTenantApplier, SharedStagePool, serve, serve_multi
+    from keystone_tpu_torch.tools import serve_bench
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+    from keystone_tpu_torch.workflow.profiling import pool_budget_bytes
+
+    out = {}
+    t_s7 = time.perf_counter()
+    imgs = images.cpu().numpy()
+    tmp = Path(tempfile.mkdtemp(prefix="tenants_", dir=REPO))
+    proc = None
+    try:
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        with phase("serve S7: three tenants saved apart and loaded; offline scorers; the sharing plan"):
+            paths, params = s7_models(P, cfg, scorer_params, dev, tmp)
+
+            def load_all():
+                return {t: FittedPipeline.load(str(paths[t]), map_location=dev) for t in S7_TENANTS}
+
+            models = load_all()
+            offline = {t: P.scores_of(P.build_scorer_from_params(params[t], cfg, dev)) for t in S7_TENANTS}
+            off = {t: torch.cat([offline[t](b) for b in images[:S7_SERVED_N].split(BATCH)]).cpu().numpy()
+                   for t in S7_TENANTS}
+            budget = pool_budget_bytes()
+            pool = SharedStagePool(budget_bytes=budget)
+            t0 = time.perf_counter()
+            on = MultiTenantApplier(models, pool=pool, share=True, device=dev)
+            plan_s = time.perf_counter() - t0
+            off_app = MultiTenantApplier(models, share=False, device=dev)
+            fused = {t: sorted(op.transformer.label for op in a.graph.operators.values()
+                               if "FusedFV" in getattr(getattr(op, "transformer", None), "label", ""))
+                     for t, a in on.appliers.items()}
+            print(f"  plan in {plan_s:.3f} s (each tensor read back once): {len(on.plan.shared)} shared stage(s), "
+                  f"{on.plan.refused} refused; fused FV nodes a tenant {fused['t0']}; pool budget "
+                  f"{budget / 2**30:.2f} GiB (a quarter of the card's)", flush=True)
+            check(all(v == ["FusedFV[PCA > FV]", "FusedFV[SiftNorm > PCA > FV]"] for v in fused.values()),
+                  f"the card's freeze did not fuse each PCA -> FV pair: {fused}")
+            check(len(on.plan.shared) == 1 and on.plan.refused == 0, f"plan {on.plan.shared} refused {on.plan.refused}")
+            out["plan"] = {"seconds": plan_s, "shared_stages": len(on.plan.shared), "refused": on.plan.refused}
+        with phase("serve S7: share on against share off, one padded batch of 128 through MultiTenantApplier"):
+            x = images[:BATCH]
+            got = {}
+            for label, app, want_b1 in (("on", on, 2), ("off", off_app, 6)):
+                app(x)  # warm-up
+                torch.cuda.synchronize()
+                before = dict(fk.LAUNCHES)
+                h0 = pool.stats()["hits"]
+                t0 = time.perf_counter()
+                res = app(x)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                b1 = fk.LAUNCHES["fused_forward"] - before["fused_forward"]
+                got[label] = {t: d.array.cpu() for t, d in res.items()}
+                print(f"  share {label}: B1 launched {b1} times in the combined flush (expected {want_b1}), "
+                      f"{dt * 1e3:.3f} ms of host clock, pool hits {pool.stats()['hits'] - h0} ({card})", flush=True)
+                check(b1 == want_b1 and fk.LAUNCHES["fisher_encode"] == before["fisher_encode"],
+                      f"share {label}: B1 {b1}, expected {want_b1}; launches {dict(fk.LAUNCHES)}")
+                out[f"share_{label}"] = {"b1_launches": b1, "ms": dt * 1e3}
+            for t in S7_TENANTS:
+                check(torch.equal(got["on"][t], got["off"][t]), f"tenant {t}: share on differs from share off")
+            st = pool.stats()
+            print(f"  share on == share off bit for bit for {list(S7_TENANTS)}; pool {st}", flush=True)
+            check(st["hits"] > 0 and st["resident_bytes"] == 0 and 0 < st["peak_bytes"] <= budget, f"pool {st}")
+            out["pool_direct"] = st
+            del on, off_app, got
+        with phase("serve S7: serve_multi over the three tenants (closed loop, 8 clients)"):
+            svc = serve_multi({t: m.freeze(device=dev) for t, m in models.items()}, pool=pool, max_batch=BATCH, buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS,
+                              queue_bound=4 * SERVE_CLIENTS * SERVE_SAT_WINDOW, example=imgs[0], name="s7")
+            try:
+                c0 = serve_counters(metrics)
+                b0, h0 = fk.LAUNCHES["fused_forward"], pool.stats()["hits"]
+                order = [S7_TENANTS[i % 3] for i in range(3 * S7_SERVED_N)]
+                rows = [(order[i], imgs[i // 3]) for i in range(3 * S7_SERVED_N)]
+                served, lat, wall = serve_closed_loop(
+                    svc, list(range(len(rows))), len(rows), SERVE_SAT_WINDOW,
+                    submit=lambda i: svc.submit(rows[i][1], tenant=rows[i][0]))
+                c1 = serve_counters(metrics)
+                flushes = c1["batches"] - c0["batches"]
+                b1 = fk.LAUNCHES["fused_forward"] - b0
+                per = {}
+                for t in S7_TENANTS:
+                    idx = [i for i in range(len(rows)) if rows[i][0] == t]
+                    sc = np.stack([served[i] for i in idx])
+                    ids = np.argsort(-off[t], axis=1, kind="stable")[:, :5]
+                    err = compare(f"tenant {t}: {len(idx)} served raw scores against its offline scorer",
+                                  torch.from_numpy(sc), torch.from_numpy(off[t][:len(idx)]), TOL_SERVE_SCORES,
+                                  RTOL_SERVE_SCORES)
+                    top = top5_check(f"tenant {t}", np.argsort(-sc, axis=1, kind="stable")[:, :5], ids, off[t])
+                    per[t] = {"max_abs_err": err, "top5": top}
+                st = svc.status()
+                print(f"  {len(rows)} requests in {wall:.3f} s ({len(rows) / wall:.1f} images/s), {flushes} flushes "
+                      f"({len(rows) / max(1, flushes):.1f} requests a flush), B1 {b1} = 2 a flush; p50 "
+                      f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 {np.percentile(lat, 99) * 1e3:.3f} ms; pool "
+                      f"{st['stage_pool']} ({card})", flush=True)
+                check(b1 == 2 * flushes, f"B1 {b1} over {flushes} combined flushes: expected 2 a flush")
+                check(st["stage_pool"]["hits"] > h0 and st["stage_pool"]["resident_bytes"] == 0,
+                      f"pool {st['stage_pool']}")
+                out["serve_multi"] = {"requests": len(rows), "seconds": wall, "images_per_s": len(rows) / wall,
+                                      "flushes": flushes, "b1_launches": b1, "tenants": per,
+                                      "p50_ms": float(np.percentile(lat, 50) * 1e3),
+                                      "p99_ms": float(np.percentile(lat, 99) * 1e3), "pool": st["stage_pool"]}
+                # containment: a serve.batch fault aimed at t1 fails t1's riders only
+                with faults.inject("serve.batch:ctx.tenant=t1:raise:times=1"):
+                    futs = {t: [svc.submit(imgs[i], tenant=t) for i in range(4)] for t in S7_TENANTS}
+                    failed = {t: 0 for t in S7_TENANTS}
+                    for t, fs in futs.items():
+                        ok = []
+                        for i, f in enumerate(fs):
+                            try:
+                                ok.append((i, f.result(timeout=SERVE_RESULT_S)))
+                            except faults.FaultInjected:
+                                failed[t] += 1
+                        if ok:
+                            compare(f"tenant {t}: {len(ok)} answers under the fault against its offline scorer",
+                                    torch.from_numpy(np.stack([y for _, y in ok])),
+                                    torch.from_numpy(off[t][[i for i, _ in ok]]), TOL_SERVE_SCORES, RTOL_SERVE_SCORES)
+                print(f"  serve.batch fault aimed at t1: failed riders {failed}", flush=True)
+                check(failed["t0"] == failed["t2"] == 0 and failed["t1"] >= 1, f"containment {failed}")
+                out["containment"] = failed
+            finally:
+                svc.close(timeout=SERVE_RESULT_S)
+        with phase("serve S7: one tenant through serve_multi against serve() over the same pipeline"):
+            kw = dict(max_batch=BATCH, buckets=SERVE_BUCKETS, max_wait_ms=SERVE_WAIT_MS, example=imgs[0])
+            one = serve_multi({"t0": models["t0"].freeze(device=dev)}, name="s7_one", **kw)
+            plain = serve(FittedPipeline.load(str(paths["t0"]), map_location=dev).freeze(device=dev), name="s7_plain",
+                          **kw)
+            try:
+                a = [f.result(timeout=SERVE_RESULT_S) for f in one.submit_many(imgs[:16])]
+                b = [f.result(timeout=SERVE_RESULT_S) for f in plain.submit_many(imgs[:16])]
+            finally:
+                one.close(timeout=SERVE_RESULT_S)
+                plain.close(timeout=SERVE_RESULT_S)
+            same = all(np.array_equal(u, v) for u, v in zip(a, b))
+            print(f"  16 images, one tenant: bit for bit {same}", flush=True)
+            check(same, "one tenant through serve_multi differs from serve()")
+        with phase("serve S7: `cli serve --model t0=.. --model t1=.. --model t2=..` over HTTP"):
+            cmd = [sys.executable, "-m", "keystone_tpu_torch.cli", "serve", "--device", DEVICE, "--port", "0",
+                   "--max-batch", str(SERVE_HTTP_MAX_BATCH), "--max-wait-ms", "2", "--example-shape",
+                   f"{IMAGE_HW},{IMAGE_HW},3"]
+            for t in S7_TENANTS:
+                cmd += ["--model", f"{t}={paths[t]}"]
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(REPO),
+                                    env={**os.environ, "PYTHONPATH": str(REPO)})
+            line, lines = "", []
+            while "serving" not in line and proc.poll() is None and time.perf_counter() - t0 < 600:
+                line = proc.stdout.readline()
+                lines.append(line)
+            check("serving" in line, f"`cli serve` did not start: {''.join(lines)[-2000:]}")
+            base = "http" + line.split(" on http", 1)[1].split(" ", 1)[0]
+            print(f"  `cli serve` with three named models up in {time.perf_counter() - t0:.2f} s", flush=True)
+            xf = (images[:S7_HTTP_N].float() / 255.0).cpu().numpy()
+            xf_scores = {t: torch.cat([offline[t](images[:S7_HTTP_N].float() / 255.0)]).cpu().numpy()
+                         for t in S7_TENANTS}
+            http = {}
+            for t in S7_TENANTS:
+                status, body, _ = http_call(base + "/predict", {"instances": xf.tolist(), "tenant": t})
+                check(status == 200, f"tenant {t}: /predict answered {status}: {str(body)[:300]}")
+                http[t] = compare(f"tenant {t}: {S7_HTTP_N} images over HTTP against its offline scorer",
+                                  torch.tensor(body["predictions"]), torch.from_numpy(xf_scores[t]),
+                                  TOL_SERVE_SCORES, RTOL_SERVE_SCORES)
+            status, body, _ = http_call(base + "/predict", {"instances": xf[:1].tolist(), "tenant": "nope"})
+            check(status == 400, f"an unknown tenant answered {status}")
+            status, st, _ = http_call(base + "/statusz")
+            check(status == 200 and set(st["tenants"]) == set(S7_TENANTS), f"/statusz {status}")
+            status, text, _ = http_call(base + "/metrics")
+            batches = float(re.search(r"^serve_batches_total (\S+)$", text, re.M).group(1))
+            proc.send_signal(signal.SIGINT)
+            tail, _ = proc.communicate(timeout=120)
+            check(proc.returncode == 0, f"`cli serve` exited {proc.returncode} on SIGINT: {tail[-2000:]}")
+            m = re.search(r"fisher_kernels launches (\{.*\})", tail)
+            check(m is not None, f"no launch counts printed: {tail[-2000:]}")
+            child = json.loads(m.group(1).replace("'", '"'))
+            primes = 2  # buckets of max batch 16: 8 and 16, every tenant's walk sharing the prefix
+            print(f"  an unknown tenant: 400; the child's launches {child} over {int(batches)} flushes and {primes} "
+                  f"primes (B1 twice each: the prefix once a combined flush); SIGINT: exit 0 ({card})", flush=True)
+            check(child == fv_launches(fused=2 * (int(batches) + primes)), f"the child's launches {child}")
+            out["cli"] = {"http_max_abs_err": http, "flushes": int(batches), "launches": child,
+                          "pool": st["stage_pool"]}
+        with phase("serve S7: serve_bench's tenant A/B at full width (share on against off, short legs)"):
+            ab = serve_bench.run_tenants_ab(models_fn=load_all, payload=imgs[:64], item_shape=imgs.shape[1:],
+                                            dtype=imgs.dtype, device=dev, **S7_AB)
+            print(f"  images/s: share on {_rounded(ab['runs_qps_shared'], 1)}, off "
+                  f"{_rounded(ab['runs_qps_unshared'], 1)} (medians {ab['aggregate_qps_shared']:.1f}, "
+                  f"{ab['aggregate_qps_unshared']:.1f}); the shared arm's pool hit rate "
+                  f"{ab['pool']['hit_rate']}; bit for bit {ab['predictions_identical']} ({card})", flush=True)
+            check(ab["predictions_identical"], "serve_bench's A/B arms answered differently")
+            out["serve_bench_ab"] = {k: ab[k] for k in ("runs_qps_shared", "runs_qps_unshared", "aggregate_qps_shared",
+                                                         "aggregate_qps_unshared", "speedup", "fairness_p99_ratio",
+                                                         "pool")}
+        torch.cuda.synchronize()
+        out["launches"] = dict(fk.LAUNCHES)
+        check(out["launches"]["fisher_encode"] == 0, f"S7 launched B2: {out['launches']}")
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_s7
+    chaos_s = time.perf_counter()
+    for label, argv in (("the tenants workload", ["--workload", "tenants", "--plan", "serve.batch:ctx.tenant=a:raise"]),
+                        (f"a seeded {S7_SOAK_S} s soak over {S7_SOAK_WORKERS} worker processes",
+                         ["--soak", str(S7_SOAK_S), "--seed", "0", "--soak-workers", str(S7_SOAK_WORKERS)])):
+        with phase(f"chaos on the card: {label}"):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "keystone_tpu_torch.tools.chaos", *argv], capture_output=True,
+                                 text=True, timeout=600, cwd=str(REPO), env={**os.environ, "PYTHONPATH": str(REPO)})
+            check(res.returncode == 0, f"chaos {argv} exited {res.returncode}: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+            rep = json.loads(res.stdout)
+            if "--soak" in argv:
+                summary = {k: rep[k] for k in ("iterations", "submitted", "completed", "failed_typed", "rejected",
+                                               "hung", "process_kills", "healthy_after_soak")}
+                check(rep["ok"] and rep["hung"] == 0, f"soak {summary}")
+            else:
+                summary = {"sites": rep["sites"], "device": rep["device"]}
+                check(rep["completed"] and rep["sites"]["serve.batch"]["verdict"] == "survived", f"chaos {summary}")
+            print(f"  exit 0 in {time.perf_counter() - t0:.2f} s: {summary} ({card})", flush=True)
+            out["chaos_" + ("soak" if "--soak" in argv else "tenants")] = {"seconds": time.perf_counter() - t0,
+                                                                          **summary}
+    out["chaos_seconds"] = time.perf_counter() - chaos_s
+    print(f"  S7 {out['seconds']:.1f} s, chaos {out['chaos_seconds']:.1f} s", flush=True)
+    return out
+
+
 def profile_once(fn) -> None:
     """Device time by operator over one call of ``fn`` (after a warm-up
     call), and two idle shares.  One window: the device's busy time
@@ -5878,6 +6191,7 @@ def main(argv=None) -> int:
     served["s5"] = lifecycle_path(dev, card, P, fk, scorer, images, params_swap, saturation_ips)
     del params_swap
     served["s6"] = process_fleet_path(dev, card, P, fk, scorer, images, b1_args)
+    served["s7"] = tenants_path(dev, card, P, fk, cfg, scorer_params, images)
     results["serve"] = served
 
     with phase("the profiled materialization passes of this process"):
@@ -5999,7 +6313,11 @@ def main(argv=None) -> int:
                                    ("serve S6 threaded comparison, by the wrapper",
                                     s6["threaded_launches"]["launches"]["fused_forward"]),
                                    ("serve S6 threaded comparison, by bucket-graph replays",
-                                    s6["threaded_launches"]["replayed"].get("fused_forward", 0)))),
+                                    s6["threaded_launches"]["replayed"].get("fused_forward", 0)),
+                                   ("serve S7 multi-tenant (direct flushes, serve_multi, serve(), the tenant A/B, "
+                                    "the offline scorers)", served["s7"]["launches"]["fused_forward"]),
+                                   ("serve S7 `cli serve` child with three named models",
+                                    served["s7"]["cli"]["launches"]["fused_forward"]))),
             (b2, "fisher_encode", (("serve S1b bench forward", served["launches_fisher_encode"]),)),
         ):
             for label, c in parts:
@@ -6131,6 +6449,7 @@ def main(argv=None) -> int:
         "serve": results["serve"],
         "card": card,
     }))
+    print(f"chip_smoke: the whole script took {time.perf_counter() - T_START:.1f} s ({card})", flush=True)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

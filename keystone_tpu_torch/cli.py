@@ -4,6 +4,7 @@
     python -m keystone_tpu_torch.cli serve --model model.pt [serve flags...]
     python -m keystone_tpu_torch.cli serve --model-dir REG [--watch S [--canary F [--bake-s S]]] [--autoscale MIN:MAX]
     python -m keystone_tpu_torch.cli serve --model model.pt --workers N [--hosts HOST[:SLOTS],... [--lease-s S]]
+    python -m keystone_tpu_torch.cli serve --model a=a.pt --model b=b.pt [--model-dir c=REG] [serve flags...]
     python -m keystone_tpu_torch.cli worker --connect HOST:PORT [--name NAME]
     python -m keystone_tpu_torch.cli export --model model.pt --example-shape D0[,D1,...] (--out DIR | --model-dir REG)
     python -m keystone_tpu_torch.cli --list
@@ -24,8 +25,14 @@ its own bucket graphs; the router keeps the model on the host);
 (``--lease-s``), its workers dialing ``--listen-host:--listen-port``.
 ``--watch`` polls the registry and swaps in each new ``CURRENT``
 (guarded by a canary with ``--canary``, baked with ``--bake-s``);
-``--autoscale`` resizes the fleet under load.  SIGINT drains the
-in-flight requests and exits 0.
+``--autoscale`` resizes the fleet under load.  Named entries
+(``--model NAME=PATH``, ``--model-dir NAME=DIR``, repeatable) deploy
+several models as tenants of one multi-tenant service (``serve_multi``):
+a request names its tenant in the body (``"tenant"``), and the tenants'
+equal featurization prefixes run once a combined flush.  A multi deploy
+walks its graphs (no bucket graphs) and takes neither ``--workers``,
+``--hosts`` nor ``--watch``.  SIGINT drains the in-flight requests and
+exits 0.
 
 ``worker`` runs one network-fleet worker: it dials a router started
 with ``serve --hosts``, receives the model over TCP, primes, and serves
@@ -39,7 +46,7 @@ registry's current one).
 
 The reference's other subcommands and flags exit non-zero naming the
 ROADMAP item that ports them: ``check``, ``plan`` and export's
-``--plan`` (A10), ``--tenants`` and several models (A11d).
+``--plan`` (A10).
 """
 
 from __future__ import annotations
@@ -68,7 +75,6 @@ _PIPELINE_MODULES = {
 _NOT_PORTED = {
     "check": "A10",
     "plan": "A10",
-    "--tenants": "A11d",
 }
 
 #: export's flags that are not ported yet
@@ -86,11 +92,13 @@ def _serve_parser() -> argparse.ArgumentParser:
         description="serve a saved fitted pipeline (or a model registry's current version) over HTTP with dynamic "
                     "micro-batching, admission control, a threaded replica fleet and registry-driven hot swaps",
     )
-    ap.add_argument("--model", action="append", default=None, metavar="PATH",
-                    help="a FittedPipeline saved with save()")
-    ap.add_argument("--model-dir", action="append", default=None, metavar="DIR",
+    ap.add_argument("--model", action="append", default=None, metavar="[NAME=]PATH",
+                    help="a FittedPipeline saved with save(); NAME=PATH (repeatable) deploys it as tenant NAME of "
+                         "a multi-tenant service")
+    ap.add_argument("--model-dir", action="append", default=None, metavar="[NAME=]DIR",
                     help="a model registry: serve its deploy pick (CURRENT, skipping corrupt and quarantined "
-                         "versions) with the version's artifact bundle")
+                         "versions) with the version's artifact bundle; NAME=DIR (repeatable) deploys it as tenant "
+                         "NAME")
     ap.add_argument("--no-artifacts", action="store_true",
                     help="ignore the version's artifact bundle: every flush walks the frozen graph")
     ap.add_argument("--device", default="cuda", help="where the model serves: cuda (default) or cpu")
@@ -166,10 +174,18 @@ def _serve_main(argv) -> int:
     models, model_dirs = list(args.model or []), list(args.model_dir or [])
     if not models and not model_dirs:
         ap.error("at least one of --model / --model-dir is required")
-    if len(models) + len(model_dirs) > 1 or any(_named(m) for m in models + model_dirs):
-        return _refuse("serving several models (the multi-tenant service)", "A11d")
-    if args.watch is not None and not model_dirs:
-        ap.error("--watch requires a --model-dir deploy")
+    named = [m for m in models + model_dirs if _named(m)]
+    multi = bool(named) or len(models) + len(model_dirs) > 1
+    if multi and len(named) != len(models) + len(model_dirs):
+        ap.error("multi-tenant deploys name every entry: --model NAME=PATH / --model-dir NAME=DIR")
+    if not multi and models and model_dirs:
+        ap.error("pass one --model OR one --model-dir, not both")
+    if args.watch is not None and (multi or not model_dirs):
+        ap.error("--watch requires a single-tenant --model-dir deploy")
+    if multi and args.workers:
+        ap.error("--workers is single-tenant only (the shared stage pool needs in-process walks)")
+    if multi and args.hosts:
+        ap.error("--hosts is single-tenant only")
     autoscale = None
     if args.autoscale:
         try:
@@ -194,7 +210,7 @@ def _serve_main(argv) -> int:
 
     from torch import device as torch_device
 
-    from keystone_tpu_torch.serve import HttpFrontend, ModelRegistry, serve
+    from keystone_tpu_torch.serve import HttpFrontend, ModelRegistry, serve, serve_multi
     from keystone_tpu_torch.utils.device import resolve_device
     from keystone_tpu_torch.workflow.pipeline import FittedPipeline
 
@@ -203,7 +219,24 @@ def _serve_main(argv) -> int:
     # load it onto the device
     load_to = torch_device("cpu") if args.workers else device
     registry = artifacts = None
-    if model_dirs:
+    tenants: dict = {}
+    if multi:
+        # each named entry is a saved model (NAME=PATH) or a registry's
+        # deploy pick (NAME=DIR), frozen for the device; the walk serves
+        # (the multi applier installs no bucket graphs, so the registry's
+        # bundles are not read)
+        parts = []
+        for spec in models:
+            name, _, path = spec.partition("=")
+            tenants[name] = FittedPipeline.load(path, map_location=device).freeze(device=device)
+            parts.append(f"{name}={path}")
+        for spec in model_dirs:
+            name, _, root = spec.partition("=")
+            fitted, ver = ModelRegistry(root).load(map_location=device)
+            tenants[name] = fitted.freeze(device=device)
+            parts.append(f"{name}={root} ({ver})")
+        version, source = "multi", ", ".join(parts)
+    elif model_dirs:
         registry = ModelRegistry(model_dirs[0])
         fitted, version = registry.load(map_location=load_to)
         if not args.no_artifacts:
@@ -232,9 +265,9 @@ def _serve_main(argv) -> int:
             if getattr(args, key) is not None:
                 worker_opts[key] = getattr(args, key)
         fleet_kw = dict(workers=args.workers, worker_opts=worker_opts, hosts=args.hosts)
-    # one replica serves the applier frozen here; more are copies of it
-    svc = serve(
-        fitted if args.workers else fitted.freeze(device=device),
+    # one replica serves the applier(s) frozen here; more are copies
+    svc = (serve_multi if multi else serve)(
+        tenants if multi else fitted if args.workers else fitted.freeze(device=device),
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
         queue_bound=args.queue_bound,

@@ -16,8 +16,9 @@
   and ops spans with tail-based retention (``FlightRecorder``,
   ``new_request_id``), ON by default in ``serve()``.
 
-The reference's fleet telemetry (``serve/telemetry.py``, the spans and
-metrics its worker processes ship) is ROADMAP A11d's.
+The fleet's telemetry (the spans, metric deltas and kernel reports its
+worker processes ship, and the router's sink) is
+``keystone_tpu_torch/serve/telemetry.py``.
 """
 
 from keystone_tpu_torch.obs import ledger, metrics, recorder  # noqa: F401

@@ -220,6 +220,29 @@ def build_forward(
     return fwd.to(dev).eval()
 
 
+def scorer_pipeline(params: Dict[str, torch.Tensor], config: Config = Config()) -> FittedPipeline:
+    """The fitted two-branch scorer as a workflow graph ending at raw class
+    scores, each stage a node: PixelScaler → gather(GrayScaler → SIFT →
+    PCA → FisherVector → SignedHellinger → NormalizeRows, LCS → PCA → …)
+    → BlockLinearMapper, the graph ``ImageNetSiftLcsFV.build_scorer``'s fit
+    gives.  Freezing it for the card fuses each PCA → FV pair into the
+    fused kernel's node (``FvFusionRule``); the gather is the featurizer's
+    one output, the prefix co-served tenants share (``serve/tenants.py``).
+    ``params`` as for :func:`build_scorer_from_params`; the stages hold
+    them where they are."""
+    precision.disable_tf32()
+
+    def branch(base: Pipeline, b: str) -> Pipeline:
+        return (base.and_then(_pca(params, b)).and_then(FisherVector(_gmm(params, b)))
+                .and_then(SignedHellingerMapper()).and_then(NormalizeRows()))
+
+    sift = Pipeline.of(PixelScaler(only_if_integer=True)).and_then(GrayScaler()).and_then(
+        SIFTExtractor(step=config.sift_step, bin_sizes=(config.sift_bin_size,)))
+    lcs = Pipeline.of(PixelScaler(only_if_integer=True)).and_then(
+        LCSExtractor(step=config.lcs_step, subpatch_size=config.lcs_subpatch))
+    return Pipeline.gather([branch(sift, "sift"), branch(lcs, "lcs")]).and_then(_blm(params)).fit()
+
+
 def scores_of(scorer: FusedTransformer) -> FusedTransformer:
     """The scorer without its TopK head: raw class scores."""
     return FusedTransformer(list(scorer.stages)[:-1])

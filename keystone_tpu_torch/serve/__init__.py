@@ -29,10 +29,13 @@ binary ingress, fleet telemetry and the model lifecycle around it.
 - :mod:`~keystone_tpu_torch.serve.rollout` — guarded canary rollouts with
   a judge, a post-commit bake and automatic rollback;
 - :mod:`~keystone_tpu_torch.serve.autoscale` — the SLO-driven autoscaler;
+- :mod:`~keystone_tpu_torch.serve.tenants` — ``serve_multi``,
+  ``MultiTenantService`` and ``MultiTenantApplier``: N tenants behind one
+  batcher and fleet, their shared prefix computed once a combined flush
+  through the shared stage pool (``workflow/stage_pool.py``);
 - :mod:`~keystone_tpu_torch.serve.http` — ``HttpFrontend`` / ``serve_http``.
 
-``import keystone_tpu_torch`` does not import this package.  Still to
-port (ROADMAP A11d): tenants and the shared stage pool.
+``import keystone_tpu_torch`` does not import this package.
 """
 
 from keystone_tpu_torch.serve.autoscale import AutoscalePolicy, Autoscaler, Signals
@@ -64,6 +67,8 @@ from keystone_tpu_torch.serve.service import (
     serve,
 )
 from keystone_tpu_torch.serve.telemetry import ClockSync, FleetTelemetry, WorkerTelemetry, clamp_span
+from keystone_tpu_torch.serve.tenants import MultiTenantApplier, MultiTenantService, UnknownTenant, serve_multi
+from keystone_tpu_torch.workflow.stage_pool import SharedStagePool
 
 __all__ = [
     "AsyncIngress",
@@ -78,6 +83,8 @@ __all__ = [
     "HttpFrontend",
     "IngressError",
     "ModelRegistry",
+    "MultiTenantApplier",
+    "MultiTenantService",
     "NetReplica",
     "NetWorkerHandle",
     "Overloaded",
@@ -93,11 +100,13 @@ __all__ = [
     "RollbackGuard",
     "RolloutConfig",
     "ServiceClosed",
+    "SharedStagePool",
     "Signals",
     "WorkerCrashed",
     "WorkerHandle",
     "WorkerListener",
     "WorkerSpawnError",
+    "UnknownTenant",
     "WorkerTelemetry",
     "canary_hash",
     "clamp_span",
@@ -107,5 +116,6 @@ __all__ = [
     "serve",
     "serve_http",
     "serve_ingress",
+    "serve_multi",
     "write_artifact_bundle",
 ]

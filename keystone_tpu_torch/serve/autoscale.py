@@ -18,10 +18,11 @@ and
   per-replica queues while a backlog is transient, tighter backpressure
   while the fleet is idle.
 
-The reference's **pool hit rate** lifts the occupancy threshold of a
-service with a shared stage pool; the port has no stage pool yet
-(ROADMAP A11d), so the signal is absent and lifts nothing, as in the
-reference without a pool.
+The **pool hit rate** (``serve.pool_hit_rate``, the shared stage pool of
+a multi-tenant service, ``serve/tenants.py``) lifts the occupancy
+threshold: co-tenant flushes that amortize their shared prefix make
+occupancy overstate the marginal cost of a request.  A service without
+a pool reads None, which lifts nothing.
 
 Decisions are pure (:meth:`AutoscalePolicy.decide` maps a
 :class:`Signals` snapshot and the controller's state to an action), the
@@ -56,7 +57,7 @@ class Signals:
     queue_bound: int
     occupancy: float  # windowed busy fraction, 0..1
     burn_rate: Optional[float]  # SLO error-budget burn; None = no SLO
-    pool_hit_rate: Optional[float]  # shared stage pool; None = no pool (the port's case)
+    pool_hit_rate: Optional[float]  # shared stage pool; None = no pool
 
     @property
     def queue_frac(self) -> float:
@@ -203,16 +204,18 @@ class Autoscaler:
     # ------------------------------------------------------------ signals
     def sample(self) -> Signals:
         """Read the live service's signal set (the default source).  The
-        pool hit rate is that of the service's own shared stage pool; the
-        port's services have none yet, so it reads None."""
+        pool hit rate is that of the service's own shared stage pool (a
+        multi-tenant service's); a service without one reads None."""
         svc = self.service
+        applier = getattr(svc, "_mt_applier", None)
+        pool_rate = None if applier is None else applier.pool().hit_rate()
         return Signals(
             workers=svc._pool.size,
             queue_depth=svc.queue_depth,
             queue_bound=svc.queue_bound,
             occupancy=svc.occupancy(),
             burn_rate=svc.slo_burn_rate(),
-            pool_hit_rate=None,
+            pool_hit_rate=pool_rate,
         )
 
     # ----------------------------------------------------------- lifecycle

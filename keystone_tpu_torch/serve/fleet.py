@@ -166,23 +166,35 @@ def _place_on_device(obj, device, _seen=None, _depth=0):
     return obj
 
 
+def _is_applier(pipeline) -> bool:
+    """A frozen applier, or a duck-typed one (``serve_applier``: the
+    multi-tenant applier, one frozen applier a tenant)."""
+    return isinstance(pipeline, FrozenApplier) or getattr(pipeline, "serve_applier", False)
+
+
 def _clone_and_place(pipeline, device):
     """An independent copy of a fitted pipeline (or applier) with its
-    fitted state on ``device`` (None: where it is).  A deep copy, so
+    fitted state on ``device`` (None: where it is).  One deep copy, so
     replicas share no transformer instances, and none of the fitted
-    tensors a replica's kernels read.  An applier frozen for one kind of
-    device is not re-targeted to another: freezing decided its fusion."""
-    if device is not None and isinstance(pipeline, FrozenApplier) and pipeline.device.type != device.type:
+    tensors a replica's kernels read, while a stage two tenants of a
+    multi-tenant applier share stays one instance in the copy; every
+    graph of it is placed (``graphs()``: one a tenant), through one
+    placement map.  An applier frozen for one kind of device is not
+    re-targeted to another: freezing decided its fusion."""
+    frozen = _is_applier(pipeline)
+    if device is not None and frozen and pipeline.device.type != device.type:
         raise ValueError(f"an applier frozen for {pipeline.device} cannot serve on {device}: "
                          "serve the fitted pipeline, and each replica freezes it for its own device")
     clone = copy.deepcopy(pipeline)
     if device is not None:
+        graphs_fn = getattr(clone, "graphs", None)
         seen: dict = {}
-        for op in clone.graph.operators.values():
-            t = getattr(op, "transformer", None)
-            if t is not None:
-                _place_on_device(t, device, _seen=seen)
-        if isinstance(clone, FrozenApplier):
+        for g in graphs_fn() if callable(graphs_fn) else [clone.graph]:
+            for op in g.operators.values():
+                t = getattr(op, "transformer", None)
+                if t is not None:
+                    _place_on_device(t, device, _seen=seen)
+        if frozen:
             clone.device = device
     return clone
 
@@ -190,7 +202,7 @@ def _clone_and_place(pipeline, device):
 def _as_applier(pipeline, device=None):
     """``pipeline`` as a frozen applier for ``device`` (None: an applier
     as it is, a pipeline frozen for the card)."""
-    if isinstance(pipeline, FrozenApplier):
+    if _is_applier(pipeline):
         return pipeline
     return FrozenApplier(pipeline, device="cuda" if device is None else device)
 
@@ -1202,6 +1214,9 @@ class ReplicaSupervisor:
     the replacement and its in-hand flush's riders fail typed with
     :class:`FleetUnavailable`), and restart them in place: re-clone from
     the pool's source, re-prime through the service, adopt into the slot.
+    The slots one sweep finds sick are healed together, one thread a slot:
+    a process worker's respawn takes ~10 s on the card, and healed in turn
+    two dead slots would leave the fleet with none for twice that.
     ``restart_limit`` restarts within ``restart_window`` seconds
     quarantine the slot instead; a blue/green swap resets quarantine.
     Each restart is visible: ``serve.replica_restarts`` and
@@ -1217,6 +1232,8 @@ class ReplicaSupervisor:
         self.quarantined_total = 0
         self.last_restart: Optional[dict] = None
         self._history: Dict[int, deque] = {}
+        #: guards the counters the slots' heal threads update
+        self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True, name=f"{service.name}-supervisor")
 
@@ -1253,16 +1270,30 @@ class ReplicaSupervisor:
         pool = self.service._pool
         with pool._lock:
             replicas = list(pool.replicas)
-        healed = 0
+        sick = []
         for r in replicas:
             if r.quarantined or r._retired:
                 continue
             dead = r.is_dead()
             wedged = not dead and r.inflight is not None and r.heartbeat.expired()
             if dead or wedged:
-                self._heal(r, "dead" if dead else "wedged")
-                healed += 1
-        return healed
+                sick.append((r, "dead" if dead else "wedged"))
+        if sick:
+            # together: a process worker's respawn takes seconds, and a
+            # burst of crashes would otherwise heal in turn
+            threads = [threading.Thread(target=self._heal_logged, args=s, daemon=True,
+                                        name=f"{self.service.name}-heal-{s[0].index}") for s in sick]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        return len(sick)
+
+    def _heal_logged(self, replica: Replica, reason: str) -> None:
+        try:
+            self._heal(replica, reason)
+        except Exception:  # the healer must never die of a heal
+            logger.exception("replica %d heal failed", replica.index)
 
     def _budget_exhausted(self, index: int) -> bool:
         hist = self._history.setdefault(index, deque())
@@ -1303,15 +1334,16 @@ class ReplicaSupervisor:
                 self._abandon(stuck, replica, reason)
             return
         took = time.monotonic() - t0
-        self.restarts_total += 1
+        with self._lock:
+            self.restarts_total += 1
+            self.last_restart = {
+                "replica": replica.index,
+                "reason": reason,
+                "seconds": round(took, 3),
+                "restarts_in_window": len(self._history[replica.index]),
+                "error": replica.dead_error,
+            }
         metrics.inc("serve.replica_restarts", replica=replica.index)
-        self.last_restart = {
-            "replica": replica.index,
-            "reason": reason,
-            "seconds": round(took, 3),
-            "restarts_in_window": len(self._history[replica.index]),
-            "error": replica.dead_error,
-        }
         rec = getattr(svc, "recorder", None)
         if rec is not None:
             rec.ops("replica.restart", replica=replica.index, reason=reason, seconds=round(took, 3),
@@ -1324,7 +1356,8 @@ class ReplicaSupervisor:
     def _quarantine(self, replica: Replica, reason: str) -> None:
         svc = self.service
         stranded = svc._pool.quarantine_replica(replica)
-        self.quarantined_total += 1
+        with self._lock:
+            self.quarantined_total += 1
         restarts = len(self._history.get(replica.index, ()))
         ledger.event("replica.quarantine", replica=replica.index, reason=reason, restarts=restarts)
         rec = getattr(svc, "recorder", None)

@@ -5,12 +5,15 @@ codes and headers).
 Endpoints (JSON unless noted):
 
 - ``POST /predict`` — body ``{"instances": [<datum>, ...]}`` (or
-  ``{"instance": <datum>}``), optional ``"deadline_ms"`` (and
-  ``"tenant"``, which this single-tenant service answers with 400).
+  ``{"instance": <datum>}``), optional ``"deadline_ms"`` and
+  ``"tenant"`` (a multi-tenant service's routing, ``serve/tenants.py``).
   Replies ``{"predictions": [...]}``.  **429** when admission control
   rejects (``Overloaded``, with a ``Retry-After`` from the EWMA flush
-  time), **504** when the request was shed past its deadline, **400** on
-  a malformed body or a mis-shaped datum, **422** when the request's
+  time, or the tenant's own breaker is open: co-served tenants still
+  answer), **504** when the request was shed past its deadline, **400**
+  on a malformed body, a mis-shaped datum, or a tenant the service does
+  not serve (``UnknownTenant``; a single-tenant service refuses any
+  tenant), **422** when the request's
   content breaks the model (``PoisonRequest``), **503** on shutdown and
   on a fleet with no serving replica (``FleetUnavailable``, with a
   derived ``Retry-After``).
@@ -258,11 +261,11 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(200, trace)
 
     def do_POST(self):
-        if self.path == "/swap":
-            self._do_swap()
-            return
-        if self.path == "/rollback":
-            self._do_rollback()
+        if self.path in ("/swap", "/rollback"):
+            # the swap and its CURRENT move as one step for the registry
+            # watcher
+            with self.service.admin_step():
+                self._do_swap() if self.path == "/swap" else self._do_rollback()
             return
         if self.path == "/tracez/dump":
             self._do_trace_dump()

@@ -406,10 +406,19 @@ class RegistryWatcher:
                 if rec is not None:
                     rec.ops("serve.watch_error", error=f"{type(e).__name__}: {e}", n=self._consecutive_errors)
 
+    def _current_news(self) -> Optional[str]:
+        """``CURRENT`` where it differs from the version served, else None.
+        Read under the service's admin step: an admin swap or rollback
+        moves the service and then ``CURRENT``, and a read between the two
+        would revert it."""
+        with self.service.admin_step():
+            # strict: a corrupt CURRENT is a poll error (backoff), not "no news"
+            cur = self.registry.current(strict=True)
+            return cur if cur and cur != self.service.version else None
+
     def _poll_once(self) -> None:
-        # strict: a corrupt CURRENT is a poll error (backoff), not "no news"
-        cur = self.registry.current(strict=True)
-        if not cur or cur == self.service.version:
+        cur = self._current_news()
+        if cur is None:
             return
         why_bad = self.registry.quarantined(cur)
         if why_bad is not None:
@@ -423,6 +432,11 @@ class RegistryWatcher:
         fitted, ver = self.registry.load(cur, map_location=self.service.device)
         # best effort: a version without (or with damaged) artifacts walks
         arts = self.registry.load_artifacts(ver)
+        if self._current_news() != cur:
+            # an admin swap or rollback moved CURRENT during the load: it
+            # wins, and the next poll reads it
+            logger.info("watcher dropped %s: CURRENT moved during its load", ver)
+            return
         if self.rollout is not None and self.rollout.canary is not None:
             from keystone_tpu_torch.serve.rollout import CanaryController
 

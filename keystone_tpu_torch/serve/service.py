@@ -76,8 +76,9 @@ Observability: ``serve.queue_depth`` gauge, ``serve.batch_rows`` /
 ``serve.enqueue`` (admission), ``serve.batch`` (a flush's apply) and
 ``serve.swap`` (a hot-swap's stage).
 
-The reference's tenant and dedup override points are kept, inert.  The
-physical planner's knobs (A10) resolve to the reference's static
+The tenant and dedup override points are inert here; the multi-tenant
+service (``serve/tenants.py``) overrides them.  The physical planner's
+knobs (A10) resolve to the reference's static
 defaults: a 5 ms wait, power-of-two buckets, hedging off, a dispatch
 window of 2.
 
@@ -477,6 +478,8 @@ class PipelineService:
         self._ewma_lock = threading.Lock()
         #: serializes concurrent swap() / scale_to() calls
         self._swap_lock = threading.Lock()
+        #: see admin_step()
+        self._admin_lock = threading.Lock()
         self._swap_seq = 0
         self._bisect = bool(bisect)
         self._poison_cache: "OrderedDict[bytes, float]" = OrderedDict()
@@ -653,12 +656,12 @@ class PipelineService:
         return self._bucket_for(int(k))
 
     # ------------------------------------------------------ tenant hooks
-    # The reference's multi-tenant service (ROADMAP A11d) overrides these;
-    # here each is inert, or refuses.
+    # The multi-tenant service (serve/tenants.py) overrides these; here
+    # each is inert, or refuses.
     def _resolve_tenant(self, tenant: Optional[str]) -> Optional[str]:
         if tenant is not None:
             raise TypeError(f"service {self.name!r} is single-tenant; tenant={tenant!r} refused "
-                            "(the multi-tenant service is ROADMAP A11d)")
+                            "(serve several models with serve_multi)")
         return None
 
     def _default_deadline_for(self, tenant: Optional[str]):
@@ -694,8 +697,8 @@ class PipelineService:
         return len(self._q)
 
     # ------------------------------------------------------- dedup hooks
-    # In-flight dedup of identical payloads (the reference's multi-tenant
-    # service enables it): inert here.
+    # In-flight dedup of identical payloads (the multi-tenant service
+    # enables it): inert here.
     def _dedup_keys(self, arrs) -> Optional[list]:
         return None
 
@@ -1109,6 +1112,14 @@ class PipelineService:
         return path
 
     # --------------------------------------------------------------- swap
+    def admin_step(self) -> threading.Lock:
+        """The lock that makes a registry-driven move one step: an admin
+        swap or rollback holds it across its swap and its ``CURRENT``
+        move; the registry watcher holds it only to read ``CURRENT``
+        beside :attr:`version`, so it never reads the two mid-move and
+        never holds an operator's request behind its load or canary."""
+        return self._admin_lock
+
     def swap(self, pipeline, version: Optional[str] = None, prime: bool = True, artifacts: Optional[dict] = None
              ) -> dict:
         """Blue/green hot-swap: stage a full replica generation for
@@ -1526,8 +1537,8 @@ class PipelineService:
     def _apply_reqs(self, reqs, replica, deadline):
         """One flush's apply body: stack the riders' rows and run the
         frozen graph; returns one numpy row per rider.  Both the flush and
-        bisection's re-runs go through it (an override point of the
-        reference's multi-tenant service).  A flush that is a complete
+        bisection's re-runs go through it (the multi-tenant service
+        overrides it).  A flush that is a complete
         in-order image of ONE admission block is already padded to its
         bucket in the block's slab: no stack, no pad, and a process worker
         attaches the slab by reference."""
@@ -1547,7 +1558,7 @@ class PipelineService:
         return self.buckets[-1]
 
     def _apply_rows(self, stacked: np.ndarray, deadline=None, replica=None, prime: bool = False,
-                    pre_padded_n: Optional[int] = None, slab_ref: Optional[dict] = None) -> np.ndarray:
+                    pre_padded_n: Optional[int] = None, slab_ref: Optional[dict] = None, **apply_kw):
         """Pad ``(k, ...)`` rows with zero rows up to the smallest bucket
         that holds them (``pre_padded_n``: ``stacked`` is an admission
         block's array, padded already), and apply the frozen graph on the
@@ -1555,7 +1566,10 @@ class PipelineService:
         on its stream), applies there and reads the first k output rows
         back in one copy; a remote replica ships the padded host batch
         over the wire (``slab_ref``: the block's slab, by reference, where
-        the worker can attach it) and its worker does all of that."""
+        the worker can attach it) and its worker does all of that.  Other
+        keywords go to the applier: a multi-tenant applier's ``tenants``
+        and ``errors_out``, which make its answer ``{tenant: rows[:k]}``
+        (the heads differ in width)."""
         if pre_padded_n is not None:
             k, padded = int(pre_padded_n), stacked
         else:
@@ -1563,7 +1577,7 @@ class PipelineService:
             padded = pad_rows(stacked, self._bucket_for(k))
         rep = replica if replica is not None else self._pool.replicas[0]
         if getattr(rep.applier, "remote_worker", False):
-            kw = {"n": k}
+            kw = {"n": k, **apply_kw}
             if slab_ref is not None and rep.applier.accepts_slab_ref:
                 kw["slab_ref"] = slab_ref
             trace_ctx = getattr(self._trace_tls, "ctx", None)
@@ -1572,8 +1586,11 @@ class PipelineService:
             out = rep.apply(padded, deadline=deadline, prime=prime, **kw)
             return np.asarray(out.array)[:k]
         with rep.on_stream():
-            out = rep.apply(Dataset(_to_device(padded, rep.device), n=k), deadline=deadline, prime=prime)
+            out = rep.apply(Dataset(_to_device(padded, rep.device), n=k), deadline=deadline, prime=prime,
+                            **apply_kw)
             # on the replica's stream: the read waits for its work alone
+            if isinstance(out, dict):
+                return {t: d.array[:k].cpu().numpy() for t, d in out.items()}
             return out.array[:k].cpu().numpy()
 
 

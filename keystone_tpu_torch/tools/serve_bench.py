@@ -1,6 +1,7 @@
 """Open-loop load generator for the serving path (counterpart of
 ``tools/serve_bench.py``'s ``build_pipeline``, ``build_service``,
-``run_bench`` and ``run_ingress_ab``).
+``run_bench``, ``run_ingress_ab``, ``build_tenant_models``,
+``build_tenant_service``, ``run_tenants_bench`` and ``run_tenants_ab``).
 
 Drives a :class:`keystone_tpu_torch.serve.PipelineService` with a fixed
 arrival schedule: requests are submitted at the target rate whether or
@@ -14,7 +15,9 @@ shed/rejected counts.
 The default workload is the reference's synthetic two-stage pipeline
 (NormalizeRows → LinearMapper), which measures the serving layer
 itself; ``--model`` serves a saved fitted pipeline whose input is a
-``--dim``-vector.  ``--workers N`` serves it with a process fleet of N
+``--dim``-vector.  ``--tenants N`` runs the multi-tenant A/B instead:
+N tenants over one featurization prefix behind ``serve_multi``, the
+shared stage pool on against off, per tenant, at ``--dim``.  ``--workers N`` serves it with a process fleet of N
 workers (each with the model on ``--device``) in place of the threaded
 fleet.  ``--ingress-ab`` runs the front-end A/B instead: one service
 behind one binary ingress port, saturated in turns by per-datum HTTP
@@ -107,7 +110,7 @@ def build_service(
         pipe = build_pipeline(dim=dim, classes=classes, seed=seed, device=home)
     item_shape = (int(dim),)
     if workers:
-        fleet = dict(workers=int(workers), worker_opts={"device": str(dev)})
+        fleet = dict(workers=int(workers), worker_opts={"device": str(dev), **serve_kw.pop("worker_opts", {})})
     else:
         fleet = dict(replicas=replicas, devices=[dev] * replicas)
     svc = serve(
@@ -295,6 +298,210 @@ def _occupancy(replica_stats: list, c0: dict, c1: dict) -> list:
         deltas.append(_counter_delta(c0, c1, key))
     total = sum(deltas) or 1.0
     return [d / total for d in deltas]
+
+
+def _fft_gather_feat(dim: int, branches: int, seed: int = 0, device="cuda"):
+    """A ``branches``-way gather of RandomSignNode → PaddedFFT →
+    LinearRectifier chains (the MnistRandomFFT shape), each rectifier with
+    its own constant; returns ``(featurizer pipeline, feature dim)``."""
+    from keystone_tpu_torch.ops.stats import LinearRectifier, PaddedFFT, RandomSignNode
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    feat = Pipeline.gather([
+        RandomSignNode.init(dim, seed * 1000 + i, device=device) | PaddedFFT() | LinearRectifier(0.0, alpha=0.001 * (i + 1))
+        for i in range(int(branches))
+    ])
+    padded = 1 << (dim - 1).bit_length()
+    return feat, branches * (padded // 2 + 1) * 2
+
+
+def build_tenant_models(tenants: int = 3, dim: int = 64, classes: int = 16, branches: int = 6, seed: int = 0,
+                        device="cuda") -> dict:
+    """N tenant pipelines over ONE featurization prefix (every tenant's
+    gather made from the same seeds, so the plan shares it) with a head of
+    its own (seeded weights a tenant): ``{"t0": ..., "t1": ...}``."""
+    from keystone_tpu_torch.models.linear import LinearMapper
+    from keystone_tpu_torch.ops.stats import NormalizeRows
+    from keystone_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    models = {}
+    for t in range(int(tenants)):
+        feat, feat_dim = _fft_gather_feat(dim, branches, seed, device=dev)
+        rng = np.random.default_rng(seed + 100 + t)
+        w = torch.from_numpy(rng.normal(size=(feat_dim, classes)).astype(np.float32)).to(dev)
+        models[f"t{t}"] = feat | NormalizeRows() | LinearMapper(w)
+    return models
+
+
+def build_tenant_service(models: dict, item_shape, share: bool = True, max_batch: int = 32,
+                         max_wait_ms: float = 2.0, queue_bound: int = 256, deadline_ms: float | None = 1000.0,
+                         device="cuda", dtype=np.float32, **serve_kw):
+    """A primed multi-tenant service over ``models`` on ``device``.
+    ``share=False`` is the A/B's control arm: the same DRR batching and
+    combined flushes, the shared stage pool off."""
+    from keystone_tpu_torch.serve import serve_multi
+    from keystone_tpu_torch.utils.device import resolve_device
+
+    return serve_multi(models, share=share, max_batch=max_batch, max_wait_ms=max_wait_ms, queue_bound=queue_bound,
+                       deadline_ms=deadline_ms, example=np.zeros(tuple(item_shape), dtype),
+                       devices=[resolve_device(device)], name="serve_bench_mt", **serve_kw)
+
+
+def run_tenants_bench(svc, names, qps: float, duration: float, payload, deadline_ms: float | None = None,
+                      burst: int = 8) -> dict:
+    """Open-loop offered load split equally over the tenants: each tick
+    submits one ``burst``-row ``submit_many`` for the next tenant in turn,
+    at the aggregate mean rate, cycling through ``payload``'s rows.  Waits
+    for the tail and reports the aggregate and per-tenant achieved rate,
+    p50/p99 and outcomes, the fairness ratio (largest per-tenant p99 over
+    the smallest) and the pool's counters over the run."""
+    from keystone_tpu_torch.serve import Overloaded
+    from keystone_tpu_torch.utils import guard
+
+    deadline_s = None if not deadline_ms else float(deadline_ms) / 1000.0
+    burst = max(1, int(burst))
+    lock = threading.Lock()
+    lat: dict = {t: [] for t in names}
+    outcomes = {t: {"completed": 0, "shed": 0, "rejected": 0, "errors": 0} for t in names}
+
+    def record(fut, t_submit, tenant):
+        t_done = time.monotonic()
+        exc = fut.exception()
+        with lock:
+            o = outcomes[tenant]
+            if exc is None:
+                o["completed"] += 1
+                lat[tenant].append(t_done - t_submit)
+            elif isinstance(exc, guard.DeadlineExceeded):
+                o["shed"] += 1
+            else:
+                o["errors"] += 1
+
+    pool0 = dict(svc.status().get("stage_pool") or {})
+    n_arrivals = max(len(names) * burst, int(round(qps * duration)))
+    interval = burst / qps
+    futs = []
+    t_start = time.monotonic()
+    next_t = t_start
+    sent = tick = 0
+    while sent < n_arrivals:
+        now = time.monotonic()
+        if now < next_t:
+            time.sleep(min(next_t - now, 0.002))
+            continue
+        tenant = names[tick % len(names)]
+        tick += 1
+        k = min(burst, n_arrivals - sent)
+        rows = [payload[(sent + i) % len(payload)] for i in range(k)]
+        t_submit = time.monotonic()
+        try:
+            group = svc.submit_many(rows, deadline=deadline_s, tenant=tenant)
+        except Overloaded:
+            with lock:
+                outcomes[tenant]["rejected"] += k
+        else:
+            for fut in group:
+                fut.add_done_callback(lambda f, t0=t_submit, tn=tenant: record(f, t0, tn))
+            futs.extend(group)
+        sent += k
+        next_t += interval
+    offer_elapsed = time.monotonic() - t_start
+    futures_wait(futs, timeout=duration + 60.0)
+    wall_elapsed = time.monotonic() - t_start
+
+    def pct(vals, p):
+        return None if not vals else float(np.percentile([v * 1000.0 for v in vals], p))
+
+    per_tenant = {t: {**outcomes[t], "achieved_qps": outcomes[t]["completed"] / offer_elapsed,
+                      "p50_ms": pct(lat[t], 50), "p99_ms": pct(lat[t], 99)} for t in names}
+    completed = sum(o["completed"] for o in outcomes.values())
+    p99s = [v["p99_ms"] for v in per_tenant.values() if v["p99_ms"]]
+    pool1 = dict(svc.status().get("stage_pool") or {})
+    hits = pool1.get("hits", 0) - pool0.get("hits", 0)
+    misses = pool1.get("misses", 0) - pool0.get("misses", 0)
+    return {
+        "offered_qps": qps,
+        "duration_s": duration,
+        "tenants": len(names),
+        "n_requests": n_arrivals,
+        "aggregate_completed": completed,
+        "aggregate_qps": completed / offer_elapsed if offer_elapsed > 0 else None,
+        "aggregate_qps_wall": completed / wall_elapsed if wall_elapsed > 0 else None,
+        "drain_s": wall_elapsed - offer_elapsed,
+        "fairness_p99_ratio": max(p99s) / min(p99s) if p99s and min(p99s) > 0 else None,
+        "per_tenant": per_tenant,
+        "pool": {"hits": hits, "misses": misses, "hit_rate": hits / (hits + misses) if hits + misses else None,
+                 **{k: pool1.get(k) for k in ("evictions", "shared_stages", "collision_refusals", "sharing",
+                                                "peak_bytes", "resident_bytes")}},
+    }
+
+
+def run_tenants_ab(models_fn=None, payload=None, item_shape=None, qps: float = 12000.0, duration: float = 2.0,
+                   rounds: int = 3, tenants: int = 3, branches: int = 12, max_batch: int = 64,
+                   deadline_ms: float = 8000.0, dim: int = 512, device="cuda", dtype=np.float32) -> dict:
+    """The sharing A/B: the same workload against a shared-pool service and
+    its share-off twin in one process, rounds alternating the order after
+    a discarded warm-up round, the flight recorder off in both arms.
+    First one probe row a tenant must answer bit for bit in both arms.
+    ``models_fn()`` makes ``{tenant: pipeline}`` (called once an arm;
+    default :func:`build_tenant_models` at ``dim``, ``branches``), and
+    ``payload`` / ``item_shape`` the rows offered (default seeded normal
+    rows of ``(dim,)``)."""
+    import statistics
+
+    if models_fn is None:
+        def models_fn():
+            return build_tenant_models(tenants=tenants, dim=dim, branches=branches, device=device)
+    if item_shape is None:
+        item_shape = (int(dim),)
+    if payload is None:
+        payload = np.random.default_rng(1).normal(size=(64,) + tuple(item_shape)).astype(dtype)
+    services = {}
+    for mode, share in (("shared", True), ("unshared", False)):
+        models = models_fn()
+        services[mode] = (build_tenant_service(models, item_shape, share=share, max_batch=max_batch,
+                                               queue_bound=max(256, max_batch * 8), deadline_ms=deadline_ms,
+                                               recorder=False, device=device, dtype=dtype), list(models))
+    identical = True
+    samples: dict = {"shared": [], "unshared": []}
+    try:
+        for t in services["shared"][1]:
+            a = services["shared"][0].submit(payload[0], tenant=t).result(60.0)
+            b = services["unshared"][0].submit(payload[0], tenant=t).result(60.0)
+            identical = identical and np.array_equal(a, b)
+        for rnd in range(max(2, int(rounds)) + 1):
+            order = ("shared", "unshared") if rnd % 2 == 0 else ("unshared", "shared")
+            for mode in order:
+                svc, names = services[mode]
+                rep = run_tenants_bench(svc, names, qps=qps, duration=duration if rnd > 0 else 0.5, payload=payload,
+                                        deadline_ms=deadline_ms)
+                if rnd > 0:
+                    samples[mode].append(rep)
+    finally:
+        for svc, _ in services.values():
+            svc.close()
+
+    def med(mode, key):
+        vals = [r[key] for r in samples[mode] if r.get(key) is not None]
+        return float(statistics.median(vals)) if vals else None
+
+    shared_qps, unshared_qps = med("shared", "aggregate_qps"), med("unshared", "aggregate_qps")
+    return {
+        "offered_qps": qps,
+        "duration_s": duration,
+        "rounds": len(samples["shared"]),
+        "tenants": len(services["shared"][1]),
+        "aggregate_qps_shared": shared_qps,
+        "aggregate_qps_unshared": unshared_qps,
+        "runs_qps_shared": [r["aggregate_qps"] for r in samples["shared"]],
+        "runs_qps_unshared": [r["aggregate_qps"] for r in samples["unshared"]],
+        "speedup": shared_qps / unshared_qps if shared_qps and unshared_qps else None,
+        "fairness_p99_ratio": med("shared", "fairness_p99_ratio"),
+        "predictions_identical": bool(identical),
+        "pool": samples["shared"][-1]["pool"] if samples["shared"] else {},
+        "per_tenant_shared": samples["shared"][-1]["per_tenant"] if samples["shared"] else {},
+    }
 
 
 def _http_datum_client(host, port, rows, stop_evt, lock, lats, counts):
@@ -498,9 +705,19 @@ def main(argv=None) -> int:
                     help="a process fleet of this many workers in place of the threaded fleet")
     ap.add_argument("--ingress-ab", action="store_true",
                     help="the front-end A/B (HTTP JSON against binary batches) in place of the open loop")
-    ap.add_argument("--rounds", type=int, default=2, help="--ingress-ab's measured rounds")
+    ap.add_argument("--rounds", type=int, default=2, help="--ingress-ab's and --tenants' measured rounds")
     ap.add_argument("--shards", type=int, default=2, help="--ingress-ab's ingress loops")
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="the multi-tenant A/B in place of the open loop: this many tenants over one shared "
+                         "featurization prefix, the shared stage pool on against off, per tenant, at --dim")
+    ap.add_argument("--tenant-branches", type=int, default=6, help="--tenants' featurization branches")
     args = ap.parse_args(argv)
+    if args.tenants:
+        print(json.dumps(run_tenants_ab(qps=args.qps, duration=args.duration, rounds=args.rounds,
+                                        tenants=args.tenants, branches=args.tenant_branches,
+                                        max_batch=args.max_batch, deadline_ms=args.deadline_ms, dim=args.dim,
+                                        device=args.device)))
+        return 0
     if args.ingress_ab:
         print(json.dumps(run_ingress_ab(duration=args.duration, rounds=args.rounds, dim=args.dim,
                                         max_batch=args.max_batch, shards=args.shards, device=args.device,

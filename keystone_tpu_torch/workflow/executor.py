@@ -39,9 +39,15 @@ Each stage runs inside the operations layer, as in the reference:
 With no deadline, no breaker threshold, no plan and no ledger, a stage
 costs a few ``None`` checks and a counter bump: no thread, no
 synchronize.  The serving path (``FrozenApplier``, ``keystone_tpu_torch/
-serve``) runs each flush as one such walk.  The reference's shared-stage
-pool for co-served pipelines (``workflow/stage_pool.py``) comes with the
-multi-tenant service (ROADMAP A11d).
+serve``) runs each flush as one such walk.
+
+A multi-tenant flush (``serve/tenants.py``) passes ``stage_pool``,
+``pool_token`` and ``pool_sigs``: the nodes the cross-pipeline plan
+marked (``workflow/cross.py``) are read from the shared stage pool
+(``workflow/stage_pool.py``) before their inputs are walked, so a hit
+prunes the whole prefix, and a computed result that did not degrade is
+published there for the flush's other tenants.  Without a pool the walk
+is the walk above.
 """
 
 from __future__ import annotations
@@ -86,13 +92,17 @@ class TransformerExpr:
 
 
 class GraphExecutor:
-    def __init__(self, graph: G.Graph, profile: bool = False, node_retries: Optional[int] = None, deadline=None):
+    def __init__(self, graph: G.Graph, profile: bool = False, node_retries: Optional[int] = None, deadline=None,
+                 stage_pool=None, pool_token=None, pool_sigs=None):
         """``node_retries``: re-run a failed stage up to this many times
         before it propagates (stages are pure functions of memoized
         inputs, so a re-run is safe); None reads
         ``PipelineEnv.stage_retries()``.  ``deadline``: a wall-clock
         budget (seconds or a ``utils.guard.Deadline``) for this
-        executor's whole walk."""
+        executor's whole walk.  ``stage_pool`` / ``pool_token`` /
+        ``pool_sigs`` (``{NodeId: prefix signature}``): the shared stage
+        tier, active only when all three are given (a pool without a
+        token could leak results across request batches)."""
         self.graph = graph
         self.results: Dict[G.GraphId, Any] = {}
         self.profile = profile
@@ -106,6 +116,9 @@ class GraphExecutor:
         self.deadline = guard.as_deadline(deadline)
         self._stage_seconds = guard.stage_deadline_seconds()
         self._breaker_threshold = guard.stage_breaker_threshold()
+        self._pool = stage_pool if pool_token is not None else None
+        self._pool_token = pool_token
+        self._pool_sigs: Dict[G.NodeId, tuple] = dict(pool_sigs or {})
 
     def execute(self, target: G.GraphId):
         if isinstance(target, G.SinkId):
@@ -118,6 +131,15 @@ class GraphExecutor:
         if isinstance(target, G.SourceId):
             raise RuntimeError(f"unbound source {target}: apply the pipeline to data before executing")
         op = self.graph.operators[target]
+        # the shared stage pool, read before the inputs are walked: a hit
+        # on the sharing frontier prunes the prefix another tenant of this
+        # flush computed
+        pool_sig = self._pool_sigs.get(target) if self._pool is not None else None
+        if pool_sig is not None:
+            hit, pooled = self._pool.get((pool_sig, self._pool_token))
+            if hit:
+                self.results[target] = pooled
+                return pooled
         deps = [self._eval(d) for d in self.graph.dependencies[target]]
         brk = self._stage_breaker(op)
         delays = None
@@ -185,6 +207,10 @@ class GraphExecutor:
             if self.profile:
                 synchronize()
                 self.timings[target] = time.perf_counter() - t0
+        if pool_sig is not None and not degraded:
+            # published for the flush's other tenants; a degraded result is
+            # this walk's compromise, never the stage's value to share
+            self._pool.put((pool_sig, self._pool_token), result)
         if not getattr(op, "no_memoize", False):
             # a node over the device budget (workflow/profiling.py) is
             # recomputed for each consumer instead of pinned

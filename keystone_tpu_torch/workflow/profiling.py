@@ -1,6 +1,6 @@
 """Profiling-driven materialization (counterpart of
 ``keystone_tpu/workflow/profiling.py`` § NodeProfile, profile_graph,
-_static_node_seconds, device_hbm_budget, last_footprint,
+_static_node_seconds, device_hbm_budget, pool_budget_bytes, last_footprint,
 ProfilingAutoCacheRule, _comparable_seconds, _insert_cacher).
 
 Reference: workflow/AutoCacheRule.scala — estimates each node's output
@@ -230,6 +230,22 @@ def device_hbm_budget(fraction: float = 0.5, device=None) -> int:
     if dev.type == "cuda":
         return int(torch.cuda.mem_get_info(dev)[1] * fraction)
     return int((16 << 30) * fraction)
+
+
+def pool_budget_bytes(fraction: float = 0.25) -> int:
+    """The shared stage pool's default budget (``workflow/stage_pool.py``):
+    a quarter of the card's memory by :func:`device_hbm_budget`, smaller
+    than the fit's cache budget because the pool's per-flush featurized
+    outputs sit beside every tenant's weights and the serve batches (on a
+    box without a card, the CPU fallback's quarter).
+    ``KEYSTONE_POOL_BUDGET_BYTES`` overrides it outright."""
+    env = os.environ.get("KEYSTONE_POOL_BUDGET_BYTES", "").strip()
+    if env:
+        try:
+            return int(env)
+        except ValueError:
+            logger.warning("KEYSTONE_POOL_BUDGET_BYTES=%r is not an int", env)
+    return device_hbm_budget(fraction=fraction, device="cuda" if torch.cuda.is_available() else None)
 
 
 #: Footprint estimate of the LAST ProfilingAutoCacheRule pass, read by

@@ -1,7 +1,7 @@
 """The port's threaded replica fleet (keystone_tpu_torch/serve/fleet.py)
 and its self-healing, the counterparts of the reference's
 tests/test_fleet.py and tests/test_selfheal.py (their registry and
-watcher tests are ROADMAP A11b's): routing, breaker failover and
+watcher tests are tests/test_torch_registry.py's): routing, breaker failover and
 fail-fast, the serve.replica/serve.worker/serve.swap sites, blue/green
 swap under load, poison bisection, wedged and dead workers restarted,
 quarantine, hedging, scaling, and the seeded soak with the reference's
@@ -23,7 +23,7 @@ from keystone_tpu_torch.models.linear import LinearMapper
 from keystone_tpu_torch.obs import metrics
 from keystone_tpu_torch.ops.stats import NormalizeRows
 from keystone_tpu_torch.serve import FleetUnavailable, Overloaded, PoisonRequest, serve, serve_http
-from keystone_tpu_torch.serve.fleet import ReplicaPool, _clone_and_place, _place_on_device
+from keystone_tpu_torch.serve.fleet import ReplicaPool, ReplicaSupervisor, _clone_and_place, _place_on_device
 from keystone_tpu_torch.utils import guard
 from keystone_tpu_torch.workflow.dataset import Dataset
 from keystone_tpu_torch.workflow.pipeline import FrozenApplier, Pipeline
@@ -423,6 +423,38 @@ def test_wedged_worker_restarted_queued_work_survives():
         st = svc.status()
         assert st["supervisor"]["restarts"] >= 1
         assert st["supervisor"]["last_restart"]["reason"] == "wedged"
+    finally:
+        svc.close(timeout=WAIT)
+
+
+def test_supervisor_heals_dead_slots_together(monkeypatch):
+    """Two slots dead at one sweep heal together: each replacement's build
+    waits at a barrier for the other's, which it passes only if both run
+    at once, and both slots serve again."""
+    svc = _service(2, "selfheal_together", max_batch=4, max_wait_ms=2.0, supervise=False)
+    try:
+        pool = svc._pool
+        build = pool.build_replacement
+        both = threading.Barrier(2)
+        met = []
+
+        def meeting_build(old):
+            try:
+                both.wait(timeout=WAIT / 3)
+                met.append(old.index)
+            except threading.BrokenBarrierError:
+                pass
+            return build(old)
+
+        monkeypatch.setattr(pool, "build_replacement", meeting_build)
+        for r in pool.replicas:
+            r.dead = True
+        sup = ReplicaSupervisor(svc)
+        assert sup.check_now() == 2
+        assert sorted(met) == [0, 1]
+        assert sup.restarts_total == 2 and all(r.restarts == 1 for r in pool.replicas)
+        got = [f.result(timeout=WAIT) for f in svc.submit_many(_rows(8, seed=9))]
+        assert len(got) == 8
     finally:
         svc.close(timeout=WAIT)
 

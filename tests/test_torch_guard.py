@@ -55,7 +55,8 @@ def test_every_module_imports_without_jax():
               "convert", "obs", "obs.metrics", "obs.ledger", "faults", "utils.guard", "workflow.state",
               "workflow.recovery", "obs.recorder", "serve", "serve.service", "serve.fleet", "serve.http", "cli",
               "tools.serve_bench", "serve.registry", "serve.rollout", "serve.autoscale", "utils.hashing",
-              "utils.graphs"):
+              "utils.graphs", "workflow.stage_pool", "workflow.cross", "analysis", "analysis.signatures",
+              "serve.tenants", "tools.chaos", "tools.workloads"):
         assert f"keystone_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -82,6 +83,18 @@ def test_no_source_names_jax_or_the_jax_package():
 
 def _small_params():
     return port.random_params(pca_dims=16, gmm_k=8, num_classes=10, block_size=64)
+
+
+def test_no_source_imports_the_repo_tools_or_jax():
+    """Neither the port nor chip_smoke.py imports the repo's ``tools/``
+    (the chaos tool and the workload zoo have their own copies in
+    ``keystone_tpu_torch/tools``), JAX or the JAX package."""
+    tools = re.compile(r"^\s*(from|import)\s+tools(\.|\s|$)")
+    jax = re.compile(r"^\s*(from|import)\s+(jax|keystone_tpu)(\.|\s|$)")
+    files = [f for f in sorted(PKG.rglob("*.py")) if "_build" not in f.parts] + [PKG.parent / "chip_smoke.py"]
+    for f in files:
+        hits = [ln for ln in f.read_text().splitlines() if tools.search(ln) or jax.search(ln)]
+        assert not hits, (f, hits)
 
 
 def test_entry_points_default_to_the_card():
@@ -416,6 +429,34 @@ def test_serve_entry_points_default_to_the_card(tmp_path):
         cli.main(["serve", "--model", str(path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["serve", "--model", str(path), "--workers", "1"])
+
+
+def test_multi_tenant_entry_points_default_to_the_card(tmp_path):
+    """serve_multi(models), the multi-tenant applier, ``cli serve`` with
+    named models, the chaos tool and serve_bench's tenant A/B take the
+    card unless asked for the CPU, and refuse a box without one."""
+    if torch.cuda.is_available():
+        pytest.skip("this box has a card: the CPU-only refusal is not observable")
+    from keystone_tpu_torch import cli
+    from keystone_tpu_torch.models.linear import LinearMapper
+    from keystone_tpu_torch.ops.stats import NormalizeRows
+    from keystone_tpu_torch.serve import MultiTenantApplier, serve_multi
+    from keystone_tpu_torch.tools import chaos, serve_bench
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    pipe = Pipeline.of(NormalizeRows()) | LinearMapper(torch.eye(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_multi({"a": pipe, "b": pipe})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiTenantApplier({"a": pipe})
+    for name in ("a", "b"):
+        pipe.fit().save(str(tmp_path / f"{name}.pt"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["serve", "--model", f"a={tmp_path / 'a.pt'}", "--model", f"b={tmp_path / 'b.pt'}"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chaos.main(["--workload", "tenants", "--plan", "serve.batch:ctx.tenant=a:raise"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_bench.main(["--tenants", "2", "--dim", "8"])
 
 
 def test_library_import_path_excludes_serve():

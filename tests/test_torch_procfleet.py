@@ -316,13 +316,15 @@ def test_scale_up_and_down_live(proc_service):
 
 
 def test_multi_tenant_refuses_process_backend(proc_service):
-    """The reference's multi-tenant service refuses workers=; the port's
-    tenant hook refuses a tenant on any service (ROADMAP A11d), and a
-    remote applier refuses the per-flush segment keywords a multi-tenant
-    apply would pass."""
-    from keystone_tpu_torch.serve import RemoteApplier
+    """As the reference's: serve_multi refuses workers= (the shared stage
+    pool needs the in-process walk), a process-backed single-tenant
+    service refuses a tenant, and a remote applier refuses the per-flush
+    segment keywords a multi-tenant apply would pass."""
+    from keystone_tpu_torch.serve import RemoteApplier, serve_multi
 
-    with pytest.raises(TypeError, match="A11d"):
+    with pytest.raises(NotImplementedError, match="workers="):
+        serve_multi({"a": _pipeline()}, workers=2, worker_opts={"device": "cpu"}, example=np.zeros(DIM, np.float32))
+    with pytest.raises(TypeError, match="single-tenant"):
         proc_service.submit(np.ones(DIM, np.float32), tenant="a")
     remote = proc_service._pool.replicas[0].applier
     assert isinstance(remote, RemoteApplier)

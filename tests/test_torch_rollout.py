@@ -496,6 +496,49 @@ def test_watcher_guarded_rollout_path(tmp_path):
         svc.close(timeout=WAIT)
 
 
+def test_rollback_answers_while_the_watcher_loads_a_publish(tmp_path, monkeypatch):
+    """An operator's POST /rollback made while the registry watcher loads a
+    publish for its canary answers before that load ends, and the watcher,
+    finding CURRENT moved when its load ends, drops the publish: the
+    rollback stands and nothing is quarantined."""
+    reg = ModelRegistry(str(tmp_path))
+    v1 = reg.publish(_pipeline(2.0))
+    v2 = reg.publish(_pipeline(3.0), set_current=False)
+    with _service(1, "rollout_watch_admin", version=v1) as svc, serve_http(svc, port=0, registry=reg) as front:
+        base = f"http://127.0.0.1:{front.port}"
+
+        def post(path, body):
+            req = urllib.request.Request(base + path, data=json.dumps(body).encode())
+            return json.load(urllib.request.urlopen(req, timeout=WAIT / 3))
+
+        post("/swap", {"version": v2})
+        v3 = reg.publish(_pipeline(4.0))
+        loading, release = threading.Event(), threading.Event()
+        load = reg.load
+
+        def held_load(version=None, **kw):
+            if version == v3:
+                loading.set()
+                release.wait(WAIT)
+            return load(version, **kw)
+
+        monkeypatch.setattr(reg, "load", held_load)
+        w = RegistryWatcher(svc, reg, poll_seconds=3600.0,
+                            rollout=RolloutConfig(canary=1.0, min_samples=10_000, decide_s=0.2))
+        poll = threading.Thread(target=w._poll_once, daemon=True)
+        poll.start()
+        try:
+            assert loading.wait(WAIT)
+            info = post("/rollback", {})
+            assert not release.is_set() and poll.is_alive()
+            assert (info["rolled_back_to"], info["rolled_back_from"]) == (v1, v2)
+        finally:
+            release.set()
+            poll.join(WAIT)
+        assert not poll.is_alive()
+        assert svc.version == v1 and reg.current() == v1 and reg.quarantined(v3) is None
+
+
 def test_http_rollout_endpoints(tmp_path):
     """GET /rolloutz, POST /rollback over the swap history (409 with
     nothing to revert to), POST /swap with a version and with rollout

@@ -331,8 +331,7 @@ def test_cli_serve_on_the_cpu_answers_and_exits_on_sigint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["check"], "A10"), (["plan"], "A10"), (["serve", "--model", "a=m", "--model", "b=n"], "A11d"),
-    (["serve", "--model", "m", "--tenants", "2"], "A11d"),
+    (["check"], "A10"), (["plan"], "A10"),
     (["export", "--model", "m", "--example-shape", "4", "--out", "o", "--plan"], "A10"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item, capsys):
@@ -342,11 +341,66 @@ def test_cli_refuses_what_is_not_ported(argv, item, capsys):
     assert f"ROADMAP {item}" in capsys.readouterr().err
 
 
+def test_cli_serve_refuses_an_unknown_tenants_flag(capsys):
+    """The reference's ``serve`` has no ``--tenants``: argparse refuses it
+    as an unknown argument (a multi-tenant deploy names its models)."""
+    from keystone_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(["serve", "--model", "m", "--tenants", "2"])
+    assert e.value.code == 2 and "unrecognized arguments: --tenants" in capsys.readouterr().err
+
+
+def test_cli_serve_deploys_named_models_as_tenants(tmp_path):
+    """``cli serve --model a=PATH --model b=PATH`` in a child on the CPU:
+    each tenant answers its own model's rows over HTTP (the body names
+    the tenant), an unknown tenant gets 400, /statusz has both tenants
+    and the stage pool, and SIGINT drains and exits 0."""
+    x = np.random.default_rng(4).normal(size=(3, DIM)).astype(np.float32)
+    want = {}
+    for name, scale in (("a", 2.0), ("b", 3.0)):
+        fitted = _pipeline(scale).fit()
+        fitted.save(str(tmp_path / f"{name}.pt"))
+        want[name] = fitted(Dataset(x, device="cpu")).get().numpy()
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "keystone_tpu_torch.cli", "serve", "--model", f"a={tmp_path / 'a.pt'}",
+         "--model", f"b={tmp_path / 'b.pt'}", "--device", "cpu", "--port", "0", "--max-batch", "4",
+         "--example-shape", str(DIM)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(tmp_path), env=env)
+    try:
+        line = ""
+        deadline = time.monotonic() + 120
+        while "serving" not in line and time.monotonic() < deadline and proc.poll() is None:
+            line = proc.stdout.readline()
+        assert "serving a=" in line and ", b=" in line, line
+        base = line.split(" on http", 1)[1].split(" ", 1)[0]
+        base = "http" + base
+        for name in ("a", "b"):
+            status, body, _ = _call(base + "/predict", {"instances": x.tolist(), "tenant": name})
+            assert status == 200, body
+            np.testing.assert_allclose(np.asarray(body["predictions"], np.float32), want[name], rtol=1e-5, atol=1e-6)
+        assert _call(base + "/predict", {"instances": x.tolist(), "tenant": "nope"})[0] == 400
+        assert _call(base + "/predict", {"instances": x.tolist()})[0] == 400  # two tenants: the body must name one
+        status, st, _ = _call(base + "/statusz")
+        assert status == 200 and set(st["tenants"]) == {"a", "b"} and st["stage_pool"]["sharing"] is True
+        proc.send_signal(signal.SIGINT)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=10)
+    assert proc.returncode == 0, out
+
+
 @pytest.mark.parametrize("argv,why", [
     (["worker"], "--connect"),
     (["serve", "--model", "m", "--workers", "2", "--replicas", "2"], "exclusive"),
     (["serve", "--model", "m", "--hosts", "local:2"], "--hosts needs --workers"),
     (["serve", "--model", "m", "--workers", "1", "--lease-s", "2"], "configure the --hosts fleet"),
+    (["serve", "--model", "a=m", "--model", "b=n", "--workers", "2"], "--workers is single-tenant only"),
+    (["serve", "--model", "a=m", "--model", "b=n", "--workers", "1", "--hosts", "local:1"], "single-tenant only"),
+    (["serve", "--model", "a=m", "--model", "n"], "name every entry"),
 ])
 def test_cli_fleet_flags_are_checked(argv, why, capsys):
     """``worker``, ``--workers``, ``--hosts`` and ``--lease-s`` are ported
