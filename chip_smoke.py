@@ -173,10 +173,10 @@ result line):
    place of the ls fit;
 23. main path, the operations layer of a fit, each part with its own
    temporary directories: the streamed ImageNetSiftLcsFV fit at phase
-   10's leg on half its images three ways (nothing attached, a run ledger,
-   an empty fault plan: seconds an image against phase 10's, B1/B2
-   launches, the three fits bit
-   for bit, the ledger's span and event counts); ``fit_with_recovery``
+   10's leg on a quarter of its images three ways (nothing attached, a
+   run ledger, an empty fault plan: seconds an image against phase 10's,
+   B1/B2 launches, the three fits bit for bit, the ledger's span and
+   event counts); ``fit_with_recovery``
    of that fit in two child processes of this script (``--recovery-child``)
    with a state_dir and the solver's checkpoint_dir, attempt 1 under a
    KEYSTONE_FAULTS plan (a stage, two stream batches and two block reads
@@ -268,7 +268,21 @@ result line):
    unknown tenant 400; the child's B1 twice a flush); serve_bench's
    tenant A/B in short legs (rates printed); then the chaos tool on the
    card: the ``tenants`` workload and a seeded 20 s soak over two worker
-   processes, each exiting 0;
+   processes, each exiting 0; S8, the pre-flight analyzer and the physical
+   planner: ``cli check --all`` in a child on the card (every bundled
+   pipeline, no finding, no launch, no device memory moved around each
+   analysis); a mis-wired FV pipeline and a bad fault plan refused by
+   ``fit(validate=True)`` before any launch; S1's scorer as a graph
+   frozen with ``plan=True`` (the ``fused_fv`` gate's candidates, B1
+   against PCA then B2, sampled at 8, 32 and 128 rows: samples, curves,
+   winner), its output bit for bit a freeze with the winner forced and no
+   plan, the two candidates within the scorer's tolerance; a fresh
+   applier frozen under the other choice installing the plan's bundle,
+   re-optimized and its bucket graph captured under the plan; a
+   ``plan.sample`` delay flipping the winner; ``cli plan`` and ``cli
+   export --plan``, a ``cli serve --model-dir`` child serving the shipped
+   plan (/statusz source ``artifacts``); serve_bench's plan A/B (1 s legs,
+   2 rounds) and its drift retune (no future lost);
 25. the whole script's seconds; one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches (bucket-graph replays
    included), float64 errors) for all four kernels, B3's and B4's times at the new paths' shapes and B1's and
@@ -3578,9 +3592,11 @@ SURVIVED_BY = {"executor.stage": "executor.stage_retries", "stream.batch": "stre
 # runs of one tree (PERF.md §2)
 HOOK_RATIO = 1.5
 # the operations layer's streamed fits (hooks at rest, the recovered fit)
-# on half the fit leg's images: the phases took 231.7 s of the script's
-# 1200 s on an H100; the deadline phase keeps the fit leg's streamed fit
-OPS_N = FIT_N // 2
+# on a quarter of the fit leg's images: the phases took 231.7 s of the
+# script's 1200 s on an H100 on all of them, 131.6 s on half (the
+# recovered fit's two children 63.3 s of it), before the planner's phase
+# S8 needed the room; the deadline phase keeps the fit leg's streamed fit
+OPS_N = FIT_N // 4
 # Pipeline.fit(deadline=...) on the streamed fit (~20 s on an H100): a
 # budget a tenth of it; the executor splits it over the stages, so the
 # raise comes at the first stage to overrun its share, within the budget
@@ -5855,6 +5871,331 @@ def tenants_path(dev, card, P, fk, cfg, scorer_params, images):
     return out
 
 
+S8_EXAMPLE_N = 64  # the planned freeze's example images (its sampled batches of 8, 32, 128 are drawn from them)
+S8_FLIP_DELAY_S = 0.05  # the plan.sample delay injected into the winner's timed samples
+S8_AB = {"qps": 2000.0, "duration": 1.0, "rounds": 2, "max_batch": BATCH, "deadline_ms": 2000.0,
+         "drift_duration": 2.0, "drift_qps": 400.0}
+S8_HTTP_N = 4  # images POSTed to the `cli serve --model-dir` child
+# the live bucket retune: a service over the planned freeze with bucket
+# graphs at 8 and 32 rows, offered 12-row requests; the retune adds 16
+S8_RETUNE = {"buckets": (8, 32), "retuned": (8, 16, 32), "added": 16, "rows": 12, "load_s": 0.4}
+
+
+def planner_path(dev, card, P, fk, gk, cfg, scorer_params, images):
+    """S8: the pre-flight analyzer and the cost-based physical planner on
+    the card."""
+    import re
+    import signal
+
+    from keystone_tpu_torch import cli, faults, planner
+    from keystone_tpu_torch.analysis import PipelineValidationError
+    from keystone_tpu_torch.models.gmm import GaussianMixtureModel
+    from keystone_tpu_torch.models.linear import LinearMapEstimator
+    from keystone_tpu_torch.models.pca import PCATransformer
+    from keystone_tpu_torch.ops.fisher import FisherVector
+    from keystone_tpu_torch.ops.images import GrayScaler, PixelScaler
+    from keystone_tpu_torch.ops.sift import SIFTExtractor
+    from keystone_tpu_torch.serve.registry import ModelRegistry
+    from keystone_tpu_torch.tools import serve_bench
+    from keystone_tpu_torch.workflow.dataset import Dataset
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    out = {}
+    t_s8 = time.perf_counter()
+    imgs = images.cpu().numpy()
+    tmp = Path(tempfile.mkdtemp(prefix="planner_", dir=REPO))
+    proc = None
+    child_launches = {"fused_forward": 0, "fisher_encode": 0}
+    try:
+        planner.clear_plan()
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        gk.reset_launches()
+        with phase("S8: `cli check --all` over every bundled pipeline, in a child process on the card"):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "keystone_tpu_torch.cli", "check", "--all", "--device",
+                                  DEVICE], capture_output=True, text=True, timeout=600, cwd=str(REPO),
+                                 env={**os.environ, "PYTHONPATH": str(REPO)})
+            text = res.stdout
+            names = re.findall(r"^== (\S+)$", text, re.M)
+            work = re.findall(r"^device work during the analysis: kernel launches (\{.*\}), device memory allocated "
+                              r"(\d+) -> (\d+) bytes$", text, re.M)
+            clean = text.count("analysis: no findings")
+            print(f"  exit {res.returncode} in {time.perf_counter() - t0:.2f} s: {len(names)} pipelines, {clean} with "
+                  f"no findings; launches around each analysis {sorted({w[0] for w in work})}, allocated bytes "
+                  f"unchanged in {sum(a == b for _, a, b in work)} of {len(work)} ({card})", flush=True)
+            check(res.returncode == 0, f"`cli check --all` exited {res.returncode}: {text[-3000:]} {res.stderr[-2000:]}")
+            from keystone_tpu_torch.cli import _PIPELINE_MODULES
+
+            check(sorted(names) == sorted(_PIPELINE_MODULES) and clean == len(names),
+                  f"`cli check --all`: {names}, {clean} clean: {text[-3000:]}")
+            check(len(work) == len(names) and all(w[0] == "{}" and w[1] == w[2] for w in work),
+                  f"the analysis launched a kernel or moved device memory: {work}")
+            out["check"] = {"seconds": time.perf_counter() - t0, "pipelines": len(names), "no_findings": clean}
+        with phase("S8: a mis-wired pipeline and a bad fault plan refused by fit(validate=True) before any launch"):
+            x, labels = images[:64], torch.zeros((64, NUM_CLASSES), device=dev)
+            gm = GaussianMixtureModel(scorer_params["sift.gmm.weights"], scorer_params["sift.gmm.means"],
+                                      scorer_params["sift.gmm.variances"])
+
+            def fv_pipeline(dims):
+                comp = scorer_params["sift.pca.components"][:, :dims].contiguous()
+                return (Pipeline.of(PixelScaler(only_if_integer=True)).and_then(GrayScaler())
+                        .and_then(SIFTExtractor(cfg.sift_step, (cfg.sift_bin_size,)))
+                        .and_then(PCATransformer(comp, scorer_params["sift.pca.mean"])).and_then(FisherVector(gm))
+                        .and_then(LinearMapEstimator(lam=1e-3), Dataset(x), Dataset(labels)))
+
+            refused = {}
+            before = dict(fk.LAUNCHES)
+            m0 = torch.cuda.memory_allocated()
+            for label, pipe, env in (("PCA of 32 dims into a GMM of 64", fv_pipeline(PCA_DIMS // 2), None),
+                                     ("KEYSTONE_FAULTS naming no site", fv_pipeline(PCA_DIMS), "executor.stag:raise")):
+                with env_var("KEYSTONE_FAULTS", env):
+                    try:
+                        pipe.fit(validate=True)
+                        codes = None
+                    except PipelineValidationError as e:
+                        codes = sorted({f.code for f in e.report.errors})
+                refused[label] = codes
+            torch.cuda.synchronize()
+            print(f"  refused with {refused}; B1/B2 launches {fk.LAUNCHES} (before {before}), device memory "
+                  f"allocated {m0} -> {torch.cuda.memory_allocated()} bytes ({card})", flush=True)
+            check(list(refused.values()) == [["shape-mismatch"], ["bad-fault-plan"]], f"refusals {refused}")
+            check(dict(fk.LAUNCHES) == before and not any(gk.LAUNCHES.values()), "a refused fit launched a kernel")
+            out["refused"] = refused
+        scorer = P.scorer_pipeline(scorer_params, cfg)  # the graph form: PCA -> FV pairs the freeze may fuse
+        example = imgs[:S8_EXAMPLE_N]
+        with phase("S8: S1's scorer frozen with plan=True (the fused_fv gate sampled: B1 against PCA then B2)"):
+            b0 = dict(fk.LAUNCHES)
+            t0 = time.perf_counter()
+            frozen = scorer.freeze(device=dev, plan=True, example=example)
+            plan_s = time.perf_counter() - t0
+            plan = frozen.plan
+            sampled = {k: fk.LAUNCHES[k] - b0[k] for k in ("fused_forward", "fisher_encode")}
+            stages = [s_ for s_ in plan.stages if s_.gate == "fused_fv"]
+            for st in stages:
+                for c in st.candidates:
+                    print(f"  fused_fv {st.label}: {c.name}: samples (rows, ms) "
+                          f"{[(n, round(sec * 1e3, 4)) for n, sec in c.samples]}; a = {c.coeffs[0] * 1e3:.4f} ms, "
+                          f"b = {c.coeffs[1] * 1e6:.4f} us a row; {c.full_seconds * 1e3:.4f} ms at "
+                          f"{plan.full_batch} rows", flush=True)
+                print(f"  winner {st.winner} ({st.why})", flush=True)
+            winner = plan.choice_for("fused_fv")
+            print(f"  plan {plan.fingerprint()} built in {plan_s:.2f} s (sampling launched {sampled}); knobs "
+                  f"{plan.knobs}; the frozen graph's choice {frozen.physical_choices} ({card})", flush=True)
+            check(len(stages) == 2 and all(len(st.candidates) == 2 and all(c.samples for c in st.candidates)
+                                           for st in stages), f"the fused_fv stages {[s_.to_dict() for s_ in stages]}")
+            check(sampled["fused_forward"] > 0 and sampled["fisher_encode"] > 0,
+                  f"the sampling did not launch both candidates: {sampled}")
+            check(frozen.physical_choices == {"fused_fv": winner}, f"choices {frozen.physical_choices}")
+            out["plan"] = {"seconds": plan_s, "winner": winner, "sampling_launches": sampled,
+                           "knobs": plan.knobs, "stages": [s_.to_dict() for s_ in plan.stages]}
+        with phase("S8: the planned freeze against a freeze with the winner forced and no plan; the candidates"):
+            x = images[:BATCH]
+            planned = frozen(x).array
+            planner.clear_plan()
+            frozen_by = {}
+            for cand in ("kernel", "chain"):
+                with env_var("KEYSTONE_FUSED_FV", "1" if cand == "kernel" else "0"):
+                    frozen_by[cand] = scorer.freeze(device=dev)
+            forced = frozen_by[winner](x).array
+            same = bool(torch.equal(planned, forced))
+            ka, kb = frozen_by["kernel"](x).array, frozen_by["chain"](x).array
+            err = compare("scores: the fused kernel (B1) against PCA then B2", ka, kb, TOL_SCORES)
+            top = (torch.topk(ka, 5).indices.sort(dim=1).values == torch.topk(kb, 5).indices.sort(dim=1).values)
+            agree = float(top.all(dim=1).float().mean())
+            print(f"  planned == forced {winner} bit for bit: {same}; the candidates' top-5 agree on {agree:.4f} "
+                  f"({card})", flush=True)
+            check(same, "the planned freeze differs from the freeze with its winner forced")
+            check(agree >= TOP5_AGREEMENT, f"the candidates' top-5 agree on {agree}")
+            out["candidates"] = {"max_abs_err": err, "top5_agreement": agree, "planned_equals_forced": same}
+            del frozen_by, ka, kb
+        with phase("S8: the bucket graphs captured under the shipped plan (a fresh applier, the bundle installed)"):
+            bundle = frozen.export_artifacts(example=imgs[0], buckets=(8,))
+            check(bundle["manifest"]["plan"] == plan.to_dict(), "the manifest ships no plan")
+            planner.clear_plan()
+            with env_var("KEYSTONE_FUSED_FV", "0" if winner == "kernel" else "1"):
+                fresh = scorer.freeze(device=dev)  # frozen under the other choice
+            other = fresh.physical_choices["fused_fv"]
+            n_inst = fresh.install_artifacts(bundle, strict=True)
+            xb = images[:8]
+            with torch.cuda.stream(torch.cuda.Stream()):
+                walked = fresh._walk(Dataset(xb)).array
+                first = fresh(xb).array  # captures
+                replay = fresh(xb).array
+                torch.cuda.synchronize()
+            stats = fresh.graph_stats()[8]
+            want_kernel = "fused_forward" if winner == "kernel" else "fisher_encode"
+            print(f"  frozen under {other}, the bundle's plan reinstalled ({planner.plan_status()['source']}), "
+                  f"re-optimized to {fresh.physical_choices}; {n_inst} bucket graph, launches in it "
+                  f"{stats['launches']}; replay == walk bit for bit {bool(torch.equal(replay, walked))} ({card})",
+                  flush=True)
+            check(planner.plan_status()["source"] == "artifacts" and fresh.physical_choices == {"fused_fv": winner},
+                  f"the shipped plan: {planner.plan_status()}, {fresh.physical_choices}")
+            check(n_inst == 1 and stats["captured"] and stats["launches"] == {want_kernel: 2},
+                  f"the bucket graph {stats}: expected {want_kernel} twice")
+            check(bool(torch.equal(replay, walked)) and bool(torch.equal(first, walked)), "replay differs from walk")
+            out["graphs"] = {"frozen_under": other, "launches": stats["launches"]}
+            del fresh
+        with phase("S8: a live bucket retune under load: the added bucket walks, prime captures it, replay == walk"):
+            out["retune"] = retune_under_load(dev, card, frozen, imgs, images)
+        with phase("S8: the plan.sample fault: a delay in the winner's timed samples flips the winner"):
+            spec = f"plan.sample:ctx.gate=fused_fv:ctx.candidate={winner}:delay={S8_FLIP_DELAY_S}"
+            t0 = time.perf_counter()
+            with faults.inject(spec):
+                flipped = planner.build_plan(scorer, example=example, device=dev, candidates={"matmul": ()})
+            now = flipped.choice_for("fused_fv")
+            print(f"  under {spec}: winner {now} (was {winner}), in {time.perf_counter() - t0:.2f} s; "
+                  f"{[c.full_seconds * 1e3 for c in flipped.stages[0].candidates]} ms ({card})", flush=True)
+            check(now != winner and all(s_.winner == now for s_ in flipped.stages if s_.gate == "fused_fv"),
+                  f"the delay did not flip the winner: {[s_.to_dict() for s_ in flipped.stages]}")
+            out["flip"] = {"winner": now, "seconds": time.perf_counter() - t0}
+        with phase("S8: `cli plan` writes the JSON; `cli export --plan` ships it; a fresh `cli serve` installs it"):
+            model, plan_json, reg_dir = tmp / "scorer.pt", tmp / "plan.json", tmp / "registry"
+            scorer.save(str(model))
+            shape = f"{IMAGE_HW},{IMAGE_HW},3"
+            check(cli.main(["plan", "--model", str(model), "--example-shape", shape, "--dtype", "uint8", "--max-batch",
+                            str(SERVE_HTTP_MAX_BATCH), "--out", str(plan_json), "--device", DEVICE]) == 0,
+                  "`cli plan` failed")
+            written = planner.PhysicalPlan.from_json(plan_json.read_text())
+            check(cli.main(["export", "--model", str(model), "--example-shape", shape, "--dtype", "uint8", "--buckets",
+                            "8,16", "--model-dir", str(reg_dir), "--plan", "--device", DEVICE]) == 0,
+                  "`cli export --plan` failed")
+            reg = ModelRegistry(str(reg_dir))
+            shipped = planner.PhysicalPlan.from_dict(reg.load_artifacts(reg.versions()[-1])["manifest"]["plan"])
+            print(f"  `cli plan`: {written.fingerprint()} ({written.choice_for('fused_fv')}); `cli export --plan`: "
+                  f"{shipped.fingerprint()} ({shipped.choice_for('fused_fv')}) in the manifest", flush=True)
+            planner.clear_plan()
+            cmd = [sys.executable, "-m", "keystone_tpu_torch.cli", "serve", "--device", DEVICE, "--port", "0",
+                   "--model-dir", str(reg_dir), "--max-batch", "16", "--max-wait-ms", "2", "--example-shape", shape]
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(REPO),
+                                    env={**os.environ, "PYTHONPATH": str(REPO)})
+            line, lines = "", []
+            while "serving" not in line and proc.poll() is None and time.perf_counter() - t0 < 600:
+                line = proc.stdout.readline()
+                lines.append(line)
+            check("serving" in line, f"`cli serve` did not start: {''.join(lines)[-2000:]}")
+            base = "http" + line.split(" on http", 1)[1].split(" ", 1)[0]
+            status, body, _ = http_call(base + "/predict", {"instances": imgs[:S8_HTTP_N].tolist()})
+            check(status == 200, f"/predict answered {status}: {str(body)[:300]}")
+            want = frozen(images[:S8_HTTP_N]).array.cpu()
+            http_err = compare(f"{S8_HTTP_N} images over HTTP against the planned freeze", torch.tensor(body["predictions"]),
+                               want, TOL_SERVE_SCORES, RTOL_SERVE_SCORES)
+            status, st, _ = http_call(base + "/statusz")
+            proc.send_signal(signal.SIGINT)
+            tail, _ = proc.communicate(timeout=120)
+            check(proc.returncode == 0, f"`cli serve` exited {proc.returncode} on SIGINT: {tail[-2000:]}")
+            m = re.search(r"fisher_kernels launches (\{.*\})", tail)
+            r = re.search(r"graph replay launches (\{.*\})", tail)
+            check(m is not None and r is not None, f"no launch counts printed: {tail[-2000:]}")
+            launched = json.loads(m.group(1).replace("'", '"'))
+            replayed = json.loads(r.group(1).replace("'", '"'))
+            for k in child_launches:
+                child_launches[k] += launched.get(k, 0) + replayed.get(k, 0)
+            src = (st.get("plan") or {}).get("source")
+            print(f"  the child's /statusz plan: {st.get('plan')}; launches {launched}, replays {replayed}; "
+                  f"artifact fallbacks {st['counters']['artifact_fallbacks']} ({card})", flush=True)
+            check(st["plan"] is not None and st["plan"]["fingerprint"] == shipped.fingerprint() and src == "artifacts",
+                  f"the fresh process's plan {st.get('plan')}")
+            check(st["counters"]["artifact_fallbacks"] == 0, "the child fell back from its bundle")
+            out["cli"] = {"plan_json": written.fingerprint(), "manifest": shipped.fingerprint(), "statusz_plan": st["plan"],
+                          "http_max_abs_err": http_err, "launches": launched, "replayed": replayed}
+        with phase("S8: serve_bench's plan A/B at S1's width (1 s legs, 2 rounds) and the drift retune"):
+            ab = serve_bench.run_plan_ab(fitted=scorer, payload=imgs[:256], item_shape=imgs.shape[1:], device=dev,
+                                         **S8_AB)
+            drift = ab["drift_retune"]
+            print(f"  plan {ab['plan']['stages']} in {ab['plan']['seconds']:.2f} s; forward images/s static "
+                  f"{ab['forward']['static_ips']:.1f}, planned {ab['forward']['planned_ips']:.1f}; open loop achieved "
+                  f"{[r['achieved_qps'] for r in ab['serve']['static']]} static, "
+                  f"{[r['achieved_qps'] for r in ab['serve']['planned']]} planned; drift: {drift['outcomes']}, "
+                  f"retunes {drift['retunes']} (commits {drift['commits']}, reverts {drift['reverts']}), last "
+                  f"{drift['last_action']}, p99 {drift['p99_ms_first_half']} / {drift['p99_ms_second_half']} ms, "
+                  f"retuned-bucket walks {drift['retuned_bucket_walks']} ({card})", flush=True)
+            check(drift["lost_futures"] == 0, f"the drift retune lost futures: {drift['outcomes']}")
+            out["plan_ab"] = ab
+        torch.cuda.synchronize()
+        out["launches"] = dict(fk.LAUNCHES)
+        out["child_launches"] = child_launches
+        check(not any(gk.LAUNCHES.values()), f"S8 launched a gram kernel: {gk.LAUNCHES}")
+    finally:
+        planner.clear_plan()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_s8
+    print(f"  S8 {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
+def retune_under_load(dev, card, frozen, imgs, images) -> dict:
+    """``retune_buckets`` on a service over the planned freeze, its bucket
+    graphs installed, while requests flow: the added bucket walks the
+    executor (``serve.retuned_bucket_walks``, no artifact fallback) until
+    ``prime`` captures its graph, which then replays the walk bit for
+    bit, and later flushes of that bucket walk no more."""
+    import threading
+
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.serve import serve
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    reg = metrics.REGISTRY
+    cfg = S8_RETUNE
+    k, new = cfg["rows"], cfg["added"]
+    bundle = frozen.export_artifacts(example=imgs[0], buckets=cfg["buckets"])
+    walks0, fb0 = reg.counter_total("serve.retuned_bucket_walks"), reg.counter_total("serve.artifact_fallbacks")
+    svc = serve(frozen, max_batch=max(cfg["buckets"]), buckets=cfg["buckets"], max_wait_ms=2.0, example=imgs[0],
+                artifacts=bundle, name="s8_retune", devices=[dev], recorder=False, supervise=False)
+    try:
+        svc.prime()
+        app = svc._pool.replicas[0].applier
+        futs, stop = [], threading.Event()
+
+        def load():
+            i = 0
+            while not stop.is_set():
+                futs.extend(svc.submit_many(list(imgs[i:i + k])))
+                i = (i + k) % (len(imgs) - k)
+                time.sleep(0.005)
+
+        th = threading.Thread(target=load, name="s8-retune-load")
+        th.start()
+        time.sleep(cfg["load_s"] / 2)
+        ladder = svc.retune_buckets(cfg["retuned"])
+        time.sleep(cfg["load_s"] / 2)
+        stop.set()
+        th.join()
+        answers = [f.result(timeout=120) for f in futs]
+        walks = reg.counter_total("serve.retuned_bucket_walks") - walks0
+        had_graph = app.has_bucket_program((new,) + imgs.shape[1:], imgs.dtype)
+        svc.prime()
+        xb = images[:new]
+        with torch.cuda.stream(torch.cuda.Stream()):
+            walked = app._walk(Dataset(xb)).array
+            replay = app(xb).array
+            torch.cuda.synchronize()
+        stats = app.graph_stats()[new]
+        w1 = reg.counter_total("serve.retuned_bucket_walks")
+        after = [f.result(timeout=120) for f in svc.submit_many(list(imgs[:k]))]
+        walks_after = reg.counter_total("serve.retuned_bucket_walks") - w1
+        fallbacks = reg.counter_total("serve.artifact_fallbacks") - fb0
+    finally:
+        svc.close()
+    same = bool(torch.equal(replay, walked))
+    print(f"  ladder {cfg['buckets']} -> {ladder} under {len(futs)} requests of {k} rows ({len(answers)} answered): "
+          f"{walks} retuned-bucket walks, {fallbacks} artifact fallbacks; graph for {new} before prime {had_graph}, "
+          f"after {stats}; replay == walk bit for bit {same}; walks after prime {walks_after} ({card})", flush=True)
+    check(len(answers) == len(futs) and all(np.all(np.isfinite(a)) for a in answers + after),
+          "a request under the retune went unanswered or not finite")
+    check(ladder == tuple(cfg["retuned"]) and walks >= 1 and fallbacks == 0 and not had_graph,
+          f"the retune: ladder {ladder}, {walks} walks, {fallbacks} fallbacks, graph before prime {had_graph}")
+    check(stats["captured"] and stats["replays"] >= 1 and same, f"the retuned bucket's graph {stats}, same {same}")
+    check(walks_after == 0, f"{walks_after} walks of the retuned bucket after prime")
+    return {"ladder": list(ladder), "requests": len(futs), "walks": walks, "fallbacks": fallbacks,
+            "graph": stats, "replay_equals_walk": same, "walks_after_prime": walks_after}
+
+
 def profile_once(fn) -> None:
     """Device time by operator over one call of ``fn`` (after a warm-up
     call), and two idle shares.  One window: the device's busy time
@@ -6192,6 +6533,7 @@ def main(argv=None) -> int:
     del params_swap
     served["s6"] = process_fleet_path(dev, card, P, fk, scorer, images, b1_args)
     served["s7"] = tenants_path(dev, card, P, fk, cfg, scorer_params, images)
+    served["s8"] = planner_path(dev, card, P, fk, gk, cfg, scorer_params, images)
     results["serve"] = served
 
     with phase("the profiled materialization passes of this process"):
@@ -6317,8 +6659,16 @@ def main(argv=None) -> int:
                                    ("serve S7 multi-tenant (direct flushes, serve_multi, serve(), the tenant A/B, "
                                     "the offline scorers)", served["s7"]["launches"]["fused_forward"]),
                                    ("serve S7 `cli serve` child with three named models",
-                                    served["s7"]["cli"]["launches"]["fused_forward"]))),
-            (b2, "fisher_encode", (("serve S1b bench forward", served["launches_fisher_encode"]),)),
+                                    served["s7"]["cli"]["launches"]["fused_forward"]),
+                                   ("S8 planner (the fused_fv gate's samples, the planned and forced freezes, the "
+                                    "bucket retune's walks, the plan A/B)", served["s8"]["launches"]["fused_forward"]),
+                                   ("S8 `cli serve --model-dir` child, by the wrapper and by replays",
+                                    served["s8"]["child_launches"]["fused_forward"]))),
+            (b2, "fisher_encode", (("serve S1b bench forward", served["launches_fisher_encode"]),
+                                   ("S8 planner (the chain candidate's samples, the forced chain freeze, the bucket "
+                                    "retune's walks when the chain wins, the plan A/B)", served["s8"]["launches"]["fisher_encode"]),
+                                   ("S8 `cli serve --model-dir` child, by the wrapper and by replays",
+                                    served["s8"]["child_launches"]["fisher_encode"]))),
         ):
             for label, c in parts:
                 ln["launches_by_path"][label] = c

@@ -1,13 +1,28 @@
-"""The signature-collision gate (counterpart of
-``keystone_tpu/analysis/signatures.py`` § collision_signatures,
-_state_conflict, _SKIP_ATTRS, _VALUE_COMPARE_MAX).
+"""Pass (d): the CSE and cache-signature audit, and the sharing plan's
+collision gate (counterpart of ``keystone_tpu/analysis/signatures.py``).
 
-A signature is load-bearing identity: the cross-pipeline sharing plan
-(``workflow/cross.py``) lets one tenant's pooled stage result answer for
-another tenant's stage with an equal signature.  A transformer whose
-``params()`` under-specifies it (two observably different instances,
-equal signatures) would then silently answer for the other, so the
-planner refuses every signature this gate finds colliding.
+``signature()`` is load-bearing identity: the CSE rule merges
+equal-prefix nodes, the executor's breaker registry keys on it, and the
+cross-pipeline sharing plan (``workflow/cross.py``) lets one tenant's
+pooled stage result answer for another tenant's stage with an equal
+signature.  A transformer whose ``params()`` under-specifies it (two
+observably different instances, equal signatures) therefore does not
+just miss an optimization: CSE silently replaces one node with the
+other.
+
+Findings of :func:`run`:
+
+- ``signature-collision`` (error): two distinct transformer or estimator
+  instances in the graph report equal signatures but differ in
+  observable state;
+- ``unstable-signature`` (error): ``signature()`` raises, is unhashable,
+  or returns different values on consecutive calls;
+- ``dataset-name-collision`` (error): two distinct bound datasets share a
+  ``name`` (the CSE and saved-state identity) but disagree on payload
+  length or kind.
+
+:func:`collision_signatures` is the sharing plan's admission gate: the
+planner refuses every signature it finds colliding.
 
 A port transformer is an ``nn.Module``: its fitted tensors are its
 registered buffers and parameters and its stages its submodules, none of
@@ -20,9 +35,12 @@ attributes as the reference does.  Tensors are compared with
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 from torch import nn
 
+from keystone_tpu_torch.analysis.findings import PASS_SIGNATURES, Finding
 from keystone_tpu_torch.workflow import graph as G
 
 #: instance attributes that are caches or plumbing, never identity
@@ -114,6 +132,43 @@ def _state_conflict(a, b) -> str:
     return ""
 
 
+def _stable_signature(obj, n, label, findings: List[Finding]):
+    """signature() if stable+hashable, else None (with a finding)."""
+    try:
+        s1 = obj.signature()
+        s2 = obj.signature()
+        if s1 is not None:
+            hash(s1)
+    except Exception as e:
+        findings.append(
+            Finding(
+                "error",
+                PASS_SIGNATURES,
+                "unstable-signature",
+                f"{label}.signature() raised or is unhashable "
+                f"({type(e).__name__}: {e}); every CSE/cache/breaker "
+                "consumer assumes stable hashable identity",
+                node=n.id,
+                label=label,
+            )
+        )
+        return None
+    if s1 != s2:
+        findings.append(
+            Finding(
+                "error",
+                PASS_SIGNATURES,
+                "unstable-signature",
+                f"{label}.signature() returns different values on "
+                "consecutive calls; identity must be deterministic",
+                node=n.id,
+                label=label,
+            )
+        )
+        return None
+    return s1
+
+
 def collision_signatures(graph: G.Graph, signature) -> set:
     """The transformer and estimator signatures that COLLIDE in ``graph``:
     two or more distinct instances report the signature while their
@@ -155,3 +210,74 @@ def collision_signatures(graph: G.Graph, signature) -> set:
                 colliding.add(sig)
                 break
     return colliding
+
+
+def run(graph: G.Graph) -> List[Finding]:
+    findings: List[Finding] = []
+    by_sig: dict = {}
+    datasets_by_name: dict = {}
+    for n in graph.topological_nodes():
+        op = graph.operators[n]
+        if isinstance(op, G.TransformerOperator):
+            obj = op.transformer
+        elif isinstance(op, G.EstimatorOperator):
+            obj = op.estimator
+        elif isinstance(op, G.DatasetOperator):
+            ds = op.dataset
+            name = getattr(ds, "name", None)
+            if name is not None:
+                prev = datasets_by_name.get(name)
+                if prev is not None and prev[1] is not ds:
+                    pn, pds = prev
+                    if (
+                        getattr(pds, "n", None) != getattr(ds, "n", None)
+                        or getattr(pds, "is_host", None)
+                        != getattr(ds, "is_host", None)
+                    ):
+                        findings.append(
+                            Finding(
+                                "error",
+                                PASS_SIGNATURES,
+                                "dataset-name-collision",
+                                f"datasets at n{pn.id} and n{n.id} share "
+                                f"name {name!r} but differ in payload "
+                                "(names are cross-process CSE/saved-state "
+                                "identity)",
+                                node=n.id,
+                                label=op.label(),
+                            )
+                        )
+                else:
+                    datasets_by_name[name] = (n, ds)
+            continue
+        else:
+            continue
+        sig = _stable_signature(obj, n, op.label(), findings)
+        if sig is None:
+            continue
+        by_sig.setdefault(sig, []).append((n, obj, op.label()))
+
+    for sig, group in by_sig.items():
+        if len(group) < 2:
+            continue
+        n0, obj0, label0 = group[0]
+        for n1, obj1, label1 in group[1:]:
+            if obj1 is obj0:
+                continue  # literally the same instance: the intended case
+            attr = _state_conflict(obj0, obj1)
+            if attr:
+                findings.append(
+                    Finding(
+                        "error",
+                        PASS_SIGNATURES,
+                        "signature-collision",
+                        f"{label0} at n{n0.id} and n{n1.id} report equal "
+                        f"signatures but differ in attribute {attr!r}: "
+                        "CSE would merge them and shared program/breaker "
+                        "caches would leak between them — include the "
+                        "attribute in params()",
+                        node=n1.id,
+                        label=label1,
+                    )
+                )
+    return findings

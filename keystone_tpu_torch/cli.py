@@ -7,6 +7,9 @@
     python -m keystone_tpu_torch.cli serve --model a=a.pt --model b=b.pt [--model-dir c=REG] [serve flags...]
     python -m keystone_tpu_torch.cli worker --connect HOST:PORT [--name NAME]
     python -m keystone_tpu_torch.cli export --model model.pt --example-shape D0[,D1,...] (--out DIR | --model-dir REG)
+                                            [--plan [--plan-seed S]]
+    python -m keystone_tpu_torch.cli check <PipelineName> | --all | --model model.pt [--example-shape ...] [--dot OUT]
+    python -m keystone_tpu_torch.cli plan --model-dir REG | --bundle DIR | --file plan.json | --model model.pt
     python -m keystone_tpu_torch.cli --list
 
 A pipeline name runs that pipeline's ``main`` (``pipelines/*.py``) with
@@ -42,11 +45,22 @@ under a heartbeat lease, dialing back after a partition.
 bundle (the padding buckets each replica captures a CUDA graph for)
 into a bundle directory (``--out``) or a registry version
 (``--model-dir``: a new version with ``--model``, else attached to the
-registry's current one).
+registry's current one).  With ``--plan`` the freeze samples the physical
+candidates on seeded rows (``--plan-seed``) first, and the
+``PhysicalPlan`` ships in the bundle's manifest: every install of it
+serves the planned configuration.
 
-The reference's other subcommands and flags exit non-zero naming the
-ROADMAP item that ports them: ``check``, ``plan`` and export's
-``--plan`` (A10).
+``check`` runs the pre-flight analyzer (``keystone_tpu_torch/analysis``:
+shapes, robustness, signatures, the solvers' precision, the installed
+plan) over a bundled pipeline, assembled on tiny synthetic data on
+``--device``, or over a saved model in apply mode; it prints the findings
+with their graph locations, writes the DOT overlay with ``--dot``, and
+exits 1 on an error finding; ``--all`` checks every bundled pipeline in
+turn.  On the card it also prints the kernel launches and the device
+memory allocated around each analysis (none and unchanged: the analyzer
+runs on fake tensors).  ``plan`` shows the physical plan a registry
+version, a bundle or a plan file ships, or builds one by sampling a saved
+model (``--model --example-shape``), and writes it with ``--out``.
 """
 
 from __future__ import annotations
@@ -69,22 +83,6 @@ _PIPELINE_MODULES = {
     "KernelTimitPipeline": "keystone_tpu_torch.pipelines.kernel_timit",
     "KernelCifarPipeline": "keystone_tpu_torch.pipelines.kernel_cifar",
 }
-
-#: the reference's commands and flags that are not ported yet, with the
-#: ROADMAP item that ports each
-_NOT_PORTED = {
-    "check": "A10",
-    "plan": "A10",
-}
-
-#: export's flags that are not ported yet
-_EXPORT_NOT_PORTED = {"--plan": "A10", "--plan-seed": "A10"}
-
-
-def _refuse(what: str, item: str) -> int:
-    print(f"keystone_tpu_torch.cli: {what} is not ported yet (ROADMAP {item})", file=sys.stderr)
-    return 2
-
 
 def _serve_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -165,10 +163,6 @@ def _serve_main(argv) -> int:
     """``serve``: load a saved fitted pipeline or a registry version onto
     ``--device`` and expose it over HTTP until SIGINT (which drains, then
     exits 0)."""
-    for a in argv:
-        flag = a.split("=", 1)[0]
-        if flag in _NOT_PORTED:
-            return _refuse(f"serve {flag}", _NOT_PORTED[flag])
     ap = _serve_parser()
     args = ap.parse_args(argv)
     models, model_dirs = list(args.model or []), list(args.model_dir or [])
@@ -283,7 +277,8 @@ def _serve_main(argv) -> int:
         heartbeat_s=args.heartbeat_s,
         restart_limit=args.restart_limit,
         restart_window_s=args.restart_window_s,
-        hedge_ms=args.hedge_ms,
+        # left unset, a shipped plan's hedge applies
+        **({} if args.hedge_ms is None else {"hedge_ms": args.hedge_ms}),
         bisect=not args.no_bisect,
         artifacts=artifacts,
         autoscale=autoscale,
@@ -343,10 +338,6 @@ def _export_main(argv) -> int:
     """``export``: freeze a saved model for ``--device`` and write its
     artifact bundle into a bundle directory (``--out``) or a registry
     version (``--model-dir``)."""
-    for a in argv:
-        flag = a.split("=", 1)[0]
-        if flag in _EXPORT_NOT_PORTED:
-            return _refuse(f"export {flag} (the cost-based physical planner)", _EXPORT_NOT_PORTED[flag])
     ap = argparse.ArgumentParser(
         prog="python -m keystone_tpu_torch.cli export",
         description="freeze a saved model and publish its artifact bundle, so that serve's replicas capture one CUDA "
@@ -369,6 +360,11 @@ def _export_main(argv) -> int:
                     help="write the bundle here (MANIFEST.json and one blob per bucket, BLAKE2b sidecars)")
     ap.add_argument("--device", default="cuda",
                     help="the device the bundle is for: cuda (default) or cpu (a bundle no CUDA graph installs from)")
+    ap.add_argument("--plan", action="store_true",
+                    help="cost-based physical planning at the freeze (keystone_tpu_torch.planner): sample the "
+                         "candidate implementations on seeded rows and ship the PhysicalPlan in the manifest "
+                         "(inspect it with the plan subcommand)")
+    ap.add_argument("--plan-seed", type=int, default=0, help="the sampling seed of --plan (part of the plan)")
     args = ap.parse_args(argv)
     if args.model is None and args.model_dir is None:
         ap.error("pass --model and/or --model-dir")
@@ -393,7 +389,17 @@ def _export_main(argv) -> int:
         fitted = FittedPipeline.load(args.model, map_location=device)
     else:
         fitted, version = registry.load(map_location=device)
-    bundle = fitted.freeze(device=device).export_artifacts(example=example, buckets=buckets)
+    if args.plan:
+        from keystone_tpu_torch.planner import build_plan
+
+        rng = np.random.default_rng(args.plan_seed)
+        sample = _sample_rows(rng, shape, np.dtype(args.dtype))
+        plan = build_plan(fitted, example=sample, max_batch=max(buckets), seed=args.plan_seed, device=device)
+        frozen = fitted.freeze(device=device, plan=plan)
+        print(f"planned: {plan.fingerprint()} (the plan subcommand shows it)")
+    else:
+        frozen = fitted.freeze(device=device)
+    bundle = frozen.export_artifacts(example=example, buckets=buckets)
     n = len(bundle["blobs"])
     if registry is not None:
         if version is None:
@@ -409,6 +415,207 @@ def _export_main(argv) -> int:
     print(f"buckets={man['buckets']} item_shape={tuple(man['item_shape'])} dtype={man['dtype']} "
           f"torch={man['torch_version']} cuda={man['cuda_version']} device={man['device']} "
           f"signature={man['signature']}")
+    return 0
+
+
+def _sample_rows(rng, shape, dtype, n: int = 32):
+    """Seeded sampling rows for a plan: normal draws, or uniform pixels for
+    an integer dtype (images)."""
+    import numpy as np
+
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        return rng.integers(max(info.min, 0), min(info.max, 255) + 1, size=(n,) + shape).astype(dtype)
+    return rng.normal(size=(n,) + shape).astype(dtype)
+
+
+def _check_main(argv) -> int:
+    """``check``: the pre-flight analyzer over a bundled pipeline
+    (assembled on tiny synthetic data) or a saved fitted model (apply
+    mode); prints the findings with their graph locations and exits 1 on
+    an error finding: the cheap gate before a long fit or a fleet."""
+    ap = argparse.ArgumentParser(
+        prog="python -m keystone_tpu_torch.cli check",
+        description="static pre-flight analysis: shape and dtype propagation, the solvers' precision lint, the "
+                    "robustness-configuration lint, the signature audit, the installed plan's audit",
+    )
+    ap.add_argument("pipeline", nargs="?", help="bundled pipeline name (see --list); exclusive with --model")
+    ap.add_argument("--all", action="store_true", help="check every bundled pipeline in turn")
+    ap.add_argument("--model", help="a FittedPipeline saved with save(); analyzed in apply mode (the freeze and "
+                                    "serve contract)")
+    ap.add_argument("--example-shape", default=None, metavar="D0[,D1,...]",
+                    help="per-datum input shape seeding the shape walk (with --model; bundled pipelines take "
+                         "their synthetic training data)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="the intended fit or apply deadline (seconds): enables the deadline-feasibility estimate")
+    ap.add_argument("--dot", metavar="OUT", default=None,
+                    help="write a Graphviz DOT of the graph with the findings overlaid (red: error, yellow: warning)")
+    ap.add_argument("--no-solver-lint", action="store_true", help="skip the precision pass (the solvers' runs)")
+    ap.add_argument("--json", action="store_true", help="print the report as JSON")
+    ap.add_argument("--device", default="cuda",
+                    help="where a bundled pipeline's synthetic data and a model live: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if sum((bool(args.pipeline), bool(args.model), args.all)) != 1:
+        ap.error("pass exactly one of <PipelineName>, --all or --model")
+
+    from keystone_tpu_torch.analysis import ALL_PASSES, DEFAULT_PASSES, analyze
+    from keystone_tpu_torch.analysis.bundled import BUNDLED, build_bundled
+    from keystone_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    passes = DEFAULT_PASSES + ("plan",) if args.no_solver_lint else ALL_PASSES
+    targets = list(BUNDLED) if args.all else [args.pipeline or args.model]
+    rc = 0
+    for target in targets:
+        mode = "fit"
+        if args.model:
+            from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+
+            pipe = FittedPipeline.load(args.model, map_location=device)
+            example = tuple(int(d) for d in args.example_shape.split(",")) if args.example_shape else None
+            mode = "apply"
+        else:
+            try:
+                pipe, example = build_bundled(target, device=device)
+            except ValueError as e:
+                print(str(e), file=sys.stderr)
+                return 2
+        before = _device_work(device)
+        report = analyze(pipe, example=example, deadline=args.deadline, passes=passes, mode=mode, device=device)
+        after = _device_work(device)
+        if args.all:
+            print(f"== {target}")
+        if args.json:
+            import json
+
+            print(json.dumps(report.to_dict(), indent=2))
+        else:
+            print(report.render())
+        if device.type == "cuda":
+            launched = {k: after[0][k] - before[0][k] for k in after[0] if after[0][k] != before[0].get(k, 0)}
+            print(f"device work during the analysis: kernel launches {launched}, device memory allocated "
+                  f"{before[1]} -> {after[1]} bytes")
+        if args.dot:
+            from keystone_tpu_torch.workflow.viz import to_dot
+
+            dot = args.dot if not args.all else f"{args.dot}.{target}"
+            with open(dot, "w") as f:
+                f.write(to_dot(pipe.graph, findings=report.findings))
+            print(f"wrote findings overlay to {dot}")
+        rc = max(rc, 0 if report.ok else 1)
+    return rc
+
+
+def _device_work(device):
+    """(the kernel wrappers' launch counts, the device's allocated bytes):
+    what an analysis must leave unchanged.  Garbage is collected first, so
+    that a pipeline's build leftovers freed meanwhile do not count."""
+    import gc
+
+    import torch
+
+    from keystone_tpu_torch.ops import fisher_kernels, gram_kernels
+
+    launches = {**{f"fisher.{k}": v for k, v in fisher_kernels.LAUNCHES.items()},
+                **{f"gram.{k}": v for k, v in gram_kernels.LAUNCHES.items()}}
+    if device.type == "cuda":
+        gc.collect()
+        torch.cuda.synchronize(device)
+        return launches, torch.cuda.memory_allocated(device)
+    return launches, 0
+
+
+def _plan_main(argv) -> int:
+    """``plan``: show (or build) a cost-based ``PhysicalPlan``: each
+    stage's candidates, sampled costs, the winner and why, and the serving
+    knobs.  Reads the plan a registry version or an exported bundle ships
+    in its manifest, a plan file, or builds one by sampling a saved
+    model."""
+    ap = argparse.ArgumentParser(
+        prog="python -m keystone_tpu_torch.cli plan",
+        description="show or build the cost-based physical plan that ships with a model: candidate "
+                    "implementations, sampled cost curves, winners and serving knobs",
+    )
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--model-dir", metavar="DIR",
+                     help="a model registry: the plan its current (or --version) version's bundle ships")
+    src.add_argument("--bundle", metavar="DIR", help="an exported artifact bundle directory (MANIFEST.json)")
+    src.add_argument("--file", metavar="PLAN.json", help="a plan file")
+    src.add_argument("--model", metavar="MODEL.pt",
+                     help="build a plan now by sampling this saved fitted pipeline (needs --example-shape)")
+    ap.add_argument("--version", default=None, help="registry version (with --model-dir; default: the latest)")
+    ap.add_argument("--example-shape", default=None, metavar="D0[,D1,...]",
+                    help="per-datum input shape of --model's sampling rows")
+    ap.add_argument("--dtype", default="float32", help="--model's sampling dtype")
+    ap.add_argument("--seed", type=int, default=0, help="--model's sampling seed")
+    ap.add_argument("--max-batch", type=int, default=32, help="--model's serving max_batch (the bucket knob)")
+    ap.add_argument("--device", default="cuda", help="where --model is sampled: cuda (default) or cpu")
+    ap.add_argument("--out", default=None, metavar="PLAN.json", help="write the (read or built) plan to this file")
+    ap.add_argument("--explain", action="store_true",
+                    help="every candidate's samples, fitted curve, cost at the serving batch, and the winner's why")
+    ap.add_argument("--json", action="store_true", help="print the plan as JSON")
+    args = ap.parse_args(argv)
+
+    import json
+
+    from keystone_tpu_torch.planner import PhysicalPlan, build_plan
+
+    if args.file:
+        with open(args.file) as f:
+            plan = PhysicalPlan.from_dict(json.load(f))
+    elif args.bundle:
+        from keystone_tpu_torch.serve.registry import MANIFEST_FILE
+
+        with open(os.path.join(args.bundle, MANIFEST_FILE)) as f:
+            manifest = json.load(f)
+        if manifest.get("plan") is None:
+            print("bundle ships no plan (exported without --plan)", file=sys.stderr)
+            return 1
+        plan = PhysicalPlan.from_dict(manifest["plan"])
+    elif args.model_dir:
+        from keystone_tpu_torch.serve import ModelRegistry
+
+        reg = ModelRegistry(args.model_dir)
+        version = args.version or (reg.versions() or [None])[-1]
+        if version is None:
+            print(f"no versions published in {args.model_dir}", file=sys.stderr)
+            return 1
+        plan_dict = ((reg.load_artifacts(version) or {}).get("manifest") or {}).get("plan")
+        if plan_dict is None:
+            print(f"version {version} ships no plan", file=sys.stderr)
+            return 1
+        plan = PhysicalPlan.from_dict(plan_dict)
+    else:
+        if not args.example_shape:
+            ap.error("--model needs --example-shape for its sampling rows")
+        import numpy as np
+
+        from keystone_tpu_torch.utils.device import resolve_device
+        from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+
+        device = resolve_device(args.device)
+        shape = tuple(int(d) for d in args.example_shape.split(","))
+        example = _sample_rows(np.random.default_rng(args.seed), shape, np.dtype(args.dtype))
+        fitted = FittedPipeline.load(args.model, map_location=device)
+        plan = build_plan(fitted, example=example, max_batch=args.max_batch, seed=args.seed, device=device)
+
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(plan.to_dict(), f, indent=2, sort_keys=True)
+        print(f"wrote plan {plan.fingerprint()} to {args.out}")
+    if args.json:
+        print(json.dumps(plan.to_dict(), indent=2, sort_keys=True))
+    elif args.explain:
+        print(plan.explain())
+    else:
+        print(f"plan {plan.fingerprint()}  backend={plan.backend} source={plan.source} stages={len(plan.stages)}")
+        for st in plan.stages:
+            print(f"  {st.gate}: {st.winner}  ({st.why})")
+        for k in sorted(plan.knobs):
+            print(f"  knob {k} = {plan.knobs[k]}")
+        print("(--explain for candidates, sampled costs, and fits)")
+    for code, msg in plan.validate(backend=plan.backend):
+        print(f"WARNING [{code}] {msg}", file=sys.stderr)
     return 0
 
 
@@ -443,6 +650,9 @@ def main(argv=None) -> int:
         print("       python -m keystone_tpu_torch.cli serve --model model.pt|--model-dir DIR [flags]")
         print("       python -m keystone_tpu_torch.cli worker --connect HOST:PORT [flags]")
         print("       python -m keystone_tpu_torch.cli export --model model.pt --example-shape D0[,D1,...] [flags]")
+        print("       python -m keystone_tpu_torch.cli check <PipelineName>|--model model.pt [flags]")
+        print("       python -m keystone_tpu_torch.cli plan --model-dir DIR|--bundle DIR|--file plan.json|"
+              "--model model.pt [flags]")
         print("pipelines:")
         for name in _PIPELINE_MODULES:
             print(f"  {name}")
@@ -454,8 +664,10 @@ def main(argv=None) -> int:
         return _export_main(rest)
     if name == "worker":
         return _worker_main(rest)
-    if name in _NOT_PORTED:
-        return _refuse(f"the {name!r} subcommand", _NOT_PORTED[name])
+    if name == "check":
+        return _check_main(rest)
+    if name == "plan":
+        return _plan_main(rest)
     if name not in _PIPELINE_MODULES:
         print(f"unknown pipeline {name!r}; use --list", file=sys.stderr)
         return 2

@@ -37,9 +37,12 @@ Named **sites** wired through the port::
                         ``link=NAME`` names the worker the frame is
                         to/from, ``role=router|worker`` names the side
     serve.net.recv      one inbound stream frame, either side (same ctx)
+    plan.sample         one timed sample of a physical candidate in the
+                        cost model (``planner/cost.py::wall_runner``);
+                        ctx ``gate=``, ``candidate=``, ``n=``
 
-The reference's other sites join with the slices that wire them:
-``multihost.init`` (A8) and ``plan.sample`` (A10).  Until then a plan that names one of them raises
+The reference's other site, ``multihost.init`` (A8), joins with the slice
+that wires it.  Until then a plan that names it raises
 :class:`UnknownFaultSiteError`, as any unregistered site does: a site
 nothing fires would report nothing.
 
@@ -111,6 +114,7 @@ SITES = {
     "serve.net.connect",
     "serve.net.send",
     "serve.net.recv",
+    "plan.sample",
 }
 
 _ACTIONS = ("raise", "corrupt", "truncate", "exit", "delay", "hang", "drop")

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from keystone_tpu_torch.utils import precision
+from keystone_tpu_torch.utils.device import device_cache
 
 
 def gaussian_kernel1d(sigma: float, truncate: float = 3.0) -> np.ndarray:
@@ -44,7 +45,7 @@ def _blur_matrix(extent: int, sigma: float, truncate: float = 3.0) -> np.ndarray
     return b
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _blur_operator(extent: int, sigma: float, device: torch.device) -> torch.Tensor:
     """``_blur_matrix`` on ``device``, copied there once."""
     return torch.from_numpy(_blur_matrix(extent, sigma)).to(device)

@@ -10,12 +10,12 @@ sums as the reference's ``reduce_window``.
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from keystone_tpu_torch.utils.device import device_cache
 from keystone_tpu_torch.workflow.transformer import Transformer
 
 _GRID = 4
@@ -50,7 +50,7 @@ def _lcs_grid(extent: int, step: int, sub: int) -> np.ndarray:
     return np.arange(lo, hi, step, dtype=np.int32)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _gather_index(extent: int, step: int, sub: int, device: torch.device):
     """Subpatch top-left corners of every keypoint along one axis:
     (grid, 4) flattened; offsets (-2, -1, 0, 1)·sub."""

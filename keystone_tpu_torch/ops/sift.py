@@ -9,7 +9,6 @@ mask; the feature order is (y_bin, x_bin, orientation), VLFeat's.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Sequence, Tuple
 
@@ -18,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from keystone_tpu_torch.ops.filters import separable_gaussian_blur
+from keystone_tpu_torch.utils.device import device_cache
 from keystone_tpu_torch.workflow.transformer import Transformer
 
 _NUM_ORIENTATIONS = 8
@@ -114,7 +114,7 @@ def _window_matrix(extent: int, step: int, bin_size: int) -> Tuple[np.ndarray, i
     return a, centers.size
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _window_operator(extent: int, step: int, bin_size: int, device: torch.device):
     """``_window_matrix`` on ``device``, copied there once."""
     a, count = _window_matrix(extent, step, bin_size)

@@ -105,17 +105,21 @@ class _HostOut:
 
 
 def stage_payload(dir_path: str, seq: int, source, artifacts) -> str:
-    """Write one generation's deploy payload (the fitted pipeline and its
-    optional artifact bundle, one ``torch.save`` file) for its workers to
+    """Write one generation's deploy payload (the fitted pipeline, its
+    optional artifact bundle and the router's installed physical plan, one
+    ``torch.save`` file) for its workers to
     load onto their own devices (``serve/worker.py::load_payload``):
     written once a generation, read by every worker of it (the first
     build, scale-ups, heals).  Renamed into place, so a half-written
     payload is never loaded."""
     import torch
 
+    from keystone_tpu_torch.planner.registry import current_plan
+
+    plan = current_plan()
     path = os.path.join(dir_path, f"payload-{int(seq)}.pt")
     tmp = f"{path}.tmp.{os.getpid()}"
-    torch.save({"pipeline": source, "artifacts": artifacts}, tmp)
+    torch.save({"pipeline": source, "artifacts": artifacts, "plan": None if plan is None else plan.to_dict()}, tmp)
     os.replace(tmp, path)
     return path
 

@@ -77,10 +77,17 @@ Observability: ``serve.queue_depth`` gauge, ``serve.batch_rows`` /
 ``serve.swap`` (a hot-swap's stage).
 
 The tenant and dedup override points are inert here; the multi-tenant
-service (``serve/tenants.py``) overrides them.  The physical planner's
-knobs (A10) resolve to the reference's static
-defaults: a 5 ms wait, power-of-two buckets, hedging off, a dispatch
-window of 2.
+service (``serve/tenants.py``) overrides them.
+
+**Planned knobs** — the serving knobs resolve through the physical
+planner's precedence (``planner/registry.py``): an explicit argument >
+the installed :class:`~keystone_tpu_torch.planner.PhysicalPlan` > the
+static default (a 5 ms wait, power-of-two buckets, hedging off, a
+dispatch window of 2).  The plan an artifact manifest or the frozen
+applier ships is installed before any knob resolves, and a swap installs
+the incoming version's at its commit.  With no plan every knob takes its
+static default.  :meth:`PipelineService.retune_buckets` swaps the bucket
+ladder live (the ``PlanTuner``'s lever).
 
 Usage::
 
@@ -110,6 +117,8 @@ from keystone_tpu_torch.faults import fault_point
 from keystone_tpu_torch.kernels.build import KernelError
 from keystone_tpu_torch.obs import ledger, metrics
 from keystone_tpu_torch.obs.recorder import FlightRecorder, new_request_id
+from keystone_tpu_torch.planner.plan import PhysicalPlan
+from keystone_tpu_torch.planner.registry import install_plan, plan_status, planned_knob, validate_knob
 from keystone_tpu_torch.serve.fleet import FleetUnavailable, ReplicaPool, ReplicaSupervisor
 from keystone_tpu_torch.serve.procfleet import WorkerCrashed
 from keystone_tpu_torch.utils import guard
@@ -137,6 +146,20 @@ _POISON_TTL_S = 600.0
 #: hedge delay = max(configured floor, this multiple of the EWMA batch
 #: time): near p95 for exponential-ish flush times
 _HEDGE_EWMA_MULT = 3.0
+
+#: "the caller said nothing", where None is itself a setting (``hedge_ms=
+#: None`` keeps hedging off even when a plan carries a hedge)
+_UNSET = object()
+
+
+def _shipped_plan(pipeline, artifacts):
+    """The PhysicalPlan a deploy ships: the artifact manifest's, else the
+    frozen applier's; None without one."""
+    plan_dict = ((artifacts or {}).get("manifest") or {}).get("plan")
+    if plan_dict is not None:
+        return PhysicalPlan.from_dict(plan_dict)
+    plan = getattr(pipeline, "plan", None)
+    return plan if isinstance(plan, PhysicalPlan) else None
 
 
 class Overloaded(RuntimeError):
@@ -367,7 +390,7 @@ class PipelineService:
         supervise_interval_s: float = 0.5,
         restart_limit: int = 3,
         restart_window_s: float = 60.0,
-        hedge_ms: Optional[float] = None,
+        hedge_ms=_UNSET,
         bisect: bool = True,
         artifacts: Optional[dict] = None,
         workers: int = 0,
@@ -392,8 +415,17 @@ class PipelineService:
                              "hosts stays on the shared-memory transport")
         if worker_opts and workers < 1:
             raise ValueError("worker_opts= configures the workers of workers>=1")
+        # the shipped PhysicalPlan is installed before any knob resolves
+        self._plan = _shipped_plan(pipeline, artifacts)
+        if self._plan is not None:
+            install_plan(self._plan, source="serve")
         self.max_batch = int(max_batch)
-        self.buckets = tuple(sorted({int(b) for b in buckets})) if buckets else default_buckets(self.max_batch)
+        planned_buckets = None if buckets else planned_knob("buckets")
+        self.buckets = (tuple(sorted({int(b) for b in buckets})) if buckets
+                        else tuple(planned_buckets) if planned_buckets else default_buckets(self.max_batch))
+        #: buckets a live retune added whose graphs are not captured yet
+        #: (their flushes walk until the next prime)
+        self._unprimed_buckets: set = set()
         if self.buckets[-1] < self.max_batch:
             # a flush larger than every bucket would have nowhere to pad
             self.buckets = self.buckets + (self.max_batch,)
@@ -432,6 +464,11 @@ class PipelineService:
         self._pool = ReplicaPool(pipeline, replicas=replicas, devices=devices, version=version, name=name,
                                  heartbeat_s=heartbeat_s, artifacts=artifacts, backend=backend,
                                  worker_opts=pool_opts, telemetry=self._telemetry)
+        # the planned dispatch window: the pool's starting point (the
+        # autoscaler and the PlanTuner may retune it live from here)
+        planned_window = planned_knob("dispatch_window")
+        if planned_window is not None and int(planned_window) != self._pool.window:
+            self._pool.set_window(int(planned_window))
         #: the flight recorder: True (default) = a fresh bounded recorder,
         #: False/None = tracing off (no ids minted, no hook runs), or a
         #: caller-provided FlightRecorder
@@ -464,6 +501,9 @@ class PipelineService:
         #: span-parenting context captured where the service was built,
         #: restored in the batcher and every replica worker
         self._obs_ctx = ledger.capture_context()
+        # flush wait: explicit argument > plan > the static 5 ms
+        if max_wait_ms is None:
+            max_wait_ms = planned_knob("max_wait_ms")
         self.max_wait_s = max(0.0, 5.0 if max_wait_ms is None else float(max_wait_ms)) / 1000.0
         self.queue_bound = int(queue_bound)
         self.default_deadline_s = None if not deadline_ms else float(deadline_ms) / 1000.0
@@ -502,7 +542,10 @@ class PipelineService:
         self._worker = threading.Thread(target=self._loop, daemon=True, name=f"{name}-batcher")
         self._worker.start()
         #: hedged dispatch: off unless ``hedge_ms`` is given (0 is a
-        #: meaningful floor), and it needs a second replica to hedge onto
+        #: meaningful floor) or, left unset, a plan carries it; an explicit
+        #: None keeps it off; it needs a second replica to hedge onto
+        if hedge_ms is _UNSET:
+            hedge_ms = planned_knob("hedge_ms")
         self._hedge_floor_s = None if hedge_ms is None else max(0.0, float(hedge_ms)) / 1000.0
         self._hedge = _HedgeMonitor(self) if self._hedge_floor_s is not None and self._pool.size > 1 else None
         self.supervisor = (
@@ -544,6 +587,9 @@ class PipelineService:
             raise ValueError("prime() needs the request item shape; construct the service with "
                              "example=<one datum> (or serve a request first)")
         have_bundle = self._pool.has_artifacts if have_artifacts is None else bool(have_artifacts)
+        # buckets a retune added: this prime captures their graphs (outside
+        # any live flush) where the replica's bundle covers the item
+        unprimed, self._unprimed_buckets = self._unprimed_buckets, set()
         t_all = time.monotonic()
         sources: dict = {}
         n_replicas = 0
@@ -551,6 +597,8 @@ class PipelineService:
             n_replicas += 1
             for bucket in self.buckets:
                 zeros = np.zeros((bucket,) + self._item_shape, self._dtype)
+                if bucket in unprimed and hasattr(replica.applier, "add_bucket_program"):
+                    replica.applier.add_bucket_program(zeros.shape, zeros.dtype)
                 t0 = time.monotonic()
                 self._apply_rows(zeros, deadline=None, replica=replica, prime=True)
                 dt = time.monotonic() - t0
@@ -917,6 +965,30 @@ class PipelineService:
         lever)."""
         return self._pool.set_window(n)
 
+    def retune_buckets(self, buckets) -> Tuple[int, ...]:
+        """Retune the padding-bucket ladder live (the PlanTuner's lever).
+
+        An atomic tuple swap: flushes in flight keep their bucket, queued
+        requests pick from the new ladder at flush time, and padding
+        changes, never results, so no future is lost.  A bucket that the
+        deploy's bundle gave no CUDA graph walks the executor, counted as
+        ``serve.retuned_bucket_walks`` (apart from
+        ``serve.artifact_fallbacks``), until the next :meth:`prime`
+        captures it: a capture releases the allocator's cached blocks and
+        never runs inside a live flush.  Thread fleets only: process
+        workers capture their bucket ladder at spawn."""
+        if self.workers > 0:
+            raise ValueError("retune_buckets applies to thread fleets; process workers prime their bucket ladder "
+                             "at spawn")
+        ok, coerced, why = validate_knob("buckets", buckets)
+        if not ok:
+            raise ValueError(f"bad bucket retune: {why}")
+        if coerced[-1] < self.max_batch:
+            coerced = coerced + (self.max_batch,)
+        self._unprimed_buckets |= set(coerced) - set(self.buckets)
+        self.buckets = coerced
+        return self.buckets
+
     def slo_burn(self) -> Optional[dict]:
         """The windowed SLO burn detail (None without an objective): the
         bad fraction counts completed-but-over-objective requests plus
@@ -1033,7 +1105,7 @@ class PipelineService:
             "replicas": replica_stats,
             "supervisor": None if self.supervisor is None else self.supervisor.status(),
             "autoscaler": None if self.autoscaler is None else self.autoscaler.status(),
-            "plan": None,
+            "plan": plan_status(),
             "recorder": None if rec is None else rec.stats(),
         }
         # the front end's health, once any front end has counted a
@@ -1155,6 +1227,12 @@ class PipelineService:
                     raise
                 prime_s = time.monotonic() - t0
                 pause_s = self._pool.commit(staged, version)
+                # the incoming version's plan replaces the old one at the
+                # commit (the plan ships with the model)
+                new_plan = _shipped_plan(pipeline, artifacts)
+                if new_plan is not None:
+                    self._plan = new_plan
+                    install_plan(new_plan, source="swap")
             self._version_history.append(prev_version)
             metrics.inc("serve.swaps")
             metrics.observe("serve.swap_pause_seconds", pause_s)
@@ -1576,6 +1654,10 @@ class PipelineService:
             k = stacked.shape[0]
             padded = pad_rows(stacked, self._bucket_for(k))
         rep = replica if replica is not None else self._pool.replicas[0]
+        if (not prime and padded.shape[0] in self._unprimed_buckets
+                and getattr(rep.applier, "installed_buckets", lambda: 0)()):
+            # a retuned bucket without its graph: this flush walks
+            metrics.inc("serve.retuned_bucket_walks")
         if getattr(rep.applier, "remote_worker", False):
             kw = {"n": k, **apply_kw}
             if slab_ref is not None and rep.applier.accepts_slab_ref:
@@ -1617,7 +1699,7 @@ def serve(
     supervise_interval_s: float = 0.5,
     restart_limit: int = 3,
     restart_window_s: float = 60.0,
-    hedge_ms: Optional[float] = None,
+    hedge_ms=_UNSET,
     bisect: bool = True,
     artifacts: Optional[dict] = None,
     workers: int = 0,
@@ -1652,7 +1734,9 @@ def serve(
     - ``supervise``, ``heartbeat_s``, ``supervise_interval_s``,
       ``restart_limit``, ``restart_window_s`` — the self-healing
       supervisor (on by default; ``heartbeat_s`` is the wedge budget).
-    - ``hedge_ms`` — hedged dispatch (off by default).
+    - ``hedge_ms`` — hedged dispatch (off by default; left unset, an
+      installed plan's ``hedge_ms`` applies, and an explicit None keeps it
+      off).
     - ``bisect`` — batch-failure bisection (on by default).
     - ``artifacts`` — an artifact bundle (``FrozenApplier.export_artifacts``
       or a registry's ``load_artifacts``): every replica installs it and

@@ -118,10 +118,17 @@ def _build_applier(payload: dict, device):
     the ready frame's ``artifact_buckets`` (``ReplicaPool.
     _count_worker_install``); a count here would reach the router a
     second time through the worker's telemetry."""
+    from keystone_tpu_torch import planner
     from keystone_tpu_torch.utils.hashing import pipeline_fingerprint
     from keystone_tpu_torch.workflow.pipeline import FrozenApplier
 
     pipeline = payload["pipeline"]
+    # the router's plan, installed before this worker freezes (a bundle's
+    # own plan, installed with it below, takes its place)
+    plan = (planner.PhysicalPlan.from_dict(payload["plan"]) if payload.get("plan") is not None
+            else getattr(pipeline, "plan", None))
+    if isinstance(plan, planner.PhysicalPlan):
+        planner.install_plan(plan, source="spawn")
     if isinstance(pipeline, FrozenApplier):
         if pipeline.device.type != device.type:
             raise ValueError(f"an applier frozen for {pipeline.device} cannot serve on {device}: stage the "

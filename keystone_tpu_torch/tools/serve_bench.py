@@ -1,7 +1,8 @@
 """Open-loop load generator for the serving path (counterpart of
 ``tools/serve_bench.py``'s ``build_pipeline``, ``build_service``,
 ``run_bench``, ``run_ingress_ab``, ``build_tenant_models``,
-``build_tenant_service``, ``run_tenants_bench`` and ``run_tenants_ab``).
+``build_tenant_service``, ``run_tenants_bench``, ``run_tenants_ab`` and
+``run_plan_ab``).
 
 Drives a :class:`keystone_tpu_torch.serve.PipelineService` with a fixed
 arrival schedule: requests are submitted at the target rate whether or
@@ -22,9 +23,14 @@ workers (each with the model on ``--device``) in place of the threaded
 fleet.  ``--ingress-ab`` runs the front-end A/B instead: one service
 behind one binary ingress port, saturated in turns by per-datum HTTP
 JSON clients and by whole-batch binary clients, with the two paths'
-answers compared bit for bit.  The report is one JSON object on stdout.
+answers compared bit for bit.  ``--plan-ab`` runs the physical planner's
+A/B instead: the pipeline frozen with a sampled ``PhysicalPlan`` against
+the static defaults, on the forward and on the open loop, then a live
+``PlanTuner`` under the workload zoo's ``drift`` scenario.  The report is
+one JSON object on stdout.
 
     python -m keystone_tpu_torch.tools.serve_bench --device cpu --workers 2 --ingress-ab --duration 1
+    python -m keystone_tpu_torch.tools.serve_bench --device cpu --plan-ab --duration 1 --rounds 2
 """
 
 from __future__ import annotations
@@ -686,6 +692,205 @@ def ingress_ab(svc, probe: np.ndarray, duration: float = 2.0, rounds: int = 2, s
     }
 
 
+def _drifted(bank: np.ndarray, event: dict, n: int, cursor: int) -> np.ndarray:
+    """``n`` rows of a payload bank for one zoo event, from ``cursor`` on,
+    shifted by the event's drift (in the bank's own scale: a uint8 image
+    brightens by 40 levels a unit of shift, clipped)."""
+    rows = bank[(cursor + np.arange(n)) % len(bank)]
+    shift = float(event.get("shift") or 0.0)
+    if not shift:
+        return rows
+    if np.issubdtype(rows.dtype, np.integer):
+        return np.clip(rows.astype(np.float32) + 40.0 * shift, 0, 255).astype(rows.dtype)
+    return (rows + np.asarray(shift, rows.dtype)).astype(rows.dtype)
+
+
+def run_plan_ab(fitted=None, payload=None, item_shape=None, dim: int = 64, classes: int = 16, max_batch: int = 32,
+                qps: float = 300.0, duration: float = 3.0, rounds: int = 2, deadline_ms: float = 500.0,
+                queue_bound: int = 256, seed: int = 0, drift_duration: float = 3.0, drift_qps: float = 250.0,
+                device="cuda") -> dict:
+    """The planner's A/B (the reference's ``run_plan_ab``): one fitted
+    pipeline served with the cost-based ``PhysicalPlan`` installed (the
+    sampled winners and the serving knobs derived from the forward's
+    curve) against the static defaults, on the forward and on the open
+    loop, then a live ``PlanTuner`` retune under the zoo's ``drift``
+    scenario.  The forward arms alternate over ``rounds`` interleaved
+    rounds (the best round each), the serve arms over ``rounds`` rounds of
+    ``duration`` seconds in alternating order.  The drift check: windowed
+    p99 improved, or the retune reverted through its bake, with
+    ``lost_futures == 0`` either way.
+
+    ``fitted``: the pipeline (default :func:`build_pipeline` at ``dim``);
+    ``payload``: the rows offered, item-shaped (default seeded normal
+    rows); the plan samples its batches from them."""
+    from keystone_tpu_torch import planner
+    from keystone_tpu_torch.serve import serve
+    from keystone_tpu_torch.tools import workloads as zoo
+    from keystone_tpu_torch.utils import guard
+    from keystone_tpu_torch.utils.device import resolve_device
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    dev = resolve_device(device)
+    if fitted is None:
+        fitted = build_pipeline(dim=dim, classes=classes, seed=seed, device=dev).fit()
+    if item_shape is None:
+        item_shape = (int(dim),)
+    item_shape = tuple(item_shape)
+    if payload is None:
+        payload = np.random.default_rng(seed).normal(size=(max(256, 4 * max_batch),) + item_shape).astype(np.float32)
+    payload = np.asarray(payload)
+    example = np.zeros(item_shape, payload.dtype)
+
+    # ---- forward: the static freeze against the planned one, interleaved
+    planner.clear_plan()
+    frozen_static = fitted.freeze(device=dev)
+    t0 = time.perf_counter()
+    plan = planner.build_plan(fitted, example=payload[: 2 * max_batch], max_batch=max_batch, seed=seed, device=dev)
+    plan_seconds = time.perf_counter() - t0
+    frozen_planned = fitted.freeze(device=dev, plan=plan)  # installs the plan
+    rows = min(len(payload), 4 * max_batch)
+    batch = torch.as_tensor(payload[:rows]).to(dev)
+    best = {"static": None, "planned": None}
+
+    def enter(arm):
+        # the static arm runs with the plan cleared, the planned arm with
+        # it installed
+        if arm == "planned":
+            planner.install_plan(plan, source="serve")
+        else:
+            planner.clear_plan()
+
+    arms = (("static", frozen_static), ("planned", frozen_planned))
+    for arm, frozen in arms:  # warm-up: first-use costs
+        enter(arm)
+        frozen(Dataset(batch))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    for _ in range(max(1, int(rounds)) * 4):
+        for arm, frozen in arms:
+            enter(arm)
+            t0 = time.perf_counter()
+            out = frozen(Dataset(batch))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            del out
+            best[arm] = dt if best[arm] is None else min(best[arm], dt)
+    static_ips, planned_ips = rows / best["static"], rows / best["planned"]
+    forward = {"static_ips": static_ips, "planned_ips": planned_ips, "speedup": planned_ips / static_ips}
+
+    # ---- serve: the same open loop; the planned arm leaves every knob
+    # unset so that the plan's values resolve, the static arm clears it
+    def serve_arm(planned: bool) -> dict:
+        enter("planned" if planned else "static")
+        svc = serve(fitted, max_batch=max_batch, queue_bound=queue_bound, deadline_ms=deadline_ms,
+                    example=example, name="plan_ab", devices=[dev], recorder=False)
+        try:
+            return run_bench(svc, item_shape, qps=qps, duration=duration, deadline_ms=deadline_ms,
+                             payload=payload)
+        finally:
+            svc.close()
+
+    samples: dict = {"static": [], "planned": []}
+    for rnd in range(max(1, int(rounds))):
+        for arm in (("static", "planned") if rnd % 2 == 0 else ("planned", "static")):
+            samples[arm].append(serve_arm(arm == "planned"))
+    keys = ("achieved_qps", "p50_ms", "p99_ms", "completed", "mean_batch_occupancy")
+    serve_ab = {arm: [{k: r.get(k) for k in keys} for r in runs] for arm, runs in samples.items()}
+
+    def med(arm):
+        vals = sorted(r["achieved_qps"] for r in samples[arm] if r.get("achieved_qps"))
+        return vals[len(vals) // 2] if vals else None
+
+    serve_ab["speedup"] = med("planned") / med("static") if med("planned") and med("static") else None
+
+    # ---- drift: a live PlanTuner under the zoo's drift scenario; every
+    # retune bakes, so the check is "p99 improved or the retune
+    # reverted", with no future lost
+    planner.install_plan(plan, source="serve")
+    svc = serve(fitted, max_batch=max_batch, queue_bound=queue_bound, deadline_ms=deadline_ms, example=example,
+                name="plan_drift", devices=[dev], recorder=False)
+    tuner = planner.PlanTuner(svc, plan=plan, interval_s=0.2, bake_s=0.6, cooldown_s=0.5)
+    # the scenario's own rows are not offered (the payload bank's are, with
+    # each event's drift): a small dim keeps its generator cheap
+    scenario = zoo.make_scenario("drift", seed=seed, duration_s=drift_duration, qps=drift_qps, dim=1)
+    lock = threading.Lock()
+    lat: list = []
+    counts = {"completed": 0, "lost": 0, "shed": 0, "rejected": 0}
+    deadline_s = float(deadline_ms) / 1000.0
+    cursor = [0]
+
+    def record(fut, t0):
+        t1 = time.monotonic()
+        exc = fut.exception()
+        with lock:
+            if exc is None:
+                counts["completed"] += 1
+                lat.append((t0, t1 - t0))
+            elif isinstance(exc, guard.DeadlineExceeded):
+                counts["shed"] += 1
+            else:
+                counts["lost"] += 1
+
+    def submit(event, _rows):
+        n = int(event["rows"])
+        rows_ = _drifted(payload, event, n, cursor[0])
+        cursor[0] += n
+        t0 = time.monotonic()
+        try:
+            fs = svc.submit_many(list(rows_), deadline=deadline_s)
+        except Exception:
+            with lock:
+                counts["rejected"] += n
+            return 0
+        for f in fs:
+            f.add_done_callback(lambda fut, t0=t0: record(fut, t0))
+        return len(fs)
+
+    from keystone_tpu_torch.obs import metrics
+
+    walks0 = metrics.REGISTRY.counter_total("serve.retuned_bucket_walks")
+    tuner.start()
+    t_start = time.monotonic()
+    try:
+        zoo.play(scenario, submit, time_scale=1.0)
+        time.sleep(max(0.5, 2 * tuner.bake_s))  # let a pending bake land
+    finally:
+        tuner.stop()
+        svc.close()
+    walks = metrics.REGISTRY.counter_total("serve.retuned_bucket_walks") - walks0
+
+    def p99(samples_):
+        if not samples_:
+            return None
+        vals = sorted(v for _, v in samples_)
+        return vals[min(len(vals) - 1, int(0.99 * len(vals)))] * 1000.0
+
+    mid = t_start + drift_duration / 2.0
+    status = tuner.status()
+    drift = {
+        "outcomes": counts,
+        "lost_futures": counts["lost"],
+        "p99_ms_first_half": p99([v for v in lat if v[0] < mid]),
+        "p99_ms_second_half": p99([v for v in lat if v[0] >= mid]),
+        "retunes": status.get("retunes"),
+        "commits": status.get("commits"),
+        "reverts": status.get("reverts"),
+        "last_action": status.get("last_action"),
+        "retuned_bucket_walks": walks,
+    }
+    planner.clear_plan()
+    return {
+        "plan": {"fingerprint": plan.fingerprint(), "backend": plan.backend, "seconds": plan_seconds,
+                 "stages": {st.gate: st.winner for st in plan.stages}, "knobs": plan.knobs},
+        "forward": forward,
+        "serve": serve_ab,
+        "drift_retune": drift,
+        "speedup": forward["speedup"],
+        "serve_speedup": serve_ab["speedup"],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
@@ -711,7 +916,16 @@ def main(argv=None) -> int:
                     help="the multi-tenant A/B in place of the open loop: this many tenants over one shared "
                          "featurization prefix, the shared stage pool on against off, per tenant, at --dim")
     ap.add_argument("--tenant-branches", type=int, default=6, help="--tenants' featurization branches")
+    ap.add_argument("--plan-ab", action="store_true",
+                    help="the physical planner's A/B in place of the open loop: planned against static, forward and "
+                         "open loop, then a live PlanTuner under the zoo's drift scenario")
     args = ap.parse_args(argv)
+    if args.plan_ab:
+        print(json.dumps(run_plan_ab(dim=args.dim, classes=args.classes, max_batch=args.max_batch, qps=args.qps,
+                                     duration=args.duration, rounds=args.rounds, deadline_ms=args.deadline_ms,
+                                     queue_bound=args.queue_bound, drift_duration=max(1.0, args.duration),
+                                     device=args.device), default=str))
+        return 0
     if args.tenants:
         print(json.dumps(run_tenants_ab(qps=args.qps, duration=args.duration, rounds=args.rounds,
                                         tenants=args.tenants, branches=args.tenant_branches,

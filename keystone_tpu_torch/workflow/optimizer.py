@@ -23,6 +23,7 @@ from __future__ import annotations
 import copy
 import inspect
 import logging
+import os
 import time
 from typing import Sequence
 
@@ -418,6 +419,20 @@ def device_is_cuda(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
+def fused_fv_choice() -> str:
+    """The ``fused_fv`` gate (``planner/registry.py``), resolved as the
+    reference's rule resolves it: ``KEYSTONE_FUSED_FV=0`` is ``chain``
+    and any other set value ``kernel``; unset, an installed plan's choice
+    (or the cost model's forced candidate); neither, ``kernel``, the
+    static default."""
+    env = os.environ.get("KEYSTONE_FUSED_FV")
+    if env is not None:
+        return "chain" if env == "0" else "kernel"
+    from keystone_tpu_torch.planner.registry import planned_gate
+
+    return planned_gate("fused_fv") or "kernel"
+
+
 class FvFusionRule(Rule):
     """Rewrite each single-consumer ``PCATransformer → FisherVector`` pair
     into one ``FusedPcaFisherVector`` node, the fused Fisher-vector kernel
@@ -432,7 +447,9 @@ class FvFusionRule(Rule):
 
     Fires where the graph's data lives on a CUDA device (in place of the
     reference's ``pallas_supported()``): a CPU graph keeps the plain
-    chain.  A graph frozen for serving has no data yet: there the
+    chain.  The ``fused_fv`` gate comes first (:func:`fused_fv_choice`):
+    ``chain``, from ``KEYSTONE_FUSED_FV=0`` or an installed plan that
+    sampled the chain as cheaper, leaves the graph as it is.  A graph frozen for serving has no data yet: there the
     applier's device decides (``Optimizer.execute(graph, device=...)``),
     as the reference's backend does at freeze.  A FisherVector with
     ``use_kernel=False`` is left as it is, as the reference honours
@@ -441,7 +458,7 @@ class FvFusionRule(Rule):
     name = "FvFusion"
 
     def apply(self, graph: G.Graph, device=None) -> G.Graph:
-        if not device_is_cuda(data_device(graph, device)):
+        if fused_fv_choice() == "chain" or not device_is_cuda(data_device(graph, device)):
             return graph
         from keystone_tpu_torch.models.pca import PCATransformer
         from keystone_tpu_torch.ops.fisher import FisherVector, FusedPcaFisherVector

@@ -38,8 +38,14 @@ footprint over ``KEYSTONE_OOC_FRACTION`` of the device, the large tensor
 sources become streams and the fit spills out of core, or, with
 ``KEYSTONE_AUTO_SPILL=0``, refuses with :class:`PreflightOOMError`.
 
-Not ported yet: the static validator and the cost-based planner behind
-``validate=``/``plan=`` (ROADMAP A10).
+``fit(validate=)`` and ``freeze(validate=)`` run the pre-flight analyzer
+(``keystone_tpu_torch/analysis``) before any device work: error findings
+raise ``PipelineValidationError``.  ``None`` reads ``KEYSTONE_VALIDATE``
+("1" is on); off, the cost is one env lookup and the analysis package is
+never imported.  ``freeze(plan=True|PhysicalPlan, example=)`` builds or
+installs the cost-based physical plan (``keystone_tpu_torch/planner``)
+before the optimizer runs, so the plan's gates decide the frozen graph;
+the plan travels with the applier's pickle and in its artifact manifest.
 """
 
 from __future__ import annotations
@@ -63,9 +69,14 @@ from keystone_tpu_torch.utils import graphs
 from keystone_tpu_torch.utils.device import resolve_device
 
 
-class NotPortedError(NotImplementedError):
-    """An option of the reference that the port does not have yet; the
-    message names the ROADMAP item that ports it."""
+def _validate_requested(validate) -> bool:
+    """The one pre-flight gate of ``fit`` and ``freeze``: an explicit flag
+    wins, None reads ``KEYSTONE_VALIDATE``.  Kept here (not
+    ``analysis.validation_enabled``) so that the off path costs one env
+    lookup and never imports the analysis package."""
+    if validate is not None:
+        return bool(validate)
+    return os.environ.get("KEYSTONE_VALIDATE", "0") == "1"
 
 
 class PipelineEnv:
@@ -234,7 +245,7 @@ class Pipeline(Chainable):
         return PipelineDatum(g, self.sink)
 
     # --------------------------------------------------------------- fit
-    def fit(self, deadline=None) -> "FittedPipeline":
+    def fit(self, deadline=None, validate=None) -> "FittedPipeline":
         """Optimize, execute every estimator fit, and return a pure
         transformer pipeline (the reference's ``Pipeline.fit():
         PipelineModel``).  One executor serves every estimator, so shared
@@ -249,12 +260,22 @@ class Pipeline(Chainable):
         stage is retried, degraded or fails the fit in bounded time.
         None (the default): no watchdog, no thread.
 
+        ``validate``: run the pre-flight analyzer first (abstract shape and
+        dtype propagation on fake tensors, the fault-plan, breaker and
+        deadline lint, the signature audit): error findings raise
+        ``PipelineValidationError`` before any launch, warnings log.  None
+        reads ``KEYSTONE_VALIDATE``.
+
         With a run ledger (``KEYSTONE_OBS_DIR`` or ``obs.ledger.start_run``)
         the fit runs in a ``pipeline.fit`` span and a metrics snapshot is
         written at its end."""
         from keystone_tpu_torch.obs import ledger
         from keystone_tpu_torch.utils import guard
 
+        if _validate_requested(validate):
+            from keystone_tpu_torch.analysis import validate_fit
+
+            validate_fit(self, deadline=deadline)
         deadline = guard.as_deadline(deadline)
         with ledger.span("pipeline.fit"):
             fitted = self._fit_inner(deadline)
@@ -289,11 +310,27 @@ class Pipeline(Chainable):
         """Freeze this fitted pipeline for repeated online application:
         optimize it once now, for ``device``, and return a
         :class:`FrozenApplier` that binds each incoming batch to the
-        optimized graph (the serving entry point).  ``validate``,
-        ``example`` and ``plan`` are the reference's pre-flight analyzer
-        and cost-based planner (ROADMAP A10): asked for, they raise
-        :class:`NotPortedError`; left at their defaults they are inert."""
+        optimized graph (the serving entry point).
+
+        ``validate``: the apply-mode pre-flight (an unfitted estimator is
+        an error) before anything runs; None reads ``KEYSTONE_VALIDATE``.
+        ``example``: one datum's shape (a tuple) or a batch, seeding its
+        shape walk; a batch also feeds ``plan=True``'s samples.  ``plan``:
+        ``True`` samples the physical candidates on ``example``'s rows and
+        installs the resulting ``PhysicalPlan``, a ``PhysicalPlan`` is
+        installed as it is; either before the optimizer runs.  None: no
+        plan, the static path."""
         return FrozenApplier(self, validate=validate, example=example, plan=plan, device=device)
+
+    def to_dot(self, name: str = "pipeline", timings=None, retries=None, findings=None) -> str:
+        """Graphviz DOT of this pipeline's DAG (``Pipeline.toDOT``).
+        ``timings`` / ``retries`` overlay measured per-node seconds and
+        retry counts (``workflow/viz.ledger_overlay`` folds them out of a
+        run ledger); ``findings`` overlays analyzer findings (red: error,
+        yellow: warning; ``cli check --dot``)."""
+        from keystone_tpu_torch.workflow.viz import to_dot
+
+        return to_dot(self.graph, name, timings=timings, retries=retries, findings=findings)
 
     def __repr__(self):
         return f"Pipeline({self.graph!r})"
@@ -305,7 +342,7 @@ class FittedPipeline(Pipeline):
     PipelineModel).  Its fitted transformers' tensors travel with it, on
     the device ``load``'s ``map_location`` names."""
 
-    def fit(self, deadline=None) -> "FittedPipeline":
+    def fit(self, deadline=None, validate=None) -> "FittedPipeline":
         return self
 
     def block_until_ready(self) -> "FittedPipeline":
@@ -395,7 +432,16 @@ class FrozenApplier:
     memory pool and replay one at a time.  The bundle ships no code: each
     process and each replica captures its own graphs, and a pickled or
     deep-copied applier keeps the bundle and drops the graphs.  An
-    applier pickles and deep-copies (replica clones)."""
+    applier pickles and deep-copies (replica clones).
+
+    **Physical plan**: ``plan=`` installs a ``PhysicalPlan`` before the
+    optimizer runs, so its ``fused_fv`` choice decides the frozen graph
+    (:attr:`physical_choices` records what it decided).  The plan pickles
+    with the applier and rides :meth:`export_artifacts`' manifest;
+    :meth:`install_artifacts` reinstalls a shipped plan (``source=
+    "artifacts"``) and, where its choice differs from the one this graph
+    was optimized under, re-optimizes and drops every bucket graph
+    captured under the other choice."""
 
     ARTIFACT_FORMAT = 1
 
@@ -403,25 +449,46 @@ class FrozenApplier:
         for op in pipeline.graph.operators.values():
             if isinstance(op, G.EstimatorOperator):
                 raise TypeError(f"cannot freeze a pipeline with unfitted estimator {op.label()!r}; call fit() first")
-        if validate if validate is not None else os.environ.get("KEYSTONE_VALIDATE", "0") == "1":
-            raise NotPortedError("freeze(validate=...): the pre-flight analyzer is not ported yet (ROADMAP A10)")
-        if plan is not None and plan is not False:
-            raise NotPortedError("freeze(plan=...): the cost-based physical planner is not ported yet (ROADMAP A10)")
+        if _validate_requested(validate):
+            from keystone_tpu_torch.analysis import validate_freeze
+
+            validate_freeze(pipeline, example=example, device=device)
         self.device = resolve_device(device)
-        self.graph = PipelineEnv.get_optimizer().execute(pipeline.graph, device=self.device)
+        #: the cost-based PhysicalPlan, or None: built or installed before
+        #: the optimizer runs, so the planning rules (the fused-FV gate)
+        #: read it; plain data, so it pickles with the applier
+        self.plan = None
+        if plan is not None and plan is not False:
+            from keystone_tpu_torch import planner
+
+            self.plan = planner.build_plan(pipeline, example=example, device=self.device) if plan is True else plan
+            planner.install_plan(self.plan, source="freeze")
         self.source = pipeline.source
         self.sink = pipeline.sink
         #: the pre-optimizer pipeline: :meth:`fingerprint` hashes it (the
         #: optimized graph depends on the device it was frozen for)
         self._frozen_from = pipeline
-        #: True when a stage declares optional/with_fallback degradation
-        from keystone_tpu_torch.workflow.executor import _degradable
-
-        self._degradable = any(_degradable(op) is not None for op in self.graph.operators.values())
         #: the verified bundle installed last (kept through pickling, so a
         #: replica clone captures its own graphs from it)
         self._bundle: Optional[dict] = None
         self._reset_graphs()
+        self._optimize(pipeline)
+
+    def _optimize(self, pipeline: "Pipeline") -> None:
+        """Optimize ``pipeline``'s graph for the applier's device under the
+        gates as they resolve now, recording the choices
+        (:attr:`physical_choices`), and drop any bucket graph captured
+        under an earlier optimization."""
+        from keystone_tpu_torch.workflow.executor import _degradable
+        from keystone_tpu_torch.workflow.optimizer import fused_fv_choice
+
+        self.physical_choices = {"fused_fv": fused_fv_choice()}
+        self.graph = PipelineEnv.get_optimizer().execute(pipeline.graph, device=self.device)
+        #: True when a stage declares optional/with_fallback degradation
+        self._degradable = any(_degradable(op) is not None for op in self.graph.operators.values())
+        for key, fn in list(self._bucket_programs.items()):
+            if isinstance(fn, _BucketGraph):
+                self._bucket_programs[key] = _BucketGraph(self, fn.shape, fn.dtype)
 
     def _reset_graphs(self) -> None:
         """The per-process, per-replica graph state: bucket programs by
@@ -443,6 +510,8 @@ class FrozenApplier:
         self.__dict__.update(state)
         self.__dict__.setdefault("_frozen_from", None)
         self.__dict__.setdefault("_bundle", None)
+        self.__dict__.setdefault("plan", None)
+        self.__dict__.setdefault("physical_choices", {})
         self._reset_graphs()
 
     def __call__(self, data, deadline=None) -> Dataset:
@@ -565,6 +634,10 @@ class FrozenApplier:
             "buckets": buckets,
             "entries": entries,
         }
+        if self.plan is not None:
+            # the plan ships with the bundle: every install of it serves
+            # the planned physical configuration
+            manifest["plan"] = self.plan.to_dict()
         return {"manifest": manifest, "blobs": blobs}
 
     def install_artifacts(self, bundle, device=None, signature=None, strict: bool = False) -> int:
@@ -600,6 +673,11 @@ class FrozenApplier:
         blobs = (bundle or {}).get("blobs") or {}
         if manifest.get("format") != FrozenApplier.ARTIFACT_FORMAT:
             return reject(f"unknown artifact format {manifest.get('format')!r}")
+        if manifest.get("plan") is not None:
+            # a bundle of this pipeline carries its plan: reinstalled even
+            # where the graphs are refused below (a CPU replica), since the
+            # plan's knobs and gates hold on every backend
+            self._install_shipped_plan(manifest, signature, strict)
         if manifest.get("torch_version") != torch.__version__:
             return reject(f"torch version skew (artifact {manifest.get('torch_version')}, running {torch.__version__})")
         if manifest.get("cuda_version") != torch.version.cuda:
@@ -641,6 +719,47 @@ class FrozenApplier:
             installed += 1
         self._bundle = bundle
         return installed
+
+    def _install_shipped_plan(self, manifest: dict, signature, strict: bool) -> None:
+        """Install the plan a bundle's manifest ships, if the bundle is this
+        pipeline's (its signature matches), with ``source="artifacts"``;
+        where the plan flips a gate this graph was optimized under,
+        re-optimize (dropping the graphs captured under the old choice)."""
+        from keystone_tpu_torch import planner
+        from keystone_tpu_torch.workflow.optimizer import fused_fv_choice
+
+        try:
+            want = signature if signature is not None else self.fingerprint()
+        except RuntimeError:
+            return
+        if manifest.get("signature") != want:
+            return  # the ladder below rejects the bundle for it
+        try:
+            plan = planner.PhysicalPlan.from_dict(manifest["plan"])
+        except Exception as e:
+            if strict:
+                raise ArtifactMismatch(f"shipped plan does not load: {e}") from e
+            logging.getLogger(__name__).warning("shipped plan does not load (%s); the installed plan stays", e)
+            return
+        self.plan = plan
+        planner.install_plan(plan, source="artifacts")
+        if self._frozen_from is not None and fused_fv_choice() != self.physical_choices.get("fused_fv"):
+            self._optimize(self._frozen_from)
+
+    def add_bucket_program(self, shape, dtype) -> bool:
+        """Register a bucket program for one more padding bucket (a bucket
+        a live retune added) when the installed bundle covers its item
+        shape and dtype; its graph is captured at its first call, which the
+        service makes from ``prime``.  Returns whether one is registered."""
+        man = (self._bundle or {}).get("manifest") or {}
+        key = (tuple(int(d) for d in shape), _dtype_name(dtype))
+        if key in self._bucket_programs:
+            return True
+        if (self.device.type != "cuda" or tuple(key[0][1:]) != tuple(int(d) for d in man.get("item_shape") or ())
+                or key[1] != str(man.get("dtype") or "float32")):
+            return False
+        self._bucket_programs[key] = _BucketGraph(self, key[0], key[1])
+        return True
 
     @property
     def installed_bundle(self) -> Optional[dict]:

@@ -186,12 +186,11 @@ def _static_node_seconds(graph: G.Graph, ex, n: G.NodeId, op, full_n: int):
     """Full-scale roofline estimate for one transformer node, from the
     sampled input's shape with the batch axis widened to full_n.
 
-    Called only after the sampled run of the same node (``profile_graph``
-    executes ``n`` first): stages that cache device tensors by image
+    Called after the sampled run of the same node (``profile_graph``
+    executes ``n`` first).  The stages that cache device tensors by image
     extent (``ops/sift.py::_window_operator``, ``ops/lcs.py::_gather_index``,
-    ``ops/filters.py::_blur_operator``) have filled those caches with real
-    tensors by then, since widening the batch axis keeps the extent.  Run
-    first under fake tensors, they would cache a fake tensor."""
+    ``ops/filters.py::_blur_operator``) keep no result made under fake
+    tensors (``utils/device.py::device_cache``)."""
     if not isinstance(op, G.TransformerOperator):
         return None
     from keystone_tpu_torch.workflow.executor import DatasetExpr
@@ -238,13 +237,20 @@ def pool_budget_bytes(fraction: float = 0.25) -> int:
     than the fit's cache budget because the pool's per-flush featurized
     outputs sit beside every tenant's weights and the serve batches (on a
     box without a card, the CPU fallback's quarter).
-    ``KEYSTONE_POOL_BUDGET_BYTES`` overrides it outright."""
+    ``KEYSTONE_POOL_BUDGET_BYTES`` overrides it outright; with the env
+    unset, an installed plan's ``pool_budget_bytes`` knob applies (a
+    deploy host with other headroom serves what was planned)."""
     env = os.environ.get("KEYSTONE_POOL_BUDGET_BYTES", "").strip()
     if env:
         try:
             return int(env)
         except ValueError:
             logger.warning("KEYSTONE_POOL_BUDGET_BYTES=%r is not an int", env)
+    from keystone_tpu_torch.planner.registry import planned_knob
+
+    planned = planned_knob("pool_budget_bytes")
+    if planned is not None:
+        return int(planned)
     return device_hbm_budget(fraction=fraction, device="cuda" if torch.cuda.is_available() else None)
 
 

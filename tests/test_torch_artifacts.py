@@ -520,7 +520,31 @@ def test_cli_export_publishes_a_registry_version(tmp_path, exported):
     assert reg.versions() == [version] and reg.load_artifacts(version)["manifest"]["buckets"] == [8]
 
 
-@pytest.mark.parametrize("argv", [["--plan"], ["--plan-seed", "3"]])
-def test_cli_export_refuses_the_planner(tmp_path, argv, capsys):
-    assert cli.main(["export", "--model", "m", "--example-shape", "8", "--out", str(tmp_path)] + argv) == 2
-    assert "ROADMAP A10" in capsys.readouterr().err
+@pytest.mark.parametrize("argv", [["--plan"], ["--plan", "--plan-seed", "3"]])
+def test_cli_export_refuses_the_planner(tmp_path, argv, capsys, exported):
+    """``export --plan`` (the name is the refusal test's of the slices
+    before the planner): the freeze samples the candidates on seeded rows
+    and the bundle's manifest ships the plan, which ``cli plan`` reads
+    back and a fresh applier of the same model reinstalls."""
+    from keystone_tpu_torch import planner
+    from keystone_tpu_torch.planner import PhysicalPlan
+
+    pipe, _frozen, _bundle = exported
+    model, out = str(tmp_path / "model.pt"), str(tmp_path / "bundle")
+    pipe.save(model)
+    try:
+        assert cli.main(["export", "--model", model, "--example-shape", str(DIM), "--out", out,
+                         "--device", "cpu"] + argv) == 0
+        assert "planned:" in capsys.readouterr().out
+        with open(os.path.join(out, "MANIFEST.json")) as f:
+            plan = PhysicalPlan.from_dict(json.load(f)["plan"])
+        assert plan.seed == (3 if "--plan-seed" in argv else 0) and plan.backend == "cpu"
+        assert cli.main(["plan", "--bundle", out]) == 0
+        assert plan.fingerprint() in capsys.readouterr().out
+        planner.clear_plan()
+        bundle = {"manifest": json.load(open(os.path.join(out, "MANIFEST.json"))), "blobs": {}}
+        FittedPipeline.load(model).freeze(device="cpu").install_artifacts(bundle)
+        assert planner.plan_status()["source"] == "artifacts"
+        assert planner.current_plan().fingerprint() == plan.fingerprint()
+    finally:
+        planner.clear_plan()

@@ -3,7 +3,9 @@ JAX package's (keystone_tpu/faults.py): the same plan text parses to the
 same specs, a seeded plan fires at the same call counts in both, and the
 reference's own scenarios (tests/test_faults.py) hold in the port."""
 
+import numpy as np
 import pytest
+import torch
 
 from keystone_tpu import faults as ref_faults
 from keystone_tpu_torch import faults
@@ -52,10 +54,10 @@ def test_seeded_plan_fires_at_the_reference_call_counts(plan, site):
     assert 0 < sum(got) < 60
 
 
-@pytest.mark.parametrize("site", ["multihost.init", "plan.sample"])
+@pytest.mark.parametrize("site", ["multihost.init"])
 def test_sites_of_unported_slices_are_refused(site):
-    """The reference's other sites join with the slices that wire them;
-    until then a plan naming one is refused, not silently inert."""
+    """The reference's other site joins with the slice that wires it;
+    until then a plan naming it is refused, not silently inert."""
     assert site in ref_faults.SITES
     ref_faults.parse_plan(f"{site}:raise")
     with pytest.raises(faults.UnknownFaultSiteError, match="unknown fault site"):
@@ -65,11 +67,46 @@ def test_sites_of_unported_slices_are_refused(site):
             pass
 
 
+@pytest.mark.parametrize("plan", ["plan.sample:ctx.candidate=auto:raise", "plan.sample:after=1:times=1:raise"])
+def test_plan_sample_site_fires_in_the_cost_model(plan):
+    """``plan.sample`` is wired: the cost model's timed samples pass it
+    with ``gate=/candidate=/n=`` context, parsed as the reference parses
+    the plan, and firing where the reference's site fires."""
+    import jax.numpy as jnp
+
+    from keystone_tpu import planner as jplanner
+    from keystone_tpu.models.linear import LinearMapper as JLinearMapper
+    from keystone_tpu.workflow import Pipeline as JPipeline
+    from keystone_tpu_torch import planner
+    from keystone_tpu_torch.models.linear import LinearMapper
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    assert parse_plan(plan).specs[0].site == ref_faults.parse_plan(plan).specs[0].site == "plan.sample"
+    w = np.random.default_rng(0).normal(size=(4, 2)).astype(np.float32)
+    x = np.random.default_rng(1).normal(size=(16, 4)).astype(np.float32)
+    port = Pipeline.of(LinearMapper(torch.from_numpy(w))).fit()
+    ref = JPipeline.of(JLinearMapper(jnp.asarray(w))).fit()
+    faults.reset_stats()
+    ref_faults.reset_stats()
+    # the port fails the build loudly; the reference's forward sampling is
+    # best-effort and drops the stage instead
+    with inject(plan):
+        with pytest.raises(faults.FaultInjected):
+            planner.build_plan(port, example=x, batch_sizes=(4, 8), device="cpu")
+    with ref_faults.inject(plan):
+        assert jplanner.build_plan(ref, example=x, batch_sizes=(4, 8)).choice_for("matmul") is None
+    assert faults.stats()["plan.sample"] == ref_faults.stats()["plan.sample"]
+    assert faults.stats()["plan.sample"]["injected"] == 1
+    # a plan for another candidate never fires
+    with inject("plan.sample:ctx.candidate=f32:raise"):
+        assert planner.build_plan(port, example=x, batch_sizes=(4, 8), device="cpu").choice_for("matmul") == "auto"
+
+
 def test_wired_sites_are_the_slice_sites():
     assert faults.SITES == {"blockstore.read", "blockstore.write", "ckpt.save", "ckpt.load", "stream.batch",
                             "executor.stage", "kernel.sweep", "serve.enqueue", "serve.batch", "serve.replica",
                             "serve.worker", "serve.swap", "serve.artifact_load", "serve.rollout",
-                            "serve.net.connect", "serve.net.send", "serve.net.recv"}
+                            "serve.net.connect", "serve.net.send", "serve.net.recv", "plan.sample"}
     assert faults.SITES <= ref_faults.SITES
 
 

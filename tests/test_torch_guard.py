@@ -111,6 +111,14 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         port.build_forward(cpu)
     assert all(v.device.type == "cpu" for v in cpu.values())
+    # the planner's public entry point: the card, never a quiet CPU plan
+    from keystone_tpu_torch.ops.stats import NormalizeRows
+    from keystone_tpu_torch.planner import build_plan
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_plan(Pipeline.of(NormalizeRows()).fit())
+    assert build_plan(Pipeline.of(NormalizeRows()).fit(), device="cpu").backend == "cpu"
 
 
 def test_cpu_path_launches_no_kernel():

@@ -28,7 +28,7 @@ from keystone_tpu_torch.serve.service import pad_rows
 from keystone_tpu_torch.utils import guard
 from keystone_tpu_torch.workflow import optimizer as O
 from keystone_tpu_torch.workflow.dataset import Dataset
-from keystone_tpu_torch.workflow.pipeline import FrozenApplier, NotPortedError, Pipeline
+from keystone_tpu_torch.workflow.pipeline import FrozenApplier, Pipeline
 from keystone_tpu_torch.workflow.transformer import Transformer
 
 pytestmark = pytest.mark.serve
@@ -511,10 +511,23 @@ def test_unported_options_name_their_roadmap_item():
                     (dict(worker_opts={"device": "cpu"}), "workers>=1")):
         with pytest.raises(ValueError, match=why):
             serve(_pipeline(), devices=["cpu"], **kw)
-    with pytest.raises(NotPortedError, match="A10"):
-        _pipeline().freeze(device="cpu", validate=True)
-    with pytest.raises(NotPortedError, match="A10"):
-        _pipeline().freeze(device="cpu", plan=True)
+    # the pre-flight analyzer and the physical planner are ported: a
+    # freeze validates (and refuses a mis-shaped example) and plans
+    from keystone_tpu_torch.analysis import PipelineValidationError
+    from keystone_tpu_torch import planner
+
+    x = np.random.default_rng(3).normal(size=(8, DIM)).astype(np.float32)
+    want = _pipeline().freeze(device="cpu")(torch.from_numpy(x)).array
+    assert torch.equal(_pipeline().freeze(device="cpu", validate=True, example=(DIM,))(torch.from_numpy(x)).array,
+                       want)
+    with pytest.raises(PipelineValidationError, match="shape-mismatch"):
+        _pipeline().freeze(device="cpu", validate=True, example=(DIM + 1,))
+    try:
+        planned = _pipeline().freeze(device="cpu", plan=True, example=x)
+        assert planned.plan is not None and planner.current_plan() is planned.plan
+        assert torch.equal(planned(torch.from_numpy(x)).array, want)
+    finally:
+        planner.clear_plan()
     # a tenant is refused by the single-tenant service (serve_multi serves
     # several models)
     with _service() as svc:
