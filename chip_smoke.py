@@ -177,12 +177,12 @@ result line):
    run ledger, an empty fault plan: seconds an image against phase 10's,
    B1/B2 launches, the three fits bit for bit, the ledger's span and
    event counts); ``fit_with_recovery``
-   of that fit in two child processes of this script (``--recovery-child``)
-   with a state_dir and the solver's checkpoint_dir, attempt 1 under a
+   of that fit with a state_dir and the solver's checkpoint_dir, attempt
+   1 in a child process of this script (``--recovery-child``) under a
    KEYSTONE_FAULTS plan (a stage, two stream batches and two block reads
    raised and survived, injected = survived per site; ``exit`` at the
-   second epoch save), attempt 2 relaunched, resuming the BCD from epoch
-   1, its vocabularies, weights and held-out scores equal to the
+   second epoch save), attempt 2 relaunched in this process (holding
+   nothing of attempt 1 but its files), resuming the BCD from epoch 1, its vocabularies, weights and held-out scores equal to the
    uninterrupted fit's bit for bit, the ledger of both attempts; the
    in-core ``fit_checkpointed`` at the fit leg's BCD geometry interrupted
    at a save and resumed, then a damaged newest checkpoint falling back,
@@ -243,8 +243,8 @@ result line):
    offline ones with top-5 equal, one full 128-row slab block through it
    and through the threaded fleet (``replicas=1``) bit for bit, a worker
    SIGKILLed under the closed loop (no future lost, the slot healed, the
-   replacement's graphs captured), S1's saturation loop three times on
-   the threaded fleet and on workers=1, 2, 4 (images/s, p50/p99, requests
+   replacement's graphs captured), S1's saturation loop once on
+   the threaded fleet and on workers=2 (images/s, p50/p99, requests
    a flush, the flushes in flight on the router and the share of the wall
    each worker spent in its applies, nvidia-smi's utilization as a coarse counter),
    the binary ingress in front of workers=2 (bit for bit the HTTP JSON
@@ -267,7 +267,7 @@ result line):
    bit for bit; ``cli serve`` with three named models over HTTP (an
    unknown tenant 400; the child's B1 twice a flush); serve_bench's
    tenant A/B in short legs (rates printed); then the chaos tool on the
-   card: the ``tenants`` workload and a seeded 20 s soak over two worker
+   card: the ``tenants`` workload and a seeded 10 s soak over two worker
    processes, each exiting 0; S8, the pre-flight analyzer and the physical
    planner: ``cli check --all`` in a child on the card (every bundled
    pipeline, no finding, no launch, no device memory moved around each
@@ -283,7 +283,23 @@ result line):
    export --plan``, a ``cli serve --model-dir`` child serving the shipped
    plan (/statusz source ``artifacts``); serve_bench's plan A/B (1 s legs,
    2 rounds) and its drift retune (no future lost);
-25. the whole script's seconds; one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+25. S9, the parallel layer (``keystone_tpu_torch/parallel/``), in rank
+   processes of this script (``--parallel-rank``; the three launches
+   start together, each leg's work waits for the one before) at the operations
+   layer's in-core fit width (2048 x 16 384 features from ``--seed``,
+   blocks of 4096, 64 classes, 2 epochs): one rank over NCCL (the
+   checkpointed BCD and the weighted BCD bit for bit the fits with no
+   group, their all-reduces counted and traced, DistributedPCAEstimator
+   at 131 072 x 128 -> 64 against PCAEstimator's projector); two ranks
+   over Gloo on CUDA tensors, 1024 rows each, under a ``multihost.init``
+   fault retried once (the fits f32-grade against one rank and float64,
+   a per-rank store of 512 rows through the weighted ``fit_store``
+   against the in-memory fit, a sick rank aborting both at the health
+   barrier), then rank 1 killed before its second epoch and both
+   relaunched (resumed from epoch 1, bit for bit the uninterrupted
+   two-rank fit);
+   each leg's seconds and the fit's at one rank against two;
+26. the whole script's seconds; one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches (bucket-graph replays
    included), float64 errors) for all four kernels, B3's and B4's times at the new paths' shapes and B1's and
    B2's at VOC's among them, then the last line {"ok": true, "device":
@@ -300,10 +316,12 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import logging
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -3682,42 +3700,68 @@ def watch_materialize() -> dict:
 
 
 def recovery_child(work: str) -> int:
-    """One attempt of the recovered fit, in a process of its own: builds the
-    kernels (the parent's build, cached), runs fit_with_recovery and scores
-    the held-out images.  Prints a STATS line at every checkpoint save (the
-    last one before an ``exit`` fault is the attempt's record) and, when
-    the fit completes, a DONE line; the arrays go to ``work/fitted.npz``."""
-    from keystone_tpu_torch import faults
+    """Attempt 1 of the recovered fit, in a process of its own: builds the
+    kernels (the parent's build, cached) and runs ``recovery_attempt``,
+    printing its records as RESUME, STATS and DONE lines."""
     from keystone_tpu_torch.kernels import build
+    from keystone_tpu_torch.utils import precision
+
+    precision.disable_tf32()
+    build.build(["fisher"])
+    materialize = watch_materialize()
+
+    def emit(key, rec):
+        print(f"{key} " + json.dumps(rec), flush=True)
+
+    recovery_attempt(work, materialize, emit)
+    return 0
+
+
+def recovery_attempt(work: str, materialize: dict, emit) -> None:
+    """One attempt of the recovered fit: fit_with_recovery on the streamed
+    fit and the held-out scores.  ``emit(key, record)`` gets a RESUME
+    record, a STATS record at every checkpoint save (the last one before
+    an ``exit`` fault is the attempt's record) and, when the fit
+    completes, a DONE record; the arrays go to ``work/fitted.npz``.
+    ``materialize``: the counts of ``watch_materialize`` this attempt
+    reads (their change over the attempt is its own).  The patches it
+    makes are undone before it returns, so that it can run in this
+    script's own process as well as in a child."""
+    from keystone_tpu_torch import faults
     from keystone_tpu_torch.obs import metrics
     from keystone_tpu_torch.ops import fisher_kernels as fk
     from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as P
-    from keystone_tpu_torch.utils import durable, precision
+    from keystone_tpu_torch.utils import durable
     from keystone_tpu_torch.workflow import state as WS
     from keystone_tpu_torch.workflow.pipeline import PipelineEnv
     from keystone_tpu_torch.workflow.recovery import fit_with_recovery
 
     dev = torch.device(DEVICE)
-    precision.disable_tf32()
-    build.build(["fisher"])
-    materialize = watch_materialize()
+    base = dict(materialize)
+    faults_before = faults.stats()
+
+    def own(stats):
+        return {k: stats[k] - base[k] for k in base}
+
+    def faults_since():
+        return {site: {k: v - faults_before.get(site, {}).get(k, 0) for k, v in rec.items()}
+                for site, rec in faults.stats().items()}
+
     cfg = dataclasses.replace(fit_setup_config(P), synthetic_n=OPS_N, stream=True, stream_batch_size=STREAM_BATCH,
                               checkpoint_dir=os.path.join(work, "ckpt"), stream_retries=2)
     ckpt = os.path.join(cfg.checkpoint_dir, "oc_bcd_epoch.npz")
     loaded = durable.load_npz(ckpt)
-    print("RESUME " + json.dumps({"from_epoch": None if loaded is None else int(loaded[0]["epoch"]) + 1}),
-          flush=True)
+    emit("RESUME", {"from_epoch": None if loaded is None else int(loaded[0]["epoch"]) + 1})
     save = durable.save_npz
 
     def recorded_save(path, arrays, **kw):
         rec = {"epoch": int(arrays["epoch"]) if "epoch" in arrays else None, "launches": dict(fk.LAUNCHES),
-               "faults": faults.stats(),
+               "faults": faults_since(),
                "survived": {s: metrics.REGISTRY.counter_value(c) for s, c in SURVIVED_BY.items()},
-               "materialize_fallbacks": materialize["fallbacks"]}
-        print("STATS " + json.dumps(rec), flush=True)
+               "materialize_fallbacks": own(materialize)["fallbacks"]}
+        emit("STATS", rec)
         return save(path, arrays, **kw)
 
-    durable.save_npz = recorded_save
     reloaded = []
     load_rule = WS.SavedStateLoadRule.apply
 
@@ -3727,20 +3771,23 @@ def recovery_child(work: str) -> int:
         reloaded.extend(self.reloaded[seen:])
         return graph
 
-    WS.SavedStateLoadRule.apply = recorded_apply
-    PipelineEnv.node_retries = 1
-    fk.reset_launches()
-    t0 = time.perf_counter()
-    fitted, attempts = fit_with_recovery(lambda: streamed_build(P, dev, cfg), state_dir=os.path.join(work, "state"))
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    retries = PipelineEnv.node_retries
+    durable.save_npz, WS.SavedStateLoadRule.apply, PipelineEnv.node_retries = recorded_save, recorded_apply, 1
+    try:
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        fitted, attempts = fit_with_recovery(lambda: streamed_build(P, dev, cfg),
+                                             state_dir=os.path.join(work, "state"))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        durable.save_npz, WS.SavedStateLoadRule.apply, PipelineEnv.node_retries = save, load_rule, retries
     fit_launches = dict(fk.LAUNCHES)
     arrays = fitted_arrays(fitted, held_out_images(dev))
     np.savez(os.path.join(work, "fitted.npz"), **arrays)
-    print("DONE " + json.dumps({"attempts": attempts, "fit_seconds": fit_s, "launches_fit": fit_launches,
-                                "launches": dict(fk.LAUNCHES), "reloaded_prefixes": reloaded,
-                                "faults": faults.stats(), "materialize": materialize}), flush=True)
-    return 0
+    emit("DONE", {"attempts": attempts, "fit_seconds": fit_s, "launches_fit": fit_launches,
+                  "launches": dict(fk.LAUNCHES), "reloaded_prefixes": reloaded, "faults": faults_since(),
+                  "materialize": own(materialize)})
 
 
 def fit_setup_config(P):
@@ -3842,9 +3889,12 @@ def hooks_at_rest(dev, card, P, fk, stream_out, tmp):
     return out, arrays["nothing attached"]
 
 
-def recovery_path(card, tmp, reference):
-    """The recovered fit: attempt 1 under the plan, killed at its second
-    epoch checkpoint; attempt 2 relaunched with the same directories."""
+def recovery_path(card, tmp, reference, materialize):
+    """The recovered fit: attempt 1 under the plan, in a child process,
+    killed at its second epoch checkpoint; attempt 2 relaunched with the
+    same directories, in this script's own process (which holds nothing
+    of attempt 1 but what it left on disk: one child's start-up, about 20
+    s, cut for the parallel phase S9's room)."""
     work, obs = tmp / "work", tmp / "obs"
     work.mkdir()
     out = {}
@@ -3867,8 +3917,16 @@ def recovery_path(card, tmp, reference):
         out["attempt_1"] = {"exit_code": p1.returncode, "seconds": s1, "faults_at_kill": last["faults"],
                             "survived": last["survived"], "launches_at_kill": last["launches"]}
     with phase("operations: fit_with_recovery, attempt 2 relaunched (resumes the BCD from epoch 1)"):
-        p2, l2, s2 = run_child(str(work), {"KEYSTONE_OBS_DIR": str(obs)})
-        check(p2.returncode == 0, f"attempt 2 exited {p2.returncode}: {p2.stderr[-3000:]}")
+        from keystone_tpu_torch.obs import ledger
+
+        l2 = {}
+        t0 = time.perf_counter()
+        ledger.start_run(str(obs))
+        try:
+            recovery_attempt(str(work), materialize, lambda key, rec: l2.setdefault(key, []).append(rec))
+        finally:
+            ledger.stop_run()
+        s2 = time.perf_counter() - t0
         done, resume = l2["DONE"][0], l2["RESUME"][0]
         print(f"  {s2:.2f} s; resumed from epoch {resume['from_epoch']}; saves {len(l2.get('STATS', []))}; "
               f"launches in the fit {done['launches_fit']}, with scoring {done['launches']}; prefixes "
@@ -4197,14 +4255,14 @@ def deadline_breaker_path(dev, card, P, stream_seconds):
     return out
 
 
-def operations_path(dev, card, P, fk, gk, stream_out, krr, ls_problem):
+def operations_path(dev, card, P, fk, gk, stream_out, krr, ls_problem, materialize):
     """The operations layer's phases, in order: hooks at rest, the recovered
     streamed fit, the in-core checkpointed BCD, the checkpointed L-BFGS,
     the out-of-core KRR under kernel.sweep, deadlines and breakers."""
     tmp = Path(tempfile.mkdtemp(prefix="operations_", dir=REPO))
     try:
         out, reference = hooks_at_rest(dev, card, P, fk, stream_out, tmp)
-        out["recovery"] = recovery_path(card, tmp, reference)
+        out["recovery"] = recovery_path(card, tmp, reference, materialize)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["fv_launches"] = {k: sum(out[m]["launches"].get(k, 0) for m in
@@ -5177,11 +5235,17 @@ def lifecycle_path(dev, card, P, fk, scorer, images, params_b, saturation_ips):
 # reaches into the workers: nvidia-smi's utilization.gpu, sampled every
 # S6_SMI_MS, stands beside them as a coarse counter (the share of sample
 # periods in which a kernel of any process ran), not a trace.
-S6_WORKERS = (1, 2, 4)  # S1's saturation loop on each process fleet
-S6_SAT_REPS = 3  # runs of each configuration's saturation loop
+# S1's saturation loop on each process fleet: the fleets of 1 and 4
+# workers (spawned for this loop alone, ~30 s) went for the parallel
+# phase S9's room; no ranking of threads against 1, 2 or 4 workers held
+# across calls while they ran (PERF.md)
+S6_WORKERS = (2,)
+# runs of each configuration's saturation loop (3 until the parallel
+# phase S9 needed the room: no ranking held across the three, PERF.md)
+S6_SAT_REPS = 1
 # the ingress A/B: seconds a leg, measured rounds of both legs (1.5 s and
 # 3 rounds before they were cut for the script's time)
-S6_AB_S, S6_AB_ROUNDS = 1.0, 2
+S6_AB_S, S6_AB_ROUNDS = 1.0, 1  # 2 rounds until S9 needed the room
 S6_B1_BUCKETS = (8, 16, 32, 64)  # B1 timed at the serving buckets below S1's batch
 S6_SCORED_N = 1024  # served through the two-worker fleet against the offline scores
 S6_KILL_N = 2048  # the closed loop one worker is SIGKILLed under
@@ -5489,7 +5553,7 @@ def process_fleet_path(dev, card, P, fk, scorer, images, b1_args):
                   f"{out['kill']['worker_crashes']:g} flush(es) re-run, healed by pid {fresh.handle.pid} "
                   f"({out['kill']['replacement_graphs']} bucket graphs captured) {out['kill']['heal_s']:.2f} s after "
                   f"the kill ({t0 - killed[0]:.2f} s of it after the loop) ({card})", flush=True)
-        with phase("serve S6: S1's saturation loop, threaded fleet (replicas=1) against workers=1, 2, 4"):
+        with phase("serve S6: S1's saturation loop, threaded fleet (replicas=1) against workers=2"):
             sat = {}
             sat["threads"] = sat_loops("threaded fleet, replicas=1", thr)
             out["ingress_ab"] = {"threads": ab("the threaded fleet (replicas=1)", thr)}
@@ -5615,13 +5679,13 @@ def process_fleet_path(dev, card, P, fk, scorer, images, b1_args):
 # near-tie; share on against off and one tenant against serve(), bit for
 # bit.  Then `cli serve` with three named models over HTTP, serve_bench's
 # tenant A/B in short legs (rates printed, nothing claimed), and the chaos
-# tool on the card: the `tenants` workload and a seeded 20 s soak over two
+# tool on the card: the `tenants` workload and a seeded 10 s soak over two
 # worker processes.
 S7_TENANTS = ("t0", "t1", "t2")
 S7_SERVED_N = 384  # requests a tenant in the closed loop (3 x 128 images)
 S7_HTTP_N = 4  # images POSTed a tenant to the `cli serve` child
 S7_AB = {"qps": 8000.0, "duration": 1.0, "rounds": 2, "max_batch": BATCH}
-S7_SOAK_S, S7_SOAK_WORKERS = 20, 2
+S7_SOAK_S, S7_SOAK_WORKERS = 10, 2  # a 20 s soak until S9 needed the room
 
 
 def s7_models(P, cfg, scorer_params, dev, tmp):
@@ -6196,6 +6260,420 @@ def retune_under_load(dev, card, frozen, imgs, images) -> dict:
             "graph": stats, "replay_equals_walk": same, "walks_after_prime": walks_after}
 
 
+# ---- S9, the parallel layer: the port's torch.distributed mesh on the
+# card at the operations layer's in-core fit_checkpointed width (2048 x
+# 16 384 features made from --seed with numpy, blocks of 4096, 64 classes,
+# 2 epochs, f32), each leg in rank processes of this script
+# (``--parallel-rank``), each ending with destroy_process_group so that no
+# group reaches a later phase.  One card: NCCL refuses two ranks on one
+# device, so the world of one runs NCCL and the world of two Gloo on CUDA
+# tensors (all_reduce, broadcast and all_gather take CUDA tensors there,
+# probed on the card's torch 2.11).  Two ranks sum in another order than
+# one, so they are held to one rank f32-grade: within S9_F32_GRADE times
+# the one-rank fit's own largest distance from a float64 fit of the same
+# data (the f64 fit made here, on the card); a resumed job and its
+# uninterrupted control (both two ranks) bit for bit.
+S9_N, S9_D, S9_K = CKPT_N, CKPT_D, FIT_CLASSES
+S9_BLOCK, S9_EPOCHS, S9_LAM, S9_MIX = FIT_BLOCK, FIT_EPOCHS, 1e-4, 0.5
+S9_STORE_N = FIT_N // 2  # the per-rank stores: 512 of these rows each
+S9_F32_GRADE = 2.0
+# the two-rank fit_store against the in-memory fit of its rows: the
+# reference's own bound (tests/multihost_oc_worker.py:63)
+TOL_S9_STORE = 5e-4
+# DistributedPCAEstimator on the fit's PCA shape (a SIFT sample, 131 072
+# x 128 -> 64, models/pca.py::svd_driver): made rows with singular values
+# 1 .. 0.5 over the top 64 and 0.05 .. 0.01 below (a gap at the 64th, as
+# a descriptor sample's PCA needs one to be defined), offset by a mean;
+# its projector C·Cᵀ against PCAEstimator's (the SVD, gesvda) within
+# TOL_S9_PCA: the covariance's f32 Gramian over 131 072 rows perturbs it
+# by about ε·√n/gap ≈ 1e-4
+S9_PCA_N, S9_PCA_D, S9_PCA_K = 131072, 128, 64
+TOL_S9_PCA = 1e-3
+S9_PLAN = "multihost.init:after=0:times=1:raise"  # each Gloo rank's init retried once
+S9_TIMEOUT = 300  # each rank process's own bound
+S9_CRASH_EXIT = 42
+
+
+def s9_problem(seed: int):
+    """The fit's features (S9_N, S9_D) and ±1 labels (S9_N, S9_K), host f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((S9_N, S9_D), dtype=np.float32)
+    lab = rng.integers(0, S9_K, S9_N)
+    y = -np.ones((S9_N, S9_K), np.float32)
+    y[np.arange(S9_N), lab] = 1.0
+    return x, y
+
+
+def s9_estimators():
+    from keystone_tpu_torch.models.block_ls import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.models.block_weighted_ls import BlockWeightedLeastSquaresEstimator
+
+    return (BlockLeastSquaresEstimator(block_size=S9_BLOCK, num_iter=S9_EPOCHS, lam=S9_LAM),
+            BlockWeightedLeastSquaresEstimator(block_size=S9_BLOCK, num_iter=S9_EPOCHS, lam=S9_LAM,
+                                               mixture_weight=S9_MIX))
+
+
+def s9_flat(model) -> np.ndarray:
+    """A block model's weights and intercept as one host array."""
+    return torch.cat([model.flat_weights.reshape(-1), model.intercept.reshape(-1)]).cpu().numpy()
+
+
+def s9_digest(w) -> str:
+    return hashlib.sha256(np.ascontiguousarray(w).tobytes()).hexdigest()[:16]
+
+
+def parallel_rank(spec: str) -> int:
+    """One rank of an S9 leg (``--parallel-rank``): ``spec`` is JSON with
+    the leg, world, rank, port, work directory and seed.  Prints one S9
+    record; arrays go to ``<work>/<leg>_rank<r>.npz``."""
+    import torch.distributed as dist
+
+    from keystone_tpu_torch.obs import metrics
+    from keystone_tpu_torch.parallel import collectives, multihost
+    from keystone_tpu_torch.utils import precision
+
+    a = json.loads(spec)
+    leg, world, rank, work = a["leg"], a["world"], a["rank"], a["work"]
+    precision.disable_tf32()
+    multihost.initialize(f"127.0.0.1:{a['port']}", num_processes=world, process_id=rank,
+                         backend=None if leg == "nccl" else "gloo", device=DEVICE, initialization_timeout=120)
+    rec = {"leg": leg, "rank": rank, "backend": dist.get_backend(), "world": dist.get_world_size(),
+           "ready_seconds": time.perf_counter() - T_START,
+           "init_attempts": metrics.REGISTRY.counter_value("multihost.init_attempts")}
+    arrays = {}
+    try:
+        x, y = s9_problem(a["seed"])
+        if a.get("go"):  # started early: the start-up overlaps the leg before; the work waits for it
+            deadline = time.monotonic() + S9_TIMEOUT
+            while not os.path.exists(a["go"]):
+                check(time.monotonic() < deadline, f"S9 {leg} rank {rank}: no go in {S9_TIMEOUT} s")
+                time.sleep(0.05)
+        rec["go_seconds"] = time.perf_counter() - T_START
+        if leg == "nccl":
+            s9_nccl_leg(x, y, work, rec, arrays, a["seed"])
+        elif leg == "gloo":
+            s9_gloo_leg(x, y, work, rank, rec, arrays)
+        else:
+            s9_resume_leg(x, y, work, rank, leg, rec, arrays)
+        rec["collectives"] = dict(collectives.COUNTS)
+        np.savez(os.path.join(work, f"{leg}_rank{rank}.npz"), **arrays)
+        rec["leg_seconds"] = time.perf_counter() - T_START - rec["go_seconds"]
+        print("S9 " + json.dumps(rec), flush=True)
+        if leg == "gloo":  # then the kill, in the same processes: rank 1 exits mid-fit
+            s9_resume_leg(x, y, work, rank, "crash", {}, {})
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def s9_timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def s9_nccl_leg(x, y, work, rec, arrays, seed) -> None:
+    """A world of one over NCCL: the two fits bit for bit with no group
+    (an all-reduce of one rank is the identity), their all-reduces counted
+    and traced as NCCL kernels, and DistributedPCAEstimator."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from keystone_tpu_torch.models.pca import DistributedPCAEstimator, PCAEstimator
+    from keystone_tpu_torch.parallel import collectives, mesh
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    dev = torch.device(DEVICE)
+    xd, yd = Dataset(torch.from_numpy(x).to(dev)), Dataset(torch.from_numpy(y).to(dev))
+    est, west = s9_estimators()
+    collectives.reset_counts()
+    grp, rec["fit_seconds"] = s9_timed(lambda: est.fit_checkpointed(xd, yd, os.path.join(work, "nccl_group")))
+    rec["fit_all_reduces"] = collectives.COUNTS["all_reduce"]
+    wgrp = west.fit_dataset(xd, yd)
+    with mesh.use_mesh(mesh.local_mesh()):
+        alone = est.fit_checkpointed(xd, yd, os.path.join(work, "nccl_alone"))
+        walone = west.fit_dataset(xd, yd)
+    rec["bitwise"] = {"bcd": bool(torch.equal(grp.weights, alone.weights) and torch.equal(grp.intercept,
+                                                                                            alone.intercept)),
+                      "weighted": bool(torch.equal(wgrp.weights, walone.weights)
+                                       and torch.equal(wgrp.intercept, walone.intercept))}
+    arrays["bcd"], arrays["weighted"] = s9_flat(grp), s9_flat(wgrp)
+    # the fit again, warm (the first call also made the NCCL communicator
+    # and the cuBLAS/cuSOLVER handles), under the profiler
+    _, rec["warm_fit_seconds"] = s9_timed(lambda: est.fit_checkpointed(xd, yd, os.path.join(work, "nccl_warm")))
+    before = collectives.COUNTS["all_reduce"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        est.fit_dataset(xd, yd)
+        torch.cuda.synchronize()
+    rec["profiled_all_reduces"] = collectives.COUNTS["all_reduce"] - before
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    rec["nccl_ops"] = {e.key: e.count for e in events if "nccl" in e.key.lower() and e.device_type != DeviceType.CUDA}
+    rec["nccl_device_kernels"] = {e.key: e.count for e in events
+                                  if "nccl" in e.key.lower() and e.device_type == DeviceType.CUDA}
+    rec["device_kernels_traced"] = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    del xd, yd
+    # DistributedPCAEstimator at the fit's PCA shape
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    q, _ = torch.linalg.qr(torch.randn(S9_PCA_N, S9_PCA_D, generator=g, device=dev))
+    v, _ = torch.linalg.qr(torch.randn(S9_PCA_D, S9_PCA_D, generator=g, device=dev))
+    top = S9_PCA_K
+    sv = torch.cat([torch.linspace(1.0, 0.5, top, device=dev), torch.linspace(0.05, 0.01, S9_PCA_D - top, device=dev)])
+    sample = (q * (sv * S9_PCA_N ** 0.5)) @ v.T + 2.0 * torch.randn(S9_PCA_D, generator=g, device=dev)
+    del q
+    before = collectives.COUNTS["all_reduce"]
+    dist_pca, rec["pca_seconds"] = s9_timed(lambda: DistributedPCAEstimator(S9_PCA_K).fit_dataset(Dataset(sample)))
+    rec["pca_all_reduces"] = collectives.COUNTS["all_reduce"] - before
+    svd_pca, rec["svd_pca_seconds"] = s9_timed(lambda: PCAEstimator(S9_PCA_K).fit_dataset(Dataset(sample)))
+    s64 = sample.double()
+    c64 = s64 - s64.mean(dim=0)
+    _, ev = torch.linalg.eigh(c64.T @ c64 / S9_PCA_N)
+    p64 = ev[:, -top:] @ ev[:, -top:].T
+    pd = dist_pca.components.double() @ dist_pca.components.double().T
+    ps = svd_pca.components.double() @ svd_pca.components.double().T
+    rec["pca_projector"] = {"distributed_vs_svd": float((pd - ps).abs().max()),
+                            "distributed_vs_f64": float((pd - p64).abs().max()),
+                            "svd_vs_f64": float((ps - p64).abs().max())}
+
+
+def s9_gloo_leg(x, y, work, rank, rec, arrays) -> None:
+    """Two ranks over Gloo on CUDA tensors, each its 1024 rows: the
+    checkpointed BCD (the kill test's control), the weighted BCD, the
+    weighted fit_store over a store of this rank's 512 rows, the sick
+    barrier."""
+    from keystone_tpu_torch.parallel import SickHostError, health_barrier, multihost
+    from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
+
+    dev = torch.device(DEVICE)
+    est, west = s9_estimators()
+    sl = multihost.process_batch_slice(S9_N)
+    xd = multihost.make_global_dataset(x[sl], S9_N, device=dev)
+    yd = multihost.make_global_dataset(y[sl], S9_N, device=dev)
+    rec["rows"] = len(range(S9_N)[sl])
+    bcd, rec["fit_seconds"] = s9_timed(lambda: est.fit_checkpointed(xd, yd, os.path.join(work, "control")))
+    _, rec["warm_fit_seconds"] = s9_timed(lambda: est.fit_checkpointed(xd, yd, os.path.join(work, f"warm{rank}")))
+    wbcd, rec["weighted_seconds"] = s9_timed(lambda: west.fit_dataset(xd, yd))
+    arrays["bcd"], arrays["weighted"] = s9_flat(bcd), s9_flat(wbcd)
+    rec["digest"] = s9_digest(arrays["bcd"])
+    del xd, yd
+    ss = multihost.process_batch_slice(S9_STORE_N)
+    store = FeatureBlockStore.from_array(os.path.join(work, f"store{rank}"), x[:S9_STORE_N][ss], S9_BLOCK)
+    labels = multihost.make_global_dataset(y[:S9_STORE_N][ss], S9_STORE_N, device=dev)
+    oc, rec["store_seconds"] = s9_timed(lambda: west.fit_store(store, labels))
+    rec["store_rows"] = store.n
+    arrays["store"] = s9_flat(oc)
+    arrays["in_memory"] = s9_flat(west.fit_arrays(x[:S9_STORE_N], y[:S9_STORE_N], device=dev))
+    rec["store_vs_in_memory"] = float(np.abs(arrays["store"] - arrays["in_memory"]).max())
+    try:
+        health_barrier(ok=rank != 1, timeout=60.0, tag="s9")
+        rec["sick_raised"] = False
+    except SickHostError as e:
+        rec["sick_raised"] = "[1]" in str(e)
+
+
+def s9_resume_leg(x, y, work, rank, leg, rec, arrays) -> None:
+    """``crash`` (after the Gloo leg, in its processes): rank 1 exits
+    before its second epoch, between the collectives of a checkpointed
+    fit; ``resume``: both relaunched on the same directory resume from
+    rank 0's checkpoint."""
+    import keystone_tpu_torch.models.block_ls as bls
+    from keystone_tpu_torch.parallel import multihost
+
+    dev = torch.device(DEVICE)
+    ckpt = os.path.join(work, "ckpt")
+    if leg == "crash" and rank == 1:
+        orig = bls._bcd_epoch_body
+
+        calls = {"n": 0}
+
+        def epoch_body(*args, **kw):
+            calls["n"] += 1
+            if calls["n"] > 1:
+                sys.stdout.flush()
+                os._exit(S9_CRASH_EXIT)
+            return orig(*args, **kw)
+
+        bls._bcd_epoch_body = epoch_body
+    if leg == "resume":  # the epoch it resumes at: the one after rank 0's last saved
+        with np.load(os.path.join(ckpt, "bcd_epoch.npz")) as z:
+            rec["resumes_at_epoch"] = int(z["epoch"]) + 1
+    sl = multihost.process_batch_slice(S9_N)
+    est, _ = s9_estimators()
+    model, rec["fit_seconds"] = s9_timed(lambda: est.fit_checkpointed(
+        multihost.make_global_dataset(x[sl], S9_N, device=dev), multihost.make_global_dataset(y[sl], S9_N, device=dev),
+        ckpt))
+    arrays["bcd"] = s9_flat(model)
+    rec["digest"] = s9_digest(arrays["bcd"])
+
+
+def s9_start(leg, world, work, seed, env_extra=None, go=None):
+    """The leg's ranks as processes of this script, started; with ``go``
+    (a path), each rank initializes its group and makes its data, then
+    waits for the file before its work."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k not in ("KEYSTONE_FAULTS", "MASTER_ADDR", "WORLD_SIZE")}
+    env.update(env_extra or {})
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-rank",
+                               json.dumps({"leg": leg, "world": world, "rank": r, "port": port, "work": str(work),
+                                           "seed": seed, "go": None if go is None else str(go)})],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=str(REPO))
+             for r in range(world)]
+    return {"leg": leg, "procs": procs, "t0": time.perf_counter()}
+
+
+def s9_finish(started, expect_exit=None):
+    """A started leg's S9 records, its seconds since its start and each
+    rank's exit code.  Each rank has its own timeout; whatever is left is
+    killed.  ``expect_exit``: the last rank is to exit with it, and the
+    others' codes are not held (they fail, or are killed, once their peer
+    is gone)."""
+    leg, procs = started["leg"], started["procs"]
+    world = len(procs)
+    outs = [None] * world
+    try:
+        # a crash leg waits for the rank that exits first; its survivor,
+        # parked in (or failing out of) a collective whose peer is gone,
+        # is then killed after 30 s, as a scheduler would
+        for i in (range(world) if expect_exit is None else reversed(range(world))):
+            try:
+                o, e = procs[i].communicate(timeout=S9_TIMEOUT if expect_exit is None or i else 30)
+            except subprocess.TimeoutExpired:
+                procs[i].kill()
+                o, e = procs[i].communicate()
+            outs[i] = (procs[i].returncode, o, e)
+    finally:
+        s9_kill(started)
+    secs = time.perf_counter() - started["t0"]
+    recs = [json.loads(ln[3:]) for _, o, _ in outs for ln in o.splitlines() if ln.startswith("S9 ")]
+    for r, (rc, o, e) in enumerate(outs):
+        if expect_exit is None or r == world - 1:
+            want = 0 if expect_exit is None else expect_exit
+            check(rc == want, f"S9 {leg} rank {r} exited {rc} (not {want}):\n{o[-2000:]}\n{e[-4000:]}")
+    return recs, secs, [rc for rc, _, _ in outs]
+
+
+def s9_kill(started) -> None:
+    for p in started["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_path(dev, card, seed):
+    """S9's four legs, then the comparisons against float64 made here."""
+    from keystone_tpu_torch.parallel import mesh
+
+    tmp = Path(tempfile.mkdtemp(prefix="parallel_", dir=REPO))
+    out = {}
+    t_s9 = time.perf_counter()
+    # the three launches start together; the Gloo pair and the relaunched
+    # pair make their groups and data, then wait for the leg before them
+    # to end, so that no two legs' work shares the card
+    go_gloo, go_resume = tmp / "go_gloo", tmp / "go_resume"
+    legs = [s9_start("nccl", 1, tmp, seed), s9_start("gloo", 2, tmp, seed, {"KEYSTONE_FAULTS": S9_PLAN}, go_gloo),
+            s9_start("resume", 2, tmp, seed, go=go_resume)]
+    try:
+        with phase("S9: one rank over NCCL: the fits bit for bit with no group, NCCL kernels, DistributedPCAEstimator"):
+            (r1,), s1, _ = s9_finish(legs[0])
+            go_gloo.touch()
+            # NCCL's one-rank in-place all-reduce launches no device kernel:
+            # the c10d ops are what the trace shows of it
+            nccl_ops = sum(n for k, n in r1["nccl_ops"].items() if "all_reduce" in k.lower())
+            print(f"  backend {r1['backend']}, world {r1['world']}, initialized {r1['ready_seconds']:.2f} s after the "
+                  f"script loaded; fit_checkpointed {r1['fit_seconds']:.4f} s cold, {r1['warm_fit_seconds']:.4f} s "
+                  f"warm, with {r1['fit_all_reduces']} all-reduces (1 for the means, 2 a block: "
+                  f"{1 + 2 * S9_EPOCHS * (S9_D // S9_BLOCK)}); bit for bit with no group: {r1['bitwise']}; the "
+                  f"profiled fit's {r1['profiled_all_reduces']} all-reduces: NCCL ops {r1['nccl_ops']}, NCCL device "
+                  f"kernels {r1['nccl_device_kernels']} of {r1['device_kernels_traced']} kernels traced ({card})",
+                  flush=True)
+            check(r1["backend"] == "nccl" and r1["world"] == 1, f"leg 1 {r1['backend']} {r1['world']}")
+            check(all(r1["bitwise"].values()), f"the world of one is not the fit with no group bit for bit: "
+                                               f"{r1['bitwise']}")
+            check(r1["fit_all_reduces"] == 1 + 2 * S9_EPOCHS * (S9_D // S9_BLOCK), f"all-reduces {r1['fit_all_reduces']}")
+            check(nccl_ops == r1["profiled_all_reduces"] > 0, f"NCCL ops {r1['nccl_ops']}")
+            pp = r1["pca_projector"]
+            print(f"  DistributedPCAEstimator ({S9_PCA_N} x {S9_PCA_D} -> {S9_PCA_K}) {r1['pca_seconds']:.4f} s with "
+                  f"{r1['pca_all_reduces']} all-reduces, PCAEstimator (SVD) {r1['svd_pca_seconds']:.4f} s; projector "
+                  f"C·Cᵀ largest differences {pp} (tol {TOL_S9_PCA:g} against the SVD's) ({card})", flush=True)
+            check(pp["distributed_vs_svd"] <= TOL_S9_PCA, f"DistributedPCAEstimator's projector {pp}")
+            out["nccl"] = dict(r1, seconds=s1)
+        with phase("S9: two ranks over Gloo on the card, 1024 rows each: the fits, a per-rank store, a sick rank, "
+                   "then rank 1 killed before its second epoch"):
+            r2, s2, rcs = s9_finish(legs[1], expect_exit=S9_CRASH_EXIT)
+            go_resume.touch()
+            for r in r2:
+                print(f"  rank {r['rank']}: backend {r['backend']}, {r['init_attempts']:.0f} init attempts under "
+                      f"{S9_PLAN!r}; {r['rows']} rows; fit_checkpointed {r['fit_seconds']:.4f} s cold, "
+                      f"{r['warm_fit_seconds']:.4f} s warm, weighted "
+                      f"{r['weighted_seconds']:.4f} s, fit_store over {r['store_rows']} rows {r['store_seconds']:.4f} s "
+                      f"(against the in-memory fit of the {S9_STORE_N} rows {r['store_vs_in_memory']:.3e}, tol "
+                      f"{TOL_S9_STORE:g}); "
+                      f"collectives {r['collectives']}; sick barrier raised {r['sick_raised']} ({card})", flush=True)
+            check(len(r2) == 2 and all(r["backend"] == "gloo" and r["init_attempts"] == 2 for r in r2),
+                  f"leg 2 records {r2}")
+            check(all(r["sick_raised"] for r in r2), "a sick rank did not abort both ranks")
+            check(all(r["store_rows"] == S9_STORE_N // 2 for r in r2), "a rank's store holds other rows")
+            check(all(r["store_vs_in_memory"] <= TOL_S9_STORE for r in r2), "fit_store against the in-memory fit")
+            check(r2[0]["digest"] == r2[1]["digest"], "the two ranks' weights differ")
+            print(f"  the kill: exit codes {rcs} (rank 1 exited before its second epoch; rank 0 failed in the "
+                  f"collective it was left in, or was killed) ({card})", flush=True)
+            out["gloo"] = {"records": r2, "seconds": s2, "exit_codes": rcs}
+        with phase("S9: both ranks relaunched on the killed fit's checkpoint: the resume"):
+            r4, s4, _ = s9_finish(legs[2])
+            at = [r["resumes_at_epoch"] for r in r4]
+            print(f"  RESUMED_FROM epoch {at}, digests {[r['digest'] for r in r4]} against the uninterrupted "
+                  f"control's {r2[0]['digest']} in {s4:.2f} s ({card})", flush=True)
+            check(len(r4) == 2 and all(e >= 1 for e in at), f"resume records {r4}")
+            check(all(r["digest"] == r2[0]["digest"] for r in r4), "the resumed fit is not the control bit for bit")
+            out["kill_resume"] = {"crash_exit_codes": rcs, "resume_seconds": s4, "resumed_at_epoch": at}
+        with phase("S9: one rank against two, each against a float64 fit of the same data (made here)"):
+            x, y = s9_problem(seed)
+            one, two = (dict(np.load(tmp / f"{leg}_rank0.npz")) for leg in ("nccl", "gloo"))
+            est, west = s9_estimators()
+            with mesh.use_mesh(mesh.local_mesh()):
+                x64, y64 = torch.from_numpy(x).to(dev).double(), torch.from_numpy(y).to(dev).double()
+                ref = {"bcd": s9_flat(est._fit(x64, y64, S9_N)), "weighted": s9_flat(west._fit(x64, y64, S9_N))}
+                ref["in_memory"] = s9_flat(west._fit(x64[:S9_STORE_N], y64[:S9_STORE_N], S9_STORE_N))
+                del x64, y64
+            errs = {}
+            for key, a1, a2 in (("bcd", one["bcd"], two["bcd"]), ("weighted", one["weighted"], two["weighted"]),
+                                ("store", two["in_memory"], two["store"])):
+                r64 = ref["in_memory" if key == "store" else key]
+                e1, e2 = float(np.abs(a1 - r64).max()), float(np.abs(a2 - r64).max())
+                errs[key] = {"one_vs_f64": e1, "two_vs_f64": e2, "two_vs_one": float(np.abs(a2 - a1).max())}
+                print(f"  {key}: {'the in-memory fit' if key == 'store' else 'one rank'} {e1:.3e} from float64, "
+                      f"{'the two-rank fit_store' if key == 'store' else 'two ranks'} {e2:.3e} (limit "
+                      f"{S9_F32_GRADE:g}x), {errs[key]['two_vs_one']:.3e} apart ({card})", flush=True)
+                check(e2 <= S9_F32_GRADE * e1, f"{key}: two ranks {e2:.3e} from float64, one rank {e1:.3e}")
+            out["errors"] = errs
+        # each leg from its go to its last record (its start-up overlapped the leg before)
+        secs = {"nccl": r1["leg_seconds"], "gloo": max(r["leg_seconds"] for r in r2),
+                "resume": max(r["leg_seconds"] for r in r4)}
+        out["seconds"] = dict(secs, all=time.perf_counter() - t_s9, launch_to_exit={"nccl": s1, "gloo_and_kill": s2,
+                                                                                    "resume": s4})
+        two_fit, two_warm = (max(r[k] for r in r2) for k in ("fit_seconds", "warm_fit_seconds"))
+        print(f"  S9 legs' seconds from their go {_rounded(secs, 2)}, from their launch "
+              f"{_rounded(out['seconds']['launch_to_exit'], 2)}; S9 {out['seconds']['all']:.1f} s; the checkpointed fit "
+              f"{r1['fit_seconds']:.4f} s cold, {r1['warm_fit_seconds']:.4f} s warm at one rank (NCCL) against "
+              f"{two_fit:.4f} s cold, {two_warm:.4f} s warm at two (Gloo on CUDA tensors, one card: no speed-up "
+              f"is claimed) ({card})", flush=True)
+        out["fit_seconds"] = {"one_rank_nccl": r1["fit_seconds"], "one_rank_nccl_warm": r1["warm_fit_seconds"],
+                              "two_ranks_gloo": two_fit, "two_ranks_gloo_warm": two_warm}
+    finally:
+        for started in legs:
+            s9_kill(started)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def profile_once(fn) -> None:
     """Device time by operator over one call of ``fn`` (after a warm-up
     call), and two idle shares.  One window: the device's busy time
@@ -6233,7 +6711,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one batch or fit of each main path (after the checks)")
+    ap.add_argument("--seed", type=int, default=0, help="the seed of S9's data (numpy)")
     ap.add_argument("--recovery-child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-rank", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6241,6 +6721,8 @@ def main(argv=None) -> int:
         return 2
     if args.recovery_child:
         return recovery_child(args.recovery_child)
+    if args.parallel_rank:
+        return parallel_rank(args.parallel_rank)
 
     from keystone_tpu_torch.convert import params_from_numpy
     from keystone_tpu_torch.kernels import build
@@ -6515,7 +6997,7 @@ def main(argv=None) -> int:
     # the operations layer: the recovered streamed fit, the checkpointed
     # solvers, deadlines and breakers (phase 10's fit seconds, phase 14's data)
     results["operations"] = operations_path(dev, card, P, fk, gk, results["stream"], data,
-                                            results["newsgroups"].pop("ls_problem"))
+                                            results["newsgroups"].pop("ls_problem"), materialize)
 
     # the serving path: S1 the full-width scorer behind serve(), S1b the
     # bench forward, S2 a saved graph-fitted model through `cli serve`, S3
@@ -6535,6 +7017,8 @@ def main(argv=None) -> int:
     served["s7"] = tenants_path(dev, card, P, fk, cfg, scorer_params, images)
     served["s8"] = planner_path(dev, card, P, fk, gk, cfg, scorer_params, images)
     results["serve"] = served
+    # S9, the parallel layer: rank processes of this script over NCCL and Gloo
+    results["parallel"] = parallel_path(dev, card, args.seed)
 
     with phase("the profiled materialization passes of this process"):
         print(f"  {materialize['passes']} passes, {materialize['seconds']:.3f} s in all, "
@@ -6797,6 +7281,7 @@ def main(argv=None) -> int:
         "text_apps": {k: results[k] for k in ("newsgroups", "amazon")},
         "operations": results["operations"],
         "serve": results["serve"],
+        "parallel": results["parallel"],
         "card": card,
     }))
     print(f"chip_smoke: the whole script took {time.perf_counter() - T_START:.1f} s ({card})", flush=True)

@@ -40,11 +40,12 @@ Named **sites** wired through the port::
     plan.sample         one timed sample of a physical candidate in the
                         cost model (``planner/cost.py::wall_runner``);
                         ctx ``gate=``, ``candidate=``, ``n=``
+    multihost.init      parallel.multihost.initialize, each attempt at
+                        the rendezvous (an injected raise is retried as
+                        a transient connect failure)
 
-The reference's other site, ``multihost.init`` (A8), joins with the slice
-that wires it.  Until then a plan that names it raises
-:class:`UnknownFaultSiteError`, as any unregistered site does: a site
-nothing fires would report nothing.
+A plan that names any other site raises :class:`UnknownFaultSiteError`:
+a site nothing fires would report nothing.
 
 A **plan** activates faults at sites, through the ``inject`` context
 manager (tests) or the ``KEYSTONE_FAULTS`` environment variable (which
@@ -115,6 +116,7 @@ SITES = {
     "serve.net.send",
     "serve.net.recv",
     "plan.sample",
+    "multihost.init",
 }
 
 _ACTIONS = ("raise", "corrupt", "truncate", "exit", "delay", "hang", "drop")

@@ -20,6 +20,7 @@ import torch
 
 from keystone_tpu_torch.models.kmeans import _kmeans_fit, generator
 from keystone_tpu_torch.obs import ledger
+from keystone_tpu_torch.parallel import require_one_rank
 from keystone_tpu_torch.utils import timing
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
@@ -89,6 +90,7 @@ class GaussianMixtureModelEstimator(Estimator):
     def fit_dataset(self, data: Dataset) -> GaussianMixtureModel:
         """Rows (n, d), or ragged (n, T, d) sets with a mask, fitted in
         f32 on the data's device."""
+        require_one_rank("GaussianMixtureModelEstimator (the EM fit)")
         x = data.array.to(torch.float32)
         if data.mask is not None:
             fit = _gmm_fit(x, None, data.mask.to(torch.float32), self.k, self.max_iterations,
@@ -103,6 +105,7 @@ class GaussianMixtureModelEstimator(Estimator):
         (the reference's ``fit_dataset`` on a masked Dataset); numpy or
         tensors, fitted in f32 on ``device``.  ``stage_seconds``: as
         ``_gmm_fit``'s."""
+        require_one_rank("GaussianMixtureModelEstimator (the EM fit)")
         dev = resolve_device(device)
         x = torch.as_tensor(x, dtype=torch.float32).to(dev)
         n = None if mask is not None else x.shape[0]

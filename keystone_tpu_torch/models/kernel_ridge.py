@@ -43,6 +43,7 @@ from keystone_tpu_torch.faults import fault_point
 from keystone_tpu_torch.models.common import solve_spd
 from keystone_tpu_torch.obs import ledger, metrics
 from keystone_tpu_torch.ops.gram_kernels import gram_block, gram_block_ref, poly_block_ref
+from keystone_tpu_torch.parallel import require_one_rank
 from keystone_tpu_torch.utils import durable, precision
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset, as_dataset
@@ -144,6 +145,7 @@ class KernelRidgeRegressionEstimator(LabelEstimator):
         """The fit on the data's device: out of core for a stream."""
         if labels is None:
             raise ValueError("KernelRidgeRegressionEstimator requires labels")
+        require_one_rank("KernelRidgeRegressionEstimator")
         if data.is_host:
             raise TypeError("host-payload data reached a kernel solver; featurize to arrays before the fit")
         if isinstance(data, StreamDataset):
@@ -178,6 +180,7 @@ class KernelRidgeRegressionEstimator(LabelEstimator):
         and an interrupted fit resumes after the last one saved."""
         if not isinstance(self.kernel_gen, GaussianKernelGenerator):
             raise TypeError("the out-of-core sweep takes a GaussianKernelGenerator")
+        require_one_rank("KernelRidgeRegressionEstimator")
         labels = as_dataset(labels)
         if labels.n != store.n:
             raise ValueError(f"labels n={labels.n} != store n={store.n}")
@@ -189,6 +192,7 @@ class KernelRidgeRegressionEstimator(LabelEstimator):
     def fit_arrays(self, x, y, device="cuda") -> KernelBlockLinearMapper:
         """x: (n, d), y: (n, k), numpy or tensors, fitted on ``device``
         (the card unless the caller asks for the CPU)."""
+        require_one_rank("KernelRidgeRegressionEstimator")
         dev = resolve_device(device)
         x = torch.as_tensor(x, dtype=torch.float32).to(dev)
         return self._fit(x, torch.as_tensor(y, dtype=torch.float32).to(dev), x.shape[0])

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from keystone_tpu_torch.obs import ledger
+from keystone_tpu_torch.parallel import require_one_rank
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.transformer import Transformer
 
@@ -60,6 +61,7 @@ class KMeansPlusPlusEstimator:
 
     def fit_arrays(self, x, device="cuda") -> KMeansModel:
         """x: (n, d), numpy or a tensor; fitted in f32 on ``device``."""
+        require_one_rank("KMeansPlusPlusEstimator")
         dev = resolve_device(device)
         x = torch.as_tensor(x, dtype=torch.float32).to(dev)
         row_ok = torch.ones((x.shape[0],), dtype=torch.float32, device=dev)

@@ -23,6 +23,15 @@ carry on the same trajectory.  With a run ledger each effective step
 reports its objective and gradient norm, and each chunk its seconds and
 its save's (``solver.epoch``); without one the loop reads nothing more
 than the reads counted in ``STATS``.
+
+In a job of several ranks (``parallel/``) each rank holds its row slice:
+the objective's and gradient's row sums all-reduce over the mesh's data
+axis (one all-reduce an evaluation) before the penalty is added, so every
+rank takes the same steps on the same carry.  A checkpointed fit saves
+on rank 0 only and resumes from rank 0's read, broadcast to every rank;
+its fingerprint covers every rank's first rows.  Each rank's own sums
+stay in a fixed order (the sparse gradient's ``scatter_plan``), so a
+resumed job repeats the uninterrupted one bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ import torch
 
 from keystone_tpu_torch.models.linear import LinearMapper
 from keystone_tpu_torch.obs import ledger, metrics
+from keystone_tpu_torch.parallel import collectives, multihost, require_rank_slice
+from keystone_tpu_torch.parallel import mesh as _mesh
 from keystone_tpu_torch.utils import durable
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
@@ -239,17 +250,50 @@ def _lbfgs_checkpoint_callbacks(checkpoint_dir: str, problem: str, tag: str, fla
             return False
         return all(np.asarray(z[k]).shape == sh for k, sh in zip(_CARRY_KEYS, shapes))
 
-    def load_cb():
+    template = (np.zeros((flat_size,), np.float32), np.float32(0), np.zeros((flat_size,), np.float32),
+                np.zeros((m, flat_size), np.float32), np.zeros((m, flat_size), np.float32),
+                np.zeros((m,), np.float32), np.int32(0), np.bool_(False))
+
+    def read():
         loaded = durable.load_npz(path, validate=valid)
         if loaded is None:
             return None
         z, _ = loaded
         return int(z["it"]), tuple(np.asarray(z[k]) for k in _CARRY_KEYS)
 
+    def load_cb():
+        if _mesh.world_size() <= 1:
+            return read()
+        # rank 0 decides and broadcasts: every rank resumes at one iteration
+        got = read() if multihost.process_index() == 0 else None
+        it = int(multihost.broadcast_host([np.asarray([-1 if got is None else got[0]], np.int64)])[0][0])
+        if it < 0:
+            return None
+        carry = got[1] if got is not None else template
+        carry = multihost.broadcast_host([np.asarray(a, t.dtype).reshape(-1) for a, t in zip(carry, template)])
+        return it, tuple(a.reshape(t.shape) for a, t in zip(carry, template))
+
     def save_cb(it, carry):
+        # the carry is the same on every rank: one writer, and only it pays the copy
+        if multihost.process_index() != 0:
+            return
         durable.save_npz(path, dict(_carry_to_host(carry), it=np.int32(it), problem=problem), keep=2)
 
     return load_cb, save_cb
+
+
+def _row_sums(f, g, mesh=None):
+    """The data terms of an objective and its gradient (None: not asked
+    for), summed over the mesh's data axis in one all-reduce."""
+    if g is None:
+        return collectives.psum_many(f, mesh=mesh)[0], None
+    return collectives.psum_many(f, g, mesh=mesh)
+
+
+def _gathered_rows(*tensors) -> bytes:
+    """The first row of each tensor, every rank's concatenated in rank
+    order above a world of one: the fingerprints' content probe."""
+    return b"".join(multihost.gather_to_host(t[:1].cpu().numpy()).tobytes() for t in tensors)
 
 
 class DenseLBFGSwithL2(LabelEstimator):
@@ -281,16 +325,20 @@ class DenseLBFGSwithL2(LabelEstimator):
     def fit_dataset(self, data: Dataset, labels: Optional[Dataset] = None) -> LinearMapper:
         if labels is None:
             raise ValueError("DenseLBFGSwithL2 requires labels")
-        x = data.array[:data.n]
-        return self._fit(x, labels.array[:labels.n].to(x.device))
+        require_rank_slice(data, "DenseLBFGSwithL2")
+        x = data.array[:data.local_n]
+        return self._fit(x, labels.array[:labels.local_n].to(x.device), data.n)
 
+    @_mesh.on_local_mesh
     def fit_arrays(self, x, y=None, device="cuda") -> LinearMapper:
         dev = resolve_device(device)
         return self._fit(torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev))
 
-    def _fit(self, x, y) -> LinearMapper:
+    def _fit(self, x, y, n=None) -> LinearMapper:
+        """x, y: this rank's valid rows; ``n`` the count over every rank
+        (default: x's rows)."""
         w, b = _lbfgs_least_squares(x.to(torch.float32), y.to(torch.float32), self.lam, self.num_iterations,
-                                    self.history, self.fit_intercept)
+                                    self.history, self.fit_intercept, n)
         return LinearMapper(ledger.device_wait(w), b if self.fit_intercept else None)
 
     def fit_checkpointed(self, data, labels=None, checkpoint_dir: Optional[str] = None,
@@ -306,10 +354,11 @@ class DenseLBFGSwithL2(LabelEstimator):
             return self.fit_dataset(as_dataset(data), as_dataset(labels))
         data = as_dataset(data)
         labels = as_dataset(labels, device=data.device)
-        x = data.array[:data.n].to(torch.float32)
-        w, b = _lbfgs_dense_checkpointed(x, labels.array[:labels.n].to(x.device, torch.float32), self.lam,
+        require_rank_slice(data, "DenseLBFGSwithL2.fit_checkpointed")
+        x = data.array[:data.local_n].to(torch.float32)
+        w, b = _lbfgs_dense_checkpointed(x, labels.array[:labels.local_n].to(x.device, torch.float32), self.lam,
                                          self.num_iterations, self.history, self.fit_intercept, checkpoint_dir,
-                                         checkpoint_every)
+                                         checkpoint_every, data.n)
         return LinearMapper(w, b if self.fit_intercept else None)
 
 
@@ -331,8 +380,9 @@ class SparseLBFGSwithL2(DenseLBFGSwithL2):
         if labels is None:
             raise ValueError("SparseLBFGSwithL2 requires labels")
         if data.is_host and is_scipy_sparse_rows(data.items):
+            require_rank_slice(data, "SparseLBFGSwithL2")
             sp = BucketedSparseRows.from_scipy_rows(data.items, device=data.device)
-            return self.fit_sparse(sp, labels.array, n=data.n)
+            return self.fit_sparse(sp, labels.array, n=data.local_n)
         return super().fit_dataset(data, labels)
 
     def _capped_history(self, d_aug: int, k: int, device) -> int:
@@ -351,7 +401,9 @@ class SparseLBFGSwithL2(DenseLBFGSwithL2):
 
     def fit_sparse(self, sp, y, n: Optional[int] = None, checkpoint_dir: Optional[str] = None,
                    checkpoint_every: int = 10) -> LinearMapper:
-        """Fit from a PaddedSparseRows or BucketedSparseRows.  With
+        """Fit from a PaddedSparseRows or BucketedSparseRows (in a job of
+        several ranks, this rank's rows: ``n`` its valid rows, the count
+        over every rank summed over the data axis).  With
         ``checkpoint_dir`` the carry is saved every ``checkpoint_every``
         iterations to ``lbfgs_sparse.npz`` there, and an interrupted fit
         resumes from it."""
@@ -360,6 +412,8 @@ class SparseLBFGSwithL2(DenseLBFGSwithL2):
         d = sp.num_features
         intercept = bool(self.fit_intercept)
         bidx, bvals, by, n, d_aug, _ = bucketize_with_labels(sp, y, n=n, intercept=intercept)
+        if _mesh.current_mesh().data > 1:
+            n = multihost.data_axis_sum(n)
         k = by[0].shape[1]
         history = self._capped_history(d_aug, k, by[0].device)
         if checkpoint_dir is None:
@@ -387,8 +441,9 @@ class SparseLBFGSwithL2(DenseLBFGSwithL2):
             data = as_dataset(data)  # dense rows: the card unless they are on the CPU
         if isinstance(data, Dataset):
             if data.is_host and is_scipy_sparse_rows(data.items):
+                require_rank_slice(data, "SparseLBFGSwithL2.fit_checkpointed")
                 sp = BucketedSparseRows.from_scipy_rows(data.items, device=data.device)
-                n = data.n
+                n = data.local_n
             else:
                 return super().fit_checkpointed(data, labels, checkpoint_dir, checkpoint_every)
         else:
@@ -410,13 +465,20 @@ def _sparse_vag(data, w, grad: bool, *, d: int, intercept: bool, plans=None):
         reg = torch.ones((d, 1), dtype=torch.float32, device=w.device)
         reg[d - 1] = 0.0
         wp = w * reg
-    f = 0.5 * lam * torch.sum(wp * wp)
-    g = lam * wp if grad else None
+    # across ranks the row terms are summed first, all-reduced, and the
+    # penalty added once; alone, the penalty starts the sums
+    spread = _mesh.current_mesh().group(_mesh.DATA_AXIS) is not None
+    f = torch.zeros((), dtype=torch.float32, device=w.device) if spread else 0.5 * lam * torch.sum(wp * wp)
+    g = None if not grad else torch.zeros_like(w) if spread else lam * wp
     for b, (idx, vals, y) in enumerate(zip(bidx, bvals, by)):
         r = sparse_matmul(idx, vals, w) - y
         f = f + 0.5 * torch.sum(r * r) / n
         if grad:
             g = g + sparse_grad(idx, vals, r, d, None if plans is None else plans[b]) / n
+    if spread:
+        f, g = _row_sums(f, g)
+        f = 0.5 * lam * torch.sum(wp * wp) + f
+        g = None if g is None else lam * wp + g
     return f, g
 
 
@@ -442,9 +504,7 @@ def _lbfgs_sparse_checkpointed(bidx, bvals, by, n, d, lam, num_iterations, histo
     fp = hashlib.sha256()
     fp.update(repr((tuple(tuple(i.shape) for i in bidx), tuple(tuple(yy.shape) for yy in by), int(d), float(lam),
                     float(n), bool(intercept), int(history), "sparse-v1")).encode())
-    fp.update(bidx[0][:1].to(torch.int32).cpu().numpy().tobytes())
-    fp.update(bvals[0][:1].cpu().numpy().tobytes())
-    fp.update(by[0][:1].cpu().numpy().tobytes())
+    fp.update(_gathered_rows(bidx[0].to(torch.int32), bvals[0], by[0]))
     load_cb, save_cb = _lbfgs_checkpoint_callbacks(checkpoint_dir, fp.hexdigest(), "sparse", d * k, history)
     data = (bidx, bvals, by, float(n), lam)
     plans = [scatter_plan(idx, k) for idx in bidx]
@@ -455,28 +515,32 @@ def _lbfgs_sparse_checkpointed(bidx, bvals, by, n, d, lam, num_iterations, histo
                                     save_cb=save_cb, load_cb=load_cb)
 
 
-def _lbfgs_center(x, y, fit_intercept: bool):
-    """The intercept's centring: (xc, yc, x̄, ȳ)."""
-    n = x.shape[0]
+def _lbfgs_center(x, y, fit_intercept: bool, n=None):
+    """The intercept's centring: (xc, yc, x̄, ȳ), the means over the ``n``
+    rows of every rank (default: x's rows)."""
+    n = x.shape[0] if n is None else n
     if fit_intercept:
-        xm = torch.sum(x, dim=0) / n
-        ym = torch.sum(y, dim=0) / n
+        sx, sy = collectives.psum_many(torch.sum(x, dim=0), torch.sum(y, dim=0))
+        xm = sx / n
+        ym = sy / n
         return x - xm, y - ym, xm, ym
     return (x, y, torch.zeros((x.shape[1],), dtype=torch.float32, device=x.device),
             torch.zeros((y.shape[1],), dtype=torch.float32, device=y.device))
 
 
 def _dense_vag(data, w, grad: bool):
-    """The dense least-squares objective, ``data = (xc, yc, n, lam)``."""
+    """The dense least-squares objective, ``data = (xc, yc, n, lam)``: the
+    row terms (all-reduced across ranks), then the penalty."""
     xc, yc, n, lam = data
     r = xc @ w - yc
-    f = 0.5 * torch.sum(r * r) / n + 0.5 * lam * torch.sum(w * w)
-    return f, (xc.T @ r / n + lam * w) if grad else None
+    f, g = _row_sums(0.5 * torch.sum(r * r) / n, xc.T @ r / n if grad else None)
+    return f + 0.5 * lam * torch.sum(w * w), (g + lam * w) if grad else None
 
 
-def _lbfgs_least_squares(x, y, lam, num_iterations, history, fit_intercept):
-    xc, yc, xm, ym = _lbfgs_center(x, y, fit_intercept)
-    data = (xc, yc, float(x.shape[0]), lam)
+def _lbfgs_least_squares(x, y, lam, num_iterations, history, fit_intercept, n=None):
+    n = x.shape[0] if n is None else n
+    xc, yc, xm, ym = _lbfgs_center(x, y, fit_intercept, n)
+    data = (xc, yc, float(n), lam)
     w0 = torch.zeros((x.shape[1], y.shape[1]), dtype=torch.float32, device=x.device)
     w = lbfgs_minimize(lambda w_, grad: _dense_vag(data, w_, grad), w0, max_iter=num_iterations, history=history,
                        obs_label="lbfgs.dense")
@@ -485,20 +549,19 @@ def _lbfgs_least_squares(x, y, lam, num_iterations, history, fit_intercept):
 
 
 def _lbfgs_dense_checkpointed(x, y, lam, num_iterations, history, fit_intercept, checkpoint_dir,
-                              checkpoint_every):
+                              checkpoint_every, n=None):
     """Dense L-BFGS by the resumable loop: ``_lbfgs_least_squares``'s
     steps, cut into checkpointed chunks.  The fingerprint is the
-    reference's: the shapes, λ, n, the intercept and history, and the
-    first rows of x and y."""
-    n = x.shape[0]
-    fp = hashlib.sha256()
-    fp.update(repr((tuple(x.shape), tuple(y.shape), float(lam), int(n), bool(fit_intercept), int(history),
-                    "dense-v1")).encode())
-    fp.update(x[:1].cpu().numpy().tobytes())
-    fp.update(y[:1].cpu().numpy().tobytes())
+    reference's: the shapes (of all ``n`` rows), λ, n, the intercept and
+    history, and the first rows of x and y (every rank's)."""
+    n = x.shape[0] if n is None else n
     d, k = x.shape[1], y.shape[1]
+    fp = hashlib.sha256()
+    fp.update(repr(((n, d), (n, k), float(lam), int(n), bool(fit_intercept), int(history),
+                    "dense-v1")).encode())
+    fp.update(_gathered_rows(x, y))
     load_cb, save_cb = _lbfgs_checkpoint_callbacks(checkpoint_dir, fp.hexdigest(), "dense", d * k, history)
-    xc, yc, xm, ym = _lbfgs_center(x, y, fit_intercept)
+    xc, yc, xm, ym = _lbfgs_center(x, y, fit_intercept, n)
     data = (xc, yc, float(n), lam)
     w0 = torch.zeros((d, k), dtype=torch.float32, device=x.device)
     w = lbfgs_minimize_resumable(lambda w_, grad: _dense_vag(data, w_, grad), w0, max_iter=num_iterations,

@@ -11,6 +11,12 @@ path, ``LinearMapEstimator.fit_stream``: an in-memory fit streams
 4096-row views of its tensors.  The Gramians are f32 products of row
 blocks, Kahan-summed (``models/common.py::gram``); the pipelines turn
 TF32 off, so they are true f32 on the card.
+
+In a job of several ranks (``parallel/``) each rank streams its own row
+slice and the sums (the means' row sums and counts, the Gramians)
+all-reduce over the mesh's data axis: every rank then solves the same
+normal equations, as the reference's driver-side solve after its
+treeReduce.  On the local mesh the all-reduces are the identity.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from typing import Optional
 import torch
 
 from keystone_tpu_torch.models.common import gram, kahan_add, row_blocks, solve_spd
+from keystone_tpu_torch.parallel import collectives, require_one_rank, require_rank_slice
+from keystone_tpu_torch.parallel import mesh as _mesh
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset
 from keystone_tpu_torch.workflow.estimator import LabelEstimator
@@ -85,7 +93,8 @@ class LinearMapEstimator(LabelEstimator):
 
             return SparseLBFGSwithL2(lam=self.lam, num_iterations=100, fit_intercept=self.fit_intercept)
         if (sample is not None and not sample.is_host and full_n is not None and sample.array.ndim == 2
-                and full_n * sample.array.shape[1] <= _LOCAL_SOLVE_MAX_ELEMENTS):
+                and full_n * sample.array.shape[1] <= _LOCAL_SOLVE_MAX_ELEMENTS
+                and _mesh.data_size() == 1):  # the local solve sees one rank's rows
             return LocalLeastSquaresEstimator(lam=self.lam, fit_intercept=self.fit_intercept)
         return self
 
@@ -111,8 +120,10 @@ class LinearMapEstimator(LabelEstimator):
                     lo += b.shape[0]
 
             return self.fit_stream(pairs)
-        return self._fit(data.array[:data.n], labels.array[:labels.n].to(data.device))
+        require_rank_slice(data, "LinearMapEstimator")
+        return self._fit(data.array[:data.local_n], labels.array[:labels.local_n].to(data.device))
 
+    @_mesh.on_local_mesh
     def fit_arrays(self, x, y=None, device="cuda") -> LinearMapper:
         """x (n, d), y (n, k), numpy or tensors; fitted on ``device``."""
         dev = resolve_device(device)
@@ -129,7 +140,8 @@ class LinearMapEstimator(LabelEstimator):
 
         With ``fit_intercept`` two passes, as the reference: the means,
         then the Gramians of explicitly centred batches; every sum is
-        Kahan-compensated across batches."""
+        Kahan-compensated across batches.  Each rank of a job streams its
+        own rows: the sums and counts all-reduce over the data axis."""
         get = batches if callable(batches) else lambda: iter(batches)
         dev = None
 
@@ -140,6 +152,7 @@ class LinearMapEstimator(LabelEstimator):
                     dev = bx.device if isinstance(bx, torch.Tensor) else resolve_device()
                 yield (torch.as_tensor(bx).to(dev, torch.float32), torch.as_tensor(by).to(dev, torch.float32))
 
+        spread = _mesh.current_mesh().group(_mesh.DATA_AXIS) is not None
         xm = ym = None
         n = 0
         if self.fit_intercept:
@@ -148,15 +161,22 @@ class LinearMapEstimator(LabelEstimator):
                 n += x.shape[0]
                 sx, cx = kahan_add(sx, cx, x.sum(dim=0))
                 sy, cy = kahan_add(sy, cy, y.sum(dim=0))
-            if n == 0:
+            if sx is None:
                 raise ValueError("empty batch stream")
-            xm, ym = sx / n, sy / n
+            n_all = n
+            if spread:  # one all-reduce of the row sums and the count, in f64 (counts past 2^24 stay exact)
+                sx, sy, count = collectives.psum_many(sx.double(), sy.double(), sx.new_tensor(n, dtype=torch.float64))
+                sx, sy, n_all = sx.float(), sy.float(), int(count.item())
+            xm, ym = sx / n_all, sy / n_all
         sxx, sxy, n2 = gram(staged(), center=None if xm is None else (xm, ym))
         if self.fit_intercept and n2 != n:
             raise ValueError(f"batch stream is not re-iterable: first pass saw {n} rows, second pass {n2}. Pass a "
                              "callable returning a fresh iterator (or a re-iterable like a list).")
-        if n2 == 0:
+        if sxx is None:
             raise ValueError("empty batch stream")
+        if spread:
+            sxx, sxy = collectives.psum_many(sxx, sxy)
+            n2 = int(collectives.psum(sxx.new_tensor([n2], dtype=torch.float64))[0].item())
         w = solve_spd(sxx, sxy, reg=self.lam * n2)
         return LinearMapper(w, None if xm is None else ym - xm @ w)
 
@@ -181,8 +201,13 @@ class LocalLeastSquaresEstimator(LabelEstimator):
     def fit_dataset(self, data: Dataset, labels: Optional[Dataset] = None) -> LinearMapper:
         if labels is None:
             raise ValueError("LocalLeastSquaresEstimator requires labels")
+        if data.is_rank_slice and self.lam > 0.0:  # the normal equations sum over the ranks
+            return LinearMapEstimator(self.lam, self.fit_intercept).fit_dataset(data, labels)
+        if data.is_rank_slice:
+            require_one_rank("LocalLeastSquaresEstimator's QR solve (lam=0)")
         return self._fit(data.array[:data.n], labels.array[:labels.n].to(data.device))
 
+    @_mesh.on_local_mesh
     def fit_arrays(self, x, y=None, device="cuda") -> LinearMapper:
         dev = resolve_device(device)
         return self._fit(torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev))

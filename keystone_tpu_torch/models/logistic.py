@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from keystone_tpu_torch.models.lbfgs import lbfgs_minimize
+from keystone_tpu_torch.parallel import require_one_rank
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
 from keystone_tpu_torch.workflow.estimator import LabelEstimator
@@ -56,6 +57,7 @@ class LogisticRegressionEstimator(LabelEstimator):
     def fit_dataset(self, data: Dataset, labels: Optional[Dataset] = None) -> LogisticRegressionModel:
         if labels is None:
             raise ValueError("LogisticRegressionEstimator requires labels")
+        require_one_rank("LogisticRegressionEstimator")
         from keystone_tpu_torch.ops.sparse import BucketedSparseRows, is_scipy_sparse_rows
 
         if data.is_host and is_scipy_sparse_rows(data.items):
@@ -66,6 +68,7 @@ class LogisticRegressionEstimator(LabelEstimator):
 
     def fit_sparse(self, sp, y, n: Optional[int] = None) -> LogisticRegressionModel:
         """Fit from a PaddedSparseRows or BucketedSparseRows."""
+        require_one_rank("LogisticRegressionEstimator")
         from keystone_tpu_torch.ops.sparse import bucketize_with_labels, host_onehot
 
         y = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
@@ -80,6 +83,7 @@ class LogisticRegressionEstimator(LabelEstimator):
         return (y > 0).to(torch.float32)
 
     def fit_arrays(self, x, y=None, device="cuda") -> LogisticRegressionModel:
+        require_one_rank("LogisticRegressionEstimator")
         dev = resolve_device(device)
         return self._fit(torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev))
 

@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from keystone_tpu_torch.parallel import require_one_rank
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
 from keystone_tpu_torch.workflow.estimator import LabelEstimator
@@ -50,6 +51,7 @@ class NaiveBayesEstimator(LabelEstimator):
     def fit_dataset(self, data: Dataset, labels: Optional[Dataset] = None) -> NaiveBayesModel:
         if labels is None:
             raise ValueError("NaiveBayesEstimator requires labels")
+        require_one_rank("NaiveBayesEstimator")
         from keystone_tpu_torch.ops.sparse import (BucketedSparseRows, bucketize_with_labels, host_onehot,
                                                    is_scipy_sparse_rows)
 
@@ -64,6 +66,7 @@ class NaiveBayesEstimator(LabelEstimator):
         return self._fit(x, labels.array[:labels.n].to(x.device))
 
     def fit_arrays(self, x, y=None, device="cuda") -> NaiveBayesModel:
+        require_one_rank("NaiveBayesEstimator")
         dev = resolve_device(device)
         return self._fit(torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev))
 

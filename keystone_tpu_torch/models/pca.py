@@ -1,12 +1,14 @@
 """PCA (counterpart of ``keystone_tpu/models/pca.py`` § PCATransformer,
-PCAEstimator, _pca_fit, _pca_masked).
+PCAEstimator, DistributedPCAEstimator, _pca_fit, _pca_cov_fit,
+_pca_masked).
 
 The fit is the SVD of the centred rows, as the reference's; ragged
 descriptor sets take the masked branch, the eigendecomposition of the
-masked covariance.  The SVD's column signs are arbitrary, here and in
-the reference alike, so two fits agree in the projector C·Cᵀ, and in C
-only up to each column's sign.  ``DistributedPCAEstimator`` waits for
-the port's parallel layer (ROADMAP A8).
+masked covariance.  ``DistributedPCAEstimator`` forms the covariance as
+a Gramian all-reduced over the mesh's data axis (each rank its row
+slice) and eigendecomposes it on every rank, replicated.  The columns'
+signs are arbitrary, here and in the reference alike, so two fits agree
+in the projector C·Cᵀ, and in C only up to each column's sign.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from keystone_tpu_torch.parallel import collectives, require_one_rank, require_rank_slice
+from keystone_tpu_torch.parallel import mesh as _mesh
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
 from keystone_tpu_torch.workflow.estimator import Estimator
@@ -68,6 +72,9 @@ class PCAEstimator(Estimator):
     def fit_dataset(self, data: Dataset) -> PCATransformer:
         """Rows (n, d), or ragged (n, T, d) sets with a mask (the masked
         branch), fitted in f32 on the data's device."""
+        if data.is_rank_slice:
+            require_one_rank("PCAEstimator (the SVD of the gathered rows; DistributedPCAEstimator takes a rank "
+                             "slice)")
         x = data.array.to(torch.float32)
         if data.mask is not None:
             comp, mean = _pca_masked(x, data.mask.to(torch.float32), self.dims, self.center)
@@ -87,6 +94,44 @@ class PCAEstimator(Estimator):
         else:
             comp, mean = _pca_fit(x, x.shape[0], self.dims, self.center)
         return PCATransformer(comp, mean if self.center else None)
+
+
+class DistributedPCAEstimator(PCAEstimator):
+    """Covariance by an all-reduced Gramian and a replicated ``eigh``
+    (PCA.scala § DistributedPCAEstimator): preferable when n ≫ d, and the
+    fit of a job whose ranks each hold a row slice.  Ragged sets with a
+    mask take the parent's masked branch, as in the reference."""
+
+    def fit_dataset(self, data: Dataset) -> PCATransformer:
+        if data.mask is not None:
+            return super().fit_dataset(data)
+        require_rank_slice(data, "DistributedPCAEstimator")
+        comp, mean = _pca_cov_fit(data.array.to(torch.float32), data.n, data.local_n, self.dims, self.center)
+        return PCATransformer(comp, mean if self.center else None)
+
+    def fit_arrays(self, x, mask=None, device="cuda") -> PCATransformer:
+        """x: (n, d) rows, numpy or tensors, fitted in f32 on ``device``
+        (all the rows: a rank slice comes as a Dataset)."""
+        if mask is not None:
+            return super().fit_arrays(x, mask, device)
+        x = torch.as_tensor(x, dtype=torch.float32).to(resolve_device(device))
+        comp, mean = _pca_cov_fit(x, x.shape[0], x.shape[0], self.dims, self.center, mesh=_mesh.local_mesh())
+        return PCATransformer(comp, mean if self.center else None)
+
+
+def _pca_cov_fit(x, n, valid, dims: int, center: bool, mesh=None):
+    """(components (d, dims), mean): the top ``dims`` eigenvectors of the
+    covariance of ``n`` rows over every rank, x holding this rank's
+    (its first ``valid`` rows; the rest padding).  Centred explicitly
+    (the padding re-masked to zero): the gram/n − x̄x̄ᵀ shortcut cancels
+    catastrophically in f32 at large feature magnitudes."""
+    mesh = mesh or _mesh.current_mesh()
+    mean = collectives.psum(torch.sum(x, dim=0), mesh=mesh) / n
+    if center:
+        x = (x - mean) * _mesh.local_rows_mask(x.shape[0], valid, x.device, x.dtype)[:, None]
+    cov = collectives.sharded_gram(x, mesh) / n  # the treeReduce
+    _, evecs = torch.linalg.eigh(cov)
+    return torch.flip(evecs, dims=(1,))[:, :dims].contiguous(), mean
 
 
 def _svd_vh(xc):

@@ -60,6 +60,7 @@ from keystone_tpu_torch.ops.lcs import LCSExtractor
 from keystone_tpu_torch.ops.sift import SIFTExtractor, _sift_normalize
 from keystone_tpu_torch.ops.stats import ColumnSampler, NormalizeRows, SignedHellingerMapper
 from keystone_tpu_torch.ops.util import ClassLabelIndicators, TopKClassifier
+from keystone_tpu_torch.parallel import require_one_rank
 from keystone_tpu_torch.utils import precision, timing
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
@@ -485,6 +486,7 @@ class ImageNetSiftLcsFV:
         (``"fitted"``) and what it predicted on the test set
         (``"predictions"``: top-k ids, or each view's scores with
         ``augmented_eval``)."""
+        require_one_rank("ImageNetSiftLcsFV.run as a job of several ranks")
         dev = resolve_device(device)
         precision.disable_tf32()
         sz = (config.image_size, config.image_size)

@@ -3,8 +3,12 @@
 
 A Dataset is a batch of items living as one torch tensor on one device,
 its leading axis the items.  The reference shards that axis over a mesh
-and pads it to the mesh's width; the port runs on one device, so there
-is no padding and ``n`` equals the tensor's rows.
+and pads it to the mesh's width.  In a single-process job the port holds
+every row, and ``n`` is the tensor's rows (or fewer: rows past ``n`` are
+padding).  In a job of several ranks (``parallel/``) a Dataset may hold
+one rank's row slice (``parallel.multihost.make_global_dataset``): its
+tensor is the slice zero-padded to the ranks' common row count, ``n`` is
+the global count and ``rank_rows`` the slice's own valid rows.
 
 Three payload kinds flow through pipelines:
   - tensors: (n, ...) on the Dataset's device, the normal case;
@@ -35,7 +39,13 @@ class Dataset:
     where the tensor lives; None keeps a tensor where it is and puts
     other data (numpy) on the card, as the entry points do: pass
     ``device="cpu"`` to keep it on the CPU.  ``name``: an optional stable
-    identity for CSE (unnamed datasets use their object id)."""
+    identity for CSE (unnamed datasets use their object id).
+
+    ``rank_rows``: None when the Dataset holds every row; in a rank's row
+    slice, the valid rows at the top of its tensor (``n`` is then the
+    global count)."""
+
+    rank_rows: Optional[int] = None
 
     def __init__(
         self,
@@ -98,9 +108,19 @@ class Dataset:
             return self._host
         return list(self.numpy())
 
+    @property
+    def is_rank_slice(self) -> bool:
+        return self.rank_rows is not None
+
+    @property
+    def local_n(self) -> int:
+        """The valid rows this Dataset holds: ``n``, or a slice's own."""
+        return self.n if self.rank_rows is None else self.rank_rows
+
     def numpy(self) -> np.ndarray:
-        """Host copy of the first ``n`` rows."""
-        return self.array[: self.n].cpu().numpy()
+        """Host copy of the valid rows held here (the first ``n``; a rank
+        slice's own)."""
+        return self.array[: self.local_n].cpu().numpy()
 
     def __len__(self) -> int:
         return self.n
@@ -112,6 +132,7 @@ class Dataset:
         d._host = None
         d._array = arr
         d.n = self.n
+        d.rank_rows = self.rank_rows
         d.mask = mask
         d.name = None
         return d
@@ -122,6 +143,7 @@ class Dataset:
         d._host = list(items)
         d._array = None
         d.n = self.n
+        d.rank_rows = self.rank_rows
         d.mask = None
         d.name = None
         d._device = self._device if self._array is None else self._array.device
@@ -135,9 +157,10 @@ class Dataset:
         return self
 
     def __repr__(self):
+        part = "" if self.rank_rows is None else f", rank_rows={self.rank_rows}"
         if self.is_host:
-            return f"Dataset(host, n={self.n})"
-        return f"Dataset(shape={tuple(self.array.shape)}, n={self.n}, device={self.device})"
+            return f"Dataset(host, n={self.n}{part})"
+        return f"Dataset(shape={tuple(self.array.shape)}, n={self.n}{part}, device={self.device})"
 
 
 class StreamDataset(Dataset):

@@ -16,9 +16,13 @@ partitions, task retry, speculative execution.  The port's layers:
   was killed is restarted by whoever launched it, with the same state
   directory: the relaunch resumes the same way.
 
-Multi-process restart (every process of a job restarting together) is
-ROADMAP A8's: under an initialized ``torch.distributed`` group of more
-than one process, ``fit_with_recovery`` makes no in-process retry.
+A job of several ranks (``parallel/``) restarts as a whole: collectives
+are SPMD, so one rank retrying alone would rerun collectives its peers
+never see.  Under a world above one ``fit_with_recovery`` makes no
+in-process retry; each attempt starts at ``maybe_health_barrier`` (a
+dead or sick peer fails it in bounded time instead of deadlocking the
+first all-reduce), and the job's launcher relaunches every rank, which
+resume from rank 0's checkpoints and the saved prefixes.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 
 from keystone_tpu_torch import faults
 from keystone_tpu_torch.obs import ledger
+from keystone_tpu_torch.parallel import multihost
 from keystone_tpu_torch.utils import durable
 
 logger = logging.getLogger(__name__)
@@ -74,13 +79,11 @@ def purge_invalid_state(state_dir: str) -> List[str]:
 
 
 def _world_size() -> int:
-    """The ``torch.distributed`` world size when a group is initialized,
-    else 1."""
-    import torch.distributed as dist
+    """The job's ranks (``parallel.mesh``): the initialized group's world
+    size, else 1."""
+    from keystone_tpu_torch.parallel import mesh
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    return mesh.device_count()
 
 
 def fit_with_recovery(build_fn: Callable, state_dir: Optional[str] = None,
@@ -111,6 +114,9 @@ def fit_with_recovery(build_fn: Callable, state_dir: Optional[str] = None,
         delays = iter(durable.backoff_delays(max_restarts, base_delay=0.1, max_delay=2.0))
         for attempt in range(max_restarts + 1):
             try:
+                # every peer alive and healthy before a collective fit
+                # (inert at a world of one, and without KEYSTONE_HEALTH_TIMEOUT)
+                multihost.maybe_health_barrier("fit_with_recovery.attempt")
                 fitted = build_fn().fit()
                 # failures surface here, inside the retry scope, not at
                 # the fitted model's first use

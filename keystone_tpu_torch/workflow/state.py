@@ -134,7 +134,10 @@ def save_pipeline_state(pipeline_dataset, state_dir: str) -> int:
     """Materialize and save every saveable node output of a lazy result
     (stable signature, a device dataset that is not a stream): the
     reference's ExtractSaveablePrefixes.  Returns the prefixes saved."""
+    from keystone_tpu_torch.parallel import require_one_rank
     from keystone_tpu_torch.workflow.executor import DatasetExpr, GraphExecutor
+
+    require_one_rank("save_pipeline_state (the sharded saved state)")
 
     os.makedirs(state_dir, exist_ok=True)
     g = pipeline_dataset.graph

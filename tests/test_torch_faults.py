@@ -56,14 +56,18 @@ def test_seeded_plan_fires_at_the_reference_call_counts(plan, site):
 
 @pytest.mark.parametrize("site", ["multihost.init"])
 def test_sites_of_unported_slices_are_refused(site):
-    """The reference's other site joins with the slice that wires it;
-    until then a plan naming it is refused, not silently inert."""
-    assert site in ref_faults.SITES
+    """The reference's last site joined with the parallel slice that wires
+    it: the port registers every site the reference has, parses a plan
+    naming it as the reference does, and still refuses a site that no
+    slice fires (a plan naming one is refused, not silently inert)."""
+    assert site in ref_faults.SITES and site in faults.SITES
+    assert ref_faults.SITES <= faults.SITES
+    assert parse_plan(f"{site}:after=0:times=1:raise").specs[0].site == site
     ref_faults.parse_plan(f"{site}:raise")
     with pytest.raises(faults.UnknownFaultSiteError, match="unknown fault site"):
-        parse_plan(f"{site}:raise")
+        parse_plan(f"{site}.unwired:raise")
     with pytest.raises(faults.UnknownFaultSiteError):
-        with inject(faults.FaultPlan([faults.SiteSpec(site)])):
+        with inject(faults.FaultPlan([faults.SiteSpec(f"{site}.unwired")])):
             pass
 
 
@@ -106,8 +110,9 @@ def test_wired_sites_are_the_slice_sites():
     assert faults.SITES == {"blockstore.read", "blockstore.write", "ckpt.save", "ckpt.load", "stream.batch",
                             "executor.stage", "kernel.sweep", "serve.enqueue", "serve.batch", "serve.replica",
                             "serve.worker", "serve.swap", "serve.artifact_load", "serve.rollout",
-                            "serve.net.connect", "serve.net.send", "serve.net.recv", "plan.sample"}
-    assert faults.SITES <= ref_faults.SITES
+                            "serve.net.connect", "serve.net.send", "serve.net.recv", "plan.sample",
+                            "multihost.init"}
+    assert faults.SITES == ref_faults.SITES
 
 
 @pytest.mark.parametrize("site,ctx", [

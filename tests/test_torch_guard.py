@@ -476,3 +476,41 @@ def test_library_import_path_excludes_serve():
                          cwd=str(PKG.parent))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_parallel_imports_without_jax():
+    """The parallel layer (mesh, collectives, multihost) imports neither
+    JAX nor the JAX package."""
+    mods = ["keystone_tpu_torch.parallel", "keystone_tpu_torch.parallel.mesh",
+            "keystone_tpu_torch.parallel.collectives", "keystone_tpu_torch.parallel.multihost"]
+    assert set(mods) <= set(_modules()) | {"keystone_tpu_torch.parallel"}
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'keystone_tpu' or m.startswith('keystone_tpu.')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_initialize_defaults_to_nccl_on_the_card(monkeypatch):
+    """``initialize(backend=None)`` takes NCCL when the device is the card
+    and Gloo only when the caller asks for the CPU; with no card a CUDA
+    request raises, never falling back to Gloo.  Nothing is initialized."""
+    import torch.distributed as dist
+
+    from keystone_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(dist, "init_process_group", lambda *a, **k: pytest.fail("initialized a group"))
+    assert multihost.choose_backend(None, "cpu") == "gloo"
+    assert multihost.choose_backend("gloo", "cuda") == "gloo"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            multihost.choose_backend(None, "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert multihost.choose_backend() == "nccl"
+    assert multihost.choose_backend(None, "cuda") == "nccl"
+    assert not dist.is_initialized()
