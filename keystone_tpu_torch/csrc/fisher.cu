@@ -75,6 +75,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -801,6 +803,29 @@ int launch_general(const TIn* x, const float* mask, const float* comp, const flo
   return 0;
 }
 
+// Above 48 KB, dynamic shared memory needs the function's attribute.  The
+// attribute belongs to the function for the whole process, not to the
+// calling thread: set per launch at that launch's size, another thread
+// (a second replica, a co-served tenant, the other branch's shape) could
+// lower it between one thread's set and its launch, which CUDA then
+// refuses (cudaErrorInvalidValue).  So it is set once per device and
+// kernel instantiation, at kSmemLimit, the most pick_tile ever takes.
+constexpr int kMaxDevices = 64;
+
+template <typename TIn, bool kRect, bool kFused, typename Kernel>
+cudaError_t prepare(Kernel kernel) {
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t err[kMaxDevices];
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(once[device], [&] {
+    err[device] = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemLimit);
+  });
+  return err[device];
+}
+
 template <typename TIn>
 int launch_encode(const void* x, const float* mask, const float* wt, const float* cst,
                   const float* mu, const float* var, const float* w, float* out, int n, int T,
@@ -812,8 +837,9 @@ int launch_encode(const void* x, const float* mask, const float* wt, const float
     return launch_general(static_cast<const TIn*>(x), mask, nullptr, nullptr, 0, wt, cst, mu, var, w, out,
                           n, T, 0, d, K, ws, stream);
   const size_t bytes = smem_floats(tile, d, K, 0) * sizeof(float);
-  const auto kernel = d % 32 == 0 && K % 64 == 0 ? fv_encode_kernel<TIn, true> : fv_encode_kernel<TIn, false>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const bool rect = d % 32 == 0 && K % 64 == 0;
+  const auto kernel = rect ? fv_encode_kernel<TIn, true> : fv_encode_kernel<TIn, false>;
+  const cudaError_t e = rect ? prepare<TIn, true, false>(kernel) : prepare<TIn, false, false>(kernel);
   if (e != cudaSuccess) return (int)e;
   kernel<<<n, kThreads, bytes, stream>>>(
       static_cast<const TIn*>(x), mask, wt, cst, mu, var, w, out, T, d, K, tile);
@@ -832,8 +858,9 @@ int launch_fused(const void* x, const float* mask, const float* comp, const floa
     return launch_general(static_cast<const TIn*>(x), mask, comp, mean, normalize, wt, cst, mu, var, w, out,
                           n, T, d_in, d, K, ws, stream);
   const size_t bytes = smem_floats(tile, d, K, d_in) * sizeof(float);
-  const auto kernel = d % 32 == 0 && K % 64 == 0 ? fv_fused_kernel<TIn, true> : fv_fused_kernel<TIn, false>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const bool rect = d % 32 == 0 && K % 64 == 0;
+  const auto kernel = rect ? fv_fused_kernel<TIn, true> : fv_fused_kernel<TIn, false>;
+  const cudaError_t e = rect ? prepare<TIn, true, true>(kernel) : prepare<TIn, false, true>(kernel);
   if (e != cudaSuccess) return (int)e;
   kernel<<<n, kThreads, bytes, stream>>>(static_cast<const TIn*>(x), mask, comp, mean, normalize, wt,
                                          cst, mu, var, w, out, T, d_in, d, K, tile);

@@ -13,6 +13,18 @@ of the generator chain.  The sweeps are Python loops over epochs × blocks;
 its carries to each jitted step instead, and bounds its dispatch queue
 with a ``tick`` output, which has no counterpart here).
 
+In a job of several ranks (``parallel/``) each rank holds a row slice
+of X, Y, α and F, and the blocks are the global rows' (``_krr_fit_ranks``):
+each block step all-reduces the block's rows X_b, Y_b − F_b and α_b from
+the ranks that hold them in one call (O(bs) rows on the link, never the
+n×n kernel), each rank launches the gram kernel for its own rows against
+X_b, every rank forms K_bb and solves the block alike (replicated, as the
+BCD solves), and each updates its own F and α rows.  The cached sweep
+keeps only the rank's own column tiles; ``KernelBlockLinearMapper``
+predicts Σ_r K(x, X_r)·α_r by one all-reduce a batch, and its
+``gathered()`` model, every rank's rows, is the one that saves.  The out-of-core
+sweep stays a single-process fit, as the reference's.
+
 The out-of-core sweep (``_oc_krr_fit``; ``fit_store``,
 ``fit_stream_dataset``) streams the train rows from a ``RowBlockStore``
 and forms every kernel tile from two row blocks, so neither K nor X is
@@ -42,8 +54,9 @@ import torch.nn.functional as F
 from keystone_tpu_torch.faults import fault_point
 from keystone_tpu_torch.models.common import solve_spd
 from keystone_tpu_torch.obs import ledger, metrics
-from keystone_tpu_torch.ops.gram_kernels import gram_block, gram_block_ref, poly_block_ref
-from keystone_tpu_torch.parallel import require_one_rank
+from keystone_tpu_torch.ops.gram_kernels import gram_block, gram_block_for, gram_block_ref, poly_block_ref
+from keystone_tpu_torch.parallel import collectives, require_one_rank, require_rank_slice
+from keystone_tpu_torch.parallel import mesh as _mesh
 from keystone_tpu_torch.utils import durable, precision
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset, as_dataset
@@ -89,10 +102,17 @@ class PolynomialKernelGenerator:
 class KernelBlockLinearMapper(Transformer):
     """Predicts K(x_test, X_train)·α, streaming over train blocks so the
     test×train kernel never fully materializes.  Gaussian generators only,
-    as in the reference."""
+    as in the reference.
+
+    ``data_axis``: the data axis of the job of several ranks that fitted
+    it (None: one process's fit, every train row here).  Such a mapper
+    holds this rank's train rows and α only; a prediction sums every
+    rank's over the data axis (a collective: every rank of that axis
+    predicts the same rows together), and it pickles only after
+    ``gathered()`` made it whole."""
 
     def __init__(self, kernel_gen, train_x, alpha, block_size: int, train_n: int,
-                 use_kernel: Optional[bool] = None):
+                 use_kernel: Optional[bool] = None, data_axis: Optional[int] = None):
         super().__init__()
         self.kernel_gen = kernel_gen
         self.register_buffer("train_x", train_x)  # (n_rows, d), block-padded
@@ -100,6 +120,11 @@ class KernelBlockLinearMapper(Transformer):
         self.block_size = int(block_size)
         self.train_n = int(train_n)
         self.use_kernel = use_kernel
+        self.data_axis = None if data_axis is None else int(data_axis)
+
+    def _sharded(self) -> bool:
+        # a mapper saved before ``data_axis`` existed unpickles without it
+        return getattr(self, "data_axis", None) is not None
 
     def apply_batch(self, xs, mask=None):
         if not isinstance(self.kernel_gen, GaussianKernelGenerator):
@@ -107,8 +132,30 @@ class KernelBlockLinearMapper(Transformer):
                 f"KernelBlockLinearMapper predicts with Gaussian generators only, "
                 f"got {type(self.kernel_gen).__name__}"
             )
-        return _krr_predict(xs, self.train_x, self.alpha, self.kernel_gen.gamma,
-                            self.block_size, self.use_kernel)
+        if self._sharded() and _mesh.data_size() != self.data_axis:
+            raise ValueError(f"this KernelBlockLinearMapper holds one rank's part of a fit over a data axis of "
+                             f"{self.data_axis}; it predicts only on a mesh with that data axis, whose ranks "
+                             f"predict together (the current one has {_mesh.data_size()})")
+        out = _krr_predict(xs, self.train_x, self.alpha, self.kernel_gen.gamma, self.block_size, self.use_kernel)
+        return collectives.psum(out) if self._sharded() else out
+
+    def gathered(self) -> "KernelBlockLinearMapper":
+        """The whole model, every rank's train rows and α in rank order,
+        on every rank (a collective of the fit's data axis; each rank's
+        rows are padded alike, so the gather is of equal parts and the
+        padding rows' α stays zero).  A one-process model is itself."""
+        if not self._sharded():
+            return self
+        x = collectives.all_gather(self.train_x, _mesh.DATA_AXIS)
+        alpha = collectives.all_gather(self.alpha, _mesh.DATA_AXIS)
+        return KernelBlockLinearMapper(self.kernel_gen, x, alpha, self.block_size, self.train_n, self.use_kernel)
+
+    def __getstate__(self):
+        if self._sharded() and self.data_axis > 1:
+            raise TypeError("a KernelBlockLinearMapper fitted over a data axis of "
+                            f"{self.data_axis} holds one rank's train rows and α; save its gathered() model "
+                            "(every rank calls gathered(), one saves it)")
+        return super().__getstate__()
 
 
 class KernelRidgeRegressionEstimator(LabelEstimator):
@@ -145,13 +192,16 @@ class KernelRidgeRegressionEstimator(LabelEstimator):
         """The fit on the data's device: out of core for a stream."""
         if labels is None:
             raise ValueError("KernelRidgeRegressionEstimator requires labels")
-        require_one_rank("KernelRidgeRegressionEstimator")
         if data.is_host:
             raise TypeError("host-payload data reached a kernel solver; featurize to arrays before the fit")
         if isinstance(data, StreamDataset):
             return self.fit_stream_dataset(data, labels)
+        require_rank_slice(data, "KernelRidgeRegressionEstimator")
         x = data.array.to(torch.float32)
-        return self._fit(x, labels.array.to(x.device, torch.float32), data.n)
+        y = labels.array.to(x.device, torch.float32)
+        if data.is_rank_slice:
+            return self._fit_ranks(x[:data.local_n], y[:labels.local_n], data.n, data.rank_offset)
+        return self._fit(x, y, data.n)
 
     def fit_stream_dataset(self, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None
                            ) -> "OutOfCoreKernelBlockLinearMapper":
@@ -180,7 +230,10 @@ class KernelRidgeRegressionEstimator(LabelEstimator):
         and an interrupted fit resumes after the last one saved."""
         if not isinstance(self.kernel_gen, GaussianKernelGenerator):
             raise TypeError("the out-of-core sweep takes a GaussianKernelGenerator")
-        require_one_rank("KernelRidgeRegressionEstimator")
+        require_one_rank("KernelRidgeRegressionEstimator's out-of-core sweep",
+                         "it streams every row from one store, and the reference's out-of-core sweep refuses "
+                         "several processes too (keystone_tpu/models/kernel_ridge.py:584-588); fit a rank-slice "
+                         "Dataset in core")
         labels = as_dataset(labels)
         if labels.n != store.n:
             raise ValueError(f"labels n={labels.n} != store n={store.n}")
@@ -192,10 +245,28 @@ class KernelRidgeRegressionEstimator(LabelEstimator):
     def fit_arrays(self, x, y, device="cuda") -> KernelBlockLinearMapper:
         """x: (n, d), y: (n, k), numpy or tensors, fitted on ``device``
         (the card unless the caller asks for the CPU)."""
-        require_one_rank("KernelRidgeRegressionEstimator")
+        require_rank_slice(None, "KernelRidgeRegressionEstimator.fit_arrays")
         dev = resolve_device(device)
         x = torch.as_tensor(x, dtype=torch.float32).to(dev)
         return self._fit(x, torch.as_tensor(y, dtype=torch.float32).to(dev), x.shape[0])
+
+    def _fit_ranks(self, x, y, n, offset):
+        """This rank's valid rows x, y (global rows ``offset ..`` of ``n``):
+        the sweep across ranks (``_krr_fit_ranks``); the model keeps this
+        rank's rows and α, block-padded, and predicts by an all-reduce."""
+        if not self.cache_kernel_blocks and not isinstance(self.kernel_gen, GaussianKernelGenerator):
+            raise TypeError("the in-core sweep takes a GaussianKernelGenerator; "
+                            "use cache_kernel_blocks=True for other generators")
+        bs = self.block_size
+        x, y = x.contiguous(), y.contiguous()
+        alpha = _krr_fit_ranks(x, y, n, offset, self.kernel_gen, self.lam, bs, self.num_epochs,
+                               cached=self.cache_kernel_blocks, use_kernel=self.use_kernel)
+        # every rank pads to the blocks of the largest slice: equal parts
+        data = _mesh.data_size()
+        per = max(-(-n // data), x.shape[0])
+        pad = -(-per // bs) * bs - x.shape[0]
+        return KernelBlockLinearMapper(self.kernel_gen, F.pad(x, (0, 0, 0, pad)).contiguous(),
+                                       F.pad(alpha, (0, 0, 0, pad)), bs, n, self.use_kernel, data_axis=data)
 
     def _fit(self, x, y, n):
         n_rows = x.shape[0]
@@ -249,15 +320,85 @@ def _krr_fit(x, y, n, gamma, lam, bs, num_epochs, use_kernel=None):
 def _cached_block_update(kcol, kbb, row_ok, ok_b, ab, yb, fb, lam_n):
     """One Gauss–Seidel block update from the kernel column block K(:, b),
     (n_rows, bs), and its diagonal block; returns (α_b new, the F
-    increment).  Both sweeps share it (the reference inlines a copy in
+    increment).  Every sweep shares it (the reference inlines a copy in
     its jitted in-core sweep); they differ only in where the column block
-    comes from."""
+    comes from.  ``fb`` None: ``yb`` is already Y_b − F_b."""
     # mask padding rows/cols; the pad diagonal is identity so the solve stays PD
     kcol = kcol * row_ok[:, None] * ok_b[None, :]
     kbb = kbb * ok_b[:, None] * ok_b[None, :] + torch.diag(1.0 - ok_b)
-    target = yb - fb + kbb @ ab
+    target = (yb if fb is None else yb - fb) + kbb @ ab
     ab_new = solve_spd(kbb, target, reg=lam_n) * ok_b[:, None]
     return ab_new, kcol @ (ab_new - ab)
+
+
+def _krr_fit_ranks(x, y, n, offset, kern, lam, bs, num_epochs, cached=False, use_kernel=None):
+    """The Gauss–Seidel sweep over the blocks of the global rows, each
+    rank holding rows ``offset ..`` of ``n`` (x, y: its valid rows).
+    A block step all-reduces the block's X_b, Y_b − F_b and α_b in one
+    call (each rank writes the rows it holds into zeros: exact), launches
+    the gram kernel for K(x_r, X_b) and K(X_b, X_b), solves the block on
+    every rank alike and updates this rank's F and α rows.  ``cached``:
+    the rank's column tiles and K_bb are kept from epoch 1 (while the
+    largest slice's fit half the card of every rank, one all-reduce
+    agreeing on it; above it they are recomputed), and later epochs
+    all-reduce only Y_b − F_b and α_b.  Returns this rank's α."""
+    from keystone_tpu_torch.workflow.profiling import device_hbm_budget
+
+    valid, d = x.shape
+    k = y.shape[1]
+    nb = -(-int(n) // bs)
+    alpha = torch.zeros_like(y)
+    f = torch.zeros_like(y)
+    row_ok = torch.ones((valid,), dtype=x.dtype, device=x.device)
+    keep = False
+    if cached:
+        # every rank decides alike (else the block steps' all-reduces part):
+        # the largest slice's tiles against the least budget of any rank
+        per = -(-int(n) // _mesh.data_size())
+        (budget,) = collectives.pmin(torch.tensor([device_hbm_budget(0.5, x.device)], dtype=torch.float64,
+                                                  device=x.device))
+        keep = per * nb * bs * 4 + nb * bs * bs * 4 <= float(budget)
+    cols: dict = {}
+    observe = ledger.solver_obs()
+
+    def gram(a, z):
+        out = gram_block_for(kern, a, z, use_kernel=use_kernel)
+        return kern(a, z) if out is None else out
+
+    for e in range(num_epochs):
+        for b in range(nb):
+            lo = b * bs
+            a, z = max(lo, offset), min(lo + bs, offset + valid)  # the block's rows held here
+            have = b in cols
+            rb, ab = y.new_zeros((bs, k)), y.new_zeros((bs, k))
+            parts = [rb, ab]
+            if not have:
+                xb = x.new_zeros((bs, d))
+                parts.append(xb)
+            if a < z:
+                rb[a - lo:z - lo] = y[a - offset:z - offset] - f[a - offset:z - offset]
+                ab[a - lo:z - lo] = alpha[a - offset:z - offset]
+                if not have:
+                    xb[a - lo:z - lo] = x[a - offset:z - offset]
+            parts = collectives.psum_many(*parts)
+            rb, ab = parts[0], parts[1]
+            if have:
+                kcol, kbb = cols[b]
+            else:
+                xb = parts[2].contiguous()
+                kcol, kbb = gram(x, xb), gram(xb, xb)
+                if keep:
+                    cols[b] = (kcol, kbb)
+            ok_b = (torch.arange(lo, lo + bs, device=x.device) < n).to(x.dtype)
+            ab_new, f_delta = _cached_block_update(kcol, kbb, row_ok, ok_b, ab, rb, None, lam * n)
+            if a < z:
+                alpha[a - offset:z - offset] = ab_new[a - lo:z - lo]
+            f += f_delta
+        if observe:
+            r = y - f
+            (obj,) = collectives.psum_many(0.5 * torch.sum(r * r) / n)
+            ledger.solver_epoch("krr.ranks", epoch=e, objective=float(obj))
+    return ledger.device_wait(alpha)
 
 
 def _krr_fit_cached(x, y, n, kern, lam, bs, num_epochs, cache_dir=None, use_kernel=None):

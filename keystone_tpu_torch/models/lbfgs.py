@@ -465,20 +465,18 @@ def _sparse_vag(data, w, grad: bool, *, d: int, intercept: bool, plans=None):
         reg = torch.ones((d, 1), dtype=torch.float32, device=w.device)
         reg[d - 1] = 0.0
         wp = w * reg
-    # across ranks the row terms are summed first, all-reduced, and the
-    # penalty added once; alone, the penalty starts the sums
-    spread = _mesh.current_mesh().group(_mesh.DATA_AXIS) is not None
-    f = torch.zeros((), dtype=torch.float32, device=w.device) if spread else 0.5 * lam * torch.sum(wp * wp)
-    g = None if not grad else torch.zeros_like(w) if spread else lam * wp
+    # the row terms from zero, summed over the data axis, then the penalty
+    # once: the same order at every world size
+    f = torch.zeros((), dtype=torch.float32, device=w.device)
+    g = torch.zeros_like(w) if grad else None
     for b, (idx, vals, y) in enumerate(zip(bidx, bvals, by)):
         r = sparse_matmul(idx, vals, w) - y
         f = f + 0.5 * torch.sum(r * r) / n
         if grad:
             g = g + sparse_grad(idx, vals, r, d, None if plans is None else plans[b]) / n
-    if spread:
-        f, g = _row_sums(f, g)
-        f = 0.5 * lam * torch.sum(wp * wp) + f
-        g = None if g is None else lam * wp + g
+    f, g = _row_sums(f, g)
+    f = f + 0.5 * lam * torch.sum(wp * wp)
+    g = None if g is None else g + lam * wp
     return f, g
 
 

@@ -204,7 +204,10 @@ class LocalLeastSquaresEstimator(LabelEstimator):
         if data.is_rank_slice and self.lam > 0.0:  # the normal equations sum over the ranks
             return LinearMapEstimator(self.lam, self.fit_intercept).fit_dataset(data, labels)
         if data.is_rank_slice:
-            require_one_rank("LocalLeastSquaresEstimator's QR solve (lam=0)")
+            require_one_rank("LocalLeastSquaresEstimator's QR solve (lam=0)",
+                             "a QR factorization of every row has no all-reduced form (the reference's "
+                             "LocalLeastSquaresEstimator collects its rows to one process too); pass lam > 0 for "
+                             "the normal equations, which sum over the ranks")
         return self._fit(data.array[:data.n], labels.array[:labels.n].to(data.device))
 
     @_mesh.on_local_mesh

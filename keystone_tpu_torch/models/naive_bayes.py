@@ -2,7 +2,12 @@
 § NaiveBayesModel, NaiveBayesEstimator, _nb_fit_sparse, _nb_fit,
 _nb_finish; reference nodes/learning/NaiveBayes.scala, MLlib's
 multinomial NB, the Newsgroups pipeline's head).  The model scores
-per-class log posteriors (argmax-compatible with MaxClassifier)."""
+per-class log posteriors (argmax-compatible with MaxClassifier).
+
+In a job of several ranks each rank holds a row slice (dense rows, or its
+own scipy rows in its own nnz buckets): the class and feature counts
+all-reduce over the data axis in one call, as the reference's ``psum``
+of ``_nb_fit``/``_nb_fit_sparse``, and every rank finishes alike."""
 
 from __future__ import annotations
 
@@ -10,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from keystone_tpu_torch.parallel import require_one_rank
+from keystone_tpu_torch.parallel import collectives, require_rank_slice
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
 from keystone_tpu_torch.workflow.estimator import LabelEstimator
@@ -51,7 +56,7 @@ class NaiveBayesEstimator(LabelEstimator):
     def fit_dataset(self, data: Dataset, labels: Optional[Dataset] = None) -> NaiveBayesModel:
         if labels is None:
             raise ValueError("NaiveBayesEstimator requires labels")
-        require_one_rank("NaiveBayesEstimator")
+        require_rank_slice(data, "NaiveBayesEstimator")
         from keystone_tpu_torch.ops.sparse import (BucketedSparseRows, bucketize_with_labels, host_onehot,
                                                    is_scipy_sparse_rows)
 
@@ -60,18 +65,21 @@ class NaiveBayesEstimator(LabelEstimator):
             # entries: n×d never densifies
             sp = BucketedSparseRows.from_scipy_rows(data.items, device=data.device)
             onehot = host_onehot(labels.numpy(), self.num_classes)
-            bidx, bvals, boh, n, d, _ = bucketize_with_labels(sp, onehot, n=data.n)
+            bidx, bvals, boh, n, d, _ = bucketize_with_labels(sp, onehot, n=data.local_n, global_n=data.n)
             return NaiveBayesModel(*_nb_fit_sparse(bidx, bvals, boh, n, d, self.lam))
-        x = data.array[:data.n]
-        return self._fit(x, labels.array[:labels.n].to(x.device))
+        x = data.array[:data.local_n]
+        return self._fit(x, labels.array[:labels.local_n].to(x.device), data.n)
 
     def fit_arrays(self, x, y=None, device="cuda") -> NaiveBayesModel:
-        require_one_rank("NaiveBayesEstimator")
+        require_rank_slice(None, "NaiveBayesEstimator.fit_arrays")
         dev = resolve_device(device)
         return self._fit(torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev))
 
-    def _fit(self, x, y) -> NaiveBayesModel:
-        return NaiveBayesModel(*_nb_fit(x.to(torch.float32), _to_onehot(y, self.num_classes), x.shape[0], self.lam))
+    def _fit(self, x, y, n=None) -> NaiveBayesModel:
+        """x, y: this rank's valid rows; ``n`` the count over every rank
+        (default: x's rows)."""
+        n = x.shape[0] if n is None else n
+        return NaiveBayesModel(*_nb_fit(x.to(torch.float32), _to_onehot(y, self.num_classes), n, self.lam))
 
 
 def _to_onehot(y: torch.Tensor, k: int) -> torch.Tensor:
@@ -83,7 +91,7 @@ def _to_onehot(y: torch.Tensor, k: int) -> torch.Tensor:
 def _nb_fit_sparse(bidx, bvals, bonehot, n, d, lam):
     """Sparse multinomial NB: the feature counts (Xᵀ·onehot)ᵀ by
     scatter-add, bucket by bucket (padding rows carry zero values and
-    labels); the same tail as ``_nb_fit``."""
+    labels), all-reduced across ranks; the same tail as ``_nb_fit``."""
     from keystone_tpu_torch.ops.sparse import sparse_grad
 
     k = bonehot[0].shape[1]
@@ -93,11 +101,12 @@ def _nb_fit_sparse(bidx, bvals, bonehot, n, d, lam):
     for idx, vals, onehot in zip(bidx, bvals, bonehot):
         class_counts = class_counts + torch.sum(onehot, dim=0)
         feat_counts = feat_counts + sparse_grad(idx, vals, onehot, d).T
-    return _nb_finish(class_counts, feat_counts, n, lam)
+    return _nb_finish(*collectives.psum_many(class_counts, feat_counts), n, lam)
 
 
 def _nb_fit(x, onehot, n, lam):
-    return _nb_finish(torch.sum(onehot, dim=0), onehot.T @ x, n, lam)
+    """Dense multinomial NB from this rank's rows; ``n`` over every rank."""
+    return _nb_finish(*collectives.psum_many(torch.sum(onehot, dim=0), onehot.T @ x), n, lam)
 
 
 def _nb_finish(class_counts, feat_counts, n, lam):

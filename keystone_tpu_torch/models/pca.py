@@ -6,9 +6,14 @@ The fit is the SVD of the centred rows, as the reference's; ragged
 descriptor sets take the masked branch, the eigendecomposition of the
 masked covariance.  ``DistributedPCAEstimator`` forms the covariance as
 a Gramian all-reduced over the mesh's data axis (each rank its row
-slice) and eigendecomposes it on every rank, replicated.  The columns'
-signs are arbitrary, here and in the reference alike, so two fits agree
-in the projector C·Cᵀ, and in C only up to each column's sign.
+slice) and eigendecomposes it on every rank, replicated.
+
+``PCAEstimator`` on a rank slice does what GSPMD does with the
+reference's SVD of a sharded operand: its rows are all-gathered over the
+data axis and every rank takes the same SVD; its masked branch
+all-reduces the masked sums instead.  The columns' signs are arbitrary,
+here and in the reference alike, so two fits agree in the projector
+C·Cᵀ, and in C only up to each column's sign.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from keystone_tpu_torch.parallel import collectives, require_one_rank, require_rank_slice
+from keystone_tpu_torch.parallel import collectives, require_rank_slice
 from keystone_tpu_torch.parallel import mesh as _mesh
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
@@ -72,20 +77,25 @@ class PCAEstimator(Estimator):
     def fit_dataset(self, data: Dataset) -> PCATransformer:
         """Rows (n, d), or ragged (n, T, d) sets with a mask (the masked
         branch), fitted in f32 on the data's device."""
-        if data.is_rank_slice:
-            require_one_rank("PCAEstimator (the SVD of the gathered rows; DistributedPCAEstimator takes a rank "
-                             "slice)")
+        require_rank_slice(data, "PCAEstimator")
         x = data.array.to(torch.float32)
         if data.mask is not None:
-            comp, mean = _pca_masked(x, data.mask.to(torch.float32), self.dims, self.center)
+            mask = data.mask.to(torch.float32)
+            if data.is_rank_slice:  # the padding items count for nothing
+                mask = mask * _mesh.local_rows_mask(mask.shape[0], data.local_n, mask.device)[:, None]
+            comp, mean = _pca_masked(x, mask, self.dims, self.center)
+        elif data.is_rank_slice:
+            comp, mean = _pca_fit(_gathered_rows(x, data.local_n), data.n, self.dims, self.center)
         else:
             comp, mean = _pca_fit(x, data.n, self.dims, self.center)
         return PCATransformer(comp, mean if self.center else None)
 
+    @_mesh.on_local_mesh
     def fit_arrays(self, x, mask=None, device="cuda") -> PCATransformer:
         """x: (n, d) rows, or ragged (n, T, d) sets with an (n, T) ``mask``
         (the reference's ``fit_dataset`` on a masked Dataset); numpy or
-        tensors, fitted in f32 on ``device``."""
+        tensors, fitted in f32 on ``device`` (all the rows: a rank slice
+        comes as a Dataset)."""
         dev = resolve_device(device)
         x = torch.as_tensor(x, dtype=torch.float32).to(dev)
         if mask is not None:
@@ -134,6 +144,18 @@ def _pca_cov_fit(x, n, valid, dims: int, center: bool, mesh=None):
     return torch.flip(evecs, dims=(1,))[:, :dims].contiguous(), mean
 
 
+def _gathered_rows(x, valid: int):
+    """Every rank's valid rows in the global order (the slices of equal
+    padded length all-gathered over the data axis, each cut to its own
+    rows): what GSPMD gathers for the reference's SVD of sharded rows."""
+    from keystone_tpu_torch.parallel import multihost
+
+    counts = multihost.data_axis_counts(valid)
+    per = x.shape[0]
+    every = collectives.all_gather(x, _mesh.DATA_AXIS, 0)
+    return torch.cat([every[i * per:i * per + c] for i, c in enumerate(counts)])
+
+
 def _svd_vh(xc):
     driver = svd_driver(xc)
     try:
@@ -158,14 +180,17 @@ def _pca_fit(x, n, dims: int, center: bool):
 
 def _pca_masked(x, mask, dims: int, center: bool):
     """The reference's masked branch: eigh of the covariance of the rows
-    the mask keeps, components in descending eigenvalue order."""
+    the mask keeps (every rank's, its sums all-reduced), components in
+    descending eigenvalue order."""
     if x.ndim == 3:  # ragged (n, T, d) + (n, T) mask
         x = x.reshape(-1, x.shape[-1])
         mask = mask.reshape(-1)
     w = (mask > 0).to(x.dtype)
-    n = torch.clamp(torch.sum(w), min=1.0)
-    mean = (w @ x) / n
+    count, sx = collectives.psum_many(torch.sum(w), w @ x)  # across ranks, the sums of every rank's rows
+    n = torch.clamp(count, min=1.0)
+    mean = sx / n
     xc = (x - mean) * w[:, None] if center else x * w[:, None]
-    cov = (xc.T @ xc) / n
+    (gram,) = collectives.psum_many(xc.T @ xc)
+    cov = gram / n
     _, evecs = torch.linalg.eigh(cov)
     return torch.flip(evecs, dims=(1,))[:, :dims].contiguous(), mean

@@ -17,8 +17,10 @@ order, so two computations of one gradient on the card may differ in the
 last bits of f32; on the CPU they repeat bit for bit.  Given a
 ``scatter_plan`` (the checkpointed L-BFGS's), ``sparse_grad`` sums each
 index's entries in a fixed order instead (``torch.segment_reduce``).  The reference
-shards rows over its mesh (``mesh.shard_batch``); the port copies them
-to its one device.
+shards rows over its mesh (``mesh.shard_batch``); in a job of several
+ranks the port's rank holds its own rows (a rank slice's scipy rows, in
+buckets of its own), and the solvers all-reduce their sums over them
+(``bucketize_with_labels``' ``global_n``).
 """
 
 from __future__ import annotations
@@ -274,14 +276,17 @@ def host_onehot(y, k: int) -> np.ndarray:
     return (y > 0).astype(np.float32)
 
 
-def bucketize_with_labels(sp, y, n: Optional[int] = None, intercept: bool = False):
+def bucketize_with_labels(sp, y, n: Optional[int] = None, intercept: bool = False,
+                          global_n: Optional[int] = None):
     """Per-bucket tensors for the bucketed solvers: ``(bidx, bvals, by, n,
     d_aug, brow_ok)``.  ``y`` is an (≥ n, k) label matrix in the original
     row order (host or tensor); it is permuted into bucket order.  Rows
     whose original index is ≥ ``n`` are padding: their values and labels
     are zeroed and ``brow_ok``, each bucket's (rows,) mask of valid rows,
     leaves them out.  With ``intercept`` each row gains a constant feature
-    at index ``num_features`` (1 on valid rows)."""
+    at index ``num_features`` (1 on valid rows).  A rank's rows: ``n`` its
+    valid rows, ``global_n`` the count over every rank, which is the ``n``
+    returned (default: ``n``)."""
     if isinstance(sp, PaddedSparseRows):
         sp = BucketedSparseRows([sp], np.arange(sp.n), sp.num_features, sp.n)
     n = sp.n if n is None else int(n)
@@ -312,7 +317,8 @@ def bucketize_with_labels(sp, y, n: Optional[int] = None, intercept: bool = Fals
         bvals.append(vals)
         by.append(torch.from_numpy(yb).to(dev))
         brow_ok.append(ok)
-    return tuple(bidx), tuple(bvals), tuple(by), n, d + 1 if intercept else d, tuple(brow_ok)
+    n_out = n if global_n is None else int(global_n)
+    return tuple(bidx), tuple(bvals), tuple(by), n_out, d + 1 if intercept else d, tuple(brow_ok)
 
 
 def score_sparse_dataset(ds, weights: torch.Tensor, intercept=None):

@@ -302,8 +302,10 @@ class ColumnSampler(Transformer):
     seeded with ``seed``, so every device samples the same rows; item i
     takes row i of them, whatever the chunks a dataset is sampled in (the
     reference folds the global item index into its key for the same
-    end).  An item with no valid descriptor yields copies of its last
-    (padding) row, where the reference's draw is undefined."""
+    end).  A rank's row slice takes its items' global rows of the draws,
+    and its output is the slice of the flat rows.  An item with no valid
+    descriptor yields copies of its last (padding) row, where the
+    reference's draw is undefined."""
 
     fusable = False
 
@@ -339,9 +341,19 @@ class ColumnSampler(Transformer):
         xs = ds.array
         if xs.ndim != 3:
             raise ValueError("ColumnSampler expects (n, max_k, d) descriptor sets")
-        u = self.draws(ds.n).to(xs.device)
+        u = self.draws(ds.n)
+        if ds.is_rank_slice:
+            # a rank's items are global items rank_start ..: their rows of
+            # the draws (the padding items' rows are zeros)
+            u = u[ds.rank_start:ds.rank_start + xs.shape[0]]
+            u = torch.cat([u, u.new_zeros((xs.shape[0] - u.shape[0], u.shape[1]))])
+        u = u.to(xs.device)
         parts = [self.sample(a, m, u[i:i + a.shape[0]]) for a, m, i in iter_row_chunks(xs, ds.mask)]
-        return Dataset(parts[0] if len(parts) == 1 else torch.cat(parts))
+        out = Dataset(parts[0] if len(parts) == 1 else torch.cat(parts))
+        if ds.is_rank_slice:  # the flat rows of the slice's items, the padding items' after them
+            s = self.num_samples
+            out.n, out.rank_rows, out.rank_start = ds.n * s, ds.rank_rows * s, ds.rank_start * s
+        return out
 
     def _apply_stream(self, ds: StreamDataset) -> Dataset:
         """One sweep of a descriptor stream, each batch sampled with its

@@ -47,20 +47,21 @@ from keystone_tpu_torch.parallel.multihost import (  # noqa: F401
 )
 
 
-def require_one_rank(what: str) -> None:
-    """Refuse a fit that has no multi-rank path yet under a data axis of
-    more than one rank: it would fit one rank's rows as if they were all."""
+def require_one_rank(what: str, why: str) -> None:
+    """Refuse, under a data axis of more than one rank, a fit that the
+    reference also limits to one process (``why``): it would fit one
+    rank's rows as if they were all."""
     mesh = current_mesh()
     if mesh.data > 1:
-        raise NotImplementedError(f"{what} has no multi-rank fit yet (a data axis of {mesh.data} ranks): it waits "
-                                  "for ROADMAP A8b; fit it in a single-process job")
+        raise NotImplementedError(f"{what} is a single-process fit (a data axis of {mesh.data} ranks here): {why}")
 
 
 def require_rank_slice(data, what: str) -> None:
     """A parallel fit under a data axis of more than one rank takes each
     rank's own row slice (``multihost.make_global_dataset``): a Dataset
-    of every row on each rank would be summed once a rank."""
+    of every row on each rank (or arrays, ``data`` None) would be summed
+    once a rank."""
     mesh = current_mesh()
-    if mesh.data > 1 and not data.is_rank_slice:
+    if mesh.data > 1 and (data is None or not data.is_rank_slice):
         raise ValueError(f"{what} under a data axis of {mesh.data} ranks takes this rank's row slice "
-                         "(multihost.make_global_dataset), not a Dataset of every row")
+                         "(multihost.make_global_dataset), not arrays or a Dataset of every row")

@@ -8,6 +8,15 @@ The reference's only collectives are Spark ``treeReduce``/``treeAggregate``
 call over a mesh axis's group (``parallel/mesh.py``): NCCL on the card,
 Gloo on the CPU.  On the local mesh every helper is the identity and
 calls nothing.  ``COUNTS`` counts the calls made, by kind.
+
+The k-means++ draw over rows spread across ranks (``categorical``) is
+the reference's categorical draw (Gumbel-max over the global row
+order) made explicit: every rank draws the noise of every global row
+from one seed and keeps its own rows', the ranks agree on the largest
+key (``global_argmax``, ties to the lower index), and the owner's row
+reaches every rank by one all-reduce of a (1, d) row (``row_at``, the
+reference's one-hot contraction ``_row_at``).  R ranks pick the row that
+one rank picks over the same rows.
 """
 
 from __future__ import annotations
@@ -19,8 +28,10 @@ import torch
 from keystone_tpu_torch.parallel import mesh as _mesh
 
 #: collectives issued since ``reset_counts``, by kind (the local mesh's
-#: identities are not counted)
-COUNTS = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+#: identities are not counted); ``argmax``: the draws' agreements on a
+#: winner (each a MAX and a MIN all-reduce of one value, not counted
+#: under ``all_reduce``)
+COUNTS = {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "argmax": 0}
 
 
 def reset_counts() -> None:
@@ -61,6 +72,20 @@ def psum_many(*xs: torch.Tensor, axis_name: str = _mesh.DATA_AXIS, mesh: Optiona
         out.append(flat[at:at + x.numel()].view(x.shape))
         at += x.numel()
     return tuple(out)
+
+
+def pmin(x: torch.Tensor, axis_name: str = _mesh.DATA_AXIS, mesh: Optional[_mesh.Mesh] = None) -> torch.Tensor:
+    """All-reduce minimum over a mesh axis, in place; returns ``x``: a
+    value every rank of the axis agrees on (a budget, a limit)."""
+    mesh = mesh or _mesh.current_mesh()
+    group = mesh.group(axis_name)
+    if group is None:
+        return x
+    import torch.distributed as dist
+
+    _count("all_reduce", axis_name)
+    dist.all_reduce(x, op=dist.ReduceOp.MIN, group=group)
+    return x
 
 
 def mesh_sum(x: torch.Tensor, mesh: Optional[_mesh.Mesh] = None) -> torch.Tensor:
@@ -152,3 +177,58 @@ def sharded_matmul(a: torch.Tensor, b: torch.Tensor, out_spec: Optional[_mesh.Pl
 def sharded_gram(a: torch.Tensor, mesh: Optional[_mesh.Mesh] = None) -> torch.Tensor:
     """``a.T @ a`` (the Gramian) over row-sharded ``a``, replicated."""
     return sharded_matmul(a, a, mesh=mesh)
+
+
+def global_argmax(keys: torch.Tensor, offset: int, axis_name: str = _mesh.DATA_AXIS,
+                  mesh: Optional[_mesh.Mesh] = None) -> torch.Tensor:
+    """The global index, a (1,) int64 tensor on ``keys``' device, of the
+    largest key over every rank of the axis, this rank's keys being rows
+    ``offset ..`` of the global order; ties go to the lower index, as
+    ``torch.argmax`` takes the first.  Nothing waits on the host."""
+    mesh = mesh or _mesh.current_mesh()
+    local = torch.argmax(keys).reshape(1)
+    idx = local + int(offset)
+    group = mesh.group(axis_name)
+    if group is None:
+        return idx
+    import torch.distributed as dist
+
+    _count("argmax", axis_name)
+    mine = keys.index_select(0, local).to(torch.float64)
+    best = mine.clone()
+    dist.all_reduce(best, op=dist.ReduceOp.MAX, group=group)
+    # the ranks holding the best key offer its index, the others the largest
+    cand = torch.where(mine == best, idx, torch.full_like(idx, torch.iinfo(torch.int64).max))
+    dist.all_reduce(cand, op=dist.ReduceOp.MIN, group=group)
+    return cand
+
+
+def row_at(x: torch.Tensor, idx: torch.Tensor, offset: int, valid: int, axis_name: str = _mesh.DATA_AXIS,
+           mesh: Optional[_mesh.Mesh] = None) -> torch.Tensor:
+    """(1, d): global row ``idx`` ((1,) tensor) of rows spread over the
+    axis, this rank's first ``valid`` rows of ``x`` being rows ``offset
+    ..``: the owner's row, zeros elsewhere, all-reduced (O(d) on the link,
+    never a gather of x; exact, every other term a zero)."""
+    local = idx - int(offset)
+    inside = ((local >= 0) & (local < int(valid))).to(x.dtype)
+    row = x.index_select(0, local.clamp(0, max(x.shape[0] - 1, 0))) * inside[:, None]
+    return psum(row, axis_name, mesh)
+
+
+def gumbel_keys(weights: torch.Tensor, gen: torch.Generator, offset: int, valid: int, total: int) -> torch.Tensor:
+    """Gumbel-max keys log(w + 1e-30) + G of this rank's rows: the noise
+    G = −log(E), E ~ Exp(1), is drawn for all ``total`` global rows from
+    ``gen`` (seeded alike on every rank) and rows ``offset .. offset +
+    valid`` kept; rows past ``valid`` (a slice's padding) get −inf.  The
+    +1e-30 is the reference's: rows of weight 0 still draw, last."""
+    e = torch.empty((int(total),), dtype=weights.dtype, device=weights.device).exponential_(generator=gen)
+    keys = torch.full_like(weights, float("-inf"))
+    keys[:valid] = torch.log(weights[:valid] + 1e-30) - torch.log(e[offset:offset + valid])
+    return keys
+
+
+def categorical(weights: torch.Tensor, gen: torch.Generator, offset: int, valid: int, total: int,
+                axis_name: str = _mesh.DATA_AXIS, mesh: Optional[_mesh.Mesh] = None) -> torch.Tensor:
+    """A global row index ((1,) int64) drawn ∝ ``weights`` over the rows
+    of every rank (this rank's: rows ``offset ..`` of ``total``)."""
+    return global_argmax(gumbel_keys(weights, gen, offset, valid, total), offset, axis_name, mesh)

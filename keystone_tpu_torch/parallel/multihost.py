@@ -228,6 +228,13 @@ def _host_all_gather(a: np.ndarray) -> np.ndarray:
     return np.stack([p.numpy().view(a.dtype).reshape(a.shape) for p in parts])
 
 
+def barrier() -> None:
+    """Every rank of the world reaches this call before any leaves it
+    (over the Gloo side group).  At a world of one: nothing."""
+    if _mesh.world_size() > 1:
+        _host_all_gather(np.zeros((1,), np.uint8))
+
+
 def broadcast_host(arrays, src: int = 0) -> list:
     """Rank ``src``'s host arrays on every rank, over the Gloo side group;
     the other ranks pass arrays of the same shapes and dtypes (their
@@ -387,20 +394,24 @@ def data_axis_sum(value: int, mesh: Optional[_mesh.Mesh] = None) -> int:
 
 
 def make_global_dataset(host_array, global_n: Optional[int] = None, device=None,
-                        mesh: Optional[_mesh.Mesh] = None):
+                        mesh: Optional[_mesh.Mesh] = None, name: Optional[str] = None):
     """A Dataset of THIS rank's rows, for a job whose ranks each load
     their own slice (``process_batch_slice``): the rows zero-padded to
     ``ceil(global_n / data)`` so that every rank holds the same count,
     the Dataset's ``n`` the global count and its ``rank_rows`` the
-    slice's own.  ``global_n=None`` sums the slices over the data axis.
-    A list of host objects (scipy sparse rows) is kept as it is.  On the
-    local mesh: a plain Dataset.  ``device``: as ``Dataset``'s."""
+    slice's own, its ``rank_start`` the global index of the slice's first
+    row (the rows of the data indices before it).  ``global_n=None`` sums
+    the slices over the data axis.  A list of host objects (scipy sparse
+    rows) is kept as it is.  On the local mesh: a plain Dataset.
+    ``device``: as ``Dataset``'s; ``name``: the global dataset's name,
+    the same on every rank (a saved state's key).  Collective: every rank
+    calls it."""
     from keystone_tpu_torch.workflow.dataset import Dataset
 
     mesh = mesh or _mesh.current_mesh()
     local_n = len(host_array)
     if mesh.data == 1 and _mesh.world_size() <= 1:
-        return Dataset(host_array, device=device)
+        return Dataset(host_array, device=device, name=name)
     if global_n is None:
         global_n = data_axis_sum(local_n, mesh)
     per = -(-int(global_n) // mesh.data)
@@ -417,4 +428,27 @@ def make_global_dataset(host_array, global_n: Optional[int] = None, device=None,
         d = Dataset(t if isinstance(host_array, torch.Tensor) else t.numpy(), device=device)
     d.n = int(global_n)
     d.rank_rows = local_n
+    d.rank_start = rank_offset(local_n, mesh)
+    d.name = name
     return d
+
+
+def rank_offset(local_n: int, mesh: Optional[_mesh.Mesh] = None) -> int:
+    """The global index of this rank's first row: the valid rows of the
+    data indices before its own (each data index counted once; the ranks
+    of one data index hold the same rows).  Collective over the side group."""
+    mesh = mesh or _mesh.current_mesh()
+    if _mesh.world_size() <= 1:
+        return 0
+    counts = _host_all_gather(np.asarray([int(local_n)], np.int64)).reshape(-1)
+    return int(sum(counts[d * mesh.model] for d in range(mesh.data_index)))
+
+
+def data_axis_counts(local_n: int, mesh: Optional[_mesh.Mesh] = None) -> list:
+    """Every data index's ``local_n``, in data order.  Collective over the
+    side group."""
+    mesh = mesh or _mesh.current_mesh()
+    if _mesh.world_size() <= 1:
+        return [int(local_n)]
+    counts = _host_all_gather(np.asarray([int(local_n)], np.int64)).reshape(-1)
+    return [int(counts[d * mesh.model]) for d in range(mesh.data)]

@@ -60,7 +60,8 @@ from keystone_tpu_torch.ops.lcs import LCSExtractor
 from keystone_tpu_torch.ops.sift import SIFTExtractor, _sift_normalize
 from keystone_tpu_torch.ops.stats import ColumnSampler, NormalizeRows, SignedHellingerMapper
 from keystone_tpu_torch.ops.util import ClassLabelIndicators, TopKClassifier
-from keystone_tpu_torch.parallel import require_one_rank
+from keystone_tpu_torch.parallel import mesh as _mesh
+from keystone_tpu_torch.parallel import multihost, require_one_rank
 from keystone_tpu_torch.utils import precision, timing
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
@@ -435,6 +436,18 @@ def _fv_branch(base: Pipeline, config: Config, train_x: Dataset, seed: int) -> P
     return with_pca.then_pipeline(fv_pipe).and_then(SignedHellingerMapper()).and_then(NormalizeRows())
 
 
+def _rank_slice(images, labels, dev, name=None):
+    """This rank's slice of every training image and label (host arrays
+    or tensors), as rank-slice Datasets on ``dev``."""
+    from keystone_tpu_torch.loaders.labeled import LabeledData
+
+    n = len(images)
+    sl = multihost.process_batch_slice(n)
+    return LabeledData(multihost.make_global_dataset(images[sl], n, device=dev, name=name),
+                       multihost.make_global_dataset(labels[sl], n, device=dev,
+                                                     name=None if name is None else name + "-labels"))
+
+
 class ImageNetSiftLcsFV:
     name = "ImageNetSiftLcsFV"
     Config = Config
@@ -485,9 +498,22 @@ class ImageNetSiftLcsFV:
         out of core.  ``out``, when given, receives the fitted pipeline
         (``"fitted"``) and what it predicted on the test set
         (``"predictions"``: top-k ids, or each view's scores with
-        ``augmented_eval``)."""
-        require_one_rank("ImageNetSiftLcsFV.run as a job of several ranks")
+        ``augmented_eval``).
+
+        In a job of several ranks (``parallel.multihost.initialize``) each
+        rank keeps its row slice of the training images and labels
+        (``make_global_dataset``) and the graph fits on the slices: each
+        rank featurizes its own images, the PCA, GMM and solver fits
+        all-reduce their sums (``models/``), and every rank ends with the
+        same fitted pipeline, scores the whole test set and reports the
+        same metrics; only rank 0 saves ``model_path``.  The streamed run
+        stays a single-process run."""
+        if config.stream:
+            require_one_rank("ImageNetSiftLcsFV.run with stream",
+                             "the streamed fit's samplers and spill sweep one stream of every image, with no rank "
+                             "slice of a stream yet (ROADMAP A8c); run it in memory, or in a single process")
         dev = resolve_device(device)
+        ranks = _mesh.current_mesh().data > 1
         precision.disable_tf32()
         sz = (config.image_size, config.image_size)
         if config.train_path:
@@ -508,7 +534,13 @@ class ImageNetSiftLcsFV:
                                                        batch_size=config.stream_batch_size, device=dev,
                                                        retries=config.stream_retries)
             if config.train_path:
-                return ImageNetLoader.load(config.train_path, size=sz, device=dev)
+                train = ImageNetLoader.load(config.train_path, size=sz, device=dev)
+                if ranks:
+                    return _rank_slice(train.data.array, train.labels.array, dev, train.data.name)
+                return train
+            if ranks:
+                return _rank_slice(*ImageNetLoader.synthetic_arrays(config.synthetic_n, config.num_classes, sz,
+                                                                    seed=1), dev)
             return ImageNetLoader.synthetic(config.synthetic_n, config.num_classes, sz, seed=1, device=dev)
 
         labs = test.labels.numpy()
@@ -520,7 +552,8 @@ class ImageNetSiftLcsFV:
 
             t0 = time.perf_counter()
             fitted, loaded = FittedPipeline.fit_or_load(config.model_path, build_scorer,
-                                                        config=fit_relevant_config(config), map_location=dev)
+                                                        config=fit_relevant_config(config), map_location=dev,
+                                                        save=multihost.process_index() == 0)
             fit_time = time.perf_counter() - t0
             imgs = test.data.array
             p = config.view_patch or (imgs.shape[1] * 7 // 8)
@@ -541,7 +574,8 @@ class ImageNetSiftLcsFV:
 
             t0 = time.perf_counter()
             fitted, loaded = FittedPipeline.fit_or_load(config.model_path, build,
-                                                        config=fit_relevant_config(config), map_location=dev)
+                                                        config=fit_relevant_config(config), map_location=dev,
+                                                        save=multihost.process_index() == 0)
             fit_time = time.perf_counter() - t0
             predictions = fitted(test.data).get().numpy()  # (n, top_k) class ids
             topk_hit = (predictions == labs[:, None]).any(axis=1)

@@ -8,7 +8,8 @@ every row, and ``n`` is the tensor's rows (or fewer: rows past ``n`` are
 padding).  In a job of several ranks (``parallel/``) a Dataset may hold
 one rank's row slice (``parallel.multihost.make_global_dataset``): its
 tensor is the slice zero-padded to the ranks' common row count, ``n`` is
-the global count and ``rank_rows`` the slice's own valid rows.
+the global count, ``rank_rows`` the slice's own valid rows and
+``rank_start`` the global index of its first row.
 
 Three payload kinds flow through pipelines:
   - tensors: (n, ...) on the Dataset's device, the normal case;
@@ -43,9 +44,10 @@ class Dataset:
 
     ``rank_rows``: None when the Dataset holds every row; in a rank's row
     slice, the valid rows at the top of its tensor (``n`` is then the
-    global count)."""
+    global count) and ``rank_start`` the global index of the first."""
 
     rank_rows: Optional[int] = None
+    rank_start: int = 0
 
     def __init__(
         self,
@@ -113,6 +115,11 @@ class Dataset:
         return self.rank_rows is not None
 
     @property
+    def rank_offset(self) -> int:
+        """The global index of the first row held here (0 for every row)."""
+        return self.rank_start if self.rank_rows is not None else 0
+
+    @property
     def local_n(self) -> int:
         """The valid rows this Dataset holds: ``n``, or a slice's own."""
         return self.n if self.rank_rows is None else self.rank_rows
@@ -133,6 +140,7 @@ class Dataset:
         d._array = arr
         d.n = self.n
         d.rank_rows = self.rank_rows
+        d.rank_start = self.rank_start
         d.mask = mask
         d.name = None
         return d
@@ -144,6 +152,7 @@ class Dataset:
         d._array = None
         d.n = self.n
         d.rank_rows = self.rank_rows
+        d.rank_start = self.rank_start
         d.mask = None
         d.name = None
         d._device = self._device if self._array is None else self._array.device

@@ -368,7 +368,7 @@ class FittedPipeline(Pipeline):
         return FittedPipeline._load_raw(path, map_location)[0]
 
     @staticmethod
-    def fit_or_load(path, build_fn, config=None, map_location=None):
+    def fit_or_load(path, build_fn, config=None, map_location=None, save: bool = True):
         """Load the fitted pipeline saved at ``path``, or build+fit+save.
 
         ``build_fn`` is called ONLY when fitting is needed — training-data
@@ -380,7 +380,8 @@ class FittedPipeline(Pipeline):
         results.
 
         Returns ``(fitted, loaded)`` — ``loaded`` is True when the model
-        came from disk.
+        came from disk.  ``save=False`` fits without writing ``path`` (the
+        ranks but one of a job whose ranks fit the same model).
         """
         if path and os.path.exists(path):
             obj, saved_cfg = FittedPipeline._load_raw(path, map_location)
@@ -397,7 +398,7 @@ class FittedPipeline(Pipeline):
                 )
             return obj, True
         fitted = build_fn().fit().block_until_ready()
-        if path:
+        if path and save:
             fitted.save(path, config)
         return fitted, False
 

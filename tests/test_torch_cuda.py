@@ -530,3 +530,43 @@ def test_blur_above_512_px_is_f32_on_the_card(dev):
         torch.backends.cudnn.allow_tf32 = prev
     want = separable_gaussian_blur(x.double(), 1.2)
     torch.testing.assert_close(got.cpu().double(), want, atol=1e-5, rtol=0)
+
+
+def test_b1_from_two_threads_at_two_shapes_matches_serial(dev):
+    """C10: two threads launch B1 at once, each on its own stream, at
+    SIFT's (d_in 128) and LCS's (d_in 96) scorer shapes: two dynamic
+    shared-memory sizes of one kernel instantiation.  No launch fails, and
+    every output is bit for bit the same launch made serially.  (Set per
+    launch, the kernel's process-wide shared-memory attribute could be
+    lowered by one thread between the other's set and its launch.)"""
+    import threading
+
+    rng = np.random.default_rng(20)
+    shapes = {"sift": _fused_args(rng, 8, 784, 128, 64, 256, dev), "lcs": _fused_args(rng, 8, 324, 96, 64, 256, dev)}
+    serial = {k: fk.fused_forward(*a) for k, a in shapes.items()}
+    torch.cuda.synchronize()
+    reps = 400
+    outs, errors = {k: [] for k in shapes}, []
+    start = threading.Barrier(len(shapes))
+
+    def worker(key):
+        try:
+            stream = torch.cuda.Stream(device=dev)
+            with torch.cuda.stream(stream):
+                start.wait()
+                for _ in range(reps):
+                    outs[key].append(fk.fused_forward(*shapes[key]))
+            stream.synchronize()
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in shapes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors, errors[:3]
+    assert not any(t.is_alive() for t in threads)
+    for k in shapes:
+        assert len(outs[k]) == reps
+        assert all(torch.equal(o, serial[k]) for o in outs[k]), k

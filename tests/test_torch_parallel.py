@@ -76,7 +76,7 @@ def test_collectives_are_the_identity_without_a_group():
     assert torch.equal(collectives.sharded_matmul(a, b), a.T @ b)
     assert torch.equal(collectives.sharded_gram(a), a.T @ a)
     assert torch.equal(collectives.all_gather(a, mesh.MODEL_AXIS, 1), a)
-    assert collectives.COUNTS == {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+    assert collectives.COUNTS == {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "argmax": 0}
 
 
 def test_multihost_helpers_single_process():
@@ -208,25 +208,55 @@ def test_init_fault_at_multihost_init_is_retried(monkeypatch):
     assert mesh.world_size() == 0 and mesh.current_mesh().group(mesh.DATA_AXIS) is None
 
 
-def test_a8b_fits_refuse_a_data_axis_above_one():
-    """The fits without a multi-rank path refuse a data axis above one,
-    citing ROADMAP A8b, instead of fitting one rank's rows."""
+def test_a8b_fits_refuse_a_data_axis_above_one(tmp_path):
+    """Under a data axis above one the multi-rank fits take a rank slice:
+    arrays and a Dataset of every row are refused through
+    ``require_rank_slice``.  The fits the reference also limits to one
+    process refuse with their own reasons: the out-of-core KRR, the QR of
+    LocalLeastSquaresEstimator and the streamed ImageNetSiftLcsFV.run."""
+    from keystone_tpu_torch.models import kernel_ridge as kr
     from keystone_tpu_torch.models.gmm import GaussianMixtureModelEstimator
     from keystone_tpu_torch.models.kmeans import KMeansPlusPlusEstimator
-    from keystone_tpu_torch.models.naive_bayes import NaiveBayesEstimator
+    from keystone_tpu_torch.models.linear import LocalLeastSquaresEstimator
     from keystone_tpu_torch.models.logistic import LogisticRegressionEstimator
-    from keystone_tpu_torch.models import kernel_ridge as kr
+    from keystone_tpu_torch.models.naive_bayes import NaiveBayesEstimator
+    from keystone_tpu_torch.models.pca import PCAEstimator
+    from keystone_tpu_torch.pipelines.imagenet_sift_lcs_fv import Config, ImageNetSiftLcsFV
+    from keystone_tpu_torch.workflow.blockstore import RowBlockStore
+    from keystone_tpu_torch.workflow.dataset import Dataset
 
     x = np.ones((8, 3), np.float32)
     y = np.zeros((8,), np.int64)
+    xd, yd = Dataset(x, device="cpu"), Dataset(y, device="cpu")
+    gen = kr.GaussianKernelGenerator(1.0)
     with mesh.use_mesh(mesh.Mesh(data=2, rank=0)):
         for fit in (lambda: GaussianMixtureModelEstimator(2).fit_arrays(x, device="cpu"),
+                    lambda: GaussianMixtureModelEstimator(2).fit_dataset(xd),
                     lambda: KMeansPlusPlusEstimator(2).fit_arrays(x, device="cpu"),
+                    lambda: KMeansPlusPlusEstimator(2).fit_dataset(xd),
                     lambda: NaiveBayesEstimator(2).fit_arrays(x, y, device="cpu"),
+                    lambda: NaiveBayesEstimator(2).fit_dataset(xd, yd),
                     lambda: LogisticRegressionEstimator(2).fit_arrays(x, y, device="cpu"),
-                    lambda: kr.KernelRidgeRegressionEstimator(kr.GaussianKernelGenerator(1.0), lam=1.0)
-                    .fit_arrays(x, np.ones((8, 1), np.float32), device="cpu")):
-            with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+                    lambda: LogisticRegressionEstimator(2).fit_dataset(xd, yd),
+                    lambda: PCAEstimator(2).fit_dataset(xd),
+                    lambda: kr.KernelRidgeRegressionEstimator(gen, lam=1.0)
+                    .fit_arrays(x, np.ones((8, 1), np.float32), device="cpu"),
+                    lambda: kr.KernelRidgeRegressionEstimator(gen, lam=1.0)
+                    .fit_dataset(xd, Dataset(np.ones((8, 1), np.float32), device="cpu"))):
+            with pytest.raises(ValueError, match="row slice"):
+                fit()
+        store = RowBlockStore.from_array(str(tmp_path / "rows"), x, 4)
+        refusals = (
+            (lambda: kr.KernelRidgeRegressionEstimator(gen, lam=1.0, block_size=4)
+             .fit_store(store, Dataset(np.ones((8, 1), np.float32), device="cpu")), "out-of-core sweep"),
+            (lambda: LocalLeastSquaresEstimator(lam=0.0).fit_dataset(
+                multihost.make_global_dataset(x[:4], 8, device="cpu"),
+                multihost.make_global_dataset(np.ones((4, 1), np.float32), 8, device="cpu")), "QR"),
+            (lambda: ImageNetSiftLcsFV.run(Config(stream=True, synthetic_n=8, image_size=32), device="cpu"),
+             "A8c"),
+        )
+        for fit, reason in refusals:
+            with pytest.raises(NotImplementedError, match=reason):
                 fit()
 
 
