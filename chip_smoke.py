@@ -299,7 +299,21 @@ result line):
    relaunched (resumed from epoch 1, bit for bit the uninterrupted
    two-rank fit);
    each leg's seconds and the fit's at one rank against two;
-26. the whole script's seconds; one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+26. the read side and the debug helpers (A9b), each phase timed: after the
+   text apps, ``tools/roofline_forward.py`` single-scale at batch 128
+   and multi-scale (bins 4, 6, 8, 10) at batch 64, each stage's device µs
+   (torch.profiler, median of 8 traced iterations) against its bound, no
+   stage over 1.05 of it, the stages' sum within 1.05x the wall marginal
+   a batch, the FV stage within 10% of B2 timed here at that shape, B2
+   launched once a traced iteration; ``tools/obs_report.py`` over the
+   recovered fit's ledger and ``tools/trace_report.py`` over S4's
+   recorder dump, each a child exiting 0 with its sections and counts
+   those the phase recorded; after the roofline, ``host_map`` over two
+   forkserver workers with this process's CUDA context live, the Python
+   text chain's rows bit for bit the sequential ones, and
+   ``tools/bench_text.py``'s docs/s for the Python and native chains on
+   the same pool;
+27. the whole script's seconds; one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches (bucket-graph replays
    included), float64 errors) for all four kernels, B3's and B4's times at the new paths' shapes and B1's and
    B2's at VOC's among them, then the last line {"ok": true, "device":
@@ -3975,7 +3989,39 @@ def recovery_path(card, tmp, reference, materialize):
         out["ledger"] = led
         out["launches"] = {k: out["attempt_1"]["launches_at_kill"].get(k, 0) + done["launches"].get(k, 0)
                            for k in done["launches"]}
+    with phase("obs_report: the recovered fit's ledger, both attempts"):
+        out["obs_report"] = obs_report_checks(obs, led)
     return out
+
+
+def obs_report_checks(obs, led) -> dict:
+    """``tools/obs_report.py`` as a child over each run of ``obs`` (and the
+    directory, which names the newest): exit 0, the sections the fit
+    writes, and its counts those read off the same files here (the
+    killed attempt's open stage has a start and no end: stages count by
+    their ends)."""
+    runs = sorted(Path(obs).glob("run_*.jsonl"))
+    totals = {"stage_runs": 0, "retry_events": 0, "epochs": 0, "fault_restarts": 0, "events": 0}
+    stage_ends = 0
+    for path in runs:
+        s, text = report_child("obs_report", path, "--top", 1000)
+        lines = [json.loads(ln) for ln in path.read_text().splitlines() if ln.strip()]
+        stage_ends += sum(1 for e in lines if e["kind"] == "span_end" and e["name"] == "executor.stage")
+        check(s["events"] == len(lines), f"obs_report read {s['events']} events of {len(lines)} in {path.name}")
+        check(bool(s["stage_top"]) and "== top stages by time ==" in text, f"{path.name}: no stages section")
+        totals["stage_runs"] += sum(st["count"] for st in s["stage_top"])
+        totals["retry_events"] += s["retries"]["executor_retry_events"]
+        totals["epochs"] += sum(len(v) for v in s["convergence"].values())
+        totals["fault_restarts"] += len(s["fault_restarts"])
+        totals["events"] += s["events"]
+    newest, _ = report_child("obs_report", obs)
+    check(newest["path"] == str(max(runs, key=os.path.getmtime)), f"obs_report picked {newest['path']}")
+    want = {"stage_runs": stage_ends, "retry_events": led["events"].get("executor.retry", 0),
+            "epochs": led["events"].get("solver.epoch", 0), "fault_restarts": led["events"].get("faults.stats", 0)}
+    print(f"  {len(runs)} runs: {totals}; the ledger's own counts {want}", flush=True)
+    check(all(totals[k] == v for k, v in want.items()) and totals["epochs"] > 0,
+          f"obs_report {totals} against the ledger's {want}")
+    return totals
 
 
 def checkpointed_bcd_path(dev, card):
@@ -4894,11 +4940,45 @@ def open_loop_path(dev, card, fk, scorer, images, saturation_ips):
                       f"{rep['rejected']}, queue depth mean {rep['queue_depth_mean']:.1f} max {rep['queue_depth_max']}, "
                       f"{rep['mean_batch_occupancy']:.2f} requests a flush ({card})", flush=True)
                 out[f"{frac:.2f}"] = rep
+            dump_dir = Path(tempfile.mkdtemp(prefix="s4_trace_", dir=REPO))
+            dump = svc.dump_trace(str(dump_dir))
+            finished = svc.recorder.stats()["finished"]
         finally:
             svc.close(timeout=SERVE_RESULT_S)
         out["launches"] = dict(fk.LAUNCHES)
         check(out["launches"]["fisher_encode"] == 0, f"open-loop launches {out['launches']}")
+    with phase("trace_report: S4's flight-recorder dump"):
+        try:
+            out["trace_report"] = trace_report_checks(dump, finished, [v for k, v in out.items() if k[0].isdigit()])
+        finally:
+            shutil.rmtree(dump_dir, ignore_errors=True)
     return out
+
+
+def trace_report_checks(dump, finished, reps) -> dict:
+    """``tools/trace_report.py`` as a child over a recorder dump: exit 0,
+    its sections, its requests and outcomes those of the dump's traces,
+    each outcome at most what the open loop counted, every flush of the
+    dump on a replica timeline."""
+    from collections import Counter
+
+    r, text = report_child("trace_report", dump, "--top", 5, "--timeline", 10 ** 6)
+    d = json.loads(Path(dump).read_text())
+    outcomes = Counter(t.get("outcome") or "open" for t in d["traces"])
+    riders = sum(b["riders"] for tl in r["replica_timelines"].values() for b in tl)
+    counted = {k: sum(rep[k] for rep in reps) for k in ("completed", "shed", "rejected")}
+    print(f"  {r['requests']} traces of {finished} finished; outcomes {dict(r['outcomes'])}; the open loop's "
+          f"{counted}; {sum(len(tl) for tl in r['replica_timelines'].values())} flushes, {riders} riders; "
+          f"critical path (mean) {r['critical_path_mean']}", flush=True)
+    check("top 5 slow requests:" in text and "timeline" in text, "trace_report: a section is missing")
+    check(r["requests"] == len(d["traces"]) and r["outcomes"] == dict(outcomes),
+          f"trace_report {r['requests']} {r['outcomes']} against the dump's {len(d['traces'])} {dict(outcomes)}")
+    check(r["requests"] <= finished and all(r["outcomes"].get(k, 0) <= v for k, v in counted.items()),
+          f"trace_report {r['outcomes']} over the open loop's {counted}")
+    check(sum(len(tl) for tl in r["replica_timelines"].values()) == len(d["batches"]) and riders > 0,
+          f"timelines against the dump's {len(d['batches'])} flushes")
+    return {"requests": r["requests"], "outcomes": r["outcomes"], "finished": finished, "flushes": len(d["batches"]),
+            "riders": riders, "critical_path_mean": r["critical_path_mean"]}
 
 
 # ---- the model lifecycle (S5): the full-width scorer's raw scores exported
@@ -7183,6 +7263,126 @@ def profile_once(fn) -> None:
           f"{busy_ms(prof):.3f} ms", flush=True)
 
 
+# ---- A9b: the read side and the helpers.  The roofline's FV stage is held
+# to B2 timed here at its shape within the scorer's host-clock spread
+# (PERF.md §2, ~10%): the stage is B2's one launch on the PCA's output.
+ROOFLINE_FV_AGREE = 0.10
+ROOFLINE_WALL_SLACK = 1.05
+HOST_MAP_DOCS, HOST_MAP_WORKERS = 2048, 2
+BENCH_TEXT_DOCS, BENCH_TEXT_PY_DOCS = 4096, 1024
+
+
+def roofline_path(dev, card, fk) -> dict:
+    """The bench forward's per-stage roofline (``tools/roofline_forward.py``)
+    single-scale at batch 128 and multi-scale at batch 64: no stage over
+    1.05 of its bound (the tool raises), the stages' device time within
+    the wall marginal a batch, the FV stage agreeing with B2 timed on the
+    stage's own input, and B2 launched once a traced iteration.  The
+    counts are zeroed just before each run and read just after."""
+    from keystone_tpu_torch.tools import roofline_forward as RF
+
+    out = {"launches": 0}
+    for ms in (False, True):
+        label = "multi-scale, bins (4, 6, 8, 10), batch 64" if ms else "single-scale, batch 128"
+        with phase(f"roofline: the bench forward's stages ({label})"):
+            n, bins = (RF.MS_BATCH, RF.MS_BIN_SIZES) if ms else (RF.BATCH, (RF.BIN_SIZE,))
+            stages, x = RF.build(n, bins, RF.MS_SMOOTHING if ms else RF.SMOOTHING, dev)
+            fk.reset_launches()
+            r = RF.run(ms=ms, device=dev, built=(stages, x))
+            launches = dict(fk.LAUNCHES)
+            print(RF.render(r), flush=True)
+            want = RF.WARMUP + RF.WALL_REPS * sum(RF.WALL_ITERS) + RF.TRACE_ITERS
+            check(launches == fv_launches(encode=want), f"roofline launches {launches}, expected {want} of B2")
+            check(r["launches"] == {"fisher_encode": RF.TRACE_ITERS},
+                  f"B2 launches over the traced iterations {r['launches']}, expected {RF.TRACE_ITERS}")
+            worst = max(s["fraction"] for s in r["stages"])
+            check(worst <= RF.OVER_BOUND, f"a stage at {worst:.3f} of its bound")
+            check(r["stages_us"] <= ROOFLINE_WALL_SLACK * r["wall_marginal_us"],
+                  f"stages {r['stages_us']:.1f} us over the wall marginal {r['wall_marginal_us']:.1f} us")
+            # B2 on the FV stage's own input, timed by CUDA events (a
+            # comparison: its launches are not the path's)
+            with torch.no_grad():
+                xs, mask = x, None
+                for s in stages[:3]:
+                    o = s.apply_batch(xs, mask=mask)
+                    xs, mask = o if isinstance(o, tuple) else (o, None)
+                g = stages[3].gmm
+                b2_us = 1e3 * cuda_ms(lambda: fk.fisher_encode(xs, mask, g.weights, g.means, g.variances))
+            fv_us = next(s["us"] for s in r["stages"] if s["stage"] == "fv")
+            print(f"  FV stage {fv_us:.1f} us against B2 timed here at {tuple(xs.shape)} K={g.means.shape[0]}: "
+                  f"{b2_us:.1f} us ({fv_us / b2_us:.3f}x; within {ROOFLINE_FV_AGREE:.0%}); stages "
+                  f"{r['stages_us']:.1f} us of a wall marginal {r['wall_marginal_us']:.1f} us; {card}", flush=True)
+            check(abs(fv_us - b2_us) <= ROOFLINE_FV_AGREE * b2_us, f"FV stage {fv_us:.1f} us against B2 {b2_us:.1f} us")
+            del stages, x, xs, mask
+            r["b2_us_at_stage_shape"] = b2_us
+            out["multi_scale" if ms else "single_scale"] = r
+            out["launches"] += launches["fisher_encode"]
+            fk.reset_launches()
+            torch.cuda.synchronize()
+    return out
+
+
+def host_text_path(card) -> dict:
+    """``host_map`` with this process's CUDA context live: two forkserver
+    workers map the Python text chain over a few thousand documents, each
+    stage's rows bit for bit the sequential ones; then
+    ``tools/bench_text.py``'s docs/s for the Python and native chains, the
+    Python chain on the same pool (one pool a process: a pool's start-up,
+    seconds, is paid once)."""
+    from keystone_tpu_torch.ops import nlp
+    from keystone_tpu_torch.tools import bench_text
+    from keystone_tpu_torch.utils import hostmap
+
+    out = {}
+    with phase(f"host_map: the Python text chain over {HOST_MAP_WORKERS} workers, a CUDA context live"):
+        check(torch.cuda.is_initialized(), "no CUDA context in this process")
+        hostmap.shutdown()  # a pool an earlier phase made may hold another number of workers
+        docs = bench_text.corpus(HOST_MAP_DOCS)
+        seq = docs
+        t_seq = t_par = 0.0
+        for stage in (nlp.Trimmer(), nlp.LowerCase(), nlp.Tokenizer(), nlp.NGramsFeaturizer((1, 2)),
+                      nlp.TermFrequency(nlp.log_tf)):
+            t0 = time.perf_counter()
+            want = [stage.apply_one(d) for d in seq]
+            t1 = time.perf_counter()
+            got = hostmap.host_map(stage.apply_one, seq, workers=HOST_MAP_WORKERS)
+            t_seq, t_par = t_seq + t1 - t0, t_par + time.perf_counter() - t1
+            check(got == want, f"{stage.label}: the pooled rows differ from the sequential ones")
+            seq = want
+        model = nlp.CommonSparseFeatures(bench_text.NUM_FEATURES, sparse_output=True).fit_arrays(seq)
+        want = [model.apply_one(t) for t in seq]
+        got = hostmap.host_map(model.apply_one, seq, workers=HOST_MAP_WORKERS)
+        check(len(got) == len(want) and all((a != b).nnz == 0 and a.dtype == b.dtype for a, b in zip(got, want)),
+              "CommonSparseFeatures: the pooled rows differ from the sequential ones")
+        pool_workers = hostmap.pool_workers()
+        # a pool that broke would have been shut down and the maps run in turn
+        check(pool_workers == HOST_MAP_WORKERS, f"the pool has {pool_workers} workers (0: none, maps in turn)")
+        out["host_map"] = {"docs": HOST_MAP_DOCS, "workers": pool_workers, "bit_for_bit": True,
+                           "sequential_seconds": t_seq, "pooled_seconds": t_par}
+        print(f"  {HOST_MAP_DOCS} documents, six stages bit for bit over {pool_workers} workers; the chain "
+              f"{t_seq:.2f} s in turn, {t_par:.2f} s pooled (worker start-up included) ({card})", flush=True)
+    with phase(f"bench_text: docs/s of the Python and native chains ({BENCH_TEXT_DOCS} documents)"):
+        r = bench_text.run(BENCH_TEXT_DOCS, BENCH_TEXT_PY_DOCS)
+        hostmap.shutdown()
+        print(bench_text.render(r) + f"\n  ({card})", flush=True)
+        check(r["native"]["docs"] == BENCH_TEXT_DOCS and r["python"]["docs"] == BENCH_TEXT_PY_DOCS
+              and r["host_workers"] == HOST_MAP_WORKERS,
+              f"bench_text documents {r['native']['docs']}, {r['python']['docs']}, workers {r['host_workers']}")
+        out["bench_text"] = r
+    return out
+
+
+def report_child(tool: str, *args) -> tuple:
+    """``python -m keystone_tpu_torch.tools.<tool> args`` as a child, with
+    ``--json`` and without, each to exit 0: (its JSON, its text)."""
+    cmd = [sys.executable, "-m", f"keystone_tpu_torch.tools.{tool}", *map(str, args)]
+    j = subprocess.run(cmd + ["--json"], capture_output=True, text=True, timeout=120, cwd=REPO)
+    t = subprocess.run(cmd, capture_output=True, text=True, timeout=120, cwd=REPO)
+    check(j.returncode == 0 and t.returncode == 0, f"{tool}: exit {j.returncode}, {t.returncode}: "
+                                                    f"{(j.stderr or t.stderr)[-2000:]}")
+    return json.loads(j.stdout), t.stdout
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7471,6 +7671,9 @@ def main(argv=None) -> int:
         results["amazon"] = amazon_path(dev, card, gk, fk, text_tmp)
     finally:
         shutil.rmtree(text_tmp, ignore_errors=True)
+    # after the text apps, whose profiler windows have loaded CUPTI
+    results["roofline"] = roofline_path(dev, card, fk)
+    results["host_text"] = host_text_path(card)
     # the operations layer: the recovered streamed fit, the checkpointed
     # solvers, deadlines and breakers (phase 10's fit seconds, phase 14's data)
     results["operations"] = operations_path(dev, card, P, fk, gk, results["stream"], data,
@@ -7579,6 +7782,9 @@ def main(argv=None) -> int:
         b2["launches_by_path"] = {"bench_forward": results["fisher_encode"]["launches"],
                                   "graph_fit": graph["launches_fit"]["fisher_encode"],
                                   "stream_fit": stream["launches_fit"]["fisher_encode"]}
+        # the bench forward's roofline: its warm-up, wall and traced iterations
+        b2["launches_by_path"]["roofline (single- and multi-scale)"] = results["roofline"]["launches"]
+        b2["launches"] += results["roofline"]["launches"]
         # the fit planning phases: the structural, profiled, demoted and
         # auto-spilled fits (B2 in each fit, B1 in each one's scoring)
         for ln, kname in ((b1, "fused_forward"), (b2, "fisher_encode")):
@@ -7770,6 +7976,8 @@ def main(argv=None) -> int:
         "operations": results["operations"],
         "serve": results["serve"],
         "parallel": results["parallel"],
+        "roofline": results["roofline"],
+        "host_text": results["host_text"],
         "card": card,
     }))
     print(f"chip_smoke: the whole script took {time.perf_counter() - T_START:.1f} s ({card})", flush=True)

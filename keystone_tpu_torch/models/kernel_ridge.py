@@ -592,7 +592,7 @@ def _oc_krr_fit(store, y, n, gamma, lam, num_epochs, checkpoint_dir=None, use_ke
         save_seconds = None
         if ckpt_path is not None:
             ledger.device_wait((alpha, f), force=True)  # the host copies below read them
-            a_host, f_host = alpha.cpu().numpy(), f.cpu().numpy()
+            a_host, f_host = alpha.cpu().numpy(), f.cpu().numpy()  # lint: allow-host-sync
             t_save = time.perf_counter()
             durable.save_npz(ckpt_path, {"epoch": epoch, "alpha": a_host, "f": f_host, "problem": problem}, keep=2)
             save_seconds = time.perf_counter() - t_save

@@ -10,8 +10,9 @@ as tensors on the data's device or, with ``sparse_output``, scipy CSR
 rows that the sparse solvers and scorers (``ops/sparse.py``) gather from.
 Where a dataset carries a chain the native path takes
 (``ops/nlp_native.py``), the featurizers re-run the whole chain from the
-raw documents in C++; the reference fans its Python maps over a process
-pool (``utils/hostmap.py``), the port maps them in turn.
+raw documents in C++; otherwise the Python maps of a large input fan out
+over ``utils/hostmap.py::host_map``'s worker processes, as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ class Trimmer(Transformer):
     """Strip leading and trailing whitespace (nodes/nlp/Trim)."""
 
     is_host = True
+    parallel_host = False  # one str method an item: the transfer costs more
 
     def params(self):
         return ()
@@ -41,6 +43,7 @@ class Trimmer(Transformer):
 
 class LowerCase(Transformer):
     is_host = True
+    parallel_host = False  # one str method an item: the transfer costs more
 
     def params(self):
         return ()
@@ -169,12 +172,12 @@ class _RowFeaturizer(Transformer):
                 return base.map_batches(fn, host=self.sparse_output)
             if self.sparse_output:
                 return Transformer.apply_dataset(self, ds)
-            return ds.map_batches(lambda batch, _m: np.stack([self.apply_one(x) for x in batch]), host=False)
+            return ds.map_batches(lambda batch, _m: np.stack(self._map_host(batch)), host=False)
         docs = None if nc is None else _base_docs(nc[1])
         if docs is not None:
             rows = self._native_rows(docs, nc[0])
         else:
-            rows = [self.apply_one(x) for x in ds.items]
+            rows = self._map_host(ds.items)
         if self.sparse_output:
             return ds.with_items(rows)
         return Dataset(rows if isinstance(rows, np.ndarray) else np.stack(rows), device=ds.device)

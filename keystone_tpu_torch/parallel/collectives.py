@@ -43,7 +43,7 @@ def _count(kind: str, axis: str) -> None:
     from keystone_tpu_torch.obs import metrics
 
     COUNTS[kind] += 1
-    metrics.inc(f"parallel.{kind}", axis=axis)
+    metrics.inc("parallel.collectives", kind=kind, axis=axis)
 
 
 def psum(x: torch.Tensor, axis_name: str = _mesh.DATA_AXIS, mesh: Optional[_mesh.Mesh] = None) -> torch.Tensor:

@@ -184,7 +184,7 @@ def initialize(
     _mesh.reset()
     dt = time.perf_counter() - t0
     metrics.observe("multihost.init_seconds", dt)
-    ledger.event("multihost.init", seconds=dt, backend=backend, world=world, rank=rank)
+    ledger.event("multihost.init", seconds=dt)
 
 
 def shutdown() -> None:

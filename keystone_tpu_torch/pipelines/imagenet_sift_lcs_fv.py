@@ -204,15 +204,20 @@ def build_forward(
     config: Config = Config(),
     device="cuda",
     use_kernel: Optional[bool] = None,
+    bin_sizes: Optional[Sequence[int]] = None,
+    smoothing_magnif: float = 6.0,
 ) -> FusedTransformer:
     """The unfused bench forward: GrayScaler → SIFT → PCA → FisherVector
     → SignedHellinger → NormalizeRows → BlockLinearMapper, raw scores.
-    ``params`` needs the ``sift`` branch and a BLM of its FV width."""
+    ``params`` needs the ``sift`` branch and a BLM of its FV width.
+    ``bin_sizes`` (default ``(config.sift_bin_size,)``) and
+    ``smoothing_magnif`` are SIFT's, as ``bench.py::build_forward`` takes
+    them (its multi-scale leg: bins (4, 6, 8, 10), smoothing 6.0)."""
     dev = resolve_device(device)
     precision.disable_tf32()
     fwd = FusedTransformer([
         GrayScaler(),
-        SIFTExtractor(config.sift_step, (config.sift_bin_size,)),
+        SIFTExtractor(config.sift_step, tuple(bin_sizes or (config.sift_bin_size,)), smoothing_magnif),
         _pca(params, "sift"),
         FisherVector(_gmm(params, "sift"), use_kernel),
         SignedHellingerMapper(),

@@ -137,6 +137,7 @@ OPERATIONAL_ENV = {
     "KEYSTONE_FAULTS",
     "KEYSTONE_HANG_SECONDS",
     "KEYSTONE_HBM_BUDGET_BYTES",
+    "KEYSTONE_HOST_WORKERS",
     "KEYSTONE_IO_RETRIES",
     "KEYSTONE_METRICS",
     "KEYSTONE_OBS_DIR",

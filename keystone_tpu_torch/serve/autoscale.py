@@ -264,18 +264,20 @@ class Autoscaler:
                 target = min(target, int(cap))
             if target <= s.workers:
                 return None
-            self._act("up", s, target)
+            # counted before the resize, as the metric is: a reader that
+            # sees the new fleet size also sees the action that made it
             self._last_up = now
             self._last_any = now
             self.ups += 1
             self._idle_ticks = 0
+            self._act("up", s, target)
             return "up"
         if action == "down":
             target = max(self.policy.min_workers, s.workers - 1)
-            self._act("down", s, target)
             self._last_any = now
             self.downs += 1
             self._idle_ticks = 0
+            self._act("down", s, target)
             return "down"
         # between size changes: the cheap lever
         new_window = self.policy.window_for(s, svc._pool.window)

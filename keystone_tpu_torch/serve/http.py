@@ -572,7 +572,8 @@ class _Handler(BaseHTTPRequestHandler):
         # an episode of /rolloutz's history like the guarded ones (the
         # reference records it in the flight recorder only)
         svc._rollout_history.append({"version": ver, "from_version": from_version, "verdict": "rolled_back",
-                                     "reason": "manual", "canary_fraction": None, "at": time.time()})
+                                     "reason": "manual", "canary_fraction": None,
+                                     "at": time.time()})  # lint: allow-wall-clock
         ledger.event("serve.rollout", from_version=from_version, to_version=ver, verdict="rolled_back",
                      reason="manual")
         if svc.recorder is not None:

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import logging
 import os
-import socket
+import socket  # lint: allow-socket (gethostname only; no network use)
 import threading
 import time
 from typing import Optional

@@ -674,7 +674,7 @@ class CanaryController:
             "reason": reason,
             "canary_fraction": cfg.canary,
             "canary": self.snapshot(),
-            "at": time.time(),
+            "at": time.time(),  # lint: allow-wall-clock
         }
         try:
             svc._rollout_history.append(entry)
@@ -845,7 +845,7 @@ class RollbackGuard:
             "verdict": "rolled_back",
             "reason": "bake_burn",
             "canary_fraction": self.config.canary,
-            "at": time.time(),
+            "at": time.time(),  # lint: allow-wall-clock
         }
         svc._rollout_history.append(entry)
         ledger.event(

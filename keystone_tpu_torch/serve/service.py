@@ -621,10 +621,9 @@ class PipelineService:
         took = time.monotonic() - t_all
         source = max(sources, key=sources.get) if sources else "compile"
         n = sum(sources.values())
-        ledger.event("serve.prime", seconds=round(took, 6), replicas=n_replicas, source=source, n=n, sources=sources)
+        ledger.event("serve.prime", seconds=round(took, 6), replicas=n_replicas, source=source, n=n)
         if self.recorder is not None:
-            self.recorder.ops("serve.prime", seconds=round(took, 6), replicas=n_replicas, source=source, n=n,
-                              sources=sources)
+            self.recorder.ops("serve.prime", seconds=round(took, 6), replicas=n_replicas, source=source, n=n)
 
     def prime_replacement(self, replica) -> None:
         """Prime one not-yet-routed replica (the supervisor's restart and
@@ -1173,7 +1172,8 @@ class PipelineService:
         if rec is None:
             return None
         os.makedirs(dir_path, exist_ok=True)
-        path = os.path.join(dir_path, f"trace-{self.name}-{int(time.time())}-{next(self._trace_dump_seq)}.json")
+        stamp = int(time.time())  # lint: allow-wall-clock (a file name, not an interval)
+        path = os.path.join(dir_path, f"trace-{self.name}-{stamp}-{next(self._trace_dump_seq)}.json")
         payload = rec.dump()
 
         def _write(tmp: str) -> None:

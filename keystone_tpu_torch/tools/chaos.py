@@ -675,7 +675,7 @@ def main(argv=None) -> int:
     led = None
     if args.ledger:
         led = obs_ledger.start_run(args.ledger)
-        led.event("chaos.start", plan=args.plan, workload=args.workload)
+        led.event("chaos.start")  # the report names the plan, the workload and this ledger
 
     faults.reset_stats()
     metrics.reset()  # the report's window starts here
@@ -763,7 +763,7 @@ def main(argv=None) -> int:
         },
     }
     if led is not None:
-        led.event("faults.stats", final=True, completed=error is None, error=error, stats=report["sites"])
+        led.event("faults.stats", error=error, stats=report["sites"])
         report["ledger"] = led.path
         obs_ledger.stop_run()
     print(json.dumps(report, indent=2))

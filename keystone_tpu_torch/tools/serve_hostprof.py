@@ -238,7 +238,7 @@ def _process_client(conn, n, window, shape, seed):
 
 
 def _process_clients(svc, shape, n, clients, window, clocks, lat):
-    import multiprocessing as mp
+    import multiprocessing as mp  # lint: allow-proc-spawn (an explicit spawn context)
 
     ctx = mp.get_context("spawn")
     per = n // clients

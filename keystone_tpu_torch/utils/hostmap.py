@@ -1,21 +1,179 @@
-"""The serving fleet's host map (counterpart of the ``HostMap`` half of
-``keystone_tpu/utils/hostmap.py``): the machines a network fleet
-(``serve/net.py``) may spawn ``python -m keystone_tpu_torch.cli worker``
-processes on, with each host's slot budget, which the autoscaler's
-``add_replica`` respects.  Local hosts spawn directly, remote ones
-through an ssh command.  The map only spawns: a worker registers when it
-dials the router's listener, so one started by hand joins the same way.
+"""Where host-side work runs (counterpart of
+``keystone_tpu/utils/hostmap.py``), at two scales.
 
-The reference's other half, the process pool its host text stage maps
-over, has no counterpart: the port's host text stage maps in turn.
+**Per-item maps on this host's cores** (:func:`host_map`): the host text
+stage (tokenize → n-gram → tf → featurize) is pure Python, so threads
+cannot run it in parallel (the GIL serializes them).  Workers here are
+processes, with two deliberate choices:
+
+- **the forkserver start method** (spawn where there is none), never
+  fork: the calling process may hold a CUDA context, and a child forked
+  from it cannot use CUDA and inherits the runtime's locked threads.  The
+  forkserver's server process is fresh and this module imports nothing
+  heavy, so workers start clean; torch enters a worker only when the
+  mapped callable's module imports it while unpickling, and a worker
+  never touches the card;
+- **one persistent pool a process**, not a pool a call: a streamed sweep
+  calls ``host_map`` once a stage a batch, and pools made per call would
+  pay the workers' start-up thousands of times.  Tasks carry the pickled
+  callable each time and workers cache it by digest.
+
+Sizing: ``KEYSTONE_HOST_WORKERS`` overrides; the default is the CPU
+count.  With 1 worker, small inputs or an unpicklable callable the map
+is plain sequential.
+
+**The serving fleet's host map** (:class:`HostMap`): the machines a
+network fleet (``serve/net.py``) may spawn ``python -m
+keystone_tpu_torch.cli worker`` processes on, with each host's slot
+budget, which the autoscaler's ``add_replica`` respects.  Local hosts
+spawn directly, remote ones through an ssh command.  The map only spawns:
+a worker registers when it dials the router's listener, so one started
+by hand joins the same way.
 """
 
 from __future__ import annotations
 
+import atexit
+import hashlib
+import logging
 import os
+import pickle
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
+
+logger = logging.getLogger(__name__)
+
+_EXECUTOR = None
+#: host_map is called from stream producer threads as well as the main
+#: thread; the lock keeps two racing callers from each building (and one
+#: orphaning) a worker pool
+_EXECUTOR_LOCK = threading.Lock()
+_EXECUTOR_WORKERS = 0
+_POOL_WARNED = False
+_POOL_SIZE_NOTED = False
+
+#: worker side: digest → unpickled callable (a vocabulary model unpickles
+#: once a worker, not once a batch), bounded so that a sweep of many
+#: fitted models does not grow a worker without limit
+_FN_CACHE: Dict[bytes, Callable] = {}
+_FN_CACHE_CAP = 8
+
+
+def host_workers() -> int:
+    env = os.environ.get("KEYSTONE_HOST_WORKERS")
+    if env is not None:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            logger.warning("KEYSTONE_HOST_WORKERS=%r is not an integer; using 1", env)
+            return 1
+    return os.cpu_count() or 1
+
+
+def _run_task(digest: bytes, fn_bytes: bytes, chunk: list) -> list:
+    fn = _FN_CACHE.get(digest)
+    if fn is None:
+        fn = pickle.loads(fn_bytes)
+        while len(_FN_CACHE) >= _FN_CACHE_CAP:
+            _FN_CACHE.pop(next(iter(_FN_CACHE)))  # oldest first
+        _FN_CACHE[digest] = fn
+    return [fn(x) for x in chunk]
+
+
+def _get_executor(workers: int):
+    """(executor, its worker count), or (None, 0) where no pool can be
+    made.  The pool is made once a process; a later caller asking for
+    another size reuses it (noted once) rather than restarting workers."""
+    global _EXECUTOR, _EXECUTOR_WORKERS, _POOL_WARNED, _POOL_SIZE_NOTED
+    with _EXECUTOR_LOCK:
+        if _EXECUTOR is None:
+            # an explicit forkserver or spawn context below, never fork
+            import multiprocessing as mp  # lint: allow-proc-spawn
+            from concurrent.futures import ProcessPoolExecutor
+
+            method = "forkserver" if "forkserver" in mp.get_all_start_methods() else "spawn"
+            try:
+                _EXECUTOR = ProcessPoolExecutor(max_workers=workers, mp_context=mp.get_context(method))
+            except Exception:
+                if not _POOL_WARNED:
+                    logger.warning("host_map worker pool unavailable; mapping sequentially", exc_info=True)
+                    _POOL_WARNED = True
+                return None, 0
+            _EXECUTOR_WORKERS = workers
+            atexit.register(shutdown)
+        elif workers != _EXECUTOR_WORKERS and not _POOL_SIZE_NOTED:
+            logger.info("host_map pool already sized at %d workers; a request for %d reuses it "
+                        "(one pool a process)", _EXECUTOR_WORKERS, workers)
+            _POOL_SIZE_NOTED = True
+        return _EXECUTOR, _EXECUTOR_WORKERS
+
+
+def pool_workers() -> int:
+    """The live pool's worker count; 0 when there is none (maps run in turn)."""
+    with _EXECUTOR_LOCK:
+        return _EXECUTOR_WORKERS if _EXECUTOR is not None else 0
+
+
+def shutdown() -> None:
+    """Stop the worker pool (idempotent; a later host_map starts another)."""
+    global _EXECUTOR
+    with _EXECUTOR_LOCK:
+        if _EXECUTOR is not None:
+            _EXECUTOR.shutdown(wait=False, cancel_futures=True)
+            _EXECUTOR = None
+
+
+def host_map(fn: Callable, items: Sequence, workers: Optional[int] = None, min_items: int = 512) -> List:
+    """``[fn(x) for x in items]``, over the persistent worker pool when the
+    input is large enough to pay for the tasks.  Order is kept and the
+    results are the sequential map's.  Sequential for small inputs, one
+    worker, an unpicklable callable, and a pool that cannot be made or
+    breaks.  An exception ``fn`` raises propagates unchanged, as the
+    sequential map would raise it: a data error is neither retried nor
+    demoted."""
+    items = items if isinstance(items, list) else list(items)
+    w = host_workers() if workers is None else max(1, int(workers))
+    if w <= 1 or len(items) < max(min_items, 2):
+        return [fn(x) for x in items]
+    try:
+        fn_bytes = pickle.dumps(fn)
+    except Exception:
+        # closures and lambdas: sequential rather than failing the map
+        return [fn(x) for x in items]
+    ex, pool_w = _get_executor(w)
+    if ex is None:
+        return [fn(x) for x in items]
+    from concurrent.futures import CancelledError
+    from concurrent.futures.process import BrokenProcessPool
+
+    digest = hashlib.blake2b(fn_bytes, digest_size=16).digest()
+    # ~2 chunks a worker of the pool's actual size: smooths stragglers
+    # without multiplying the callable's transfer
+    chunk = max(1, -(-len(items) // (pool_w * 2)))
+    chunks = [items[i:i + chunk] for i in range(0, len(items), chunk)]
+    try:
+        futures = [ex.submit(_run_task, digest, fn_bytes, c) for c in chunks]
+        out: List = []
+        for f in futures:
+            out.extend(f.result())
+        return out
+    except (BrokenProcessPool, CancelledError, RuntimeError) as e:
+        # a worker died, or a concurrent caller saw the same broken pool
+        # first and shut it down (submit then raises RuntimeError and the
+        # pending futures cancel): finish this map sequentially and let
+        # the next call build a fresh pool.  A RuntimeError fn raised
+        # itself is a data error and propagates (BrokenProcessPool is a
+        # RuntimeError too, so it is tested first)
+        if not isinstance(e, (BrokenProcessPool, CancelledError)) and "schedule new futures" not in str(e):
+            raise
+        logger.warning("host_map worker pool broke; completing this map sequentially and rebuilding "
+                       "the pool on next use")
+        shutdown()
+        return [fn(x) for x in items]
+
+
+# ---------------------------------------------------------- fleet host map
 
 #: names that mean "this machine" — spawned directly, no ssh hop
 LOCAL_HOSTS = frozenset({"local", "localhost", "127.0.0.1"})

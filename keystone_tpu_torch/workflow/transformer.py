@@ -77,6 +77,9 @@ class Chainable:
 class Transformer(nn.Module, Chainable):
     #: True for ops that run on host Python objects (e.g. tokenizers).
     is_host: bool = False
+    #: host ops whose per-item work is trivial (a str method) opt out of
+    #: the host_map worker pool: the transfer would dwarf the work
+    parallel_host: bool = True
     #: False keeps the stage out of StageFusionRule's chains (ops that
     #: reduce ragged sets or read a whole dataset).
     fusable: bool = True
@@ -146,6 +149,15 @@ class Transformer(nn.Module, Chainable):
     def forward(self, xs, mask=None):
         return self.apply_batch(xs, mask=mask)
 
+    def _map_host(self, items) -> list:
+        """``apply_one`` over host items: through ``host_map``'s worker
+        pool for a host op that opts in, else in turn."""
+        if self.parallel_host:
+            from keystone_tpu_torch.utils.hostmap import host_map
+
+            return host_map(self.apply_one, items)
+        return [self.apply_one(x) for x in items]
+
     def apply_dataset(self, ds: Dataset) -> Dataset:
         """The batch path over a dataset, ``APPLY_CHUNK_ROWS`` rows at a
         time (the counterpart of ``_apply_dataset_chunked``): a transformer
@@ -157,16 +169,19 @@ class Transformer(nn.Module, Chainable):
                     raise TypeError(f"{self.label} is a device transformer; this stream carries host objects. "
                                     "Featurize to arrays first.")
                 # item by item, batch by batch: the raw corpus never
-                # materializes.  The reference fans large batches over a
-                # process pool (utils/hostmap.py); here they map in turn
-                out = ds.map_batches(lambda batch, _mask: [self.apply_one(x) for x in batch])
+                # materializes.  host_map fans a large batch over worker
+                # processes; small batches and trivial ops
+                # (parallel_host=False) map in turn
+                out = ds.map_batches(lambda batch, _mask: self._map_host(batch))
                 return _with_host_chain(out, ds, self)
             if self.is_host:
                 raise TypeError(f"{self.label} is a host transformer; streams carry device batches. "
                                 "Featurize to arrays before streaming.")
             return ds.map_batches(self.apply_batch)
         if ds.is_host or self.is_host:
-            out = [self.apply_one(x) for x in ds.items]
+            # a device transformer maps in turn: worker processes never
+            # run device code
+            out = self._map_host(ds.items) if self.is_host else [self.apply_one(x) for x in ds.items]
             if _stackable(out):
                 return ds.with_array(torch.stack([torch.as_tensor(o) for o in out]))
             return _with_host_chain(ds.with_items(out), ds, self)
