@@ -218,7 +218,7 @@ result line):
    a poison row bisected out) and two replicas of the scorer hot-swapped
    under load to other weights (nothing lost, answers after the commit
    from the new weights), a draining close; S4, serve_bench's open-loop
-   generator at 50% and 90% of S1's saturation rate (p50/p99/p99.9, sheds,
+   generator at 50% and 90% of S1's saturation rate, 1.5 s each (p50/p99/p99.9, sheds,
    queue depth); S5, the model lifecycle: the scorer's raw scores
    exported at buckets 8..128 and published with S3's weights to a
    temporary registry (v0001, v0002), v0001 served from it on two
@@ -267,7 +267,7 @@ result line):
    bit for bit; ``cli serve`` with three named models over HTTP (an
    unknown tenant 400; the child's B1 twice a flush); serve_bench's
    tenant A/B in short legs (rates printed); then the chaos tool on the
-   card: the ``tenants`` workload and a seeded 5 s soak over two worker
+   card: the ``tenants`` workload and a seeded 2 s soak over two worker
    processes, each exiting 0; S8, the pre-flight analyzer and the physical
    planner: ``cli check --all`` in a child on the card (every bundled
    pipeline, no finding, no launch, no device memory moved around each
@@ -313,7 +313,25 @@ result line):
    text chain's rows bit for bit the sequential ones, and
    ``tools/bench_text.py``'s docs/s for the Python and native chains on
    the same pool;
-27. the whole script's seconds; one JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
+27. the host float64 reference (A12, ``ops/fisher_ffi.py`` → g++'s
+   ``csrc/keystone_ffi.cpp``), after the FV kernels' checks: the encode of
+   8 images at the scorer's B2 shape against the plain chain in float64
+   on the card, and B2 and the plain f32 chain against it (B2 within 2x
+   the plain chain's error); 5 EM steps at 16 384 rows of S9's GMM sample
+   (d = 64, K = 64) against the port's EM in float64 and in f32 on the
+   card; then DAISY and SIFT's conv windowing (A17) on the card at
+   bench.py's batch and image size, against the same chains in float64
+   and the conv form against the matmul form, each timed;
+28. S10, serve_bench's modes (A9c) at the tool's defaults with one round
+   and 1 s legs, after S8: the recorder on against off, hedging around a
+   stalled replica, threads against worker processes on the GIL-held
+   featurizer (bit for bit), the autoscale scenario (nothing lost or
+   hung, back to one worker), cold start and restart with bucket graphs
+   against none (each sample a fresh process; no fallback, one
+   prediction digest) and a zoo replay; in S5, the cold-start A/B once
+   against its published full-width scorer;
+29. the whole script's seconds; a ``host_ref`` line of A12's figures; one
+   JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches (bucket-graph replays
    included), float64 errors) for all four kernels, B3's and B4's times at the new paths' shapes and B1's and
    B2's at VOC's among them, then the last line {"ok": true, "device":
@@ -809,21 +827,11 @@ def poly_f64(x, z, alpha, c, degree):
 
 
 def fv_f64(xs, mask, w, mu, var):
-    """The FV plain chain (``fisher_encode_ref``'s math) in float64 on the
-    same operands; ``fisher_encode_ref`` itself computes in f32."""
-    from keystone_tpu_torch.models.gmm import _log_gaussians
+    """The FV plain chain (``fisher_encode_ref``) in float64 on the same
+    operands."""
+    from keystone_tpu_torch.ops.fisher_kernels import fisher_encode_ref
 
-    xs, mask, w, mu, var = (a.double() for a in (xs, mask, w, mu, var))
-    n, t, d = xs.shape
-    lg = _log_gaussians(xs.reshape(n * t, d), mu, var, torch.log(w))
-    gamma = torch.softmax(lg, dim=1).reshape(n, t, -1) * mask[..., None]
-    tnorm = torch.clamp(mask.sum(dim=1), min=1.0)[:, None, None]
-    s0 = gamma.sum(dim=1)[..., None]
-    s1 = torch.einsum("ntk,ntd->nkd", gamma, xs)
-    s2 = torch.einsum("ntk,ntd->nkd", gamma, xs * xs)
-    phi1 = (s1 - s0 * mu) / torch.sqrt(var) / (tnorm * torch.sqrt(w)[None, :, None])
-    phi2 = ((s2 - 2.0 * mu * s1 + s0 * mu * mu) / var - s0) / (tnorm * torch.sqrt(2.0 * w)[None, :, None])
-    return torch.cat([phi1.reshape(n, -1), phi2.reshape(n, -1)], dim=1)
+    return fisher_encode_ref(*(a.double() for a in (xs, mask, w, mu, var)))
 
 
 def fused_f64(desc, mask, components, mean, w, mu, var, normalize=True):
@@ -4370,7 +4378,7 @@ SERVE_HTTP_N = 128  # held-out images POSTed to `cli serve`
 SERVE_HTTP_MAX_BATCH = 16
 SERVE_RESULT_S = 120.0  # the bound of every wait on a served future
 SERVE_S4_FRACTIONS = (0.5, 0.9)  # open-loop offered load, fractions of S1's saturation rate
-SERVE_S4_SECONDS = 3.0
+SERVE_S4_SECONDS = 1.5  # 3.0 until S10 (serve_bench's modes) needed the room
 SERVE_S4_BURST = 8
 SERVE_S4_DEADLINE_MS = 250.0
 
@@ -5115,6 +5123,21 @@ def lifecycle_path(dev, card, P, fk, scorer, images, params_b, saturation_ips):
                   flush=True)
             out["export"] = {"export_s": export_s, "publish_s": publish_s, "manifest": man}
 
+        with phase("serve S5: serve_bench's cold-start A/B against this registry (v0001, fresh processes)"):
+            ab = serve_bench.run_cold_start_ab(max_batch=SERVE_BUCKETS[-1], rounds=1, registry_root=str(tmp / "registry"),
+                                               device=dev, publish=False, item_shape=imgs.shape[1:], dtype=imgs.dtype)
+            arms = ab["samples"]
+            check(ab["predictions_match"] and ab["artifact_fallbacks"] == 0,
+                  f"the cold-start arms: digests {[s['prediction_sha'] for a in arms.values() for s in a]}, "
+                  f"fallbacks {ab['artifact_fallbacks']}")
+            check(all(s["version"] == v1 for a in arms.values() for s in a), "the arms served another version")
+            check(ab["prime_sources"]["artifact"]["artifact"] == len(SERVE_BUCKETS)
+                  and ab["prime_sources"]["compile"]["artifact"] == 0, f"prime sources {ab['prime_sources']}")
+            print(f"  first prediction: bucket graphs {ab['first_prediction_s']['artifact']:.3f} s, none "
+                  f"{ab['first_prediction_s']['compile']:.3f} s; ready {ab['ready_s']}; one digest, no fallback "
+                  f"({card})", flush=True)
+            out["cold_start_ab"] = ab
+
         with phase("serve S5: v0001 from the registry on two replicas with its bucket graphs"):
             fitted, ver = reg.load(map_location=dev)
             check(ver == v1, f"the deploy pick is {ver}")
@@ -5848,13 +5871,13 @@ def process_fleet_path(dev, card, P, fk, scorer, images, b1_args):
 # near-tie; share on against off and one tenant against serve(), bit for
 # bit.  Then `cli serve` with three named models over HTTP, serve_bench's
 # tenant A/B in short legs (rates printed, nothing claimed), and the chaos
-# tool on the card: the `tenants` workload and a seeded 5 s soak over two
+# tool on the card: the `tenants` workload and a seeded 2 s soak over two
 # worker processes.
 S7_TENANTS = ("t0", "t1", "t2")
 S7_SERVED_N = 384  # requests a tenant in the closed loop (3 x 128 images)
 S7_HTTP_N = 4  # images POSTed a tenant to the `cli serve` child
 S7_AB = {"qps": 8000.0, "duration": 1.0, "rounds": 2, "max_batch": BATCH}
-S7_SOAK_S, S7_SOAK_WORKERS = 5, 2  # a 20 s soak, then 10 s, until S9 needed the room
+S7_SOAK_S, S7_SOAK_WORKERS = 2, 2  # a 20 s soak, then 10 s, until S9, then 5 s, until S10 needed the room
 
 
 def s7_models(P, cfg, scorer_params, dev, tmp):
@@ -6569,12 +6592,18 @@ def parallel_rank(spec: str) -> int:
     return 0
 
 
+def s9_gmm_sample(rng) -> np.ndarray:
+    """The fit's GMM sample's shape (S9_GMM_N x S9_GMM_D) drawn around
+    S9_GMM_K centres; S9's A8b data start with it."""
+    centres = 2.0 * rng.standard_normal((S9_GMM_K, S9_GMM_D), dtype=np.float32)
+    return centres[rng.integers(0, S9_GMM_K, S9_GMM_N)] + rng.standard_normal((S9_GMM_N, S9_GMM_D),
+                                                                              dtype=np.float32)
+
+
 def s9_a8b_problems(seed: int) -> dict:
     """The A8b fits' host data, the same on every rank (numpy, ``seed``)."""
     rng = np.random.default_rng(seed + 20)
-    centres = 2.0 * rng.standard_normal((S9_GMM_K, S9_GMM_D), dtype=np.float32)
-    gmm = centres[rng.integers(0, S9_GMM_K, S9_GMM_N)] + rng.standard_normal((S9_GMM_N, S9_GMM_D),
-                                                                             dtype=np.float32)
+    gmm = s9_gmm_sample(rng)
     counts = (rng.random((S9_TEXT_N, S9_DENSE_D)) < 0.05) * rng.integers(1, 5, (S9_TEXT_N, S9_DENSE_D))
     w_true = rng.standard_normal((S9_DENSE_D, S9_TEXT_K)).astype(np.float32)
     feats = rng.standard_normal((S9_TEXT_N, S9_DENSE_D), dtype=np.float32) / np.sqrt(S9_DENSE_D)
@@ -7230,6 +7259,217 @@ def parallel_path(dev, card, seed, one_process_predictions):
     return out
 
 
+# ---- the host float64 reference (A12): ops/fisher_ffi.py over g++'s
+# csrc/keystone_ffi.cpp, the port's copy of the reference's EncEval-tier
+# encode and EM.  It runs on the host by design and is no TPU kernel: its
+# figures go to the host_ref line, not the kernels line.  The encode takes
+# HOST_REF_N images at B2's main-path shape (its host seconds grow with
+# n·T·K·d); the EM HOST_EM_ITERS steps at HOST_EM_ROWS rows of S9's GMM
+# sample, each against the port's chains on the card in float64 (the same
+# arithmetic summed in another order: TOL_HOST_F64 of the largest value);
+# the card's f32 EM's distance from it is printed beside (five steps of
+# 16 384-row f32 sums through the gemm expansion: ~1e-3 on the means).
+HOST_REF_N = 8
+HOST_EM_ROWS, HOST_EM_ITERS = 16384, 5
+TOL_HOST_F64 = 1e-9
+# A17 on the card: DAISY and SIFT's conv windowing in f32 against the same
+# chains in float64 (descriptors are L2-normalized histograms), and the
+# conv form against the matmul form (the reference's own windowing bound,
+# tests/test_ops.py:592)
+TOL_LEFT_OUT_F64 = 1e-5
+ATOL_WINDOWING = 1e-6
+
+
+def host_ref_path(dev, card, fk, fx, fmask, gmm_b2, seed) -> dict:
+    """A12 on this machine: the host float64 encode and EM against the
+    card's chains (see the comment above)."""
+    from keystone_tpu_torch.models.gmm import _em_steps
+    from keystone_tpu_torch.ops import fisher_ffi
+
+    out = {}
+    with phase("host reference (A12): the float64 FV encode on the host against the card's chains"):
+        t0 = time.perf_counter()
+        check(fisher_ffi.ffi_available() and fisher_ffi.ffi_available("em"),
+              "the host FV library (csrc/keystone_ffi.cpp) did not build")
+        out["build_load_s"] = time.perf_counter() - t0
+        xs, m = fx[:HOST_REF_N].contiguous(), fmask[:HOST_REF_N].contiguous()
+        g64 = [a.double() for a in gmm_b2]
+        t0 = time.perf_counter()
+        host = fisher_ffi.fisher_encode_ffi(xs.double(), m.double(), *g64)
+        out["encode_s"] = time.perf_counter() - t0
+        check(host.dtype == torch.float64 and host.device.type == "cpu"
+              and tuple(host.shape) == (HOST_REF_N, 2 * GMM_K * PCA_DIMS), f"host encode {host.dtype} {host.shape}")
+        host = host.to(dev)
+        plain64 = fv_f64(xs, m, *gmm_b2)
+        scale = max(1.0, host.abs().max().item())
+        e_host = max_err64(host, plain64)
+        e_kernel = max_err64(fk.fisher_encode(xs, m, *gmm_b2), host)
+        e_plain = max_err64(fk.fisher_encode_ref(xs, m, *gmm_b2), host)
+        b2_ms = cuda_ms(lambda: fk.fisher_encode(xs, m, *gmm_b2))
+        print(f"  ({HOST_REF_N}, 784, {PCA_DIMS}) K={GMM_K}: host float64 encode {out['encode_s']:.3f} s (build and "
+              f"load {out['build_load_s']:.1f} s) against B2 {b2_ms:.4f} ms on the same images; host against the "
+              f"plain chain in float64 on the card {e_host:.3e} (|ref| max {scale:.3e}, at most "
+              f"{TOL_HOST_F64:.0e} of it); against the host's float64: B2 {e_kernel:.3e}, the plain f32 chain "
+              f"{e_plain:.3e} (ratio {e_kernel / e_plain:.3f}, at most {F64_RATIO}) ({card})", flush=True)
+        check(e_host <= TOL_HOST_F64 * scale, f"host encode against the plain chain in float64: {e_host:.3e}")
+        check(e_kernel <= F64_RATIO * e_plain, "B2 is not f32-grade against the host float64 encode")
+        out["encode"] = {"shape": f"({HOST_REF_N}, 784, {PCA_DIMS}) K={GMM_K}", "host_s": out.pop("encode_s"),
+                         "b2_ms": b2_ms, "host_vs_plain_f64": e_host, "ref_abs_max": scale,
+                         "b2_vs_host": e_kernel, "plain_f32_vs_host": e_plain}
+
+    with phase(f"host reference (A12): {HOST_EM_ITERS} EM steps at {HOST_EM_ROWS} rows of the GMM sample against "
+               "the card's EM"):
+        rng = np.random.default_rng(seed + 20)
+        x = torch.from_numpy(s9_gmm_sample(rng)[:HOST_EM_ROWS])
+        k = FIT_GMM_K
+        mu0 = x[np.random.default_rng(seed + 21).choice(HOST_EM_ROWS, k, replace=False)]
+        var0 = x.double().var(dim=0, unbiased=False).clamp(min=1e-6)[None, :].repeat(k, 1)
+        w0, mask = torch.full((k,), 1.0 / k, dtype=torch.float64), torch.ones(HOST_EM_ROWS, dtype=torch.float64)
+        t0 = time.perf_counter()
+        host = fisher_ffi.gmm_em_ffi(x.double(), mask, w0, mu0.double(), var0, iters=HOST_EM_ITERS)
+        em_s = time.perf_counter() - t0
+        errs = {}
+        for label, dt in (("float64", torch.float64), ("f32", torch.float32)):
+            a = [t.to(device=dev, dtype=dt) for t in (x, mask, w0, mu0, var0)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card_em = _em_steps(a[0], float(HOST_EM_ROWS), a[1], a[2], a[3], a[4], HOST_EM_ITERS, 1e-6)
+            torch.cuda.synchronize()
+            errs[label] = {"seconds": time.perf_counter() - t0,
+                           "errors": [max_err64(c, h.to(dev)) for c, h in zip(card_em, host)]}
+        print(f"  host float64 EM {em_s:.3f} s; the card's EM in float64 {errs['float64']['seconds']:.3f} s, "
+              f"largest differences (weights, means, variances) {[f'{e:.3e}' for e in errs['float64']['errors']]}; "
+              f"in f32 {errs['f32']['seconds']:.3f} s, {[f'{e:.3e}' for e in errs['f32']['errors']]} (f32's "
+              f"distance from float64, not gated) ({card})",
+              flush=True)
+        check(max(errs["float64"]["errors"]) <= TOL_HOST_F64, f"the card's float64 EM {errs['float64']}")
+        check(abs(float(host[0].sum()) - 1.0) < 1e-12, "the host EM's weights do not sum to 1")
+        out["em"] = {"rows": HOST_EM_ROWS, "d": PCA_DIMS, "k": k, "iters": HOST_EM_ITERS, "host_s": em_s,
+                     "card": errs}
+    return out
+
+
+def left_out_ops_path(dev, card, images) -> dict:
+    """A17 on the card: DAISY and SIFT's conv windowing at bench.py's batch
+    and image size, each against its chain in float64, the conv form
+    against the matmul form, each timed."""
+    from keystone_tpu_torch.ops import daisy as daisy_mod
+    from keystone_tpu_torch.ops import sift as sift_mod
+    from keystone_tpu_torch.ops.images import GrayScaler
+
+    out = {}
+    gray = GrayScaler().apply_batch(images[:BATCH].float() / 255.0)
+    with phase(f"left-out ops (A17): DAISY and SIFT's conv windowing on the card ({BATCH}, {IMAGE_HW}, {IMAGE_HW})"):
+        ext = daisy_mod.DaisyExtractor()
+        d32 = ext.apply_batch(gray)[0]
+        d64 = daisy_mod._daisy(gray.double(), ext.step, ext.radius, ext.rings, ext.ring_points, ext.orientations)
+        check(tuple(d32.shape) == tuple(d64.shape) and d32.shape[1] > 0 and d32.shape[2] == ext.descriptor_dim,
+              f"DAISY {tuple(d32.shape)}")
+        check(bool(torch.isfinite(d32).all()), "non-finite DAISY descriptors")
+        e_daisy = max_err64(d32, d64)
+        sigma = sift_mod.SIFTExtractor(SIFT_STEP, (SIFT_BIN,))._sigma(SIFT_BIN)
+        sift = {w: sift_mod._dsift(gray, SIFT_STEP, SIFT_BIN, sigma=sigma, windowing=w) for w in ("conv", "matmul")}
+        sift64 = {w: sift_mod._dsift(gray.double(), SIFT_STEP, SIFT_BIN, sigma=sigma, windowing=w)
+                  for w in ("conv", "matmul")}
+        check(tuple(sift["conv"].shape) == (BATCH, 784, 128), f"SIFT conv {tuple(sift['conv'].shape)}")
+        e = {w: max_err64(sift[w], sift64[w]) for w in sift}
+        e_forms, e_forms64 = max_err(sift["conv"], sift["matmul"]), max_err64(sift64["conv"], sift64["matmul"])
+        ms = {"daisy": cuda_ms(lambda: ext.apply_batch(gray), reps=5)}
+        for w in ("conv", "matmul"):
+            ext_w = sift_mod.SIFTExtractor(SIFT_STEP, (SIFT_BIN,), windowing=w)
+            ms[f"sift_{w}"] = cuda_ms(lambda ext_w=ext_w: ext_w.apply_batch(gray), reps=5)
+        print(f"  DAISY {tuple(d32.shape)}: {ms['daisy']:.3f} ms a batch, against float64 {e_daisy:.3e}; SIFT "
+              f"(step {SIFT_STEP}, bin {SIFT_BIN}, σ {sigma:.3f}) conv {ms['sift_conv']:.3f} ms, matmul "
+              f"{ms['sift_matmul']:.3f} ms a batch; against float64 conv {e['conv']:.3e}, matmul {e['matmul']:.3e} "
+              f"(at most {TOL_LEFT_OUT_F64:.0e}); conv against matmul {e_forms:.3e} (at most {ATOL_WINDOWING:.0e}), "
+              f"in float64 {e_forms64:.3e} ({card})", flush=True)
+        check(e_daisy <= TOL_LEFT_OUT_F64, f"DAISY against float64: {e_daisy:.3e}")
+        check(max(e.values()) <= TOL_LEFT_OUT_F64, f"SIFT against float64: {e}")
+        check(e_forms <= ATOL_WINDOWING, f"SIFT conv against matmul: {e_forms:.3e}")
+        out = {"daisy_shape": list(d32.shape), "ms": ms, "daisy_vs_f64": e_daisy, "sift_vs_f64": e,
+               "sift_conv_vs_matmul": e_forms, "sift_conv_vs_matmul_f64": e_forms64}
+    return out
+
+
+# ---- S10, serve_bench's modes (A9c) at the tool's defaults, one round
+# and S10_LEG_S legs, on its synthetic workloads on the card: the gates are
+# the answers (bit for bit where the reference pins it, nothing lost or
+# hung, no artifact fallback); the reference's speed claims (the recorder
+# within 5%, hedging's p99 under 1, processes 1.8x threads, the scale-up)
+# are measured and printed with their `ok`, not gated: they are the
+# host's, and a card's machine shares its cores.  The autoscale
+# scenario's idle wait is S10_IDLE_S (the reference's default 60 s).
+S10_LEG_S = 1.0
+S10_ROUNDS = 1
+S10_IDLE_S = 30.0
+S10_SCENARIO = "bursty"
+
+
+def serve_bench_path(dev, card) -> dict:
+    """S10 (see the comment above)."""
+    from keystone_tpu_torch.tools import serve_bench as sb
+
+    out = {}
+    t_s10 = time.perf_counter()
+    with phase("serve S10: serve_bench's flight recorder on against off"):
+        rep = sb.run_overhead_pair(duration=S10_LEG_S, rounds=S10_ROUNDS, device=dev)
+        on, off = rep["recorder_on"], rep["recorder_off"]
+        check(bool(on["achieved_qps"]) and bool(off["achieved_qps"]), f"the recorder pair served nothing: {rep}")
+        print(f"  achieved QPS on {on['achieved_qps']:.1f} / off {off['achieved_qps']:.1f}, p99 on {on['p99_ms']:.3f} "
+              f"/ off {off['p99_ms']:.3f} ms: ratios {rep['overhead']} (the reference's budget: within 5% of 1) "
+              f"({card})", flush=True)
+        out["recorder"] = rep
+    with phase("serve S10: hedged dispatch against one stalled replica"):
+        rep = sb.run_straggler_ab(duration=S10_LEG_S, rounds=S10_ROUNDS, device=dev)
+        check(rep["hedged"]["hedges"] > 0 and rep["hedged"]["achieved_qps"] and rep["unhedged"]["achieved_qps"],
+              f"the hedging A/B hedged nothing: {rep['hedged']}")
+        print(f"  p99 hedged {rep['hedged']['p99_ms']:.3f} against unhedged {rep['unhedged']['p99_ms']:.3f} ms "
+              f"(straggler {rep['straggler_ms']} ms, hedge {rep['hedge_ms']} ms): {rep['hedging']}; "
+              f"{rep['hedged']['hedges']} hedges, {rep['hedged']['hedge_wins']} won ({card})", flush=True)
+        out["straggler"] = rep
+    with phase("serve S10: threads against processes on the GIL-held featurizer"):
+        rep = sb.run_procs_ab(duration=S10_LEG_S, rounds=S10_ROUNDS, device=dev)
+        check(rep["predictions_identical"], f"threads and processes answered differently: {rep['prediction_sha']}")
+        print(f"  threads {rep['thread_qps']:.1f} against processes {rep['process_qps']:.1f} QPS: {rep['speedup']:.3f}x "
+              f"(achievable {rep['achievable_speedup']} on {rep['cores']} cores; the reference's ok: {rep['ok']}); "
+              f"p99 {rep['thread_p99_ms']:.3f} / {rep['process_p99_ms']:.3f} ms; bit for bit ({card})", flush=True)
+        out["procs"] = rep
+    with phase("serve S10: the autoscale scenario (one worker process up under load, back down idle)"):
+        rep = sb.run_autoscale_scenario(duration=S10_LEG_S, idle_timeout=S10_IDLE_S, device=dev)
+        check(rep["errors"] == 0 and rep["hung"] == 0 and rep["completed"] == rep["submitted"],
+              f"the autoscale scenario lost requests: {rep}")
+        check(rep["final_workers"] == 1, f"the fleet did not come back to one worker in {S10_IDLE_S} s: {rep}")
+        print(f"  {rep['submitted']} requests, all answered; workers peak {rep['peak_workers']}, final "
+              f"{rep['final_workers']}; ups {rep['autoscaler'].get('ups')}, downs {rep['autoscaler'].get('downs')} "
+              f"(the reference's ok: {rep['ok']}) ({card})", flush=True)
+        out["autoscale"] = rep
+    with phase("serve S10: cold start and restart, bucket graphs against none, each sample a fresh process"):
+        for key, fn in (("cold_start", sb.run_cold_start_ab), ("restart", sb.run_restart_ab)):
+            rep = fn(rounds=S10_ROUNDS, device=dev)
+            check(rep["predictions_match"] and rep["artifact_fallbacks"] == 0,
+                  f"{key}: digests {[s['prediction_sha'] for a in rep['samples'].values() for s in a]}, "
+                  f"fallbacks {rep['artifact_fallbacks']}")
+            check(all(s["bundle"] for s in rep["samples"]["artifact"]), f"{key}: the artifact arm had no bundle")
+            out[key] = rep
+        cs, rs = out["cold_start"], out["restart"]
+        check(cs["prime_sources"]["artifact"]["artifact"] > 0 and cs["prime_sources"]["compile"]["artifact"] == 0,
+              f"cold start prime sources {cs['prime_sources']}")
+        print(f"  first prediction: artifact {cs['first_prediction_s']['artifact']:.3f} s, none "
+              f"{cs['first_prediction_s']['compile']:.3f} s ({cs['first_prediction_s'].get('speedup')}x); ready "
+              f"{cs['ready_s']}; restart to rejoin {rs['restart_to_rejoin_s']}; prime sources {cs['prime_sources']}; "
+              f"one prediction digest, no fallback ({card})", flush=True)
+    with phase(f"serve S10: the zoo's {S10_SCENARIO} replay"):
+        rep = sb.run_scenario(S10_SCENARIO, duration=S10_LEG_S, device=dev)
+        check(rep["outcomes"]["errors"] == 0 and sum(rep["outcomes"].values()) == rep["submitted_rows"],
+              f"the replay's outcomes {rep['outcomes']}")
+        print(f"  digest {rep['scenario']['digest']}: {rep['outcomes']}, p50 {rep['p50_ms']:.3f} ms, p99 "
+              f"{rep['p99_ms']:.3f} ms ({card})", flush=True)
+        out["scenario"] = rep
+    out["seconds"] = time.perf_counter() - t_s10
+    print(f"  S10 took {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
 def profile_once(fn) -> None:
     """Device time by operator over one call of ``fn`` (after a warm-up
     call), and two idle shares.  One window: the device's busy time
@@ -7428,13 +7668,14 @@ def main(argv=None) -> int:
 
     materialize = watch_materialize()
     with phase("build"):
-        # every CUDA source with nvcc and the host text chain with g++, all
-        # compilers started together (jpeg.cpp needs libjpeg, which the
-        # card's machine lacks: the CPU decoder is not on a card path)
+        # every CUDA source with nvcc, and the host text chain and the host
+        # float64 FV reference with g++, all compilers started together
+        # (jpeg.cpp needs libjpeg, which the card's machine lacks: the CPU
+        # decoder is not on a card path)
         sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
         t0 = time.perf_counter()
-        paths = build.build(sources + ["text"])
-        print(f"  built {sources + ['text']} in {time.perf_counter() - t0:.1f} s")
+        paths = build.build(sources + ["text", "keystone_ffi"])
+        print(f"  built {sources + ['text', 'keystone_ffi']} in {time.perf_counter() - t0:.1f} s")
         for s in sources:
             regs = [ln.strip() for ln in (build.BUILD_DIR / f"{s}.log").read_text().splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -7587,6 +7828,11 @@ def main(argv=None) -> int:
         fk.reset_launches()
         torch.cuda.synchronize()
 
+    # ---- A12's host float64 reference and A17's ops, checked on the card
+    host_ref = host_ref_path(dev, card, fk, fx, fmask, gmm_b2, args.seed)
+    left_out = left_out_ops_path(dev, card, images)
+    fk.reset_launches()
+
     # ---- the main paths; each one's counts are zeroed just before and read just after
     results = {}
     for label, path, plain, kernel, inputs in (
@@ -7697,6 +7943,7 @@ def main(argv=None) -> int:
     served["s6"] = process_fleet_path(dev, card, P, fk, scorer, images, b1_args)
     served["s7"] = tenants_path(dev, card, P, fk, cfg, scorer_params, images)
     served["s8"] = planner_path(dev, card, P, fk, gk, cfg, scorer_params, images)
+    served["s10"] = serve_bench_path(dev, card)
     results["serve"] = served
     # S9, the parallel layer: rank processes of this script over NCCL and Gloo
     results["parallel"] = parallel_path(dev, card, args.seed, graph_predictions)
@@ -7868,6 +8115,10 @@ def main(argv=None) -> int:
                         ln["launches_by_path"][f"VOCSIFTFisher {mode} {part[9:].replace('_', ' ')}"] = c
                         ln["launches"] += c
             ln["voc_shape"] = voc[key]
+        # B2 against A12's host float64 encode of the scorer's first images
+        enc = host_ref["encode"]
+        b2["f64_check_host_ref"] = {"shape": enc["shape"], "kernel": enc["b2_vs_host"],
+                                    "plain_f32": enc["plain_f32_vs_host"]}
         b2["f64_check_graph_fit"], b2["max_abs_err_graph_fit"] = b2g["f64_check"], b2g["max_abs_err"]
         b2["f64_check_stream_fit"] = stream["b2_batch_shape"]["f64_check"]
         b2["max_abs_err_stream_fit"] = stream["b2_batch_shape"]["max_abs_err"]
@@ -7978,9 +8229,13 @@ def main(argv=None) -> int:
         "parallel": results["parallel"],
         "roofline": results["roofline"],
         "host_text": results["host_text"],
+        "left_out_ops": left_out,
         "card": card,
     }))
     print(f"chip_smoke: the whole script took {time.perf_counter() - T_START:.1f} s ({card})", flush=True)
+    # A12 runs on the host and is no TPU kernel: its line stands apart
+    print("host_ref " + json.dumps(dict(host_ref, source="keystone_tpu_torch/csrc/keystone_ffi.cpp",
+                                        replaces="native/keystone_ffi.cpp:33,157", card=card)))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -62,14 +62,18 @@ def separable_apply(bh: torch.Tensor, bw: torch.Tensor, x: torch.Tensor):
     return torch.einsum("qw,npwc->npqc", bw, out)
 
 
-def separable_gaussian_blur(x: torch.Tensor, sigma: float) -> torch.Tensor:
+def separable_gaussian_blur(x: torch.Tensor, sigma: float, strategy: str = "matmul") -> torch.Tensor:
     """Separable Gaussian blur of (n, h, w, c) maps, SAME zero padding:
-    banded products up to ``_MATMUL_BLUR_MAX_EXTENT``, depthwise
-    convolutions above it."""
+    ``strategy="matmul"`` (the default) as banded products up to
+    ``_MATMUL_BLUR_MAX_EXTENT`` and depthwise convolutions above it;
+    ``"conv"`` as depthwise convolutions at any extent (SIFT's conv
+    windowing, as in the reference)."""
     h, w = x.shape[1], x.shape[2]
-    if max(h, w) <= _MATMUL_BLUR_MAX_EXTENT:
-        bh = _blur_operator(h, float(sigma), x.device)
-        bw = _blur_operator(w, float(sigma), x.device)
+    if strategy not in ("matmul", "conv"):
+        raise ValueError(f"unknown blur strategy {strategy!r}")
+    if strategy == "matmul" and max(h, w) <= _MATMUL_BLUR_MAX_EXTENT:
+        bh = _blur_operator(h, float(sigma), x.device).to(x.dtype)
+        bw = _blur_operator(w, float(sigma), x.device).to(x.dtype)
         return separable_apply(bh, bw, x)
     c = x.shape[-1]
     k1 = torch.from_numpy(gaussian_kernel1d(sigma)).to(device=x.device, dtype=x.dtype)

@@ -51,8 +51,10 @@ def fisher_encode_ref(xs, mask, w, mu, var):
 
     The same math as ``keystone_tpu/ops/fisher.py § _fisher_encode``:
     posteriors by the gemm expansion and logsumexp, masked sufficient
-    statistics, Φ¹ then Φ², each (K, d) row-major."""
-    xs = xs.to(torch.float32)
+    statistics, Φ¹ then Φ², each (K, d) row-major.  In f32, or in
+    float64 when every operand is float64 (the chain a float64 check
+    holds the kernels and the host reference, ``ops/fisher_ffi.py``, to)."""
+    xs = xs.to(torch.float64 if xs.dtype == torch.float64 else torch.float32)
     n, t, d = xs.shape
     lg = _log_gaussians(xs.reshape(n * t, d), mu, var, torch.log(w))
     lr = lg - torch.logsumexp(lg, dim=1, keepdim=True)

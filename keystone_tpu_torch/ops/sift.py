@@ -1,10 +1,14 @@
-"""Dense SIFT (counterpart of ``keystone_tpu/ops/sift.py``, matmul windowing).
+"""Dense SIFT (counterpart of ``keystone_tpu/ops/sift.py``).
 
 Gradient → 8-orientation soft binning → per-axis triangular windowing and
-4×4 bin extraction as two dense products with precomputed window
-operators → the SIFT normalize (L2, clamp 0.2, re-L2) unless
-``normalize=False``.  Descriptors are (n, Ky·Kx, 128) with an all-ones
-mask; the feature order is (y_bin, x_bin, orientation), VLFeat's.
+4×4 bin extraction → the SIFT normalize (L2, clamp 0.2, re-L2) unless
+``normalize=False``.  The windowing is ``"matmul"`` by default: two dense
+products with precomputed window operators; ``"conv"`` is the reference's
+other form, a depthwise convolution a axis (cuDNN, TF32 off) then strided
+bin slices, with the pre-smoothing as convolutions too.  The two are one
+linear map and agree to f32 rounding.  Descriptors are (n, Ky·Kx, 128)
+with an all-ones mask; the feature order is (y_bin, x_bin, orientation),
+VLFeat's.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from keystone_tpu_torch.ops.filters import separable_gaussian_blur
+from keystone_tpu_torch.utils import precision
 from keystone_tpu_torch.utils.device import device_cache
 from keystone_tpu_torch.workflow.transformer import Transformer
 
@@ -33,24 +38,30 @@ class SIFTExtractor(Transformer):
     PCA/Fisher-vector kernel)."""
 
     fusable = False
+    #: pickles made before the conv windowing existed ran the matmul form
+    windowing = "matmul"
 
     def __init__(
         self,
         step: int = 4,
         bin_sizes: Sequence[int] = (4,),
         smoothing_magnif: float = 6.0,
+        windowing: str = "matmul",
         normalize: bool = True,
     ):
         super().__init__()
+        if windowing not in ("conv", "matmul"):
+            raise ValueError(f"unknown SIFT windowing {windowing!r}")
         self.step = int(step)
         self.bin_sizes = tuple(int(b) for b in bin_sizes)
         #: VLFeat smoothing: each scale's image is blurred with
         #: σ = √((bin/magnif)² − 0.25) before the gradients; 0 disables
         self.smoothing_magnif = float(smoothing_magnif)
+        self.windowing = windowing
         self.normalize = bool(normalize)
 
     def params(self):
-        return (self.step, self.bin_sizes, self.smoothing_magnif, self.normalize)
+        return (self.step, self.bin_sizes, self.smoothing_magnif, self.windowing, self.normalize)
 
     def _sigma(self, bin_size: int) -> float:
         if self.smoothing_magnif <= 0:
@@ -63,7 +74,7 @@ class SIFTExtractor(Transformer):
         if xs.ndim == 4 and xs.shape[-1] == 1:
             xs = xs[..., 0]
         descs = [
-            _dsift(xs, self.step, b, sigma=self._sigma(b), normalize=self.normalize)
+            _dsift(xs, self.step, b, sigma=self._sigma(b), windowing=self.windowing, normalize=self.normalize)
             for b in self.bin_sizes
         ]
         out = torch.cat(descs, dim=1)
@@ -149,22 +160,57 @@ def _dsift(
     step: int,
     bin_size: int,
     sigma: float = 0.0,
+    windowing: str = "matmul",
     normalize: bool = True,
 ) -> torch.Tensor:
     n, h, w = imgs.shape
     if sigma > 0.0:
-        imgs = separable_gaussian_blur(imgs[..., None], sigma)[..., 0]
+        # the blur takes the windowing's form, as in the reference
+        imgs = separable_gaussian_blur(imgs[..., None], sigma, strategy=windowing)[..., 0]
     o = _NUM_ORIENTATIONS
     omap = _gradient_orientation_map(imgs)  # (n, h, w, 8)
+    if windowing == "conv":
+        desc = _conv_windowing(omap, step, bin_size)
+        return _sift_normalize(desc) if normalize else desc
     ay, ky = _window_operator(h, step, bin_size, imgs.device)
     ax, kx = _window_operator(w, step, bin_size, imgs.device)
     if ky == 0 or kx == 0:
         return torch.zeros((n, 0, _GRID * _GRID * o), device=imgs.device)
-    r1 = torch.einsum("ph,nhwo->npwo", ay, omap)
-    g = torch.einsum("qw,npwo->npqo", ax, r1)
+    r1 = torch.einsum("ph,nhwo->npwo", ay.to(omap.dtype), omap)
+    g = torch.einsum("qw,npwo->npqo", ax.to(omap.dtype), r1)
     g = g.reshape(n, ky, _GRID, kx, _GRID, o)
     desc = g.permute(0, 1, 3, 2, 4, 5).reshape(n, ky * kx, _GRID * _GRID * o)
     return _sift_normalize(desc) if normalize else desc
+
+
+def _conv_windowing(omap: torch.Tensor, step: int, bin_size: int) -> torch.Tensor:
+    """The reference's conv windowing: the triangular window as a
+    depthwise convolution along each axis (SAME zero padding), then the
+    4×4 bins around each keypoint as 16 strided slices (centres and bin
+    offsets are both uniform grids).  (n, h, w, 8) → (n, Ky·Kx, 128)."""
+    n, h, w, o = omap.shape
+    ys = _keypoint_grid(h, step, bin_size)
+    xs = _keypoint_grid(w, step, bin_size)
+    if ys.size == 0 or xs.size == 0:  # the scale is too large for the image
+        return torch.zeros((n, 0, _GRID * _GRID * o), device=omap.device)
+    k1 = torch.from_numpy(_triangular_kernel(bin_size)).to(device=omap.device, dtype=omap.dtype)
+    r = bin_size - 1
+    x = omap.permute(0, 3, 1, 2)  # NCHW, one group an orientation
+    with precision.f32_convolutions():  # cuDNN's default TF32 keeps ~3 digits
+        x = F.conv2d(x, k1.view(1, 1, -1, 1).repeat(o, 1, 1, 1), padding=(r, 0), groups=o)
+        x = F.conv2d(x, k1.view(1, 1, 1, -1).repeat(o, 1, 1, 1), padding=(0, r), groups=o)
+    smoothed = x.permute(0, 2, 3, 1)  # (n, h, w, 8)
+    offs = _bin_offsets(bin_size)
+
+    def bin_slices(arr, centers, axis):
+        """(…, len(centers), _GRID, …): one strided slice a bin offset."""
+        lead = (slice(None),) * axis
+        parts = [arr[lead + (slice(int(centers[0] + off), int(centers[-1] + off) + 1, step),)] for off in offs]
+        return torch.stack(parts, dim=axis + 1)
+
+    g = bin_slices(smoothed, ys, 1)  # (n, ky, 4, w, 8)
+    g = bin_slices(g, xs, 3)  # (n, ky, 4, kx, 4, 8)
+    return g.permute(0, 1, 3, 2, 4, 5).reshape(n, ys.size * xs.size, _GRID * _GRID * o)
 
 
 def _sift_normalize(desc: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Prediction heads, label indicators and representation casts
-(counterpart of ``keystone_tpu/ops/util.py`` § TopKClassifier,
-MaxClassifier, ClassLabelIndicators, Densify, Sparsify, FloatToDouble).
+"""Prediction heads, label indicators, feature blocks and representation
+casts (counterpart of ``keystone_tpu/ops/util.py`` § TopKClassifier,
+MaxClassifier, ClassLabelIndicators, VectorSplitter, VectorCombiner,
+Densify, Sparsify, FloatToDouble).
 Applied to a label ``Dataset``, ClassLabelIndicators gives the ±1 target
 Dataset a LabelEstimator fits."""
 
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from keystone_tpu_torch.workflow.dataset import Dataset
 from keystone_tpu_torch.workflow.transformer import Transformer
@@ -56,6 +58,42 @@ class ClassLabelIndicators(Transformer):
         classes = torch.arange(self.num_classes, device=xs.device)
         onehot = xs.to(torch.int64)[..., None] == classes
         return onehot.to(torch.float32) * 2.0 - 1.0
+
+
+class VectorSplitter(Transformer):
+    """(n, d) → (n, num_blocks, block_size) feature blocks, the last one
+    zero-padded (nodes/util/VectorSplitter.scala).  The block solvers
+    split internally; the node is for explicit pipeline use."""
+
+    def __init__(self, block_size: int):
+        super().__init__()
+        self.block_size = int(block_size)
+
+    def params(self):
+        return (self.block_size,)
+
+    def apply_batch(self, xs, mask=None):
+        n, d = xs.shape
+        nb = -(-d // self.block_size)
+        if nb * self.block_size != d:
+            xs = F.pad(xs, (0, nb * self.block_size - d))
+        return xs.reshape(n, nb, self.block_size)
+
+    def apply_one(self, x):
+        return self.apply_batch(x[None])[0]
+
+
+class VectorCombiner(Transformer):
+    """The inverse of VectorSplitter: (n, nb, bs) → (n, nb·bs)."""
+
+    def params(self):
+        return ()
+
+    def apply_batch(self, xs, mask=None):
+        return xs.reshape(xs.shape[0], -1)
+
+    def apply_one(self, x):
+        return x.reshape(-1)
 
 
 class Densify(Transformer):
