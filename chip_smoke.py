@@ -120,6 +120,21 @@ result line):
    float64, prediction r², 2·16² B3 launches, spill and sweep seconds,
    peak device memory), the streamed fit through a Pipeline with a
    save/load round trip, a checkpointed fit resumed bit for bit;
+14b. A18, the loaders' and out-of-core solvers' knobs, after phase 14 on
+   the data already made: (a) the tar fixture through nvJPEG with
+   ``label_map`` (the synsets reversed) and ``limit=7`` at ``prefetch`` 1
+   and 4, bit for bit the default stream's first 7, and ``load(limit=7)``
+   giving members 0-5 and 7; (b) ``_oc_bcd_fit`` on a FeatureBlockStore at
+   S9's width (2048 x 16 384 f32 from ``--seed``, blocks of 4096, 64
+   classes, 2 epochs) at ``prefetch`` 1, 2, 4, ``window`` 1, 4 and
+   ``KEYSTONE_VERIFY_BLOCKS=0``, each bit for bit the default, and both
+   estimators' ``spill_dtype="bfloat16"`` streamed fits (half the spill's
+   bytes, weights and intercept within 2e-2 of the f32 fit); (c) phase
+   14's out-of-core KRR at ``prefetch=3`` and ``KEYSTONE_OC_PREFETCH=4``,
+   α bit for bit phase 14's default fit with equal B3 launches; (d) ``KEYSTONE_APPLY_CHUNK``
+   unset (128), 0, 100 and 512 over the bench forward's featurization of
+   512 images, ⌈512/chunk⌉ B2 launches each; its figures on an ``a18``
+   line before the kernels line;
 15. main path, the BlockKernelMatrix disk tier at that geometry (B3 and
    B4, one column on the card): two sweeps, the second rereading every
    column from disk without a launch; the cached KRR fit taking the tier
@@ -2299,7 +2314,8 @@ def kernel_cifar_pipeline_path(dev, card, gk, fk, tmp):
 def oc_krr_path(dev, card, gk, fk, data, tmp):
     """The out-of-core KRR fit at bench.py's kernel-leg geometry against the
     in-core fit: fit_store on a RowBlockStore, the streamed fit through a
-    Pipeline with a save/load round trip, and a checkpoint resume."""
+    Pipeline with a save/load round trip, and a checkpoint resume.  Returns
+    (figures, the default fit's α), the latter for phase 14b."""
     from keystone_tpu_torch.loaders.stream import batched
     from keystone_tpu_torch.models import kernel_ridge as KR
     from keystone_tpu_torch.workflow.blockstore import RowBlockStore
@@ -2392,6 +2408,221 @@ def oc_krr_path(dev, card, gk, fk, data, tmp):
         print(f"  1 epoch checkpointed, resumed to {ep}: α bit for bit as the uninterrupted fit: {same}", flush=True)
         check(same, "the resumed fit's α differs from the uninterrupted fit's")
         out["checkpoint_resume_identical"] = same
+    return out, oc.alpha
+
+
+# A18: the knobs.  (b)'s store is S9's problem; the bf16 spill is held at
+# the reference's 2e-2 (tests/test_outofcore.py).  (d)'s featurizations
+# are held against the default chunk at B2's own tolerance: another chunk
+# is another M for the PCA product, which cuBLAS may run by another
+# algorithm, and B2's per-image sums do not depend on the batch.
+A18_PREFETCHES, A18_WINDOWS = (1, 2, 4), (1, 4)
+TOL_BF16_SPILL = 2e-2
+A18_APPLY_N = 512
+A18_CHUNKS = (None, "0", "100", "512")  # None: KEYSTONE_APPLY_CHUNK unset
+
+
+def a18_tar(dev):
+    """(a): label_map, limit and prefetch on the tar fixture through nvJPEG."""
+    from keystone_tpu_torch.loaders import jpeg
+    from keystone_tpu_torch.loaders.imagenet import ImageNetLoader
+
+    out = {}
+    with phase("A18 (a): label_map, limit and prefetch on the tar fixture through nvJPEG"):
+        t0 = time.perf_counter()
+        full = ImageNetLoader.stream(str(TARS), size=TAR_SIZE, batch_size=5, device=dev)
+        every = torch.cat([a for a, _ in full.data.device_batches()])
+        synsets = sorted(os.path.splitext(f)[0] for f in os.listdir(TARS) if f.endswith(".tar"))
+        label_map = {s: i for i, s in enumerate(reversed(synsets))}
+        jpeg.reset_launches()
+        for p in (1, 4):
+            st = ImageNetLoader.stream(str(TARS), label_map=label_map, size=TAR_SIZE, batch_size=5, limit=7,
+                                       prefetch=p, device=dev)
+            got = torch.cat([a for a, _ in st.data.device_batches()])
+            labels = st.labels.numpy().tolist()
+            check(st.data.n == 7 and torch.equal(got, every[:7]), f"stream(limit=7, prefetch={p}): pixels")
+            check(labels == [2, 2, 2, 2, 1, 1, 1], f"stream(label_map=reversed, prefetch={p}): labels {labels}")
+        mem = ImageNetLoader.load(str(TARS), size=TAR_SIZE, limit=7, device=dev)
+        members = [0, 1, 2, 3, 4, 5, 7]
+        check(torch.equal(mem.data.array, every[members]), "load(limit=7) is not members 0-5 and 7")
+        check(mem.labels.numpy().tolist() == [0, 0, 0, 0, 1, 1, 1], "load(limit=7)'s labels")
+        check(jpeg.LAUNCHES["nvjpeg"] > 0 and jpeg.LAUNCHES["libjpeg"] == 0, f"decoders {jpeg.LAUNCHES}")
+        out.update({"stream_limit7_equal_default": True, "load_limit7_members": members,
+                    "decoder_launches": dict(jpeg.LAUNCHES), "seconds": time.perf_counter() - t0})
+        print(f"  stream(limit=7, label_map=reversed) at prefetch 1 and 4: the default stream's first 7 bit for "
+              f"bit, labels [2, 2, 2, 2, 1, 1, 1]; load(limit=7): members {members}; decoders {jpeg.LAUNCHES}",
+              flush=True)
+    return out
+
+
+def a18_oc_bcd(dev, card, tmp, seed):
+    """(b): the out-of-core BCD's prefetch, window, KEYSTONE_VERIFY_BLOCKS
+    and spill_dtype at S9's width."""
+    from keystone_tpu_torch.loaders.stream import batched
+    from keystone_tpu_torch.models.block_ls import BlockLeastSquaresEstimator, _oc_bcd_fit, finish_block_model
+    from keystone_tpu_torch.models.block_weighted_ls import BlockWeightedLeastSquaresEstimator
+    from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
+    from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset
+
+    out = {}
+    with phase(f"A18 (b): the out-of-core BCD's knobs at {S9_N} x {S9_D}, blocks of {S9_BLOCK}"):
+        x, y = s9_problem(seed)
+        store = FeatureBlockStore.from_array(str(tmp / "bcd"), x, S9_BLOCK)
+        yd = torch.from_numpy(y).to(dev)
+        alpha = torch.ones(S9_N, device=dev)
+
+        def fit(**kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _oc_bcd_fit(store, yd, alpha, float(S9_N), S9_LAM, S9_EPOCHS, True, **kw)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+
+        def same(a, b):
+            return all(torch.equal(u, v) for u, v in zip(a, b))
+
+        base, t_base = fit()  # warm already: phase 8's fit solved blocks of this width
+        seconds = {"default": t_base}
+        for p in A18_PREFETCHES:
+            res, seconds[f"prefetch={p}"] = fit(prefetch=p)
+            check(same(res, base), f"_oc_bcd_fit at prefetch={p} differs from the default")
+        for w in A18_WINDOWS:
+            store.iter_device_blocks = lambda order, device, w=w, **kw: FeatureBlockStore.iter_device_blocks(
+                store, order, device, window=w, **kw)
+            try:
+                res, seconds[f"window={w}"] = fit()
+            finally:
+                del store.iter_device_blocks
+            check(same(res, base), f"_oc_bcd_fit at window={w} differs from the default")
+        with env_var("KEYSTONE_VERIFY_BLOCKS", "0"):
+            res, seconds["KEYSTONE_VERIFY_BLOCKS=0"] = fit()
+        check(same(res, base), "_oc_bcd_fit with KEYSTONE_VERIFY_BLOCKS=0 differs from the default")
+        print(f"  bit for bit the default at prefetch {A18_PREFETCHES}, window {A18_WINDOWS} and "
+              f"KEYSTONE_VERIFY_BLOCKS=0; sweep seconds {_rounded(seconds, 4)} ({card})", flush=True)
+        out.update({"store_bytes": store.nbytes(), "sweep_seconds": seconds,
+                    "verify_blocks_seconds": {"on": t_base, "off": seconds["KEYSTONE_VERIFY_BLOCKS=0"]}})
+
+        spills = []
+        raw = FeatureBlockStore.__dict__["from_batches"]
+
+        def spy(*a, **kw):
+            st = raw.__func__(FeatureBlockStore, *a, **kw)
+            files = sum(os.path.getsize(os.path.join(st.directory, f)) for f in os.listdir(st.directory)
+                        if f.endswith(".npy"))
+            spills.append({"dtype": st.dtype, "payload_bytes": st.nbytes(), "file_bytes": files})
+            return st
+
+        labels = Dataset(yd)
+        sd = StreamDataset(batched(x, 512), n=S9_N, device=dev)
+        kw = dict(block_size=S9_BLOCK, num_iter=S9_EPOCHS, lam=S9_LAM)
+        unweighted_f32 = finish_block_model(*base, store.d, S9_BLOCK, True)
+        FeatureBlockStore.from_batches = spy
+        try:
+            weighted_f32 = BlockWeightedLeastSquaresEstimator(mixture_weight=S9_MIX, **kw).fit_stream_dataset(
+                sd, labels, spill_dir=str(tmp / "spill"))
+            pairs = {"BlockLeastSquaresEstimator": (BlockLeastSquaresEstimator(spill_dtype="bfloat16", **kw),
+                                                    unweighted_f32),
+                     "BlockWeightedLeastSquaresEstimator": (BlockWeightedLeastSquaresEstimator(
+                         mixture_weight=S9_MIX, spill_dtype="bfloat16", **kw), weighted_f32)}
+            dist = {}
+            for name, (est, f32) in pairs.items():
+                bf = est.fit_stream_dataset(sd, labels, spill_dir=str(tmp / "spill"))
+                dist[name] = {"weights": max_err(bf.flat_weights, f32.flat_weights),
+                              "intercept": max_err(bf.intercept, f32.intercept)}
+        finally:
+            FeatureBlockStore.from_batches = raw
+        f32_spill, bf16_spills = spills[0], spills[1:]
+        print(f"  spills {spills}; bf16 against f32, largest |difference|: "
+              f"{ {k: _rounded(v, 6) for k, v in dist.items()} } (at most "
+              f"{TOL_BF16_SPILL}) ({card})", flush=True)
+        check(f32_spill["dtype"] == "float32" and f32_spill["payload_bytes"] == store.nbytes(), f"f32 spill {spills}")
+        for sp in bf16_spills:
+            check(sp["dtype"] == "bfloat16" and 2 * sp["payload_bytes"] == f32_spill["payload_bytes"],
+                  f"bf16 spill {sp} is not half of the f32 spill's bytes")
+        for name, d in dist.items():
+            check(max(d.values()) <= TOL_BF16_SPILL, f"{name}: the bf16 spill's model {d} from the f32 fit's")
+        out.update({"spills": spills, "bf16_vs_f32": dist, "tolerance_bf16": TOL_BF16_SPILL})
+        shutil.rmtree(store.directory, ignore_errors=True)
+    return out
+
+
+def a18_oc_krr(dev, card, gk, fk, data, rows_dir, default_alpha):
+    """(c): the out-of-core KRR on phase 14's store at prefetch=3 and
+    KEYSTONE_OC_PREFETCH=4, against phase 14's fit at the default depth."""
+    from keystone_tpu_torch.models import kernel_ridge as KR
+    from keystone_tpu_torch.workflow.blockstore import RowBlockStore
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    out = {}
+    with phase("A18 (c): the out-of-core KRR at prefetch=3 and KEYSTONE_OC_PREFETCH=4"):
+        store, labels = RowBlockStore(str(rows_dir)), Dataset(data[1])
+        est = KR.KernelRidgeRegressionEstimator(KR.GaussianKernelGenerator(KRR_GAMMA), lam=KRR_LAM,
+                                                block_size=KRR_BLOCK, num_epochs=KRR_EPOCHS)
+        runs = {}
+        for label, env, kw in (("prefetch=3", None, {"prefetch": 3}), ("KEYSTONE_OC_PREFETCH=4", "4", {})):
+            with env_var("KEYSTONE_OC_PREFETCH", env):
+                torch.cuda.synchronize()
+                reset_all(gk, fk)
+                t0 = time.perf_counter()
+                alpha = est.fit_store(store, labels, **kw).alpha
+                torch.cuda.synchronize()
+                runs[label] = (alpha, gk.LAUNCHES["gram_block"], time.perf_counter() - t0)
+        l0 = KRR_EPOCHS * store.num_blocks ** 2  # phase 14's count at the default depth, as checked there
+        for label, (a, n_launch, _) in runs.items():
+            check(torch.equal(a, default_alpha), f"out-of-core KRR α at {label} differs from phase 14's fit")
+            check(n_launch == l0, f"B3 launches at {label}: {n_launch}, the default's {l0}")
+        seconds = {k: v[2] for k, v in runs.items()}
+        print(f"  α bit for bit phase 14's fit at the default depth, {l0} B3 launches each; sweep seconds "
+              f"{_rounded(seconds, 4)} ({card})", flush=True)
+        out.update({"launches_each": l0, "launches": sum(v[1] for v in runs.values()), "sweep_seconds": seconds})
+    return out
+
+
+def a18_apply_chunk(dev, card, fk, forward, float_batches):
+    """(d): KEYSTONE_APPLY_CHUNK over the bench forward's featurization."""
+    from keystone_tpu_torch.workflow import transformer as WT
+    from keystone_tpu_torch.workflow.dataset import Dataset
+    from keystone_tpu_torch.workflow.optimizer import FusedTransformer
+
+    out = {"seconds": {}, "b2_launches": {}, "max_abs_err": {}}
+    with phase(f"A18 (d): KEYSTONE_APPLY_CHUNK over the bench forward's featurization of {A18_APPLY_N} images"):
+        feat = FusedTransformer(list(forward.stages)[:6])  # GrayScaler ... NormalizeRows
+        x = torch.cat(float_batches)[:A18_APPLY_N]  # in [0, 1], as bench.py feeds the forward
+        check(tuple(x.shape) == (A18_APPLY_N, IMAGE_HW, IMAGE_HW, 3), f"A18 images {tuple(x.shape)}")
+        with env_var("KEYSTONE_APPLY_CHUNK", None):
+            feat.apply_dataset(Dataset(x))  # warm-up
+            ref = feat.apply_dataset(Dataset(x)).array
+        for setting in A18_CHUNKS:
+            with env_var("KEYSTONE_APPLY_CHUNK", setting):
+                chunk = WT._apply_chunk_rows()
+                torch.cuda.synchronize()
+                reset_all(fk)
+                t0 = time.perf_counter()
+                got = feat.apply_dataset(Dataset(x)).array
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            label = "unset" if setting is None else setting
+            launches = fk.LAUNCHES["fisher_encode"]
+            want = -(-A18_APPLY_N // chunk) if chunk else 1
+            check(launches == want, f"KEYSTONE_APPLY_CHUNK={label}: {launches} B2 launches, expected {want}")
+            out["max_abs_err"][label] = compare(f"featurization at KEYSTONE_APPLY_CHUNK={label} (chunk {chunk}) "
+                                                f"against the default", got, ref, TOL_FV)
+            out["seconds"][label], out["b2_launches"][label] = dt, launches
+        out["launches"] = sum(out["b2_launches"].values())
+        print(f"  B2 launches {out['b2_launches']}; seconds {_rounded(out['seconds'], 4)} ({card})", flush=True)
+    return out
+
+
+def knobs_path(dev, card, gk, fk, data, tmp, oc_alpha, seed, forward, float_batches):
+    """A18: the knobs on the card (phase 14b); ``tmp`` holds phase 14's
+    row store under ``rows``, and ``oc_alpha`` is its default fit's α."""
+    t0 = time.perf_counter()
+    out = {"tar": a18_tar(dev), "oc_bcd": a18_oc_bcd(dev, card, tmp, seed),
+           "oc_krr": a18_oc_krr(dev, card, gk, fk, data, tmp / "rows", oc_alpha),
+           "apply_chunk": a18_apply_chunk(dev, card, fk, forward, float_batches)}
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card
+    print(f"  A18 took {out['seconds']:.1f} s ({card})", flush=True)
     return out
 
 
@@ -2516,6 +2747,7 @@ def gram_lines(gk, serving, krr_x, errs, f64, results):
         "out-of-core KRR sweep": oc["launches"], "out-of-core KRR predict": oc["predict_launches"],
         "disk tier gaussian": disk["gaussian"]["launches"], "cached fit over the budget": disk["cached_fit"]["launches"],
         "out-of-core KRR under kernel.sweep": results["operations"]["oc_krr_sweep_fault"]["launches"],
+        "A18 out-of-core KRR at prefetch=3 and KEYSTONE_OC_PREFETCH=4": results["knobs"]["oc_krr"]["launches"],
     })
     poly_launches["disk tier polynomial"] = disk["polynomial"]["launches"]
     # S9: the KRR fits across ranks (one NCCL rank, two Gloo ranks: every
@@ -3270,8 +3502,8 @@ def text_clock():
     prefetched = stream_mod.prefetched
     saved.append((stream_mod, "prefetched", prefetched))
 
-    def timed_prefetched(source, prefetch=2):
-        inner = prefetched(source, prefetch=prefetch)
+    def timed_prefetched(source, transform=None, prefetch=2):
+        inner = prefetched(source, transform=transform, prefetch=prefetch)
         take = clock.wrap("load", next)
 
         def gen():
@@ -7896,7 +8128,10 @@ def main(argv=None) -> int:
             (tier_tmp / sub).mkdir()
         results["kernel_timit_pipeline"] = kernel_timit_pipeline_path(dev, card, gk, fk, tier_tmp / "timit")
         results["kernel_cifar_pipeline"] = kernel_cifar_pipeline_path(dev, card, gk, fk, tier_tmp / "cifar")
-        results["oc_krr"] = oc_krr_path(dev, card, gk, fk, data, tier_tmp / "oc")
+        results["oc_krr"], oc_alpha = oc_krr_path(dev, card, gk, fk, data, tier_tmp / "oc")
+        results["knobs"] = knobs_path(dev, card, gk, fk, data, tier_tmp / "oc", oc_alpha, args.seed, forward,
+                                      float_batches)
+        del oc_alpha
         results["disk_tier"] = disk_tier_path(dev, card, gk, fk, data, tier_tmp / "disk")
         # the dense apps; LinearPixels, RandomPatchCifar and TimitPipeline
         # read the kernel pipelines' files
@@ -8029,6 +8264,9 @@ def main(argv=None) -> int:
         b2["launches_by_path"] = {"bench_forward": results["fisher_encode"]["launches"],
                                   "graph_fit": graph["launches_fit"]["fisher_encode"],
                                   "stream_fit": stream["launches_fit"]["fisher_encode"]}
+        # A18: the bench forward's featurization at four apply chunks
+        b2["launches_by_path"]["A18 KEYSTONE_APPLY_CHUNK featurizations"] = results["knobs"]["apply_chunk"]["launches"]
+        b2["launches"] += results["knobs"]["apply_chunk"]["launches"]
         # the bench forward's roofline: its warm-up, wall and traced iterations
         b2["launches_by_path"]["roofline (single- and multi-scale)"] = results["roofline"]["launches"]
         b2["launches"] += results["roofline"]["launches"]
@@ -8236,6 +8474,7 @@ def main(argv=None) -> int:
     # A12 runs on the host and is no TPU kernel: its line stands apart
     print("host_ref " + json.dumps(dict(host_ref, source="keystone_tpu_torch/csrc/keystone_ffi.cpp",
                                         replaces="native/keystone_ffi.cpp:33,157", card=card)))
+    print(json.dumps({"a18": results["knobs"]}))
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

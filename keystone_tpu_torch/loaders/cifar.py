@@ -39,10 +39,11 @@ class CifarLoader:
                            Dataset(recs[:, 0].astype(np.int32), name=name + "-labels", device=dev))
 
     @staticmethod
-    def stream(path: str, batch_size: int = 1024, device="cuda") -> LabeledData:
+    def stream(path: str, batch_size: int = 1024, prefetch: int = PREFETCH, device="cuda") -> LabeledData:
         """Out of core: the file's size fixes ``n``, the labels come from
         one strided read of the records' first bytes, and the pixels are
-        reread in ``batch_size``-record chunks each sweep."""
+        reread in ``batch_size``-record chunks each sweep, ``prefetch``
+        chunks ahead on a producer thread."""
         dev = resolve_device(device)
         size = os.path.getsize(path)
         if size % RECORD != 0:
@@ -58,7 +59,7 @@ class CifarLoader:
                 yield _decode_records(np.asarray(m[i:i + batch_size]))
 
         name = f"cifar-stream:{os.path.abspath(path)}:b{batch_size}"
-        return LabeledData(StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev),
+        return LabeledData(StreamDataset(batches, n, name=name, prefetch=prefetch, device=dev),
                            Dataset(labels, name=name + "-labels", device=dev))
 
     @staticmethod

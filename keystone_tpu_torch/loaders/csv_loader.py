@@ -43,10 +43,10 @@ class CsvDataLoader:
 
     @staticmethod
     def stream(path: str, label_col: int = 0, delimiter: str = ",", batch_size: int = 4096,
-               device="cuda") -> LabeledData:
+               prefetch: int = PREFETCH, device="cuda") -> LabeledData:
         """Out of core: one pass reads the label column and fixes ``n``;
         the features are re-parsed from disk in ``batch_size``-row chunks
-        every sweep, on a producer thread."""
+        every sweep, on a producer thread ``prefetch`` chunks ahead."""
         dev = resolve_device(device)
         labels = []
         with open(path) as f:
@@ -70,5 +70,5 @@ class CsvDataLoader:
                 yield _parse_lines(buf, label_col, delimiter)
 
         name = f"csv-stream:{os.path.abspath(path)}:l{label_col}:d{delimiter!r}:b{batch_size}"
-        return LabeledData(StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev),
+        return LabeledData(StreamDataset(batches, n, name=name, prefetch=prefetch, device=dev),
                            Dataset(labels, name=name + "-labels", device=dev))

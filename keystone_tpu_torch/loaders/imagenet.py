@@ -11,6 +11,15 @@ Two entry points mirror the reference's scaling story:
   ``StreamDataset`` reads each batch's members on a producer thread and
   decodes them every time a pipeline stage sweeps the data.
 
+Both take the reference's ``label_map`` (synset → label; by default the
+synsets numbered in sorted order, an unknown synset 0) and ``limit``.
+``stream(limit=L)`` keeps the index's first ``L`` members;
+``load(limit=L)`` the first ``L`` members that decode, in index order,
+on either decoder.  (The reference's native ``load`` path reads
+``L − len(images)`` members of a tar before it decodes them and leaves
+the rest of that tar when one fails, so it can skip decodable members;
+its ``tarfile`` path and its docstring cut as here.)
+
 Decoding follows the device (``loaders/jpeg.py``): on the CPU the port's
 copy of the reference's libjpeg decode, on the producer thread; on the
 card nvJPEG, on the consumer's thread (the producer reads bytes only),
@@ -23,7 +32,7 @@ from __future__ import annotations
 import logging
 import os
 import tarfile
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,12 +90,14 @@ def _decode_entry_batch(entries: List[Entry], size: Tuple[int, int], device="cud
 
 class ImageNetLoader:
     @staticmethod
-    def index(path: str) -> List[Entry]:
+    def index(path: str, label_map: Optional[Dict[str, int]] = None) -> List[Entry]:
         """A header-only pass: ``(tar, offset, size, label)`` for each file
         member, which fixes ``n`` and the labels of a stream without
-        decoding a JPEG.  The labels number the synsets in sorted order."""
+        decoding a JPEG.  The label is ``label_map.get(synset, 0)``; by
+        default the synsets are numbered in sorted order."""
         tars = _list_tars(path)
-        label_map = _default_label_map(tars)
+        if label_map is None:
+            label_map = _default_label_map(tars)
         entries: List[Entry] = []
         for t in tars:
             lab = label_map.get(os.path.splitext(os.path.basename(t))[0], 0)
@@ -97,8 +108,11 @@ class ImageNetLoader:
     @staticmethod
     def stream(
         path: str,
+        label_map: Optional[Dict[str, int]] = None,
         size: Tuple[int, int] = (256, 256),
         batch_size: int = 64,
+        limit: Optional[int] = None,
+        prefetch: int = PREFETCH,
         device="cuda",
         retries: int = 0,
     ) -> LabeledData:
@@ -107,11 +121,14 @@ class ImageNetLoader:
 
         Each stage that sweeps the data re-reads and re-decodes the tar
         shards: the disk is the backing tier, and the host holds
-        ``PREFETCH + 1`` batches.  The labels stay in memory (4 bytes an
-        image).  ``retries``: per-batch retries of a failed read
+        ``prefetch + 1`` batches.  The labels stay in memory (4 bytes an
+        image).  ``limit``: the index's first ``limit`` members only.
+        ``retries``: per-batch retries of a failed read
         (``StreamDataset``'s resilient source)."""
         dev = resolve_device(device)
-        entries = ImageNetLoader.index(path)
+        entries = ImageNetLoader.index(path, label_map)
+        if limit is not None:
+            entries = entries[:limit]
         labels = np.asarray([e[3] for e in entries], np.int32)
         n = len(entries)
         chunks = [entries[i:i + batch_size] for i in range(0, n, batch_size)]
@@ -129,33 +146,41 @@ class ImageNetLoader:
                     yield _decode_entry_batch(c, size, dev)
 
             stage = None
-        name = f"imagenet-stream:{os.path.abspath(path)}:{size[0]}x{size[1]}:b{batch_size}"
+        name = f"imagenet-stream:{os.path.abspath(path)}:{size[0]}x{size[1]}:lim{limit}:b{batch_size}"
         return LabeledData(
-            StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev, stage=stage, retries=retries),
+            StreamDataset(batches, n, name=name, prefetch=prefetch, device=dev, stage=stage, retries=retries),
             Dataset(labels, name=name + "-labels", device=dev),
         )
 
     @staticmethod
     def load(
         path: str,
+        label_map: Optional[Dict[str, int]] = None,
         size: Tuple[int, int] = (256, 256),
+        limit: Optional[int] = None,
         device="cuda",
     ) -> LabeledData:
-        """Every member of the tar file, or of the directory of per-synset
-        tars, ``path``, decoded into one Dataset on ``device``; labels
-        number the synsets in sorted order.  Undecodable members are
-        skipped."""
+        """The members of the tar file, or of the directory of per-synset
+        tars, ``path``, decoded into one Dataset on ``device``; labels as
+        ``index`` gives them.  Undecodable members are skipped; ``limit``
+        keeps the first ``limit`` members that decode, in index order."""
         dev = resolve_device(device)
-        entries = ImageNetLoader.index(path)
+        entries = ImageNetLoader.index(path, label_map)
         images, labels = [], []
-        for t in dict.fromkeys(e[0] for e in entries):  # tar by tar, in order
-            ents = [e for e in entries if e[0] == t]
-            imgs, ok = jpeg.decode(*_read_blobs(ents), size, dev)
-            keep = torch.from_numpy(np.flatnonzero(ok)).to(dev)
-            images.append(imgs[keep])
-            labels.extend(e[3] for e, good in zip(ents, ok) if good)
+        pos = 0
+        # with a limit, a round decodes as many members as are still
+        # wanted; each one that fails costs another round
+        while pos < len(entries) and (limit is None or len(labels) < limit):
+            take = entries[pos:] if limit is None else entries[pos:pos + limit - len(labels)]
+            pos += len(take)
+            for t in dict.fromkeys(e[0] for e in take):  # tar by tar, in order
+                ents = [e for e in take if e[0] == t]
+                imgs, ok = jpeg.decode(*_read_blobs(ents), size, dev)
+                keep = torch.from_numpy(np.flatnonzero(ok)).to(dev)
+                images.append(imgs[keep])
+                labels.extend(e[3] for e, good in zip(ents, ok) if good)
         x = torch.cat(images) if images else torch.zeros((0, *size, 3), dtype=torch.uint8, device=dev)
-        name = f"imagenet:{os.path.abspath(path)}:{size[0]}x{size[1]}"
+        name = f"imagenet:{os.path.abspath(path)}:{size[0]}x{size[1]}:lim{limit}"
         return LabeledData(
             Dataset(x, name=name),
             Dataset(np.asarray(labels, np.int32), name=name + "-labels", device=dev),
@@ -168,12 +193,14 @@ class ImageNetLoader:
         size: Tuple[int, int] = (64, 64),
         seed: int = 0,
         batch_size: int = 32,
+        prefetch: int = PREFETCH,
         device="cuda",
         retries: int = 0,
     ) -> LabeledData:
         """The streamed ``synthetic``, pixel-identical to it for the same
         (n, num_classes, size, seed): each sweep replays the generator,
-        making ``batch_size`` images at a time on the producer thread.
+        making ``batch_size`` images at a time on the producer thread
+        (``prefetch`` batches ahead).
         ``retries``: per-batch retries of a failed batch (a retry replays
         the generator to the batch)."""
         dev = resolve_device(device)
@@ -193,7 +220,7 @@ class ImageNetLoader:
 
         name = f"imagenet-synth-stream-n{n}-c{num_classes}-{size[0]}x{size[1]}-s{seed}-b{batch_size}"
         return LabeledData(
-            StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev, retries=retries),
+            StreamDataset(batches, n, name=name, prefetch=prefetch, device=dev, retries=retries),
             Dataset(labels, name=name + "-labels", device=dev),
         )
 

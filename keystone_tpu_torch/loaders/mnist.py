@@ -8,6 +8,7 @@ import numpy as np
 
 from keystone_tpu_torch.loaders.csv_loader import CsvDataLoader
 from keystone_tpu_torch.loaders.labeled import LabeledData
+from keystone_tpu_torch.loaders.stream import PREFETCH
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
 
@@ -21,9 +22,9 @@ class MnistLoader:
         return CsvDataLoader.load(path, label_col=0, device=device)
 
     @staticmethod
-    def stream(path: str, batch_size: int = 4096, device="cuda") -> LabeledData:
+    def stream(path: str, batch_size: int = 4096, prefetch: int = PREFETCH, device="cuda") -> LabeledData:
         """Out of core: the CSV rows re-parsed every sweep."""
-        return CsvDataLoader.stream(path, label_col=0, batch_size=batch_size, device=device)
+        return CsvDataLoader.stream(path, label_col=0, batch_size=batch_size, prefetch=prefetch, device=device)
 
     @staticmethod
     def synthetic(n: int = 2048, seed: int = 0, device="cuda") -> LabeledData:

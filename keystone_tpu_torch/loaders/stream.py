@@ -299,14 +299,15 @@ def resilient(
     return gen
 
 
-def prefetched(source, prefetch: int = 2) -> Callable[[], Iterator]:
+def prefetched(source, transform: Optional[Callable] = None, prefetch: int = 2) -> Callable[[], Iterator]:
     """Re-iterable source whose batches are made on a producer thread.
 
     ``source``: an iterable of host batches, or a callable returning a
-    fresh iterator.  Its batches reach the consumer through a queue
-    ``prefetch`` deep; an error on the thread re-raises in the consumer.
-    A consumer that leaves early stops the thread and drops the batches
-    it had parked."""
+    fresh iterator.  Each batch passes through ``transform`` (when given)
+    on the thread, then reaches the consumer through a queue ``prefetch``
+    deep; an error on the thread, in the source or in ``transform``,
+    re-raises in the consumer.  A consumer that leaves early stops the
+    thread and drops the batches it had parked."""
     depth = max(1, int(prefetch))
 
     def gen():
@@ -329,6 +330,8 @@ def prefetched(source, prefetch: int = 2) -> Callable[[], Iterator]:
         def produce():
             try:
                 for batch in source() if callable(source) else iter(source):
+                    if transform is not None:
+                        batch = transform(batch)
                     if stop.is_set() or not put(batch):
                         return
             except Exception as e:  # surfaces in the consumer
@@ -358,16 +361,18 @@ def prefetched(source, prefetch: int = 2) -> Callable[[], Iterator]:
     return gen
 
 
-def stream_labeled(labeled, batch_size: int):
+def stream_labeled(labeled, batch_size: int, prefetch: int = 0):
     """An in-memory LabeledData's features as a StreamDataset on their
     device (the demo path for a streamed fit without files): the source
-    array stays in memory, but the streamed fit paths run."""
+    array stays in memory, but the streamed fit paths run.  ``prefetch``
+    as ``StreamDataset``'s (0: the batches are cut on the consumer's
+    thread)."""
     from keystone_tpu_torch.loaders.labeled import LabeledData
     from keystone_tpu_torch.workflow.dataset import StreamDataset
 
     data = labeled.data
-    return LabeledData(StreamDataset(batched(data.numpy(), batch_size), n=data.n, device=data.device),
-                       labeled.labels)
+    return LabeledData(StreamDataset(batched(data.numpy(), batch_size), n=data.n, prefetch=prefetch,
+                                     device=data.device), labeled.labels)
 
 
 def require_stream_test_path(config) -> None:

@@ -35,11 +35,12 @@ class TimitFeaturesDataLoader:
                            Dataset(_labels(labels_path), name=name + "-labels", device=dev))
 
     @staticmethod
-    def stream(features_path: str, labels_path: str, batch_size: int = 8192, device="cuda") -> LabeledData:
+    def stream(features_path: str, labels_path: str, batch_size: int = 8192, prefetch: int = PREFETCH,
+               device="cuda") -> LabeledData:
         """Out of core: ``.npy`` features are memory-mapped and reread in
         ``batch_size``-frame chunks each sweep, CSV features re-parsed in
-        chunks of as many lines; the labels (4 bytes a frame) stay in
-        memory."""
+        chunks of as many lines, ``prefetch`` chunks ahead on a producer
+        thread; the labels (4 bytes a frame) stay in memory."""
         dev = resolve_device(device)
         labels = _labels(labels_path)
         n = len(labels)
@@ -67,7 +68,7 @@ class TimitFeaturesDataLoader:
                 if buf:
                     yield np.loadtxt(buf, delimiter=",", dtype=np.float32, ndmin=2)
 
-        return LabeledData(StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev),
+        return LabeledData(StreamDataset(batches, n, name=name, prefetch=prefetch, device=dev),
                            Dataset(labels, name=name + "-labels", device=dev))
 
     @staticmethod

@@ -64,22 +64,28 @@ class VOCLoader:
 
     @staticmethod
     def load(images_dir: str, annotations_dir: str, size: Tuple[int, int] = (256, 256),
-             indices: Optional[Sequence[int]] = None, index=None, device="cuda") -> LabeledData:
-        """The images (``indices`` of the index, or all of it), decoded and
-        resized to ``size``: (n, H, W, 3) uint8 and (n, 20) 0/1
-        multilabels, Datasets on ``device``."""
+             limit: Optional[int] = None, indices: Optional[Sequence[int]] = None, index=None,
+             device="cuda") -> LabeledData:
+        """The images (``indices`` of the index, or all of it; then the
+        first ``limit`` of these), decoded and resized to ``size``:
+        (n, H, W, 3) uint8 and (n, 20) 0/1 multilabels, Datasets on
+        ``device``."""
         dev = resolve_device(device)
         paths, labels = _subset(images_dir, annotations_dir, indices, index)
+        if limit is not None:
+            paths, labels = paths[:limit], labels[:limit]
         x = _decode_paths(paths, size, dev, _read(paths))
         name = (f"voc:{os.path.abspath(images_dir)}:{os.path.abspath(annotations_dir)}:{size[0]}x{size[1]}"
-                f"{_idx_tag(indices, len(paths))}")
+                f":lim{limit}{_idx_tag(indices, len(paths))}")
         return LabeledData(Dataset(x, name=name), Dataset(_stack(labels), name=name + "-labels", device=dev))
 
     @staticmethod
     def stream(images_dir: str, annotations_dir: str, size: Tuple[int, int] = (256, 256), batch_size: int = 64,
-               indices: Optional[Sequence[int]] = None, index=None, device="cuda") -> LabeledData:
+               prefetch: int = PREFETCH, indices: Optional[Sequence[int]] = None, index=None,
+               device="cuda") -> LabeledData:
         """Out of core: the index fixes the files and the multilabels; the
-        JPEGs are reread and decoded ``batch_size`` at a time every sweep."""
+        JPEGs are reread and decoded ``batch_size`` at a time every sweep,
+        read ``prefetch`` batches ahead on a producer thread."""
         dev = resolve_device(device)
         paths, labels = _subset(images_dir, annotations_dir, indices, index)
         n = len(paths)
@@ -100,7 +106,7 @@ class VOCLoader:
             stage = None
         name = (f"voc-stream:{os.path.abspath(images_dir)}:{os.path.abspath(annotations_dir)}:{size[0]}x{size[1]}"
                 f":b{batch_size}{_idx_tag(indices, n)}")
-        return LabeledData(StreamDataset(batches, n, name=name, prefetch=PREFETCH, device=dev, stage=stage),
+        return LabeledData(StreamDataset(batches, n, name=name, prefetch=prefetch, device=dev, stage=stage),
                            Dataset(_stack(labels), name=name + "-labels", device=dev))
 
     @staticmethod
@@ -115,10 +121,10 @@ class VOCLoader:
 
     @staticmethod
     def synthetic_stream(n: int = 48, size: Tuple[int, int] = (64, 64), seed: int = 0, batch_size: int = 32,
-                         device="cuda") -> LabeledData:
+                         prefetch: int = PREFETCH, device="cuda") -> LabeledData:
         """The streamed ``synthetic``, pixel- and label-identical to it."""
         base = ImageNetLoader.synthetic_stream(n=n, num_classes=NUM_CLASSES, size=size, seed=seed,
-                                               batch_size=batch_size, device=device)
+                                               batch_size=batch_size, prefetch=prefetch, device=device)
         multi = _synthetic_multilabels(base.labels.numpy(), n, seed)
         return LabeledData(base.data, Dataset(multi, name=f"voc-synth-stream-multilabels-n{n}-s{seed}",
                                               device=base.labels.device))

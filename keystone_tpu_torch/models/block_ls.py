@@ -2,8 +2,8 @@
 (counterpart of ``keystone_tpu/models/block_ls.py`` § blockify,
 BlockLinearMapper, _block_predict, _offset, BlockLeastSquaresEstimator,
 finish_block_model, _bcd_epoch_body, _bcd_fit, and the out-of-core
-_oc_wmean, _oc_block_step, _check_store_rows, _oc_bcd_fit; the
-reference's ``_oc_prefetch`` depth is the block store's ``_PREFETCH``).
+_oc_wmean, _oc_block_step, _oc_prefetch, _check_prefetch_depth,
+_check_store_rows, _oc_bcd_fit).
 
 Features split into column blocks; each epoch sweeps the blocks Gauss–
 Seidel style:
@@ -134,18 +134,24 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     """Gauss–Seidel block coordinate descent ridge
     (BlockLeastSquares.scala § BlockLeastSquaresEstimator)."""
 
+    #: the default of an estimator saved before ``spill_dtype`` existed
+    spill_dtype = "float32"
+
     def __init__(self, block_size: int = 4096, num_iter: int = 1, lam: float = 0.0,
-                 fit_intercept: bool = True, checkpoint_dir: Optional[str] = None):
+                 fit_intercept: bool = True, spill_dtype: str = "float32", checkpoint_dir: Optional[str] = None):
         self.block_size = int(block_size)
         self.num_iter = int(num_iter)
         self.lam = float(lam)
         self.fit_intercept = fit_intercept
+        #: the out-of-core spill's precision: "bfloat16" halves the bytes
+        #: on disk and on the wire of every sweep; the solve stays f32
+        self.spill_dtype = str(spill_dtype)
         #: where the fits the graph runs checkpoint each epoch (None: no
         #: checkpoint); where, not what, so it is not a parameter
         self.checkpoint_dir = checkpoint_dir
 
     def params(self):
-        return (self.block_size, self.num_iter, self.lam, self.fit_intercept)
+        return (self.block_size, self.num_iter, self.lam, self.fit_intercept, self.spill_dtype)
 
     def fit_dataset(self, data: Dataset, labels: Optional[Dataset] = None) -> BlockLinearMapper:
         """Features (n, d) and targets (n, k), fitted in f32 on the data's
@@ -161,25 +167,29 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         require_rank_slice(data, "BlockLeastSquaresEstimator")
         return self._fit(data.array.to(torch.float32), labels.array.to(torch.float32), data.n, data.local_n)
 
-    def fit_stream_dataset(self, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None) -> BlockLinearMapper:
+    def fit_stream_dataset(self, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None,
+                           prefetch=None) -> BlockLinearMapper:
         """Out-of-core fit: spill the streamed features to a block store
-        once, then sweep its blocks from disk.  The spill directory is
-        deleted after a fit that succeeds and kept after one that fails."""
-        return fit_streamed(self, data, labels, spill_dir, checkpoint_dir)
+        once, at ``spill_dtype``, then sweep its blocks from disk.  The
+        spill directory is deleted after a fit that succeeds and kept
+        after one that fails.  ``prefetch``: the sweep's block read-ahead
+        (None: ``KEYSTONE_OC_PREFETCH``, else 2; see ``_oc_prefetch``)."""
+        return fit_streamed(self, data, labels, spill_dir, checkpoint_dir, prefetch)
 
-    def fit_store(self, store, labels, checkpoint_dir=None) -> BlockLinearMapper:
+    def fit_store(self, store, labels, checkpoint_dir=None, prefetch=None) -> BlockLinearMapper:
         """Fit from a FeatureBlockStore on the labels' device (see
-        ``_oc_bcd_fit``), the unweighted case of the weighted sweep."""
+        ``_oc_bcd_fit``), the unweighted case of the weighted sweep;
+        ``prefetch`` as in ``fit_stream_dataset``."""
         labels = as_dataset(labels)
         require_rank_slice(labels, "BlockLeastSquaresEstimator.fit_store")
         _check_store_rows(store, labels)
         y = labels.array.to(torch.float32)
         alpha = row_mask(y.shape[0], labels, y.device)
         weights, xm, ym = _oc_bcd_fit(store, y, alpha, float(labels.n), self.lam, self.num_iter,
-                                      self.fit_intercept, checkpoint_dir=checkpoint_dir)
+                                      self.fit_intercept, checkpoint_dir=checkpoint_dir, prefetch=prefetch)
         return finish_block_model(weights, xm, ym, store.d, self.block_size, self.fit_intercept)
 
-    def fit_checkpointed(self, data, labels, checkpoint_dir: str) -> BlockLinearMapper:
+    def fit_checkpointed(self, data, labels, checkpoint_dir: str, prefetch=None) -> BlockLinearMapper:
         """The in-core fit with a per-epoch checkpoint and resume: each
         epoch's (W, P) lands in ``checkpoint_dir/bcd_epoch.npz`` (the
         previous one kept as ``.1``, the fallback when the newest is
@@ -188,9 +198,10 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         with the same ``checkpoint_dir``.  Data that is not a Dataset
         goes to the card (``as_dataset``).  Across ranks every rank calls
         it with its own slice and the same ``checkpoint_dir``; rank 0
-        writes and reads the file."""
+        writes and reads the file.  ``prefetch`` reaches the out-of-core
+        sweep of a stream; the in-core fit reads no blocks."""
         if isinstance(data, StreamDataset):
-            return self.fit_stream_dataset(data, labels, checkpoint_dir=checkpoint_dir)
+            return self.fit_stream_dataset(data, labels, checkpoint_dir=checkpoint_dir, prefetch=prefetch)
         data = as_dataset(data)
         labels = as_dataset(labels, device=data.device)
         require_rank_slice(data, "BlockLeastSquaresEstimator.fit_checkpointed")
@@ -456,7 +467,40 @@ def _check_store_rows(store, labels) -> None:
         raise ValueError(f"the ranks' stores hold {total} rows in all, the labels {labels.n}")
 
 
-def _oc_bcd_fit(store, y, alpha, n, lam, num_iter, fit_intercept, checkpoint_dir=None):
+#: the largest block read-ahead: each slot holds one (n × block_size)
+#: host block, so a stray KEYSTONE_OC_PREFETCH=100000 is an out-of-memory
+#: kill, not a tuning choice, and is refused up front
+_OC_PREFETCH_MAX = 64
+
+
+def _oc_prefetch(explicit=None) -> int:
+    """The out-of-core sweeps' block read-ahead: the caller's value, else
+    ``KEYSTONE_OC_PREFETCH``, else 2 (one block read while one computes).
+    Both sources are held to ``[1, _OC_PREFETCH_MAX]``, and a value that
+    is not an integer or lies outside raises ``ValueError`` naming its
+    source: a typo must not run the fit at the default while the operator
+    believes the setting took."""
+    if explicit is not None:
+        return _check_prefetch_depth(int(explicit), "prefetch")
+    raw = os.environ.get("KEYSTONE_OC_PREFETCH")
+    if raw is None or raw == "":
+        return 2
+    try:
+        depth = int(raw)
+    except ValueError:
+        raise ValueError(f"KEYSTONE_OC_PREFETCH={raw!r} is not an integer; expected a block read-ahead depth "
+                         f"in [1, {_OC_PREFETCH_MAX}]") from None
+    return _check_prefetch_depth(depth, "KEYSTONE_OC_PREFETCH")
+
+
+def _check_prefetch_depth(depth: int, source: str) -> int:
+    if not 1 <= depth <= _OC_PREFETCH_MAX:
+        raise ValueError(f"{source}={depth} is outside [1, {_OC_PREFETCH_MAX}]: each prefetch slot pins one "
+                         "(n × block_size) host block, so the depth must be a small positive integer")
+    return depth
+
+
+def _oc_bcd_fit(store, y, alpha, n, lam, num_iter, fit_intercept, checkpoint_dir=None, prefetch=None):
     """BCD sweeps over the blocks of ``store``, on ``y``'s device.
 
     ``y``: (n_rows, k) labels; ``alpha``: (n_rows,) example weights,
@@ -467,8 +511,9 @@ def _oc_bcd_fit(store, y, alpha, n, lam, num_iter, fit_intercept, checkpoint_dir
     ``checkpoint_dir``, each finished epoch saves (epoch, W, P) under a
     fingerprint of the problem (rank 0 writes, every rank's data in it),
     and a fit with the same fingerprint resumes after the last saved
-    epoch."""
+    epoch.  ``prefetch``: the block read-ahead (``_oc_prefetch``)."""
     mesh = _mesh.current_mesh()
+    prefetch = _oc_prefetch(prefetch)
     nb, bs = store.num_blocks, store.block_size
     n_rows, k = y.shape
     # the probe: the staged blocks' rows pad to the labels' rows
@@ -482,7 +527,7 @@ def _oc_bcd_fit(store, y, alpha, n, lam, num_iter, fit_intercept, checkpoint_dir
     row_ok = (alpha > 0).to(torch.float32)
 
     def blocks(order):
-        for b, a in store.iter_device_blocks(order, dev):
+        for b, a in store.iter_device_blocks(order, dev, prefetch=prefetch):
             yield b, F.pad(a, (0, 0, 0, pad)) if pad else a
 
     if fit_intercept:
@@ -573,15 +618,17 @@ def _spill_dir(hint=None) -> str:
     return tempfile.mkdtemp(prefix="kst_spill_", dir=base)
 
 
-def fit_streamed(est, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None):
+def fit_streamed(est, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None, prefetch=None):
     """``est.fit_store`` on the stream's features spilled once to a fresh
-    f32 block store; the spill is deleted after a fit that succeeds."""
+    block store of ``est.spill_dtype``; the spill is deleted after a fit
+    that succeeds."""
     from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
 
     with ledger.span("solver.spill", solver="bcd", n=data.n):
-        store = FeatureBlockStore.from_batches(_spill_dir(spill_dir), data.batches(), data.n, est.block_size)
+        store = FeatureBlockStore.from_batches(_spill_dir(spill_dir), data.batches(), data.n, est.block_size,
+                                               dtype=est.spill_dtype)
     logging.getLogger(__name__).info("spilled %d x %d features to %s (%d blocks, %d bytes)", store.n, store.d,
                                      store.directory, store.num_blocks, store.nbytes())
-    fitted = est.fit_store(store, labels, checkpoint_dir=checkpoint_dir)
+    fitted = est.fit_store(store, labels, checkpoint_dir=checkpoint_dir, prefetch=prefetch)
     shutil.rmtree(store.directory, ignore_errors=True)
     return fitted

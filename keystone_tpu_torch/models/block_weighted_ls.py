@@ -64,19 +64,26 @@ def class_weights(y: torch.Tensor, n, mixture_weight: float, valid=None, mesh=No
 
 
 class BlockWeightedLeastSquaresEstimator(LabelEstimator):
+    #: the default of an estimator saved before ``spill_dtype`` existed
+    spill_dtype = "float32"
+
     def __init__(self, block_size: int = 4096, num_iter: int = 1, lam: float = 0.0,
-                 mixture_weight: float = 0.5, fit_intercept: bool = True, checkpoint_dir: Optional[str] = None):
+                 mixture_weight: float = 0.5, fit_intercept: bool = True, spill_dtype: str = "float32",
+                 checkpoint_dir: Optional[str] = None):
         self.block_size = int(block_size)
         self.num_iter = int(num_iter)
         self.lam = float(lam)
         self.mixture_weight = float(mixture_weight)
         self.fit_intercept = fit_intercept
+        #: the out-of-core spill's precision: "bfloat16" halves the bytes
+        #: on disk and on the wire of every sweep; the solve stays f32
+        self.spill_dtype = str(spill_dtype)
         #: where a streamed fit the graph runs checkpoints each epoch
         #: (None: no checkpoint); where, not what, so not a parameter
         self.checkpoint_dir = checkpoint_dir
 
     def params(self):
-        return (self.block_size, self.num_iter, self.lam, self.mixture_weight, self.fit_intercept)
+        return (self.block_size, self.num_iter, self.lam, self.mixture_weight, self.fit_intercept, self.spill_dtype)
 
     def fit_dataset(self, data: Dataset, labels: Optional[Dataset] = None) -> BlockLinearMapper:
         """Features (n, d) and ±1 indicators (n, K), fitted in f32 on the
@@ -90,21 +97,25 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         require_rank_slice(data, "BlockWeightedLeastSquaresEstimator")
         return self._fit(data.array.to(torch.float32), labels.array.to(torch.float32), data.n, data.local_n)
 
-    def fit_stream_dataset(self, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None) -> BlockLinearMapper:
+    def fit_stream_dataset(self, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None,
+                           prefetch=None) -> BlockLinearMapper:
         """Out-of-core weighted fit: spill the streamed features to a block
-        store once, then sweep its blocks from disk (``block_ls._oc_bcd_fit``).
-        The spill directory is deleted after a fit that succeeds."""
-        return fit_streamed(self, data, labels, spill_dir, checkpoint_dir)
+        store once, at ``spill_dtype``, then sweep its blocks from disk
+        (``block_ls._oc_bcd_fit``).  The spill directory is deleted after
+        a fit that succeeds.  ``prefetch``: the block read-ahead (None:
+        ``KEYSTONE_OC_PREFETCH``, else 2)."""
+        return fit_streamed(self, data, labels, spill_dir, checkpoint_dir, prefetch)
 
-    def fit_store(self, store, labels, checkpoint_dir=None) -> BlockLinearMapper:
-        """The weighted fit from a FeatureBlockStore on the labels' device."""
+    def fit_store(self, store, labels, checkpoint_dir=None, prefetch=None) -> BlockLinearMapper:
+        """The weighted fit from a FeatureBlockStore on the labels' device;
+        ``prefetch`` as in ``fit_stream_dataset``."""
         labels = as_dataset(labels)
         require_rank_slice(labels, "BlockWeightedLeastSquaresEstimator.fit_store")
         _check_store_rows(store, labels)
         y = labels.array.to(torch.float32)
         alpha = class_weights(y, labels.n, self.mixture_weight, labels.local_n)
         weights, xm, ym = _oc_bcd_fit(store, y, alpha, float(labels.n), self.lam, self.num_iter,
-                                      self.fit_intercept, checkpoint_dir=checkpoint_dir)
+                                      self.fit_intercept, checkpoint_dir=checkpoint_dir, prefetch=prefetch)
         return finish_block_model(weights, xm, ym, store.d, self.block_size, self.fit_intercept)
 
     @_mesh.on_local_mesh

@@ -203,31 +203,34 @@ class KernelRidgeRegressionEstimator(LabelEstimator):
             return self._fit_ranks(x[:data.local_n], y[:labels.local_n], data.n, data.rank_offset)
         return self._fit(x, y, data.n)
 
-    def fit_stream_dataset(self, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None
+    def fit_stream_dataset(self, data: StreamDataset, labels, spill_dir=None, checkpoint_dir=None, prefetch=None
                            ) -> "OutOfCoreKernelBlockLinearMapper":
         """Out-of-core fit: spill the streamed train rows once to a
         ``RowBlockStore`` (a fresh directory under ``spill_dir``, else
         under the system's temporary directory), then sweep it from disk.
         The store backs the fitted model, whose predictions stream it, so
         it is kept after the fit; a failed sweep removes it only when this
-        call chose where it went."""
+        call chose where it went.  ``prefetch``: the sweep's block
+        read-ahead (None: ``KEYSTONE_OC_PREFETCH``, else 2; the bounds of
+        ``block_ls._oc_prefetch``)."""
         from keystone_tpu_torch.models.block_ls import _spill_dir
         from keystone_tpu_torch.workflow.blockstore import RowBlockStore
 
         with ledger.span("solver.spill", solver="krr", n=data.n):
             store = RowBlockStore.from_batches(_spill_dir(spill_dir), data.batches(), data.n, self.block_size)
         try:
-            return self.fit_store(store, labels, checkpoint_dir=checkpoint_dir)
+            return self.fit_store(store, labels, checkpoint_dir=checkpoint_dir, prefetch=prefetch)
         except BaseException:
             if spill_dir is None:
                 shutil.rmtree(store.directory, ignore_errors=True)
             raise
 
-    def fit_store(self, store, labels, checkpoint_dir=None) -> "OutOfCoreKernelBlockLinearMapper":
+    def fit_store(self, store, labels, checkpoint_dir=None, prefetch=None) -> "OutOfCoreKernelBlockLinearMapper":
         """The out-of-core sweep (``_oc_krr_fit``) over an existing
         ``RowBlockStore``, on the labels' device (the card for labels not
         yet on one).  With ``checkpoint_dir`` each finished epoch is saved
-        and an interrupted fit resumes after the last one saved."""
+        and an interrupted fit resumes after the last one saved;
+        ``prefetch`` as in ``fit_stream_dataset``."""
         if not isinstance(self.kernel_gen, GaussianKernelGenerator):
             raise TypeError("the out-of-core sweep takes a GaussianKernelGenerator")
         require_one_rank("KernelRidgeRegressionEstimator's out-of-core sweep",
@@ -238,7 +241,8 @@ class KernelRidgeRegressionEstimator(LabelEstimator):
         if labels.n != store.n:
             raise ValueError(f"labels n={labels.n} != store n={store.n}")
         alpha = _oc_krr_fit(store, labels.array, float(labels.n), self.kernel_gen.gamma, self.lam,
-                            self.num_epochs, checkpoint_dir=checkpoint_dir, use_kernel=self.use_kernel)
+                            self.num_epochs, checkpoint_dir=checkpoint_dir, prefetch=prefetch,
+                            use_kernel=self.use_kernel)
         return OutOfCoreKernelBlockLinearMapper(self.kernel_gen, store.directory, alpha, labels.n,
                                                 use_kernel=self.use_kernel)
 
@@ -526,7 +530,7 @@ def _oc_problem(store, y, n_rows, k, lam, gamma, n) -> str:
     return fp.hexdigest()
 
 
-def _oc_krr_fit(store, y, n, gamma, lam, num_epochs, checkpoint_dir=None, use_kernel=None):
+def _oc_krr_fit(store, y, n, gamma, lam, num_epochs, checkpoint_dir=None, prefetch=None, use_kernel=None):
     """Kernel BCD sweeps over the row blocks of ``store``, on ``y``'s device.
 
     ``y``: (n, k) labels; ``n``: the true row count.  Returns α as one
@@ -534,7 +538,11 @@ def _oc_krr_fit(store, y, n, gamma, lam, num_epochs, checkpoint_dir=None, use_ke
     finished epoch saves (epoch, α, F) under the problem's fingerprint
     through ``utils/durable`` (atomic, checksummed, the previous one kept
     as a fallback), and a fit of the same problem resumes after it, bit
-    for bit as the uninterrupted fit."""
+    for bit as the uninterrupted fit.  ``prefetch``: the block read-ahead
+    (``block_ls._oc_prefetch``)."""
+    from keystone_tpu_torch.models.block_ls import _oc_prefetch
+
+    prefetch = _oc_prefetch(prefetch)
     bs, nb = store.block_size, store.num_blocks
     n_rows = nb * bs
     gamma = float(gamma)
@@ -579,7 +587,7 @@ def _oc_krr_fit(store, y, n, gamma, lam, num_epochs, checkpoint_dir=None, use_ke
     b_cur = -1
     observe = ledger.solver_obs()
     t_epoch = time.perf_counter()
-    for i, (j, a) in enumerate(store.iter_device_blocks(order, dev)):
+    for i, (j, a) in enumerate(store.iter_device_blocks(order, dev, prefetch=prefetch)):
         pos = i % per_epoch
         if pos % nb == 0:  # the diagonal step: X_b stays for this block's F pass
             b_cur, xb = j, a

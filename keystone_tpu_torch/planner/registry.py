@@ -38,7 +38,8 @@ implementations; the port's name what runs on an H100.  The mapping:
   The stage is the record of the whole forward's cost curve, from which
   the serving knobs are derived.  No dispatch site reads it: the port's
   precision mode (``utils/precision.matmul_mode``) is never planned, so a
-  plan never changes numerics.  ``bf16`` stays a candidate for the
+  plan never changes numerics; ``KEYSTONE_MATMUL`` sets that mode at
+  import and is operational configuration here, not the gate's override.  ``bf16`` stays a candidate for the
   schema's sake and is ``unsupported`` on every backend: the analysis
   ``plan`` pass flags a shipped plan that picked it.
 
@@ -130,6 +131,7 @@ KNOBS = {
 #: ``KEYSTONE_*`` env vars that select no physical implementation or
 #: plan-managed knob: operational, debug or test configuration.
 OPERATIONAL_ENV = {
+    "KEYSTONE_APPLY_CHUNK",
     "KEYSTONE_AUTO_SPILL",
     "KEYSTONE_BREAKER_RESET",
     "KEYSTONE_BREAKER_THRESHOLD",
@@ -139,10 +141,12 @@ OPERATIONAL_ENV = {
     "KEYSTONE_HBM_BUDGET_BYTES",
     "KEYSTONE_HOST_WORKERS",
     "KEYSTONE_IO_RETRIES",
+    "KEYSTONE_MATMUL",
     "KEYSTONE_METRICS",
     "KEYSTONE_OBS_DIR",
     "KEYSTONE_OBS_KEEP_SEGMENTS",
     "KEYSTONE_OBS_MAX_BYTES",
+    "KEYSTONE_OC_PREFETCH",
     "KEYSTONE_OOC_FRACTION",
     "KEYSTONE_SPILL_BATCH",
     "KEYSTONE_STAGE_DEADLINE",
@@ -150,6 +154,7 @@ OPERATIONAL_ENV = {
     "KEYSTONE_STATE_DIR",
     "KEYSTONE_STREAM_TIMEOUT",
     "KEYSTONE_VALIDATE",
+    "KEYSTONE_VERIFY_BLOCKS",
 }
 
 
@@ -310,3 +315,11 @@ def current_backend() -> str:
         return "cuda" if torch.cuda.is_available() else "cpu"
     except Exception:
         return "cpu"
+
+
+def gate_env_names():
+    """Every variable registered as a gate's or a knob's override (the
+    lint rule's allowed set, beside ``OPERATIONAL_ENV``)."""
+    names = {g["env"] for g in GATES.values() if g.get("env")}
+    names |= {k["env"] for k in KNOBS.values() if k.get("env")}
+    return names

@@ -6,16 +6,35 @@ the reference's ``auto → bf16`` resolution is a TPU measurement and does
 not apply.  ``bf16`` is the reference's ``mxu='bf16'`` stream: the
 Fisher-vector and gram kernels read their operands as bf16 (half the
 bytes) and compute in f32.
+
+``KEYSTONE_MATMUL``, read once at import as in the reference, sets the
+starting mode: ``auto`` and ``f32`` give ``f32`` (the card resolves
+``auto`` to f32), ``bf16`` gives ``bf16``, and ``bf16_apply`` gives
+``bf16`` for the descriptor stream while ``apply_mode`` stays ``f32``.
+Any other value raises ``ValueError`` at import.  The planner's
+``matmul`` gate reads no variable: a plan never changes numerics.
 """
 
 from __future__ import annotations
 
+import os
 from contextlib import contextmanager
 
 import torch
 
 _MODES = ("f32", "bf16")
-_MODE = "f32"
+#: ``KEYSTONE_MATMUL``'s values (the reference's modes) → the port's mode
+_ENV_MODES = {"auto": "f32", "bf16": "bf16", "f32": "f32", "bf16_apply": "bf16"}
+
+
+def _env_mode() -> str:
+    raw = os.environ.get("KEYSTONE_MATMUL", "auto")
+    if raw not in _ENV_MODES:
+        raise ValueError(f"KEYSTONE_MATMUL must be one of {tuple(_ENV_MODES)}, got {raw!r}")
+    return _ENV_MODES[raw]
+
+
+_MODE = _env_mode()
 
 
 def disable_tf32() -> None:

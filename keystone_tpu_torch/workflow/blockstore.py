@@ -22,7 +22,10 @@ after its copy.
 
 ``iter_device_blocks`` is the card's feed: pinned host buffers and a side
 copy stream carry the copies, an event per block makes the compute
-stream wait for its copy, and ``_WINDOW`` bounds the blocks in flight.
+stream wait for its copy, and ``window`` bounds the blocks in flight;
+``prefetch`` is the read-ahead of the disk thread under it.  Every read
+verifies a sealed block's checksum unless ``KEYSTONE_VERIFY_BLOCKS=0``
+(the truncation and shape checks stay).
 ``RowBlockStore`` is the kernel tier's: the same matrix split by example
 rows, one ``(block_size, d)`` file a row block, which the out-of-core
 kernel sweep streams through the same feed.  Both layouts are the
@@ -56,10 +59,18 @@ from keystone_tpu_torch.utils.device import resolve_device
 
 _META = "meta.json"
 _DTYPES = ("float32", "bfloat16")
-#: blocks read ahead of the consumer (one read while one computes)
-_PREFETCH = 2
-#: device blocks whose copies are queued ahead of the consumer
-_WINDOW = 2
+
+
+def _verify_blocks_enabled() -> bool:
+    """Whether a read verifies a sealed block's checksum: yes unless
+    ``KEYSTONE_VERIFY_BLOCKS=0``.  BLAKE2b costs about a second pass over
+    the bytes a sweep reads, and a silently damaged block would poison
+    every later epoch, so it is on by default.  A value other than 0 or
+    1 raises rather than leaving the operator unsure which was meant."""
+    raw = os.environ.get("KEYSTONE_VERIFY_BLOCKS", "").strip()
+    if raw not in ("", "0", "1"):
+        raise ValueError(f"KEYSTONE_VERIFY_BLOCKS={raw!r}: expected 0 (skip the checksum) or 1 (verify)")
+    return raw != "0"
 
 
 class _BlockStreamBase:
@@ -69,9 +80,9 @@ class _BlockStreamBase:
     def read_block(self, b: int) -> torch.Tensor:  # pragma: no cover
         raise NotImplementedError(type(self).__name__)
 
-    def iter_blocks(self, order: Sequence[int]) -> Iterator[Tuple[int, torch.Tensor]]:
+    def iter_blocks(self, order: Sequence[int], prefetch: int = 2) -> Iterator[Tuple[int, torch.Tensor]]:
         """Yield ``(b, host block)`` for each index in ``order``, read
-        ahead on ``prefetched``'s thread (``_PREFETCH`` blocks deep) so
+        ahead on ``prefetched``'s thread (``prefetch`` blocks deep) so
         that disk reads overlap the consumer's device work.  The thread
         only reads; a read error re-raises in the consumer, tagged with
         its block."""
@@ -86,15 +97,17 @@ class _BlockStreamBase:
                     raise
                 yield b, blk
 
-        return prefetched(reads, prefetch=_PREFETCH)()
+        return prefetched(reads, prefetch=prefetch)()
 
-    def iter_device_blocks(self, order: Sequence[int], device="cuda") -> Iterator[Tuple[int, torch.Tensor]]:
+    def iter_device_blocks(self, order: Sequence[int], device="cuda", *, prefetch: int = 2, stage=None,
+                           window: int = 2) -> Iterator[Tuple[int, torch.Tensor]]:
         """Yield ``(b, f32 block on device)`` for each index in ``order``,
-        the copies of the next ``_WINDOW`` blocks already queued while the
-        consumer computes on the current one.
+        the copies of the next ``window`` blocks already queued while the
+        consumer computes on the current one; ``iter_blocks`` reads
+        ``prefetch`` blocks ahead of that on its thread.
 
         On a CUDA device: a block is read on ``iter_blocks``'s thread,
-        copied into one of ``_WINDOW + 1`` pinned host buffers, and sent
+        copied into one of ``window + 1`` pinned host buffers, and sent
         on a side stream; an event recorded after its copy makes the
         consumer's (current) stream wait for it, and a bf16 block is
         widened there, after the copy.  A pinned buffer is refilled only
@@ -102,21 +115,24 @@ class _BlockStreamBase:
         completed (an event recorded on the consumer's stream when the
         generator resumes): that event also implies the buffer's copy
         is done, and it bounds the consumer's lead over the copies to
-        ``_WINDOW`` blocks, so yielded blocks cannot pile up on the card.
+        ``window`` blocks, so yielded blocks cannot pile up on the card.
         A device block allocated on the side stream is marked used on
         the consumer's stream (``record_stream``), so the caching
         allocator does not hand its memory out while work on it is
-        queued.  On the CPU, the host blocks widened to f32."""
+        queued.  On the CPU, the host blocks widened to f32.
+
+        ``stage``, the reference's hook: a callable from a host block to
+        the value yielded in its place, which replaces the built-in copy
+        (on either device); at most ``window`` of its results wait
+        unconsumed."""
         dev = resolve_device(device)
-        it = self.iter_blocks(order)
-        if dev.type != "cuda":
-            try:
-                for b, blk in it:
-                    yield b, blk.to(torch.float32)
-            finally:
-                it.close()
+        window = max(1, int(window))
+        if stage is None and dev.type != "cuda":
+            stage = _widen
+        it = self.iter_blocks(order, prefetch=prefetch)
+        if stage is not None:
+            yield from _staged_feed(it, stage, window)
             return
-        window = _WINDOW
         slots = window + 1
         compute = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -170,6 +186,29 @@ class _BlockStreamBase:
         ev_done = torch.cuda.Event()
         ev_done.record(compute)
         done[j % slots] = ev_done
+
+
+def _widen(blk: torch.Tensor) -> torch.Tensor:
+    return blk.to(torch.float32)
+
+
+def _staged_feed(it, stage, window: int):
+    """``(b, stage(block))`` for the blocks of ``it``, each staged once
+    ``window`` earlier results wait; the staging's host time lands in
+    ``blockstore.stage_wait_seconds``."""
+    staged: deque = deque()
+    try:
+        for b, blk in it:
+            t0 = time.perf_counter()
+            staged.append((b, stage(blk)))
+            metrics.observe("blockstore.stage_wait_seconds", time.perf_counter() - t0)
+            if len(staged) > window:
+                yield staged.popleft()
+        while staged:
+            yield staged.popleft()
+    finally:
+        it.close()
+        staged.clear()
 
 
 class FeatureBlockStore(_BlockStreamBase):
@@ -321,8 +360,10 @@ def _verify_written(path: str, hasher, rows: int) -> None:
 
 def _read_block_file(path: str, shape: Tuple[int, int], dtype: str) -> torch.Tensor:
     """One block file as a CPU tensor of ``dtype``: truncation and the
-    sealed checksum checked, a transient read error retried."""
+    sealed checksum (unless ``KEYSTONE_VERIFY_BLOCKS=0``) checked, a
+    transient read error retried."""
     expected = shape[0] * shape[1] * (2 if dtype == "bfloat16" else 4)
+    verify = _verify_blocks_enabled()
     attempts = [0]
 
     def read():
@@ -331,7 +372,8 @@ def _read_block_file(path: str, shape: Tuple[int, int], dtype: str) -> torch.Ten
         if os.path.getsize(path) < expected:
             raise durable.CorruptStateError(
                 f"truncated block {path}: {os.path.getsize(path)} bytes < {expected} of payload for shape {shape}")
-        durable.verify_checksum(path)
+        if verify:
+            durable.verify_checksum(path)  # a no-op for an unsealed store
         try:
             raw = np.array(np.load(path, mmap_mode="r"))
         except ValueError as e:  # header inconsistent with the size

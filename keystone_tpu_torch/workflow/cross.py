@@ -158,6 +158,9 @@ class SharingPlan:
                 out[sig] = out.get(sig, 0) + 1
         return {s: n for s, n in out.items() if n >= 2}
 
+    def shared_stage_count(self) -> int:
+        return len(self.shared)
+
 
 def plan_sharing(graphs: Dict[str, G.Graph]) -> SharingPlan:
     """Plan cross-pipeline stage sharing over co-served tenant graphs.  One

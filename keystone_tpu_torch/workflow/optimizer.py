@@ -25,7 +25,7 @@ import inspect
 import logging
 import os
 import time
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -177,6 +177,10 @@ class ProfiledMaterializeRule(Rule):
     #: node choice's: it executes the shared nodes' whole prefix)
     sample_size = 64
 
+    def __init__(self, sample_size: Optional[int] = None):
+        if sample_size is not None:
+            self.sample_size = int(sample_size)
+
     def apply(self, graph: G.Graph, device=None) -> G.Graph:
         from keystone_tpu_torch.workflow.profiling import ProfilingAutoCacheRule, device_hbm_budget
 
@@ -203,6 +207,10 @@ class NodeChoiceRule(Rule):
     name = "NodeChoice"
     #: rows of each dataset literal the sampled run reads
     sample_size = 256
+
+    def __init__(self, sample_size: Optional[int] = None):
+        if sample_size is not None:
+            self.sample_size = int(sample_size)
 
     def apply(self, graph: G.Graph, device=None) -> G.Graph:
         from keystone_tpu_torch.workflow.executor import DatasetExpr, GraphExecutor
@@ -499,12 +507,16 @@ class FvFusionRule(Rule):
 
 
 # ------------------------------------------------------------------ default
-def default_optimizer() -> Optimizer:
+def default_optimizer(sample_size: int = NodeChoiceRule.sample_size,
+                      materialize_sample_size: int = ProfiledMaterializeRule.sample_size) -> Optimizer:
+    """``sample_size``: the rows node choice samples;
+    ``materialize_sample_size``: the profiled materialization pass's
+    (smaller by default: it executes the whole prefix of each node)."""
     return Optimizer(
         [
             RuleBatch("cse", FixedPoint(5), [EquivalentNodeMergeRule()]),
-            RuleBatch("node-choice", Once(), [NodeChoiceRule()]),
-            RuleBatch("materialize", Once(), [ProfiledMaterializeRule()]),
+            RuleBatch("node-choice", Once(), [NodeChoiceRule(sample_size)]),
+            RuleBatch("materialize", Once(), [ProfiledMaterializeRule(materialize_sample_size)]),
             # FV fusion first: it targets the (non-fusable) PCA → FV pair
             # specifically, before the generic chain fuser sweeps the rest
             RuleBatch("fusion", Once(), [FvFusionRule(), StageFusionRule()]),

@@ -239,6 +239,10 @@ class Pipeline(Chainable):
             return PipelineDataset(g, self.sink)
         return self.apply_datum(data)
 
+    def apply(self, data):
+        """``self(data)``: the reference's name for application."""
+        return self(data)
+
     def apply_datum(self, x) -> "PipelineDatum":
         """Apply to one datum (arrays are otherwise treated as batches)."""
         g, _ = self.graph.replace_source_with_node(self.source, G.DatumOperator(x))

@@ -97,14 +97,15 @@ class SharedStagePool:
 
     ``budget_bytes``: one device-memory budget for every resident entry
     (default :func:`~keystone_tpu_torch.workflow.profiling.pool_budget_bytes`,
-    a quarter of the card's memory)."""
+    a quarter of the card's memory).  ``name`` labels the pool."""
 
-    def __init__(self, budget_bytes: Optional[int] = None):
+    def __init__(self, budget_bytes: Optional[int] = None, name: str = "serve"):
         if budget_bytes is None:
             from keystone_tpu_torch.workflow.profiling import pool_budget_bytes
 
             budget_bytes = pool_budget_bytes()
         self.budget_bytes = int(budget_bytes)
+        self.name = name
         self.token = next(_POOL_TOKENS)
         _POOL_REGISTRY[self.token] = self
         self._lock = threading.Lock()
@@ -145,6 +146,11 @@ class SharedStagePool:
             return len(self._sig_tenants.get(sig, ()))
 
     # ------------------------------------------------------------ pinning
+    def pin(self, sig) -> None:
+        """Pin ``sig`` by hand: its entries are evicted last."""
+        with self._lock:
+            self._pinned.add(sig)
+
     def auto_pin(self, budget_fraction: float = 0.5) -> int:
         """Pin signatures greedily under a fraction of the budget, ranked
         by compute saved a byte pinned, (tenants − 1) / observed bytes:

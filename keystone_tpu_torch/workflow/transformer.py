@@ -32,6 +32,8 @@ counterpart here.
 from __future__ import annotations
 
 import copy
+import logging
+import os
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -39,11 +41,14 @@ from torch import nn
 
 from keystone_tpu_torch.workflow.dataset import Dataset, StreamDataset
 
-#: rows a chunk of ``Transformer.apply_dataset``.  The reference chunks at
-#: 2048 rows to pin its compiled programs' shapes; here a chunk bounds a
-#: stage's intermediates instead: SIFT's orientation map of 128 images at
-#: 128 px is 67 MB, of the fit's 2048 images a gigabyte.  128 is the
-#: scorer's batch, so a dataset's FV kernel launches are the scorer's.
+logger = logging.getLogger(__name__)
+
+#: rows a chunk of ``Transformer.apply_dataset`` when ``KEYSTONE_APPLY_CHUNK``
+#: is unset.  The reference chunks at 2048 rows to pin its compiled
+#: programs' shapes; here a chunk bounds a stage's intermediates instead:
+#: SIFT's orientation map of 128 images at 128 px is 67 MB, of the fit's
+#: 2048 images a gigabyte.  128 is the scorer's batch, so a dataset's FV
+#: kernel launches are the scorer's.
 APPLY_CHUNK_ROWS = 128
 
 
@@ -55,11 +60,33 @@ def tensor_identity(*tensors) -> tuple:
     return tuple(None if t is None else id(t) for t in tensors)
 
 
-def iter_row_chunks(arr, mask):
-    """Yield ``(rows, mask_rows, start)`` in chunks of ``APPLY_CHUNK_ROWS``
-    rows (the last one shorter); ``mask_rows`` is None without a mask."""
-    for i in range(0, arr.shape[0], APPLY_CHUNK_ROWS):
-        yield arr[i:i + APPLY_CHUNK_ROWS], None if mask is None else mask[i:i + APPLY_CHUNK_ROWS], i
+def _apply_chunk_rows() -> int:
+    """The rows of an apply chunk; 0 applies whole batches.
+
+    ``KEYSTONE_APPLY_CHUNK``, when set, gives ``max(0, int)`` rows; a value
+    that is not an integer logs a warning and gives whole-batch applies,
+    as in the reference.  Unset, the chunk is ``APPLY_CHUNK_ROWS``.  The
+    reference's guard that turns chunking off on a mesh of several devices
+    has no counterpart: a process of the port holds one device."""
+    env = os.environ.get("KEYSTONE_APPLY_CHUNK", "").strip()
+    if not env:
+        return APPLY_CHUNK_ROWS
+    try:
+        return max(0, int(env))
+    except ValueError:
+        logger.warning("KEYSTONE_APPLY_CHUNK=%r is not an integer; chunking stays DISABLED", env)
+        return 0
+
+
+def iter_row_chunks(arr, mask, chunk: Optional[int] = None):
+    """Yield ``(rows, mask_rows, start)`` in chunks of ``chunk`` rows (the
+    last one shorter; None: ``_apply_chunk_rows()``, 0: one chunk of
+    every row); ``mask_rows`` is None without a mask."""
+    step = _apply_chunk_rows() if chunk is None else int(chunk)
+    if step <= 0:
+        step = max(1, arr.shape[0])
+    for i in range(0, arr.shape[0], step):
+        yield arr[i:i + step], None if mask is None else mask[i:i + step], i
 
 
 class Chainable:
@@ -159,7 +186,7 @@ class Transformer(nn.Module, Chainable):
         return [self.apply_one(x) for x in items]
 
     def apply_dataset(self, ds: Dataset) -> Dataset:
-        """The batch path over a dataset, ``APPLY_CHUNK_ROWS`` rows at a
+        """The batch path over a dataset, ``_apply_chunk_rows()`` rows at a
         time (the counterpart of ``_apply_dataset_chunked``): a transformer
         is a per-item map, so chunk boundaries change no row.  Over a
         stream it is a lazy map, batch by batch as the stream is swept."""
@@ -186,11 +213,12 @@ class Transformer(nn.Module, Chainable):
                 return ds.with_array(torch.stack([torch.as_tensor(o) for o in out]))
             return _with_host_chain(ds.with_items(out), ds, self)
         arr, mask = ds.array, ds.mask
-        if arr.shape[0] <= APPLY_CHUNK_ROWS:
+        chunk = _apply_chunk_rows()
+        if chunk == 0 or arr.shape[0] <= chunk:
             r = self.apply_batch(arr, mask=mask)
             return ds.with_array(*r) if isinstance(r, tuple) else ds.with_array(r)
         vals, masks = [], []
-        for a, m, _ in iter_row_chunks(arr, mask):
+        for a, m, _ in iter_row_chunks(arr, mask, chunk):
             r = self.apply_batch(a, mask=m)
             if isinstance(r, tuple):  # (values, mask) for ragged producers
                 vals.append(r[0])

@@ -163,9 +163,9 @@ def test_oc_sweep_stages_nb_squared_blocks_an_epoch(tmp_path, monkeypatch):
     seen = []
     feed = RowBlockStore.iter_device_blocks
 
-    def spy(self, order, device="cuda"):
+    def spy(self, order, device="cuda", **kw):
         seen.append(list(order))
-        return feed(self, order, device)
+        return feed(self, order, device, **kw)
 
     monkeypatch.setattr(RowBlockStore, "iter_device_blocks", spy)
     _est(32, epochs=2).fit_store(store, _labels(y))

@@ -148,6 +148,26 @@ def test_pool_auto_pin_and_pinned_evicted_last():
     assert trace[12][0] == (False, None)
 
 
+def test_pool_pin_by_hand_and_name():
+    """``pin(sig)`` by hand, as the reference's pool takes it: the same
+    answers and counters after every call; ``name`` labels the pool."""
+    trace = _both(500, [
+        _c("register_tenant", "a", ["P", "Q"]),
+        _c("register_tenant", "b", ["P", "Q"]),
+        _c("pin", "Q"),
+        _c("begin_flush", "t", {"P": 2, "Q": 2}),
+        _c("put", ("Q", "t"), "q", nbytes=200),
+        _c("put", ("P", "t"), "p", nbytes=200),
+        _c("begin_flush", "u", {"P": 2, "Q": 2, "R": 2}),
+        _c("put", ("R", "u"), "r", nbytes=200),
+        _c("get", ("Q", "t")),
+        _c("get", ("P", "t")),
+    ])
+    assert trace[2][1]["pinned_sigs"] == 1
+    assert sp.SharedStagePool(budget_bytes=1).name == "serve" == jsp.SharedStagePool(budget_bytes=1).name
+    assert sp.SharedStagePool(budget_bytes=1, name="batch").name == "batch"
+
+
 def test_pool_budget_is_a_quarter_of_the_device_budget(monkeypatch):
     """``pool_budget_bytes``: a quarter of the port's device budget
     (``device_hbm_budget``), the reference's on a device without memory

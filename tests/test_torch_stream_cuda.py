@@ -22,7 +22,6 @@ from keystone_tpu_torch.loaders.stream import batched
 from keystone_tpu_torch.models.pca import PCAEstimator
 from keystone_tpu_torch.ops import fisher_kernels as fk
 from keystone_tpu_torch.pipelines.imagenet_sift_lcs_fv import Config, ImageNetSiftLcsFV
-from keystone_tpu_torch.workflow import blockstore
 from keystone_tpu_torch.workflow.blockstore import FeatureBlockStore
 from keystone_tpu_torch.workflow.dataset import StreamDataset
 
@@ -46,17 +45,16 @@ def dev():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [1, 2, 3])
-def test_iter_device_blocks_on_the_copy_stream_equal_read_block(dev, tmp_path, monkeypatch, dtype, window):
+def test_iter_device_blocks_on_the_copy_stream_equal_read_block(dev, tmp_path, dtype, window):
     """A consumer slower than the copies: every yielded block must still
     hold its own bytes (a refilled pinned buffer or a reused device block
     would show here).  ``window`` sets the blocks queued ahead."""
-    monkeypatch.setattr(blockstore, "_WINDOW", window)
     x = np.random.default_rng(0).normal(size=(512, 6 * 256)).astype(np.float32)
     store = FeatureBlockStore.from_array(str(tmp_path / "s"), x, 256, dtype=dtype)
     refs = [store.read_block(b).to(dev).to(torch.float32) for b in range(store.num_blocks)]
     order = list(range(store.num_blocks)) * 3
     bad, seen = [], []
-    for b, a in store.iter_device_blocks(order, dev):
+    for b, a in store.iter_device_blocks(order, dev, window=window):
         assert a.is_cuda and a.dtype == torch.float32
         torch.cuda._sleep(2_000_000)
         bad.append((a != refs[b]).sum())

@@ -139,6 +139,14 @@ def test_plan_sharing_detects_shared_prefix():
     assert plan.sigs_for(["a", "b"]) and plan.sigs_for(["a"]) == {} == jplan.sigs_for(["a"])
 
 
+def test_plan_shared_stage_count_matches_the_reference():
+    plan = plan_sharing({"a": _tenant(1).freeze(device="cpu").graph, "b": _tenant(2).freeze(device="cpu").graph})
+    jplan = jplan_sharing({"a": _jtenant(1).freeze().graph, "b": _jtenant(2).freeze().graph})
+    assert plan.shared_stage_count() == len(plan.shared) == jplan.shared_stage_count() > 0
+    one = plan_sharing({"a": _tenant(1).freeze(device="cpu").graph})
+    assert one.shared_stage_count() == 0 == jplan_sharing({"a": _jtenant(1).freeze().graph}).shared_stage_count()
+
+
 def test_plan_sharing_single_tenant_empty():
     plan = plan_sharing({"a": _tenant(1).freeze(device="cpu").graph})
     jplan = jplan_sharing({"a": _jtenant(1).freeze().graph})
