@@ -96,6 +96,33 @@ result line):
    the script prints the pre-flight's prediction beside its peak, and
    no fit may take the profiled pass's structural fallback (the passes
    and their seconds are printed before the kernels' line);
+10c. A19, the solver product (``csrc/solver_gemm.cu``, one-pass TF32 by
+   ``mma.sync``, per call) after the flagship fit's phases: (a) the
+   kernel at the main path's products (the weighted BCD's Gramian and
+   AᵀY on S9's problem, the EM's rᵀx on the fit's SIFT GMM sample, the
+   masked PCA's xcᵀxc on its descriptor sample) against its plain
+   version (float64 on the TF32-rounded operands) within
+   ``solver_kernels.err_limit`` entry by entry (h·2⁻²⁴·(|a|ᵀ|b|), h the
+   depth of the kernel's f32 sums), with a dropped chunk of k and
+   truncated operands planted outside it, bit for bit across two calls,
+   its and cuBLAS f32's distance from float64, its ms against its bound
+   (a Gramian's symmetric half), the plain version and torch.matmul in
+   f32 and with the TF32 flag; (b) the graph fit that
+   ImageNetSiftLcsFV.run makes (``Pipeline.fit`` of
+   ``ImageNetSiftLcsFV.build``) on the fit leg's images, in a child
+   process under ``KEYSTONE_SOLVER_PRECISION=default`` (the solver
+   kernel's launches counted there, more than 0, and the split's sum
+   once for each split product): held-out top-1 error within 0.01 of
+   phase 9's f32 fit and under the gate (a guard against gross failure:
+   the synthetic classes separate at either precision), top-5, top-1
+   agreement, and ``Pipeline.fit`` and ``fit_params``' stage seconds
+   under ``float32`` and ``default`` by turns in that one child; (c)
+   S9's weighted BCD
+   problem in this process under default: the weights against float64
+   beside the f32 fit's, the objective within 1e-3 relative of f32's,
+   seconds; (d) the scorer on one batch in a thread beside (c)'s fit
+   under default, bit for bit its output alone, the TF32 flags False
+   before, during and after;
 11. the tar loader on the committed fixture (tests/data/imagenet_tars),
    decoded on the card by nvJPEG: ``index``, ``load`` and ``stream``
    agree (the undecodable member skipped by ``load``, a zero image with
@@ -297,7 +324,7 @@ result line):
    ``plan.sample`` delay flipping the winner; ``cli plan`` and ``cli
    export --plan``, a ``cli serve --model-dir`` child serving the shipped
    plan (/statusz source ``artifacts``); serve_bench's plan A/B (1 s legs,
-   2 rounds) and its drift retune (no future lost);
+   1 round) and its drift retune (no future lost);
 25. S9, the parallel layer (``keystone_tpu_torch/parallel/``), in rank
    processes of this script (``--parallel-rank``; the three launches
    start together, each leg's work waits for the one before) at the operations
@@ -348,7 +375,8 @@ result line):
 29. the whole script's seconds; a ``host_ref`` line of A12's figures; one
    JSON line of kernel numbers (ms, plain ms, bounds on the CUDA
    cores and on the tensor cores, launches (bucket-graph replays
-   included), float64 errors) for all four kernels, B3's and B4's times at the new paths' shapes and B1's and
+   included), float64 errors) for all four kernels and A19's solver
+   product, B3's and B4's times at the new paths' shapes and B1's and
    B2's at VOC's among them, then the last line {"ok": true, "device":
    {...}}.  The card's name and power limit and scipy's version are
    printed first.
@@ -3053,11 +3081,27 @@ def linear_app_pair(label, card, gk, fk, run, cfg, stream_cfg, n, test_x, train_
     return out
 
 
+def write_mnist_csv(path, images, labels) -> None:
+    """The bytes of ``loaders/mnist.py::write_csv`` (``np.savetxt``, fmt
+    "%d"), made by numpy at once: savetxt formats row by row, 14 s for
+    MNIST's 70 000 rows on an H100's host.  Values 0..999, as MNIST's."""
+    rows = np.concatenate([np.asarray(labels, np.int32)[:, None], np.rint(images).astype(np.int32)], axis=1)
+    check(rows.size == 0 or (rows.min() >= 0 and rows.max() <= 999), "MNIST CSV values outside 0..999")
+    chars = np.empty(rows.shape + (4,), np.uint8)
+    for i, place in enumerate((100, 10, 1)):
+        chars[..., i] = rows // place % 10 + ord("0")
+    chars[..., 3] = ord(",")
+    chars[:, -1, 3] = ord("\n")
+    keep = np.ones(chars.shape, bool)
+    keep[..., 0], keep[..., 1] = rows >= 100, rows >= 10
+    Path(path).write_bytes(chars[keep].tobytes())
+
+
 def mnist_path(dev, card, gk, fk, tmp):
     """MnistRandomFFT.run at its Config (4 FFT branches, λ 1e-2) on MNIST's
     split sizes, synthetic rows written as the MNIST CSV: in memory
     (``load``) and streamed from the CSV in batches of 4096."""
-    from keystone_tpu_torch.loaders.mnist import MnistLoader, write_csv
+    from keystone_tpu_torch.loaders.mnist import MnistLoader
     from keystone_tpu_torch.pipelines import mnist_random_fft as M
 
     with phase("MnistRandomFFT: the CSV files"):
@@ -3066,7 +3110,7 @@ def mnist_path(dev, card, gk, fk, tmp):
         paths = {}
         for key, n, seed in (("train_path", MNIST_N, 1), ("test_path", MNIST_TEST_N, 2)):
             paths[key] = str(tmp / f"{key}.csv")
-            write_csv(paths[key], *MnistLoader.synthetic_arrays(n, seed))
+            write_mnist_csv(paths[key], *MnistLoader.synthetic_arrays(n, seed))
         print(f"  {MNIST_N} + {MNIST_TEST_N} rows written in {time.perf_counter() - t0:.2f} s "
               f"({os.path.getsize(paths['train_path'])} bytes of training CSV)", flush=True)
         train = MnistLoader.load(paths["train_path"], device=dev)
@@ -6361,7 +6405,9 @@ def tenants_path(dev, card, P, fk, cfg, scorer_params, images):
 
 S8_EXAMPLE_N = 64  # the planned freeze's example images (its sampled batches of 8, 32, 128 are drawn from them)
 S8_FLIP_DELAY_S = 0.05  # the plan.sample delay injected into the winner's timed samples
-S8_AB = {"qps": 2000.0, "duration": 1.0, "rounds": 2, "max_batch": BATCH, "deadline_ms": 2000.0,
+# one round of each leg since the solver-precision phase needed the room (its
+# one gate, the drift retune's, reads no round)
+S8_AB = {"qps": 2000.0, "duration": 1.0, "rounds": 1, "max_batch": BATCH, "deadline_ms": 2000.0,
          "drift_duration": 2.0, "drift_qps": 400.0}
 S8_HTTP_N = 4  # images POSTed to the `cli serve --model-dir` child
 # the live bucket retune: a service over the planned freeze with bucket
@@ -6588,7 +6634,8 @@ def planner_path(dev, card, P, fk, gk, cfg, scorer_params, images):
             check(st["counters"]["artifact_fallbacks"] == 0, "the child fell back from its bundle")
             out["cli"] = {"plan_json": written.fingerprint(), "manifest": shipped.fingerprint(), "statusz_plan": st["plan"],
                           "http_max_abs_err": http_err, "launches": launched, "replayed": replayed}
-        with phase("S8: serve_bench's plan A/B at S1's width (1 s legs, 2 rounds) and the drift retune"):
+        with phase(f"S8: serve_bench's plan A/B at S1's width ({S8_AB['duration']:g} s legs, {S8_AB['rounds']} "
+                   "round(s)) and the drift retune"):
             ab = serve_bench.run_plan_ab(fitted=scorer, payload=imgs[:256], item_shape=imgs.shape[1:], device=dev,
                                          **S8_AB)
             drift = ab["drift_retune"]
@@ -7855,6 +7902,377 @@ def report_child(tool: str, *args) -> tuple:
     return json.loads(j.stdout), t.stdout
 
 
+# ---- A19: KEYSTONE_SOLVER_PRECISION=default, the solvers' products in
+# one-pass TF32 by the hand-written solver kernel (csrc/solver_gemm.cu),
+# per call and with no global flag.  (a) The kernel against its plain
+# version (the product in float64 on the TF32-rounded operands) within
+# solver_kernels.err_limit entry by entry: h·2⁻²⁴·(|a|ᵀ|b|), h the depth
+# of the kernel's f32 sums (a k-stage in the tensor core, the stages of a
+# chunk, the split's sum), not k; the planted faults (the first chunk of
+# k dropped, the operands truncated instead of rounded) each outside it;
+# and bit for bit across two calls (a fixed split of k, no atomics).  (b)
+# The flagship fit under `default` through its entry, in a child process
+# whose environment sets the variable: its held-out top-1 error within
+# A19_TOP1_MARGIN of phase 9's f32 fit and under FIT_TOP1_ERROR_MAX, a
+# guard against gross failure only (the synthetic classes are separated
+# at either precision); its seconds against the f32 fit's in the same
+# child, by turns (A19_TIMED_PAIRS pairs).  (c) S9's weighted BCD problem in
+# this process: the training objective within A19_OBJECTIVE_RTOL of the
+# f32 fit's.  (d) The scorer beside (c)'s fit bit for bit its output
+# alone, cuBLAS's and cuDNN's TF32 flags False throughout.
+A19_TOP1_MARGIN = 0.01
+A19_OBJECTIVE_RTOL = 1e-3
+A19_SCORER_MIN_ROUNDS = 4
+A19_FITS_BESIDE = 3
+A19_TIMED_PAIRS = 2
+
+
+@contextlib.contextmanager
+def solver_setting(value: str = "default"):
+    """``KEYSTONE_SOLVER_PRECISION=value`` inside the block, in this
+    process: the value ``utils/precision`` read at import, set and then
+    restored (the child of (b) takes ``default`` from its environment)."""
+    from keystone_tpu_torch.utils import precision
+
+    prev = precision._SOLVER_PRECISION
+    precision._SOLVER_PRECISION = value
+    try:
+        yield
+    finally:
+        precision._SOLVER_PRECISION = prev
+
+
+def a19_operands(dev, P, fit_data, params, seed) -> dict:
+    """The solver products' operands as the main path hands them over:
+    the weighted BCD's first block step on S9's problem (A = √α·(X − x̄)
+    of block 0 and its target √α·(Y − ȳ)); the EM's last step on the fit's
+    SIFT GMM sample (the posteriors at the fitted mixture, the projected
+    rows); the masked PCA's centred SIFT descriptor sample.  {label: (a,
+    b, the Gramian's a is b)}."""
+    from keystone_tpu_torch.models import gmm as G
+    from keystone_tpu_torch.models.block_weighted_ls import class_weights
+
+    x, y = (torch.from_numpy(v).to(dev) for v in s9_problem(seed))
+    alpha = class_weights(y, S9_N, S9_MIX)
+    sa = torch.sqrt(alpha)[:, None]
+    xm, ym = (alpha @ x) / alpha.sum(), (alpha @ y) / alpha.sum()
+    a = ((x[:, :S9_BLOCK] - xm[:S9_BLOCK]) * sa).contiguous()
+    target = (y - ym) * sa
+    cfg, tx = fit_data[0], fit_data[1]
+    pca_rows, gmm_rows = P.sample_descriptors(cfg, tx, dev, FIT_BATCH)["sift"]
+    comp, mean = params["sift.pca.components"], params["sift.pca.mean"]
+    z = (gmm_rows - mean) @ comp
+    lg = G._log_gaussians(z, params["sift.gmm.means"], params["sift.gmm.variances"],
+                          torch.log(params["sift.gmm.weights"]))
+    r = torch.exp(lg - torch.logsumexp(lg, dim=1, keepdim=True))
+    xc = pca_rows - pca_rows.mean(dim=0)
+    return {
+        f"BCD Gramian AᵀA ({S9_N} x {S9_BLOCK})": (a, a),
+        f"BCD AᵀY ({S9_N} x {S9_BLOCK}, {S9_K})": (a, target),
+        f"EM rᵀx ({z.shape[0]} x {z.shape[1]}, K={r.shape[1]})": (r, z),
+        f"masked PCA xcᵀxc ({xc.shape[0]} x {xc.shape[1]})": (xc, xc),
+    }
+
+
+def a19_planted_faults(sk, a, b) -> dict:
+    """What a broken kernel would return for ``aᵀ·b``: its first chunk of
+    k dropped (a split's partial, or the first k-stage where k is not
+    split), and the operands truncated to TF32 instead of rounded."""
+    splits, chunk = sk.split_plan(a.shape[1], b.shape[1], a.shape[0])
+    c = chunk if splits > 1 else sk.STAGE_ROWS
+    cut = lambda t: (t.view(torch.int32) & -0x2000).view(torch.float32).double()  # noqa: E731
+    return {"a chunk dropped": sk.tf32_matmul_ref(a, b).double() - sk.tf32_matmul_ref(a[:c], b[:c]).double(),
+            "operands truncated": (cut(a).T @ cut(b)).float().double()}
+
+
+def a19_product_checks(card, sk, operands) -> dict:
+    """(a): each product against its plain version within ``err_limit``
+    entry by entry, the planted faults outside it, float64 and cuBLAS,
+    bit for bit across two calls, timed (CUDA events, 20 launches)."""
+    out = {}
+    for label, (a, b) in operands.items():
+        k, m, n = a.shape[0], a.shape[1], b.shape[1]
+        got, again = sk.tf32_matmul(a, b), sk.tf32_matmul(a, b)
+        torch.cuda.synchronize()
+        plain, lim = sk.tf32_matmul_ref(a, b).double(), sk.err_limit(a, b)
+        dist = (got.double() - plain).abs()
+        err, limit = dist.max().item(), lim.max().item()
+        ratio = (dist / lim).nan_to_num(0.0).max().item()
+        faults = {name: ((bad - plain).abs() / lim).nan_to_num(0.0).max().item()
+                  for name, bad in a19_planted_faults(sk, a, b).items()}
+        exact = a.double().T @ b.double()
+        e64, e64_f32 = max_err64(got, exact), max_err64(a.T @ b, exact)
+        same = torch.equal(got, again)
+        del exact, plain, lim, dist
+        ms = cuda_ms(lambda: sk.tf32_matmul(a, b))
+        plain_ms = cuda_ms(lambda: sk.tf32_matmul_ref(a, b), reps=5)
+        f32_ms = cuda_ms(lambda: a.T @ b)
+        with tf32_matmul():  # the one PyTorch call of the same function, timed alone
+            tf32_ms = cuda_ms(lambda: a.T @ b)
+        # AᵀA (a is b) needs only its symmetric half: a once, m(m+1)/2 dots
+        nbytes = 4 * (k * m + (0 if a is b else k * n) + m * n)
+        flops = (m * (m + 1) if a is b else 2.0 * m * n) * k
+        bound = 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_TF32_FLOPS)
+        by = "operations" if flops / PEAK_TF32_FLOPS > nbytes / PEAK_BYTES else "bytes"
+        print(f"  {label}: against the plain version {err:.3e}, at most {ratio:.3e} of its entry's limit "
+              f"h·2⁻²⁴·(|a|ᵀ|b|) (h = {sk.sum_depth(m, n, k)}, largest {limit:.3e}); planted faults at most "
+              + ", ".join(f"{name} {r:.3e}" for name, r in faults.items())
+              + f" of the limit; from float64 on the unrounded operands {e64:.3e}, cuBLAS f32 {e64_f32:.3e}; "
+              f"two calls bit for bit: {same}; {ms:.4f} ms (bound {bound:.4f} ms by {by}; plain {plain_ms:.4f}; "
+              f"torch.matmul f32 {f32_ms:.4f}, with the TF32 flag {tf32_ms:.4f}), {card}", flush=True)
+        check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (m, n), f"{label}: output")
+        check(ratio <= 1.0, f"{label}: {err:.3e} from the plain version, {ratio:.3e} of its entry's limit")
+        for name, r in faults.items():
+            check(r > 1.0, f"{label}: the limit lets a kernel with {name} pass ({r:.3e} of it)")
+        check(same, f"{label}: two calls differ")
+        out[label] = {"m": m, "n": n, "k": k, "max_abs_err": err, "err_limit": limit, "err_to_limit": ratio,
+                      "sum_depth": sk.sum_depth(m, n, k), "planted_faults_to_limit": faults, "f64_err": e64,
+                      "f64_err_cublas_f32": e64_f32, "bitwise": same, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": by, "library_ms": tf32_ms, "cublas_f32_ms": f32_ms}
+    return out
+
+
+def a19_child(work: str) -> int:
+    """(b) in a process of its own, whose environment sets
+    ``KEYSTONE_SOLVER_PRECISION=default``, on the fit leg's images saved by
+    the parent (``work/images.npz``): the graph fit (``Pipeline.fit`` of
+    ``ImageNetSiftLcsFV.build``, what ``run`` fits), the solver kernel's
+    counts zeroed just before and read just after its held-out
+    predictions; then, in this one process and so warm, the graph fit and
+    ``fit_params`` under ``float32`` and ``default`` by turns
+    (A19_TIMED_PAIRS pairs), so that their seconds compare like with like.
+    Writes its figures to ``work/a19.json``."""
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.kernels import build
+    from keystone_tpu_torch.ops import solver_kernels as sk
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as P
+    from keystone_tpu_torch.utils import precision
+    from keystone_tpu_torch.workflow.dataset import Dataset
+
+    check(precision.solver_precision() == "tf32", "the child did not read KEYSTONE_SOLVER_PRECISION=default")
+    precision.disable_tf32()
+    build.build(["fisher", "solver_gemm"])
+    dev = torch.device(DEVICE)
+    cfg = fit_setup_config(P)
+    with np.load(Path(work, "images.npz")) as f:
+        tx, ty, vx, vy = (f[k] for k in ("tx", "ty", "vx", "vy"))
+    tx_d, vx_d, ty_d = (torch.from_numpy(v).to(dev) for v in (tx, vx, ty))
+    G = P.ImageNetSiftLcsFV
+    sk.reset_launches()
+    fitted = G.build(cfg, Dataset(tx_d), Dataset(ty_d)).fit()
+    pred = fitted(Dataset(vx_d)).get().numpy()
+    torch.cuda.synchronize()
+    launches, shapes = dict(sk.LAUNCHES), {f"{m}x{n}x{k}": c for (m, n, k), c in sk.LAUNCH_SHAPES.items()}
+    m = MulticlassClassifierEvaluator(cfg.num_classes).evaluate(pred[:, 0], vy)
+    turns = {"float32": {"fit": [], "fit_params": []}, "default": {"fit": [], "fit_params": []}}
+    for _ in range(A19_TIMED_PAIRS):
+        for setting, got in turns.items():
+            with solver_setting(setting):
+                t0 = time.perf_counter()
+                G.build(cfg, Dataset(tx_d), Dataset(ty_d)).fit()
+                torch.cuda.synchronize()
+                got["fit"].append(time.perf_counter() - t0)
+                st = {}
+                P.fit_params(cfg, tx_d, ty, dev, batch_size=FIT_BATCH, stage_seconds=st)
+                torch.cuda.synchronize()
+                got["fit_params"].append(st)
+    Path(work, "a19.json").write_text(json.dumps({
+        "top1_error": m.total_error, "top5_error": float(1.0 - (pred == vy[:, None]).any(axis=1).mean()),
+        "predictions": pred.tolist(), "launches": launches["solver_gemm"],
+        "reduce_launches": launches["solver_reduce"], "launch_shapes": shapes,
+        "same_process": {s_: {"fit_seconds": min(v["fit"]), "fit_params_stage_seconds":
+                              {k: min(st[k] for st in v["fit_params"]) for k in v["fit_params"][0]}}
+                         for s_, v in turns.items()},
+        "allow_tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]}))
+    return 0
+
+
+def a19_fit_under_default(card, sk, fit_data, graph, graph_predictions) -> dict:
+    """(b): the child's fit against phase 9's f32 graph fit (top-1, top-5,
+    agreement), and its seconds and fit_params stages under either
+    setting, by turns in the child."""
+    _, tx, ty, vx, vy = fit_data
+    work = Path(tempfile.mkdtemp(prefix="a19_", dir=REPO))
+    try:
+        np.savez(work / "images.npz", tx=tx.cpu().numpy(), ty=ty, vx=vx.cpu().numpy(), vy=vy)
+        env = {k: v for k, v in os.environ.items() if k not in ("KEYSTONE_FAULTS", "KEYSTONE_OBS_DIR")}
+        env["KEYSTONE_SOLVER_PRECISION"] = "default"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--a19-child", str(work)],
+                              capture_output=True, text=True, timeout=300, env=env, cwd=str(REPO))
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
+        check(proc.returncode == 0, f"the A19 child exited {proc.returncode}")
+        got = json.loads((work / "a19.json").read_text())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    pred = np.asarray(got.pop("predictions"))
+    check(pred.shape == (FIT_TEST_N, 5), f"top-5 shape {pred.shape}")
+    agree = float((pred[:, 0] == graph_predictions[:, 0]).mean())
+    print(f"  the graph fit under default (a child, {child_s:.1f} s with its start-up): held-out top-1 error "
+          f"{got['top1_error']:.4f} (f32 fit {graph['top1_error']:.4f}; at most +{A19_TOP1_MARGIN} and "
+          f"{FIT_TOP1_ERROR_MAX}), top-5 {got['top5_error']:.4f} (f32 {graph['top5_error']:.4f}); top-1 agreement "
+          f"with the f32 fit {agree:.5f}", flush=True)
+    same = got["same_process"]
+    print(f"  solver kernel launches {got['launches']} by shape {got['launch_shapes']}, the split's sum "
+          f"{got['reduce_launches']}", flush=True)
+    print(f"  in the child, by turns ({A19_TIMED_PAIRS} pairs, the least of each): Pipeline.fit under default "
+          f"{same['default']['fit_seconds']:.4f} s, float32 {same['float32']['fit_seconds']:.4f} s; fit_params by "
+          "stage, default against float32: " + ", ".join(
+              f"{k} {v:.4f}/{same['float32']['fit_params_stage_seconds'][k]:.4f}"
+              for k, v in same["default"]["fit_params_stage_seconds"].items()) + f" s ({card})", flush=True)
+    check(got["launches"] > 0, "the fit under default launched no solver kernel")
+    split_calls = sum(c for shape, c in got["launch_shapes"].items()
+                      if sk.split_plan(*map(int, shape.split("x")))[0] > 1)
+    check(got["reduce_launches"] == split_calls,
+          f"the split's sum ran {got['reduce_launches']} times for {split_calls} split products")
+    check(got["top1_error"] <= graph["top1_error"] + A19_TOP1_MARGIN,
+          f"top-1 error {got['top1_error']:.4f} against the f32 fit's {graph['top1_error']:.4f}")
+    check(got["top1_error"] <= FIT_TOP1_ERROR_MAX, f"top-1 error {got['top1_error']:.4f}")
+    check(got["allow_tf32"] == [False, False], f"the child's TF32 flags {got['allow_tf32']}")
+    got.update({"top1_agreement": agree, "child_seconds": child_s, "f32_top1_error": graph["top1_error"]})
+    return got
+
+
+def a19_bcd(dev, seed) -> dict:
+    """(c)'s problem, its float64 weights and the objective of a fit."""
+    from keystone_tpu_torch.models.block_weighted_ls import _weighted_bcd_fit, class_weights
+
+    x, y = (torch.from_numpy(v).to(dev) for v in s9_problem(seed))
+    alpha = class_weights(y, S9_N, S9_MIX)
+    kw = dict(n=S9_N, lam=S9_LAM, num_iter=S9_EPOCHS, block_size=S9_BLOCK, fit_intercept=True)
+    w64, xm64, ym64 = _weighted_bcd_fit(x.double(), y.double(), alpha.double(), **kw)
+    w64 = w64.reshape(-1, S9_K)[:S9_D]
+    sa = torch.sqrt(alpha.double())[:, None]
+
+    def objective(w):
+        r = ((x.double() - xm64) @ w.double() - (y.double() - ym64)) * sa
+        return (0.5 * torch.sum(r * r) / S9_N + 0.5 * S9_LAM * torch.sum(w.double() ** 2)).item()
+
+    return {"x": x, "y": y, "w64": w64, "objective": objective}
+
+
+def a19_estimator():
+    from keystone_tpu_torch.models.block_weighted_ls import BlockWeightedLeastSquaresEstimator
+
+    return BlockWeightedLeastSquaresEstimator(block_size=S9_BLOCK, num_iter=S9_EPOCHS, lam=S9_LAM,
+                                              mixture_weight=S9_MIX)
+
+
+def a19_timed_fit(dev, prob) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = a19_estimator().fit_arrays(prob["x"], prob["y"], device=dev)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def a19_s9_bcd(dev, card, sk, prob) -> dict:
+    """(c): the f32 and the default fit (each after a warm-up fit), their
+    weights against float64 and their objectives."""
+    a19_timed_fit(dev, prob)
+    m32, s32 = a19_timed_fit(dev, prob)
+    with solver_setting():
+        a19_timed_fit(dev, prob)
+        sk.reset_launches()
+        mtf, stf = a19_timed_fit(dev, prob)
+        launches = sk.LAUNCHES["solver_gemm"]
+    w64 = prob["w64"]
+    scale = w64.abs().max().item()
+    rel32, reltf = max_err64(m32.flat_weights[:S9_D], w64) / scale, max_err64(mtf.flat_weights[:S9_D], w64) / scale
+    f32_obj, tf_obj = prob["objective"](m32.flat_weights[:S9_D]), prob["objective"](mtf.flat_weights[:S9_D])
+    rel_obj = abs(tf_obj - f32_obj) / abs(f32_obj)
+    print(f"  S9's weighted BCD ({S9_N} x {S9_D}, blocks of {S9_BLOCK}, {S9_K} classes, {S9_EPOCHS} epochs): the "
+          f"weights {reltf:.3e} of the largest from float64 under default, {rel32:.3e} in f32; the objective "
+          f"{tf_obj:.9e} against f32's {f32_obj:.9e} ({rel_obj:.3e} relative, at most {A19_OBJECTIVE_RTOL}); "
+          f"the fit {stf:.4f} s against f32's {s32:.4f} s; solver kernel launches {launches} ({card})", flush=True)
+    check(launches == 2 * S9_EPOCHS * (S9_D // S9_BLOCK),
+          f"the default fit launched the solver kernel {launches} times")
+    check(rel_obj <= A19_OBJECTIVE_RTOL, f"the objective under default is {rel_obj:.3e} from f32's")
+    return {"weights_rel_err_f64": reltf, "weights_rel_err_f64_f32": rel32, "objective": tf_obj,
+            "objective_f32": f32_obj, "objective_rel": rel_obj, "seconds": stf, "seconds_f32": s32,
+            "launches": launches}
+
+
+def a19_no_global_flag(dev, card, scorer, batch, prob) -> dict:
+    """(d): one thread runs the scorer on one batch again and again while
+    this one runs (c)'s fit under default; every output must be bit for bit
+    its output alone, and the TF32 flags False before, during and after."""
+    import threading
+
+    flags = lambda: (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)  # noqa: E731
+    before = flags()
+    alone = scorer(batch)
+    torch.cuda.synchronize()
+    done, started = threading.Event(), threading.Event()
+    seen = {"rounds": 0, "differ": 0, "flags": set()}
+
+    def serve():
+        while not done.is_set() or seen["rounds"] < A19_SCORER_MIN_ROUNDS:
+            seen["flags"].add(flags())
+            out = scorer(batch)
+            seen["differ"] += int(not torch.equal(out, alone))
+            seen["rounds"] += 1
+            started.set()
+
+    th = threading.Thread(target=serve, name="a19-scorer")
+    th.start()
+    try:
+        check(started.wait(timeout=120), "the scorer thread did not start")
+        with solver_setting():
+            r0 = seen["rounds"]
+            for _ in range(A19_FITS_BESIDE):
+                seen["flags"].add(flags())
+                a19_timed_fit(dev, prob)
+            during = seen["rounds"] - r0
+    finally:
+        done.set()
+        th.join(timeout=120)
+    torch.cuda.synchronize()
+    after = flags()
+    print(f"  the scorer beside {A19_FITS_BESIDE} fits under default: {seen['rounds']} rounds ({during} during the "
+          f"fits), {seen['differ']} not bit for bit its output alone; TF32 flags (cuBLAS, cuDNN) before {before}, "
+          f"during {sorted(seen['flags'])}, after {after} ({card})", flush=True)
+    check(not th.is_alive(), "the scorer thread did not finish")
+    check(during > 0, "no scorer round ran during the fits")
+    check(seen["differ"] == 0, f"{seen['differ']} scorer outputs changed beside the fit")
+    check({before, after} | seen["flags"] == {(False, False)}, "a TF32 flag was on")
+    return {"rounds": seen["rounds"], "rounds_during_fits": during, "differ": seen["differ"], "flags_on": False}
+
+
+def solver_path(dev, card, P, scorer, batch, fit_data, graph, graph_predictions, params, seed) -> dict:
+    """A19, after the flagship fit's phases: (a) the solver kernel at the
+    main path's products, (b) the flagship fit under default in a child,
+    (c) S9's BCD under default, (d) no global flag.  Returns the kernel
+    line's entry."""
+    from keystone_tpu_torch.ops import solver_kernels as sk
+
+    with phase("A19: the solver product (a): the kernel against its plain version at the main path's products"):
+        shapes = a19_product_checks(card, sk, a19_operands(dev, P, fit_data, params, seed))
+        torch.cuda.synchronize()
+    with phase("A19: the solver product (b): the flagship fit under KEYSTONE_SOLVER_PRECISION=default"):
+        fit = a19_fit_under_default(card, sk, fit_data, graph, graph_predictions)
+    with phase("A19: the solver product (c): S9's weighted BCD under default against f32 and float64"):
+        prob = a19_bcd(dev, seed)
+        bcd = a19_s9_bcd(dev, card, sk, prob)
+    with phase("A19: the solver product (d): the scorer beside a fit under default"):
+        flag = a19_no_global_flag(dev, card, scorer, batch, prob)
+    del prob
+    sk.reset_launches()
+    head = shapes[next(iter(shapes))]  # the Gramian: the largest of the path's products
+    return {
+        "name": "solver_gemm", "route": "cuda", "source": "keystone_tpu_torch/csrc/solver_gemm.cu",
+        "replaces": "keystone_tpu/utils/precision.py:213::sdot (no Pallas counterpart, A19)",
+        "launches": fit["launches"], "reduce_launches": fit["reduce_launches"],
+        "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "cublas_f32_ms": head["cublas_f32_ms"],
+        "shape": next(iter(shapes)), "shapes": shapes, "fit_under_default": fit, "s9_bcd": bcd,
+        "no_global_flag": flag,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7862,6 +8280,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0, help="the seed of S9's data (numpy)")
     ap.add_argument("--recovery-child", metavar="DIR", help=argparse.SUPPRESS)
     ap.add_argument("--parallel-rank", metavar="SPEC", help=argparse.SUPPRESS)
+    ap.add_argument("--a19-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -7871,6 +8290,8 @@ def main(argv=None) -> int:
         return recovery_child(args.recovery_child)
     if args.parallel_rank:
         return parallel_rank(args.parallel_rank)
+    if args.a19_child:
+        return a19_child(args.a19_child)
 
     from keystone_tpu_torch.convert import params_from_numpy
     from keystone_tpu_torch.kernels import build
@@ -8121,6 +8542,9 @@ def main(argv=None) -> int:
     graph_fitted = graph_detail["fitted"]  # served over HTTP by the serving phases
     graph_predictions = graph_detail["predictions"]  # S9's two-rank run is held to them
     del graph_detail
+    # A19: the solver product under KEYSTONE_SOLVER_PRECISION=default, after the flagship fit's phases
+    solver_line = solver_path(dev, card, P, scorer, batches[0], fit_data, results["graph"], graph_predictions,
+                              fitted, args.seed)
     results["tar"] = tar_path(dev, card, P)
     tier_tmp = Path(tempfile.mkdtemp(prefix="kernel_tier_", dir=REPO))
     try:
@@ -8398,6 +8822,12 @@ def main(argv=None) -> int:
                 print(f"  {ln['name']} at {label} {t['shape']}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, "
                       f"bound {t['bound_ms']:.4f} ms by {t['bound_by']}, on the tensor cores "
                       f"{t['bound_ms_tc']:.4f} ms), {card}")
+        # A19's solver product, timed in its own phase at the main path's products
+        lines.append(solver_line)
+        for label, t in solver_line["shapes"].items():
+            print(f"  solver_gemm at {label}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms by {t['bound_by']}, torch.matmul with the TF32 flag "
+                  f"{t['library_ms']:.4f} ms, in f32 {t['cublas_f32_ms']:.4f} ms), {card}")
 
     if args.profile:
         from keystone_tpu_torch.loaders.timit import TimitFeaturesDataLoader

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from keystone_tpu_torch.parallel import mesh as _mesh
+from keystone_tpu_torch.utils import precision
 
 
 def solve_spd(A: torch.Tensor, B: torch.Tensor, reg: float = 0.0) -> torch.Tensor:
@@ -78,8 +79,10 @@ def row_blocks(x: torch.Tensor, y: torch.Tensor = None, rows: int = GRAM_BLOCK_R
 def gram(blocks, center=None):
     """(ΣXᵀX, ΣXᵀY, rows) over ``(x, y)`` row blocks (y None: ΣXᵀY None),
     each block first centred by ``center`` = (x̄, ȳ or None) when given:
-    one f32 product a block, Kahan-summed across blocks.  The in-memory
-    and streamed normal equations and the ZCA covariance all sum here."""
+    one solver product a block (``utils/precision.sdot_t``: true f32, or
+    one-pass TF32 on the card under ``KEYSTONE_SOLVER_PRECISION=default``),
+    Kahan-summed across blocks.  The in-memory and streamed normal
+    equations and the ZCA covariance all sum here."""
     sxx = cxx = sxy = cxy = None
     n = 0
     for x, y in blocks:
@@ -87,9 +90,9 @@ def gram(blocks, center=None):
             x = x - center[0]
             y = None if y is None or center[1] is None else y - center[1]
         n += x.shape[0]
-        sxx, cxx = kahan_add(sxx, cxx, x.T @ x)
+        sxx, cxx = kahan_add(sxx, cxx, precision.sdot_t(x, x))
         if y is not None:
-            sxy, cxy = kahan_add(sxy, cxy, x.T @ y)
+            sxy, cxy = kahan_add(sxy, cxy, precision.sdot_t(x, y))
     return sxx, sxy, n
 
 

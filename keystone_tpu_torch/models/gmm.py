@@ -28,7 +28,7 @@ import torch
 from keystone_tpu_torch.models.kmeans import _kmeans_fit, generator
 from keystone_tpu_torch.obs import ledger
 from keystone_tpu_torch.parallel import collectives, require_rank_slice
-from keystone_tpu_torch.utils import timing
+from keystone_tpu_torch.utils import precision, timing
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
 from keystone_tpu_torch.workflow.estimator import Estimator
@@ -138,7 +138,8 @@ def _em_steps(x, n, row_ok, w0, mu0, var0, iters: int, min_var: float):
         if observe:
             (ll,) = collectives.psum_many(torch.sum(lse[:, 0] * row_ok))
             ledger.solver_epoch("gmm", epoch=it, mean_log_likelihood=float(ll / n))
-        nk, s1, s2 = collectives.psum_many(torch.sum(r, dim=0), r.T @ x, r.T @ (x * x))
+        nk, s1, s2 = collectives.psum_many(torch.sum(r, dim=0), precision.sdot_t(r, x),
+                                           precision.sdot_t(r, x * x))
         nk = torch.clamp(nk, min=1e-10)
         mu = s1 / nk[:, None]
         ex2 = s2 / nk[:, None]

@@ -49,7 +49,7 @@ from keystone_tpu_torch.models.linear import LinearMapper
 from keystone_tpu_torch.obs import ledger, metrics
 from keystone_tpu_torch.parallel import collectives, multihost, require_rank_slice
 from keystone_tpu_torch.parallel import mesh as _mesh
-from keystone_tpu_torch.utils import durable
+from keystone_tpu_torch.utils import durable, precision
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset, as_dataset
 from keystone_tpu_torch.workflow.estimator import LabelEstimator
@@ -531,7 +531,7 @@ def _dense_vag(data, w, grad: bool):
     row terms (all-reduced across ranks), then the penalty."""
     xc, yc, n, lam = data
     r = xc @ w - yc
-    f, g = _row_sums(0.5 * torch.sum(r * r) / n, xc.T @ r / n if grad else None)
+    f, g = _row_sums(0.5 * torch.sum(r * r) / n, precision.sdot_t(xc, r) / n if grad else None)
     return f + 0.5 * lam * torch.sum(w * w), (g + lam * w) if grad else None
 
 

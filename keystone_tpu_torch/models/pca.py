@@ -24,6 +24,7 @@ import torch
 
 from keystone_tpu_torch.parallel import collectives, require_rank_slice
 from keystone_tpu_torch.parallel import mesh as _mesh
+from keystone_tpu_torch.utils import precision
 from keystone_tpu_torch.utils.device import resolve_device
 from keystone_tpu_torch.workflow.dataset import Dataset
 from keystone_tpu_torch.workflow.estimator import Estimator
@@ -190,7 +191,7 @@ def _pca_masked(x, mask, dims: int, center: bool):
     n = torch.clamp(count, min=1.0)
     mean = sx / n
     xc = (x - mean) * w[:, None] if center else x * w[:, None]
-    (gram,) = collectives.psum_many(xc.T @ xc)
+    (gram,) = collectives.psum_many(precision.sdot_t(xc, xc))
     cov = gram / n
     _, evecs = torch.linalg.eigh(cov)
     return torch.flip(evecs, dims=(1,))[:, :dims].contiguous(), mean

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from keystone_tpu_torch.parallel import mesh as _mesh
+from keystone_tpu_torch.utils import precision
 
 #: collectives issued since ``reset_counts``, by kind (the local mesh's
 #: identities are not counted); ``argmax``: the draws' agreements on a
@@ -144,13 +145,16 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def local_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a.T @ b`` in true f32 (f64 operands: f64): the solver
-    contractions' precision (the reference computes normal equations in
-    f64; a TF32 pass keeps about three decimal digits).  TF32 is off
-    unless a caller turned it on, and then it is off for this product."""
+    """``a.T @ b`` at the solver contractions' precision
+    (``utils/precision.sdot_t``): true f32 (f64 operands: f64) by default,
+    since the reference computes normal equations in f64 and a TF32 pass
+    keeps about three decimal digits; one-pass TF32 on the card under
+    ``KEYSTONE_SOLVER_PRECISION=default``, by the solver kernel.  Under
+    true f32, TF32 is off unless a caller turned cuBLAS's global flag on,
+    and then it is off for this product."""
     a, b = _f32(a), _f32(b)
-    if not (a.is_cuda and torch.backends.cuda.matmul.allow_tf32):
-        return a.T @ b
+    if precision.solver_precision() == "tf32" or not (a.is_cuda and torch.backends.cuda.matmul.allow_tf32):
+        return precision.sdot_t(a, b)
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         return a.T @ b

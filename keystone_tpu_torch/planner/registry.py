@@ -148,6 +148,7 @@ OPERATIONAL_ENV = {
     "KEYSTONE_OBS_MAX_BYTES",
     "KEYSTONE_OC_PREFETCH",
     "KEYSTONE_OOC_FRACTION",
+    "KEYSTONE_SOLVER_PRECISION",  # correctness-critical: never planned
     "KEYSTONE_SPILL_BATCH",
     "KEYSTONE_STAGE_DEADLINE",
     "KEYSTONE_STAGE_RETRIES",

@@ -13,6 +13,19 @@ starting mode: ``auto`` and ``f32`` give ``f32`` (the card resolves
 ``bf16`` for the descriptor stream while ``apply_mode`` stays ``f32``.
 Any other value raises ``ValueError`` at import.  The planner's
 ``matmul`` gate reads no variable: a plan never changes numerics.
+
+``KEYSTONE_SOLVER_PRECISION``, read once at import as in the reference,
+sets the precision of the solvers' contractions (Gramians, ``Aᵀ·B``
+right-hand sides, covariances, EM sufficient statistics, L-BFGS
+gradients): ``float32`` (the default) and ``highest`` keep them true f32,
+``default`` gives them the card's default tensor-core precision, one-pass
+TF32.  Any other value raises ``ValueError`` at import.  ``sdot`` and
+``sdot_t`` carry it by call, never by a process-global flag: under
+``default`` an f32 product on the card goes to the hand-written TF32
+kernel (``ops/solver_kernels.py``), which leaves every other product of
+the process, a serving thread's forward among them, as it is.  f64
+operands stay f64 and CPU operands plain f32 under either setting, as
+the reference's default precision is full f32 on the CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +48,45 @@ def _env_mode() -> str:
 
 
 _MODE = _env_mode()
+
+
+_SOLVER_PRECISIONS = ("default", "float32", "highest")
+_SOLVER_PRECISION = os.environ.get("KEYSTONE_SOLVER_PRECISION", "float32")
+if _SOLVER_PRECISION not in _SOLVER_PRECISIONS:
+    raise ValueError(
+        f"KEYSTONE_SOLVER_PRECISION must be one of {_SOLVER_PRECISIONS}, got {_SOLVER_PRECISION!r}"
+    )
+
+
+def solver_precision() -> str:
+    """The solver contractions' precision on the card: ``'tf32'`` under
+    ``default``, ``'f32'`` under ``float32`` and ``highest``."""
+    return "tf32" if _SOLVER_PRECISION == "default" else "f32"
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether this product takes the TF32 kernel: under ``default``, on
+    f32 CUDA operands.  Decided by dtype and device before the call."""
+    return (solver_precision() == "tf32" and a.is_cuda and b.is_cuda
+            and a.dtype == torch.float32 and b.dtype == torch.float32)
+
+
+def sdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solver-grade ``a @ b``: ``sdot_t`` of the view ``a.T``."""
+    return sdot_t(a.T, b)
+
+
+def sdot_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solver-grade ``aᵀ @ b`` (the solvers' form: a reduction over the
+    rows of both): under ``default`` on f32 CUDA tensors the TF32 kernel,
+    which reads ``a`` by its strides (no transpose is made) and raises
+    rather than fall back; otherwise ``torch.matmul`` (true f32, f64 for
+    f64 operands)."""
+    if _tf32_product(a, b):
+        from keystone_tpu_torch.ops import solver_kernels
+
+        return solver_kernels.tf32_matmul(a, b)
+    return a.T @ b
 
 
 def disable_tf32() -> None:
